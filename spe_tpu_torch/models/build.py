@@ -1,0 +1,98 @@
+"""Model factory (port of spe_tpu/models/build.py): SPEConfig -> SPEDetector
+on a device, initialised from a seed the way the JAX package's flax
+initialisers draw (truncated normal 0.02 in the backbone, LeCun normal in
+the transformer, the focal prior on the class bias, a zero last bbox layer,
+LayerScale at the backbone's init_scale).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+import torch.nn as nn
+
+from spe_tpu.config import SPEConfig
+from spe_tpu_torch.models.cait import build_cait_config
+from spe_tpu_torch.models.detector import SPEDetector
+from spe_tpu_torch.models.layers import lecun_normal_, trunc_normal_
+
+
+def resolve_device(cfg: SPEConfig) -> torch.device:
+    """`--device cpu` runs on the CPU; anything else (SPEConfig's default
+    "tpu", "cuda", "gpu") means the CUDA card."""
+    if cfg.device == "cpu":
+        return torch.device("cpu")
+    if cfg.device in ("tpu", "gpu", "cuda"):
+        return torch.device("cuda")
+    return torch.device(cfg.device)
+
+
+def init_weights(model: SPEDetector, seed: int) -> SPEDetector:
+    gen = torch.Generator().manual_seed(seed)
+    body = model.backbone[0].body
+    with torch.no_grad():
+        for name, mod in model.named_modules():
+            if isinstance(mod, nn.Linear):
+                if name.startswith("backbone."):
+                    trunc_normal_(mod.weight, generator=gen)
+                else:
+                    lecun_normal_(mod.weight, generator=gen)
+                if mod.bias is not None:
+                    mod.bias.zero_()
+            elif isinstance(mod, nn.LayerNorm):
+                mod.weight.fill_(1.0)
+                mod.bias.zero_()
+        lecun_normal_(body.patch_embed.proj.weight.view(
+            body.patch_embed.proj.weight.shape[0], -1), generator=gen)
+        body.patch_embed.proj.bias.zero_()
+        for p in (body.pos_embed, body.cls_token, body.extra_cls_token):
+            trunc_normal_(p, generator=gen)
+        for name, p in model.named_parameters():
+            if name.endswith(("gamma_1", "gamma_2")):
+                p.fill_(body.cfg.init_scale)
+        for layer in model.transformer.encoder.layers:
+            D = layer.self_attn.in_proj_weight.shape[1]
+            for i in range(3):
+                lecun_normal_(layer.self_attn.in_proj_weight[i * D:(i + 1) * D],
+                              generator=gen)
+            layer.self_attn.in_proj_bias.zero_()
+        for emb in [model.query_embed, *model.queries_embed_refine]:
+            emb.weight.normal_(0.0, 1.0, generator=gen)
+        prior = -math.log((1 - 0.01) / 0.01)
+        for head in model.class_embed:
+            head.bias.fill_(prior)
+        for mlp in model.bbox_embed:
+            mlp.layers[-1].weight.zero_()
+            mlp.layers[-1].bias.zero_()
+    return model
+
+
+def build_model(cfg: SPEConfig, device=None) -> SPEDetector:
+    """The detector of `cfg` on `device` (default: resolve_device(cfg)),
+    initialised from cfg.seed. Post-norm encoder and sine position
+    embedding only: pre-norm, learned position embeddings and
+    segmentation heads are not ported yet."""
+    if cfg.pre_norm or cfg.masks or cfg.position_embedding not in ("sine", "v2"):
+        raise NotImplementedError(
+            "spe_tpu_torch ports the post-norm, sine-embedding detector "
+            "without segmentation heads")
+    device = resolve_device(cfg) if device is None else torch.device(device)
+    backbone_cfg = build_cait_config(
+        cfg.backbone, num_classes=cfg.num_classes,
+        layer_to_det=cfg.layer_to_det, use_fused_block=cfg.use_fused_block,
+        use_fused_ca={"auto": None, "on": True, "off": False}[
+            cfg.use_fused_ca_block])
+    if cfg.init_scale:
+        backbone_cfg = dataclasses.replace(backbone_cfg,
+                                           init_scale=cfg.init_scale)
+    dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
+    model = SPEDetector(backbone_cfg, cfg.num_det_classes,
+                        num_queries=cfg.num_queries,
+                        num_refines=cfg.num_refines,
+                        enc_layers=cfg.enc_layers, dec_layers=cfg.dec_layers,
+                        dim_feedforward=cfg.dim_feedforward,
+                        nheads=cfg.nheads,
+                        use_fused_layers=cfg.use_fused_layers, dtype=dtype)
+    return init_weights(model, cfg.seed).to(device).eval()
