@@ -8,9 +8,14 @@ Phases, each printing its own lines; any failure exits non-zero:
                (one nvcc per source, all at once).
   3. kernels — each fused-layer kernel at the voc0712 eval shapes (B=2)
                against its plain PyTorch version on the same bf16 inputs
-               (max abs error vs the stated tolerance), and the two
-               supervision kernels at the recipe's training shapes (64 CC
-               masks of 64 x 64 with two mazes past the sweep cap; 96
+               (max abs error vs the stated tolerance); the dropout masks
+               of the training kernels against the torch formula, bit for
+               bit, with their kept shares; the patch block's and the
+               class-attention block's training forward and backward
+               kernels against their plain versions at the recipe shapes
+               and rates (B=2), the backward twice (identical bits); the
+               two supervision kernels at the recipe's training shapes (64
+               CC masks of 64 x 64 with two mazes past the sweep cap; 96
                auction problems of 120 x 300, plus an overfull shape),
                which must equal their plain versions exactly; CUDA-event
                times, and each kernel's bound (least time on the card).
@@ -33,6 +38,16 @@ Phases, each printing its own lines; any failure exits non-zero:
                assignments, iterations; losses within 1e-6 relative), and
                one step's device-time split (model, supervision tail,
                backward, optimizer) with the profiler's idle share.
+  6. fused   — the same CLI run with the fused backbone (the preset's
+               use_fused_block, encoder/decoder plain): 48 patch-block and
+               2 class-attention training forwards and backward launches
+               per step, no encoder/decoder launch, the checks of phase 5.
+               Then one batch at dropout 0 with the same weights through
+               the fused and the plain backbone: losses and every
+               parameter's gradient within 5% of the plain side's largest
+               magnitude, every backbone parameter with a gradient on both
+               sides; and the fused step's device-time split.
+About 2 minutes of command time on an H100.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
 
@@ -133,6 +148,145 @@ def phase_kernels():
     if not ok:
         fail("a kernel disagrees with its plain version")
     return results
+
+
+def phase_masks():
+    """The kernels' counter masks against the torch formula, bit for bit,
+    at the recipe's rates and the block's shapes (B=2); the kept share of
+    each within 4 sigma of 1 - rate."""
+    import torch
+
+    from spe_tpu_torch.ops import kernels as K
+    from spe_tpu_torch.ops.kernel_checks import RECIPE_RATES
+    from spe_tpu_torch.ops.refmath import (SITE_ATTN, SITE_HIDDEN, SITE_PATH1,
+                                           SITE_PROJ, counter_keep, path_keep)
+
+    attn, proj, path = RECIPE_RATES
+    seed = torch.tensor([20240611], dtype=torch.int32, device="cuda")
+    ok = True
+    for site, rate, shape in ((SITE_ATTN, attn, (2, 4, 1024, 1024)),
+                              (SITE_PROJ, proj, (2, 1, 1024, 192)),
+                              (SITE_HIDDEN, proj, (2, 1, 1024, 768)),
+                              (SITE_PATH1, path, (4096,))):
+        got = K.dropout_mask(seed, site, rate, shape)
+        want = (path_keep(seed, site, rate, shape[0]) if len(shape) == 1
+                else counter_keep(seed, site, rate, shape))
+        same = bool(torch.equal(got, want))
+        share = float(got.float().mean())
+        sigma = (rate * (1 - rate) / got.numel()) ** 0.5
+        within = abs(share - (1 - rate)) <= 4 * sigma
+        ok &= same and within
+        print(f"[masks] site {site} rate {rate} {shape}: kernel == torch "
+              f"{same}; kept {share:.5f} vs {1 - rate:.5f} (4 sigma "
+              f"{4 * sigma:.5f}) -> {'ok' if same and within else 'BAD'}",
+              flush=True)
+    if not ok:
+        fail("the kernels' dropout masks differ from the torch formula")
+
+
+def phase_train_kernels(results):
+    """The backbone layers' training forward and backward kernels against
+    their plain versions at the recipe shapes (B=2, the recipe's dropout
+    rates on the patch block, a nonzero CAM cotangent on class attention);
+    the backward run twice must give identical bits."""
+    import torch
+
+    from spe_tpu_torch.ops.kernel_checks import (PROBS_TOL, SOURCE, ULPS,
+                                                 ZERO_GRADS, bf16_tol,
+                                                 bwd_bound_ms, grad_tols,
+                                                 max_err, train_bound_ms,
+                                                 train_cases)
+
+    bad = []
+    for name, mod, args, cot in train_cases():
+        plain_fwd = (mod.layer_scale_block_train_reference
+                     if name == "pallas_block"
+                     else mod.class_attn_block_train_reference)
+        plain_bwd = (mod.layer_scale_block_backward_reference
+                     if name == "pallas_block"
+                     else mod.class_attn_block_backward_reference)
+        with torch.no_grad():
+            got = mod._train_cuda(*args)
+            want = plain_fwd(*args)
+            torch.cuda.synchronize()
+            tols = [bf16_tol(w) for w in want]
+            if name == "pallas_ca_block":
+                tols[1] = PROBS_TOL
+            errs = [max_err(g, w) for g, w in zip(got, want)]
+            fwd_ok = all(e <= t for e, t in zip(errs, tols)) and all(
+                bool(torch.isfinite(g).all()) for g in got)
+            # the backward of both on the kernels' saved tensors
+            if name == "pallas_block":
+                x, p, H, drop = args
+                saved = (cot[0], x, *got[1:], p, H, drop)
+                names = ["dx"]
+            else:
+                cls, x, p, H = args
+                saved = (cot[0], cot[1], cls, x, *got[1:], p, H)
+                names = ["dcls", "dx"]
+
+            def bwd():
+                return mod._backward_cuda(*saved)
+
+            def ref():
+                return plain_bwd(*saved)
+
+            g1, g2, gw = bwd(), bwd(), ref()
+            torch.cuda.synchronize()
+
+        def flat(r):   # (dx..., {name: grad}) -> one list in `names` order
+            return [*r[:-1], *(r[-1][k] for k in mod.PARAM_NAMES)]
+
+        names += list(mod.PARAM_NAMES)
+        a, b, w = flat(g1), flat(g2), flat(gw)
+        same = all(torch.equal(u, v) for u, v in zip(a, b))
+        gt = grad_tols(gw[-1])
+        worst, bwd_ok = 0.0, True
+        for n, u, v in zip(names, a, w):
+            tol = gt[n] if n in gt else 0.01 * float(v.float().abs().max())
+            e = max_err(u, v)
+            worst = max(worst, e / max(tol, 1e-30))
+            if n in ZERO_GRADS:
+                print(f"[train-kernels] {name} {n} (zero in exact "
+                      f"arithmetic): max|plain| {float(v.abs().max()):.3e}, "
+                      f"err {e:.3e}, tol {tol:.3e} (1% of max|d "
+                      f"{ZERO_GRADS[n]}|)", flush=True)
+            if not (e <= tol and bool(torch.isfinite(u).all())):
+                bwd_ok = False
+                print(f"[train-kernels] {name} {n}: err {e:.3e} > tol "
+                      f"{tol:.3e}", flush=True)
+        ms_f = cuda_ms(lambda: mod._train_cuda(*args), reps=5, warmup=1)
+        plain_f = cuda_ms(lambda: plain_fwd(*args), reps=5, warmup=1)
+        ms_b = cuda_ms(bwd, reps=5, warmup=1)
+        plain_b = cuda_ms(ref, reps=3, warmup=1)
+        bf, bf_by = train_bound_ms(name, args)
+        bb, bb_by = bwd_bound_ms(name, args, cot)
+        print(f"[train-kernels] {name} training forward: max_abs_err "
+              f"{[f'{e:.3e}' for e in errs]} tol {[f'{t:.3e}' for t in tols]} "
+              f"({ULPS} bf16 ulp at max|plain|; probabilities {PROBS_TOL}) -> "
+              f"{'ok' if fwd_ok else 'MISMATCH'}; kernel {ms_f:.3f} ms, plain "
+              f"{plain_f:.3f} ms, bound {bf:.4f} ms ({bf_by})", flush=True)
+        print(f"[train-kernels] {name} backward: {len(names)} gradients "
+              f"within tolerance (1% of max|plain|; largest err/tol "
+              f"{worst:.3f}) {bwd_ok}; two runs bit-identical {same}; kernel "
+              f"{ms_b:.3f} ms, plain {plain_b:.3f} ms, bound {bb:.4f} ms "
+              f"({bb_by}); no single PyTorch call computes it", flush=True)
+        if not (fwd_ok and bwd_ok and same):
+            bad.append(name)
+        results[name].update(train_ms=ms_f, train_plain_ms=plain_f,
+                             train_bound_ms=bf, train_max_abs_err=max(errs))
+        replaces = {"pallas_block": "spe_tpu/ops/pallas_block.py:513",
+                    "pallas_ca_block": "spe_tpu/ops/pallas_ca_block.py:243"}
+        results[f"{name}_bwd"] = {
+            "name": f"{name}_bwd", "route": "cuda", "source": SOURCE,
+            "replaces": replaces[name], "launches": 0,
+            "max_abs_err": max(max_err(u, v) for u, v in zip(a, w)),
+            "ms": ms_b, "plain_ms": plain_b, "bound_ms": bb, "bound_by": bb_by,
+            "library_ms": None}
+        del g1, g2, gw, got, want
+        torch.cuda.empty_cache()
+    if bad:
+        fail(f"training kernels disagree with their plain versions: {bad}")
 
 
 def _exact(got, want):
@@ -351,6 +505,9 @@ TRAIN_ARGV = ["--preset", "voc0712", "--no_use_fused_block",
               "--dataset_file", "voc_voc", "--dataset_eval", "voc_voc",
               "--batch_size", "8", "--epochs", "1", "--warmup_cls_epochs", "0",
               "--refine_start_epoch", "0"]
+# the slice of the fused backbone: use_fused_block on as in the preset
+# (use_fused_ca_block "auto" follows it), the encoder/decoder plain
+FUSED_TRAIN_ARGV = [a for a in TRAIN_ARGV if a != "--no_use_fused_block"]
 
 
 def _supervision_counters():
@@ -360,8 +517,29 @@ def _supervision_counters():
             "pallas_auction": auction.auction_phase}
 
 
-def phase_train(kernel_results, n_train=24, n_test=8, batch=8):
-    """The CLI trains the recipe at full width, fused flags off, 3 steps."""
+def _all_counts(reset=False):
+    """{counter name: launches} of every fused layer (eval, and for the
+    backbone blocks training forward and backward) and the supervision
+    kernels; with reset, set them all to 0 first."""
+    fns = {k: fn for k, (fn, _) in _counters().items()}
+    names = {}
+    for k, fn in fns.items():
+        for attr in ("launches", "train_launches", "bwd_launches"):
+            if hasattr(fn, attr):
+                names[f"{k}.{attr}"] = (fn, attr)
+    for k, fn in _supervision_counters().items():
+        names[k] = (fn, "launches")
+    if reset:
+        for fn, attr in names.values():
+            setattr(fn, attr, 0)
+    return {k: getattr(fn, attr) for k, (fn, attr) in names.items()}
+
+
+def phase_train(kernel_results, fused_backbone, n_train=24, n_test=8,
+                batch=8):
+    """The CLI trains the recipe at full width for 3 steps and evaluates:
+    with the fused flags off, or with the fused backbone (48 patch blocks
+    and 2 class-attention blocks through their training kernels)."""
     import torch
 
     from spe_tpu_torch.cli.main import main as cli_main
@@ -372,39 +550,45 @@ def phase_train(kernel_results, n_train=24, n_test=8, batch=8):
     from spe_tpu_torch.train.optim import AdamW3
     from spe_tpu_torch.train.train_step import TrainState
 
+    tag = "train-fused" if fused_backbone else "train"
     tmp = tempfile.TemporaryDirectory()
     devkit = write_mini_voc(tmp.name, n_test=n_test, n_trainval=n_train)
     out = f"{tmp.name}/out"
-    argv = TRAIN_ARGV + ["--test_path", str(devkit), "--output_dir", out]
-    fused = {k: fn for k, (fn, _) in _counters().items()}
-    supervision = _supervision_counters()
-    for fn in (*fused.values(), *supervision.values()):
-        fn.launches = 0
+    argv = (FUSED_TRAIN_ARGV if fused_backbone else TRAIN_ARGV) + [
+        "--test_path", str(devkit), "--output_dir", out]
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    _all_counts(reset=True)
     t0 = time.perf_counter()
     res = cli_main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    counts = {k: fn.launches for k, fn in {**fused, **supervision}.items()}
+    counts = _all_counts()
     (epoch,) = res["epochs"]
     hist = epoch["train"]["history"]
     steps = len(hist)
-    print(f"[train] cli over {n_train} images, batch {batch}: {steps} steps, "
+    print(f"[{tag}] cli over {n_train} images, batch {batch}: {steps} steps, "
           f"then eval of {n_test}; {wall:.1f}s wall; launches {counts}",
           flush=True)
     for h in hist:
-        print("[train] step " + " ".join(f"{k} {v:.4f}" for k, v in h.items()),
+        print(f"[{tag}] step " + " ".join(f"{k} {v:.4f}" for k, v in h.items()),
               flush=True)
     bad = []
     if steps != n_train // batch:
         bad.append(f"{steps} steps, expected {n_train // batch}")
-    for k in supervision:
-        if counts[k] != steps:
-            bad.append(f"{k}: {counts[k]} launches for {steps} steps")
-    if any(counts[k] for k in fused):
-        bad.append("a fused-layer kernel launched in training")
+    want = {k: steps for k in _supervision_counters()}
+    want.update({"pallas_encoder.launches": 0, "pallas_decoder.launches": 0})
+    if fused_backbone:
+        want.update({"pallas_block.train_launches": 48 * steps,
+                     "pallas_block.bwd_launches": 48 * steps,
+                     "pallas_ca_block.train_launches": 2 * steps,
+                     "pallas_ca_block.bwd_launches": 2 * steps})
+    else:
+        want.update({k: 0 for k in counts if "." in k})
+    for k, n in want.items():
+        if counts[k] != n:
+            bad.append(f"{k}: {counts[k]} launches, expected {n}")
     for i, h in enumerate(hist):
         if not all(math.isfinite(v) for v in h.values()):
             bad.append(f"step {i}: a non-finite value")
@@ -424,7 +608,7 @@ def phase_train(kernel_results, n_train=24, n_test=8, batch=8):
     ep = restore_checkpoint(f"{out}/checkpoint.pth", reload)
     same = all(torch.equal(reload.model.state_dict()[k], v)
                for k, v in trained.items())
-    print(f"[train] weights moved by up to {moved:.3e}; checkpoint reloads "
+    print(f"[{tag}] weights moved by up to {moved:.3e}; checkpoint reloads "
           f"(epoch {ep}, optimizer count {reload.optimizer.count}, weights "
           f"equal {same}); eval mAP {epoch['eval']['mAP']:.4f} (random "
           "weights: no accuracy meaning)", flush=True)
@@ -434,7 +618,7 @@ def phase_train(kernel_results, n_train=24, n_test=8, batch=8):
                    "reload")
     step_ms = [h["step_ms"] for h in hist]
     steady = step_ms[1:] or step_ms
-    print(f"[train] ms per step {[round(t, 1) for t in step_ms]} (first "
+    print(f"[{tag}] ms per step {[round(t, 1) for t in step_ms]} (first "
           f"includes warm-up); steady {statistics.mean(steady):.1f} ms = "
           f"{batch / (statistics.mean(steady) / 1e3):.2f} train images/s at "
           f"batch {batch}; epoch {epoch['train']['seconds']:.1f}s for "
@@ -442,9 +626,14 @@ def phase_train(kernel_results, n_train=24, n_test=8, batch=8):
           f"{steps * batch / epoch['train']['seconds']:.2f} images/s; peak "
           f"device memory {peak:.2f} GiB", flush=True)
     if bad:
-        fail("train: " + "; ".join(bad))
-    for k in supervision:
-        kernel_results[k]["launches"] = counts[k]
+        fail(f"{tag}: " + "; ".join(bad))
+    if fused_backbone:
+        for k in ("pallas_block", "pallas_ca_block"):
+            kernel_results[f"{k}_bwd"]["launches"] = counts[f"{k}.bwd_launches"]
+            kernel_results[k]["train_launches"] = counts[f"{k}.train_launches"]
+    else:
+        for k in _supervision_counters():
+            kernel_results[k]["launches"] = counts[k]
     tmp.cleanup()
     return cfg
 
@@ -463,7 +652,6 @@ def phase_same_step(cfg, batch=8):
     from spe_tpu_torch.train import criterion
     from spe_tpu_torch.train import train_step as ts
     from spe_tpu_torch.train.engine import train_batch
-    from spe_tpu_torch.train.optim import AdamW3
 
     tmp = tempfile.TemporaryDirectory()
     devkit = write_mini_voc(tmp.name, n_test=1, n_trainval=batch, seed=1)
@@ -530,7 +718,19 @@ def phase_same_step(cfg, batch=8):
     if not all(same.values()) or rel > 1e-6:
         fail("same step: the kernels and their plain versions disagree")
 
-    # one step's device-time split: CUDA events at the phase boundaries
+    step_split(model, cfg, b, gates, "fused flags off")
+    tmp.cleanup()
+
+
+def step_split(model, cfg, b, gates, label, batch=8):
+    """One train step's device-time split (CUDA events at the phase
+    boundaries: model forward, supervision tail, backward, optimizer) and
+    a profiled step's kernel sums with the device's idle share."""
+    import torch
+
+    from spe_tpu_torch.train import train_step as ts
+    from spe_tpu_torch.train.optim import AdamW3
+
     state = ts.TrainState(model, AdamW3(model.named_parameters(), cfg, 1))
     gen = torch.Generator("cuda").manual_seed(2)
     ts.train_step(state, b, cfg, gates, gen)  # warm-up
@@ -575,13 +775,102 @@ def phase_same_step(cfg, batch=8):
     split = {a: marks[a].elapsed_time(marks[c]) for a, c in
              zip(names, names[1:])}
     total = sum(split.values())
-    print(f"[split] one train step, batch {batch}, device timeline between "
-          f"CUDA events: " + ", ".join(
+    print(f"[split] {label}: one train step, batch {batch}, device "
+          f"timeline between CUDA events: " + ", ".join(
               f"{k} {v:.1f} ms ({100 * v / total:.1f}%)"
               for k, v in split.items())
           + f"; host wall {wall:.1f} ms", flush=True)
+    torch.cuda.reset_peak_memory_stats()
     profile_forward(lambda: ts.train_step(state, b, cfg, gates, gen), batch,
-                    reps=1, what="train steps")
+                    reps=1, what=f"train steps ({label})")
+    print(f"[split] {label}: peak device memory of a step "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB", flush=True)
+
+
+def phase_same_grads(cfg, batch=8):
+    """One batch at dropout 0 through the same weights with the fused
+    backbone on and off: the losses and every parameter's gradient agree
+    within 5% of the plain side's largest magnitude, and every backbone
+    parameter gets a nonzero gradient on both sides. Then the fused
+    configuration's step split."""
+    import torch
+
+    from spe_tpu_torch.data import train_data, write_mini_voc
+    from spe_tpu_torch.models.build import build_model
+    from spe_tpu_torch.ops.kernel_checks import MODEL_REL_TOL, ZERO_GRADS
+    from spe_tpu_torch.train import train_step as ts
+    from spe_tpu_torch.train.engine import train_batch
+
+    tmp = tempfile.TemporaryDirectory()
+    devkit = write_mini_voc(tmp.name, n_test=1, n_trainval=batch, seed=2)
+    cfg = cfg.replace(test_path=str(devkit), dropout=0.0,
+                      backbone_drop_rate=0.0, drop_attn_rate=0.0,
+                      drop_path_rate=0.0)
+    _, loader = train_data(cfg)
+    b = train_batch(next(iter(loader.epoch(0))), torch.device("cuda"))
+    gates = ts.Gates.for_epoch(cfg, 0)
+    runs = {}
+    for fused in (True, False):
+        model = build_model(cfg.replace(use_fused_block=fused)).train()
+        _all_counts(reset=True)
+        total, losses = ts.compute_losses(
+            model, b, cfg, gates, torch.Generator("cuda").manual_seed(3))
+        total.backward()
+        torch.cuda.synchronize()
+        counts = _all_counts()
+        runs[fused] = ({k: float(v.detach()) for k, v in losses.items()},
+                       {n: p.grad.detach().clone() if p.grad is not None
+                        else None for n, p in model.named_parameters()},
+                       counts)
+        if fused:
+            fused_model = model
+        else:
+            del model
+    (lf, gf, cf), (lp, gp, _) = runs[True], runs[False]
+    bad = []
+    if (cf["pallas_block.train_launches"], cf["pallas_block.bwd_launches"],
+            cf["pallas_ca_block.train_launches"],
+            cf["pallas_ca_block.bwd_launches"]) != (48, 48, 2, 2):
+        bad.append(f"fused launches {cf}")
+    for k, v in lp.items():
+        if abs(lf[k] - v) > MODEL_REL_TOL * abs(v) + 1e-6:
+            bad.append(f"loss {k}: {lf[k]:.6f} vs {v:.6f}")
+    worst, zero = ("", 0.0), []
+    for n, w in gp.items():
+        g = gf[n]
+        # a bias shared by a softmax row has no gradient in exact
+        # arithmetic: held against its weight's gradient scale instead
+        short = n.split(".", 5)[-1] if "blocks" in n else n
+        ref_name = n[:-len(short)] + ZERO_GRADS[short] if short in ZERO_GRADS \
+            else None
+        if g is None or w is None:
+            if n.startswith("backbone.") or (g is None) != (w is None):
+                zero.append(n)
+            continue
+        if ref_name is None and n.startswith("backbone.") and not (
+                bool(g.abs().max() > 0) and bool(w.abs().max() > 0)):
+            zero.append(n)
+        top = float(gp[ref_name or n].abs().max())
+        err = float((g - w).abs().max())
+        if top > 0 and err / top > worst[1]:
+            worst = (n, err / top)
+        if err > MODEL_REL_TOL * top:
+            bad.append(f"{n}: err {err:.3e} > {MODEL_REL_TOL} x {top:.3e}")
+    if zero:
+        bad.append(f"no gradient on a side: {zero}")
+    print(f"[same-grads] one batch at dropout 0, fused backbone vs plain, "
+          f"same weights: losses {len(lp)} (total fused "
+          f"{sum(lf.values()):.6f}); {len(gp)} parameter gradients, largest "
+          f"err / max|plain| {worst[1]:.3e} ({worst[0]}); limit "
+          f"{MODEL_REL_TOL}; backbone parameters without a gradient "
+          f"{len(zero)}", flush=True)
+    for line in bad[-10:]:
+        print(f"[same-grads] {line}", flush=True)
+    if bad:
+        fail("same grads: the fused backbone disagrees with the plain one")
+    del runs, gf, gp
+    fused_model.zero_grad(set_to_none=True)
+    step_split(fused_model, cfg, b, gates, "fused backbone")
     tmp.cleanup()
 
 
@@ -617,10 +906,14 @@ def main():
     phase_device()
     phase_build()
     results = phase_kernels()
+    phase_masks()
+    phase_train_kernels(results)
     phase_supervision_kernels(results)
     phase_slice(results)
-    cfg = phase_train(results)
+    cfg = phase_train(results, fused_backbone=False)
     phase_same_step(cfg)
+    fused_cfg = phase_train(results, fused_backbone=True)
+    phase_same_grads(fused_cfg)
     jax_mods = sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "jaxlib", "flax", "spe_tpu"))
     if jax_mods:

@@ -1,7 +1,7 @@
 """Training and evaluation entry point of the port (spe_tpu/cli/main.py
 :129-276 on one process and one device).
 
-  python -m spe_tpu_torch.cli.main --preset voc0712 --no_use_fused_block \\
+  python -m spe_tpu_torch.cli.main --preset voc0712 \\
       --no_use_fused_layers --no_use_pallas_attention --dataset_file voc_voc \\
       --test_path <VOCdevkit> --output_dir <dir>                # train
   python -m spe_tpu_torch.cli.main --preset voc0712 --eval \\
@@ -12,8 +12,10 @@ runs on the CUDA card; `--device cpu` runs it on the CPU (the fused layers
 then take their plain PyTorch versions). Without `--resume` the weights are
 initialised from `--seed`. Training runs the epoch loop with its loss
 gates, evaluates on the VOC test split after each epoch and, with
-`--output_dir`, writes checkpoints and log.txt there. On the card it needs
-the fused flags off: the fused layers' backward kernels are ROADMAP B1.
+`--output_dir`, writes checkpoints and log.txt there. On the card the
+backbone trains through its fused kernels (`use_fused_block`, forward and
+backward); the encoder and decoder need `--no_use_fused_layers`: their
+training kernels are ROADMAP B1b.
 Not ported (they raise): distributed runs, --frozen_weights, --masks,
 --backbone_weights, --log_match_cost, COCO evaluation.
 """
@@ -53,13 +55,10 @@ def parse_config(argv=None):
                      ("--log_match_cost", cfg.log_match_cost)):
         if on:
             raise NotImplementedError(f"{flag} is not ported to spe_tpu_torch")
-    fused_ca = {"auto": cfg.use_fused_block, "on": True,
-                "off": False}[cfg.use_fused_ca_block]
-    if resolve_device(cfg).type == "cuda" and (
-            cfg.use_fused_block or fused_ca or cfg.use_fused_layers):
+    if resolve_device(cfg).type == "cuda" and cfg.use_fused_layers:
         raise NotImplementedError(
-            "training through the fused layers needs their backward kernels "
-            "(ROADMAP B1): pass --no_use_fused_block --no_use_fused_layers "
+            "training through the fused encoder/decoder layers needs their "
+            "backward kernels (ROADMAP B1b): pass --no_use_fused_layers "
             "--no_use_pallas_attention")
     return cfg
 

@@ -22,6 +22,12 @@
 // LayerNorm (or after the f32 sum with the second input), W is bf16, the
 // products accumulate in f32, the epilogue runs in f32 and the output is
 // rounded once.
+//
+// The training form of the CaiT block adds to the epilogue: a dropout site
+// on Y (after the activation; counter masks keyed on (seed, site, sample =
+// m / rows_per_sample, 0, row = m % rows_per_sample, n)), a DropPath factor
+// on the residual branch (`res + dp * gamma * y`) and an f32 `aux` copy of
+// Y, taken before the activation (aux_pre) or after the dropout.
 #include "common.cuh"
 
 struct LinearParams {
@@ -39,6 +45,16 @@ struct LinearParams {
   int act;             // 0 none, 1 tanh-GELU, 2 ReLU
   float ln_eps;
   int ogrp, ogstride;  // output column n goes to (n / ogrp) * ogstride + n % ogrp
+  const unsigned* seed;  // (1) dropout seed, read on the device
+  float* aux;            // optional (M, N) f32 copy of Y with stride ldaux
+  long long ldaux, rps;  // rps: rows per sample (the dropout's sample index)
+  int drop_site;         // DropSite on Y, 0 = none
+  unsigned drop_thr;
+  float drop_scale;
+  int path_site;         // DropPath on the residual branch, 0 = none
+  unsigned path_thr;
+  float path_scale;
+  int aux_pre;           // aux before the activation (1) or after dropout (0)
 };
 
 namespace {
@@ -146,16 +162,29 @@ __global__ void __launch_bounds__(NT) linear_kernel(LinearParams p) {
       const long long n = n0 + tx + 16 * j;
       if (n >= p.N) continue;
       float y = acc[i][j] + (p.bias ? p.bias[n] : 0.f);
+      if (p.aux && p.aux_pre) p.aux[m * p.ldaux + n] = y;
       if (p.act == 1) {
         y = gelu_tanh(y);
       } else if (p.act == 2) {
         y = fmaxf(y, 0.f);
       }
+      if (p.drop_site) {
+        const unsigned key = head_key(*p.seed, p.drop_site,
+                                      static_cast<unsigned>(m / p.rps), 0u);
+        y = keep_bit(key, static_cast<unsigned>(m % p.rps),
+                     static_cast<unsigned>(n), p.drop_thr) ? y * p.drop_scale : 0.f;
+      }
+      if (p.aux && !p.aux_pre) p.aux[m * p.ldaux + n] = y;
       if (p.res) {
         const float r =
             p.res_f32 ? static_cast<const float*>(p.res)[m * p.ldr + n]
                       : bf2f(static_cast<const bf16*>(p.res)[m * p.ldr + n]);
-        y = r + (p.gamma ? p.gamma[n] : 1.f) * y;
+        float dp = 1.f;
+        if (p.path_site) {
+          dp = path_bit(*p.seed, p.path_site, static_cast<unsigned>(m / p.rps),
+                        p.path_thr) ? p.path_scale : 0.f;
+        }
+        y = r + dp * (p.gamma ? p.gamma[n] : 1.f) * y;
       }
       const long long oc = (n / p.ogrp) * p.ogstride + n % p.ogrp;
       if (p.out_f32) {
@@ -170,7 +199,8 @@ __global__ void __launch_bounds__(NT) linear_kernel(LinearParams p) {
 }  // namespace
 
 extern "C" int spe_linear(const LinearParams* p, void* stream) {
-  if (p->M <= 0 || p->N <= 0 || p->K <= 0 || p->ogrp <= 0) {
+  if (p->M <= 0 || p->N <= 0 || p->K <= 0 || p->ogrp <= 0 ||
+      ((p->drop_site || p->path_site) && (!p->seed || p->rps <= 0))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const long long gm = (p->M + BM - 1) / BM;

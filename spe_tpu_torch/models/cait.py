@@ -8,15 +8,17 @@ the reference state-dict names (`blocks.{i}.attn.qkv.weight`, ...).
 With `use_fused_block` each LayerScale block runs as one fused layer
 (ops/fused_block.py) and with `use_fused_ca` each class-attention block
 likewise (ops/fused_ca_block.py): the CUDA kernels for CUDA tensors, their
-plain versions for CPU tensors. With the flags off the blocks run those
-plain versions on any device.
+plain versions for CPU tensors, forward and backward. With the flags off
+the blocks run the plain eval versions under autograd on any device.
 
 In training mode (`.train()`, with a torch.Generator passed to forward) the
 JAX package's dropout sites apply: dropout after the position embedding at
 `drop_rate` (cait.py:377); in every patch block attention dropout at
 `attn_drop_rate`, projection and MLP dropout at `drop_rate`, and DropPath
 at one uniform `drop_path_rate` (cait.py:150-154, 395-415). The
-class-attention blocks have none.
+class-attention blocks have none. The plain blocks draw their masks with
+torch.rand from the generator; the fused blocks draw one seed per call
+from it and use counter masks (refmath.counter_keep).
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from spe_tpu_torch.ops.fused_block import (fused_layer_scale_block,
                                            layer_scale_block_reference)
 from spe_tpu_torch.ops.fused_ca_block import (class_attn_block_reference,
                                               fused_class_attn_block)
+from spe_tpu_torch.ops.refmath import CounterDropout, draw_seed
 
 
 class LayerScaleBlock(nn.Module):
@@ -54,10 +57,16 @@ class LayerScaleBlock(nn.Module):
         self.gamma_2 = nn.Parameter(torch.full((dim,), float(init_scale)))
 
     def forward(self, x, gen=None):
-        fn = (fused_layer_scale_block if self.use_fused
-              else layer_scale_block_reference)
-        return fn(x, dict(self.named_parameters()), self.num_heads,
-                  dropout_for(self, gen, **self.rates))
+        params = dict(self.named_parameters())
+        drop = dropout_for(self, gen, **self.rates)
+        if not self.use_fused:
+            return layer_scale_block_reference(x, params, self.num_heads, drop)
+        # the fused layer's counter masks: one seed per block call, drawn on
+        # the generator's device, as JAX draws one per block (cait.py:176-180)
+        if drop is not None:
+            drop = CounterDropout(draw_seed(gen, x.device), drop.attn,
+                                  drop.proj, drop.path)
+        return fused_layer_scale_block(x, params, self.num_heads, drop)
 
 
 class LayerScaleBlockClassAttn(nn.Module):

@@ -30,7 +30,7 @@ CUDA cores in this first version.
 `fused_decoder_layer` chooses by device only: CPU tensors go to
 `decoder_layer_reference`, CUDA tensors to the kernels (bf16 only; with
 grad enabled on a parameter or input, or a dropout rate above 0, they
-raise: ROADMAP B1).
+raise: ROADMAP B1b).
 `fused_decoder_layer.launches` counts the CUDA launches.
 """
 

@@ -19,7 +19,7 @@ attention kernel takes it as it is.
 `fused_encoder_layer` chooses by device only: CPU tensors go to
 `encoder_layer_reference`, CUDA tensors to the kernels (bf16 only; with
 grad enabled on a parameter or input, or a dropout rate above 0, they
-raise: ROADMAP B1).
+raise: ROADMAP B1b).
 `fused_encoder_layer.launches` counts the CUDA launches.
 """
 

@@ -29,6 +29,7 @@ import torch
 
 from spe_tpu_torch.ops import (fused_block, fused_ca_block, fused_decoder,
                                fused_encoder)
+from spe_tpu_torch.ops.refmath import CounterDropout
 
 # every fused layer is built from the same three sources: linear.cu
 # (ln_linear), attention.cu and rowops.cu
@@ -49,6 +50,15 @@ PROBS_TOL = 1e-4
 # map; they are held to 5% of their range (max - min) instead.
 MODEL_REL_TOL = 0.05
 MAP_KEYS = ("cams_cls", "ca0_probs")
+# A backward kernel against `*_backward_reference` on the same inputs and
+# cotangents: each gradient within 1% of its own largest magnitude. Both
+# round the same operands to bf16 before each product, but sum in other
+# orders, so a rounded operand may land one bf16 ulp (2^-8 relative) apart,
+# and the gradients of the bf16-cast matrices and dx are themselves rounded
+# to bf16 (one ulp at the largest magnitude is 0.4-0.8% of it).
+GRAD_REL_TOL = 0.01
+# the recipe's dropout rates: attention, projection/MLP, DropPath
+RECIPE_RATES = (0.05, 0.07, 0.2)
 
 
 def model_tol(key, ref):
@@ -57,6 +67,24 @@ def model_tol(key, ref):
     if key in MAP_KEYS:
         return MODEL_REL_TOL * float(ref.max() - ref.min())
     return MODEL_REL_TOL * float(ref.abs().max())
+
+
+# Two bias gradients are zero in exact arithmetic: a logit bias shared by a
+# whole softmax row (the block's pre-softmax head bias `attn.proj_l.bias`,
+# class attention's key bias `attn.k.bias`) moves no probability. Both
+# sides compute rounding noise there, so those two are held to 1% of the
+# largest magnitude of the matching weight's gradient instead.
+ZERO_GRADS = {"attn.proj_l.bias": "attn.proj_l.weight",
+              "attn.k.bias": "attn.k.weight"}
+
+
+def grad_tol(ref):
+    return GRAD_REL_TOL * float(ref.float().abs().max())
+
+
+def grad_tols(grads):
+    """{name: tolerance} for a layer's reference gradients {name: tensor}."""
+    return {k: grad_tol(grads[ZERO_GRADS.get(k, k)]) for k in grads}
 
 
 def bf16_tol(ref, ulps=ULPS):
@@ -129,6 +157,64 @@ def layer_bound_ms(name, args):
         io = 2 * _nbytes(tgt) + _nbytes(mem, pos, qpos, sine, mask)
     return bound_ms(io + pbytes, [(ops, BF16_TENSOR_OPS_PER_MS),
                                   (mix, SCALAR_OPS_PER_MS)])
+
+
+def _block_linear_ops(B, N, D, F):
+    return 2 * B * N * (4 * D * D + 2 * D * F)
+
+
+def train_bound_ms(name, args):
+    """The training forward's bound: the eval layer's work plus the saved
+    residuals written (o, md and the row statistics of the block; o and
+    the MLP output of class attention) and the dropout masks (one integer
+    hash chain step per masked value, at the f32/int rate)."""
+    if name == "pallas_block":
+        x, p, H, _ = args
+        B, N, D = x.shape
+        F = p["mlp.fc1.weight"].shape[0]
+        ops = _block_linear_ops(B, N, D, F) + 4 * B * N * N * D
+        scalar = 4 * B * N * N * H * H + 12 * (B * H * N * N + 2 * B * N * D
+                                               + B * N * F)
+        io = 2 * _nbytes(x) + B * N * D * (2 + 4) + B * H * N * 4
+        return bound_ms(io + _nbytes(*p.values()),
+                        [(ops, BF16_TENSOR_OPS_PER_MS),
+                         (scalar, SCALAR_OPS_PER_MS)])
+    cls, x, p, H = args
+    B, t, D = cls.shape
+    b, by = layer_bound_ms(name, (cls, x, p, H))
+    extra = B * t * D * (2 + 4) / HBM_BYTES_PER_MS
+    return (b + extra, by) if by == "bytes" else (b, by)
+
+
+def bwd_bound_ms(name, args, cot):
+    """The backward's bound: at the bf16 tensor rate the layer's own
+    per-head attention products (block: the QK recompute, dV, dzd, dQ and
+    dK, about 10 B N^2 D; class attention: dp, dV, dq and dk, 8 B t N D)
+    plus twice the forward's linear products; at the f32 rate the
+    talking-heads mixes, softmax backward and masks; bytes: the saved
+    tensors and cotangents read once, dx and the f32 parameter gradients
+    written once, the parameters read once."""
+    if name == "pallas_block":
+        x, p, H, _ = args
+        B, N, D = x.shape
+        F = p["mlp.fc1.weight"].shape[0]
+        ops = 10 * B * N * N * D + 2 * _block_linear_ops(B, N, D, F)
+        scalar = 6 * B * N * N * H * H + 10 * B * N * N * H
+        io = 2 * _nbytes(x) + B * N * D * (2 + 4) + B * H * N * 4 \
+            + _nbytes(*cot)
+    else:
+        cls, x, p, H = args
+        B, t, D = cls.shape
+        N = t + x.shape[1]
+        F = p["mlp.fc1.weight"].shape[0]
+        lin = 2 * B * (2 * t * D * D + 2 * N * D * D + 2 * t * D * F)
+        ops = 8 * B * t * N * D + 2 * lin
+        scalar = 6 * B * H * t * N
+        io = 2 * _nbytes(cls) + 2 * _nbytes(x) + B * H * t * N * 4 \
+            + B * t * D * (2 + 4) + _nbytes(*(c for c in cot if c is not None))
+    pbytes = _nbytes(*p.values())
+    return bound_ms(io + 2 * pbytes, [(ops, BF16_TENSOR_OPS_PER_MS),
+                                      (scalar, SCALAR_OPS_PER_MS)])
 
 
 # 8-neighbour min (8), the mask select (1), two run-min passes each way
@@ -219,13 +305,9 @@ def auction_problems(P=96, T=120, Q=300, K=21, seed=0, device="cpu"):
     return (_normalize_benefit(cost, mask).to(device), mask.to(device))
 
 
-def kernel_cases(B=2, N=1024, t=21, S=2, Q=300, device="cuda", seed=0):
-    """[(name, replaces, fused fn, plain fn, args)] for the four kernels;
-    the decoder twice, with the layer-0 (ca_qpos_proj) and the later-layer
-    parameter sets."""
-    D, F = 192, 2048
-    gen = torch.Generator().manual_seed(seed)
-
+def _makers(gen, device, D):
+    """(param, linear, norm) drawing seeded weights into a parameter dict:
+    Linear weights at fan-in^-0.5, small biases, LayerNorm scales near 1."""
     def param(shape, std, mean=0.0):
         return (mean + std * torch.randn(shape, generator=gen)).to(device)
 
@@ -237,9 +319,13 @@ def kernel_cases(B=2, N=1024, t=21, S=2, Q=300, device="cuda", seed=0):
         p[f"{name}.weight"] = param((D,), 0.1, 1.0)
         p[f"{name}.bias"] = param((D,), 0.05)
 
-    def act(*shape):
-        return torch.randn(shape, generator=gen).to(torch.bfloat16).to(device)
+    return param, linear, norm
 
+
+def _backbone_params(gen, device, D=192):
+    """The patch block's and the class-attention block's parameters (4
+    heads, MLP 4D), LayerScale gammas near 1."""
+    param, linear, norm = _makers(gen, device, D)
     blk = {}
     norm(blk, "norm1")
     linear(blk, "attn.qkv", D, 3 * D)
@@ -261,6 +347,44 @@ def kernel_cases(B=2, N=1024, t=21, S=2, Q=300, device="cuda", seed=0):
     linear(ca, "mlp.fc2", 4 * D, D)
     ca["gamma_1"] = param((D,), 0.1, 1.0)
     ca["gamma_2"] = param((D,), 0.1, 1.0)
+    return blk, ca
+
+
+def train_cases(B=2, N=1024, t=21, device="cuda", seed=0,
+                rates=RECIPE_RATES):
+    """[(name, module, args, cotangents)] of the two backbone layers in
+    training at the voc0712 widths: the patch block with the recipe's
+    dropout rates and a seed tensor on `device`, and the class-attention
+    block; bf16 activations and cotangents, plus a nonzero f32 cotangent
+    on the class-attention probabilities."""
+    D = 192
+    gen = torch.Generator().manual_seed(seed + 1)
+    blk, ca = _backbone_params(gen, device, D)
+
+    def act(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen).to(dtype).to(device)
+
+    x, cls = act(B, N, D), act(B, t, D)
+    drop = CounterDropout(torch.tensor([20240611], dtype=torch.int32,
+                                       device=device), *rates)
+    dattn = 0.1 * act(B, 4, t, t + N, dtype=torch.float32)
+    return [("pallas_block", fused_block, (x, blk, 4, drop), (act(B, N, D),)),
+            ("pallas_ca_block", fused_ca_block, (cls, x, ca, 4),
+             (act(B, t, D), dattn))]
+
+
+def kernel_cases(B=2, N=1024, t=21, S=2, Q=300, device="cuda", seed=0):
+    """[(name, replaces, fused fn, plain fn, args)] for the four kernels;
+    the decoder twice, with the layer-0 (ca_qpos_proj) and the later-layer
+    parameter sets."""
+    D, F = 192, 2048
+    gen = torch.Generator().manual_seed(seed)
+    param, linear, norm = _makers(gen, device, D)
+
+    def act(*shape):
+        return torch.randn(shape, generator=gen).to(torch.bfloat16).to(device)
+
+    blk, ca = _backbone_params(gen, device, D)
 
     enc = {"self_attn.in_proj_weight": param((3 * D, D), D ** -0.5),
            "self_attn.in_proj_bias": param((3 * D,), 0.02)}

@@ -28,6 +28,8 @@ from pathlib import Path
 
 import torch
 
+from spe_tpu_torch.ops.refmath import keep_scale, keep_threshold
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "spe_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -106,7 +108,13 @@ class _LinearParams(ctypes.Structure):
                 ("a_f32", ctypes.c_int), ("res_f32", ctypes.c_int),
                 ("out_f32", ctypes.c_int), ("act", ctypes.c_int),
                 ("ln_eps", ctypes.c_float),
-                ("ogrp", ctypes.c_int), ("ogstride", ctypes.c_int)]
+                ("ogrp", ctypes.c_int), ("ogstride", ctypes.c_int),
+                ("seed", ctypes.c_void_p), ("aux", ctypes.c_void_p),
+                ("ldaux", ctypes.c_longlong), ("rps", ctypes.c_longlong),
+                ("drop_site", ctypes.c_int), ("drop_thr", ctypes.c_uint),
+                ("drop_scale", ctypes.c_float), ("path_site", ctypes.c_int),
+                ("path_thr", ctypes.c_uint), ("path_scale", ctypes.c_float),
+                ("aux_pre", ctypes.c_int)]
 
 
 class _AttnParams(ctypes.Structure):
@@ -156,6 +164,70 @@ class _AuctionParams(ctypes.Structure):
                 ("benefit_in_smem", ctypes.c_int)]
 
 
+def _struct(*groups):
+    """ctypes fields from (ctype, names) groups, in the C struct's order."""
+    return [(n, ct) for ct, names in groups for n in names.split()]
+
+
+_P, _LL, _I, _U, _FL = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                        ctypes.c_uint, ctypes.c_float)
+
+
+class _GemmParams(ctypes.Structure):
+    _fields_ = _struct(
+        (_P, "a b c gelu_aux seed"),
+        (_LL, "a_s1 a_s2 a_sm a_sk b_s1 b_s2 b_sk b_sn c_s1 c_s2 c_sm c_sn "
+              "ld_aux rps kmax"),
+        (_I, "M N K nb1 nb2 a_f32 b_f32 c_f32 split"), (_FL, "alpha"),
+        (_I, "drop_site"), (_U, "drop_thr"), (_FL, "drop_scale"))
+
+
+class _ReduceParams(ctypes.Structure):
+    _fields_ = _struct((_P, "parts out"), (_LL, "L"), (_I, "Z round_bf16"))
+
+
+class _ColsumF32Params(ctypes.Structure):
+    _fields_ = _struct((_P, "x parts"), (_LL, "M ld chunk"), (_I, "C Z"))
+
+
+class _LNBwdParams(ctypes.Structure):
+    _fields_ = _struct((_P, "dy x g res dx parts"),
+                       (_LL, "M ld_dy ld_x ld_res"), (_I, "D x_f32 dx_f32"),
+                       (_FL, "eps"))
+
+
+class _BranchBwdParams(ctypes.Structure):
+    _fields_ = _struct((_P, "dres val gamma seed d parts"), (_LL, "M rps"),
+                       (_I, "D drop_site"), (_U, "drop_thr"),
+                       (_FL, "drop_scale"), (_I, "path_site"),
+                       (_U, "path_thr"), (_FL, "path_scale"))
+
+
+class _MaskParams(ctypes.Structure):
+    _fields_ = _struct((_P, "seed out"), (_I, "B H R C site path"),
+                       (_U, "thr"))
+
+
+class _THFoldParams(ctypes.Structure):
+    _fields_ = _struct((_P, "q rows out"), (_LL, "q_sb q_sn"),
+                       (_I, "B H N D"))
+
+
+class _THRowParams(ctypes.Structure):
+    _fields_ = _struct((_P, "s dzd lse bl ww bw seed zd ds parts"),
+                       (_I, "B H N drop"), (_U, "thr"), (_FL, "scale"))
+
+
+class _THDqParams(ctypes.Structure):
+    _fields_ = _struct((_P, "dqt q rows dq parts"),
+                       (_LL, "q_sb q_sn o_sb o_sn"), (_I, "B H N D"),
+                       (_FL, "scale"))
+
+
+class _SoftmaxBwdParams(ctypes.Structure):
+    _fields_ = _struct((_P, "p dp dattn dl"), (_LL, "R"), (_I, "C"))
+
+
 def lib():
     global _lib
     if _lib is None:
@@ -165,13 +237,25 @@ def lib():
                              ("spe_colsum", _ColsumParams),
                              ("spe_th_mix", _MixParams),
                              ("spe_connected_components", _CCParams),
-                             ("spe_auction", _AuctionParams)):
+                             ("spe_auction", _AuctionParams),
+                             ("spe_gemm", _GemmParams),
+                             ("spe_reduce", _ReduceParams),
+                             ("spe_colsum_f32", _ColsumF32Params),
+                             ("spe_ln_backward", _LNBwdParams),
+                             ("spe_branch_backward", _BranchBwdParams),
+                             ("spe_dropout_mask", _MaskParams),
+                             ("spe_th_fold", _THFoldParams),
+                             ("spe_th_dq", _THDqParams),
+                             ("spe_softmax_backward", _SoftmaxBwdParams)):
             fn = getattr(so, name)
             fn.argtypes = [ctypes.POINTER(struct), ctypes.c_void_p]
             fn.restype = ctypes.c_int
-        so.spe_attention.argtypes = [ctypes.POINTER(_AttnParams), ctypes.c_int,
-                                     ctypes.c_int, ctypes.c_void_p]
-        so.spe_attention.restype = ctypes.c_int
+        for name, struct in (("spe_attention", _AttnParams),
+                             ("spe_th_rows", _THRowParams)):
+            fn = getattr(so, name)
+            extra = [ctypes.c_int] * (2 if name == "spe_attention" else 1)
+            fn.argtypes = [ctypes.POINTER(struct), *extra, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
         _lib = so
     return _lib
 
@@ -204,6 +288,29 @@ _BF16, _F32 = torch.bfloat16, torch.float32
 ACTS = {"none": 0, "gelu": 1, "relu": 2}
 
 
+def _site(spec):
+    """(site, rate) or None -> the kernels' (site, threshold, scale); a rate
+    of 0 switches the site off."""
+    if spec is None or spec[1] == 0.0:
+        return 0, 0, 1.0
+    site, rate = spec
+    if not 0.0 < rate < 1.0:
+        raise ValueError(f"dropout rate must lie in [0, 1), got {rate}")
+    return int(site), keep_threshold(rate), keep_scale(rate)
+
+
+def _need_seed(seed, used, rows_per_sample=1, M=1):
+    if not used:
+        return
+    if seed is None:
+        raise ValueError("a dropout site needs the seed tensor")
+    _need(seed, torch.int32, "seed", 1)
+    if seed.numel() != 1:
+        raise ValueError("seed must hold one value")
+    if rows_per_sample <= 0 or M % rows_per_sample:
+        raise ValueError(f"{M} rows are not whole samples of {rows_per_sample}")
+
+
 def as_bf16(t):
     """A weight as the kernels read it: bf16, contiguous."""
     return t.to(_BF16).contiguous()
@@ -216,8 +323,9 @@ def as_f32(t):
 
 def ln_linear(a, w, bias=None, *, ln=None, a2=None, act="none", res=None,
               gamma=None, out_dtype=_BF16, out=None, col_group=None,
-              col_stride=None):
-    """Y = act(LN?(a [+ a2]) @ w.T + bias), then `res + gamma * Y`.
+              col_stride=None, seed=None, drop=None, path=None,
+              rows_per_sample=1, aux=None, aux_pre=False):
+    """Y = drop(act(LN?(a [+ a2]) @ w.T + bias)), then `res + dp * gamma * Y`.
 
     a: (M, K) bf16 or f32 rows (any row stride); a2: optional bf16 of a's
     layout, added in f32 before the bf16 rounding; ln: optional
@@ -226,7 +334,12 @@ def ln_linear(a, w, bias=None, *, ln=None, a2=None, act="none", res=None,
     res: optional (M, N) bf16 or f32. out: optional preallocated (M, *)
     view; with col_group/col_stride output column n lands in column
     (n // col_group) * col_stride + n % col_group of `out` (the
-    head-interleaved store of the conditional cross-attention)."""
+    head-interleaved store of the conditional cross-attention).
+    The training form: seed (1,) int32 on the card; drop = (site, rate)
+    masks Y, path = (site, rate) scales the residual branch by each
+    sample's DropPath factor dp, samples being runs of rows_per_sample
+    rows; aux: optional (M, N) f32 receiving Y before the activation
+    (aux_pre) or after the dropout."""
     _need(a, (_BF16, _F32), "a", 2)
     _need(w, _BF16, "w", 2)
     M, K = a.shape
@@ -262,6 +375,15 @@ def ln_linear(a, w, bias=None, *, ln=None, a2=None, act="none", res=None,
     width = (N - 1) // col_group * col_stride + (N - 1) % col_group + 1
     if out.shape[0] != M or out.shape[1] < width:
         raise ValueError(f"out {tuple(out.shape)} cannot hold {M} x {width}")
+    if aux is not None:
+        _need(aux, _F32, "aux", 2)
+        if tuple(aux.shape) != (M, N):
+            raise ValueError(f"aux must be {(M, N)}, got {tuple(aux.shape)}")
+    if path is not None and res is None:
+        raise ValueError("DropPath scales the residual branch: pass res")
+    dsite, dthr, dscale = _site(drop)
+    psite, pthr, pscale = _site(path)
+    _need_seed(seed, dsite or psite, rows_per_sample, M)
     p = _LinearParams(
         a=a.data_ptr(), a2=_ptr(a2), ln_g=_ptr(ln[0]) if ln else None,
         ln_b=_ptr(ln[1]) if ln else None, w=w.data_ptr(), bias=_ptr(bias),
@@ -272,7 +394,10 @@ def ln_linear(a, w, bias=None, *, ln=None, a2=None, act="none", res=None,
         res_f32=int(res is not None and res.dtype == _F32),
         out_f32=int(out.dtype == _F32), act=ACTS[act],
         ln_eps=float(ln[2]) if ln else 0.0,
-        ogrp=col_group, ogstride=col_stride)
+        ogrp=col_group, ogstride=col_stride, seed=_ptr(seed), aux=_ptr(aux),
+        ldaux=aux.stride(0) if aux is not None else 0, rps=rows_per_sample,
+        drop_site=dsite, drop_thr=dthr, drop_scale=dscale, path_site=psite,
+        path_thr=pthr, path_scale=pscale, aux_pre=int(aux_pre))
     _check(lib().spe_linear(ctypes.byref(p), _stream()), "spe_linear")
     return out
 
@@ -421,3 +546,305 @@ def auction(benefit, person_mask, eps, max_iters):
                        benefit_in_smem=0)
     _check(lib().spe_auction(ctypes.byref(p), _stream()), "spe_auction")
     return assigned, iters, bids
+
+
+# ---- the backward toolkit (csrc/grad.cu) and talking-heads training
+# (csrc/th_train.cu) ----
+
+def _span(t, strides, sizes):
+    """Raise unless every element a kernel addresses as sum(i * stride),
+    i < size, lies inside t's storage past its offset."""
+    top = sum((n - 1) * st for n, st in zip(sizes, strides))
+    room = t.untyped_storage().nbytes() // t.element_size() - t.storage_offset()
+    if min(strides) < 0 or top >= room:
+        raise ValueError(f"strides {strides} x sizes {sizes} overrun the "
+                         f"storage of a {tuple(t.shape)} tensor")
+
+
+def gemm(a, b, c, *, M, N, K, a_str, b_str, c_str, nb=(1, 1), alpha=1.0,
+         split_k=None, seed=None, drop=None, rows_per_sample=1,
+         gelu_aux=None):
+    """C(m, n) = alpha * sum_k A(m, k) B(k, n), batched over z = (z1, z2)
+    < nb: A(m, k) at z1*s1 + z2*s2 + m*sm + k*sk of `a` for a_str = (s1,
+    s2, sm, sk), B(k, n) likewise with b_str = (s1, s2, sk, sn), C(m, n)
+    with c_str = (s1, s2, sm, sn). a and b are bf16 or f32 (rounded to
+    bf16 at the load), c bf16 or f32. split_k = total depth: z1 indexes
+    chunks of K (the last may be short). The epilogue masks C with drop =
+    (site, rate) (samples of rows_per_sample rows) and multiplies it by
+    gelu'(gelu_aux (M, N) f32)."""
+    for t, n in ((a, "a"), (b, "b"), (c, "c")):
+        _need(t, (_BF16, _F32), n)
+    nb1, nb2 = nb
+    depth = K if split_k is None else split_k
+    _span(a, a_str, (nb1, nb2, M, K if split_k is None else 1))
+    if split_k is not None:
+        _span(a, a_str[2:], (M, depth))
+        _span(b, b_str[2:], (depth, N))
+    else:
+        _span(b, b_str, (nb1, nb2, K, N))
+    _span(c, c_str, (nb1, nb2, M, N))
+    if gelu_aux is not None:
+        _need(gelu_aux, _F32, "gelu_aux", 2)
+        if tuple(gelu_aux.shape) != (M, N) or nb1 * nb2 != 1:
+            raise ValueError("gelu_aux must be (M, N) of an unbatched product")
+    dsite, dthr, dscale = _site(drop)
+    _need_seed(seed, dsite, rows_per_sample, M)
+    if dsite and nb1 * nb2 != 1:
+        raise ValueError("the dropout epilogue takes an unbatched product")
+    p = _GemmParams(
+        a=a.data_ptr(), b=b.data_ptr(), c=c.data_ptr(), gelu_aux=_ptr(gelu_aux),
+        seed=_ptr(seed), a_s1=a_str[0], a_s2=a_str[1], a_sm=a_str[2],
+        a_sk=a_str[3], b_s1=b_str[0], b_s2=b_str[1], b_sk=b_str[2],
+        b_sn=b_str[3], c_s1=c_str[0], c_s2=c_str[1], c_sm=c_str[2],
+        c_sn=c_str[3], ld_aux=gelu_aux.stride(0) if gelu_aux is not None else 0,
+        rps=rows_per_sample, kmax=depth, M=M, N=N, K=K, nb1=nb1, nb2=nb2,
+        a_f32=int(a.dtype == _F32), b_f32=int(b.dtype == _F32),
+        c_f32=int(c.dtype == _F32), split=int(split_k is not None),
+        alpha=float(alpha), drop_site=dsite, drop_thr=dthr, drop_scale=dscale)
+    _check(lib().spe_gemm(ctypes.byref(p), _stream()), "spe_gemm")
+    return c
+
+
+def reduce_sum(parts, round_bf16=False):
+    """(Z, ...) f32 partials -> their sum over Z in a fixed order (f32,
+    rounded to bf16 values with round_bf16)."""
+    _need(parts, _F32, "parts")
+    if not parts.is_contiguous():
+        raise ValueError("parts must be contiguous")
+    Z = parts.shape[0]
+    out = torch.empty(parts.shape[1:], device=parts.device, dtype=_F32)
+    p = _ReduceParams(parts=parts.data_ptr(), out=out.data_ptr(),
+                      L=out.numel(), Z=Z, round_bf16=int(round_bf16))
+    _check(lib().spe_reduce(ctypes.byref(p), _stream()), "spe_reduce")
+    return out
+
+
+ROW_CHUNK = 512   # rows per partial of a weight gradient
+
+
+def matmul_dx(dy, w, *, seed=None, drop=None, rows_per_sample=1,
+              gelu_aux=None):
+    """dY (M, N) f32/bf16 rows @ W (N, K) bf16 (torch Linear layout) ->
+    (M, K) f32, through gemm's epilogue (dropout mask, GELU derivative)."""
+    _need(dy, (_BF16, _F32), "dy", 2)
+    _need(w, _BF16, "w", 2)
+    M, N = dy.shape
+    if w.shape[0] != N or not w.is_contiguous():
+        raise ValueError(f"w {tuple(w.shape)} does not match dy {tuple(dy.shape)}")
+    K = w.shape[1]
+    out = torch.empty((M, K), device=dy.device, dtype=_F32)
+    return gemm(dy, w, out, M=M, N=K, K=N, a_str=(0, 0, dy.stride(0), 1),
+                b_str=(0, 0, K, 1), c_str=(0, 0, K, 1), seed=seed, drop=drop,
+                rows_per_sample=rows_per_sample, gelu_aux=gelu_aux)
+
+
+def grad_weight(dy, x, round_bf16=True):
+    """dW = dY^T X for dY (M, N) and X (M, K) rows (f32 or bf16, rounded to
+    bf16 at the load) -> (N, K) f32, the torch Linear layout: row chunks
+    of ROW_CHUNK in one batched launch, then reduce_sum."""
+    _need(dy, (_BF16, _F32), "dy", 2)
+    _need(x, (_BF16, _F32), "x", 2)
+    M, N = dy.shape
+    K = x.shape[1]
+    if x.shape[0] != M:
+        raise ValueError("dy and x must have the same rows")
+    Z = -(-M // ROW_CHUNK)
+    chunk = -(-M // Z)
+    parts = torch.empty((Z, N, K), device=dy.device, dtype=_F32)
+    ly, lx = dy.stride(0), x.stride(0)
+    gemm(dy, x, parts, M=N, N=K, K=chunk, a_str=(chunk * ly, 0, 1, ly),
+         b_str=(chunk * lx, 0, lx, 1), c_str=(N * K, 0, K, 1), nb=(Z, 1),
+         split_k=M)
+    return reduce_sum(parts, round_bf16)
+
+
+def colsum_f32(x):
+    """(M, C) f32 rows -> (C,) column sums (chunks of 256 rows, then
+    reduce_sum)."""
+    _need(x, _F32, "x", 2)
+    M, C = x.shape
+    chunk = 256
+    Z = -(-M // chunk)
+    parts = torch.empty((Z, C), device=x.device, dtype=_F32)
+    p = _ColsumF32Params(x=x.data_ptr(), parts=parts.data_ptr(), M=M,
+                         ld=x.stride(0), chunk=chunk, C=C, Z=Z)
+    _check(lib().spe_colsum_f32(ctypes.byref(p), _stream()), "spe_colsum_f32")
+    return reduce_sum(parts)
+
+
+LN_ROWS = 32   # rows per block of spe_ln_backward / spe_branch_backward
+
+
+def ln_backward(dy, x, weight, eps, *, res=None, out_dtype=_F32):
+    """LayerNorm backward of (M, D) rows: dy f32, x the LayerNorm's input
+    (bf16/f32), weight f32 -> (dx (+ res) in out_dtype, dweight, dbias)."""
+    _need(dy, _F32, "dy", 2)
+    _need(x, (_BF16, _F32), "x", 2)
+    _need(weight, _F32, "weight", 1)
+    M, D = x.shape
+    if tuple(dy.shape) != (M, D) or weight.shape[0] != D:
+        raise ValueError("dy, x and weight disagree")
+    if res is not None:
+        _need(res, _F32, "res", 2)
+        if tuple(res.shape) != (M, D):
+            raise ValueError("res must match x")
+    dx = torch.empty((M, D), device=x.device, dtype=out_dtype)
+    blocks = -(-M // LN_ROWS)
+    parts = torch.empty((blocks, 2, D), device=x.device, dtype=_F32)
+    p = _LNBwdParams(dy=dy.data_ptr(), x=x.data_ptr(), g=weight.data_ptr(),
+                     res=_ptr(res), dx=dx.data_ptr(), parts=parts.data_ptr(),
+                     M=M, ld_dy=dy.stride(0), ld_x=x.stride(0),
+                     ld_res=res.stride(0) if res is not None else 0, D=D,
+                     x_f32=int(x.dtype == _F32), dx_f32=int(out_dtype == _F32),
+                     eps=float(eps))
+    _check(lib().spe_ln_backward(ctypes.byref(p), _stream()), "spe_ln_backward")
+    dwb = reduce_sum(parts)
+    return dx, dwb[0], dwb[1]
+
+
+def branch_backward(dres, val, gamma, *, seed=None, drop=None, path=None,
+                    rows_per_sample=1):
+    """The residual branch `x + dp * gamma * val`, val = drop(y) (M, D) f32:
+    -> (dy = drop(dres * dp * gamma) f32, dgamma = sum dres * dp * val)."""
+    _need(dres, _F32, "dres", 2)
+    _need(val, _F32, "val", 2)
+    _need(gamma, _F32, "gamma", 1)
+    M, D = dres.shape
+    for t in (dres, val):
+        if tuple(t.shape) != (M, D) or not t.is_contiguous():
+            raise ValueError("dres and val must be contiguous (M, D)")
+    dsite, dthr, dscale = _site(drop)
+    psite, pthr, pscale = _site(path)
+    _need_seed(seed, dsite or psite, rows_per_sample, M)
+    d = torch.empty((M, D), device=dres.device, dtype=_F32)
+    blocks = -(-M // LN_ROWS)
+    parts = torch.empty((blocks, D), device=dres.device, dtype=_F32)
+    p = _BranchBwdParams(dres=dres.data_ptr(), val=val.data_ptr(),
+                         gamma=gamma.data_ptr(), seed=_ptr(seed),
+                         d=d.data_ptr(), parts=parts.data_ptr(), M=M,
+                         rps=rows_per_sample, D=D, drop_site=dsite,
+                         drop_thr=dthr, drop_scale=dscale, path_site=psite,
+                         path_thr=pthr, path_scale=pscale)
+    _check(lib().spe_branch_backward(ctypes.byref(p), _stream()),
+           "spe_branch_backward")
+    return d, reduce_sum(parts)
+
+
+def dropout_mask(seed, site, rate, shape):
+    """The kernels' keep mask (B, H, R, C) bool of `site` at `rate`; with a
+    1-d shape (B,) the DropPath decisions."""
+    _need_seed(seed, True)
+    path = len(shape) == 1
+    B, H, R, C = (shape[0], 1, 1, 1) if path else shape
+    out = torch.empty(tuple(shape), device=seed.device, dtype=torch.uint8)
+    p = _MaskParams(seed=seed.data_ptr(), out=out.data_ptr(), B=B, H=H, R=R,
+                    C=C, site=int(site), path=int(path),
+                    thr=keep_threshold(rate))
+    _check(lib().spe_dropout_mask(ctypes.byref(p), _stream()),
+           "spe_dropout_mask")
+    return out.bool()
+
+
+def th_fold(q, rows):
+    """q (B, N, D) bf16 view (last dim contiguous), rows (H, D) f32 ->
+    (B, H, N, D) bf16: bf16(q * rows[g])."""
+    _need(q, _BF16, "q", 3)
+    _need(rows, _F32, "rows", 2)
+    B, N, D = q.shape
+    H = rows.shape[0]
+    if rows.shape[1] != D or not rows.is_contiguous():
+        raise ValueError(f"rows must be ({H}, {D}) contiguous")
+    out = torch.empty((B, H, N, D), device=q.device, dtype=_BF16)
+    p = _THFoldParams(q=q.data_ptr(), rows=rows.data_ptr(), out=out.data_ptr(),
+                      q_sb=q.stride(0), q_sn=q.stride(1), B=B, H=H, N=N, D=D)
+    _check(lib().spe_th_fold(ctypes.byref(p), _stream()), "spe_th_fold")
+    return out
+
+
+def _th_row_params(s, bl, ww, bw, seed, rate, **kw):
+    _need(s, _F32, "s", 4)
+    B, H, N, N2 = s.shape
+    if N != N2 or not s.is_contiguous():
+        raise ValueError("s must be contiguous (B, H, N, N)")
+    for t, n, shape in ((bl, "bl", (H,)), (bw, "bw", (H,)), (ww, "ww", (H, H))):
+        _need(t, _F32, n)
+        if tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(f"{n} must be {shape} contiguous")
+    dsite, thr, scale = _site((1, rate))
+    _need_seed(seed, dsite)
+    return dict(s=s.data_ptr(), bl=bl.data_ptr(), ww=ww.data_ptr(),
+                bw=bw.data_ptr(), seed=_ptr(seed), B=B, H=H, N=N,
+                drop=int(dsite != 0), thr=thr, scale=scale, **kw)
+
+
+def th_fwd_rows(s, bl, ww, bw, seed, rate):
+    """Talking-heads training forward row pass over the logits s (B, H, N,
+    N) f32 (without bl): -> (lse (B, H, N) f32 of s + bl, zd (B, H, N, N)
+    bf16 = drop(sum_h ww[g, h] softmax_h + bw_g))."""
+    B, H, N, _ = s.shape
+    lse = torch.empty((B, H, N), device=s.device, dtype=_F32)
+    zd = torch.empty(s.shape, device=s.device, dtype=_BF16)
+    p = _THRowParams(**_th_row_params(s, bl, ww, bw, seed, rate,
+                                      lse=lse.data_ptr(), zd=zd.data_ptr()))
+    _check(lib().spe_th_rows(ctypes.byref(p), 0, _stream()), "spe_th_rows")
+    return lse, zd
+
+
+def th_bwd_rows(s, lse, dzd, bl, ww, bw, seed, rate):
+    """Talking-heads backward row pass: -> (zd bf16, ds bf16 (B, H, N, N),
+    dww (H, H), dbw (H,), dbl (H,) f32)."""
+    B, H, N, _ = s.shape
+    _need(lse, _F32, "lse", 3)
+    _need(dzd, _F32, "dzd", 4)
+    if tuple(lse.shape) != (B, H, N) or dzd.shape != s.shape or \
+            not (lse.is_contiguous() and dzd.is_contiguous()):
+        raise ValueError("lse (B, H, N) and dzd (B, H, N, N) must be contiguous")
+    zd = torch.empty(s.shape, device=s.device, dtype=_BF16)
+    ds = torch.empty(s.shape, device=s.device, dtype=_BF16)
+    parts = torch.empty((B * N, H * H + 2 * H), device=s.device, dtype=_F32)
+    p = _THRowParams(**_th_row_params(
+        s, bl, ww, bw, seed, rate, dzd=dzd.data_ptr(), lse=lse.data_ptr(),
+        zd=zd.data_ptr(), ds=ds.data_ptr(), parts=parts.data_ptr()))
+    _check(lib().spe_th_rows(ctypes.byref(p), 1, _stream()), "spe_th_rows")
+    sums = reduce_sum(parts)
+    return zd, ds, sums[:H * H].view(H, H), sums[H * H:H * H + H], \
+        sums[H * H + H:]
+
+
+def th_dq(dqt, q, rows, scale, out):
+    """dQ = sum_g dqt[:, g] * rows[g] into `out` (B, N, D) f32 view, from
+    dqt (B, H, N, D) f32; returns dwl (H, H) f32, [g, h] = scale *
+    sum q_h * dqt_g[head h columns]."""
+    _need(dqt, _F32, "dqt", 4)
+    _need(q, _BF16, "q", 3)
+    _need(rows, _F32, "rows", 2)
+    _need(out, _F32, "out", 3)
+    B, H, N, D = dqt.shape
+    if not dqt.is_contiguous() or tuple(q.shape) != (B, N, D) or \
+            tuple(out.shape) != (B, N, D) or tuple(rows.shape) != (H, D):
+        raise ValueError("th_dq operand shapes disagree")
+    parts = torch.empty((B * N, H, H), device=dqt.device, dtype=_F32)
+    p = _THDqParams(dqt=dqt.data_ptr(), q=q.data_ptr(), rows=rows.data_ptr(),
+                    dq=out.data_ptr(), parts=parts.data_ptr(),
+                    q_sb=q.stride(0), q_sn=q.stride(1), o_sb=out.stride(0),
+                    o_sn=out.stride(1), B=B, H=H, N=N, D=D, scale=float(scale))
+    _check(lib().spe_th_dq(ctypes.byref(p), _stream()), "spe_th_dq")
+    return reduce_sum(parts)
+
+
+def softmax_backward(probs, dp, dattn=None):
+    """Rows of probabilities (..., C) f32 with dp (and an optional dattn
+    cotangent) -> dl = p * (dp + dattn - rowsum(p * (dp + dattn))) bf16."""
+    for t, n in ((probs, "probs"), (dp, "dp"), (dattn, "dattn")):
+        if t is not None:
+            _need(t, _F32, n)
+            if t.shape != probs.shape or not t.is_contiguous():
+                raise ValueError(f"{n} must be contiguous {tuple(probs.shape)}")
+    C = probs.shape[-1]
+    dl = torch.empty(probs.shape, device=probs.device, dtype=_BF16)
+    p = _SoftmaxBwdParams(p=probs.data_ptr(), dp=dp.data_ptr(),
+                          dattn=_ptr(dattn), dl=dl.data_ptr(),
+                          R=probs.numel() // C, C=C)
+    _check(lib().spe_softmax_backward(ctypes.byref(p), _stream()),
+           "spe_softmax_backward")
+    return dl

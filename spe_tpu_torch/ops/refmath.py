@@ -7,7 +7,10 @@ f32. With f32 inputs every rounding is a no-op and they are the f32 math.
 
 `Dropout` is their training form: the JAX package's nn.Dropout and DropPath
 (spe_tpu/models/layers.py) with masks drawn from an explicit
-torch.Generator.
+torch.Generator. The fused backbone layers draw theirs from counters
+instead (`CounterDropout`, `counter_keep`), which their CUDA kernels
+reproduce bit for bit; `gelu_tanh_grad`, `ln_backward_reference` and
+`weight_grad` are the pieces of their hand-derived backwards.
 """
 
 from __future__ import annotations
@@ -32,6 +35,33 @@ def layer_norm(x, w, b, eps):
 
 def gelu_tanh(x):
     return F.gelu(x, approximate="tanh")
+
+
+def gelu_tanh_grad(u):
+    """d gelu_tanh / du (the TPU kernels' `_gelu_grad`)."""
+    c, a = 0.7978845608028654, 0.044715
+    t = torch.tanh(c * (u + a * u * u * u))
+    return 0.5 * (1.0 + t) + 0.5 * u * (1.0 - t * t) * c * (1.0 + 3.0 * a * u * u)
+
+
+def ln_backward_reference(dy, x, w, eps):
+    """LayerNorm backward of f32 rows (the TPU kernels' `_ln_bwd`) ->
+    (dx, dw, db) with dw, db summed over every row."""
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    xc = xf - mu
+    inv = torch.rsqrt((xc * xc).mean(-1, keepdim=True) + eps)
+    xhat = xc * inv
+    dxhat = dy * w.float()
+    dx = (dxhat - dxhat.mean(-1, keepdim=True)
+          - xhat * (dxhat * xhat).mean(-1, keepdim=True)) * inv
+    return dx, (dy * xhat).flatten(0, -2).sum(0), dy.flatten(0, -2).sum(0)
+
+
+def weight_grad(dy, x):
+    """dW of a torch-layout Linear: sum over rows of dy^T x (both already
+    rounded where the kernels round), f32."""
+    return dy.flatten(0, -2).float().T @ x.flatten(0, -2).float()
 
 
 def key_bias(mask, B, N, device):
@@ -96,17 +126,125 @@ def drop_path(drop, x):
     return x if drop is None else drop.drop_path(x)
 
 
+def needs_grad(tensors) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
 def refuse_training(name: str, tensors, drop):
-    """The CUDA path of a fused layer is its eval forward: its launches are
-    invisible to autograd and it has no dropout. Raise, naming ROADMAP B1,
-    rather than train with missing gradients or without dropout."""
+    """The CUDA path of the encoder and decoder layers is their eval
+    forward: its launches are invisible to autograd and it has no dropout.
+    Raise, naming ROADMAP B1b, rather than train with missing gradients or
+    without dropout."""
     if drop is not None and drop.any():
         raise NotImplementedError(
             f"{name}: the CUDA kernels have no dropout yet (the training "
-            "forward is ROADMAP B1); train with the fused flags off")
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in tensors):
+            "forward is ROADMAP B1b); train with --no_use_fused_layers")
+    if needs_grad(tensors):
         raise NotImplementedError(
-            f"{name}: the CUDA kernels have no backward yet (ROADMAP B1), so "
-            "autograd would miss their gradients; run under torch.no_grad() "
-            "or train with the fused flags off")
+            f"{name}: the CUDA kernels have no backward yet (ROADMAP B1b), "
+            "so autograd would miss their gradients; run under "
+            "torch.no_grad() or train with --no_use_fused_layers")
+
+
+# ---- counter-based dropout (the fused layers' training form) ----
+#
+# A keep decision is a pure function of (seed, site, sample, head, row, col):
+# a chain of 32-bit steps h <- fmix32(h ^ (v * 0x9E3779B1)) over the six
+# values, fmix32 being murmur3's finaliser, and keep = (h >> 8) < thr with
+# thr = round((1 - rate) * 2^24). Kept values are scaled by 1 / (1 - rate).
+# The mask does not depend on how a kernel cuts the work, so the CUDA
+# kernels (csrc/common.cuh `keep_bit`) and this integer-arithmetic version
+# give the same bits. DropPath is one draw per (seed, site, sample):
+# the chain stops after the sample.
+
+SITE_ATTN, SITE_PROJ, SITE_HIDDEN, SITE_OUT, SITE_PATH1, SITE_PATH2 = range(1, 7)
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(a, c: int):
+    """(a * c) mod 2^32 for int64 a in [0, 2^32) without int64 overflow."""
+    return (a * (c & 0xFFFF) + (((a * (c >> 16)) & 0xFFFF) << 16)) & _M32
+
+
+def _fmix32(h):
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0x85EBCA6B)
+    h = h ^ (h >> 13)
+    h = _mul32(h, 0xC2B2AE35)
+    return h ^ (h >> 16)
+
+
+def _step(h, v):
+    return _fmix32(h ^ _mul32(v, 0x9E3779B1))
+
+
+def keep_threshold(rate: float) -> int:
+    return int(round((1.0 - rate) * (1 << 24)))
+
+
+def keep_scale(rate: float) -> float:
+    return 1.0 / (1.0 - rate)
+
+
+def _ar(n, device, dim, ndim):
+    shape = [1] * ndim
+    shape[dim] = n
+    return torch.arange(n, device=device, dtype=torch.int64).reshape(shape)
+
+
+def counter_keep(seed, site: int, rate: float, shape):
+    """Keep mask of shape (B, H, R, C) (bool) for `site` at `rate`; seed is
+    a (1,) int32 tensor and the mask lies on its device."""
+    B, H, R, C = shape
+    dev = seed.device
+    h = _step(seed.to(torch.int64).reshape(1, 1, 1, 1),
+              torch.tensor(site, device=dev, dtype=torch.int64))
+    for dim, n in enumerate(shape):
+        h = _step(h, _ar(n, dev, dim, 4))
+    return (h >> 8) < keep_threshold(rate)
+
+
+def path_keep(seed, site: int, rate: float, B: int):
+    """DropPath keep decisions (B,) bool, one per sample."""
+    dev = seed.device
+    h = _step(seed.to(torch.int64).reshape(1),
+              torch.tensor(site, device=dev, dtype=torch.int64))
+    h = _step(h, torch.arange(B, device=dev, dtype=torch.int64))
+    return (h >> 8) < keep_threshold(rate)
+
+
+def draw_seed(gen: torch.Generator, device):
+    """A block's dropout seed, (1,) int32 drawn from the step's generator on
+    its device (no host sync)."""
+    return torch.randint(0, 2 ** 31 - 1, (1,), generator=gen,
+                         device=gen.device, dtype=torch.int32).to(device)
+
+
+@dataclasses.dataclass(frozen=True)
+class CounterDropout:
+    """The fused layers' training-mode dropout: the rates of the sites and
+    the block's seed tensor; masks from `counter_keep`."""
+    seed: torch.Tensor
+    attn: float = 0.0
+    proj: float = 0.0
+    path: float = 0.0
+
+    @property
+    def rates(self):
+        return (self.attn, self.proj, self.path)
+
+    def site(self, x, site: int, rate: float, head_dim=False):
+        """x (B, R, C), or (B, H, R, C) with head_dim, through `site`."""
+        if rate == 0.0:
+            return x
+        shape = x.shape if head_dim else (x.shape[0], 1) + tuple(x.shape[1:])
+        keep = counter_keep(self.seed, site, rate, shape).reshape(x.shape)
+        return torch.where(keep, x * keep_scale(rate), 0.0)
+
+    def path_factor(self, site: int, B: int):
+        """Per-sample DropPath factor (B, 1, 1) f32: 0 or 1 / (1 - rate)."""
+        if self.path == 0.0:
+            return torch.ones((B, 1, 1), device=self.seed.device)
+        keep = path_keep(self.seed, site, self.path, B)
+        return torch.where(keep, keep_scale(self.path), 0.0).reshape(B, 1, 1)

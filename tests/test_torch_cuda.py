@@ -1,9 +1,10 @@
 """The hand-written CUDA kernels on the card (marker `cuda`): each fused
 layer against its plain PyTorch version at the recipe widths with cut
-sequence lengths, a small full-width detector through the kernels against
-the same weights through the plain versions, and the two supervision
-kernels (connected components, auction) against their plain versions at
-the recipe's training shapes. The kernels have no CPU mode, so without a
+sequence lengths, the backbone layers' training forward and backward
+kernels and their dropout masks likewise, a small full-width detector
+through the kernels against the same weights through the plain versions,
+and the two supervision kernels (connected components, auction) against
+their plain versions at the recipe's training shapes. The kernels have no CPU mode, so without a
 card these tests skip.
 
 Run on a machine with the card:  python -m pytest tests/test_torch_cuda.py -m cuda
@@ -113,3 +114,78 @@ def test_auction_kernel_equals_plain(card, shape):
     assert auction.auction_phase.launches == before + 1
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+def test_dropout_masks_equal_torch(card):
+    """The kernels' counter masks equal refmath's torch formula bit for
+    bit, for a head-split attention shape, a row shape and DropPath."""
+    from spe_tpu_torch.ops import kernels as K
+    from spe_tpu_torch.ops.refmath import counter_keep, path_keep
+
+    seed = torch.tensor([31337], dtype=torch.int32, device=card)
+    for site, rate, shape in ((1, 0.05, (2, 4, 100, 100)),
+                              (3, 0.07, (2, 1, 100, 768)), (5, 0.2, (64,))):
+        got = K.dropout_mask(seed, site, rate, shape)
+        want = (path_keep(seed, site, rate, shape[0]) if len(shape) == 1
+                else counter_keep(seed, site, rate, shape))
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (site, shape)
+
+
+@pytest.mark.parametrize("case", range(2))
+def test_train_kernels_match_plain(card, case):
+    """The patch block (recipe dropout) and the class-attention block
+    (with a CAM cotangent) at N=100, t=21: the training forward within 4
+    bf16 ulps, every gradient of the backward within
+    kernel_checks.grad_tols of the plain backward on the same saved
+    tensors, and two backward runs bit-identical."""
+    from spe_tpu_torch.ops.kernel_checks import (PROBS_TOL, bf16_tol,
+                                                 grad_tols, max_err,
+                                                 train_cases)
+
+    name, mod, args, cot = train_cases(B=2, N=100)[case]
+    block = name == "pallas_block"
+    with torch.no_grad():
+        got = mod._train_cuda(*args)
+        want = (mod.layer_scale_block_train_reference if block
+                else mod.class_attn_block_train_reference)(*args)
+        for i, (g, w) in enumerate(zip(got, want)):
+            tol = PROBS_TOL if (not block and i == 1) else bf16_tol(w)
+            assert max_err(g, w) <= tol, (name, i)
+        if block:
+            x, p, H, drop = args
+            saved = (cot[0], x, *got[1:], p, H, drop)
+            plain = mod.layer_scale_block_backward_reference
+        else:
+            cls, x, p, H = args
+            saved = (cot[0], cot[1], cls, x, *got[1:], p, H)
+            plain = mod.class_attn_block_backward_reference
+        r1, r2, ref = (mod._backward_cuda(*saved), mod._backward_cuda(*saved),
+                       plain(*saved))
+        torch.cuda.synchronize()
+    tols = grad_tols(ref[-1])
+    for k in mod.PARAM_NAMES:
+        assert max_err(r1[-1][k], ref[-1][k]) <= tols[k], (name, k)
+        assert torch.equal(r1[-1][k], r2[-1][k]), (name, k)
+    for a, b, w in zip(r1[:-1], r2[:-1], ref[:-1]):
+        assert max_err(a, w) <= 0.01 * float(w.float().abs().max()), name
+        assert torch.equal(a, b), name
+
+
+def test_fused_backbone_function_counts_launches(card):
+    """One patch block through the autograd Function on the card: one
+    training-forward and one backward launch, finite gradients."""
+    from spe_tpu_torch.ops import fused_block
+    from spe_tpu_torch.ops.kernel_checks import train_cases
+
+    _, _, (x, p, H, drop), (dy,) = train_cases(B=1, N=64)[0]
+    leaves = {k: v.clone().requires_grad_() for k, v in p.items()}
+    fn = fused_block.fused_layer_scale_block
+    before = (fn.train_launches, fn.bwd_launches)
+    xt = x.clone().requires_grad_()
+    fn(xt, leaves, H, drop).backward(dy)
+    torch.cuda.synchronize()
+    assert (fn.train_launches, fn.bwd_launches) == (before[0] + 1,
+                                                    before[1] + 1)
+    assert torch.isfinite(xt.grad.float()).all()
+    assert all(torch.isfinite(v.grad).all() for v in leaves.values())

@@ -150,26 +150,31 @@ def test_build_model_refuses_unported_attention_kernels(off):
 
 
 def test_fused_layers_refuse_training_on_the_card():
-    """On a non-CPU tensor each fused wrapper is the eval forward: grad on
-    an input or parameter, or a dropout rate above 0, raises (ROADMAP B1)
-    before anything launches."""
+    """On a non-CPU tensor the encoder and decoder wrappers are the eval
+    forward: grad on an input or parameter, or a dropout rate above 0,
+    raises (ROADMAP B1b) before anything launches. The backbone blocks
+    train on the card: with grad or dropout they take their training
+    kernels, which refuse a tensor that is not on the card."""
     from spe_tpu_torch.ops import (fused_block, fused_ca_block,
                                    fused_decoder, fused_encoder)
-    from spe_tpu_torch.ops.refmath import Dropout
+    from spe_tpu_torch.ops.refmath import CounterDropout, Dropout
 
     blk = dict(tcait.LayerScaleBlock(16, 2).to("meta").named_parameters())
     x = torch.empty((1, 8, 16), dtype=torch.bfloat16, device="meta")
-    with pytest.raises(NotImplementedError, match="B1"):
-        fused_block.fused_layer_scale_block(x, blk, 2)
+    fn = fused_block.fused_layer_scale_block
+    counts = (fn.launches, fn.train_launches, fn.bwd_launches)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        fn(x, blk, 2)
     with torch.no_grad():
-        with pytest.raises(NotImplementedError, match="B1"):
-            fused_block.fused_layer_scale_block(
-                x, blk, 2, Dropout(torch.Generator(), attn=0.1))
+        seed = torch.zeros((1,), dtype=torch.int32, device="meta")
         with pytest.raises(ValueError, match="CUDA tensor"):
-            fused_block.fused_layer_scale_block(x, blk, 2)
+            fn(x, blk, 2, CounterDropout(seed, attn=0.1))
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            fn(x, blk, 2)
+    assert (fn.launches, fn.train_launches, fn.bwd_launches) == counts
     ca = dict(tcait.LayerScaleBlockClassAttn(16, 2).to("meta")
               .named_parameters())
-    with pytest.raises(NotImplementedError, match="B1"):
+    with pytest.raises(ValueError, match="CUDA tensor"):
         fused_ca_block.fused_class_attn_block(x[:, :3], x, ca, 2)
     enc = {k: torch.empty(0, device="meta", requires_grad=True)
            for k in fused_encoder.PARAM_NAMES}

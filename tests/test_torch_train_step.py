@@ -73,6 +73,18 @@ def _jax_params(rng):
 
 
 def test_three_train_steps_match_jax(rng):
+    _three_steps(rng, {})
+
+
+def test_three_train_steps_fused_backbone_match_jax(rng):
+    """The port's fused backbone (the patch blocks' and class-attention
+    blocks' autograd Functions; on the CPU their plain forward and
+    hand-derived backward) against the same JAX fused-off step: at rate 0
+    the math is the same."""
+    _three_steps(rng, {"use_fused_block": True})
+
+
+def _three_steps(rng, port_overrides):
     jcfg, jmodel, params = _jax_params(rng)
     batches = _batches(rng)
     tx = make_optimizer(jcfg, steps_per_epoch=10, params=params)
@@ -85,7 +97,7 @@ def test_three_train_steps_match_jax(rng):
                          jax.random.PRNGKey(i), jgates)
         want.append({k: float(v) for k, v in m.items()})
 
-    cfg = tconfig.SPEConfig(**CFG)
+    cfg = tconfig.SPEConfig(**{**CFG, **port_overrides})
     model = build_model(cfg, "cpu")
     params_before = state_dict_from_jax(
         jax.tree_util.tree_map(np.asarray, params["params"]), cfg)
