@@ -10,10 +10,12 @@ Phases, each printing its own lines; any failure exits non-zero:
                against its plain PyTorch version on the same bf16 inputs
                (max abs error vs the stated tolerance); the dropout masks
                of the training kernels against the torch formula, bit for
-               bit, with their kept shares; the patch block's and the
-               class-attention block's training forward and backward
-               kernels against their plain versions at the recipe shapes
-               and rates (B=2), the backward twice (identical bits); the
+               bit, with their kept shares (every site, the encoder's and
+               decoder's at the recipe's 0.1); every fused layer's
+               training forward and backward kernels (patch block, class
+               attention, encoder, decoder layer 0 and a later layer)
+               against their plain versions at the recipe shapes and rates
+               (B=2), the backward twice (identical bits); the
                two supervision kernels at the recipe's training shapes (64
                CC masks of 64 x 64 with two mazes past the sweep cap; 96
                auction problems of 120 x 300, plus an overfull shape),
@@ -43,11 +45,25 @@ Phases, each printing its own lines; any failure exits non-zero:
                2 class-attention training forwards and backward launches
                per step, no encoder/decoder launch, the checks of phase 5.
                Then one batch at dropout 0 with the same weights through
-               the fused and the plain backbone: losses and every
-               parameter's gradient within 5% of the plain side's largest
-               magnitude, every backbone parameter with a gradient on both
-               sides; and the fused step's device-time split.
-About 2 minutes of command time on an H100.
+               the fused and the plain backbone, the plain run's
+               pseudo-boxes, refinement targets and matching replayed in
+               the fused run: losses within 5% and every parameter's
+               gradient within 5% of the plain side's largest magnitude,
+               or no further from the same model's gradient in f32 than 3x
+               the plain bf16 gradient is (noise-dominated gradients);
+               every
+               parameter of the backbone, the encoder, the decoder and the
+               query embeddings with a gradient on both sides (the
+               backbone's nonzero); and the fused step's device-time
+               split.
+  7. stock   — the CLI trains `--preset voc0712` with every fused flag on
+               (no --no_use_* flag), the checks of phase 5 with 48 + 48
+               block, 2 + 2 class-attention, 3 + 3 encoder and 6 + 6
+               decoder training forward and backward launches per step and
+               the epoch's eval launches counted apart; then the
+               same-grads check of phase 6, every fused flag on against
+               every one off, and the step's device-time split.
+About 2.5 minutes of command time on an H100.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
 
@@ -157,17 +173,30 @@ def phase_masks():
     import torch
 
     from spe_tpu_torch.ops import kernels as K
-    from spe_tpu_torch.ops.kernel_checks import RECIPE_RATES
-    from spe_tpu_torch.ops.refmath import (SITE_ATTN, SITE_HIDDEN, SITE_PATH1,
-                                           SITE_PROJ, counter_keep, path_keep)
+    from spe_tpu_torch.ops.kernel_checks import RECIPE_RATES, TRANSFORMER_RATE
+    from spe_tpu_torch.ops.refmath import (SITE_ATTN, SITE_CROSS_ATTN,
+                                           SITE_CROSS_PROJ, SITE_HIDDEN,
+                                           SITE_OUT, SITE_PATH1, SITE_PROJ,
+                                           counter_keep, path_keep)
 
     attn, proj, path = RECIPE_RATES
+    rate = TRANSFORMER_RATE
     seed = torch.tensor([20240611], dtype=torch.int32, device="cuda")
     ok = True
+    # the patch block's sites, then the encoder's and decoder's: the
+    # encoder attention (B, 8, 1024, 1024), the decoder self-attention
+    # keyed (b, s*H + h) (B, 2 * 8, 300, 300), the cross-attention and its
+    # projection on sites of their own, the FFN of 2048
     for site, rate, shape in ((SITE_ATTN, attn, (2, 4, 1024, 1024)),
                               (SITE_PROJ, proj, (2, 1, 1024, 192)),
                               (SITE_HIDDEN, proj, (2, 1, 1024, 768)),
-                              (SITE_PATH1, path, (4096,))):
+                              (SITE_PATH1, path, (4096,)),
+                              (SITE_ATTN, rate, (2, 8, 1024, 1024)),
+                              (SITE_ATTN, rate, (2, 16, 300, 300)),
+                              (SITE_CROSS_ATTN, rate, (2, 8, 600, 1024)),
+                              (SITE_CROSS_PROJ, rate, (2, 1, 600, 192)),
+                              (SITE_OUT, rate, (2, 1, 600, 192)),
+                              (SITE_HIDDEN, rate, (2, 1, 1024, 2048))):
         got = K.dropout_mask(seed, site, rate, shape)
         want = (path_keep(seed, site, rate, shape[0]) if len(shape) == 1
                 else counter_keep(seed, site, rate, shape))
@@ -185,26 +214,26 @@ def phase_masks():
 
 
 def phase_train_kernels(results):
-    """The backbone layers' training forward and backward kernels against
-    their plain versions at the recipe shapes (B=2, the recipe's dropout
-    rates on the patch block, a nonzero CAM cotangent on class attention);
-    the backward run twice must give identical bits."""
+    """Every fused layer's training forward and backward kernels against
+    their plain versions at the recipe shapes (B=2; the recipe's dropout
+    rates on the patch block, 0.1 on every encoder and decoder site, a
+    nonzero CAM cotangent on class attention); the backward run twice must
+    give identical bits. The decoder runs layer 0 and a later layer; its
+    entries carry the larger error and the later layer's times (5 of the 6
+    layers)."""
     import torch
 
-    from spe_tpu_torch.ops.kernel_checks import (PROBS_TOL, SOURCE, ULPS,
-                                                 ZERO_GRADS, bf16_tol,
-                                                 bwd_bound_ms, grad_tols,
-                                                 max_err, train_bound_ms,
-                                                 train_cases)
+    from spe_tpu_torch.ops.kernel_checks import (BWD_REPLACES, PROBS_TOL,
+                                                 SOURCE, ULPS, backward_args,
+                                                 bf16_tol, bwd_bound_ms,
+                                                 flat_grads, grad_tols,
+                                                 max_err, plain_train,
+                                                 train_bound_ms, train_cases,
+                                                 zero_grad_ref)
 
     bad = []
     for name, mod, args, cot in train_cases():
-        plain_fwd = (mod.layer_scale_block_train_reference
-                     if name == "pallas_block"
-                     else mod.class_attn_block_train_reference)
-        plain_bwd = (mod.layer_scale_block_backward_reference
-                     if name == "pallas_block"
-                     else mod.class_attn_block_backward_reference)
+        plain_fwd, plain_bwd = plain_train(name, mod)
         with torch.no_grad():
             got = mod._train_cuda(*args)
             want = plain_fwd(*args)
@@ -216,14 +245,7 @@ def phase_train_kernels(results):
             fwd_ok = all(e <= t for e, t in zip(errs, tols)) and all(
                 bool(torch.isfinite(g).all()) for g in got)
             # the backward of both on the kernels' saved tensors
-            if name == "pallas_block":
-                x, p, H, drop = args
-                saved = (cot[0], x, *got[1:], p, H, drop)
-                names = ["dx"]
-            else:
-                cls, x, p, H = args
-                saved = (cot[0], cot[1], cls, x, *got[1:], p, H)
-                names = ["dcls", "dx"]
+            saved = backward_args(args, got[1:], cot)
 
             def bwd():
                 return mod._backward_cuda(*saved)
@@ -231,26 +253,21 @@ def phase_train_kernels(results):
             def ref():
                 return plain_bwd(*saved)
 
-            g1, g2, gw = bwd(), bwd(), ref()
+            g1, g2, gw = (flat_grads(name, r) for r in (bwd(), bwd(), ref()))
             torch.cuda.synchronize()
 
-        def flat(r):   # (dx..., {name: grad}) -> one list in `names` order
-            return [*r[:-1], *(r[-1][k] for k in mod.PARAM_NAMES)]
-
-        names += list(mod.PARAM_NAMES)
-        a, b, w = flat(g1), flat(g2), flat(gw)
-        same = all(torch.equal(u, v) for u, v in zip(a, b))
-        gt = grad_tols(gw[-1])
+        same = all(torch.equal(g1[k], g2[k]) for k in gw)
+        gt = grad_tols(gw)
         worst, bwd_ok = 0.0, True
-        for n, u, v in zip(names, a, w):
-            tol = gt[n] if n in gt else 0.01 * float(v.float().abs().max())
-            e = max_err(u, v)
+        for n, w in gw.items():
+            u, tol = g1[n], gt[n]
+            e = max_err(u, w)
             worst = max(worst, e / max(tol, 1e-30))
-            if n in ZERO_GRADS:
+            if zero_grad_ref(n):
                 print(f"[train-kernels] {name} {n} (zero in exact "
-                      f"arithmetic): max|plain| {float(v.abs().max()):.3e}, "
+                      f"arithmetic): max|plain| {float(w.abs().max()):.3e}, "
                       f"err {e:.3e}, tol {tol:.3e} (1% of max|d "
-                      f"{ZERO_GRADS[n]}|)", flush=True)
+                      f"{zero_grad_ref(n)}|)", flush=True)
             if not (e <= tol and bool(torch.isfinite(u).all())):
                 bwd_ok = False
                 print(f"[train-kernels] {name} {n}: err {e:.3e} > tol "
@@ -266,24 +283,25 @@ def phase_train_kernels(results):
               f"({ULPS} bf16 ulp at max|plain|; probabilities {PROBS_TOL}) -> "
               f"{'ok' if fwd_ok else 'MISMATCH'}; kernel {ms_f:.3f} ms, plain "
               f"{plain_f:.3f} ms, bound {bf:.4f} ms ({bf_by})", flush=True)
-        print(f"[train-kernels] {name} backward: {len(names)} gradients "
+        print(f"[train-kernels] {name} backward: {len(gw)} gradients "
               f"within tolerance (1% of max|plain|; largest err/tol "
               f"{worst:.3f}) {bwd_ok}; two runs bit-identical {same}; kernel "
               f"{ms_b:.3f} ms, plain {plain_b:.3f} ms, bound {bb:.4f} ms "
               f"({bb_by}); no single PyTorch call computes it", flush=True)
         if not (fwd_ok and bwd_ok and same):
             bad.append(name)
-        results[name].update(train_ms=ms_f, train_plain_ms=plain_f,
-                             train_bound_ms=bf, train_max_abs_err=max(errs))
-        replaces = {"pallas_block": "spe_tpu/ops/pallas_block.py:513",
-                    "pallas_ca_block": "spe_tpu/ops/pallas_ca_block.py:243"}
+        prev = results.get(f"{name}_bwd", {}).get("max_abs_err", 0.0)
+        results[name].update(
+            train_ms=ms_f, train_plain_ms=plain_f, train_bound_ms=bf,
+            train_max_abs_err=max(results[name].get("train_max_abs_err", 0.0),
+                                  *errs))
         results[f"{name}_bwd"] = {
             "name": f"{name}_bwd", "route": "cuda", "source": SOURCE,
-            "replaces": replaces[name], "launches": 0,
-            "max_abs_err": max(max_err(u, v) for u, v in zip(a, w)),
+            "replaces": BWD_REPLACES[name], "launches": 0,
+            "max_abs_err": max(prev, *(max_err(g1[k], gw[k]) for k in gw)),
             "ms": ms_b, "plain_ms": plain_b, "bound_ms": bb, "bound_by": bb_by,
             "library_ms": None}
-        del g1, g2, gw, got, want
+        del g1, g2, gw, got, want, saved
         torch.cuda.empty_cache()
     if bad:
         fail(f"training kernels disagree with their plain versions: {bad}")
@@ -500,14 +518,23 @@ def phase_slice(kernel_results, n_images=8, batch=8):
     tmp.cleanup()
 
 
-TRAIN_ARGV = ["--preset", "voc0712", "--no_use_fused_block",
-              "--no_use_fused_layers", "--no_use_pallas_attention",
-              "--dataset_file", "voc_voc", "--dataset_eval", "voc_voc",
-              "--batch_size", "8", "--epochs", "1", "--warmup_cls_epochs", "0",
-              "--refine_start_epoch", "0"]
+# the stock preset: every fused flag on (use_fused_block, use_fused_ca_block
+# "auto" following it, use_fused_layers, use_pallas_attention); every loss
+# gate open from the first step
+STOCK_TRAIN_ARGV = ["--preset", "voc0712", "--dataset_file", "voc_voc",
+                    "--dataset_eval", "voc_voc", "--batch_size", "8",
+                    "--epochs", "1", "--warmup_cls_epochs", "0",
+                    "--refine_start_epoch", "0"]
+OFF_FLAGS = ["--no_use_fused_layers", "--no_use_pallas_attention"]
+# the fused flags off
+TRAIN_ARGV = STOCK_TRAIN_ARGV + ["--no_use_fused_block"] + OFF_FLAGS
 # the slice of the fused backbone: use_fused_block on as in the preset
 # (use_fused_ca_block "auto" follows it), the encoder/decoder plain
-FUSED_TRAIN_ARGV = [a for a in TRAIN_ARGV if a != "--no_use_fused_block"]
+FUSED_TRAIN_ARGV = STOCK_TRAIN_ARGV + OFF_FLAGS
+# training forward launches per step of each fused layer (and as many
+# backward launches); also its eval launches per forward
+PER_STEP = {"pallas_block": 48, "pallas_ca_block": 2, "pallas_encoder": 3,
+            "pallas_decoder": 6}
 
 
 def _supervision_counters():
@@ -535,11 +562,12 @@ def _all_counts(reset=False):
     return {k: getattr(fn, attr) for k, (fn, attr) in names.items()}
 
 
-def phase_train(kernel_results, fused_backbone, n_train=24, n_test=8,
-                batch=8):
+def phase_train(kernel_results, mode, n_train=24, n_test=8, batch=8):
     """The CLI trains the recipe at full width for 3 steps and evaluates:
-    with the fused flags off, or with the fused backbone (48 patch blocks
-    and 2 class-attention blocks through their training kernels)."""
+    with the fused flags off (mode "off"), with the fused backbone
+    ("backbone": 48 patch blocks and 2 class-attention blocks through their
+    training kernels) or as the stock preset ("stock": every fused layer
+    through its training kernels)."""
     import torch
 
     from spe_tpu_torch.cli.main import main as cli_main
@@ -550,12 +578,15 @@ def phase_train(kernel_results, fused_backbone, n_train=24, n_test=8,
     from spe_tpu_torch.train.optim import AdamW3
     from spe_tpu_torch.train.train_step import TrainState
 
-    tag = "train-fused" if fused_backbone else "train"
+    tag, argv = {"off": ("train", TRAIN_ARGV),
+                 "backbone": ("train-fused", FUSED_TRAIN_ARGV),
+                 "stock": ("train-stock", STOCK_TRAIN_ARGV)}[mode]
+    fused = {"off": (), "backbone": ("pallas_block", "pallas_ca_block"),
+             "stock": tuple(PER_STEP)}[mode]
     tmp = tempfile.TemporaryDirectory()
     devkit = write_mini_voc(tmp.name, n_test=n_test, n_trainval=n_train)
     out = f"{tmp.name}/out"
-    argv = (FUSED_TRAIN_ARGV if fused_backbone else TRAIN_ARGV) + [
-        "--test_path", str(devkit), "--output_dir", out]
+    argv = argv + ["--test_path", str(devkit), "--output_dir", out]
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     _all_counts(reset=True)
@@ -578,14 +609,15 @@ def phase_train(kernel_results, fused_backbone, n_train=24, n_test=8,
     if steps != n_train // batch:
         bad.append(f"{steps} steps, expected {n_train // batch}")
     want = {k: steps for k in _supervision_counters()}
-    want.update({"pallas_encoder.launches": 0, "pallas_decoder.launches": 0})
-    if fused_backbone:
-        want.update({"pallas_block.train_launches": 48 * steps,
-                     "pallas_block.bwd_launches": 48 * steps,
-                     "pallas_ca_block.train_launches": 2 * steps,
-                     "pallas_ca_block.bwd_launches": 2 * steps})
-    else:
-        want.update({k: 0 for k in counts if "." in k})
+    # the epoch's eval forwards launch the eval kernels of the fused layers
+    forwards = epoch["eval"]["forwards"]
+    for k, per in PER_STEP.items():
+        on = k in fused
+        want[f"{k}.train_launches"] = per * steps if on else 0
+        want[f"{k}.bwd_launches"] = per * steps if on else 0
+        want[f"{k}.launches"] = per * forwards if on else 0
+    print(f"[{tag}] expected launches (training per step x {steps} steps; "
+          f"eval per forward x {forwards} forwards): {want}", flush=True)
     for k, n in want.items():
         if counts[k] != n:
             bad.append(f"{k}: {counts[k]} launches, expected {n}")
@@ -627,11 +659,10 @@ def phase_train(kernel_results, fused_backbone, n_train=24, n_test=8,
           f"device memory {peak:.2f} GiB", flush=True)
     if bad:
         fail(f"{tag}: " + "; ".join(bad))
-    if fused_backbone:
-        for k in ("pallas_block", "pallas_ca_block"):
+    if mode == "stock":   # this slice's main path: every kernel's count
+        for k in PER_STEP:
             kernel_results[f"{k}_bwd"]["launches"] = counts[f"{k}.bwd_launches"]
             kernel_results[k]["train_launches"] = counts[f"{k}.train_launches"]
-    else:
         for k in _supervision_counters():
             kernel_results[k]["launches"] = counts[k]
     tmp.cleanup()
@@ -787,17 +818,116 @@ def step_split(model, cfg, b, gates, label, batch=8):
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB", flush=True)
 
 
-def phase_same_grads(cfg, batch=8):
+class _SupervisionReplay:
+    """The step's discrete supervision (CAM pseudo-boxes, refinement
+    pseudo-labels, the matching) recorded on one run and replayed on
+    another: the loss is then one function of the model's outputs, and
+    its gradients can be compared. Bf16 differences between two paths
+    move near-tied matchings and top-k picks, which changes the loss
+    itself. The replaying run still computes its own to report how many
+    decisions would have differed."""
+
+    def __init__(self):
+        self.seen = {}   # name -> the recording run's outputs, in call order
+        self.same = {}   # name -> the replaying run's own output equal, per call
+
+    def _patch(self, replay):
+        import contextlib
+
+        from spe_tpu_torch.train import criterion
+        from spe_tpu_torch.train import train_step as ts
+
+        sites = ((ts, "cam_pseudo_boxes"), (ts, "postprocess_refine"),
+                 (criterion, "match"))
+
+        def wrap(name, fn):
+            def call(*a, **kw):
+                got = fn(*a, **kw)
+                if not replay:
+                    self.seen.setdefault(name, []).append(got)
+                    return got
+                same = self.same.setdefault(name, [])
+                want = self.seen[name][len(same)]
+                # the matching's rows (its statistics count iterations)
+                same.append(_same_tree(got[0], want[0]) if name == "match"
+                            else _same_tree(got, want))
+                return want
+            return call
+
+        @contextlib.contextmanager
+        def patched():
+            if replay:   # each replaying run starts from the first call
+                self.same = {}
+            orig = [getattr(m, n) for m, n in sites]
+            for (m, n), fn in zip(sites, orig):
+                setattr(m, n, wrap(n, fn))
+            try:
+                yield
+            finally:
+                for (m, n), fn in zip(sites, orig):
+                    setattr(m, n, fn)
+        return patched()
+
+    def recording(self):
+        return self._patch(False)
+
+    def replaying(self):
+        return self._patch(True)
+
+    def report(self):
+        return {k: f"{sum(v)}/{len(v)} calls equal"
+                for k, v in self.same.items()}
+
+
+def _same_tree(a, b):
+    """Tensors, dicts, tuples and lists of them equal?"""
+    import torch
+
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_same_tree(a[k], b[k]) for k in a)
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(_same_tree(x, y) for x, y in zip(a, b))
+    if isinstance(a, torch.Tensor):
+        return a.shape == b.shape and bool(torch.equal(a, b))
+    return a == b
+
+
+# A noise-dominated gradient's fused-vs-f32 distance against the plain bf16
+# model's: bf16 noise on sums that cancel, whose size varies from run to
+# run (ratios of 0.7 to 1.8 seen on the stock preset's worst gradient).
+NOISE_FACTOR = 3.0
+# the parameters that must get a gradient on both sides of the same-grads
+# check; the backbone's must be nonzero too (the zero-by-construction
+# biases aside). Some of decoder layer 0's are zero on both sides at init:
+# its tgt is zero and the biases are, so its self-attention output and
+# LN1 input are zero.
+GRAD_PREFIXES = ("backbone.", "transformer.encoder.", "transformer.decoder.",
+                 "query_embed.", "queries_embed_refine.")
+
+
+def phase_same_grads(cfg, label, batch=8):
     """One batch at dropout 0 through the same weights with the fused
-    backbone on and off: the losses and every parameter's gradient agree
-    within 5% of the plain side's largest magnitude, and every backbone
-    parameter gets a nonzero gradient on both sides. Then the fused
-    configuration's step split."""
+    layers of `cfg` on and every fused flag off (bf16 both), the plain
+    run's discrete supervision replayed in the fused run
+    (_SupervisionReplay). The losses agree within 5% of the plain side's
+    magnitude, and each parameter's gradient within 5% of its largest
+    plain magnitude, or else no further from the same model's gradient
+    in f32 (a third run, same weights, the supervision replayed) than
+    NOISE_FACTOR times the plain bf16 gradient is. The second clause
+    passes only where the plain bf16 path is itself far from the f32
+    math: noise-dominated gradients, small differences of large terms,
+    like the last decoder layers' self-attention q/k projections at init,
+    where the attention is near uniform over near equal values. Every
+    parameter of the backbone, the encoder, the decoder (query_scale,
+    ref_point_head included) and the query embeddings gets a gradient on
+    both sides (the backbone's nonzero). Then the fused configuration's
+    step split."""
     import torch
 
     from spe_tpu_torch.data import train_data, write_mini_voc
     from spe_tpu_torch.models.build import build_model
-    from spe_tpu_torch.ops.kernel_checks import MODEL_REL_TOL, ZERO_GRADS
+    from spe_tpu_torch.ops.kernel_checks import (MODEL_REL_TOL, grad_views,
+                                                 zero_grad_ref)
     from spe_tpu_torch.train import train_step as ts
     from spe_tpu_torch.train.engine import train_batch
 
@@ -806,71 +936,105 @@ def phase_same_grads(cfg, batch=8):
     cfg = cfg.replace(test_path=str(devkit), dropout=0.0,
                       backbone_drop_rate=0.0, drop_attn_rate=0.0,
                       drop_path_rate=0.0)
+    plain_cfg = cfg.replace(use_fused_block=False, use_fused_layers=False,
+                            use_pallas_attention=False)
     _, loader = train_data(cfg)
     b = train_batch(next(iter(loader.epoch(0))), torch.device("cuda"))
     gates = ts.Gates.for_epoch(cfg, 0)
     runs = {}
-    for fused in (True, False):
-        model = build_model(cfg.replace(use_fused_block=fused)).train()
+    replay = _SupervisionReplay()
+    for run, run_cfg in (("plain", plain_cfg),
+                         ("f32", plain_cfg.replace(compute_dtype="float32")),
+                         ("fused", cfg)):
+        model = build_model(run_cfg).train()
         _all_counts(reset=True)
-        total, losses = ts.compute_losses(
-            model, b, cfg, gates, torch.Generator("cuda").manual_seed(3))
+        with replay.recording() if run == "plain" else replay.replaying():
+            total, losses = ts.compute_losses(
+                model, b, run_cfg, gates,
+                torch.Generator("cuda").manual_seed(3))
         total.backward()
         torch.cuda.synchronize()
-        counts = _all_counts()
-        runs[fused] = ({k: float(v.detach()) for k, v in losses.items()},
-                       {n: p.grad.detach().clone() if p.grad is not None
-                        else None for n, p in model.named_parameters()},
-                       counts)
-        if fused:
+        runs[run] = ({k: float(v.detach()) for k, v in losses.items()},
+                     grad_views({n: p.grad.detach().float().clone()
+                                 if p.grad is not None else None
+                                 for n, p in model.named_parameters()}),
+                     _all_counts())
+        if run == "fused":
             fused_model = model
+            own = replay.report()
         else:
-            del model
-    (lf, gf, cf), (lp, gp, _) = runs[True], runs[False]
+            del model, total, losses
+            torch.cuda.empty_cache()
+    (lf, gf, cf), (lp, gp, _), (_, g32, _) = (runs["fused"], runs["plain"],
+                                              runs["f32"])
     bad = []
-    if (cf["pallas_block.train_launches"], cf["pallas_block.bwd_launches"],
-            cf["pallas_ca_block.train_launches"],
-            cf["pallas_ca_block.bwd_launches"]) != (48, 48, 2, 2):
-        bad.append(f"fused launches {cf}")
+    on = [k for k in PER_STEP if k in ("pallas_block", "pallas_ca_block")
+          or cfg.use_fused_layers]
+    want = {f"{k}.{a}": PER_STEP[k] if k in on else 0 for k in PER_STEP
+            for a in ("train_launches", "bwd_launches")}
+    if any(cf[k] != n for k, n in want.items()):
+        bad.append(f"fused launches {cf}, expected {want}")
     for k, v in lp.items():
         if abs(lf[k] - v) > MODEL_REL_TOL * abs(v) + 1e-6:
             bad.append(f"loss {k}: {lf[k]:.6f} vs {v:.6f}")
-    worst, zero = ("", 0.0), []
+    worst, noisy, zero = ("", 0.0), [], []
     for n, w in gp.items():
         g = gf[n]
         # a bias shared by a softmax row has no gradient in exact
         # arithmetic: held against its weight's gradient scale instead
-        short = n.split(".", 5)[-1] if "blocks" in n else n
-        ref_name = n[:-len(short)] + ZERO_GRADS[short] if short in ZERO_GRADS \
-            else None
+        ref_name = zero_grad_ref(n)
         if g is None or w is None:
-            if n.startswith("backbone.") or (g is None) != (w is None):
+            if n.startswith(GRAD_PREFIXES) or (g is None) != (w is None):
                 zero.append(n)
             continue
         if ref_name is None and n.startswith("backbone.") and not (
                 bool(g.abs().max() > 0) and bool(w.abs().max() > 0)):
             zero.append(n)
         top = float(gp[ref_name or n].abs().max())
+        tol = MODEL_REL_TOL * top
         err = float((g - w).abs().max())
-        if top > 0 and err / top > worst[1]:
-            worst = (n, err / top)
-        if err > MODEL_REL_TOL * top:
-            bad.append(f"{n}: err {err:.3e} > {MODEL_REL_TOL} x {top:.3e}")
+        if err <= tol:
+            if top > 0 and err / top > worst[1]:
+                worst = (n, err / top)
+            continue
+        # noise-dominated: the fused path no less accurate than the plain
+        # one against the f32 math
+        plain_f32 = float((w - g32[n]).abs().max())
+        fused_f32 = float((g - g32[n]).abs().max())
+        noisy.append((n, err / top, fused_f32 / top, plain_f32 / top))
+        if fused_f32 > NOISE_FACTOR * plain_f32:
+            bad.append(f"{n}: err {err:.3e} > {tol:.3e} (max|plain| "
+                       f"{top:.3e}), fused vs f32 {fused_f32:.3e} > "
+                       f"{NOISE_FACTOR} x plain vs f32 {plain_f32:.3e}")
     if zero:
         bad.append(f"no gradient on a side: {zero}")
-    print(f"[same-grads] one batch at dropout 0, fused backbone vs plain, "
-          f"same weights: losses {len(lp)} (total fused "
-          f"{sum(lf.values()):.6f}); {len(gp)} parameter gradients, largest "
-          f"err / max|plain| {worst[1]:.3e} ({worst[0]}); limit "
-          f"{MODEL_REL_TOL}; backbone parameters without a gradient "
-          f"{len(zero)}", flush=True)
-    for line in bad[-10:]:
+    print(f"[same-grads] {label}: the fused run's own supervision against "
+          f"the plain run's (replayed, so all runs differentiate one loss): "
+          f"{own}", flush=True)
+    print(f"[same-grads] {label}: one batch at dropout 0, fused layers vs "
+          f"every fused flag off, same weights: losses {len(lp)} (total "
+          f"fused {sum(lf.values()):.6f}, plain {sum(lp.values()):.6f}); "
+          f"{len(gp)} parameter gradients (fused q|k|v tensors in thirds), "
+          f"{len(gp) - len(noisy)} within {MODEL_REL_TOL} of max|plain| "
+          f"(largest {worst[1]:.3e}, {worst[0]}); {len(noisy)} beyond it, "
+          f"held to fused vs f32 <= {NOISE_FACTOR} x plain bf16 vs f32 "
+          f"(largest ratio "
+          f"{max((r[2] / max(r[3], 1e-30) for r in noisy), default=0.0):.2f})"
+          f"; training "
+          f"launches {({k: v for k, v in cf.items() if 'train' in k})}; "
+          f"parameters without a gradient {len(zero)}", flush=True)
+    for n, e, e32, p32 in sorted(noisy, key=lambda r: -r[1])[:8]:
+        print(f"[same-grads] {label}: noise-dominated {n} (all / "
+              f"max|plain|): fused vs plain {e:.3f}, fused vs f32 {e32:.3f}, "
+              f"plain vs f32 {p32:.3f}", flush=True)
+    for line in bad[:20]:
         print(f"[same-grads] {line}", flush=True)
     if bad:
-        fail("same grads: the fused backbone disagrees with the plain one")
-    del runs, gf, gp
+        fail(f"same grads ({label}): the fused layers disagree with the "
+             "plain ones")
+    del runs, gf, gp, g32
     fused_model.zero_grad(set_to_none=True)
-    step_split(fused_model, cfg, b, gates, "fused backbone")
+    step_split(fused_model, cfg, b, gates, label)
     tmp.cleanup()
 
 
@@ -910,10 +1074,12 @@ def main():
     phase_train_kernels(results)
     phase_supervision_kernels(results)
     phase_slice(results)
-    cfg = phase_train(results, fused_backbone=False)
+    cfg = phase_train(results, "off")
     phase_same_step(cfg)
-    fused_cfg = phase_train(results, fused_backbone=True)
-    phase_same_grads(fused_cfg)
+    fused_cfg = phase_train(results, "backbone")
+    phase_same_grads(fused_cfg, "fused backbone")
+    stock_cfg = phase_train(results, "stock")
+    phase_same_grads(stock_cfg, "stock preset")
     jax_mods = sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "jaxlib", "flax", "spe_tpu"))
     if jax_mods:

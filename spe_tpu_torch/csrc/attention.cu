@@ -4,6 +4,14 @@
 // class-attention pre-scale), an optional per-head logit bias, and an
 // optional second pass that writes the exactly normalised f32 probabilities.
 //
+// The training form of the encoder and decoder attentions adds counter
+// dropout on the probabilities and writes each query row's log-sum-exp
+// (B, H, Nq) f32 for the backward. Their attentions have no post-softmax
+// mix, so dropout commutes with the row normalisation: the tile's
+// unnormalised weights e = exp(s - m) enter the running sum undropped and
+// the PV sum as keep ? e / (1 - rate) : 0, and the final 1 / l gives
+// drop(softmax(s)) . V with nothing of size N x N in device memory.
+//
 // Replaces the attention cores inside the TPU layer kernels:
 //   spe_tpu/ops/pallas_block.py:119 _attention (talking heads; called per
 //       output head g with q (.) row_g over all of D, k and v shared)
@@ -39,6 +47,14 @@ struct AttnParams {
   int B, H, Nq, Nk;
   float logit_scale;    // applied to q.k in f32, before the biases
   int out_f32;
+  // training form: keep bits keyed (seed, drop_site, z / mask_heads,
+  // z % mask_heads, query row, key) for the block's z = b * H + h
+  const unsigned* seed;
+  float* lse;           // optional (B, H, Nq) f32 row log-sum-exp of the logits
+  int drop_site;        // 0 = no dropout
+  unsigned drop_thr;
+  float drop_scale;
+  int mask_heads;
 };
 
 namespace {
@@ -127,6 +143,9 @@ __global__ void __launch_bounds__(NT) attn_kernel(AttnParams p) {
   const float* qs = p.qscale ? p.qscale + h * DQ : nullptr;
   const float* kbias = p.kbias ? p.kbias + b * p.kb_sb : nullptr;
   const float hb = p.hbias ? p.hbias[h] : 0.f;
+  const unsigned z = blockIdx.y;
+  const unsigned dkey =
+      p.drop_site ? head_key(*p.seed, p.drop_site, z / p.mask_heads, z % p.mask_heads) : 0u;
 
   for (int e = tid; e < BQ * DQ; e += NT) {
     const int r = e / DQ, c = e % DQ;
@@ -173,11 +192,15 @@ __global__ void __launch_bounds__(NT) attn_kernel(AttnParams p) {
       const float m_old = row_m[r];
       const float m_new = fmaxf(m_old, mx);
       float sum = 0.f;
+      const unsigned qrow = static_cast<unsigned>(q0 + r);
 #pragma unroll
       for (int c = 0; c < 16; ++c) {
         const float e = __expf(srow[c] - m_new);
-        srow[c] = e;
         sum += e;
+        // dropout after the sum: the normaliser is the undropped row's
+        srow[c] = !p.drop_site ? e
+                  : keep_bit(dkey, qrow, static_cast<unsigned>(k0 + part * 16 + c),
+                             p.drop_thr) ? e * p.drop_scale : 0.f;
       }
       sum += __shfl_xor_sync(0xffffffffu, sum, 1);
       sum += __shfl_xor_sync(0xffffffffu, sum, 2);
@@ -216,6 +239,9 @@ __global__ void __launch_bounds__(NT) attn_kernel(AttnParams p) {
     const int qi = q0 + r;
     if (qi >= p.Nq) continue;
     const float inv = 1.f / row_l[r];
+    if (p.lse && tc == 0) {
+      p.lse[static_cast<long long>(z) * p.Nq + qi] = row_m[r] + logf(row_l[r]);
+    }
     const long long base = b * p.o_sb + static_cast<long long>(qi) * p.o_sn + h * p.o_sh;
 #pragma unroll
     for (int j = 0; j < CN; ++j) {
@@ -269,7 +295,8 @@ int launch(const AttnParams* p, cudaStream_t stream) {
 // of D), 48x48 class attention, 24x24 encoder and decoder self-attention,
 // 48x24 conditional cross-attention.
 extern "C" int spe_attention(const AttnParams* p, int dq, int dv, void* stream) {
-  if (p->B <= 0 || p->H <= 0 || p->Nq <= 0 || p->Nk <= 0 || p->B * p->H > 65535) {
+  if (p->B <= 0 || p->H <= 0 || p->Nq <= 0 || p->Nk <= 0 || p->B * p->H > 65535 ||
+      (p->drop_site && (!p->seed || p->mask_heads <= 0))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -49,9 +49,11 @@ __device__ __forceinline__ float gelu_tanh_grad(float u) {
 // steps h <- fmix32(h ^ v * 0x9E3779B1) (murmur3's finaliser), keep when
 // (h >> 8) < thr with thr = round((1 - rate) * 2^24). DropPath stops the
 // chain after the sample. spe_tpu_torch/ops/refmath.py `counter_keep` is the
-// same formula in integer torch arithmetic; the two agree bit for bit.
+// same formula in integer torch arithmetic; the two agree bit for bit. Its
+// comment block lists each layer's sites and the key of each.
 enum DropSite { SITE_NONE = 0, SITE_ATTN = 1, SITE_PROJ = 2, SITE_HIDDEN = 3,
-                SITE_OUT = 4, SITE_PATH1 = 5, SITE_PATH2 = 6 };
+                SITE_OUT = 4, SITE_PATH1 = 5, SITE_PATH2 = 6, SITE_CROSS_ATTN = 7,
+                SITE_CROSS_PROJ = 8 };
 
 __device__ __forceinline__ unsigned fmix32(unsigned h) {
   h ^= h >> 16;

@@ -2,8 +2,12 @@
 //   spe_gemm           a strided, batched product C = alpha * A . B with either
 //                      operand transposed by its strides (dX = dY . W,
 //                      dW = dY^T . X split over row chunks, the per-head
-//                      attention products), an optional dropout mask and a
-//                      GELU-derivative factor in the epilogue;
+//                      attention products), an optional dropout mask, a
+//                      GELU-derivative factor or a ReLU mask in the
+//                      epilogue, column groups in the store (the halves of
+//                      the decoder's head-interleaved cross-attention
+//                      gradients land in two planes) and an accumulate
+//                      mode (C += A . B: dX of a sum of products);
 //   spe_reduce         sums Z partial arrays in a fixed order (the second
 //                      pass of every parameter gradient: no float atomics,
 //                      so two runs give the same bits);
@@ -11,13 +15,16 @@
 //   spe_ln_backward    LayerNorm backward of whole rows plus a residual,
 //                      with per-block dgamma/dbeta partials;
 //   spe_branch_backward  the LayerScale/DropPath/dropout branch
-//                      `x + dp * gamma * drop(y)`: d(y) and dgamma partials;
+//                      `x + dp * gamma * drop(y)`: d(y) and dgamma partials
+//                      (without gamma and val: the dropout mask alone);
 //   spe_dropout_mask   the counter masks themselves (common.cuh), for
 //                      holding them against the torch version bit for bit.
 //
 // Replaces the backward products and reductions inside the TPU kernels
-// spe_tpu/ops/pallas_block.py:225 _block_bwd_kernel and
-// spe_tpu/ops/pallas_ca_block.py:104 _ca_bwd_kernel. The TPU kernels run the
+// spe_tpu/ops/pallas_block.py:225 _block_bwd_kernel,
+// spe_tpu/ops/pallas_ca_block.py:104 _ca_bwd_kernel,
+// spe_tpu/ops/pallas_encoder.py:181 _enc_bwd_kernel and
+// spe_tpu/ops/pallas_decoder.py:292 _dec_bwd_kernel. The TPU kernels run the
 // batch as a sequential grid and add each sample's parameter gradients into
 // a resident output; Hopper blocks run in no order, so every cross-block
 // sum here is written as partials and reduced by spe_reduce.
@@ -32,7 +39,7 @@ struct GemmParams {
   const void* a;          // A(m, k) at z1*a_s1 + z2*a_s2 + m*a_sm + k*a_sk
   const void* b;          // B(k, n) at z1*b_s1 + z2*b_s2 + k*b_sk + n*b_sn
   void* c;                // C(m, n) at z1*c_s1 + z2*c_s2 + m*c_sm + n*c_sn
-  const float* gelu_aux;  // optional (M, N) f32, stride ld_aux: C *= gelu'(aux)
+  const float* act_aux;   // optional (M, N) f32, stride ld_aux (see act_grad)
   const unsigned* seed;   // dropout seed (drop_site != 0)
   long long a_s1, a_s2, a_sm, a_sk;
   long long b_s1, b_s2, b_sk, b_sn;
@@ -45,6 +52,10 @@ struct GemmParams {
   int drop_site;          // mask on C keyed (sample m / rps, 0, m % rps, n)
   unsigned drop_thr;
   float drop_scale;
+  int act_grad;           // with act_aux: 1 C *= gelu'(aux), 2 C = aux > 0 ? C : 0
+  int cgrp;               // column n stored at (n / cgrp) * cgstride + (n % cgrp) * c_sn
+  long long cgstride;
+  int accumulate;         // C += the result (C read in its own dtype)
 };
 
 struct ReduceParams {
@@ -76,11 +87,11 @@ struct LNBwdParams {
 
 struct BranchBwdParams {
   const float* dres;    // (M, D) f32: gradient of the residual stream
-  const float* val;     // (M, D) f32: the branch after its dropout
-  const float* gamma;   // (D)
+  const float* val;     // optional (M, D) f32: the branch after its dropout
+  const float* gamma;   // optional (D), 1 without
   const unsigned* seed;
   float* d;             // (M, D) f32: drop(dres * dp * gamma)
-  float* parts;         // (gridDim, D): sum of dres * dp * val
+  float* parts;         // (gridDim, D): sum of dres * dp * val (with val)
   long long M, rps;
   int D;
   int drop_site;
@@ -183,12 +194,17 @@ __global__ void __launch_bounds__(NT) gemm_kernel(GemmParams p) {
         y = keep_bit(key, static_cast<unsigned>(m % p.rps), static_cast<unsigned>(n),
                      p.drop_thr) ? y * p.drop_scale : 0.f;
       }
-      if (p.gelu_aux) y *= gelu_tanh_grad(p.gelu_aux[m * p.ld_aux + n]);
-      const long long o = coff + m * p.c_sm + n * p.c_sn;
+      if (p.act_aux) {
+        const float u = p.act_aux[m * p.ld_aux + n];
+        y = p.act_grad == 1 ? y * gelu_tanh_grad(u) : (u > 0.f ? y : 0.f);
+      }
+      const long long o = coff + m * p.c_sm + (n / p.cgrp) * p.cgstride + (n % p.cgrp) * p.c_sn;
       if (p.c_f32) {
-        static_cast<float*>(p.c)[o] = y;
+        float* c = static_cast<float*>(p.c);
+        c[o] = p.accumulate ? c[o] + y : y;
       } else {
-        static_cast<bf16*>(p.c)[o] = f2bf(y);
+        bf16* c = static_cast<bf16*>(p.c);
+        c[o] = f2bf(p.accumulate ? bf2f(c[o]) + y : y);
       }
     }
   }
@@ -299,8 +315,8 @@ __global__ void branch_bwd_kernel(BranchBwdParams p) {
                  ? p.path_scale : 0.f;
       }
       const float dr = p.dres[m * p.D + c];
-      dg += dr * dp * p.val[m * p.D + c];
-      float d = dr * dp * p.gamma[c];
+      if (p.val) dg += dr * dp * p.val[m * p.D + c];
+      float d = dr * dp * (p.gamma ? p.gamma[c] : 1.f);
       if (p.drop_site) {
         const unsigned key = head_key(*p.seed, p.drop_site, static_cast<unsigned>(m / p.rps), 0u);
         d = keep_bit(key, static_cast<unsigned>(m % p.rps), static_cast<unsigned>(c),
@@ -308,7 +324,7 @@ __global__ void branch_bwd_kernel(BranchBwdParams p) {
       }
       p.d[m * p.D + c] = d;
     }
-    p.parts[static_cast<long long>(blockIdx.x) * p.D + c] = dg;
+    if (p.val) p.parts[static_cast<long long>(blockIdx.x) * p.D + c] = dg;
   }
 }
 
@@ -330,8 +346,9 @@ __global__ void mask_kernel(MaskParams p) {
 }  // namespace
 
 extern "C" int spe_gemm(const GemmParams* p, void* stream) {
-  if (p->M <= 0 || p->N <= 0 || p->K <= 0 || p->nb1 <= 0 || p->nb2 <= 0 ||
-      (p->drop_site && (!p->seed || p->rps <= 0))) {
+  if (p->M <= 0 || p->N <= 0 || p->K <= 0 || p->nb1 <= 0 || p->nb2 <= 0 || p->cgrp <= 0 ||
+      (p->drop_site && (!p->seed || p->rps <= 0)) ||
+      (p->act_aux && p->act_grad != 1 && p->act_grad != 2)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const long long gm = (p->M + BM - 1) / BM, gn = (p->N + BN - 1) / BN;

@@ -16,15 +16,25 @@
 //                  in bf16 (for dq~ = ds . K and dK = sum_g ds_g^T q~_g), and
 //                  per row partials of dww, dbw and dbl;
 //   th_dq          dQ = sum_g dq~_g (.) row_g and per row partials of dwl;
-//   softmax_bwd    class attention: dl = p (dp + dattn - rowsum(...)), bf16.
-// The math is _block_bwd_kernel's (pallas_block.py:356-451) and
-// _ca_bwd_kernel's (pallas_ca_block.py:166-177).
+//   softmax_bwd    class attention: dl = p (dp + dattn - rowsum(...)), bf16;
+//   attn_bwd_rows  the encoder's and decoder's standard attention: from the
+//                  logits s = scale q . k^T (spe_gemm), the saved row
+//                  log-sum-exp and dzd = do . V^T, p = exp(s + kbias - lse),
+//                  zd = M (.) p / keep (bf16, for dV = zd^T do),
+//                  dp = M (.) dzd / keep, dl = p (dp - rowsum(dp p)) (bf16,
+//                  for dQ = scale dl . K and dK = scale dl^T . Q).
+// The math is _block_bwd_kernel's (pallas_block.py:356-451),
+// _ca_bwd_kernel's (pallas_ca_block.py:166-177), _attn_bwd_loop's
+// (pallas_encoder.py:97-126), and the attention backwards of
+// _dec_bwd_kernel (pallas_decoder.py:82-136, 174-203).
 //
 // What bounds it on the H100: these row kernels read and write each plane
 // element a few times (bytes); the N^2 products around them run in spe_gemm.
 // One block per (sample, query row) holds the H rows of a head group in
 // shared memory, so the row sums need no second launch; every per-row
 // parameter partial is reduced later by spe_reduce (deterministic).
+// attn_bwd_rows has no parameter partials: one warp per row, two passes
+// over it (the row sum, then dl), a fixed shuffle tree for the sum.
 #include "common.cuh"
 
 constexpr int MAXH = 8;
@@ -72,6 +82,22 @@ struct SoftmaxBwdParams {
   bf16* dl;            // (R, C)
   long long R;
   int C;
+};
+
+struct AttnRowParams {
+  const float* s;      // (Z, Nq, Nk) scaled logits without the key bias
+  const float* dzd;    // (Z, Nq, Nk) do . V^T
+  const float* lse;    // (Z, Nq) row log-sum-exp of s + kbias
+  const float* kbias;  // optional (B, Nk) with batch stride kb_sb, b = z / H
+  const unsigned* seed;
+  bf16* zd;            // (Z, Nq, Nk)
+  bf16* dl;            // (Z, Nq, Nk)
+  long long kb_sb;
+  int Z, H, Nq, Nk;
+  int drop_site;       // keep bits keyed (seed, site, z / mask_heads, z % mask_heads, q, k)
+  unsigned drop_thr;
+  float drop_scale;
+  int mask_heads;
 };
 
 namespace {
@@ -235,7 +261,59 @@ __global__ void softmax_bwd_kernel(SoftmaxBwdParams p) {
   }
 }
 
+__device__ __forceinline__ void attn_row_values(const AttnRowParams& p, long long o,
+                                                const float* kb, float lse, unsigned key,
+                                                unsigned i, int j, float* pr, float* dp,
+                                                bool* keep) {
+  *pr = expf(p.s[o + j] + (kb ? kb[j] : 0.f) - lse);
+  *keep = !p.drop_site || keep_bit(key, i, static_cast<unsigned>(j), p.drop_thr);
+  const float sc = p.drop_site ? p.drop_scale : 1.f;
+  *dp = *keep ? p.dzd[o + j] * sc : 0.f;
+}
+
+__global__ void __launch_bounds__(NT) attn_bwd_rows_kernel(AttnRowParams p) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const long long row = static_cast<long long>(blockIdx.x) * (NT / 32) + warp;
+  if (row >= static_cast<long long>(p.Z) * p.Nq) return;
+  const int z = static_cast<int>(row / p.Nq);
+  const unsigned i = static_cast<unsigned>(row % p.Nq);
+  const long long o = row * p.Nk;
+  const float* kb = p.kbias ? p.kbias + (z / p.H) * p.kb_sb : nullptr;
+  const float lse = p.lse[row];
+  const unsigned key =
+      p.drop_site ? head_key(*p.seed, p.drop_site, z / p.mask_heads, z % p.mask_heads) : 0u;
+  const float sc = p.drop_site ? p.drop_scale : 1.f;
+  float acc = 0.f;
+  for (int j = lane; j < p.Nk; j += 32) {
+    float pr, dp;
+    bool keep;
+    attn_row_values(p, o, kb, lse, key, i, j, &pr, &dp, &keep);
+    p.zd[o + j] = f2bf(keep ? pr * sc : 0.f);
+    acc += dp * pr;
+  }
+  const float sum = warp_sum(acc);
+  for (int j = lane; j < p.Nk; j += 32) {
+    float pr, dp;
+    bool keep;
+    attn_row_values(p, o, kb, lse, key, i, j, &pr, &dp, &keep);
+    p.dl[o + j] = f2bf(pr * (dp - sum));
+  }
+}
+
 }  // namespace
+
+extern "C" int spe_attn_bwd_rows(const AttnRowParams* p, void* stream) {
+  const long long rows = static_cast<long long>(p->Z) * p->Nq;
+  if (p->Z <= 0 || p->H <= 0 || p->Nq <= 0 || p->Nk <= 0 ||
+      (p->drop_site && (!p->seed || p->mask_heads <= 0))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long blocks = (rows + NT / 32 - 1) / (NT / 32);
+  if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
+  attn_bwd_rows_kernel<<<static_cast<unsigned>(blocks), NT, 0,
+                         static_cast<cudaStream_t>(stream)>>>(*p);
+  return static_cast<int>(cudaGetLastError());
+}
 
 extern "C" int spe_th_fold(const THFoldParams* p, void* stream) {
   if (p->B <= 0 || p->H <= 0 || p->N <= 0 || p->D <= 0) return static_cast<int>(cudaErrorInvalidValue);

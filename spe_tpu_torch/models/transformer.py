@@ -12,7 +12,10 @@ each set (no padding). Parameter names are the reference state-dict names.
 
 In training mode (`.train()`, a torch.Generator passed to forward) every
 encoder and decoder layer applies the JAX package's dropouts at `dropout`
-(transformer.py:117-131, 234-271).
+(transformer.py:117-131, 234-271). The plain layers draw their masks with
+torch.rand from the generator; the fused layers draw one seed per layer
+call from it and use counter masks (refmath.counter_keep), as JAX draws
+one seed per fused layer (transformer.py:150-155, 313-318).
 """
 
 from __future__ import annotations
@@ -28,6 +31,17 @@ from spe_tpu_torch.ops.fused_decoder import (decoder_layer_reference,
                                              fused_decoder_layer)
 from spe_tpu_torch.ops.fused_encoder import (encoder_layer_reference,
                                              fused_encoder_layer)
+from spe_tpu_torch.ops.refmath import CounterDropout, draw_seed
+
+
+def _dropout(module, gen, device):
+    """The layer's training-mode dropout: a refmath.Dropout for the plain
+    layer, a CounterDropout with a seed drawn from `gen` for the fused one,
+    or None in eval mode or at rate 0."""
+    drop = dropout_for(module, gen, attn=module.dropout, proj=module.dropout)
+    if drop is None or not module.use_fused:
+        return drop
+    return CounterDropout(draw_seed(gen, device), drop.attn, drop.proj)
 
 
 class MLP(nn.Module):
@@ -65,8 +79,7 @@ class TransformerEncoderLayer(nn.Module):
     def forward(self, src, pos, key_padding_mask=None, gen=None):
         fn = fused_encoder_layer if self.use_fused else encoder_layer_reference
         return fn(src, pos, key_padding_mask, dict(self.named_parameters()),
-                  self.nhead, dropout_for(self, gen, attn=self.dropout,
-                                          proj=self.dropout))
+                  self.nhead, _dropout(self, gen, src.device))
 
 
 class TransformerEncoder(nn.Module):
@@ -114,8 +127,7 @@ class ConditionalDecoderLayer(nn.Module):
         fn = fused_decoder_layer if self.use_fused else decoder_layer_reference
         return fn(tgt, memory, pos, query_pos, query_sine_embed,
                   key_padding_mask, dict(self.named_parameters()), self.nhead,
-                  self.num_sets, dropout_for(self, gen, attn=self.dropout,
-                                             proj=self.dropout))
+                  self.num_sets, _dropout(self, gen, tgt.device))
 
 
 class ConditionalDecoder(nn.Module):

@@ -58,7 +58,8 @@ from spe_tpu_torch.ops.refmath import (SITE_ATTN, SITE_HIDDEN, SITE_OUT,
                                        CounterDropout, drop_path, drop_site,
                                        gelu_tanh, gelu_tanh_grad, layer_norm,
                                        ln_backward_reference, merge_heads, mm,
-                                       needs_grad, split_heads, weight_grad)
+                                       needs_grad, no_dropout, split_heads,
+                                       weight_grad)
 
 EPS = 1e-6
 PARAM_NAMES = (
@@ -114,11 +115,6 @@ def layer_scale_block_reference(x, p, num_heads, drop=None):
     return (x1 + drop_path(drop, p["gamma_2"].float() * m)).to(dt)
 
 
-def _no_drop(x):
-    return CounterDropout(torch.zeros((1,), dtype=torch.int32,
-                                      device=x.device))
-
-
 def _attention_train(x, p, H, drop, lse=None):
     """The recomputable front of the training forward: (h1, q, k, v, rows,
     qg, probs, zd, lse) of the plain version; with `lse` given (the
@@ -145,7 +141,7 @@ def layer_scale_block_train_reference(x, p, num_heads, drop=None):
     """Plain training forward with the counter masks (refmath.CounterDropout;
     None: every rate 0) -> (out, o (B, N, D) in x's dtype, md (B, N, D) f32,
     lse (B, H, N) f32: each mixed head's row log-sum-exp)."""
-    drop = drop or _no_drop(x)
+    drop = drop or no_dropout(x.device)
     dt = x.dtype
     B = x.shape[0]
     H = num_heads
@@ -181,7 +177,7 @@ def layer_scale_block_backward_reference(dy, x, o, md, lse, p, num_heads,
     du, dao, dzd's operands, dmix and dqkv to the working dtype before each
     product). -> (dx in x's dtype, {PARAM_NAMES: f32 gradient}); the
     ROUNDED matrices' gradients come back rounded to the working dtype."""
-    drop = drop or _no_drop(x)
+    drop = drop or no_dropout(x.device)
     dt = x.dtype
     B, N, D = x.shape
     H = num_heads
@@ -475,7 +471,7 @@ def fused_layer_scale_block(x, params, num_heads, drop=None):
     forward; otherwise the eval forward."""
     p = {n: params[n] for n in PARAM_NAMES}
     if needs_grad([x, *p.values()]):
-        drop = drop or _no_drop(x)
+        drop = drop or no_dropout(x.device)
         return LayerScaleBlockFn.apply(x, drop.seed, drop.rates, num_heads,
                                        *p.values())
     if drop is not None and any(drop.rates):

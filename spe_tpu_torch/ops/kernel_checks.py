@@ -57,8 +57,10 @@ MAP_KEYS = ("cams_cls", "ca0_probs")
 # and the gradients of the bf16-cast matrices and dx are themselves rounded
 # to bf16 (one ulp at the largest magnitude is 0.4-0.8% of it).
 GRAD_REL_TOL = 0.01
-# the recipe's dropout rates: attention, projection/MLP, DropPath
+# the recipe's dropout rates: attention, projection/MLP, DropPath in the
+# patch blocks; every site of the encoder and decoder layers (`dropout`)
 RECIPE_RATES = (0.05, 0.07, 0.2)
+TRANSFORMER_RATE = 0.1
 
 
 def model_tol(key, ref):
@@ -69,13 +71,44 @@ def model_tol(key, ref):
     return MODEL_REL_TOL * float(ref.abs().max())
 
 
-# Two bias gradients are zero in exact arithmetic: a logit bias shared by a
-# whole softmax row (the block's pre-softmax head bias `attn.proj_l.bias`,
-# class attention's key bias `attn.k.bias`) moves no probability. Both
-# sides compute rounding noise there, so those two are held to 1% of the
-# largest magnitude of the matching weight's gradient instead.
+# Some bias gradients are zero in exact arithmetic: a logit bias shared by a
+# whole softmax row moves no probability. These are the block's pre-softmax
+# head bias, every key projection's bias (class attention's, the encoder's
+# k third of in_proj_bias, the decoder's content and position key
+# projections in both attentions). Both sides compute rounding noise there,
+# so each is held to 1% of the largest magnitude of the matching weight's
+# gradient instead. `grad_views` names the thirds of the encoder's fused
+# q|k|v tensors `<name>[q]`, `<name>[k]`, `<name>[v]`.
 ZERO_GRADS = {"attn.proj_l.bias": "attn.proj_l.weight",
-              "attn.k.bias": "attn.k.weight"}
+              "attn.k.bias": "attn.k.weight",
+              "self_attn.in_proj_bias[k]": "self_attn.in_proj_weight[k]",
+              "sa_kcontent_proj.bias": "sa_kcontent_proj.weight",
+              "sa_kpos_proj.bias": "sa_kpos_proj.weight",
+              "ca_kcontent_proj.bias": "ca_kcontent_proj.weight",
+              "ca_kpos_proj.bias": "ca_kpos_proj.weight"}
+QKV_FUSED = ("self_attn.in_proj_weight", "self_attn.in_proj_bias")
+
+
+def grad_views(grads):
+    """{name: gradient} with each fused q|k|v tensor split into its thirds
+    (names of any prefix: a model's full parameter names too)."""
+    out = {}
+    for n, t in grads.items():
+        if t is not None and n.endswith(QKV_FUSED):
+            for part, third in zip("qkv", t.chunk(3)):
+                out[f"{n}[{part}]"] = third
+        else:
+            out[n] = t
+    return out
+
+
+def zero_grad_ref(name):
+    """The gradient a zero-by-construction `name` is held against, or None
+    (full names: the prefix is kept)."""
+    for z, ref in ZERO_GRADS.items():
+        if name == z or name.endswith("." + z):
+            return name[:len(name) - len(z)] + ref
+    return None
 
 
 def grad_tol(ref):
@@ -83,8 +116,9 @@ def grad_tol(ref):
 
 
 def grad_tols(grads):
-    """{name: tolerance} for a layer's reference gradients {name: tensor}."""
-    return {k: grad_tol(grads[ZERO_GRADS.get(k, k)]) for k in grads}
+    """{name: tolerance} for a layer's reference gradients (grad_views
+    names)."""
+    return {k: grad_tol(grads[zero_grad_ref(k) or k]) for k in grads}
 
 
 def bf16_tol(ref, ulps=ULPS):
@@ -163,11 +197,48 @@ def _block_linear_ops(B, N, D, F):
     return 2 * B * N * (4 * D * D + 2 * D * F)
 
 
+def _transformer_work(name, args):
+    """An encoder or decoder layer's work at the shapes of `args` (a
+    train_cases entry): linear and per-head attention products of the
+    forward and of the backward (the logits recompute, dzd, dV, dQ and dK
+    of each attention) in ops (2 per multiply-add), the masked values,
+    the attention rows' values, and the bytes of the inputs read and the
+    output written once, of the saved tensors and of the parameters."""
+    x = args[0]
+    p = next(a for a in args if isinstance(a, dict))
+    B, R, D = x.shape
+    F = p["linear1.weight"].shape[0]
+    tensors = [a for a in args if isinstance(a, torch.Tensor)]
+    io = _nbytes(*tensors) + _nbytes(x)
+    if name == "pallas_encoder":
+        H = args[4]
+        lin = 2 * B * R * (4 * D * D + 2 * D * F)
+        att, att_bwd = 4 * B * R * R * D, 10 * B * R * R * D
+        rows = B * H * R * R
+        masks = rows + 2 * B * R * D + B * R * F
+        saved = B * R * D * (2 + 4) + B * H * R * 4
+    else:
+        H, S = args[7], args[8]
+        N = args[1].shape[1]
+        n_q = 10 if "ca_qpos_proj.weight" in p else 9
+        lin = 2 * B * (R * D * D * n_q + 3 * N * D * D + 2 * R * D * F)
+        # self-attention: S sets of R/S queries; cross-attention: q.k at
+        # 2D, V at D per query and key
+        att = 4 * B * R * (R // S) * D + 6 * B * R * N * D
+        att_bwd = 10 * B * R * (R // S) * D + 16 * B * R * N * D
+        rows = B * H * (R * (R // S) + R * N)
+        masks = rows + 3 * B * R * D + B * R * F
+        saved = B * R * D * (2 + 2 + 4) + 2 * B * H * R * 4
+    return dict(lin=lin, att=att, att_bwd=att_bwd, rows=rows, masks=masks,
+                io=io, saved=saved, params=_nbytes(*p.values()))
+
+
 def train_bound_ms(name, args):
     """The training forward's bound: the eval layer's work plus the saved
     residuals written (o, md and the row statistics of the block; o and
-    the MLP output of class attention) and the dropout masks (one integer
-    hash chain step per masked value, at the f32/int rate)."""
+    the MLP output of class attention; o, h2d and the log-sum-exps of the
+    encoder and decoder) and the dropout masks (one integer hash chain
+    step per masked value, at the f32/int rate)."""
     if name == "pallas_block":
         x, p, H, _ = args
         B, N, D = x.shape
@@ -179,6 +250,11 @@ def train_bound_ms(name, args):
         return bound_ms(io + _nbytes(*p.values()),
                         [(ops, BF16_TENSOR_OPS_PER_MS),
                          (scalar, SCALAR_OPS_PER_MS)])
+    if name in ("pallas_encoder", "pallas_decoder"):
+        w = _transformer_work(name, args)
+        return bound_ms(w["io"] + w["saved"] + w["params"],
+                        [(w["lin"] + w["att"], BF16_TENSOR_OPS_PER_MS),
+                         (12 * w["masks"], SCALAR_OPS_PER_MS)])
     cls, x, p, H = args
     B, t, D = cls.shape
     b, by = layer_bound_ms(name, (cls, x, p, H))
@@ -189,11 +265,12 @@ def train_bound_ms(name, args):
 def bwd_bound_ms(name, args, cot):
     """The backward's bound: at the bf16 tensor rate the layer's own
     per-head attention products (block: the QK recompute, dV, dzd, dQ and
-    dK, about 10 B N^2 D; class attention: dp, dV, dq and dk, 8 B t N D)
-    plus twice the forward's linear products; at the f32 rate the
-    talking-heads mixes, softmax backward and masks; bytes: the saved
-    tensors and cotangents read once, dx and the f32 parameter gradients
-    written once, the parameters read once."""
+    dK, about 10 B N^2 D; class attention: dp, dV, dq and dk, 8 B t N D;
+    encoder and decoder: the logits recompute, dzd, dV, dQ and dK of each
+    attention) plus twice the forward's linear products; at the f32 rate
+    the talking-heads mixes, softmax backward, masks and LayerNorm; bytes:
+    the saved tensors and cotangents read once, the input and f32
+    parameter gradients written once, the parameters read once."""
     if name == "pallas_block":
         x, p, H, _ = args
         B, N, D = x.shape
@@ -202,6 +279,18 @@ def bwd_bound_ms(name, args, cot):
         scalar = 6 * B * N * N * H * H + 10 * B * N * N * H
         io = 2 * _nbytes(x) + B * N * D * (2 + 4) + B * H * N * 4 \
             + _nbytes(*cot)
+    elif name in ("pallas_encoder", "pallas_decoder"):
+        w = _transformer_work(name, args)
+        p = next(a for a in args if isinstance(a, dict))
+        ops = w["att_bwd"] + 2 * w["lin"]
+        # the row pass (~10 per value: exp, mask, two sums), the masks, and
+        # the three LayerNorm backwards (~10 per value each)
+        scalar = 10 * w["rows"] + 12 * w["masks"] + 30 * args[0].numel()
+        acts = [a for a in args if isinstance(a, torch.Tensor)
+                and a.is_floating_point()]
+        # activations read and their gradients written in f32
+        io = _nbytes(*acts) + 4 * sum(a.numel() for a in acts) \
+            + w["saved"] + _nbytes(*cot)
     else:
         cls, x, p, H = args
         B, t, D = cls.shape
@@ -350,42 +439,10 @@ def _backbone_params(gen, device, D=192):
     return blk, ca
 
 
-def train_cases(B=2, N=1024, t=21, device="cuda", seed=0,
-                rates=RECIPE_RATES):
-    """[(name, module, args, cotangents)] of the two backbone layers in
-    training at the voc0712 widths: the patch block with the recipe's
-    dropout rates and a seed tensor on `device`, and the class-attention
-    block; bf16 activations and cotangents, plus a nonzero f32 cotangent
-    on the class-attention probabilities."""
-    D = 192
-    gen = torch.Generator().manual_seed(seed + 1)
-    blk, ca = _backbone_params(gen, device, D)
-
-    def act(*shape, dtype=torch.bfloat16):
-        return torch.randn(shape, generator=gen).to(dtype).to(device)
-
-    x, cls = act(B, N, D), act(B, t, D)
-    drop = CounterDropout(torch.tensor([20240611], dtype=torch.int32,
-                                       device=device), *rates)
-    dattn = 0.1 * act(B, 4, t, t + N, dtype=torch.float32)
-    return [("pallas_block", fused_block, (x, blk, 4, drop), (act(B, N, D),)),
-            ("pallas_ca_block", fused_ca_block, (cls, x, ca, 4),
-             (act(B, t, D), dattn))]
-
-
-def kernel_cases(B=2, N=1024, t=21, S=2, Q=300, device="cuda", seed=0):
-    """[(name, replaces, fused fn, plain fn, args)] for the four kernels;
-    the decoder twice, with the layer-0 (ca_qpos_proj) and the later-layer
-    parameter sets."""
-    D, F = 192, 2048
-    gen = torch.Generator().manual_seed(seed)
+def _transformer_params(gen, device, D=192, F=2048):
+    """The encoder layer's and the decoder layer's parameters (8 heads),
+    the decoder's as layer 0 (with ca_qpos_proj) and as a later layer."""
     param, linear, norm = _makers(gen, device, D)
-
-    def act(*shape):
-        return torch.randn(shape, generator=gen).to(torch.bfloat16).to(device)
-
-    blk, ca = _backbone_params(gen, device, D)
-
     enc = {"self_attn.in_proj_weight": param((3 * D, D), D ** -0.5),
            "self_attn.in_proj_bias": param((3 * D,), 0.02)}
     linear(enc, "self_attn.out_proj", D, D)
@@ -407,10 +464,111 @@ def kernel_cases(B=2, N=1024, t=21, S=2, Q=300, device="cuda", seed=0):
     linear(dec, "linear2", F, D)
     dec_later = {k: v for k, v in dec.items()
                  if not k.startswith("ca_qpos_proj")}
+    return enc, dec, dec_later
 
+
+def _key_mask(B, N, device):
+    """Padded keys on the last image (its last tenth)."""
     mask = torch.zeros((B, N), dtype=torch.bool)
-    mask[-1, N - N // 10:] = True  # padded keys on the last image
-    mask = mask.to(device)
+    mask[-1, N - N // 10:] = True
+    return mask.to(device)
+
+
+def train_cases(B=2, N=1024, t=21, S=2, Q=300, device="cuda", seed=0,
+                rates=RECIPE_RATES, rate=TRANSFORMER_RATE):
+    """[(name, module, args, cotangents)] of the fused layers in training
+    at the voc0712 widths: the patch block with the recipe's dropout rates
+    and a seed tensor on `device`; the class-attention block; the encoder
+    layer and the decoder layer (layer 0 and a later layer) at the recipe's
+    `dropout` on every site, with a padded-key mask. bf16 activations and
+    cotangents, plus a nonzero f32 cotangent on the class-attention
+    probabilities."""
+    D = 192
+    gen = torch.Generator().manual_seed(seed + 1)
+    blk, ca = _backbone_params(gen, device, D)
+
+    def act(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen).to(dtype).to(device)
+
+    def seed_of(v):
+        return torch.tensor([v], dtype=torch.int32, device=device)
+
+    x, cls = act(B, N, D), act(B, t, D)
+    drop = CounterDropout(seed_of(20240611), *rates)
+    dattn = 0.1 * act(B, 4, t, t + N, dtype=torch.float32)
+    cases = [("pallas_block", fused_block, (x, blk, 4, drop), (act(B, N, D),)),
+             ("pallas_ca_block", fused_ca_block, (cls, x, ca, 4),
+              (act(B, t, D), dattn))]
+    enc, dec, dec_later = _transformer_params(gen, device, D)
+    pos, mask = act(B, N, D), _key_mask(B, N, device)
+    tgt, qpos, sine = act(B, S * Q, D), act(B, S * Q, D), act(B, S * Q, D)
+    tdrop = CounterDropout(seed_of(20240612), rate, rate)
+    dec_args = (tgt, x, pos, qpos, sine, mask)
+    return cases + [
+        ("pallas_encoder", fused_encoder, (x, pos, mask, enc, 8, tdrop),
+         (act(B, N, D),)),
+        ("pallas_decoder", fused_decoder, (*dec_args, dec, 8, S, tdrop),
+         (act(B, S * Q, D),)),
+        ("pallas_decoder", fused_decoder, (*dec_args, dec_later, 8, S, tdrop),
+         (act(B, S * Q, D),))]
+
+
+# per layer: (plain training forward, plain backward, the inputs whose
+# gradients the backward returns, in its order)
+TRAIN_API = {
+    "pallas_block": ("layer_scale_block_train_reference",
+                     "layer_scale_block_backward_reference", ("dx",)),
+    "pallas_ca_block": ("class_attn_block_train_reference",
+                        "class_attn_block_backward_reference",
+                        ("dcls", "dx")),
+    "pallas_encoder": ("encoder_layer_train_reference",
+                       "encoder_layer_backward_reference", ("dx", "dpos")),
+    "pallas_decoder": ("decoder_layer_train_reference",
+                       "decoder_layer_backward_reference",
+                       ("dtgt", "dmem", "dpos", "dqpos", "dsine")),
+}
+# the TPU backward each replaces
+BWD_REPLACES = {"pallas_block": "spe_tpu/ops/pallas_block.py:513",
+                "pallas_ca_block": "spe_tpu/ops/pallas_ca_block.py:243",
+                "pallas_encoder": "spe_tpu/ops/pallas_encoder.py:344",
+                "pallas_decoder": "spe_tpu/ops/pallas_decoder.py:550"}
+
+
+def plain_train(name, mod):
+    """-> (plain training forward, plain backward) of a train_cases layer."""
+    fwd, bwd, _ = TRAIN_API[name]
+    return getattr(mod, fwd), getattr(mod, bwd)
+
+
+def backward_args(args, saved, cot):
+    """A backward's arguments from a train_cases entry and the training
+    forward's saved outputs (its outputs after the first): the
+    cotangents, the inputs, the saved tensors, then the parameters and
+    the rest of the forward's arguments."""
+    i = next(j for j, a in enumerate(args) if isinstance(a, dict))
+    return (*cot, *args[:i], *saved, *args[i:])
+
+
+def flat_grads(name, result):
+    """A backward's (input gradients..., {name: gradient}) -> {name:
+    gradient} over the inputs and grad_views of the parameters."""
+    *dins, g = result
+    return {**dict(zip(TRAIN_API[name][2], dins)), **grad_views(g)}
+
+
+def kernel_cases(B=2, N=1024, t=21, S=2, Q=300, device="cuda", seed=0):
+    """[(name, replaces, fused fn, plain fn, args)] for the four kernels;
+    the decoder twice, with the layer-0 (ca_qpos_proj) and the later-layer
+    parameter sets."""
+    D = 192
+    gen = torch.Generator().manual_seed(seed)
+
+    def act(*shape):
+        return torch.randn(shape, generator=gen).to(torch.bfloat16).to(device)
+
+    blk, ca = _backbone_params(gen, device, D)
+    enc, dec, dec_later = _transformer_params(gen, device, D)
+    mask = _key_mask(B, N, device)
     x, pos, cls = act(B, N, D), act(B, N, D), act(B, t, D)
     tgt, qpos, sine = act(B, S * Q, D), act(B, S * Q, D), act(B, S * Q, D)
     return [

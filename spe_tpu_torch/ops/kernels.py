@@ -124,7 +124,11 @@ class _AttnParams(ctypes.Structure):
                    ("q_sb", "q_sn", "q_sh", "k_sb", "k_sn", "k_sh",
                     "v_sb", "v_sn", "v_sh", "o_sb", "o_sn", "o_sh", "kb_sb")]
                 + [(n, ctypes.c_int) for n in ("B", "H", "Nq", "Nk")]
-                + [("logit_scale", ctypes.c_float), ("out_f32", ctypes.c_int)])
+                + [("logit_scale", ctypes.c_float), ("out_f32", ctypes.c_int),
+                   ("seed", ctypes.c_void_p), ("lse", ctypes.c_void_p),
+                   ("drop_site", ctypes.c_int), ("drop_thr", ctypes.c_uint),
+                   ("drop_scale", ctypes.c_float),
+                   ("mask_heads", ctypes.c_int)])
 
 
 class _LNParams(ctypes.Structure):
@@ -175,11 +179,12 @@ _P, _LL, _I, _U, _FL = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
 
 class _GemmParams(ctypes.Structure):
     _fields_ = _struct(
-        (_P, "a b c gelu_aux seed"),
+        (_P, "a b c act_aux seed"),
         (_LL, "a_s1 a_s2 a_sm a_sk b_s1 b_s2 b_sk b_sn c_s1 c_s2 c_sm c_sn "
               "ld_aux rps kmax"),
         (_I, "M N K nb1 nb2 a_f32 b_f32 c_f32 split"), (_FL, "alpha"),
-        (_I, "drop_site"), (_U, "drop_thr"), (_FL, "drop_scale"))
+        (_I, "drop_site"), (_U, "drop_thr"), (_FL, "drop_scale"),
+        (_I, "act_grad cgrp"), (_LL, "cgstride"), (_I, "accumulate"))
 
 
 class _ReduceParams(ctypes.Structure):
@@ -228,6 +233,12 @@ class _SoftmaxBwdParams(ctypes.Structure):
     _fields_ = _struct((_P, "p dp dattn dl"), (_LL, "R"), (_I, "C"))
 
 
+class _AttnRowParams(ctypes.Structure):
+    _fields_ = _struct((_P, "s dzd lse kbias seed zd dl"), (_LL, "kb_sb"),
+                       (_I, "Z H Nq Nk drop_site"), (_U, "drop_thr"),
+                       (_FL, "drop_scale"), (_I, "mask_heads"))
+
+
 def lib():
     global _lib
     if _lib is None:
@@ -246,7 +257,8 @@ def lib():
                              ("spe_dropout_mask", _MaskParams),
                              ("spe_th_fold", _THFoldParams),
                              ("spe_th_dq", _THDqParams),
-                             ("spe_softmax_backward", _SoftmaxBwdParams)):
+                             ("spe_softmax_backward", _SoftmaxBwdParams),
+                             ("spe_attn_bwd_rows", _AttnRowParams)):
             fn = getattr(so, name)
             fn.argtypes = [ctypes.POINTER(struct), ctypes.c_void_p]
             fn.restype = ctypes.c_int
@@ -404,13 +416,16 @@ def ln_linear(a, w, bias=None, *, ln=None, a2=None, act="none", res=None,
 
 def attention(q, k, v, out, *, num_heads, dq, dv, q_hs, k_hs, v_hs, o_hs,
               qscale=None, kbias=None, hbias=None, logit_scale=1.0,
-              probs=None):
+              probs=None, seed=None, drop=None, mask_heads=None, lse=None):
     """Online-softmax attention. q/k/v/out are (B, rows, cols) views, last dim
     contiguous; head h of each starts at column h * <x>_hs (0 = shared by
     every head) and is dq (q, k) or dv (v, out) wide. qscale: (H, dq) f32,
     q <- bf16(q * qscale[h]); kbias: (B, Nk) f32; hbias: (H,) f32;
     probs: optional (B, H, Nq, Nk) f32 output of the normalised
-    probabilities."""
+    probabilities. The training form: drop = (site, rate) masks the
+    probabilities with keep bits keyed (seed, site, z // mask_heads,
+    z % mask_heads, row, key) for z = b * H + h (mask_heads defaults to
+    H); lse: optional (B, H, Nq) f32 output of each row's log-sum-exp."""
     for t, n in ((q, "q"), (k, "k"), (v, "v")):
         _need(t, _BF16, n, 3)
     _need(out, (_BF16, _F32), "out", 3)
@@ -441,6 +456,16 @@ def attention(q, k, v, out, *, num_heads, dq, dv, q_hs, k_hs, v_hs, o_hs,
         _need(probs, _F32, "probs", 4)
         if tuple(probs.shape) != (B, H, Nq, Nk) or not probs.is_contiguous():
             raise ValueError(f"probs must be ({B}, {H}, {Nq}, {Nk}) contiguous")
+    if lse is not None:
+        _need(lse, _F32, "lse", 3)
+        if tuple(lse.shape) != (B, H, Nq) or not lse.is_contiguous():
+            raise ValueError(f"lse must be ({B}, {H}, {Nq}) contiguous")
+    dsite, dthr, dscale = _site(drop)
+    _need_seed(seed, dsite)
+    mask_heads = H if mask_heads is None else mask_heads
+    if dsite and (B * H) % mask_heads:
+        raise ValueError(f"{B * H} (sample, head) pairs are not whole groups "
+                         f"of mask_heads {mask_heads}")
     p = _AttnParams(
         q=q.data_ptr(), k=k.data_ptr(), v=v.data_ptr(), qscale=_ptr(qscale),
         kbias=_ptr(kbias), hbias=_ptr(hbias), out=out.data_ptr(),
@@ -451,7 +476,9 @@ def attention(q, k, v, out, *, num_heads, dq, dv, q_hs, k_hs, v_hs, o_hs,
         o_sb=out.stride(0), o_sn=out.stride(1), o_sh=o_hs,
         kb_sb=kbias.stride(0) if kbias is not None else 0,
         B=B, H=H, Nq=Nq, Nk=Nk, logit_scale=float(logit_scale),
-        out_f32=int(out.dtype == _F32))
+        out_f32=int(out.dtype == _F32), seed=_ptr(seed), lse=_ptr(lse),
+        drop_site=dsite, drop_thr=dthr, drop_scale=dscale,
+        mask_heads=mask_heads)
     err = lib().spe_attention(ctypes.byref(p), dq, dv, _stream())
     _check(err, f"spe_attention(dq={dq}, dv={dv})")
     return out
@@ -563,15 +590,18 @@ def _span(t, strides, sizes):
 
 def gemm(a, b, c, *, M, N, K, a_str, b_str, c_str, nb=(1, 1), alpha=1.0,
          split_k=None, seed=None, drop=None, rows_per_sample=1,
-         gelu_aux=None):
+         gelu_aux=None, relu_aux=None, col_group=None, col_stride=0,
+         accumulate=False):
     """C(m, n) = alpha * sum_k A(m, k) B(k, n), batched over z = (z1, z2)
     < nb: A(m, k) at z1*s1 + z2*s2 + m*sm + k*sk of `a` for a_str = (s1,
     s2, sm, sk), B(k, n) likewise with b_str = (s1, s2, sk, sn), C(m, n)
     with c_str = (s1, s2, sm, sn). a and b are bf16 or f32 (rounded to
     bf16 at the load), c bf16 or f32. split_k = total depth: z1 indexes
     chunks of K (the last may be short). The epilogue masks C with drop =
-    (site, rate) (samples of rows_per_sample rows) and multiplies it by
-    gelu'(gelu_aux (M, N) f32)."""
+    (site, rate) (samples of rows_per_sample rows), then multiplies it by
+    gelu'(gelu_aux) or zeroes it where relu_aux <= 0 (either (M, N) f32).
+    With col_group, column n is stored at (n // col_group) * col_stride +
+    (n % col_group) * sn; with accumulate, C += the result."""
     for t, n in ((a, "a"), (b, "b"), (c, "c")):
         _need(t, (_BF16, _F32), n)
     nb1, nb2 = nb
@@ -582,25 +612,33 @@ def gemm(a, b, c, *, M, N, K, a_str, b_str, c_str, nb=(1, 1), alpha=1.0,
         _span(b, b_str[2:], (depth, N))
     else:
         _span(b, b_str, (nb1, nb2, K, N))
-    _span(c, c_str, (nb1, nb2, M, N))
-    if gelu_aux is not None:
-        _need(gelu_aux, _F32, "gelu_aux", 2)
-        if tuple(gelu_aux.shape) != (M, N) or nb1 * nb2 != 1:
-            raise ValueError("gelu_aux must be (M, N) of an unbatched product")
+    grp = N if col_group is None else col_group
+    _span(c, (*c_str[:3], col_stride, c_str[3]),
+          (nb1, nb2, M, -(-N // grp), min(grp, N)))
+    if gelu_aux is not None and relu_aux is not None:
+        raise ValueError("one activation derivative per product")
+    act_aux = gelu_aux if relu_aux is None else relu_aux
+    if act_aux is not None:
+        _need(act_aux, _F32, "act_aux", 2)
+        if tuple(act_aux.shape) != (M, N) or nb1 * nb2 != 1:
+            raise ValueError("the activation's aux must be (M, N) of an "
+                             "unbatched product")
     dsite, dthr, dscale = _site(drop)
     _need_seed(seed, dsite, rows_per_sample, M)
     if dsite and nb1 * nb2 != 1:
         raise ValueError("the dropout epilogue takes an unbatched product")
     p = _GemmParams(
-        a=a.data_ptr(), b=b.data_ptr(), c=c.data_ptr(), gelu_aux=_ptr(gelu_aux),
+        a=a.data_ptr(), b=b.data_ptr(), c=c.data_ptr(), act_aux=_ptr(act_aux),
         seed=_ptr(seed), a_s1=a_str[0], a_s2=a_str[1], a_sm=a_str[2],
         a_sk=a_str[3], b_s1=b_str[0], b_s2=b_str[1], b_sk=b_str[2],
         b_sn=b_str[3], c_s1=c_str[0], c_s2=c_str[1], c_sm=c_str[2],
-        c_sn=c_str[3], ld_aux=gelu_aux.stride(0) if gelu_aux is not None else 0,
+        c_sn=c_str[3], ld_aux=act_aux.stride(0) if act_aux is not None else 0,
         rps=rows_per_sample, kmax=depth, M=M, N=N, K=K, nb1=nb1, nb2=nb2,
         a_f32=int(a.dtype == _F32), b_f32=int(b.dtype == _F32),
         c_f32=int(c.dtype == _F32), split=int(split_k is not None),
-        alpha=float(alpha), drop_site=dsite, drop_thr=dthr, drop_scale=dscale)
+        alpha=float(alpha), drop_site=dsite, drop_thr=dthr, drop_scale=dscale,
+        act_grad=1 if gelu_aux is not None else 2, cgrp=grp,
+        cgstride=col_stride, accumulate=int(accumulate))
     _check(lib().spe_gemm(ctypes.byref(p), _stream()), "spe_gemm")
     return c
 
@@ -623,19 +661,27 @@ ROW_CHUNK = 512   # rows per partial of a weight gradient
 
 
 def matmul_dx(dy, w, *, seed=None, drop=None, rows_per_sample=1,
-              gelu_aux=None):
+              gelu_aux=None, relu_aux=None, out=None):
     """dY (M, N) f32/bf16 rows @ W (N, K) bf16 (torch Linear layout) ->
-    (M, K) f32, through gemm's epilogue (dropout mask, GELU derivative)."""
+    (M, K) f32, through gemm's epilogue (dropout mask, GELU derivative or
+    ReLU mask); with `out` ((M, K) f32 rows) the product is added to it."""
     _need(dy, (_BF16, _F32), "dy", 2)
     _need(w, _BF16, "w", 2)
     M, N = dy.shape
     if w.shape[0] != N or not w.is_contiguous():
         raise ValueError(f"w {tuple(w.shape)} does not match dy {tuple(dy.shape)}")
     K = w.shape[1]
-    out = torch.empty((M, K), device=dy.device, dtype=_F32)
+    accumulate = out is not None
+    if accumulate:
+        _need(out, _F32, "out", 2)
+        if tuple(out.shape) != (M, K):
+            raise ValueError(f"out must be {(M, K)}, got {tuple(out.shape)}")
+    else:
+        out = torch.empty((M, K), device=dy.device, dtype=_F32)
     return gemm(dy, w, out, M=M, N=K, K=N, a_str=(0, 0, dy.stride(0), 1),
-                b_str=(0, 0, K, 1), c_str=(0, 0, K, 1), seed=seed, drop=drop,
-                rows_per_sample=rows_per_sample, gelu_aux=gelu_aux)
+                b_str=(0, 0, K, 1), c_str=(0, 0, out.stride(0), 1), seed=seed,
+                drop=drop, rows_per_sample=rows_per_sample, gelu_aux=gelu_aux,
+                relu_aux=relu_aux, accumulate=accumulate)
 
 
 def grad_weight(dy, x, round_bf16=True):
@@ -705,29 +751,42 @@ def ln_backward(dy, x, weight, eps, *, res=None, out_dtype=_F32):
 def branch_backward(dres, val, gamma, *, seed=None, drop=None, path=None,
                     rows_per_sample=1):
     """The residual branch `x + dp * gamma * val`, val = drop(y) (M, D) f32:
-    -> (dy = drop(dres * dp * gamma) f32, dgamma = sum dres * dp * val)."""
+    -> (dy = drop(dres * dp * gamma) f32, dgamma = sum dres * dp * val).
+    Without gamma it counts as 1; without val no dgamma is summed (None)."""
     _need(dres, _F32, "dres", 2)
-    _need(val, _F32, "val", 2)
-    _need(gamma, _F32, "gamma", 1)
     M, D = dres.shape
+    for t, n in ((val, "val"), (gamma, "gamma")):
+        if t is not None:
+            _need(t, _F32, n)
     for t in (dres, val):
-        if tuple(t.shape) != (M, D) or not t.is_contiguous():
+        if t is not None and (tuple(t.shape) != (M, D) or
+                              not t.is_contiguous()):
             raise ValueError("dres and val must be contiguous (M, D)")
+    if gamma is not None and tuple(gamma.shape) != (D,):
+        raise ValueError(f"gamma must have {D} entries")
     dsite, dthr, dscale = _site(drop)
     psite, pthr, pscale = _site(path)
     _need_seed(seed, dsite or psite, rows_per_sample, M)
     d = torch.empty((M, D), device=dres.device, dtype=_F32)
     blocks = -(-M // LN_ROWS)
-    parts = torch.empty((blocks, D), device=dres.device, dtype=_F32)
-    p = _BranchBwdParams(dres=dres.data_ptr(), val=val.data_ptr(),
-                         gamma=gamma.data_ptr(), seed=_ptr(seed),
-                         d=d.data_ptr(), parts=parts.data_ptr(), M=M,
+    parts = None if val is None else torch.empty((blocks, D),
+                                                 device=dres.device, dtype=_F32)
+    p = _BranchBwdParams(dres=dres.data_ptr(), val=_ptr(val),
+                         gamma=_ptr(gamma), seed=_ptr(seed),
+                         d=d.data_ptr(), parts=_ptr(parts), M=M,
                          rps=rows_per_sample, D=D, drop_site=dsite,
                          drop_thr=dthr, drop_scale=dscale, path_site=psite,
                          path_thr=pthr, path_scale=pscale)
     _check(lib().spe_branch_backward(ctypes.byref(p), _stream()),
            "spe_branch_backward")
-    return d, reduce_sum(parts)
+    return d, None if parts is None else reduce_sum(parts)
+
+
+def dropout_grad(dy, seed, drop, rows_per_sample):
+    """d/dy of a dropout site on (M, D) f32 rows: drop = (site, rate), the
+    forward's mask and scale (samples of rows_per_sample rows)."""
+    return branch_backward(dy, None, None, seed=seed, drop=drop,
+                           rows_per_sample=rows_per_sample)[0]
 
 
 def dropout_mask(seed, site, rate, shape):
@@ -848,3 +907,95 @@ def softmax_backward(probs, dp, dattn=None):
     _check(lib().spe_softmax_backward(ctypes.byref(p), _stream()),
            "spe_softmax_backward")
     return dl
+
+
+def attention_bwd_rows(s, dzd, lse, kbias, seed, drop, *, num_heads,
+                       mask_heads=None):
+    """The row pass of the standard attention backward. s: (B, H, Nq, Nk)
+    f32 scaled logits without the key bias; dzd: do . V^T of that shape;
+    lse: (B, H, Nq) f32 of s + kbias (the forward's); kbias: (B, Nk) f32 or
+    None; drop = (site, rate) with the forward's keys (see `attention`)
+    -> (zd, dl) bf16 (B, H, Nq, Nk): the dropped probabilities and
+    p (dp - rowsum(dp p)) with dp the masked dzd."""
+    _need(s, _F32, "s", 4)
+    _need(dzd, _F32, "dzd", 4)
+    _need(lse, _F32, "lse", 3)
+    B, H, Nq, Nk = s.shape
+    if H != num_heads or dzd.shape != s.shape or \
+            tuple(lse.shape) != (B, H, Nq) or not (
+                s.is_contiguous() and dzd.is_contiguous() and
+                lse.is_contiguous()):
+        raise ValueError("s, dzd (B, H, Nq, Nk) and lse (B, H, Nq) must be "
+                         "contiguous and agree")
+    if kbias is not None:
+        _need(kbias, _F32, "kbias", 2)
+        if tuple(kbias.shape) != (B, Nk):
+            raise ValueError(f"kbias must be ({B}, {Nk})")
+    dsite, dthr, dscale = _site(drop)
+    _need_seed(seed, dsite)
+    zd = torch.empty(s.shape, device=s.device, dtype=_BF16)
+    dl = torch.empty(s.shape, device=s.device, dtype=_BF16)
+    p = _AttnRowParams(s=s.data_ptr(), dzd=dzd.data_ptr(), lse=lse.data_ptr(),
+                       kbias=_ptr(kbias), seed=_ptr(seed), zd=zd.data_ptr(),
+                       dl=dl.data_ptr(),
+                       kb_sb=kbias.stride(0) if kbias is not None else 0,
+                       Z=B * H, H=H, Nq=Nq, Nk=Nk, drop_site=dsite,
+                       drop_thr=dthr, drop_scale=dscale,
+                       mask_heads=H if mask_heads is None else mask_heads)
+    _check(lib().spe_attn_bwd_rows(ctypes.byref(p), _stream()),
+           "spe_attn_bwd_rows")
+    return zd, dl
+
+
+def _heads(t, hs):
+    """(batch, row, head) strides of a (B, rows, cols) view whose head h
+    starts at column h * hs."""
+    return t.stride(0), t.stride(1), hs
+
+
+def attention_backward(q, k, v, do, lse, *, num_heads, dq, dv, q_hs, k_hs,
+                       v_hs, do_hs, dq_out, dk_out, dv_out, dq_hs, dk_hs,
+                       dv_hs, kbias=None, logit_scale=1.0, seed=None,
+                       drop=None, mask_heads=None, split=None):
+    """The backward of `attention` in its training form, per (sample, head)
+    by strides: the logits s = scale q . k^T and dzd = do . V^T (spe_gemm,
+    f32 planes (B, H, Nq, Nk)), the row pass (zd, dl), then dV = zd^T do,
+    dQ = scale dl . K, dK = scale dl^T . Q. q/k/v (bf16) and do (f32) are
+    the forward's (B, rows, cols) views with head strides; the gradients
+    are written into the f32 views dq_out (B, Nq, .), dk_out (B, Nk, .),
+    dv_out (B, Nk, .) with head strides dq_hs, dk_hs, dv_hs. split =
+    (col_group, q_plane, k_plane): dQ's and dK's columns n >= col_group of
+    each head go col_group back and one plane on (the halves of the
+    decoder's [content | position] heads)."""
+    B, Nq = q.shape[:2]
+    Nk = k.shape[1]
+    H = num_heads
+    dev = q.device
+    plane = (H * Nq * Nk, Nq * Nk)
+    qs, ks, vs, ds = (_heads(q, q_hs), _heads(k, k_hs), _heads(v, v_hs),
+                      _heads(do, do_hs))
+    s = torch.empty((B, H, Nq, Nk), device=dev, dtype=_F32)
+    gemm(q, k, s, M=Nq, N=Nk, K=dq, nb=(B, H), alpha=logit_scale,
+         a_str=(qs[0], qs[2], qs[1], 1), b_str=(ks[0], ks[2], 1, ks[1]),
+         c_str=(*plane, Nk, 1))
+    dzd = torch.empty((B, H, Nq, Nk), device=dev, dtype=_F32)
+    gemm(do, v, dzd, M=Nq, N=Nk, K=dv, nb=(B, H),
+         a_str=(ds[0], ds[2], ds[1], 1), b_str=(vs[0], vs[2], 1, vs[1]),
+         c_str=(*plane, Nk, 1))
+    zd, dl = attention_bwd_rows(s, dzd, lse, kbias, seed, drop, num_heads=H,
+                                mask_heads=mask_heads)
+    del s, dzd
+    grp, q_plane, k_plane = split or (None, 0, 0)
+    o = _heads(dv_out, dv_hs)
+    gemm(zd, do, dv_out, M=Nk, N=dv, K=Nq, nb=(B, H),
+         a_str=(*plane, 1, Nk), b_str=(ds[0], ds[2], ds[1], 1),
+         c_str=(o[0], o[2], o[1], 1))
+    del zd
+    o = _heads(dq_out, dq_hs)
+    gemm(dl, k, dq_out, M=Nq, N=dq, K=Nk, nb=(B, H), alpha=logit_scale,
+         a_str=(*plane, Nk, 1), b_str=(ks[0], ks[2], ks[1], 1),
+         c_str=(o[0], o[2], o[1], 1), col_group=grp, col_stride=q_plane)
+    o = _heads(dk_out, dk_hs)
+    gemm(dl, q, dk_out, M=Nk, N=dq, K=Nq, nb=(B, H), alpha=logit_scale,
+         a_str=(*plane, 1, Nk), b_str=(qs[0], qs[2], qs[1], 1),
+         c_str=(o[0], o[2], o[1], 1), col_group=grp, col_stride=k_plane)

@@ -7,10 +7,10 @@ f32. With f32 inputs every rounding is a no-op and they are the f32 math.
 
 `Dropout` is their training form: the JAX package's nn.Dropout and DropPath
 (spe_tpu/models/layers.py) with masks drawn from an explicit
-torch.Generator. The fused backbone layers draw theirs from counters
-instead (`CounterDropout`, `counter_keep`), which their CUDA kernels
-reproduce bit for bit; `gelu_tanh_grad`, `ln_backward_reference` and
-`weight_grad` are the pieces of their hand-derived backwards.
+torch.Generator. The fused layers draw theirs from counters instead
+(`CounterDropout`, `counter_keep`), which their CUDA kernels reproduce bit
+for bit; `gelu_tanh_grad`, `ln_backward_reference` and `weight_grad` are
+the pieces of their hand-derived backwards.
 """
 
 from __future__ import annotations
@@ -131,22 +131,6 @@ def needs_grad(tensors) -> bool:
         t is not None and t.requires_grad for t in tensors)
 
 
-def refuse_training(name: str, tensors, drop):
-    """The CUDA path of the encoder and decoder layers is their eval
-    forward: its launches are invisible to autograd and it has no dropout.
-    Raise, naming ROADMAP B1b, rather than train with missing gradients or
-    without dropout."""
-    if drop is not None and drop.any():
-        raise NotImplementedError(
-            f"{name}: the CUDA kernels have no dropout yet (the training "
-            "forward is ROADMAP B1b); train with --no_use_fused_layers")
-    if needs_grad(tensors):
-        raise NotImplementedError(
-            f"{name}: the CUDA kernels have no backward yet (ROADMAP B1b), "
-            "so autograd would miss their gradients; run under "
-            "torch.no_grad() or train with --no_use_fused_layers")
-
-
 # ---- counter-based dropout (the fused layers' training form) ----
 #
 # A keep decision is a pure function of (seed, site, sample, head, row, col):
@@ -157,8 +141,23 @@ def refuse_training(name: str, tensors, drop):
 # kernels (csrc/common.cuh `keep_bit`) and this integer-arithmetic version
 # give the same bits. DropPath is one draw per (seed, site, sample):
 # the chain stops after the sample.
+#
+# The sites and their keys. Every layer call has its own seed, as JAX draws
+# one per block and per encoder/decoder layer (spe_tpu/models/cait.py
+# :176-180, transformer.py:150-155, 313-318); rows count within a sample.
+#   patch block       ATTN (b, g, q, k) post-mix head g; PROJ, HIDDEN, OUT
+#                     (b, 0, row, col); PATH1, PATH2 (b)
+#   encoder layer     ATTN (b, h, q, k); PROJ (out_proj), HIDDEN (ReLU), OUT
+#                     (linear2): (b, 0, row, col)
+#   decoder layer     ATTN (b, s*H + h, q, k): self-attention of query set s,
+#                     q and k within the set (the JAX tag 100 + s*H + h,
+#                     pallas_decoder.py:110); CROSS_ATTN (b, h, q, k) over
+#                     the S*Q stacked queries and the memory keys; PROJ
+#                     (self-attention out_proj), CROSS_PROJ (cross-attention
+#                     out_proj), HIDDEN, OUT: (b, 0, row, col), row < S*Q
 
-SITE_ATTN, SITE_PROJ, SITE_HIDDEN, SITE_OUT, SITE_PATH1, SITE_PATH2 = range(1, 7)
+(SITE_ATTN, SITE_PROJ, SITE_HIDDEN, SITE_OUT, SITE_PATH1, SITE_PATH2,
+ SITE_CROSS_ATTN, SITE_CROSS_PROJ) = range(1, 9)
 _M32 = 0xFFFFFFFF
 
 
@@ -221,6 +220,12 @@ def draw_seed(gen: torch.Generator, device):
                          device=gen.device, dtype=torch.int32).to(device)
 
 
+def no_dropout(device):
+    """A CounterDropout with every rate 0 (the Functions' form at eval
+    rates)."""
+    return CounterDropout(torch.zeros((1,), dtype=torch.int32, device=device))
+
+
 @dataclasses.dataclass(frozen=True)
 class CounterDropout:
     """The fused layers' training-mode dropout: the rates of the sites and
@@ -234,10 +239,17 @@ class CounterDropout:
     def rates(self):
         return (self.attn, self.proj, self.path)
 
-    def site(self, x, site: int, rate: float, head_dim=False):
-        """x (B, R, C), or (B, H, R, C) with head_dim, through `site`."""
+    def site(self, x, site: int, rate: float, head_dim=False,
+             mask_heads=None):
+        """x (B, R, C), or (B, H, R, C) with head_dim, through `site`. With
+        mask_heads the mask is keyed on x viewed as (-1, mask_heads, R, C):
+        the decoder's self-attention folds its query sets into the batch."""
         if rate == 0.0:
             return x
+        if mask_heads is not None:
+            shape = (-1, mask_heads) + tuple(x.shape[-2:])
+            return self.site(x.reshape(shape), site, rate,
+                             head_dim=True).reshape(x.shape)
         shape = x.shape if head_dim else (x.shape[0], 1) + tuple(x.shape[1:])
         keep = counter_keep(self.seed, site, rate, shape).reshape(x.shape)
         return torch.where(keep, x * keep_scale(rate), 0.0)

@@ -1,6 +1,6 @@
 """The hand-written CUDA kernels on the card (marker `cuda`): each fused
 layer against its plain PyTorch version at the recipe widths with cut
-sequence lengths, the backbone layers' training forward and backward
+sequence lengths, every fused layer's training forward and backward
 kernels and their dropout masks likewise, a small full-width detector
 through the kernels against the same weights through the plain versions,
 and the two supervision kernels (connected components, auction) against
@@ -124,7 +124,9 @@ def test_dropout_masks_equal_torch(card):
 
     seed = torch.tensor([31337], dtype=torch.int32, device=card)
     for site, rate, shape in ((1, 0.05, (2, 4, 100, 100)),
-                              (3, 0.07, (2, 1, 100, 768)), (5, 0.2, (64,))):
+                              (3, 0.07, (2, 1, 100, 768)), (5, 0.2, (64,)),
+                              (7, 0.1, (2, 8, 60, 100)),
+                              (8, 0.1, (2, 1, 60, 192))):
         got = K.dropout_mask(seed, site, rate, shape)
         want = (path_keep(seed, site, rate, shape[0]) if len(shape) == 1
                 else counter_keep(seed, site, rate, shape))
@@ -132,44 +134,37 @@ def test_dropout_masks_equal_torch(card):
         assert torch.equal(got, want), (site, shape)
 
 
-@pytest.mark.parametrize("case", range(2))
+@pytest.mark.parametrize("case", range(5))
 def test_train_kernels_match_plain(card, case):
-    """The patch block (recipe dropout) and the class-attention block
-    (with a CAM cotangent) at N=100, t=21: the training forward within 4
-    bf16 ulps, every gradient of the backward within
+    """The patch block (recipe dropout), the class-attention block (with a
+    CAM cotangent), the encoder layer and the decoder layer (layer 0 and a
+    later layer; the recipe's dropout 0.1) at N=100 keys, t=21, Q=30
+    queries per set: the training forward within 4 bf16 ulps (the CAM
+    probabilities within PROBS_TOL), every gradient of the backward within
     kernel_checks.grad_tols of the plain backward on the same saved
     tensors, and two backward runs bit-identical."""
-    from spe_tpu_torch.ops.kernel_checks import (PROBS_TOL, bf16_tol,
+    from spe_tpu_torch.ops.kernel_checks import (PROBS_TOL, backward_args,
+                                                 bf16_tol, flat_grads,
                                                  grad_tols, max_err,
-                                                 train_cases)
+                                                 plain_train, train_cases)
 
-    name, mod, args, cot = train_cases(B=2, N=100)[case]
-    block = name == "pallas_block"
+    name, mod, args, cot = train_cases(B=2, N=100, Q=30)[case]
+    plain_fwd, plain_bwd = plain_train(name, mod)
     with torch.no_grad():
         got = mod._train_cuda(*args)
-        want = (mod.layer_scale_block_train_reference if block
-                else mod.class_attn_block_train_reference)(*args)
+        want = plain_fwd(*args)
         for i, (g, w) in enumerate(zip(got, want)):
-            tol = PROBS_TOL if (not block and i == 1) else bf16_tol(w)
-            assert max_err(g, w) <= tol, (name, i)
-        if block:
-            x, p, H, drop = args
-            saved = (cot[0], x, *got[1:], p, H, drop)
-            plain = mod.layer_scale_block_backward_reference
-        else:
-            cls, x, p, H = args
-            saved = (cot[0], cot[1], cls, x, *got[1:], p, H)
-            plain = mod.class_attn_block_backward_reference
-        r1, r2, ref = (mod._backward_cuda(*saved), mod._backward_cuda(*saved),
-                       plain(*saved))
+            probs = name == "pallas_ca_block" and i == 1
+            assert max_err(g, w) <= (PROBS_TOL if probs else bf16_tol(w)), \
+                (name, i)
+        saved = backward_args(args, got[1:], cot)
+        r1, r2, ref = (flat_grads(name, f(*saved)) for f in
+                       (mod._backward_cuda, mod._backward_cuda, plain_bwd))
         torch.cuda.synchronize()
-    tols = grad_tols(ref[-1])
-    for k in mod.PARAM_NAMES:
-        assert max_err(r1[-1][k], ref[-1][k]) <= tols[k], (name, k)
-        assert torch.equal(r1[-1][k], r2[-1][k]), (name, k)
-    for a, b, w in zip(r1[:-1], r2[:-1], ref[:-1]):
-        assert max_err(a, w) <= 0.01 * float(w.float().abs().max()), name
-        assert torch.equal(a, b), name
+    tols = grad_tols(ref)
+    for k, w in ref.items():
+        assert max_err(r1[k], w) <= tols[k], (name, k)
+        assert torch.equal(r1[k], r2[k]), (name, k)
 
 
 def test_fused_backbone_function_counts_launches(card):
@@ -189,3 +184,28 @@ def test_fused_backbone_function_counts_launches(card):
                                                     before[1] + 1)
     assert torch.isfinite(xt.grad.float()).all()
     assert all(torch.isfinite(v.grad).all() for v in leaves.values())
+
+
+def test_transformer_functions_count_launches(card):
+    """One encoder and one decoder layer through their autograd Functions
+    on the card: one training-forward and one backward launch each, finite
+    gradients on every input and parameter."""
+    from spe_tpu_torch.ops import fused_decoder, fused_encoder
+    from spe_tpu_torch.ops.kernel_checks import train_cases
+
+    cases = train_cases(B=1, N=64, Q=16)
+    _, _, (x, pos, mask, enc, H, drop), (dy,) = cases[2]
+    _, _, (tgt, _, _, qpos, sine, _, dec, _, S, _), (dt,) = cases[3]
+    fe, fd = fused_encoder.fused_encoder_layer, fused_decoder.fused_decoder_layer
+    before = [(f.train_launches, f.bwd_launches) for f in (fe, fd)]
+    le = {k: v.clone().requires_grad_() for k, v in enc.items()}
+    ld = {k: v.clone().requires_grad_() for k, v in dec.items()}
+    ins = [t.clone().requires_grad_() for t in (x, pos, tgt, qpos, sine)]
+    mem = fe(ins[0], ins[1], mask, le, H, drop)
+    out = fd(ins[2], mem, ins[1], ins[3], ins[4], mask, ld, H, S, drop)
+    torch.autograd.backward([out, mem], [dt, dy])
+    torch.cuda.synchronize()
+    assert [(f.train_launches, f.bwd_launches) for f in (fe, fd)] == [
+        (b[0] + 1, b[1] + 1) for b in before]
+    for t in (*ins, *le.values(), *ld.values()):
+        assert torch.isfinite(t.grad.float()).all()

@@ -1,8 +1,9 @@
-"""The Python side of each fused layer's CUDA path (`_forward_cuda`, and
-for the backbone blocks `_train_cuda`, `_backward_cuda` and the autograd
-Function's save and restore: the views, strides, head strides,
-head-interleaved stores, residual/LN wiring and dropout sites it hands the
-kernels) run on the CPU against torch emulations of the C entry points,
+"""The Python side of each fused layer's CUDA path (`_forward_cuda`,
+`_train_cuda`, `_backward_cuda` and the autograd Function's save and
+restore: the views, strides, head strides, head-interleaved stores and
+their two-plane gradients, residual/LN wiring, in-place accumulation and
+dropout sites and keys it hands the kernels) run on the CPU against torch
+emulations of the C entry points,
 which follow the contract the wrappers in spe_tpu_torch/ops/kernels.py
 document. This checks the wiring, not the kernels: the kernels themselves
 run only on the card (tests/test_torch_cuda.py, chip_smoke.py). Forward
@@ -15,11 +16,11 @@ import pytest
 import torch
 import torch.nn.functional as F
 
-from spe_tpu_torch.ops import fused_block, fused_ca_block
 from spe_tpu_torch.ops import kernels as K
-from spe_tpu_torch.ops.kernel_checks import (bf16_tol, grad_tol, grad_tols,
+from spe_tpu_torch.ops.kernel_checks import (backward_args, bf16_tol,
+                                             flat_grads, grad_tols,
                                              kernel_cases, max_err,
-                                             train_cases)
+                                             plain_train, train_cases)
 from spe_tpu_torch.ops.refmath import (counter_keep, gelu_tanh_grad,
                                        keep_scale, ln_backward_reference,
                                        path_keep)
@@ -72,9 +73,16 @@ def ln_linear(a, w, bias=None, *, ln=None, a2=None, act="none", res=None,
     return out
 
 
+def _attn_keep(seed, drop, shape, mask_heads):
+    """The attention keep bits of (B, H, Nq, Nk) keyed by mask_heads."""
+    Z = shape[0] * shape[1]
+    return counter_keep(seed, drop[0], drop[1],
+                        (Z // mask_heads, mask_heads, *shape[2:])).reshape(shape)
+
+
 def attention(q, k, v, out, *, num_heads, dq, dv, q_hs, k_hs, v_hs, o_hs,
               qscale=None, kbias=None, hbias=None, logit_scale=1.0,
-              probs=None):
+              probs=None, seed=None, drop=None, mask_heads=None, lse=None):
     B, H = q.shape[0], num_heads
 
     def heads(t, hs, d):
@@ -91,9 +99,14 @@ def attention(q, k, v, out, *, num_heads, dq, dv, q_hs, k_hs, v_hs, o_hs,
     if hbias is not None:
         s = s + hbias[None, :, None, None]
     p = torch.softmax(s, dim=-1)
-    heads(out, o_hs, dv).copy_((p @ heads(v, v_hs, dv).float()).to(out.dtype))
     if probs is not None:
         probs.copy_(p)
+    if lse is not None:
+        lse.copy_(torch.logsumexp(s, dim=-1))
+    if drop is not None and drop[1] > 0:
+        p = torch.where(_attn_keep(seed, drop, p.shape, mask_heads or H),
+                        p * keep_scale(drop[1]), 0.0)
+    heads(out, o_hs, dv).copy_((p @ heads(v, v_hs, dv).float()).to(out.dtype))
     return out
 
 
@@ -116,7 +129,8 @@ def th_mix(pv, csum, ww, bw):
 
 def gemm(a, b, c, *, M, N, K, a_str, b_str, c_str, nb=(1, 1), alpha=1.0,
          split_k=None, seed=None, drop=None, rows_per_sample=1,
-         gelu_aux=None):
+         gelu_aux=None, relu_aux=None, col_group=None, col_stride=0,
+         accumulate=False):
     def view(t, st, sizes):
         return t.as_strided(sizes, st, t.storage_offset()).float().to(
             BF16).float()
@@ -134,7 +148,13 @@ def gemm(a, b, c, *, M, N, K, a_str, b_str, c_str, nb=(1, 1), alpha=1.0,
                         y * keep_scale(drop[1]), 0.0)
     if gelu_aux is not None:
         y = y * gelu_tanh_grad(gelu_aux)
-    c.as_strided((nb1, nb2, M, N), c_str, c.storage_offset()).copy_(y)
+    if relu_aux is not None:
+        y = torch.where(relu_aux > 0, y, 0.0)
+    grp = col_group or N
+    view = c.as_strided((nb1, nb2, M, N // grp, grp),
+                        (*c_str[:3], col_stride, c_str[3]), c.storage_offset())
+    y = y.reshape(view.shape).to(c.dtype)
+    view.add_(y) if accumulate else view.copy_(y)
     return c
 
 
@@ -158,11 +178,11 @@ def branch_backward(dres, val, gamma, *, seed=None, drop=None, path=None,
     dp = 1.0
     if path is not None and path[1] > 0:
         dp = _path_factor(seed, path, M, rows_per_sample)
-    d = dres * dp * gamma
+    d = dres * dp * (gamma if gamma is not None else 1.0)
     if drop is not None and drop[1] > 0:
         d = torch.where(_row_keep(seed, drop, M, D, rows_per_sample),
                         d * keep_scale(drop[1]), 0.0)
-    return d, (dres * dp * val).sum(0)
+    return d, None if val is None else (dres * dp * val).sum(0)
 
 
 def th_fold(q, rows):
@@ -206,6 +226,21 @@ def softmax_backward(probs, dp, dattn=None):
     return (probs * (d - (d * probs).sum(-1, keepdim=True))).to(BF16)
 
 
+def attention_bwd_rows(s, dzd, lse, kbias, seed, drop, *, num_heads,
+                       mask_heads=None):
+    if kbias is not None:
+        s = s + kbias[:, None, None, :]
+    p = torch.exp(s - lse[..., None])
+    keep = torch.ones(s.shape, dtype=torch.bool)
+    sc = 1.0
+    if drop is not None and drop[1] > 0:
+        keep = _attn_keep(seed, drop, s.shape, mask_heads or num_heads)
+        sc = keep_scale(drop[1])
+    dp = torch.where(keep, dzd * sc, 0.0)
+    return (torch.where(keep, p * sc, 0.0).to(BF16),
+            (p * (dp - (dp * p).sum(-1, keepdim=True))).to(BF16))
+
+
 def _check_but_device(t, dtype, name, ndim=None):
     """kernels._need without the device test."""
     if t.dtype not in (dtype if isinstance(dtype, tuple) else (dtype,)):
@@ -223,7 +258,8 @@ def emulated(monkeypatch):
     monkeypatch.setattr(K, "_need", _check_but_device)
     for fn in (ln_linear, attention, layernorm, colsum, th_mix, gemm,
                reduce_sum, colsum_f32, ln_backward, branch_backward, th_fold,
-               th_fwd_rows, th_bwd_rows, th_dq, softmax_backward):
+               th_fwd_rows, th_bwd_rows, th_dq, softmax_backward,
+               attention_bwd_rows):
         monkeypatch.setattr(K, fn.__name__, fn)
 
 
@@ -244,56 +280,62 @@ def test_cuda_path_wiring(emulated, case):
         assert max_err(g, w) <= 1e-5, name
 
 
-@pytest.mark.parametrize("case", range(2))
+TRAIN = dict(B=2, N=40, t=5, S=2, Q=6, device="cpu")
+WRAPPERS = {"pallas_block": "fused_layer_scale_block",
+            "pallas_ca_block": "fused_class_attn_block",
+            "pallas_encoder": "fused_encoder_layer",
+            "pallas_decoder": "fused_decoder_layer"}
+
+
+@pytest.mark.parametrize("case", range(5))
 def test_cuda_train_path_wiring(emulated, case):
-    """`_train_cuda` (block at the recipe's dropout rates; class attention)
-    against the plain training forward: every output it saves too."""
-    name, mod, args, _ = train_cases(B=2, N=40, t=5, device="cpu")[case]
+    """`_train_cuda` (the block at the recipe's dropout rates, class
+    attention, the encoder and both decoder parameter sets at the recipe's
+    `dropout`) against the plain training forward: every output it saves
+    too."""
+    name, mod, args, _ = train_cases(**TRAIN)[case]
     with torch.no_grad():
         got = mod._train_cuda(*args)
-        want = getattr(mod, {"pallas_block": "layer_scale_block_train_reference",
-                             "pallas_ca_block": "class_attn_block_train_reference"}[name])(*args)
+        want = plain_train(name, mod)[0](*args)
     assert max_err(got[0], want[0]) <= bf16_tol(want[0], ulps=2), name
     for g, w in zip(got[1:], want[1:]):
         assert g.dtype == w.dtype and g.shape == w.shape, name
         assert max_err(g, w) <= bf16_tol(w, ulps=2), name
 
 
-@pytest.mark.parametrize("case", range(2))
+def _leaf(t):
+    return t.clone().requires_grad_() if t.is_floating_point() else t
+
+
+@pytest.mark.parametrize("case", range(5))
 def test_cuda_function_wiring(emulated, monkeypatch, case):
     """The autograd Function down its CUDA branch (forward, save, restore,
-    backward) against `*_backward_reference` on the same cotangents, with
-    the launch counters moving once per direction."""
-    name, mod, args, cot = train_cases(B=2, N=40, t=5, device="cpu")[case]
+    backward) against `*_backward_reference` on the same cotangents and
+    the tensors `_train_cuda` saves (a ReLU mask turns a one-ulp change of
+    a saved tensor into a different gradient), with the launch counters
+    moving once per direction."""
+    name, mod, args, cot = train_cases(**TRAIN)[case]
     monkeypatch.setattr(mod, "_plain", lambda t: False)
-    fn = {"pallas_block": fused_block.fused_layer_scale_block,
-          "pallas_ca_block": fused_ca_block.fused_class_attn_block}[name]
+    fn = getattr(mod, WRAPPERS[name])
     before = (fn.train_launches, fn.bwd_launches)
-    if name == "pallas_block":
-        x, p, H, drop = args
-        leaves = {k: v.clone().requires_grad_() for k, v in p.items()}
-        xt = x.clone().requires_grad_()
-        out = fn(xt, leaves, H, drop)
-        out.backward(cot[0])
-        ref = fused_block.layer_scale_block_train_reference(x, p, H, drop)
-        dx, g = fused_block.layer_scale_block_backward_reference(
-            cot[0], x, *ref[1:], p, H, drop)
-        pairs = [(xt.grad, dx)]
-    else:
-        cls, x, p, H = args
-        leaves = {k: v.clone().requires_grad_() for k, v in p.items()}
-        ct, xt = cls.clone().requires_grad_(), x.clone().requires_grad_()
-        out, attn = fn(ct, xt, leaves, H)
-        torch.autograd.backward([out, attn], list(cot))
-        ref = fused_ca_block.class_attn_block_train_reference(cls, x, p, H)
-        dcls, dx, g = fused_ca_block.class_attn_block_backward_reference(
-            cot[0], cot[1], cls, x, ref[1], ref[2], ref[3], p, H)
-        pairs = [(ct.grad, dcls), (xt.grad, dx)]
+    i = next(j for j, a in enumerate(args) if isinstance(a, dict))
+    inputs = [_leaf(a) if isinstance(a, torch.Tensor) else a
+              for a in args[:i]]
+    leaves = {k: v.clone().requires_grad_() for k, v in args[i].items()}
+    out = fn(*inputs, leaves, *args[i + 1:])
+    outs = out if isinstance(out, tuple) else (out,)
+    torch.autograd.backward(list(outs), list(cot)[:len(outs)])
+    with torch.no_grad():
+        saved = mod._train_cuda(*args)[1:]
+        want = flat_grads(name, plain_train(name, mod)[1](
+            *backward_args(args, saved, cot)))
+    got = dict(zip(want, [t.grad for t in inputs
+                          if isinstance(t, torch.Tensor) and t.requires_grad]))
+    got.update(flat_grads(name, (*got.values(),
+                                 {k: v.grad for k, v in leaves.items()})))
     assert (fn.train_launches, fn.bwd_launches) == (before[0] + 1,
                                                     before[1] + 1)
-    tols = grad_tols(g)
-    for got, want in pairs:
-        assert got.dtype == want.dtype
-        assert max_err(got, want) <= grad_tol(want), name
-    for k in mod.PARAM_NAMES:
-        assert max_err(leaves[k].grad, g[k]) <= tols[k], (name, k)
+    tols = grad_tols(want)
+    for k, w in want.items():
+        assert got[k].dtype == w.dtype, (name, k)
+        assert max_err(got[k], w) <= tols[k], (name, k)

@@ -22,6 +22,7 @@ from spe_tpu.models.convert import convert_detector
 from spe_tpu.models.detector import SPEDetector
 from spe_tpu_torch.models import cait as tcait
 from spe_tpu_torch.models import detector as tdet
+from spe_tpu_torch.models import transformer as ttr
 from spe_tpu_torch.models.convert import state_dict_from_jax
 
 KW = dict(num_det_classes=5, num_queries=12, num_refines=1, enc_layers=2,
@@ -150,23 +151,23 @@ def test_build_model_refuses_unported_attention_kernels(off):
 
 
 def test_fused_layers_refuse_training_on_the_card():
-    """On a non-CPU tensor the encoder and decoder wrappers are the eval
-    forward: grad on an input or parameter, or a dropout rate above 0,
-    raises (ROADMAP B1b) before anything launches. The backbone blocks
-    train on the card: with grad or dropout they take their training
-    kernels, which refuse a tensor that is not on the card."""
+    """Every fused layer trains on the card: with grad or dropout it takes
+    its training kernels (the autograd Function, or the training forward),
+    which refuse a tensor that is neither on the CPU nor on the card before
+    anything launches, instead of falling back to the plain version."""
     from spe_tpu_torch.ops import (fused_block, fused_ca_block,
                                    fused_decoder, fused_encoder)
-    from spe_tpu_torch.ops.refmath import CounterDropout, Dropout
+    from spe_tpu_torch.ops.refmath import CounterDropout
 
     blk = dict(tcait.LayerScaleBlock(16, 2).to("meta").named_parameters())
     x = torch.empty((1, 8, 16), dtype=torch.bfloat16, device="meta")
+    seed = torch.zeros((1,), dtype=torch.int32, device="meta")
+    drop = CounterDropout(seed, 0.1, 0.1)
     fn = fused_block.fused_layer_scale_block
     counts = (fn.launches, fn.train_launches, fn.bwd_launches)
     with pytest.raises(ValueError, match="CUDA tensor"):
         fn(x, blk, 2)
     with torch.no_grad():
-        seed = torch.zeros((1,), dtype=torch.int32, device="meta")
         with pytest.raises(ValueError, match="CUDA tensor"):
             fn(x, blk, 2, CounterDropout(seed, attn=0.1))
         with pytest.raises(ValueError, match="CUDA tensor"):
@@ -176,15 +177,24 @@ def test_fused_layers_refuse_training_on_the_card():
               .named_parameters())
     with pytest.raises(ValueError, match="CUDA tensor"):
         fused_ca_block.fused_class_attn_block(x[:, :3], x, ca, 2)
-    enc = {k: torch.empty(0, device="meta", requires_grad=True)
-           for k in fused_encoder.PARAM_NAMES}
-    with pytest.raises(NotImplementedError, match="B1"):
-        fused_encoder.fused_encoder_layer(x, x, None, enc, 2)
-    dec = {k: torch.empty(0, device="meta") for k in fused_decoder.PARAM_NAMES}
-    with pytest.raises(NotImplementedError, match="B1"):
-        fused_decoder.fused_decoder_layer(
-            x, x, x, x, x, None, dec, 2, 1, Dropout(torch.Generator(),
-                                                    attn=0.1, proj=0.1))
+
+    enc = dict(ttr.TransformerEncoderLayer(16, 2, 32).to("meta")
+               .named_parameters())
+    dec = dict(ttr.ConditionalDecoderLayer(16, 2, 32, True).to("meta")
+               .named_parameters())
+    fe, fd = fused_encoder.fused_encoder_layer, fused_decoder.fused_decoder_layer
+    counts = [(f.launches, f.train_launches, f.bwd_launches) for f in (fe, fd)]
+    with pytest.raises(ValueError, match="CUDA tensor"):  # the Function
+        fe(x, x, None, enc, 2)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        fd(x, x, x, x, x, None, dec, 2, 1)
+    with torch.no_grad():                # dropout alone: the training forward
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            fe(x, x, None, enc, 2, drop)
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            fd(x, x, x, x, x, None, dec, 2, 1, drop)
+    assert [(f.launches, f.train_launches, f.bwd_launches)
+            for f in (fe, fd)] == counts
 
 
 def test_fused_layers_refuse_non_cpu_devices():

@@ -353,14 +353,16 @@ def test_cli_trains_the_fused_backbone(tmp_path):
 
 
 def test_cli_refuses_fused_encoder_training_on_the_card():
-    """On the card (the default device) training takes the fused backbone
-    but refuses the fused encoder/decoder layers (ROADMAP B1b) while the
-    flags are parsed, before anything runs."""
+    """On the card (the default device) training takes the bare stock
+    preset with every fused flag on (the encoder and decoder train through
+    their kernels); what is not ported still raises while the flags are
+    parsed, before anything runs."""
     from spe_tpu_torch.cli.main import parse_config
 
-    args = ["--preset", "voc0712", "--dataset_file", "voc_voc",
-            "--no_use_pallas_attention"]
-    with pytest.raises(NotImplementedError, match="B1b"):
-        parse_config(args)
-    cfg = parse_config(args + ["--no_use_fused_layers"])
-    assert cfg.use_fused_block and not cfg.use_fused_layers
+    args = ["--preset", "voc0712", "--dataset_file", "voc_voc"]
+    cfg = parse_config(args)
+    assert cfg.device != "cpu" and cfg.use_pallas_attention
+    assert cfg.use_fused_block and cfg.use_fused_layers
+    assert cfg.use_fused_ca_block == "auto"
+    with pytest.raises(NotImplementedError, match="world_size"):
+        parse_config(args + ["--world_size", "2"])

@@ -3,7 +3,8 @@ detector (TSCAM_cait_tiny, 1 encoder and 2 decoder layers, f32, the fused
 flags off, every dropout 0, box_jitter 0, every loss gate on) takes 3 steps
 of spe_tpu's jitted make_train_step (fused flat-vector AdamW) and 3 steps
 of the port's train_step on the same weights (state_dict_from_jax) and
-batches.
+batches; the port also with its fused backbone, and with every fused layer
+(backbone, encoder, decoder) on.
 
 Tolerances, f32 on the CPU:
   * every loss term at every step: 1e-4 relative + 1e-6 absolute. The two
@@ -82,6 +83,14 @@ def test_three_train_steps_fused_backbone_match_jax(rng):
     hand-derived backward) against the same JAX fused-off step: at rate 0
     the math is the same."""
     _three_steps(rng, {"use_fused_block": True})
+
+
+def test_three_train_steps_all_fused_match_jax(rng):
+    """Every fused layer of the port in training (the backbone blocks' and
+    the encoder and decoder layers' autograd Functions; on the CPU their
+    plain training forwards and hand-derived backwards) against the same
+    JAX fused-off step: at rate 0 the math is the same."""
+    _three_steps(rng, {"use_fused_block": True, "use_fused_layers": True})
 
 
 def _three_steps(rng, port_overrides):
