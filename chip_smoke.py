@@ -47,22 +47,25 @@ Phases, each printing its own lines; any failure exits non-zero:
                Then one batch at dropout 0 with the same weights through
                the fused and the plain backbone, the plain run's
                pseudo-boxes, refinement targets and matching replayed in
-               the fused run: losses within 5% and every parameter's
-               gradient within 5% of the plain side's largest magnitude,
-               or no further from the same model's gradient in f32 than 3x
-               the plain bf16 gradient is (noise-dominated gradients);
-               every
-               parameter of the backbone, the encoder, the decoder and the
-               query embeddings with a gradient on both sides (the
-               backbone's nonzero); and the fused step's device-time
-               split.
+               the fused run (compute_losses' supervision): losses within
+               5% and every parameter's gradient within 5% of the plain
+               side's largest magnitude; every parameter of the backbone,
+               the encoder, the decoder and the query embeddings with a
+               gradient on both sides (the backbone's nonzero); and the
+               fused step's device-time split.
   7. stock   — the CLI trains `--preset voc0712` with every fused flag on
                (no --no_use_* flag), the checks of phase 5 with 48 + 48
                block, 2 + 2 class-attention, 3 + 3 encoder and 6 + 6
                decoder training forward and backward launches per step and
                the epoch's eval launches counted apart; then the
                same-grads check of phase 6, every fused flag on against
-               every one off, and the step's device-time split.
+               every one off, where only the decoder self-attention's q/k
+               projection gradients (bf16 rounding noise at init on both
+               paths) may miss 5%, and then only if they are no further
+               from the plain model's gradient in f32 than 3x the plain
+               bf16 one and point its way (cosine at least 0.5 and at
+               least the plain one's less 0.25); and the step's
+               device-time split.
 About 2.5 minutes of command time on an H100.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -75,6 +78,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -680,7 +684,6 @@ def phase_same_step(cfg, batch=8):
     from spe_tpu_torch.ops import auction as auc
     from spe_tpu_torch.ops import cam_boxes
     from spe_tpu_torch.ops import connected_components as cc
-    from spe_tpu_torch.train import criterion
     from spe_tpu_torch.train import train_step as ts
     from spe_tpu_torch.train.engine import train_batch
 
@@ -702,30 +705,15 @@ def phase_same_step(cfg, batch=8):
             return out
 
     def tail(plain):
-        seen = {}
-        orig = (cam_boxes.connected_components, auc.auction_phase,
-                criterion.match, ts.cam_pseudo_boxes)
-
-        def match(*a, **kw):
-            seen["rows"], seen["stats"] = orig[2](*a, **kw)
-            return seen["rows"], seen["stats"]
-
-        def pseudo(*a, **kw):
-            seen["boxes"] = orig[3](*a, **kw)
-            return seen["boxes"]
-
+        orig = (cam_boxes.connected_components, auc.auction_phase)
         if plain:
             cam_boxes.connected_components = cc.connected_components_reference
             auc.auction_phase = auc.auction_phase_reference
-        criterion.match, ts.cam_pseudo_boxes = match, pseudo
         try:
-            total, losses = ts.compute_losses(
-                Cached(), b, cfg, gates,
-                torch.Generator("cuda").manual_seed(1))
+            return ts.compute_losses(Cached(), b, cfg, gates,
+                                     torch.Generator("cuda").manual_seed(1))
         finally:
-            (cam_boxes.connected_components, auc.auction_phase,
-             criterion.match, ts.cam_pseudo_boxes) = orig
-        return total, losses, seen
+            cam_boxes.connected_components, auc.auction_phase = orig
 
     launches = (cc.connected_components.launches, auc.auction_phase.launches)
     k_total, k_losses, k_seen = tail(plain=False)
@@ -733,17 +721,18 @@ def phase_same_step(cfg, batch=8):
     if (cc.connected_components.launches - launches[0],
             auc.auction_phase.launches - launches[1]) != (1, 1):
         fail("same step: the kernel run did not launch each kernel once")
-    same = {k: bool(torch.equal(k_seen["boxes"][k], p_seen["boxes"][k]))
+    same = {k: bool(torch.equal(k_seen["cam"][k], p_seen["cam"][k]))
             for k in ("boxes", "labels", "mask")}
-    same["rows"] = bool(torch.equal(k_seen["rows"], p_seen["rows"]))
-    same["iters"] = bool(torch.equal(k_seen["stats"]["iters"],
-                                     p_seen["stats"]["iters"]))
+    (k_rows, k_stats), (p_rows, p_stats) = (k_seen["matching"],
+                                            p_seen["matching"])
+    same["rows"] = bool(torch.equal(k_rows, p_rows))
+    same["iters"] = bool(torch.equal(k_stats["iters"], p_stats["iters"]))
     rel = max(abs(float(k_losses[k]) - float(p_losses[k]))
               / max(abs(float(p_losses[k])), 1e-30) for k in p_losses)
     print(f"[same-step] one batch, same model outputs: kernels vs plain on "
           f"the card: identical {same}; losses max relative difference "
           f"{rel:.3e} (limit 1e-6); totals {float(k_total):.6f} / "
-          f"{float(p_total):.6f}; {int(k_seen['boxes']['mask'].sum())} "
+          f"{float(p_total):.6f}; {int(k_seen['cam']['mask'].sum())} "
           f"pseudo-boxes, match_iters {float(k_losses['match_iters']):.0f}",
           flush=True)
     if not all(same.values()) or rel > 1e-6:
@@ -818,67 +807,6 @@ def step_split(model, cfg, b, gates, label, batch=8):
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB", flush=True)
 
 
-class _SupervisionReplay:
-    """The step's discrete supervision (CAM pseudo-boxes, refinement
-    pseudo-labels, the matching) recorded on one run and replayed on
-    another: the loss is then one function of the model's outputs, and
-    its gradients can be compared. Bf16 differences between two paths
-    move near-tied matchings and top-k picks, which changes the loss
-    itself. The replaying run still computes its own to report how many
-    decisions would have differed."""
-
-    def __init__(self):
-        self.seen = {}   # name -> the recording run's outputs, in call order
-        self.same = {}   # name -> the replaying run's own output equal, per call
-
-    def _patch(self, replay):
-        import contextlib
-
-        from spe_tpu_torch.train import criterion
-        from spe_tpu_torch.train import train_step as ts
-
-        sites = ((ts, "cam_pseudo_boxes"), (ts, "postprocess_refine"),
-                 (criterion, "match"))
-
-        def wrap(name, fn):
-            def call(*a, **kw):
-                got = fn(*a, **kw)
-                if not replay:
-                    self.seen.setdefault(name, []).append(got)
-                    return got
-                same = self.same.setdefault(name, [])
-                want = self.seen[name][len(same)]
-                # the matching's rows (its statistics count iterations)
-                same.append(_same_tree(got[0], want[0]) if name == "match"
-                            else _same_tree(got, want))
-                return want
-            return call
-
-        @contextlib.contextmanager
-        def patched():
-            if replay:   # each replaying run starts from the first call
-                self.same = {}
-            orig = [getattr(m, n) for m, n in sites]
-            for (m, n), fn in zip(sites, orig):
-                setattr(m, n, wrap(n, fn))
-            try:
-                yield
-            finally:
-                for (m, n), fn in zip(sites, orig):
-                    setattr(m, n, fn)
-        return patched()
-
-    def recording(self):
-        return self._patch(False)
-
-    def replaying(self):
-        return self._patch(True)
-
-    def report(self):
-        return {k: f"{sum(v)}/{len(v)} calls equal"
-                for k, v in self.same.items()}
-
-
 def _same_tree(a, b):
     """Tensors, dicts, tuples and lists of them equal?"""
     import torch
@@ -892,10 +820,26 @@ def _same_tree(a, b):
     return a == b
 
 
-# A noise-dominated gradient's fused-vs-f32 distance against the plain bf16
-# model's: bf16 noise on sums that cancel, whose size varies from run to
-# run (ratios of 0.7 to 1.8 seen on the stock preset's worst gradient).
+# The only gradients the same-grads check may hold to the plain model in f32
+# instead of the plain one in bf16: the decoder self-attention's q/k
+# projections. At init the queries' contents are near equal, so that
+# attention is near uniform over near equal values and dl = p(dp -
+# rowsum(dp p)) is a small difference of large terms: in bf16, on either
+# path, the largest elements of these gradients are mostly rounding noise
+# (their directions hold: the plain bf16 one's cosine with the f32 one is
+# 0.86-0.999).
+NOISY = re.compile(r"transformer\.decoder\.layers\.\d+\."
+                   r"sa_[qk](content|pos)_proj\.(weight|bias)$")
+# Such a gradient passes beyond MODEL_REL_TOL only if it is no further from
+# the f32 one than NOISE_FACTOR times the plain bf16 one (largest element)
+# and points the f32 one's way: its cosine with it at least COS_MIN and at
+# least the plain bf16 one's less COS_MARGIN. A zeroed gradient has cosine
+# 0, a negated one the negative of a correct one's: neither passes. The k
+# biases, zero by construction (zero is their exact gradient), are held to
+# the distance alone.
 NOISE_FACTOR = 3.0
+COS_MIN = 0.5
+COS_MARGIN = 0.25
 # the parameters that must get a gradient on both sides of the same-grads
 # check; the backbone's must be nonzero too (the zero-by-construction
 # biases aside). Some of decoder layer 0's are zero on both sides at init:
@@ -905,19 +849,24 @@ GRAD_PREFIXES = ("backbone.", "transformer.encoder.", "transformer.decoder.",
                  "query_embed.", "queries_embed_refine.")
 
 
-def phase_same_grads(cfg, label, batch=8):
+def _cos(a, b):
+    """Cosine of two gradients (0 where either is zero)."""
+    na, nb = float(a.double().norm()), float(b.double().norm())
+    return float((a.double() * b.double()).sum()) / (na * nb) \
+        if na and nb else 0.0
+
+
+def phase_same_grads(cfg, label, noisy=None, batch=8):
     """One batch at dropout 0 through the same weights with the fused
-    layers of `cfg` on and every fused flag off (bf16 both), the plain
-    run's discrete supervision replayed in the fused run
-    (_SupervisionReplay). The losses agree within 5% of the plain side's
-    magnitude, and each parameter's gradient within 5% of its largest
-    plain magnitude, or else no further from the same model's gradient
-    in f32 (a third run, same weights, the supervision replayed) than
-    NOISE_FACTOR times the plain bf16 gradient is. The second clause
-    passes only where the plain bf16 path is itself far from the f32
-    math: noise-dominated gradients, small differences of large terms,
-    like the last decoder layers' self-attention q/k projections at init,
-    where the attention is near uniform over near equal values. Every
+    layers of `cfg` on and every fused flag off (bf16 both). The fused run
+    replays the plain run's supervision (its pseudo-boxes, refinement
+    targets and matching, from compute_losses), so both differentiate one
+    loss: bf16 differences move near-tied matchings and top-k picks. The
+    losses agree within MODEL_REL_TOL of the plain side's magnitude, and
+    each parameter's gradient within MODEL_REL_TOL of its largest plain
+    magnitude. With `noisy` (a pattern of names; see NOISY), a third run,
+    the plain model in f32 with the supervision replayed, holds those
+    gradients that miss MODEL_REL_TOL to the f32 math instead. Every
     parameter of the backbone, the encoder, the decoder (query_scale,
     ref_point_head included) and the query embeddings gets a gradient on
     both sides (the backbone's nonzero). Then the fused configuration's
@@ -941,17 +890,28 @@ def phase_same_grads(cfg, label, batch=8):
     _, loader = train_data(cfg)
     b = train_batch(next(iter(loader.epoch(0))), torch.device("cuda"))
     gates = ts.Gates.for_epoch(cfg, 0)
-    runs = {}
-    replay = _SupervisionReplay()
-    for run, run_cfg in (("plain", plain_cfg),
-                         ("f32", plain_cfg.replace(compute_dtype="float32")),
-                         ("fused", cfg)):
+
+    def gen():
+        return torch.Generator("cuda").manual_seed(3)
+
+    runs, sup = {}, None
+    order = [("plain", plain_cfg)]
+    if noisy is not None:
+        order.append(("f32", plain_cfg.replace(compute_dtype="float32")))
+    order.append(("fused", cfg))
+    for run, run_cfg in order:
         model = build_model(run_cfg).train()
+        if run == "fused":   # what the fused run would have used on its own
+            own = ts.compute_losses(model, b, run_cfg, gates, gen())[2]
+            own = {"cam": _same_tree(own["cam"], sup["cam"]),
+                   "refine": _same_tree(own["refine"], sup["refine"]),
+                   # the rows (its statistics count iterations)
+                   "matching": _same_tree(own["matching"][0],
+                                          sup["matching"][0])}
         _all_counts(reset=True)
-        with replay.recording() if run == "plain" else replay.replaying():
-            total, losses = ts.compute_losses(
-                model, b, run_cfg, gates,
-                torch.Generator("cuda").manual_seed(3))
+        total, losses, used = ts.compute_losses(model, b, run_cfg, gates,
+                                                gen(), sup)
+        sup = used
         total.backward()
         torch.cuda.synchronize()
         runs[run] = ({k: float(v.detach()) for k, v in losses.items()},
@@ -961,12 +921,11 @@ def phase_same_grads(cfg, label, batch=8):
                      _all_counts())
         if run == "fused":
             fused_model = model
-            own = replay.report()
         else:
             del model, total, losses
             torch.cuda.empty_cache()
-    (lf, gf, cf), (lp, gp, _), (_, g32, _) = (runs["fused"], runs["plain"],
-                                              runs["f32"])
+    (lf, gf, cf), (lp, gp, _) = runs["fused"], runs["plain"]
+    g32 = runs["f32"][1] if noisy is not None else None
     bad = []
     on = [k for k in PER_STEP if k in ("pallas_block", "pallas_ca_block")
           or cfg.use_fused_layers]
@@ -977,7 +936,7 @@ def phase_same_grads(cfg, label, batch=8):
     for k, v in lp.items():
         if abs(lf[k] - v) > MODEL_REL_TOL * abs(v) + 1e-6:
             bad.append(f"loss {k}: {lf[k]:.6f} vs {v:.6f}")
-    worst, noisy, zero = ("", 0.0), [], []
+    worst, escaped, zero = ("", 0.0), [], []
     for n, w in gp.items():
         g = gf[n]
         # a bias shared by a softmax row has no gradient in exact
@@ -997,36 +956,55 @@ def phase_same_grads(cfg, label, batch=8):
             if top > 0 and err / top > worst[1]:
                 worst = (n, err / top)
             continue
-        # noise-dominated: the fused path no less accurate than the plain
-        # one against the f32 math
-        plain_f32 = float((w - g32[n]).abs().max())
-        fused_f32 = float((g - g32[n]).abs().max())
-        noisy.append((n, err / top, fused_f32 / top, plain_f32 / top))
-        if fused_f32 > NOISE_FACTOR * plain_f32:
+        if noisy is None or not noisy.match(n):
             bad.append(f"{n}: err {err:.3e} > {tol:.3e} (max|plain| "
-                       f"{top:.3e}), fused vs f32 {fused_f32:.3e} > "
-                       f"{NOISE_FACTOR} x plain vs f32 {plain_f32:.3e}")
+                       f"{top:.3e})")
+            continue
+        r = g32[n]
+        plain_f32 = float((w - r).abs().max())
+        fused_f32 = float((g - r).abs().max())
+        # (the cosines of a zero-by-construction bias compare noise)
+        cos_f, cos_p = (_cos(g, r), _cos(w, r)) if ref_name is None else \
+            (None, None)
+        escaped.append((n, err / top, fused_f32 / top, plain_f32 / top,
+                        cos_f, cos_p))
+        if fused_f32 > NOISE_FACTOR * plain_f32 or (
+                cos_f is not None and cos_f < max(COS_MIN,
+                                                  cos_p - COS_MARGIN)):
+            bad.append(f"{n}: err {err:.3e} > {tol:.3e} (max|plain| "
+                       f"{top:.3e}); against f32: fused {fused_f32:.3e} vs "
+                       f"plain {plain_f32:.3e} (at most {NOISE_FACTOR}x), "
+                       f"cosine fused {cos_f} vs plain {cos_p} (at least "
+                       f"{COS_MIN} and plain - {COS_MARGIN})")
     if zero:
         bad.append(f"no gradient on a side: {zero}")
-    print(f"[same-grads] {label}: the fused run's own supervision against "
+    print(f"[same-grads] {label}: the fused run's own supervision equal to "
           f"the plain run's (replayed, so all runs differentiate one loss): "
           f"{own}", flush=True)
+    cosines = [e[4] for e in escaped if e[4] is not None]
+    drops = [e[5] - e[4] for e in escaped if e[4] is not None]
+    held = (f"{len(escaped)} decoder self-attention q/k gradients beyond "
+            f"it, held to the f32 model (fused vs f32 <= {NOISE_FACTOR} x "
+            f"plain bf16 vs f32, largest ratio "
+            f"{max((e[2] / max(e[3], 1e-30) for e in escaped), default=0):.2f}"
+            f"; cosine with f32 >= max({COS_MIN}, plain's - {COS_MARGIN}), "
+            f"lowest fused {min(cosines, default=1):.4f}, largest drop from "
+            f"the plain one's {max(drops, default=0):.4f})"
+            if noisy is not None else "none may miss it")
     print(f"[same-grads] {label}: one batch at dropout 0, fused layers vs "
           f"every fused flag off, same weights: losses {len(lp)} (total "
           f"fused {sum(lf.values()):.6f}, plain {sum(lp.values()):.6f}); "
           f"{len(gp)} parameter gradients (fused q|k|v tensors in thirds), "
-          f"{len(gp) - len(noisy)} within {MODEL_REL_TOL} of max|plain| "
-          f"(largest {worst[1]:.3e}, {worst[0]}); {len(noisy)} beyond it, "
-          f"held to fused vs f32 <= {NOISE_FACTOR} x plain bf16 vs f32 "
-          f"(largest ratio "
-          f"{max((r[2] / max(r[3], 1e-30) for r in noisy), default=0.0):.2f})"
-          f"; training "
-          f"launches {({k: v for k, v in cf.items() if 'train' in k})}; "
-          f"parameters without a gradient {len(zero)}", flush=True)
-    for n, e, e32, p32 in sorted(noisy, key=lambda r: -r[1])[:8]:
-        print(f"[same-grads] {label}: noise-dominated {n} (all / "
-              f"max|plain|): fused vs plain {e:.3f}, fused vs f32 {e32:.3f}, "
-              f"plain vs f32 {p32:.3f}", flush=True)
+          f"{len(gp) - len(escaped)} within {MODEL_REL_TOL} of max|plain| "
+          f"(largest {worst[1]:.3e}, {worst[0]}); {held}; training launches "
+          f"{({k: v for k, v in cf.items() if 'train' in k})}; parameters "
+          f"without a gradient {len(zero)}", flush=True)
+    for n, e, e32, p32, cf_, cp_ in sorted(escaped, key=lambda r: -r[1]):
+        cos = "zero by construction" if cf_ is None else \
+            f"cosine with f32: fused {cf_:.4f}, plain {cp_:.4f}"
+        print(f"[same-grads] {label}: noise-dominated {n}: (all / "
+              f"max|plain|) fused vs plain {e:.3f}, fused vs f32 {e32:.3f}, "
+              f"plain vs f32 {p32:.3f}; {cos}", flush=True)
     for line in bad[:20]:
         print(f"[same-grads] {line}", flush=True)
     if bad:
@@ -1079,7 +1057,7 @@ def main():
     fused_cfg = phase_train(results, "backbone")
     phase_same_grads(fused_cfg, "fused backbone")
     stock_cfg = phase_train(results, "stock")
-    phase_same_grads(stock_cfg, "stock preset")
+    phase_same_grads(stock_cfg, "stock preset", NOISY)
     jax_mods = sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "jaxlib", "flax", "spe_tpu"))
     if jax_mods:

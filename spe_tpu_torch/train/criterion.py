@@ -16,7 +16,7 @@ auction launch. The instance-mask losses and the matching-cost audit
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict
 
 import torch
 import torch.nn.functional as F
@@ -159,15 +159,17 @@ def set_criterion_multi(stage_outs, targets_per_stage, gens, num_boxes_per_stage
                         focal_gamma: float = 2.0, cost_class: float = 2.0,
                         cost_bbox: float = 5.0, cost_giou: float = 2.0,
                         assignment: str = "auction", training: bool = True,
-                        aux_loss: bool = True) -> List[Dict[str, torch.Tensor]]:
+                        aux_loss: bool = True, matching=None):
     """Every stage's criterion with ONE batched assignment over all S*L*B
     (stage, decoder layer, image) problems; each layer is matched on its
     own, as the reference re-matches per layer (conditional_detr.py
     :447-464). gens: one torch.Generator per stage for the box repeat (None
-    skips it). Returns per stage {loss_ce, loss_bbox, loss_giou,
-    cardinality_error, and `_{i}` for the aux layers}; stage 0 also carries
-    match_iters (the most auction iterations of any problem) and
-    match_cleanup (the cleanup activations summed)."""
+    skips it). `matching`, the second value of an earlier call, replaces
+    the assignment (a run that replays another's). Returns (per stage
+    {loss_ce, loss_bbox, loss_giou, cardinality_error, and `_{i}` for the
+    aux layers}, the matching used: (row_for_col, stats) of `match`);
+    stage 0 also carries match_iters (the most auction iterations of any
+    problem) and match_cleanup (the cleanup activations summed)."""
     reps, logits_s, boxes_s = [], [], []
     for so, tgt, gen in zip(stage_outs, targets_per_stage, gens):
         if training and gen is not None:
@@ -190,10 +192,12 @@ def set_criterion_multi(stage_outs, targets_per_stage, gens, num_boxes_per_stage
     flat = {k: torch.cat([t[k][None].expand(L, *t[k].shape) for t in reps],
                          0).reshape(SL * B, *reps[0][k].shape[1:])
             for k in ("boxes", "labels", "mask")}
-    rows, mstats = match(LG.reshape(SL * B, *LG.shape[2:]),
+    if matching is None:
+        matching = match(LG.reshape(SL * B, *LG.shape[2:]),
                          BX.reshape(SL * B, *BX.shape[2:]), flat,
                          method=assignment, cost_class=cost_class,
                          cost_bbox=cost_bbox, cost_giou=cost_giou)
+    rows, mstats = matching
     rows = rows.reshape(SL, B, -1)
 
     outs = []
@@ -212,4 +216,4 @@ def set_criterion_multi(stage_outs, targets_per_stage, gens, num_boxes_per_stage
         outs.append(out)
     outs[0]["match_iters"] = mstats["iters"].max().float()
     outs[0]["match_cleanup"] = mstats["cleanup"].sum().float()
-    return outs
+    return outs, matching

@@ -63,30 +63,41 @@ def loss_weights(cfg: SPEConfig) -> Dict[str, float]:
     return weight
 
 
-def compute_losses(model, batch, cfg: SPEConfig, gates: Gates, gen=None):
-    """Forward + pseudo-labels + every criterion -> (total, {name: loss}).
-    In training mode (`model.training`) the dropout masks and the box
-    repeat draw from `gen` (a torch.Generator on the model's device);
+def compute_losses(model, batch, cfg: SPEConfig, gates: Gates, gen=None,
+                   supervision=None):
+    """Forward + pseudo-labels + every criterion -> (total, {name: loss},
+    supervision). The supervision is the step's discrete, undifferentiated
+    part: {"cam": the CAM pseudo-boxes, "refine": the refinement
+    pseudo-labels, "matching": the assignment}. Given one (another run's),
+    the step uses it in place of its own, so that both runs differentiate
+    one loss. In training mode (`model.training`) the dropout masks and the
+    box repeat draw from `gen` (a torch.Generator on the model's device);
     in eval mode there is neither."""
     training = model.training
     out = model(batch["images"], pad_mask=batch.get("pad_mask"),
                 generator=gen if training else None)
     stages = out["stages"]
-    cam_targets = cam_pseudo_boxes(
-        out["backbone"]["cams_cls"].detach(), batch["img_label"],
-        gates.cam_thr, area_ratio=cfg.multi_box_ratio, size=cfg.cam_cc_size,
-        k=cfg.max_cam_boxes_per_class, max_boxes=cfg.max_gt_boxes,
-        max_pos=cfg.max_pos_classes)
-    cam_targets["scores"] = torch.ones_like(cam_targets["labels"],
-                                            dtype=torch.float32)
-    refine_targets = {
-        k + 1: postprocess_refine(stages[k]["pred_logits"].detach(),
-                                  stages[k]["pred_boxes"].detach(),
-                                  cam_targets["labels"], cam_targets["mask"])
-        for k in range(cfg.num_refines)}
+    if supervision is None:
+        cam_targets = cam_pseudo_boxes(
+            out["backbone"]["cams_cls"].detach(), batch["img_label"],
+            gates.cam_thr, area_ratio=cfg.multi_box_ratio,
+            size=cfg.cam_cc_size, k=cfg.max_cam_boxes_per_class,
+            max_boxes=cfg.max_gt_boxes, max_pos=cfg.max_pos_classes)
+        cam_targets["scores"] = torch.ones_like(cam_targets["labels"],
+                                                dtype=torch.float32)
+        refine_targets = {
+            k + 1: postprocess_refine(stages[k]["pred_logits"].detach(),
+                                      stages[k]["pred_boxes"].detach(),
+                                      cam_targets["labels"],
+                                      cam_targets["mask"])
+            for k in range(cfg.num_refines)}
+        matching = None
+    else:
+        cam_targets, refine_targets, matching = (
+            supervision["cam"], supervision["refine"], supervision["matching"])
 
     tgt_list = [cam_targets] + list(refine_targets.values())
-    stage_losses = set_criterion_multi(
+    stage_losses, matching = set_criterion_multi(
         [stages[0]] + [stages[k] for k in refine_targets], tgt_list,
         [gen if training else None] * len(tgt_list),
         [repeated_num_boxes(t, cfg.hung_match_ratio).clamp(min=1.0)
@@ -96,7 +107,7 @@ def compute_losses(model, batch, cfg: SPEConfig, gates: Gates, gen=None):
         focal_alpha=cfg.focal_alpha, focal_gamma=cfg.focal_gamma,
         cost_class=cfg.set_cost_class, cost_bbox=cfg.set_cost_bbox,
         cost_giou=cfg.set_cost_giou, assignment=cfg.assignment,
-        training=training, aux_loss=cfg.aux_loss)
+        training=training, aux_loss=cfg.aux_loss, matching=matching)
     losses = dict(stage_losses[0])
     losses.update(image_label_losses(out["backbone"], batch["img_label"]))
     for k, sl in zip(refine_targets, stage_losses[1:]):
@@ -115,7 +126,8 @@ def compute_losses(model, batch, cfg: SPEConfig, gates: Gates, gen=None):
         elif name in weight:
             gate = 1.0 if name.startswith("img_label") else gates.det_weight
             total = total + (gate * weight[name]) * v
-    return total, losses
+    return total, losses, {"cam": cam_targets, "refine": refine_targets,
+                           "matching": matching}
 
 
 def train_step(state: TrainState, batch, cfg: SPEConfig, gates: Gates, gen):
@@ -124,7 +136,7 @@ def train_step(state: TrainState, batch, cfg: SPEConfig, gates: Gates, gen):
     detached tensors (bad_steps an int)."""
     state.model.train()
     state.optimizer.zero_grad()
-    total, losses = compute_losses(state.model, batch, cfg, gates, gen)
+    total, losses, _ = compute_losses(state.model, batch, cfg, gates, gen)
     total.backward()
     grad_norm, finite = state.optimizer.step(total.detach())
     if not finite:

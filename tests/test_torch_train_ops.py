@@ -341,15 +341,21 @@ def test_set_criterion_multi_matches_jax(rng):
         [_j(s) for s in stages_np], [_j(tg0), _j(tg1)],
         [jax.random.PRNGKey(0), jax.random.PRNGKey(1)],
         [jnp.float32(11.0), jnp.float32(7.0)], [False, True], **kw)
-    gen = torch.Generator().manual_seed(0)
-    got = tcrit.set_criterion_multi(
-        [_t(s) for s in stages_np], [_t(tg0), _t(tg1)], [gen, gen],
-        [torch.tensor(11.0), torch.tensor(7.0)], [False, True], **kw)
+    args = ([_t(s) for s in stages_np], [_t(tg0), _t(tg1)],
+            [torch.Generator().manual_seed(0)] * 2,
+            [torch.tensor(11.0), torch.tensor(7.0)], [False, True])
+    got, matching = tcrit.set_criterion_multi(*args, **kw)
     for s in range(2):
         assert set(got[s]) == set(want[s])
         for k in want[s]:
             _close(got[s][k], want[s][k])
     assert float(got[0]["match_iters"]) > 0
+    # the matching replayed (no assignment run) gives the same losses
+    again, used = tcrit.set_criterion_multi(*args, **kw, matching=matching)
+    assert used is matching
+    for s in range(2):
+        for k in got[s]:
+            assert torch.equal(again[s][k], got[s][k]), (s, k)
 
 
 def test_jitter_repeat_keeps_iou(rng):

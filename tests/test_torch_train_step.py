@@ -34,7 +34,8 @@ from spe_tpu_torch import config as tconfig
 from spe_tpu_torch.models.build import build_model
 from spe_tpu_torch.models.convert import state_dict_from_jax
 from spe_tpu_torch.train.optim import AdamW3
-from spe_tpu_torch.train.train_step import Gates, TrainState, train_step
+from spe_tpu_torch.train.train_step import (Gates, TrainState,
+                                            compute_losses, train_step)
 
 CFG = dict(backbone="TSCAM_cait_tiny", num_classes=5, layer_to_det=2,
            num_queries=10, enc_layers=1, dec_layers=2, dim_feedforward=48,
@@ -91,6 +92,30 @@ def test_three_train_steps_all_fused_match_jax(rng):
     plain training forwards and hand-derived backwards) against the same
     JAX fused-off step: at rate 0 the math is the same."""
     _three_steps(rng, {"use_fused_block": True, "use_fused_layers": True})
+
+
+def test_compute_losses_replays_supervision(rng):
+    """compute_losses returns the supervision it used (CAM pseudo-boxes,
+    refinement targets, matching) and takes one in place of its own: the
+    same model replaying its own supervision gives the same losses, and a
+    replaying run uses what it was given."""
+    cfg = tconfig.SPEConfig(**CFG)
+    model = build_model(cfg, "cpu").train()
+    b = {k: torch.from_numpy(v) for k, v in _batches(rng)[0].items()}
+    gates = Gates.for_epoch(cfg, 0)
+
+    def run(supervision=None):
+        return compute_losses(model, b, cfg, gates,
+                              torch.Generator().manual_seed(0), supervision)
+
+    total, losses, sup = run()
+    assert set(sup) == {"cam", "refine", "matching"}
+    assert int(sup["cam"]["mask"].sum()) > 0 and float(total.detach()) > 0
+    total2, losses2, used = run(sup)
+    assert all(used[k] is sup[k] for k in sup)
+    assert torch.equal(total2, total)
+    for k, v in losses.items():
+        assert torch.equal(losses2[k], v), k
 
 
 def _three_steps(rng, port_overrides):
