@@ -8,14 +8,23 @@ Phases, each printing its own lines; any failure exits non-zero:
                (one nvcc per source, all at once).
   3. kernels — each fused-layer kernel at the voc0712 eval shapes (B=2)
                against its plain PyTorch version on the same bf16 inputs
-               (max abs error vs the stated tolerance); the dropout masks
+               (max abs error vs the stated tolerance), and the standalone
+               attention kernels likewise: fused_mha as the class
+               attention (21 x 1045, probabilities), the encoder
+               self-attention (1024 x 1024, key mask) and the decoder
+               cross-attention (600 x 1024, q/k 48 and v 24 per head),
+               with scaled_dot_product_attention timed beside the forms
+               without probabilities, and the talking-heads attention
+               (1024 x 1024, 4 heads of 48); the dropout masks
                of the training kernels against the torch formula, bit for
                bit, with their kept shares (every site, the encoder's and
                decoder's at the recipe's 0.1); every fused layer's
                training forward and backward kernels (patch block, class
-               attention, encoder, decoder layer 0 and a later layer)
-               against their plain versions at the recipe shapes and rates
-               (B=2), the backward twice (identical bits); the
+               attention, encoder, decoder layer 0 and a later layer) and
+               the standalone attentions' (the four shapes above, the
+               recipe's attention dropout) against their plain versions at
+               the recipe shapes and rates (B=2), the backward twice
+               (identical bits); the
                two supervision kernels at the recipe's training shapes (64
                CC masks of 64 x 64 with two mazes past the sweep cap; 96
                auction problems of 120 x 300, plus an overfull shape),
@@ -66,7 +75,18 @@ Phases, each printing its own lines; any failure exits non-zero:
                bf16 one and point its way (cosine at least 0.5 and at
                least the plain one's less 0.25); and the step's
                device-time split.
-About 2.5 minutes of command time on an H100.
+  8. attention — the CLI trains `--preset voc0712 --no_use_fused_block
+               --no_use_fused_layers` (use_pallas_attention as the preset
+               sets it): per step 48 + 48 talking-heads and 2 + 3 + 6
+               (class, encoder, decoder cross) fused_mha training forward
+               and backward launches, no fused-layer launch, the epoch's
+               eval launches counted apart, the checks of phase 5; then
+               the same-grads check of that configuration against every
+               fused flag and use_pallas_attention off, under phase 7's
+               rule (the decoder self-attention's q/k gradients, plain on
+               both sides but bf16 noise at init, held to the f32 model),
+               and the step's device-time split.
+About 4 minutes of command time on an H100.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
 
@@ -165,9 +185,84 @@ def phase_kernels():
                          "max_abs_err": max(prev, *errs), "ms": ms,
                          "plain_ms": plain_ms, "bound_ms": bound,
                          "bound_by": bound_by, "library_ms": None}
+    ok &= attention_kernels(results)
     if not ok:
         fail("a kernel disagrees with its plain version")
     return results
+
+
+# the standalone attention kernels' entry in the kernels line carries the
+# numbers of this shape (the largest per launch); every shape's are under
+# "shapes"
+MAIN_SHAPE = {"pallas_mha": "encoder self-attention",
+              "pallas_attention": "patch-block talking heads"}
+ATTN_SOURCE = {"pallas_mha": "spe_tpu_torch/csrc/attention.cu",
+               "pallas_attention": "spe_tpu_torch/csrc"}
+
+
+def _sdpa(args):
+    """The one PyTorch call that computes fused_mha's output (rate 0, no
+    probabilities): scaled_dot_product_attention with the key bias as a
+    float mask, on the same head views, its output (B, H, Nq, dv). A
+    yardstick timed here; the port never calls it."""
+    import torch.nn.functional as F
+
+    from spe_tpu_torch.ops.refmath import key_bias, split_heads
+
+    q, k, v, H, mask = args[:5]
+    bias = key_bias(mask, k.shape[0], k.shape[1], q.device)
+    bias = None if bias is None else bias[:, None, None, :].to(q.dtype)
+    qh, kh, vh = (split_heads(t, H) for t in (q, k, v))
+    return lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=bias)
+
+
+def attention_kernels(results):
+    """fused_mha (B4) at its three recipe shapes and the talking-heads
+    attention (B5) against their plain versions at rate 0 (B=2); B4's
+    forms without probabilities also against scaled_dot_product_attention,
+    timed as the library yardstick. -> all within tolerance."""
+    from spe_tpu_torch.ops.kernel_checks import (ULPS, attention_cases,
+                                                 compare, layer_bound_ms,
+                                                 max_err)
+    from spe_tpu_torch.ops.refmath import merge_heads
+
+    ok = True
+    for name, replaces, mod, args, _, label in attention_cases():
+        fused = getattr(mod, "fused_mha" if name == "pallas_mha"
+                        else "talking_heads_attention")
+        plain = getattr(mod, "fused_mha_reference" if name == "pallas_mha"
+                        else "talking_heads_reference")
+        errs, tols, finite = compare(fused, plain, args)
+        passed = finite and all(e <= tl for e, tl in zip(errs, tols))
+        ms = cuda_ms(lambda: fused(*args))
+        plain_ms = cuda_ms(lambda: plain(*args), reps=5, warmup=1)
+        bound, bound_by = layer_bound_ms(name, args)
+        lib_ms, lib_note = None, "no single PyTorch call computes it"
+        if name == "pallas_mha" and not args[6]:
+            lib = _sdpa(args)
+            lib_ms = cuda_ms(lib)
+            lib_err = max_err(merge_heads(lib()), plain(*args))
+            lib_note = (f"scaled_dot_product_attention {lib_ms:.3f} ms (its "
+                        f"max_abs_err vs plain {lib_err:.3e})")
+        ok &= passed
+        print(f"[kernels] {name} ({label}, q {tuple(args[0].shape)}, k "
+              f"{tuple(args[1].shape)}, v {tuple(args[2].shape)}): "
+              f"max_abs_err {errs} tol {tols} ({ULPS} bf16 ulp at max|plain|; "
+              f"probabilities 1e-4) finite {finite} -> "
+              f"{'ok' if passed else 'MISMATCH'}; kernel {ms:.3f} ms, plain "
+              f"{plain_ms:.3f} ms, bound {bound:.4f} ms ({bound_by}); "
+              f"{lib_note}", flush=True)
+        entry = results.setdefault(name, {
+            "name": name, "route": "cuda", "source": ATTN_SOURCE[name],
+            "replaces": replaces, "launches": 0, "max_abs_err": 0.0,
+            "shapes": {}})
+        entry["max_abs_err"] = max(entry["max_abs_err"], *errs)
+        entry["shapes"][label] = {"ms": ms, "plain_ms": plain_ms,
+                                  "bound_ms": bound, "bound_by": bound_by,
+                                  "library_ms": lib_ms}
+        if label == MAIN_SHAPE[name]:
+            entry.update(entry["shapes"][label])
+    return ok
 
 
 def phase_masks():
@@ -180,8 +275,10 @@ def phase_masks():
     from spe_tpu_torch.ops.kernel_checks import RECIPE_RATES, TRANSFORMER_RATE
     from spe_tpu_torch.ops.refmath import (SITE_ATTN, SITE_CROSS_ATTN,
                                            SITE_CROSS_PROJ, SITE_HIDDEN,
-                                           SITE_OUT, SITE_PATH1, SITE_PROJ,
-                                           counter_keep, path_keep)
+                                           SITE_MHA_ATTN, SITE_OUT,
+                                           SITE_PATH1, SITE_PROJ,
+                                           SITE_TH_ATTN, counter_keep,
+                                           path_keep)
 
     attn, proj, path = RECIPE_RATES
     rate = TRANSFORMER_RATE
@@ -190,8 +287,13 @@ def phase_masks():
     # the patch block's sites, then the encoder's and decoder's: the
     # encoder attention (B, 8, 1024, 1024), the decoder self-attention
     # keyed (b, s*H + h) (B, 2 * 8, 300, 300), the cross-attention and its
-    # projection on sites of their own, the FFN of 2048
+    # projection on sites of their own, the FFN of 2048; the standalone
+    # attentions: talking heads after the mix (b, g, q, k), fused_mha's
+    # encoder self-attention and decoder cross-attention (b, h, q, k)
     for site, rate, shape in ((SITE_ATTN, attn, (2, 4, 1024, 1024)),
+                              (SITE_TH_ATTN, attn, (2, 4, 1024, 1024)),
+                              (SITE_MHA_ATTN, rate, (2, 8, 1024, 1024)),
+                              (SITE_MHA_ATTN, rate, (2, 8, 600, 1024)),
                               (SITE_PROJ, proj, (2, 1, 1024, 192)),
                               (SITE_HIDDEN, proj, (2, 1, 1024, 768)),
                               (SITE_PATH1, path, (4096,)),
@@ -217,96 +319,140 @@ def phase_masks():
         fail("the kernels' dropout masks differ from the torch formula")
 
 
+def _check_train(name, mod, args, cot, label=""):
+    """One training case: the kernels' training forward against the plain
+    one, the backward kernels (twice: identical bits) against the plain
+    backward on the kernels' saved tensors, and their times and bounds.
+    -> (ok, {errors, times, bounds}); `label` names the shape."""
+    import torch
+
+    from spe_tpu_torch.ops.kernel_checks import (PROBS_TOL, ULPS,
+                                                 backward_args, bf16_tol,
+                                                 bwd_bound_ms, flat_grads,
+                                                 grad_tols, max_err,
+                                                 plain_train, saved_outputs,
+                                                 train_bound_ms,
+                                                 zero_grad_ref)
+
+    plain_fwd, plain_bwd = plain_train(name, mod)
+    with torch.no_grad():
+        got = mod._train_cuda(*args)
+        want = plain_fwd(*args)
+        torch.cuda.synchronize()
+        tols = [bf16_tol(w) for w in want]
+        if name == "pallas_ca_block" or (name == "pallas_mha" and args[6]):
+            tols[1] = PROBS_TOL      # the probabilities
+        errs = [max_err(g, w) for g, w in zip(got, want)]
+        fwd_ok = all(e <= t for e, t in zip(errs, tols)) and all(
+            bool(torch.isfinite(g).all()) for g in got)
+        # the backward of both on the kernels' saved tensors
+        saved = backward_args(args, saved_outputs(name, got), cot)
+
+        def bwd():
+            return mod._backward_cuda(*saved)
+
+        def ref():
+            return plain_bwd(*saved)
+
+        g1, g2, gw = (flat_grads(name, r) for r in (bwd(), bwd(), ref()))
+        torch.cuda.synchronize()
+
+    same = all(torch.equal(g1[k], g2[k]) for k in gw)
+    gt = grad_tols(gw)
+    worst, bwd_ok = 0.0, True
+    for n, w in gw.items():
+        u, tol = g1[n], gt[n]
+        e = max_err(u, w)
+        worst = max(worst, e / max(tol, 1e-30))
+        if zero_grad_ref(n):
+            print(f"[train-kernels] {name}{label} {n} (zero in exact "
+                  f"arithmetic): max|plain| "
+                  f"{float(w.abs().max()):.3e}, err {e:.3e}, tol {tol:.3e} "
+                  f"(1% of max|d {zero_grad_ref(n)}|)", flush=True)
+        if not (e <= tol and bool(torch.isfinite(u).all())):
+            bwd_ok = False
+            print(f"[train-kernels] {name}{label} {n}: err {e:.3e} > tol "
+                  f"{tol:.3e}", flush=True)
+    m = dict(errs=errs, bwd_err=max(max_err(g1[k], gw[k]) for k in gw),
+             ms_f=cuda_ms(lambda: mod._train_cuda(*args), reps=5, warmup=1),
+             plain_f=cuda_ms(lambda: plain_fwd(*args), reps=5, warmup=1),
+             ms_b=cuda_ms(bwd, reps=5, warmup=1),
+             plain_b=cuda_ms(ref, reps=3, warmup=1))
+    m["bf"], m["bf_by"] = train_bound_ms(name, args)
+    m["bb"], m["bb_by"] = bwd_bound_ms(name, args, cot)
+    print(f"[train-kernels] {name}{label} training forward: max_abs_err "
+          f"{[f'{e:.3e}' for e in errs]} tol {[f'{t:.3e}' for t in tols]} "
+          f"({ULPS} bf16 ulp at max|plain|; probabilities {PROBS_TOL}) -> "
+          f"{'ok' if fwd_ok else 'MISMATCH'}; kernel {m['ms_f']:.3f} ms, plain "
+          f"{m['plain_f']:.3f} ms, bound {m['bf']:.4f} ms ({m['bf_by']})",
+          flush=True)
+    print(f"[train-kernels] {name}{label} backward: {len(gw)} gradients "
+          f"within tolerance "
+          f"(1% of max|plain|; largest err/tol {worst:.3f}) {bwd_ok}; two runs "
+          f"bit-identical {same}; kernel {m['ms_b']:.3f} ms, plain "
+          f"{m['plain_b']:.3f} ms, bound {m['bb']:.4f} ms ({m['bb_by']}); no "
+          "single PyTorch call computes it", flush=True)
+    del g1, g2, gw, got, want, saved
+    torch.cuda.empty_cache()
+    return fwd_ok and bwd_ok and same, m
+
+
+def _bwd_entry(results, name, source, m):
+    from spe_tpu_torch.ops.kernel_checks import BWD_REPLACES
+
+    prev = results.get(f"{name}_bwd", {}).get("max_abs_err", 0.0)
+    results[f"{name}_bwd"] = {
+        "name": f"{name}_bwd", "route": "cuda", "source": source,
+        "replaces": BWD_REPLACES[name], "launches": 0,
+        "max_abs_err": max(prev, m["bwd_err"]), "ms": m["ms_b"],
+        "plain_ms": m["plain_b"], "bound_ms": m["bb"], "bound_by": m["bb_by"],
+        "library_ms": None}
+
+
 def phase_train_kernels(results):
     """Every fused layer's training forward and backward kernels against
     their plain versions at the recipe shapes (B=2; the recipe's dropout
     rates on the patch block, 0.1 on every encoder and decoder site, a
-    nonzero CAM cotangent on class attention); the backward run twice must
-    give identical bits. The decoder runs layer 0 and a later layer; its
-    entries carry the larger error and the later layer's times (5 of the 6
-    layers)."""
-    import torch
-
-    from spe_tpu_torch.ops.kernel_checks import (BWD_REPLACES, PROBS_TOL,
-                                                 SOURCE, ULPS, backward_args,
-                                                 bf16_tol, bwd_bound_ms,
-                                                 flat_grads, grad_tols,
-                                                 max_err, plain_train,
-                                                 train_bound_ms, train_cases,
-                                                 zero_grad_ref)
+    nonzero CAM cotangent on class attention), and the standalone
+    attention kernels' likewise (fused_mha at its three shapes, the
+    talking-heads attention; the recipe's attention dropout); the backward
+    run twice must give identical bits. The decoder runs layer 0 and a
+    later layer; its entries carry the larger error and the later layer's
+    times (5 of the 6 layers). The standalone attentions' entries carry
+    the MAIN_SHAPE's times, every shape's under "shapes"."""
+    from spe_tpu_torch.ops.kernel_checks import (SOURCE, attention_cases,
+                                                 train_cases)
 
     bad = []
     for name, mod, args, cot in train_cases():
-        plain_fwd, plain_bwd = plain_train(name, mod)
-        with torch.no_grad():
-            got = mod._train_cuda(*args)
-            want = plain_fwd(*args)
-            torch.cuda.synchronize()
-            tols = [bf16_tol(w) for w in want]
-            if name == "pallas_ca_block":
-                tols[1] = PROBS_TOL
-            errs = [max_err(g, w) for g, w in zip(got, want)]
-            fwd_ok = all(e <= t for e, t in zip(errs, tols)) and all(
-                bool(torch.isfinite(g).all()) for g in got)
-            # the backward of both on the kernels' saved tensors
-            saved = backward_args(args, got[1:], cot)
-
-            def bwd():
-                return mod._backward_cuda(*saved)
-
-            def ref():
-                return plain_bwd(*saved)
-
-            g1, g2, gw = (flat_grads(name, r) for r in (bwd(), bwd(), ref()))
-            torch.cuda.synchronize()
-
-        same = all(torch.equal(g1[k], g2[k]) for k in gw)
-        gt = grad_tols(gw)
-        worst, bwd_ok = 0.0, True
-        for n, w in gw.items():
-            u, tol = g1[n], gt[n]
-            e = max_err(u, w)
-            worst = max(worst, e / max(tol, 1e-30))
-            if zero_grad_ref(n):
-                print(f"[train-kernels] {name} {n} (zero in exact "
-                      f"arithmetic): max|plain| {float(w.abs().max()):.3e}, "
-                      f"err {e:.3e}, tol {tol:.3e} (1% of max|d "
-                      f"{zero_grad_ref(n)}|)", flush=True)
-            if not (e <= tol and bool(torch.isfinite(u).all())):
-                bwd_ok = False
-                print(f"[train-kernels] {name} {n}: err {e:.3e} > tol "
-                      f"{tol:.3e}", flush=True)
-        ms_f = cuda_ms(lambda: mod._train_cuda(*args), reps=5, warmup=1)
-        plain_f = cuda_ms(lambda: plain_fwd(*args), reps=5, warmup=1)
-        ms_b = cuda_ms(bwd, reps=5, warmup=1)
-        plain_b = cuda_ms(ref, reps=3, warmup=1)
-        bf, bf_by = train_bound_ms(name, args)
-        bb, bb_by = bwd_bound_ms(name, args, cot)
-        print(f"[train-kernels] {name} training forward: max_abs_err "
-              f"{[f'{e:.3e}' for e in errs]} tol {[f'{t:.3e}' for t in tols]} "
-              f"({ULPS} bf16 ulp at max|plain|; probabilities {PROBS_TOL}) -> "
-              f"{'ok' if fwd_ok else 'MISMATCH'}; kernel {ms_f:.3f} ms, plain "
-              f"{plain_f:.3f} ms, bound {bf:.4f} ms ({bf_by})", flush=True)
-        print(f"[train-kernels] {name} backward: {len(gw)} gradients "
-              f"within tolerance (1% of max|plain|; largest err/tol "
-              f"{worst:.3f}) {bwd_ok}; two runs bit-identical {same}; kernel "
-              f"{ms_b:.3f} ms, plain {plain_b:.3f} ms, bound {bb:.4f} ms "
-              f"({bb_by}); no single PyTorch call computes it", flush=True)
-        if not (fwd_ok and bwd_ok and same):
+        ok, m = _check_train(name, mod, args, cot)
+        if not ok:
             bad.append(name)
-        prev = results.get(f"{name}_bwd", {}).get("max_abs_err", 0.0)
         results[name].update(
-            train_ms=ms_f, train_plain_ms=plain_f, train_bound_ms=bf,
+            train_ms=m["ms_f"], train_plain_ms=m["plain_f"],
+            train_bound_ms=m["bf"],
             train_max_abs_err=max(results[name].get("train_max_abs_err", 0.0),
-                                  *errs))
-        results[f"{name}_bwd"] = {
-            "name": f"{name}_bwd", "route": "cuda", "source": SOURCE,
-            "replaces": BWD_REPLACES[name], "launches": 0,
-            "max_abs_err": max(prev, *(max_err(g1[k], gw[k]) for k in gw)),
-            "ms": ms_b, "plain_ms": plain_b, "bound_ms": bb, "bound_by": bb_by,
-            "library_ms": None}
-        del g1, g2, gw, got, want, saved
-        torch.cuda.empty_cache()
+                                  *m["errs"]))
+        _bwd_entry(results, name, SOURCE, m)
+    for name, _, mod, args, cot, label in attention_cases(train=True):
+        ok, m = _check_train(name, mod, args, cot, f" ({label})")
+        if not ok:
+            bad.append(f"{name} ({label})")
+        entry = results[name]
+        entry["train_max_abs_err"] = max(entry.get("train_max_abs_err", 0.0),
+                                         *m["errs"])
+        shape = entry["shapes"][label]
+        shape.update(train_ms=m["ms_f"], train_plain_ms=m["plain_f"],
+                     train_bound_ms=m["bf"], bwd_ms=m["ms_b"],
+                     bwd_plain_ms=m["plain_b"], bwd_bound_ms=m["bb"])
+        prev = results.get(f"{name}_bwd", {})
+        if label == MAIN_SHAPE[name] or not prev:
+            entry.update(train_ms=m["ms_f"], train_plain_ms=m["plain_f"],
+                         train_bound_ms=m["bf"])
+            _bwd_entry(results, name, SOURCE, m)
+        results[f"{name}_bwd"]["max_abs_err"] = max(
+            results[f"{name}_bwd"]["max_abs_err"], prev.get("max_abs_err", 0.0),
+            m["bwd_err"])
     if bad:
         fail(f"training kernels disagree with their plain versions: {bad}")
 
@@ -535,6 +681,10 @@ TRAIN_ARGV = STOCK_TRAIN_ARGV + ["--no_use_fused_block"] + OFF_FLAGS
 # the slice of the fused backbone: use_fused_block on as in the preset
 # (use_fused_ca_block "auto" follows it), the encoder/decoder plain
 FUSED_TRAIN_ARGV = STOCK_TRAIN_ARGV + OFF_FLAGS
+# the fused flags off with the preset's use_pallas_attention: every
+# attention but the decoder self-attention through the standalone kernels
+ATTN_TRAIN_ARGV = STOCK_TRAIN_ARGV + ["--no_use_fused_block",
+                                      "--no_use_fused_layers"]
 # training forward launches per step of each fused layer (and as many
 # backward launches); also its eval launches per forward
 PER_STEP = {"pallas_block": 48, "pallas_ca_block": 2, "pallas_encoder": 3,
@@ -548,11 +698,45 @@ def _supervision_counters():
             "pallas_auction": auction.auction_phase}
 
 
+def _attention_counters():
+    """The standalone attention kernels and their launches per forward (and
+    per training step, forward and backward) with the fused flags off and
+    use_pallas_attention on: fused_mha in the 2 class-attention blocks, the
+    3 encoder layers and the 6 decoder cross-attentions; the talking-heads
+    attention in the 48 patch blocks."""
+    from spe_tpu_torch.ops import fused_mha, talking_heads
+
+    return {"pallas_mha": (fused_mha.fused_mha, 2 + 3 + 6),
+            "pallas_attention": (talking_heads.talking_heads_attention, 48)}
+
+
+def _fused_on(cfg):
+    """{fused layer: on under `cfg`} (use_fused_ca_block "auto" follows
+    use_fused_block)."""
+    fused_ca = {"auto": cfg.use_fused_block, "on": True,
+                "off": False}[cfg.use_fused_ca_block]
+    return {"pallas_block": cfg.use_fused_block, "pallas_ca_block": fused_ca,
+            "pallas_encoder": cfg.use_fused_layers,
+            "pallas_decoder": cfg.use_fused_layers}
+
+
+def _attention_per_step(cfg):
+    """{kernel: forward launches per step} of the standalone attention
+    kernels under `cfg`: each serves the layers whose fused flag is off."""
+    if not cfg.use_pallas_attention:
+        return {"pallas_mha": 0, "pallas_attention": 0}
+    on = _fused_on(cfg)
+    return {"pallas_mha": (0 if on["pallas_ca_block"] else 2)
+            + (0 if cfg.use_fused_layers else 3 + 6),
+            "pallas_attention": 0 if cfg.use_fused_block else 48}
+
+
 def _all_counts(reset=False):
-    """{counter name: launches} of every fused layer (eval, and for the
-    backbone blocks training forward and backward) and the supervision
-    kernels; with reset, set them all to 0 first."""
-    fns = {k: fn for k, (fn, _) in _counters().items()}
+    """{counter name: launches} of every fused layer and standalone
+    attention kernel (eval, training forward and backward) and the
+    supervision kernels; with reset, set them all to 0 first."""
+    fns = {k: fn for k, (fn, _) in {**_counters(),
+                                    **_attention_counters()}.items()}
     names = {}
     for k, fn in fns.items():
         for attr in ("launches", "train_launches", "bwd_launches"):
@@ -570,8 +754,11 @@ def phase_train(kernel_results, mode, n_train=24, n_test=8, batch=8):
     """The CLI trains the recipe at full width for 3 steps and evaluates:
     with the fused flags off (mode "off"), with the fused backbone
     ("backbone": 48 patch blocks and 2 class-attention blocks through their
-    training kernels) or as the stock preset ("stock": every fused layer
-    through its training kernels)."""
+    training kernels), as the stock preset ("stock": every fused layer
+    through its training kernels) or with the fused flags off and
+    use_pallas_attention on ("attention": the 48 patch blocks' attention
+    through the talking-heads kernels, the class attention, the encoder
+    and the decoder cross-attention through fused_mha)."""
     import torch
 
     from spe_tpu_torch.cli.main import main as cli_main
@@ -584,9 +771,10 @@ def phase_train(kernel_results, mode, n_train=24, n_test=8, batch=8):
 
     tag, argv = {"off": ("train", TRAIN_ARGV),
                  "backbone": ("train-fused", FUSED_TRAIN_ARGV),
-                 "stock": ("train-stock", STOCK_TRAIN_ARGV)}[mode]
+                 "stock": ("train-stock", STOCK_TRAIN_ARGV),
+                 "attention": ("train-attention", ATTN_TRAIN_ARGV)}[mode]
     fused = {"off": (), "backbone": ("pallas_block", "pallas_ca_block"),
-             "stock": tuple(PER_STEP)}[mode]
+             "stock": tuple(PER_STEP), "attention": ()}[mode]
     tmp = tempfile.TemporaryDirectory()
     devkit = write_mini_voc(tmp.name, n_test=n_test, n_trainval=n_train)
     out = f"{tmp.name}/out"
@@ -620,6 +808,9 @@ def phase_train(kernel_results, mode, n_train=24, n_test=8, batch=8):
         want[f"{k}.train_launches"] = per * steps if on else 0
         want[f"{k}.bwd_launches"] = per * steps if on else 0
         want[f"{k}.launches"] = per * forwards if on else 0
+    for k, per in _attention_per_step(parse_config(argv)).items():
+        want[f"{k}.train_launches"] = want[f"{k}.bwd_launches"] = per * steps
+        want[f"{k}.launches"] = per * forwards
     print(f"[{tag}] expected launches (training per step x {steps} steps; "
           f"eval per forward x {forwards} forwards): {want}", flush=True)
     for k, n in want.items():
@@ -669,6 +860,13 @@ def phase_train(kernel_results, mode, n_train=24, n_test=8, batch=8):
             kernel_results[k]["train_launches"] = counts[f"{k}.train_launches"]
         for k in _supervision_counters():
             kernel_results[k]["launches"] = counts[k]
+    if mode == "attention":   # this slice's main path: the attention kernels
+        for k in _attention_counters():
+            kernel_results[k]["launches"] = counts[f"{k}.launches"] + counts[
+                f"{k}.train_launches"]
+            kernel_results[k]["train_launches"] = counts[f"{k}.train_launches"]
+            kernel_results[k]["eval_launches"] = counts[f"{k}.launches"]
+            kernel_results[f"{k}_bwd"]["launches"] = counts[f"{k}.bwd_launches"]
     tmp.cleanup()
     return cfg
 
@@ -827,7 +1025,12 @@ def _same_tree(a, b):
 # rowsum(dp p)) is a small difference of large terms: in bf16, on either
 # path, the largest elements of these gradients are mostly rounding noise
 # (their directions hold: the plain bf16 one's cosine with the f32 one is
-# 0.86-0.999).
+# 0.86-0.999). They react so to any rounding upstream: with the fused
+# flags off and the standalone attention kernels on, this self-attention is
+# plain on both sides, yet the kernels' other roundings in the backbone,
+# the encoder and the cross-attention move these gradients by up to 1.3x
+# their largest plain element, while they stay as close to the f32 model
+# as the plain bf16 ones (cosines within 0.01 of the plain one's).
 NOISY = re.compile(r"transformer\.decoder\.layers\.\d+\."
                    r"sa_[qk](content|pos)_proj\.(weight|bias)$")
 # Such a gradient passes beyond MODEL_REL_TOL only if it is no further from
@@ -927,10 +1130,11 @@ def phase_same_grads(cfg, label, noisy=None, batch=8):
     (lf, gf, cf), (lp, gp, _) = runs["fused"], runs["plain"]
     g32 = runs["f32"][1] if noisy is not None else None
     bad = []
-    on = [k for k in PER_STEP if k in ("pallas_block", "pallas_ca_block")
-          or cfg.use_fused_layers]
-    want = {f"{k}.{a}": PER_STEP[k] if k in on else 0 for k in PER_STEP
+    on = _fused_on(cfg)
+    want = {f"{k}.{a}": PER_STEP[k] if on[k] else 0 for k in PER_STEP
             for a in ("train_launches", "bwd_launches")}
+    for k, per in _attention_per_step(cfg).items():
+        want[f"{k}.train_launches"] = want[f"{k}.bwd_launches"] = per
     if any(cf[k] != n for k, n in want.items()):
         bad.append(f"fused launches {cf}, expected {want}")
     for k, v in lp.items():
@@ -1058,6 +1262,8 @@ def main():
     phase_same_grads(fused_cfg, "fused backbone")
     stock_cfg = phase_train(results, "stock")
     phase_same_grads(stock_cfg, "stock preset", NOISY)
+    attn_cfg = phase_train(results, "attention")
+    phase_same_grads(attn_cfg, "standalone attention", NOISY)
     jax_mods = sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "jaxlib", "flax", "spe_tpu"))
     if jax_mods:

@@ -16,7 +16,9 @@ preset trains through every fused layer's kernels, forward and backward:
 the patch and class-attention blocks (`use_fused_block`,
 `use_fused_ca_block`) and the encoder and decoder layers
 (`use_fused_layers`); `--no_use_*` flags switch a family to its plain
-PyTorch version (with `--no_use_pallas_attention` when any is off).
+layers, whose attentions then run through the standalone attention kernels
+(`use_pallas_attention`, as the preset sets it); `--no_use_pallas_attention`
+makes those plain PyTorch too.
 Not ported (they raise): distributed runs, --frozen_weights, --masks,
 --backbone_weights, --log_match_cost, COCO evaluation.
 """

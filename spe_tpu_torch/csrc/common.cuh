@@ -53,7 +53,7 @@ __device__ __forceinline__ float gelu_tanh_grad(float u) {
 // comment block lists each layer's sites and the key of each.
 enum DropSite { SITE_NONE = 0, SITE_ATTN = 1, SITE_PROJ = 2, SITE_HIDDEN = 3,
                 SITE_OUT = 4, SITE_PATH1 = 5, SITE_PATH2 = 6, SITE_CROSS_ATTN = 7,
-                SITE_CROSS_PROJ = 8 };
+                SITE_CROSS_PROJ = 8, SITE_TH_ATTN = 9, SITE_MHA_ATTN = 10 };
 
 __device__ __forceinline__ unsigned fmix32(unsigned h) {
   h ^= h >> 16;

@@ -16,6 +16,15 @@
 //                  in bf16 (for dq~ = ds . K and dK = sum_g ds_g^T q~_g), and
 //                  per row partials of dww, dbw and dbl;
 //   th_dq          dQ = sum_g dq~_g (.) row_g and per row partials of dwl;
+//   th_*_rows with wl  the standalone talking-heads attention
+//                  (spe_tpu/ops/pallas_attention.py:30 _kernel and
+//                  pallas_attention_bwd.py:40 _bwd_kernel): s holds each
+//                  head's own logits L_h = dh^-0.5 q_h . k_h^T and the row
+//                  passes mix them, m_g = sum_h wl[g, h] L_h + bl_g, as the
+//                  TPU kernels do in f32 (no wl-fold); the backward writes
+//                  dL_h = sum_g wl[g, h] dm_g in bf16 in place of dm (for
+//                  dQ_h = scale dL_h . K_h and dK_h = scale dL_h^T . Q_h) and
+//                  adds per row partials of dwl[g, h] = <L_h, dm_g>;
 //   softmax_bwd    class attention: dl = p (dp + dattn - rowsum(...)), bf16;
 //   attn_bwd_rows  the encoder's and decoder's standard attention: from the
 //                  logits s = scale q . k^T (spe_gemm), the saved row
@@ -24,7 +33,9 @@
 //                  dp = M (.) dzd / keep, dl = p (dp - rowsum(dp p)) (bf16,
 //                  for dQ = scale dl . K and dK = scale dl^T . Q).
 // The math is _block_bwd_kernel's (pallas_block.py:356-451),
-// _ca_bwd_kernel's (pallas_ca_block.py:166-177), _attn_bwd_loop's
+// _ca_bwd_kernel's (pallas_ca_block.py:166-177), the standalone
+// talking-heads kernels' (pallas_attention.py:45-75,
+// pallas_attention_bwd.py:245-301), _attn_bwd_loop's
 // (pallas_encoder.py:97-126), and the attention backwards of
 // _dec_bwd_kernel (pallas_decoder.py:82-136, 174-203).
 //
@@ -48,7 +59,8 @@ struct THFoldParams {
 };
 
 struct THRowParams {
-  const float* s;     // (B, H, N, N) logits without the head bias
+  const float* s;     // (B, H, N, N) logits without the head bias (with wl:
+                      // each head's own, before the pre-softmax mix)
   const float* dzd;   // (B, H, N, N) do_g . V_g^T (backward only)
   float* lse;         // (B, H, N): written by the forward, read by the backward
   const float* bl;    // (H) pre-softmax head bias
@@ -56,12 +68,16 @@ struct THRowParams {
   const float* bw;    // (H)
   const unsigned* seed;
   bf16* zd;           // (B, H, N, N)
-  bf16* ds;           // (B, H, N, N) backward only
-  float* parts;       // (B*N, H*H + 2H) backward only: dww[g,h], dbw[g], dbl[g]
+  bf16* ds;           // (B, H, N, N) backward only: dm_g, or with wl dL_h
+  float* parts;       // (B*N, H*H + 2H) backward only: dww[g,h], dbw[g], dbl[g];
+                      // with wl (B*N, 2H*H + 2H), then dwl[g,h]
   int B, H, N;
   int drop;           // attention dropout on
   unsigned thr;
   float scale;
+  const float* wl;    // optional (H, H) pre-softmax mix, torch Linear layout:
+                      // m_g = sum_h wl[g*H+h] s_h + bl_g
+  int site;           // the dropout site of the keys (seed, site, b, g, i, j)
 };
 
 struct THDqParams {
@@ -104,6 +120,23 @@ namespace {
 
 constexpr int NT = 256;
 
+// the pre-softmax logit of mixed head g at one key from the H logits l_h of
+// that key: sum_h wl[g, h] l_h + bl_g with wl, else l_g + bl_g
+__device__ __forceinline__ float mixed_logit(const THRowParams& p, const float* l,
+                                             int g) {
+  if (!p.wl) return l[g] + p.bl[g];
+  float m = 0.f;
+  for (int h = 0; h < p.H; ++h) m += p.wl[g * p.H + h] * l[h];
+  return m + p.bl[g];
+}
+
+__device__ __forceinline__ void load_logits(const THRowParams& p, int b, int i, int j,
+                                            float* l) {
+  for (int h = 0; h < p.H; ++h) {
+    l[h] = p.s[((static_cast<long long>(b) * p.H + h) * p.N + i) * p.N + j];
+  }
+}
+
 __global__ void th_fold_kernel(THFoldParams p) {
   const long long total = static_cast<long long>(p.B) * p.H * p.N * p.D;
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -116,19 +149,19 @@ __global__ void th_fold_kernel(THFoldParams p) {
 }
 
 __global__ void __launch_bounds__(NT) th_fwd_rows_kernel(THRowParams p) {
-  extern __shared__ float sm[];          // H * N logits (+ head bias)
+  extern __shared__ float sm[];          // H * N mixed logits (+ head bias)
   __shared__ float red[32];
   __shared__ float s_lse[MAXH];
   const int b = blockIdx.x / p.N, i = blockIdx.x % p.N;
   const int H = p.H, N = p.N;
+  for (int j = threadIdx.x; j < N; j += NT) {
+    float l[MAXH];
+    load_logits(p, b, i, j, l);
+    for (int g = 0; g < H; ++g) sm[g * N + j] = mixed_logit(p, l, g);
+  }
   for (int h = 0; h < H; ++h) {
-    const float* srow = p.s + ((static_cast<long long>(b) * H + h) * N + i) * N;
     float mx = -INFINITY;
-    for (int j = threadIdx.x; j < N; j += NT) {
-      const float v = srow[j] + p.bl[h];
-      sm[h * N + j] = v;
-      mx = fmaxf(mx, v);
-    }
+    for (int j = threadIdx.x; j < N; j += NT) mx = fmaxf(mx, sm[h * N + j]);
     mx = block_max(mx, red);
     float l = 0.f;
     for (int j = threadIdx.x; j < N; j += NT) l += expf(sm[h * N + j] - mx);
@@ -140,7 +173,7 @@ __global__ void __launch_bounds__(NT) th_fwd_rows_kernel(THRowParams p) {
   }
   __syncthreads();
   unsigned keys[MAXH];
-  for (int g = 0; g < H; ++g) keys[g] = p.drop ? head_key(*p.seed, SITE_ATTN, b, g) : 0u;
+  for (int g = 0; g < H; ++g) keys[g] = p.drop ? head_key(*p.seed, p.site, b, g) : 0u;
   for (int j = threadIdx.x; j < N; j += NT) {
     float pr[MAXH];
     for (int h = 0; h < H; ++h) pr[h] = expf(sm[h * N + j] - s_lse[h]);
@@ -165,16 +198,16 @@ __global__ void __launch_bounds__(NT) th_bwd_rows_kernel(THRowParams p) {
   unsigned keys[MAXH];
   for (int h = 0; h < H; ++h) {
     lse[h] = p.lse[(static_cast<long long>(b) * H + h) * N + i];
-    keys[h] = p.drop ? head_key(*p.seed, SITE_ATTN, b, h) : 0u;
+    keys[h] = p.drop ? head_key(*p.seed, p.site, b, h) : 0u;
   }
   float a_ww[MAXH * MAXH], a_bw[MAXH], a_dsum[MAXH];
   for (int e = 0; e < H * H; ++e) a_ww[e] = 0.f;
   for (int h = 0; h < H; ++h) a_bw[h] = a_dsum[h] = 0.f;
   for (int j = threadIdx.x; j < N; j += NT) {
-    float pr[MAXH], dz[MAXH];
+    float pr[MAXH], dz[MAXH], l[MAXH];
+    load_logits(p, b, i, j, l);
     for (int h = 0; h < H; ++h) {
-      const long long o = ((static_cast<long long>(b) * H + h) * N + i) * N + j;
-      pr[h] = expf(p.s[o] + p.bl[h] - lse[h]);
+      pr[h] = expf(mixed_logit(p, l, h) - lse[h]);
       sp[h * N + j] = pr[h];
     }
     for (int g = 0; g < H; ++g) {
@@ -200,16 +233,34 @@ __global__ void __launch_bounds__(NT) th_bwd_rows_kernel(THRowParams p) {
     if (threadIdx.x == 0) s_dsum[h] = t;
   }
   __syncthreads();
-  float a_bl[MAXH];
+  float a_bl[MAXH], a_wl[MAXH * MAXH];
   for (int h = 0; h < H; ++h) a_bl[h] = 0.f;
+  for (int e = 0; e < H * H; ++e) a_wl[e] = 0.f;
   for (int j = threadIdx.x; j < N; j += NT) {
+    float dm[MAXH];
     for (int g = 0; g < H; ++g) {
-      const float d = sp[g * N + j] * (sdp[g * N + j] - s_dsum[g]);
-      a_bl[g] += d;
-      p.ds[((static_cast<long long>(b) * H + g) * N + i) * N + j] = f2bf(d);
+      dm[g] = sp[g * N + j] * (sdp[g * N + j] - s_dsum[g]);
+      a_bl[g] += dm[g];
+    }
+    if (!p.wl) {
+      for (int g = 0; g < H; ++g) {
+        p.ds[((static_cast<long long>(b) * H + g) * N + i) * N + j] = f2bf(dm[g]);
+      }
+      continue;
+    }
+    float l[MAXH];
+    load_logits(p, b, i, j, l);
+    for (int h = 0; h < H; ++h) {
+      float dl = 0.f;
+      for (int g = 0; g < H; ++g) {
+        dl += p.wl[g * H + h] * dm[g];
+        a_wl[g * H + h] += l[h] * dm[g];
+      }
+      p.ds[((static_cast<long long>(b) * H + h) * N + i) * N + j] = f2bf(dl);
     }
   }
-  float* part = p.parts + static_cast<long long>(blockIdx.x) * (H * H + 2 * H);
+  const int width = (p.wl ? 2 * H * H : H * H) + 2 * H;
+  float* part = p.parts + static_cast<long long>(blockIdx.x) * width;
   for (int e = 0; e < H * H; ++e) {
     const float t = block_sum(a_ww[e], red);
     if (threadIdx.x == 0) part[e] = t;
@@ -220,6 +271,12 @@ __global__ void __launch_bounds__(NT) th_bwd_rows_kernel(THRowParams p) {
     if (threadIdx.x == 0) {
       part[H * H + g] = t1;
       part[H * H + H + g] = t2;
+    }
+  }
+  if (p.wl) {
+    for (int e = 0; e < H * H; ++e) {
+      const float t = block_sum(a_wl[e], red);
+      if (threadIdx.x == 0) part[H * H + 2 * H + e] = t;
     }
   }
 }
@@ -325,7 +382,8 @@ extern "C" int spe_th_fold(const THFoldParams* p, void* stream) {
 
 // the forward (backward == 0) or the backward (backward == 1) row pass
 extern "C" int spe_th_rows(const THRowParams* p, int backward, void* stream) {
-  if (p->B <= 0 || p->H <= 0 || p->H > MAXH || p->N <= 0 || (p->drop && !p->seed) ||
+  if (p->B <= 0 || p->H <= 0 || p->H > MAXH || p->N <= 0 ||
+      (p->drop && (!p->seed || p->site <= 0)) ||
       2 * p->H * p->N * static_cast<int>(sizeof(float)) > 200 * 1024) {
     return static_cast<int>(cudaErrorInvalidValue);
   }

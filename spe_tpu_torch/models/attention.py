@@ -4,8 +4,10 @@ Each class holds one flavour's weights under the reference state-dict names.
 Its arithmetic is not here: every flavour runs inside one of the four fused
 layers, whose plain PyTorch version (`*_reference` in
 spe_tpu_torch/ops/fused_*.py) is the one plain version of that layer. With
-the fused flags off a model calls that plain version; with them on it calls
-the fused layer (the kernels for CUDA tensors).
+the fused flags off a model calls that plain version, handing it the
+attention to use: its plain math, or with `use_pallas_attention` the
+standalone kernels (ops/talking_heads.py, ops/fused_mha.py); with them on
+it calls the fused layer (the kernels for CUDA tensors).
 
   TalkingHeadsAttention  CaiT patch blocks (reference cait.py:344-393);
                          math in layer_scale_block_reference

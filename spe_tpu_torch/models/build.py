@@ -69,29 +69,16 @@ def init_weights(model: SPEDetector, seed: int) -> SPEDetector:
     return model
 
 
-def refuse_unported_attention(cfg: SPEConfig):
-    """With `use_pallas_attention` the JAX package runs `pallas_attention`
-    (patch blocks without the fused block, models/attention.py:85-111) and
-    `pallas_mha` (class attention without the fused CA block, encoder and
-    decoder without the fused layers, :166-172, 235-239, 281-289). Neither
-    kernel is ported: refuse rather than run plain PyTorch in its place."""
-    fused_ca = {"auto": cfg.use_fused_block, "on": True,
-                "off": False}[cfg.use_fused_ca_block]
-    if cfg.use_pallas_attention and not (cfg.use_fused_block and fused_ca
-                                         and cfg.use_fused_layers):
-        raise NotImplementedError(
-            "use_pallas_attention with a fused flag off reaches the "
-            "pallas_attention/pallas_mha kernels, which are not ported yet "
-            "(ROADMAP B4/B5): pass --no_use_pallas_attention")
-
-
 def build_model(cfg: SPEConfig, device=None) -> SPEDetector:
     """The detector of `cfg` on `device` (default: resolve_device(cfg)),
     initialised from cfg.seed, in eval mode. Post-norm encoder and sine
     position embedding only: pre-norm, learned position embeddings,
-    segmentation heads and tensor parallelism are not ported yet, and
-    neither are the attention kernels of `use_pallas_attention` with a
-    fused flag off."""
+    segmentation heads and tensor parallelism are not ported yet. With
+    `use_pallas_attention`, a layer whose fused flag is off runs its
+    attention through the standalone kernels (talking_heads B5 in the
+    patch blocks, fused_mha B4 in the class attention, the encoder and the
+    decoder cross-attention), as spe_tpu/models/build.py:38,60 routes
+    them."""
     if cfg.pre_norm or cfg.masks or cfg.position_embedding not in ("sine", "v2"):
         raise NotImplementedError(
             "spe_tpu_torch ports the post-norm, sine-embedding detector "
@@ -99,7 +86,6 @@ def build_model(cfg: SPEConfig, device=None) -> SPEDetector:
     if cfg.tp_attention or cfg.model_axis > 1:
         raise NotImplementedError("tensor parallelism is not ported to "
                                   "spe_tpu_torch")
-    refuse_unported_attention(cfg)
     device = resolve_device(cfg) if device is None else torch.device(device)
     backbone_cfg = build_cait_config(
         cfg.backbone, num_classes=cfg.num_classes,
@@ -107,7 +93,8 @@ def build_model(cfg: SPEConfig, device=None) -> SPEDetector:
         use_fused_ca={"auto": None, "on": True, "off": False}[
             cfg.use_fused_ca_block],
         drop_rate=cfg.backbone_drop_rate, attn_drop_rate=cfg.drop_attn_rate,
-        drop_path_rate=cfg.drop_path_rate)
+        drop_path_rate=cfg.drop_path_rate,
+        use_pallas=cfg.use_pallas_attention)
     if cfg.init_scale:
         backbone_cfg = dataclasses.replace(backbone_cfg,
                                            init_scale=cfg.init_scale)
@@ -119,5 +106,6 @@ def build_model(cfg: SPEConfig, device=None) -> SPEDetector:
                         dim_feedforward=cfg.dim_feedforward,
                         nheads=cfg.nheads,
                         use_fused_layers=cfg.use_fused_layers,
-                        dropout=cfg.dropout, dtype=dtype)
+                        dropout=cfg.dropout, dtype=dtype,
+                        use_pallas=cfg.use_pallas_attention)
     return init_weights(model, cfg.seed).to(device).eval()

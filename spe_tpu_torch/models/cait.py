@@ -9,7 +9,12 @@ With `use_fused_block` each LayerScale block runs as one fused layer
 (ops/fused_block.py) and with `use_fused_ca` each class-attention block
 likewise (ops/fused_ca_block.py): the CUDA kernels for CUDA tensors, their
 plain versions for CPU tensors, forward and backward. With the flags off
-the blocks run the plain eval versions under autograd on any device.
+the blocks run the plain eval versions under autograd on any device; with
+`use_pallas` as well, their attentions run through the standalone kernels,
+as the JAX package's flax blocks call them (models/attention.py:85-111,
+166-172): the patch blocks' through talking_heads (B5), the
+class-attention blocks' through fused_mha (B4), each an autograd Function
+that dispatches by device like the fused layers.
 
 In training mode (`.train()`, with a torch.Generator passed to forward) the
 JAX package's dropout sites apply: dropout after the position embedding at
@@ -32,11 +37,15 @@ from spe_tpu_torch.models.attention import (MultiClassAttention,
                                             TalkingHeadsAttention)
 from spe_tpu_torch.models.layers import (LayerNorm, Linear, Mlp, PatchEmbed,
                                          dropout_for, interpolate_pos_embed)
-from spe_tpu_torch.ops.fused_block import (fused_layer_scale_block,
+from spe_tpu_torch.ops.fused_block import (fold_attention,
+                                           fused_layer_scale_block,
                                            layer_scale_block_reference)
-from spe_tpu_torch.ops.fused_ca_block import (class_attn_block_reference,
+from spe_tpu_torch.ops.fused_ca_block import (class_attention,
+                                              class_attn_block_reference,
                                               fused_class_attn_block)
+from spe_tpu_torch.ops.fused_mha import layer_attention
 from spe_tpu_torch.ops.refmath import CounterDropout, draw_seed
+from spe_tpu_torch.ops.talking_heads import block_attention
 
 
 class LayerScaleBlock(nn.Module):
@@ -44,10 +53,12 @@ class LayerScaleBlock(nn.Module):
     (reference LayerScale_Block, cait.py:396-416)."""
 
     def __init__(self, dim, num_heads, mlp_ratio=4.0, init_scale=1e-4,
-                 use_fused=False, drop=0.0, attn_drop=0.0, drop_path=0.0):
+                 use_fused=False, drop=0.0, attn_drop=0.0, drop_path=0.0,
+                 use_pallas=False):
         super().__init__()
         self.num_heads = num_heads
         self.use_fused = use_fused
+        self.attention = block_attention if use_pallas else fold_attention
         self.rates = dict(attn=attn_drop, proj=drop, path=drop_path)
         self.norm1 = LayerNorm(dim, eps=1e-6)
         self.attn = TalkingHeadsAttention(dim, num_heads)
@@ -60,7 +71,8 @@ class LayerScaleBlock(nn.Module):
         params = dict(self.named_parameters())
         drop = dropout_for(self, gen, **self.rates)
         if not self.use_fused:
-            return layer_scale_block_reference(x, params, self.num_heads, drop)
+            return layer_scale_block_reference(x, params, self.num_heads, drop,
+                                               self.attention)
         # the fused layer's counter masks: one seed per block call, drawn on
         # the generator's device, as JAX draws one per block (cait.py:176-180)
         if drop is not None:
@@ -75,10 +87,11 @@ class LayerScaleBlockClassAttn(nn.Module):
     forward(x, cls) -> (new cls, attn (B, H, t, t+P))."""
 
     def __init__(self, dim, num_heads, mlp_ratio=4.0, init_scale=1e-4,
-                 use_fused=False):
+                 use_fused=False, use_pallas=False):
         super().__init__()
         self.num_heads = num_heads
         self.use_fused = use_fused
+        self.attention = layer_attention if use_pallas else class_attention
         self.norm1 = LayerNorm(dim, eps=1e-6)
         self.attn = MultiClassAttention(dim)
         self.norm2 = LayerNorm(dim, eps=1e-6)
@@ -87,9 +100,11 @@ class LayerScaleBlockClassAttn(nn.Module):
         self.gamma_2 = nn.Parameter(torch.full((dim,), float(init_scale)))
 
     def forward(self, x, cls):
-        fn = (fused_class_attn_block if self.use_fused
-              else class_attn_block_reference)
-        return fn(cls, x, dict(self.named_parameters()), self.num_heads)
+        params = dict(self.named_parameters())
+        if self.use_fused:
+            return fused_class_attn_block(cls, x, params, self.num_heads)
+        return class_attn_block_reference(cls, x, params, self.num_heads,
+                                          self.attention)
 
 
 def std_reweighting(cam):
@@ -120,6 +135,7 @@ class CaiTConfig:
     use_fused_block: bool = False
     use_fused_ca: "bool | None" = None  # None: follow use_fused_block
     two_branch: bool = True
+    use_pallas: bool = False  # the standalone attention kernels (B4, B5)
 
 
 class CaiTTwoBranch(nn.Module):
@@ -141,7 +157,7 @@ class CaiTTwoBranch(nn.Module):
             return LayerScaleBlock(D, cfg.num_heads, cfg.mlp_ratio,
                                    cfg.init_scale, cfg.use_fused_block,
                                    cfg.drop_rate, cfg.attn_drop_rate,
-                                   cfg.drop_path_rate)
+                                   cfg.drop_path_rate, cfg.use_pallas)
 
         self.blocks = nn.ModuleList([block() for _ in range(cfg.depth)])
         if cfg.two_branch:
@@ -154,7 +170,7 @@ class CaiTTwoBranch(nn.Module):
                     else cfg.use_fused_ca)
         self.blocks_token_only = nn.ModuleList([
             LayerScaleBlockClassAttn(D, cfg.num_heads, cfg.mlp_ratio,
-                                     cfg.init_scale, fused_ca)
+                                     cfg.init_scale, fused_ca, cfg.use_pallas)
             for _ in range(cfg.depth_token_only)])
         self.norm = LayerNorm(D, eps=1e-6)
         self.cls_head = Linear(D, 1)
@@ -248,11 +264,12 @@ BACKBONE_REGISTRY = {
 def build_cait_config(name: str, num_classes: int, layer_to_det: int,
                       use_fused_block: bool = False, use_fused_ca=None,
                       drop_rate: float = 0.0, attn_drop_rate: float = 0.0,
-                      drop_path_rate: float = 0.0) -> CaiTConfig:
+                      drop_path_rate: float = 0.0,
+                      use_pallas: bool = False) -> CaiTConfig:
     if name not in BACKBONE_REGISTRY:
         raise KeyError(f"unknown backbone '{name}'; have {sorted(BACKBONE_REGISTRY)}")
     return BACKBONE_REGISTRY[name](
         num_classes=num_classes, layer_to_det=layer_to_det,
         use_fused_block=use_fused_block, use_fused_ca=use_fused_ca,
         drop_rate=drop_rate, attn_drop_rate=attn_drop_rate,
-        drop_path_rate=drop_path_rate)
+        drop_path_rate=drop_path_rate, use_pallas=use_pallas)

@@ -47,7 +47,7 @@ class SPEDetector(nn.Module):
                  enc_layers: int = 6, dec_layers: int = 6,
                  dim_feedforward: int = 2048, nheads: int = 8,
                  use_fused_layers: bool = False, dropout: float = 0.0,
-                 dtype=torch.float32):
+                 dtype=torch.float32, use_pallas: bool = False):
         super().__init__()
         D = backbone_cfg.embed_dim
         self.dtype = dtype
@@ -56,7 +56,7 @@ class SPEDetector(nn.Module):
         self.transformer = ConditionalTransformer(
             D, nheads, enc_layers, dec_layers, dim_feedforward,
             num_sets=num_refines + 1, use_fused_layers=use_fused_layers,
-            dropout=dropout)
+            dropout=dropout, use_pallas=use_pallas)
         self.query_embed = nn.Embedding(num_queries, D)
         self.queries_embed_refine = nn.ModuleList(
             nn.Embedding(num_queries, D) for _ in range(num_refines))

@@ -8,7 +8,12 @@ share the encoder memory, and self-attention keeps each set to itself.
 Each encoder and decoder layer runs as its fused layer
 (ops/fused_encoder.py, ops/fused_decoder.py) with `use_fused_layers`, and
 as that layer's plain version without; both run on the real Q queries of
-each set (no padding). Parameter names are the reference state-dict names.
+each set (no padding). With `use_pallas` and the fused layers off, the
+plain layers' encoder self-attention and decoder cross-attention run
+through the standalone attention kernel fused_mha (B4), as the JAX
+package's flax layers call it (models/attention.py:235-243, 281-289); the
+decoder self-attention stays plain (transformer.py:183-185). Parameter
+names are the reference state-dict names.
 
 In training mode (`.train()`, a torch.Generator passed to forward) every
 encoder and decoder layer applies the JAX package's dropouts at `dropout`
@@ -30,7 +35,9 @@ from spe_tpu_torch.ops.embeds import gen_sineembed_for_position
 from spe_tpu_torch.ops.fused_decoder import (decoder_layer_reference,
                                              fused_decoder_layer)
 from spe_tpu_torch.ops.fused_encoder import (encoder_layer_reference,
-                                             fused_encoder_layer)
+                                             fused_encoder_layer,
+                                             softmax_attention)
+from spe_tpu_torch.ops.fused_mha import layer_attention
 from spe_tpu_torch.ops.refmath import CounterDropout, draw_seed
 
 
@@ -65,11 +72,12 @@ class TransformerEncoderLayer(nn.Module):
     """Post-norm encoder layer with additive positional q/k."""
 
     def __init__(self, d_model, nhead, dim_feedforward, use_fused=False,
-                 dropout=0.0):
+                 dropout=0.0, use_pallas=False):
         super().__init__()
         self.nhead = nhead
         self.use_fused = use_fused
         self.dropout = dropout
+        self.attention = layer_attention if use_pallas else softmax_attention
         self.self_attn = MultiheadAttention(d_model)
         self.linear1 = Linear(d_model, dim_feedforward)
         self.linear2 = Linear(dim_feedforward, d_model)
@@ -77,9 +85,11 @@ class TransformerEncoderLayer(nn.Module):
         self.norm2 = LayerNorm(d_model)
 
     def forward(self, src, pos, key_padding_mask=None, gen=None):
-        fn = fused_encoder_layer if self.use_fused else encoder_layer_reference
-        return fn(src, pos, key_padding_mask, dict(self.named_parameters()),
-                  self.nhead, _dropout(self, gen, src.device))
+        args = (src, pos, key_padding_mask, dict(self.named_parameters()),
+                self.nhead, _dropout(self, gen, src.device))
+        if self.use_fused:
+            return fused_encoder_layer(*args)
+        return encoder_layer_reference(*args, self.attention)
 
 
 class TransformerEncoder(nn.Module):
@@ -100,12 +110,13 @@ class ConditionalDecoderLayer(nn.Module):
     (reference transformer.py:203-204)."""
 
     def __init__(self, d_model, nhead, dim_feedforward, is_first,
-                 num_sets=1, use_fused=False, dropout=0.0):
+                 num_sets=1, use_fused=False, dropout=0.0, use_pallas=False):
         super().__init__()
         self.nhead = nhead
         self.num_sets = num_sets
         self.use_fused = use_fused
         self.dropout = dropout
+        self.attention = layer_attention if use_pallas else softmax_attention
         D = d_model
         for name in ("sa_qcontent_proj", "sa_qpos_proj", "sa_kcontent_proj",
                      "sa_kpos_proj", "sa_v_proj", "ca_qcontent_proj",
@@ -124,10 +135,12 @@ class ConditionalDecoderLayer(nn.Module):
 
     def forward(self, tgt, memory, pos, query_pos, query_sine_embed,
                 key_padding_mask=None, gen=None):
-        fn = fused_decoder_layer if self.use_fused else decoder_layer_reference
-        return fn(tgt, memory, pos, query_pos, query_sine_embed,
-                  key_padding_mask, dict(self.named_parameters()), self.nhead,
-                  self.num_sets, _dropout(self, gen, tgt.device))
+        args = (tgt, memory, pos, query_pos, query_sine_embed,
+                key_padding_mask, dict(self.named_parameters()), self.nhead,
+                self.num_sets, _dropout(self, gen, tgt.device))
+        if self.use_fused:
+            return fused_decoder_layer(*args)
+        return decoder_layer_reference(*args, self.attention)
 
 
 class ConditionalDecoder(nn.Module):
@@ -135,12 +148,12 @@ class ConditionalDecoder(nn.Module):
     (reference TransformerDecoder, transformer.py:192-250)."""
 
     def __init__(self, num_layers, d_model, nhead, dim_feedforward,
-                 num_sets=1, use_fused=False, dropout=0.0):
+                 num_sets=1, use_fused=False, dropout=0.0, use_pallas=False):
         super().__init__()
         self.d_model = d_model
         self.layers = nn.ModuleList(
             ConditionalDecoderLayer(d_model, nhead, dim_feedforward, i == 0,
-                                    num_sets, use_fused, dropout)
+                                    num_sets, use_fused, dropout, use_pallas)
             for i in range(num_layers))
         self.norm = LayerNorm(d_model)
         self.query_scale = MLP(d_model, d_model, d_model, 2)
@@ -169,16 +182,18 @@ class ConditionalTransformer(nn.Module):
 
     def __init__(self, d_model, nhead=8, num_encoder_layers=6,
                  num_decoder_layers=6, dim_feedforward=2048, num_sets=2,
-                 use_fused_layers=False, dropout=0.0):
+                 use_fused_layers=False, dropout=0.0, use_pallas=False):
         super().__init__()
         self.num_sets = num_sets
         self.encoder = TransformerEncoder(num_encoder_layers, d_model, nhead,
                                           dim_feedforward,
                                           use_fused=use_fused_layers,
-                                          dropout=dropout)
+                                          dropout=dropout,
+                                          use_pallas=use_pallas)
         self.decoder = ConditionalDecoder(num_decoder_layers, d_model, nhead,
                                           dim_feedforward, num_sets,
-                                          use_fused_layers, dropout)
+                                          use_fused_layers, dropout,
+                                          use_pallas)
 
     def forward(self, src, pos_embed, query_embeds, key_padding_mask=None,
                 gen=None):

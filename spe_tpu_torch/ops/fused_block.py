@@ -80,23 +80,16 @@ def _fold_rows(p, H, dh):
         dh, dim=1)
 
 
-def layer_scale_block_reference(x, p, num_heads, drop=None):
-    """Plain PyTorch version. x: (B, N, D); p: {PARAM_NAMES: tensor} in the
-    reference state-dict layout (proj_l/proj_w are (H, H) Linear weights,
-    out x in). Rounds where the TPU kernel rounds. drop: a refmath.Dropout
-    for the training forward, at the JAX flax block's sites (attention.py
-    :124-131, layers.py:38-41, cait.py:150-154): `attn` on the post-mix
-    probabilities, `proj` on the projection and both MLP outputs, DropPath
-    on each gamma-scaled branch."""
-    dt = x.dtype
-    B, N, D = x.shape
+def fold_attention(q, k, v, p, num_heads, drop=None):
+    """The block's talking-heads attention as the fused block's kernels
+    compute it, through the wl-fold. q/k/v: (B, N, D) in the working
+    dtype; p the block's parameters; drop: a refmath.Dropout (its `attn`
+    rate on the post-mix probabilities) or None -> (B, N, D) in v's
+    dtype."""
+    dt = v.dtype
     H = num_heads
-    dh = D // H
-    h1 = layer_norm(x, p["norm1.weight"], p["norm1.bias"], EPS).to(dt)
-    qkv = mm(h1, p["attn.qkv.weight"], p["attn.qkv.bias"]).to(dt)
-    q, k, v = qkv.split(D, dim=-1)
     # wl-fold: mixed_g = sum_h wl[g, h] (scale q_h k_h^T) = (q (.) row_g) k^T
-    rows = _fold_rows(p, H, dh)                                # (H, D)
+    rows = _fold_rows(p, H, q.shape[-1] // H)                  # (H, D)
     qg = (q.float()[:, None] * rows[None, :, None, :]).to(dt)  # (B, H, N, D)
     logits = qg.float() @ k.float()[:, None].transpose(-1, -2)
     logits = logits + p["attn.proj_l.bias"].float()[None, :, None, None]
@@ -104,7 +97,26 @@ def layer_scale_block_reference(x, p, num_heads, drop=None):
     z = torch.einsum("bhqk,gh->bgqk", probs, p["attn.proj_w.weight"].float())
     z = z + p["attn.proj_w.bias"].float()[None, :, None, None]
     z = drop_site(drop, z, "attn")
-    o = merge_heads(z.to(dt).float() @ split_heads(v, H).float()).to(dt)
+    return merge_heads(z.to(dt).float() @ split_heads(v, H).float()).to(dt)
+
+
+def layer_scale_block_reference(x, p, num_heads, drop=None,
+                                attention=fold_attention):
+    """Plain PyTorch version. x: (B, N, D); p: {PARAM_NAMES: tensor} in the
+    reference state-dict layout (proj_l/proj_w are (H, H) Linear weights,
+    out x in). Rounds where the TPU kernel rounds. drop: a refmath.Dropout
+    for the training forward, at the JAX flax block's sites (attention.py
+    :124-131, layers.py:38-41, cait.py:150-154): `attn` on the post-mix
+    probabilities, `proj` on the projection and both MLP outputs, DropPath
+    on each gamma-scaled branch. attention(q, k, v, p, num_heads, drop):
+    the talking-heads attention, by default `fold_attention`
+    (`talking_heads.block_attention` with use_pallas_attention)."""
+    dt = x.dtype
+    D = x.shape[-1]
+    h1 = layer_norm(x, p["norm1.weight"], p["norm1.bias"], EPS).to(dt)
+    qkv = mm(h1, p["attn.qkv.weight"], p["attn.qkv.bias"]).to(dt)
+    q, k, v = qkv.split(D, dim=-1)
+    o = attention(q, k, v, p, num_heads, drop)
     h = drop_site(drop, mm(o, p["attn.proj.weight"], p["attn.proj.bias"]),
                   "proj")
     x1 = x.float() + drop_path(drop, p["gamma_1"].float() * h)

@@ -57,24 +57,39 @@ ROUNDED = ("attn.q.weight", "attn.k.weight", "attn.v.weight",
            "attn.proj.weight", "mlp.fc1.weight", "mlp.fc2.weight")
 
 
-def class_attn_block_train_reference(cls, x, p, num_heads):
+def class_attention(q, k, v, num_heads, key_padding_mask=None, drop=None,
+                    return_attn=True):
+    """Class attention as the fused block's kernels compute it: q (B, t, D)
+    pre-scaled in the working dtype (refmath.scale_in), k/v (B, t+P, D);
+    no mask, no dropout (the block has none) -> (o (B, t, D) in v's dtype,
+    probabilities (B, H, t, t+P) f32)."""
+    dt = v.dtype
+    H = num_heads
+    dh = q.shape[-1] // H
+    qh = (split_heads(q, H).float() * scale_in(dt, dh ** -0.5)).to(dt)
+    logits = qh.float() @ split_heads(k, H).float().transpose(-1, -2)
+    attn = torch.softmax(logits, dim=-1)
+    o = merge_heads(attn.to(dt).float() @ split_heads(v, H).float()).to(dt)
+    return o, attn
+
+
+def class_attn_block_train_reference(cls, x, p, num_heads,
+                                     attention=class_attention):
     """Plain PyTorch version of the training forward. cls: (B, t, D) class
     tokens; x: (B, P, D) patches. Returns (new cls (B, t, D), attn (B, H,
     t, t+P) f32, o (B, t, D) in cls's dtype, mm (B, t, D) f32: the MLP
-    output before gamma2)."""
+    output before gamma2). attention(q, k, v, num_heads, return_attn=True)
+    -> (o, probabilities): by default `class_attention`
+    (`fused_mha.layer_attention` with use_pallas_attention)."""
     dt = cls.dtype
-    t, D = cls.shape[1:]
-    H = num_heads
-    dh = D // H
+    t = cls.shape[1]
     un = layer_norm(torch.cat([cls, x], dim=1), p["norm1.weight"],
                     p["norm1.bias"], EPS).to(dt)
     q = mm(un[:, :t], p["attn.q.weight"], p["attn.q.bias"]).to(dt)
     k = mm(un, p["attn.k.weight"], p["attn.k.bias"]).to(dt)
     v = mm(un, p["attn.v.weight"], p["attn.v.bias"]).to(dt)
-    qh = (split_heads(q, H).float() * scale_in(dt, dh ** -0.5)).to(dt)
-    logits = qh.float() @ split_heads(k, H).float().transpose(-1, -2)
-    attn = torch.softmax(logits, dim=-1)
-    o = merge_heads(attn.to(dt).float() @ split_heads(v, H).float()).to(dt)
+    o, attn = attention(q, k, v, num_heads, return_attn=True)
+    o = o.to(dt)
     c1 = cls.float() + p["gamma_1"].float() * mm(o, p["attn.proj.weight"],
                                                   p["attn.proj.bias"])
     h2 = layer_norm(c1, p["norm2.weight"], p["norm2.bias"], EPS).to(dt)
@@ -83,9 +98,11 @@ def class_attn_block_train_reference(cls, x, p, num_heads):
     return (c1 + p["gamma_2"].float() * m).to(dt), attn, o, m
 
 
-def class_attn_block_reference(cls, x, p, num_heads):
+def class_attn_block_reference(cls, x, p, num_heads,
+                               attention=class_attention):
     """Plain PyTorch version -> (new cls (B, t, D), attn (B, H, t, t+P) f32)."""
-    return class_attn_block_train_reference(cls, x, p, num_heads)[:2]
+    return class_attn_block_train_reference(cls, x, p, num_heads,
+                                            attention)[:2]
 
 
 def class_attn_block_backward_reference(dy, dattn, cls, x, attn, o, m, p,

@@ -58,14 +58,14 @@ import torch
 
 from spe_tpu_torch.ops import kernels as K
 from spe_tpu_torch.ops.kernels import as_bf16 as _bf, as_f32 as _f
-from spe_tpu_torch.ops.fused_encoder import attend_backward, attend_train
+from spe_tpu_torch.ops.fused_encoder import (attend_backward, attend_train,
+                                             softmax_attention)
 from spe_tpu_torch.ops.refmath import (SITE_ATTN, SITE_CROSS_ATTN,
                                        SITE_CROSS_PROJ, SITE_HIDDEN, SITE_OUT,
                                        SITE_PROJ, CounterDropout, drop_site,
                                        key_bias, layer_norm,
-                                       ln_backward_reference, merge_heads, mm,
-                                       needs_grad, no_dropout, split_heads,
-                                       weight_grad)
+                                       ln_backward_reference, mm, needs_grad,
+                                       no_dropout, weight_grad)
 
 EPS = 1e-5
 PARAM_NAMES = (
@@ -92,19 +92,6 @@ ROUNDED = tuple(n for n in PARAM_NAMES + FIRST_LAYER_NAMES
                 if n.endswith(".weight") and not n.startswith("norm"))
 
 
-def _attend(q, k, v, H, scale, bias=None, drop=None):
-    """softmax(q k^T * scale + bias) v per head, f32 logits, bf16-rounded
-    probabilities into the PV product (after `drop`'s attention dropout).
-    q/k: (B, Nq|Nk, H*dq)."""
-    dt = v.dtype
-    logits = (split_heads(q, H).float()
-              @ split_heads(k, H).float().transpose(-1, -2)) * scale
-    if bias is not None:
-        logits = logits + bias[:, None, None, :]
-    attn = drop_site(drop, torch.softmax(logits, dim=-1), "attn")
-    return merge_heads(attn.to(dt).float() @ split_heads(v, H).float())
-
-
 def _interleave(a, b, H):
     """(B, N, H*d) x2 -> (B, N, H*2d): head h is [a_h | b_h]."""
     B, N, D = a.shape
@@ -114,19 +101,22 @@ def _interleave(a, b, H):
 
 def decoder_layer_reference(tgt, memory, pos, query_pos, sine,
                             key_padding_mask, p, num_heads, num_sets,
-                            drop=None):
+                            drop=None, attention=softmax_attention):
     """Plain PyTorch version. tgt/query_pos/sine: (B, S*Q, D) with S query
     sets stacked along the query axis; memory/pos: (B, N, D);
     key_padding_mask: (B, N) bool or None. Layer 0 is recognised by
     `ca_qpos_proj.weight` in p. drop: a refmath.Dropout for the training
     forward at the JAX flax layer's six sites (transformer.py:234-271):
     `attn` on both attentions' probabilities, `proj` on both attention
-    outputs, the ReLU and the second linear's output."""
+    outputs, the ReLU and the second linear's output. attention(q, k, v,
+    num_heads, key_padding_mask, drop): the cross-attention, by default
+    `softmax_attention` (`fused_mha.layer_attention` with
+    use_pallas_attention); the self-attention is always
+    `softmax_attention`, as the JAX package keeps it on its einsum path
+    (transformer.py:183-185)."""
     dt = tgt.dtype
     B, SQ, D = tgt.shape
-    N = memory.shape[1]
     H, S = num_heads, num_sets
-    dh = D // H
     q = (mm(tgt, p["sa_qcontent_proj.weight"], p["sa_qcontent_proj.bias"])
          + mm(query_pos, p["sa_qpos_proj.weight"], p["sa_qpos_proj.bias"]))
     k = (mm(tgt, p["sa_kcontent_proj.weight"], p["sa_kcontent_proj.bias"])
@@ -136,8 +126,8 @@ def decoder_layer_reference(tgt, memory, pos, query_pos, sine,
     def fold(a):  # each query set attends alone
         return a.to(dt).reshape(B * S, SQ // S, D)
 
-    o = _attend(fold(q), fold(k), fold(v), H, dh ** -0.5,
-                drop=drop).reshape(B, SQ, D)
+    o = softmax_attention(fold(q), fold(k), fold(v), H,
+                          drop=drop).reshape(B, SQ, D)
     h = drop_site(drop, mm(o.to(dt), p["self_attn.out_proj.weight"],
                            p["self_attn.out_proj.bias"]), "proj")
     t1 = layer_norm(tgt.float() + h, p["norm1.weight"], p["norm1.bias"], EPS)
@@ -152,8 +142,7 @@ def decoder_layer_reference(tgt, memory, pos, query_pos, sine,
     sp = mm(sine, p["ca_qpos_sine_proj.weight"], p["ca_qpos_sine_proj.bias"])
     qq = _interleave(qc.to(dt), sp.to(dt), H)
     kk = _interleave(kc.to(dt), kpos.to(dt), H)
-    o = _attend(qq, kk, vv, H, (2 * dh) ** -0.5,
-                key_bias(key_padding_mask, B, N, tgt.device), drop)
+    o = attention(qq, kk, vv, H, key_padding_mask, drop)
     h = drop_site(drop, mm(o.to(dt), p["cross_attn.out_proj.weight"],
                            p["cross_attn.out_proj.bias"]), "proj")
     t2 = layer_norm(t1 + h, p["norm2.weight"], p["norm2.bias"], EPS)

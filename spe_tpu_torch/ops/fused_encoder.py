@@ -67,29 +67,46 @@ ROUNDED = ("self_attn.in_proj_weight", "self_attn.out_proj.weight",
            "linear1.weight", "linear2.weight")
 
 
+def softmax_attention(q, k, v, num_heads, key_padding_mask=None, drop=None,
+                      return_attn=False):
+    """softmax(q . k^T * dq^-0.5 + bias) v per head as the fused layers'
+    kernels compute it: f32 logits, the scale after the dot, -1e9 on
+    padded keys, the probabilities through `drop`'s attention dropout and
+    rounded to v's dtype before the PV product. q/k: (B, Nq|Nk, H*dq), v:
+    (B, Nk, H*dv); drop: a refmath.Dropout or None -> (B, Nq, H*dv) in v's
+    dtype (and the probabilities f32 with return_attn)."""
+    dt = v.dtype
+    H = num_heads
+    logits = (split_heads(q, H).float()
+              @ split_heads(k, H).float().transpose(-1, -2)) * (
+                  q.shape[-1] // H) ** -0.5
+    bias = key_bias(key_padding_mask, k.shape[0], k.shape[1], q.device)
+    if bias is not None:
+        logits = logits + bias[:, None, None, :]
+    probs = torch.softmax(logits, dim=-1)
+    attn = drop_site(drop, probs, "attn")
+    o = merge_heads(attn.to(dt).float() @ split_heads(v, H).float()).to(dt)
+    return (o, probs) if return_attn else o
+
+
 def encoder_layer_reference(x, pos, key_padding_mask, p, num_heads,
-                            drop=None):
+                            drop=None, attention=softmax_attention):
     """Plain PyTorch version. x/pos: (B, N, D); key_padding_mask: (B, N)
     bool, True = padded key, or None. drop: a refmath.Dropout for the
     training forward at the JAX flax layer's four sites (transformer.py
     :117-131): `attn` on the attention probabilities, `proj` on the
-    attention output, the ReLU and the second linear's output."""
+    attention output, the ReLU and the second linear's output.
+    attention(q, k, v, num_heads, key_padding_mask, drop): the
+    self-attention, by default `softmax_attention`
+    (`fused_mha.layer_attention` with use_pallas_attention)."""
     dt = x.dtype
-    B, N, D = x.shape
-    H = num_heads
-    dh = D // H
+    D = x.shape[-1]
     w, b = p["self_attn.in_proj_weight"], p["self_attn.in_proj_bias"]
     qk_in = (x.float() + pos.float()).to(dt)
     q = mm(qk_in, w[:D], b[:D]).to(dt)
     k = mm(qk_in, w[D:2 * D], b[D:2 * D]).to(dt)
     v = mm(x, w[2 * D:], b[2 * D:]).to(dt)
-    logits = (split_heads(q, H).float()
-              @ split_heads(k, H).float().transpose(-1, -2)) * dh ** -0.5
-    bias = key_bias(key_padding_mask, B, N, x.device)
-    if bias is not None:
-        logits = logits + bias[:, None, None, :]
-    attn = drop_site(drop, torch.softmax(logits, dim=-1), "attn")
-    o = merge_heads(attn.to(dt).float() @ split_heads(v, H).float()).to(dt)
+    o = attention(q, k, v, num_heads, key_padding_mask, drop).to(dt)
     h = drop_site(drop, mm(o, p["self_attn.out_proj.weight"],
                            p["self_attn.out_proj.bias"]), "proj")
     s1 = layer_norm(x.float() + h, p["norm1.weight"], p["norm1.bias"], EPS)

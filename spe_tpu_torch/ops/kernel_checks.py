@@ -8,6 +8,15 @@ class tokens, 2 query sets of 300) and may be cut for a quick check.
 LayerScale gammas and LayerNorm scales are drawn near 1 so every branch
 shows in the output.
 
+`attention_cases()` draws the standalone attention kernels' inputs at the
+shapes the voc0712 recipe gives them with the fused flags off: fused_mha
+(B4) as the class attention (21 queries over 1045 keys, 4 heads of 48, the
+probabilities returned), the encoder self-attention (1024 x 1024, 8 heads
+of 24, a padded-key mask) and the decoder cross-attention (2 x 300 queries
+over 1024 keys, q/k heads of 48 and v heads of 24, the mask); the
+talking-heads attention (B5) over the 1024 patches (4 heads of 48, mixes
+near the identity).
+
 `cc_masks()` and `auction_problems()` draw the supervision kernels' inputs
 at the recipe's training shapes (B * max_pos = 64 masks of 64 x 64; S * L *
 B = 96 problems of 120 targets x 300 queries); both kernels must equal
@@ -28,7 +37,7 @@ import numpy as np
 import torch
 
 from spe_tpu_torch.ops import (fused_block, fused_ca_block, fused_decoder,
-                               fused_encoder)
+                               fused_encoder, fused_mha, talking_heads)
 from spe_tpu_torch.ops.refmath import CounterDropout
 
 # every fused layer is built from the same three sources: linear.cu
@@ -80,6 +89,7 @@ def model_tol(key, ref):
 # gradient instead. `grad_views` names the thirds of the encoder's fused
 # q|k|v tensors `<name>[q]`, `<name>[k]`, `<name>[v]`.
 ZERO_GRADS = {"attn.proj_l.bias": "attn.proj_l.weight",
+              "proj_l.bias": "proj_l.weight",
               "attn.k.bias": "attn.k.weight",
               "self_attn.in_proj_bias[k]": "self_attn.in_proj_weight[k]",
               "sa_kcontent_proj.bias": "sa_kcontent_proj.weight",
@@ -148,12 +158,65 @@ def _nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
 
 
+def _attention_work(name, args):
+    """A standalone attention's work at the shapes of `args` (a
+    kernel_cases / train_cases entry): per (sample, head) query-key pair
+    the multiply-adds of q.k and p.v, the talking-heads mixes (H per value
+    and mix), and the bytes of q, k, v, the mask and the parameters read
+    and the output (and probabilities) written."""
+    q, k, v = args[:3]
+    H = args[3] if name == "pallas_mha" else args[4]
+    B, Nq = q.shape[:2]
+    Nk = k.shape[1]
+    dq, dv = q.shape[-1] // H, v.shape[-1] // H
+    pairs = B * H * Nq * Nk
+    tensors = [a for a in args if isinstance(a, torch.Tensor)]
+    io = _nbytes(*tensors) + B * Nq * H * dv * q.element_size()
+    mix = 0
+    if name == "pallas_attention":
+        io += _nbytes(*args[3].values())
+        mix = 4 * pairs * H
+    elif args[6]:   # the probabilities
+        io += pairs * 4
+    return dict(pairs=pairs, dq=dq, dv=dv, io=io, mix=mix)
+
+
+def attention_bound_ms(name, args, form="eval", cot=()):
+    """The bound of fused_mha or the talking-heads attention at the shapes
+    of `args`: the per-head products at the bf16 tensor rate (2 ops per
+    multiply-add: q.k and p.v forward; the backward's logits recompute,
+    dY.V^T, dV, dQ and dK), the talking-heads mixes and, in training, the
+    masks (one integer hash chain step per value, ~12 ops) and the
+    backward's row pass (~10 per value) at the f32 rate; the bytes of the
+    inputs read and the outputs written once (training: the row
+    log-sum-exps too; backward: the cotangent and the saved log-sum-exps
+    read, the input gradients written, in f32 for the parameters)."""
+    w = _attention_work(name, args)
+    pairs, dq, dv = w["pairs"], w["dq"], w["dv"]
+    drop = args[-2] if name == "pallas_mha" else args[-1]
+    masks = 12 * pairs if drop is not None and drop.attn else 0
+    lse = pairs // args[1].shape[1] * 4
+    if form == "backward":
+        ops = 2 * pairs * (3 * dq + 2 * dv)
+        scalar = 10 * pairs + masks + (6 * w["mix"] // 4 if w["mix"] else 0)
+        io = w["io"] + _nbytes(*cot) + lse
+        return bound_ms(io, [(ops, BF16_TENSOR_OPS_PER_MS),
+                             (scalar, SCALAR_OPS_PER_MS)])
+    ops = 2 * pairs * (dq + dv)
+    io = w["io"] + (lse if form == "train" else 0)
+    return bound_ms(io, [(ops, BF16_TENSOR_OPS_PER_MS),
+                         (w["mix"] + (masks if form == "train" else 0),
+                          SCALAR_OPS_PER_MS)])
+
+
 def layer_bound_ms(name, args):
     """The bound of one fused layer at the shapes of `args` (a kernel_cases
     entry): its products at the bf16 tensor rate (2 ops per multiply-add;
     the layer's own per-head attention, not the kernels' 4x wl-fold), the
     talking-heads mixes at the f32 rate; x, pos, masks and parameters read
     once, the output written once."""
+    if name in ATTENTION:
+        return attention_bound_ms(name, args)
     p = next(a for a in args if isinstance(a, dict))
     pbytes = _nbytes(*p.values())
     mix = 0
@@ -239,6 +302,8 @@ def train_bound_ms(name, args):
     the MLP output of class attention; o, h2d and the log-sum-exps of the
     encoder and decoder) and the dropout masks (one integer hash chain
     step per masked value, at the f32/int rate)."""
+    if name in ATTENTION:
+        return attention_bound_ms(name, args, "train")
     if name == "pallas_block":
         x, p, H, _ = args
         B, N, D = x.shape
@@ -271,6 +336,8 @@ def bwd_bound_ms(name, args, cot):
     the talking-heads mixes, softmax backward, masks and LayerNorm; bytes:
     the saved tensors and cotangents read once, the input and f32
     parameter gradients written once, the parameters read once."""
+    if name in ATTENTION:
+        return attention_bound_ms(name, args, "backward", cot)
     if name == "pallas_block":
         x, p, H, _ = args
         B, N, D = x.shape
@@ -513,6 +580,65 @@ def train_cases(B=2, N=1024, t=21, S=2, Q=300, device="cuda", seed=0,
          (act(B, S * Q, D),))]
 
 
+def attention_cases(B=2, N=1024, t=21, S=2, Q=300, device="cuda", seed=0,
+                    train=False):
+    """[(name, replaces, module, args, cotangents, label)] of the standalone
+    attention kernels at the voc0712 shapes with the fused flags off (see
+    the module docstring): args as the kernel's entry point takes them,
+    (q, k, v, num_heads, key_padding_mask, drop, return_attn) for fused_mha
+    and (q, k, v, params, num_heads, drop) for the talking-heads attention.
+    Each case carries a bf16 cotangent of its output. With `train` the
+    attention dropout is the recipe's (0.1 in the encoder and the decoder
+    cross-attention, 0.05 in the patch blocks; none in the class
+    attention); without, every rate is 0."""
+    D = 192
+    gen = torch.Generator().manual_seed(seed + 2)
+
+    def act(*shape):
+        return torch.randn(shape, generator=gen).to(torch.bfloat16).to(device)
+
+    def drop(rate, v):
+        if not (train and rate):
+            return None
+        return CounterDropout(torch.tensor([v], dtype=torch.int32,
+                                           device=device), attn=rate)
+
+    def mix():
+        return (torch.eye(4) + 0.3 * torch.randn((4, 4), generator=gen)).to(
+            device)
+
+    mask = _key_mask(B, N, device)
+    th = {"proj_l.weight": mix(), "proj_l.bias": 0.1 * torch.randn(
+        (4,), generator=gen).to(device), "proj_w.weight": mix(),
+        "proj_w.bias": 0.1 * torch.randn((4,), generator=gen).to(device)}
+    cases = [
+        ("pallas_mha", (act(B, t, D), act(B, t + N, D), act(B, t + N, D), 4,
+                        None, drop(0.0, 0), True), "class attention"),
+        ("pallas_mha", (act(B, N, D), act(B, N, D), act(B, N, D), 8, mask,
+                        drop(TRANSFORMER_RATE, 20240613), False),
+         "encoder self-attention"),
+        ("pallas_mha", (act(B, S * Q, 2 * D), act(B, N, 2 * D), act(B, N, D),
+                        8, mask, drop(TRANSFORMER_RATE, 20240614), False),
+         "decoder cross-attention"),
+        ("pallas_attention", (act(B, N, D), act(B, N, D), act(B, N, D), th,
+                              4, drop(RECIPE_RATES[0], 20240615)),
+         "patch-block talking heads"),
+    ]
+    mods = {"pallas_mha": fused_mha, "pallas_attention": talking_heads}
+    out = []
+    for name, args, label in cases:
+        q, v = args[0], args[2]
+        H = args[3] if name == "pallas_mha" else args[4]
+        cot = (act(B, q.shape[1], H * (v.shape[-1] // H)),)
+        out.append((name, REPLACES[name], mods[name], args, cot, label))
+    return out
+
+
+# the standalone attention kernels: the TPU forward and backward each
+# replaces
+ATTENTION = ("pallas_mha", "pallas_attention")
+REPLACES = {"pallas_mha": "spe_tpu/ops/pallas_mha.py:273",
+            "pallas_attention": "spe_tpu/ops/pallas_attention.py:112"}
 # per layer: (plain training forward, plain backward, the inputs whose
 # gradients the backward returns, in its order)
 TRAIN_API = {
@@ -526,12 +652,19 @@ TRAIN_API = {
     "pallas_decoder": ("decoder_layer_train_reference",
                        "decoder_layer_backward_reference",
                        ("dtgt", "dmem", "dpos", "dqpos", "dsine")),
+    "pallas_mha": ("fused_mha_train_reference",
+                   "fused_mha_backward_reference", ("dq", "dk", "dv")),
+    "pallas_attention": ("talking_heads_train_reference",
+                         "talking_heads_backward_reference",
+                         ("dq", "dk", "dv")),
 }
 # the TPU backward each replaces
 BWD_REPLACES = {"pallas_block": "spe_tpu/ops/pallas_block.py:513",
                 "pallas_ca_block": "spe_tpu/ops/pallas_ca_block.py:243",
                 "pallas_encoder": "spe_tpu/ops/pallas_encoder.py:344",
-                "pallas_decoder": "spe_tpu/ops/pallas_decoder.py:550"}
+                "pallas_decoder": "spe_tpu/ops/pallas_decoder.py:550",
+                "pallas_mha": "spe_tpu/ops/pallas_mha.py:197",
+                "pallas_attention": "spe_tpu/ops/pallas_attention_bwd.py:136"}
 
 
 def plain_train(name, mod):
@@ -540,26 +673,34 @@ def plain_train(name, mod):
     return getattr(mod, fwd), getattr(mod, bwd)
 
 
+def saved_outputs(name, outputs):
+    """The training forward's outputs that its backward takes: all but the
+    first; of fused_mha's only the last (the log-sum-exps: the
+    probabilities it may also return carry no gradient)."""
+    return outputs[-1:] if name == "pallas_mha" else outputs[1:]
+
+
 def backward_args(args, saved, cot):
     """A backward's arguments from a train_cases entry and the training
-    forward's saved outputs (its outputs after the first): the
-    cotangents, the inputs, the saved tensors, then the parameters and
-    the rest of the forward's arguments."""
-    i = next(j for j, a in enumerate(args) if isinstance(a, dict))
+    forward's saved outputs (`saved_outputs`): the cotangents, the inputs,
+    the saved tensors, then the parameters (or the head count) and the rest
+    of the forward's arguments."""
+    i = next(j for j, a in enumerate(args)
+             if isinstance(a, dict) or type(a) is int)
     return (*cot, *args[:i], *saved, *args[i:])
 
 
 def flat_grads(name, result):
-    """A backward's (input gradients..., {name: gradient}) -> {name:
+    """A backward's (input gradients..., [{name: gradient}]) -> {name:
     gradient} over the inputs and grad_views of the parameters."""
-    *dins, g = result
+    *dins, g = result if isinstance(result[-1], dict) else (*result, {})
     return {**dict(zip(TRAIN_API[name][2], dins)), **grad_views(g)}
 
 
 def kernel_cases(B=2, N=1024, t=21, S=2, Q=300, device="cuda", seed=0):
-    """[(name, replaces, fused fn, plain fn, args)] for the four kernels;
-    the decoder twice, with the layer-0 (ca_qpos_proj) and the later-layer
-    parameter sets."""
+    """[(name, replaces, fused fn, plain fn, args)] for the four fused
+    layers; the decoder twice, with the layer-0 (ca_qpos_proj) and the
+    later-layer parameter sets."""
     D = 192
     gen = torch.Generator().manual_seed(seed)
 

@@ -28,7 +28,7 @@ from pathlib import Path
 
 import torch
 
-from spe_tpu_torch.ops.refmath import keep_scale, keep_threshold
+from spe_tpu_torch.ops.refmath import SITE_ATTN, keep_scale, keep_threshold
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "spe_tpu_torch"
@@ -220,7 +220,8 @@ class _THFoldParams(ctypes.Structure):
 
 class _THRowParams(ctypes.Structure):
     _fields_ = _struct((_P, "s dzd lse bl ww bw seed zd ds parts"),
-                       (_I, "B H N drop"), (_U, "thr"), (_FL, "scale"))
+                       (_I, "B H N drop"), (_U, "thr"), (_FL, "scale"),
+                       (_P, "wl"), (_I, "site"))
 
 
 class _THDqParams(ctypes.Structure):
@@ -820,38 +821,45 @@ def th_fold(q, rows):
     return out
 
 
-def _th_row_params(s, bl, ww, bw, seed, rate, **kw):
+def _th_row_params(s, bl, ww, bw, seed, rate, wl, site, **kw):
     _need(s, _F32, "s", 4)
     B, H, N, N2 = s.shape
     if N != N2 or not s.is_contiguous():
         raise ValueError("s must be contiguous (B, H, N, N)")
-    for t, n, shape in ((bl, "bl", (H,)), (bw, "bw", (H,)), (ww, "ww", (H, H))):
+    mats = ((bl, "bl", (H,)), (bw, "bw", (H,)), (ww, "ww", (H, H)))
+    for t, n, shape in mats + (((wl, "wl", (H, H)),) if wl is not None
+                               else ()):
         _need(t, _F32, n)
         if tuple(t.shape) != shape or not t.is_contiguous():
             raise ValueError(f"{n} must be {shape} contiguous")
-    dsite, thr, scale = _site((1, rate))
+    dsite, thr, scale = _site((site, rate))
     _need_seed(seed, dsite)
     return dict(s=s.data_ptr(), bl=bl.data_ptr(), ww=ww.data_ptr(),
                 bw=bw.data_ptr(), seed=_ptr(seed), B=B, H=H, N=N,
-                drop=int(dsite != 0), thr=thr, scale=scale, **kw)
+                drop=int(dsite != 0), thr=thr, scale=scale, wl=_ptr(wl),
+                site=dsite, **kw)
 
 
-def th_fwd_rows(s, bl, ww, bw, seed, rate):
+def th_fwd_rows(s, bl, ww, bw, seed, rate, *, wl=None, site=SITE_ATTN):
     """Talking-heads training forward row pass over the logits s (B, H, N,
-    N) f32 (without bl): -> (lse (B, H, N) f32 of s + bl, zd (B, H, N, N)
-    bf16 = drop(sum_h ww[g, h] softmax_h + bw_g))."""
+    N) f32 (without bl; with wl (H, H) each head's own logits, mixed as
+    m_g = sum_h wl[g, h] s_h): -> (lse (B, H, N) f32 of the mixed logits +
+    bl, zd (B, H, N, N) bf16 = drop(sum_h ww[g, h] softmax_h + bw_g)), the
+    mask keyed (seed, site, b, g, row, key)."""
     B, H, N, _ = s.shape
     lse = torch.empty((B, H, N), device=s.device, dtype=_F32)
     zd = torch.empty(s.shape, device=s.device, dtype=_BF16)
-    p = _THRowParams(**_th_row_params(s, bl, ww, bw, seed, rate,
+    p = _THRowParams(**_th_row_params(s, bl, ww, bw, seed, rate, wl, site,
                                       lse=lse.data_ptr(), zd=zd.data_ptr()))
     _check(lib().spe_th_rows(ctypes.byref(p), 0, _stream()), "spe_th_rows")
     return lse, zd
 
 
-def th_bwd_rows(s, lse, dzd, bl, ww, bw, seed, rate):
+def th_bwd_rows(s, lse, dzd, bl, ww, bw, seed, rate, *, wl=None,
+                site=SITE_ATTN):
     """Talking-heads backward row pass: -> (zd bf16, ds bf16 (B, H, N, N),
-    dww (H, H), dbw (H,), dbl (H,) f32)."""
+    dww (H, H), dbw (H,), dbl (H,) f32). With wl (see th_fwd_rows) ds holds
+    dL_h = sum_g wl[g, h] dm_g, and dwl (H, H) f32 is returned last."""
     B, H, N, _ = s.shape
     _need(lse, _F32, "lse", 3)
     _need(dzd, _F32, "dzd", 4)
@@ -860,14 +868,17 @@ def th_bwd_rows(s, lse, dzd, bl, ww, bw, seed, rate):
         raise ValueError("lse (B, H, N) and dzd (B, H, N, N) must be contiguous")
     zd = torch.empty(s.shape, device=s.device, dtype=_BF16)
     ds = torch.empty(s.shape, device=s.device, dtype=_BF16)
-    parts = torch.empty((B * N, H * H + 2 * H), device=s.device, dtype=_F32)
+    width = (2 if wl is not None else 1) * H * H + 2 * H
+    parts = torch.empty((B * N, width), device=s.device, dtype=_F32)
     p = _THRowParams(**_th_row_params(
-        s, bl, ww, bw, seed, rate, dzd=dzd.data_ptr(), lse=lse.data_ptr(),
-        zd=zd.data_ptr(), ds=ds.data_ptr(), parts=parts.data_ptr()))
+        s, bl, ww, bw, seed, rate, wl, site, dzd=dzd.data_ptr(),
+        lse=lse.data_ptr(), zd=zd.data_ptr(), ds=ds.data_ptr(),
+        parts=parts.data_ptr()))
     _check(lib().spe_th_rows(ctypes.byref(p), 1, _stream()), "spe_th_rows")
     sums = reduce_sum(parts)
-    return zd, ds, sums[:H * H].view(H, H), sums[H * H:H * H + H], \
-        sums[H * H + H:]
+    out = (zd, ds, sums[:H * H].view(H, H), sums[H * H:H * H + H],
+           sums[H * H + H:H * H + 2 * H])
+    return out + (sums[H * H + 2 * H:].view(H, H),) if wl is not None else out
 
 
 def th_dq(dqt, q, rows, scale, out):

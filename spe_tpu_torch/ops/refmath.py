@@ -155,9 +155,16 @@ def needs_grad(tensors) -> bool:
 #                     the S*Q stacked queries and the memory keys; PROJ
 #                     (self-attention out_proj), CROSS_PROJ (cross-attention
 #                     out_proj), HIDDEN, OUT: (b, 0, row, col), row < S*Q
+#   talking heads     TH_ATTN (b, g, q, k): the standalone talking-heads
+#                     attention (ops/talking_heads.py), after the post-softmax
+#                     mix, post-mix head g; one seed per call
+#   fused MHA         MHA_ATTN (b, h, q, k): the standalone attention
+#                     (ops/fused_mha.py) of the plain encoder layer and of the
+#                     plain decoder layer's cross-attention, on the
+#                     normalised probabilities; one seed per call
 
 (SITE_ATTN, SITE_PROJ, SITE_HIDDEN, SITE_OUT, SITE_PATH1, SITE_PATH2,
- SITE_CROSS_ATTN, SITE_CROSS_PROJ) = range(1, 9)
+ SITE_CROSS_ATTN, SITE_CROSS_PROJ, SITE_TH_ATTN, SITE_MHA_ATTN) = range(1, 11)
 _M32 = 0xFFFFFFFF
 
 

@@ -3,9 +3,12 @@ layer against its plain PyTorch version at the recipe widths with cut
 sequence lengths, every fused layer's training forward and backward
 kernels and their dropout masks likewise, a small full-width detector
 through the kernels against the same weights through the plain versions,
-and the two supervision kernels (connected components, auction) against
-their plain versions at the recipe's training shapes. The kernels have no CPU mode, so without a
-card these tests skip.
+the two supervision kernels (connected components, auction) against
+their plain versions at the recipe's training shapes, and the standalone
+attention kernels (fused_mha in its three flavours, the talking-heads
+attention) forward and backward against their plain versions with cut
+sequence lengths. The kernels have no CPU mode, so without a card these
+tests skip.
 
 Run on a machine with the card:  python -m pytest tests/test_torch_cuda.py -m cuda
 """
@@ -126,7 +129,9 @@ def test_dropout_masks_equal_torch(card):
     for site, rate, shape in ((1, 0.05, (2, 4, 100, 100)),
                               (3, 0.07, (2, 1, 100, 768)), (5, 0.2, (64,)),
                               (7, 0.1, (2, 8, 60, 100)),
-                              (8, 0.1, (2, 1, 60, 192))):
+                              (8, 0.1, (2, 1, 60, 192)),
+                              (9, 0.05, (2, 4, 100, 100)),
+                              (10, 0.1, (2, 8, 60, 100))):
         got = K.dropout_mask(seed, site, rate, shape)
         want = (path_keep(seed, site, rate, shape[0]) if len(shape) == 1
                 else counter_keep(seed, site, rate, shape))
@@ -208,4 +213,83 @@ def test_transformer_functions_count_launches(card):
     assert [(f.train_launches, f.bwd_launches) for f in (fe, fd)] == [
         (b[0] + 1, b[1] + 1) for b in before]
     for t in (*ins, *le.values(), *ld.values()):
+        assert torch.isfinite(t.grad.float()).all()
+
+
+@pytest.mark.parametrize("case", range(4))
+def test_attention_kernels_match_plain(card, case):
+    """fused_mha as the class attention (21 queries over 121 keys, the
+    probabilities returned), the encoder self-attention and the decoder
+    cross-attention (100 keys, a padded-key mask), and the talking-heads
+    attention over 100 tokens, at rate 0: within 4 bf16 ulps of the plain
+    version (the probabilities within PROBS_TOL); one eval launch."""
+    from spe_tpu_torch.ops.kernel_checks import attention_cases, compare
+
+    name, _, mod, args, _, label = attention_cases(B=2, N=100, Q=30)[case]
+    fused = getattr(mod, "fused_mha" if name == "pallas_mha"
+                    else "talking_heads_attention")
+    plain = getattr(mod, "fused_mha_reference" if name == "pallas_mha"
+                    else "talking_heads_reference")
+    before = fused.launches
+    errs, tols, finite = compare(fused, plain, args)
+    torch.cuda.synchronize()
+    assert finite, label
+    assert all(e <= t for e, t in zip(errs, tols)), (label, errs, tols)
+    assert fused.launches == before + 1
+
+
+@pytest.mark.parametrize("case", range(4))
+def test_attention_train_kernels_match_plain(card, case):
+    """The same four at the recipe's attention dropout (none in the class
+    attention): the training forward within 4 bf16 ulps (log-sum-exps too;
+    the probabilities within PROBS_TOL), every gradient within
+    kernel_checks.grad_tols of the hand-derived backward on the same saved
+    log-sum-exps, and two backward runs bit-identical."""
+    from spe_tpu_torch.ops.kernel_checks import (PROBS_TOL, attention_cases,
+                                                 backward_args, bf16_tol,
+                                                 flat_grads, grad_tols,
+                                                 max_err, plain_train,
+                                                 saved_outputs)
+
+    name, _, mod, args, cot, label = attention_cases(B=2, N=100, Q=30,
+                                                     train=True)[case]
+    plain_fwd, plain_bwd = plain_train(name, mod)
+    with torch.no_grad():
+        got = mod._train_cuda(*args)
+        want = plain_fwd(*args)
+        for i, (g, w) in enumerate(zip(got, want)):
+            probs = name == "pallas_mha" and args[6] and i == 1
+            assert max_err(g, w) <= (PROBS_TOL if probs else bf16_tol(w)), \
+                (label, i)
+        saved = backward_args(args, saved_outputs(name, got), cot)
+        r1, r2, ref = (flat_grads(name, f(*saved)) for f in
+                       (mod._backward_cuda, mod._backward_cuda, plain_bwd))
+        torch.cuda.synchronize()
+    tols = grad_tols(ref)
+    for k, w in ref.items():
+        assert max_err(r1[k], w) <= tols[k], (label, k)
+        assert torch.equal(r1[k], r2[k]), (label, k)
+
+
+def test_attention_functions_count_launches(card):
+    """MHAFn (the decoder cross-attention's shape, with dropout) and
+    TalkingHeadsFn through autograd on the card: one training-forward and
+    one backward launch each, finite gradients."""
+    from spe_tpu_torch.ops import fused_mha, talking_heads
+    from spe_tpu_torch.ops.kernel_checks import attention_cases
+
+    cases = attention_cases(B=1, N=64, Q=16, train=True)
+    _, _, _, (q, k, v, H, mask, drop, ret), (dy,), _ = cases[2]
+    _, _, _, (tq, tk, tv, p, tH, tdrop), (tdy,), _ = cases[3]
+    fm, ft = fused_mha.fused_mha, talking_heads.talking_heads_attention
+    before = [(f.train_launches, f.bwd_launches) for f in (fm, ft)]
+    ins = [t.clone().requires_grad_() for t in (q, k, v, tq, tk, tv)]
+    lp = {n: t.clone().requires_grad_() for n, t in p.items()}
+    out = fm(*ins[:3], H, mask, drop, ret)
+    tout = ft(*ins[3:], lp, tH, tdrop)
+    torch.autograd.backward([out, tout], [dy, tdy])
+    torch.cuda.synchronize()
+    assert [(f.train_launches, f.bwd_launches) for f in (fm, ft)] == [
+        (b[0] + 1, b[1] + 1) for b in before]
+    for t in (*ins, *lp.values()):
         assert torch.isfinite(t.grad.float()).all()

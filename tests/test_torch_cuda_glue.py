@@ -17,10 +17,11 @@ import torch
 import torch.nn.functional as F
 
 from spe_tpu_torch.ops import kernels as K
-from spe_tpu_torch.ops.kernel_checks import (backward_args, bf16_tol,
-                                             flat_grads, grad_tols,
+from spe_tpu_torch.ops.kernel_checks import (attention_cases, backward_args,
+                                             bf16_tol, flat_grads, grad_tols,
                                              kernel_cases, max_err,
-                                             plain_train, train_cases)
+                                             plain_train, saved_outputs,
+                                             train_cases)
 from spe_tpu_torch.ops.refmath import (counter_keep, gelu_tanh_grad,
                                        keep_scale, ln_backward_reference,
                                        path_keep)
@@ -189,29 +190,36 @@ def th_fold(q, rows):
     return (q.float()[:, None] * rows[None, :, None, :]).to(BF16)
 
 
-def _th_probs(s, lse, bl, ww, bw, seed, rate):
+def _th_probs(s, lse, bl, ww, bw, seed, rate, wl, site):
+    if wl is not None:   # each head's own logits, mixed before the softmax
+        s = torch.einsum("bhqk,gh->bgqk", s, wl)
     s = s + bl[None, :, None, None]
     lse = torch.logsumexp(s, -1) if lse is None else lse
     pr = torch.exp(s - lse[..., None])
     z = torch.einsum("bhqk,gh->bgqk", pr, ww) + bw[None, :, None, None]
-    keep = counter_keep(seed, 1, rate, s.shape) if rate > 0 else \
+    keep = counter_keep(seed, site, rate, s.shape) if rate > 0 else \
         torch.ones(s.shape, dtype=torch.bool)
     sc = keep_scale(rate)
     return lse, pr, keep, sc, torch.where(keep, z * sc, 0.0)
 
 
-def th_fwd_rows(s, bl, ww, bw, seed, rate):
-    lse, _, _, _, zd = _th_probs(s, None, bl, ww, bw, seed, rate)
+def th_fwd_rows(s, bl, ww, bw, seed, rate, *, wl=None, site=1):
+    lse, _, _, _, zd = _th_probs(s, None, bl, ww, bw, seed, rate, wl, site)
     return lse, zd.to(BF16)
 
 
-def th_bwd_rows(s, lse, dzd, bl, ww, bw, seed, rate):
-    _, pr, keep, sc, zd = _th_probs(s, lse, bl, ww, bw, seed, rate)
+def th_bwd_rows(s, lse, dzd, bl, ww, bw, seed, rate, *, wl=None, site=1):
+    _, pr, keep, sc, zd = _th_probs(s, lse, bl, ww, bw, seed, rate, wl, site)
     dz = torch.where(keep, dzd * sc, 0.0)
     dp = torch.einsum("bgqk,gh->bhqk", dz, ww)
     ds = pr * (dp - (dp * pr).sum(-1, keepdim=True))
-    return (zd.to(BF16), ds.to(BF16), torch.einsum("bhqk,bgqk->gh", pr, dz),
-            dz.sum((0, 2, 3)), ds.sum((0, 2, 3)))
+    out = (zd.to(BF16), ds.to(BF16), torch.einsum("bhqk,bgqk->gh", pr, dz),
+           dz.sum((0, 2, 3)), ds.sum((0, 2, 3)))
+    if wl is None:
+        return out
+    dl = torch.einsum("bgqk,gh->bhqk", ds, wl).contiguous()
+    return (*out[:1], dl.to(BF16), *out[2:],
+            torch.einsum("bhqk,bgqk->gh", s, ds))
 
 
 def th_dq(dqt, q, rows, scale, out):
@@ -326,7 +334,7 @@ def test_cuda_function_wiring(emulated, monkeypatch, case):
     outs = out if isinstance(out, tuple) else (out,)
     torch.autograd.backward(list(outs), list(cot)[:len(outs)])
     with torch.no_grad():
-        saved = mod._train_cuda(*args)[1:]
+        saved = saved_outputs(name, mod._train_cuda(*args))
         want = flat_grads(name, plain_train(name, mod)[1](
             *backward_args(args, saved, cot)))
     got = dict(zip(want, [t.grad for t in inputs
@@ -339,3 +347,69 @@ def test_cuda_function_wiring(emulated, monkeypatch, case):
     for k, w in want.items():
         assert got[k].dtype == w.dtype, (name, k)
         assert max_err(got[k], w) <= tols[k], (name, k)
+
+
+ATTN = dict(B=2, N=40, t=5, S=2, Q=6, device="cpu")
+ATTN_WRAPPERS = {"pallas_mha": "fused_mha",
+                 "pallas_attention": "talking_heads_attention"}
+
+
+@pytest.mark.parametrize("case", range(4))
+def test_attention_cuda_path_wiring(emulated, case):
+    """The standalone attentions' `_forward_cuda` (rate 0) and
+    `_train_cuda` (the recipe's rates) against their plain versions: the
+    class attention with its probabilities, the encoder self-attention and
+    the decoder cross-attention (q/k heads twice v's) with a padded-key
+    mask, and the talking-heads attention with its mixes in f32."""
+    name, _, mod, args, _, label = attention_cases(**ATTN)[case]
+    plain = attention_cases(**ATTN, train=False)[case][3]
+    fwd, _ = plain_train(name, mod)
+    # the eval forwards take the arguments without the dropout slot
+    eval_args = plain[:5] + plain[6:] if name == "pallas_mha" else plain[:-1]
+    with torch.no_grad():
+        got = mod._forward_cuda(*eval_args)
+        want = (mod.fused_mha_reference(*plain) if name == "pallas_mha" else
+                mod.talking_heads_reference(*plain))
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        assert max_err(got[0], want[0]) <= bf16_tol(want[0], ulps=2), label
+        for g, w in zip(got[1:], want[1:]):
+            assert max_err(g, w) <= 1e-5, label
+        got, want = mod._train_cuda(*args), fwd(*args)
+    assert max_err(got[0], want[0]) <= bf16_tol(want[0], ulps=2), label
+    for g, w in zip(got[1:], want[1:]):
+        assert g.dtype == w.dtype and g.shape == w.shape, label
+        assert max_err(g, w) <= 1e-5, label
+
+
+@pytest.mark.parametrize("case", range(4))
+def test_attention_cuda_function_wiring(emulated, monkeypatch, case):
+    """MHAFn and TalkingHeadsFn down their CUDA branches (forward, save,
+    restore, backward) against the hand-derived backward on the same
+    cotangent and saved log-sum-exps, the launch counters moving once per
+    direction."""
+    name, _, mod, args, cot, label = attention_cases(**ATTN, train=True)[case]
+    monkeypatch.setattr(mod, "_plain", lambda t: False)
+    fn = getattr(mod, ATTN_WRAPPERS[name])
+    before = (fn.train_launches, fn.bwd_launches)
+    inputs = [_leaf(a) for a in args[:3]]
+    params = args[3]
+    if name == "pallas_attention":
+        params = {k: v.clone().requires_grad_() for k, v in args[3].items()}
+    out = fn(*inputs, params, *args[4:])
+    out = out[0] if isinstance(out, tuple) else out
+    out.backward(cot[0])
+    with torch.no_grad():
+        saved = saved_outputs(name, mod._train_cuda(*args))
+        want = flat_grads(name, plain_train(name, mod)[1](
+            *backward_args(args, saved, cot)))
+    got = {"dq": inputs[0].grad, "dk": inputs[1].grad, "dv": inputs[2].grad}
+    if name == "pallas_attention":
+        got.update({k: v.grad for k, v in params.items()})
+    assert (fn.train_launches, fn.bwd_launches) == (before[0] + 1,
+                                                    before[1] + 1), label
+    tols = grad_tols(want)
+    assert set(got) == set(want), label
+    for k, w in want.items():
+        assert got[k].dtype == w.dtype, (label, k)
+        assert max_err(got[k], w) <= tols[k], (label, k)

@@ -1,8 +1,11 @@
 """The port's whole detector slice against the JAX package: a tiny
 SPEDetector with the fused flags on (the JAX side runs its Pallas kernels
-in interpret mode, SPE_FUSED_INTERPRET=1), the port on the same weights
-carried over by state_dict_from_jax; plus the weight bridge round trip and
-the import rule (the port never imports jax).
+in interpret mode, SPE_FUSED_INTERPRET=1), with them off, and with them off
+and use_pallas_attention on (the JAX side runs fused_talking_heads and
+fused_mha in interpret mode; the port its talking_heads and fused_mha), the
+port on the same weights carried over by state_dict_from_jax; plus the
+weight bridge round trip and the import rule (the port never imports
+jax).
 
 Tolerances are tests/test_pallas_model_parity.py's: pred_logits 2e-4,
 pred_boxes 2e-5, cams_cls 1e-5, x_logits 1e-4."""
@@ -50,15 +53,22 @@ def _near_one(params, rng):
     return flax.traverse_util.unflatten_dict(flat)
 
 
+# True: every fused flag on; False: every one off; "attention": the fused
+# flags off and use_pallas_attention on (the standalone kernels B4, B5)
 def jax_detector(fused):
-    bb = CaiTConfig(**BB, use_fused_block=fused)
+    pallas = fused == "attention"
+    fused = fused is True
+    bb = CaiTConfig(**BB, use_fused_block=fused, use_pallas=pallas)
     return SPEDetector(backbone_cfg=bb, dropout=0.1, use_fused_layers=fused,
-                       **KW)
+                       use_pallas=pallas, **KW)
 
 
 def port_detector(fused):
-    bb = tcait.CaiTConfig(**BB, use_fused_block=fused)
-    return tdet.SPEDetector(bb, use_fused_layers=fused, **KW).eval()
+    pallas = fused == "attention"
+    fused = fused is True
+    bb = tcait.CaiTConfig(**BB, use_fused_block=fused, use_pallas=pallas)
+    return tdet.SPEDetector(bb, use_fused_layers=fused, use_pallas=pallas,
+                            **KW).eval()
 
 
 @pytest.fixture
@@ -68,15 +78,20 @@ def weights(rng):
     return {"params": _near_one(params["params"], rng)}
 
 
-@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("fused", [True, False, "attention"])
 def test_detector_matches_jax(weights, rng, monkeypatch, fused):
     monkeypatch.setenv("SPE_FUSED_INTERPRET", "1")
     x = rng.normal(size=(2, 64, 64, 3)).astype(np.float32)
     pad = np.zeros((2, 64, 64), bool)
     pad[1, :, 48:] = True
-    want = jax_detector(fused).apply(weights, jnp.asarray(x),
-                                     pad_mask=jnp.asarray(pad),
-                                     deterministic=True)
+    # one jitted call, waited for: the Pallas kernels run in the threaded
+    # interpreter, whose callbacks dispatch JAX work of their own, and an
+    # eager dispatch from this thread while one runs can deadlock (a JAX
+    # issue, ROADMAP §C)
+    want = jax.block_until_ready(jax.jit(
+        lambda w, x, pad: jax_detector(fused).apply(
+            w, x, pad_mask=pad, deterministic=True))(
+        weights, jnp.asarray(x), jnp.asarray(pad)))
     model = port_detector(fused)
     model.load_state_dict(state_dict_from_jax(
         jax.tree_util.tree_map(np.asarray, weights["params"])))
@@ -97,9 +112,17 @@ def test_detector_matches_jax(weights, rng, monkeypatch, fused):
 
 
 def test_weight_bridge_round_trip(weights):
+    """Every route (fused flags on, off, off with the standalone attention
+    kernels) has the same parameters under the same names on both sides."""
     p = jax.tree_util.tree_map(np.asarray, weights["params"])
     sd = state_dict_from_jax(p)
-    assert set(sd) == set(port_detector(True).state_dict())
+    x = jnp.zeros((1, 64, 64, 3), jnp.float32)
+    for route in (True, False, "attention"):
+        assert set(sd) == set(port_detector(route).state_dict()), route
+        tree = jax.eval_shape(jax_detector(route).init, jax.random.PRNGKey(0),
+                              x)["params"]
+        assert jax.tree_util.tree_structure(tree) == \
+            jax.tree_util.tree_structure(weights["params"]), route
     back = convert_detector({k: v.numpy() for k, v in sd.items()},
                             depth=BB["depth"], layer_to_det=BB["layer_to_det"],
                             enc_layers=KW["enc_layers"],
@@ -131,11 +154,20 @@ def test_port_never_imports_jax():
 @pytest.mark.parametrize("off", ["use_fused_block", "use_fused_ca_block",
                                  "use_fused_layers"])
 def test_build_model_refuses_unported_attention_kernels(off):
-    """use_pallas_attention with a fused flag off would run pallas_attention
-    or pallas_mha in the JAX package; the port refuses it (ROADMAP B4/B5)
-    rather than run plain PyTorch in their place."""
+    """use_pallas_attention with a fused flag off runs pallas_attention or
+    pallas_mha in the JAX package (spe_tpu/models/build.py:38,60); the port
+    builds it and routes each flavour whose fused flag is off to its
+    standalone kernel: the patch blocks to talking_heads (B5), the
+    class-attention blocks, the encoder and the decoder cross-attention to
+    fused_mha (B4); without use_pallas_attention they keep their plain
+    attention. Tensor parallelism is still refused."""
     from spe_tpu_torch.config import SPEConfig
     from spe_tpu_torch.models.build import build_model
+    from spe_tpu_torch.ops.fused_block import fold_attention
+    from spe_tpu_torch.ops.fused_ca_block import class_attention
+    from spe_tpu_torch.ops.fused_encoder import softmax_attention
+    from spe_tpu_torch.ops.fused_mha import layer_attention
+    from spe_tpu_torch.ops.talking_heads import block_attention
 
     cfg = SPEConfig(backbone="TSCAM_cait_tiny", layer_to_det=2,
                     enc_layers=1, dec_layers=1, num_queries=4, nheads=2,
@@ -143,11 +175,31 @@ def test_build_model_refuses_unported_attention_kernels(off):
                     use_pallas_attention=True, use_fused_block=True,
                     use_fused_layers=True)
     build_model(cfg)  # every fused flag on: no attention kernel is reached
-    bad = cfg.replace(**({off: "off"} if off == "use_fused_ca_block"
+    cfg = cfg.replace(**({off: "off"} if off == "use_fused_ca_block"
                          else {off: False}))
-    with pytest.raises(NotImplementedError, match="B4/B5"):
-        build_model(bad)
-    build_model(bad.replace(use_pallas_attention=False))
+
+    def routes(model):
+        body = model.backbone[0].body
+        layers = {"block": body.blocks[0], "ca": body.blocks_token_only[0],
+                  "encoder": model.transformer.encoder.layers[0],
+                  "decoder": model.transformer.decoder.layers[0]}
+        return {k: m.attention for k, m in layers.items() if not m.use_fused}
+
+    plain = {"block": fold_attention, "ca": class_attention,
+             "encoder": softmax_attention, "decoder": softmax_attention}
+    kernel = {"block": block_attention, "ca": layer_attention,
+              "encoder": layer_attention, "decoder": layer_attention}
+    off_layers = {"use_fused_block": {"block", "ca"},
+                  "use_fused_ca_block": {"ca"},
+                  "use_fused_layers": {"encoder", "decoder"}}[off]
+    got = routes(build_model(cfg))
+    assert set(got) == off_layers
+    assert got == {k: kernel[k] for k in off_layers}
+    got = routes(build_model(cfg.replace(use_pallas_attention=False)))
+    assert got == {k: plain[k] for k in off_layers}
+    for tp in ({"tp_attention": True}, {"model_axis": 2}):
+        with pytest.raises(NotImplementedError, match="tensor parallelism"):
+            build_model(cfg.replace(**tp))
 
 
 def test_fused_layers_refuse_training_on_the_card():

@@ -39,6 +39,15 @@ def _t(a):
     return torch.from_numpy(np.array(a, dtype=np.float32))
 
 
+def _sync(fn, *args):
+    """fn(*args) as one jitted JAX call, waited for before anything else is
+    dispatched. The JAX package's Pallas kernels run in the threaded
+    interpreter here, whose io_callbacks dispatch JAX work of their own;
+    an eager dispatch from the test's thread while a kernel runs can
+    deadlock the process (a JAX issue, ROADMAP §C)."""
+    return jax.block_until_ready(jax.jit(fn)(*args))
+
+
 def _np(t):
     return t.detach().float().numpy()
 
@@ -92,8 +101,9 @@ def test_layer_scale_block(rng):
         _row(p["mlp"]["fc1"]["bias"]), p["mlp"]["fc2"]["kernel"],
         _row(p["mlp"]["fc2"]["bias"]), _row(p["gamma_2"]),
         jnp.zeros((1,), jnp.float32))
-    want_kernel = jax_block(jnp.asarray(x), kernel_params, 16, True, 0.0, 0.0,
-                            0.0)
+    want_kernel = _sync(lambda x, kp: jax_block(x, kp, 16, True, 0.0, 0.0,
+                                                0.0),
+                        jnp.asarray(x), kernel_params)
     want_flax = blk.apply(pdict, jnp.asarray(x), True)
 
     sd = block_state_dict(jax.tree_util.tree_map(np.asarray, p))
@@ -125,8 +135,8 @@ def test_class_attn_block(rng):
         p["mlp"]["fc1"]["kernel"], _row(p["mlp"]["fc1"]["bias"]),
         p["mlp"]["fc2"]["kernel"], _row(p["mlp"]["fc2"]["bias"]),
         _row(p["gamma_2"]))
-    k_cls, k_attn = jax_ca(jnp.asarray(cls), jnp.asarray(x), kernel_params, H,
-                           True)
+    k_cls, k_attn = _sync(lambda c, x, kp: jax_ca(c, x, kp, H, True),
+                          jnp.asarray(cls), jnp.asarray(x), kernel_params)
     f_cls, f_attn = blk.apply(pdict, jnp.asarray(x), jnp.asarray(cls))
 
     sd = class_attn_block_state_dict(jax.tree_util.tree_map(np.asarray, p))
@@ -165,8 +175,8 @@ def test_encoder_layer(rng):
         p["linear2"]["kernel"], _row(p["linear2"]["bias"]),
         _row(p["norm2"]["scale"]), _row(p["norm2"]["bias"]),
         _bias(mask), jnp.zeros((1,), jnp.float32))
-    want_kernel = jax_enc(jnp.asarray(x), jnp.asarray(pos), kernel_params, H,
-                          True, 0.0)
+    want_kernel = _sync(lambda x, pos, kp: jax_enc(x, pos, kp, H, True, 0.0),
+                        jnp.asarray(x), jnp.asarray(pos), kernel_params)
     want_flax = layer.apply(pdict, jnp.asarray(x), jnp.asarray(pos),
                             key_padding_mask=jnp.asarray(mask),
                             deterministic=True)
@@ -228,9 +238,11 @@ def test_decoder_layer(rng, is_first):
     qbias = jnp.asarray(np.where(np.arange(Qp) < Q, 0.0, -1e9)
                         .astype(np.float32).reshape(1, Qp))
     padded = [jnp.asarray(_pad_sets(a, S, Q, Qp)) for a in (tgt, qpos, sine)]
-    out = jax_dec(padded[0], jnp.asarray(mem), jnp.asarray(pos), padded[1],
-                  padded[2], H, S, True, 0.0,
-                  tuple(ps) + (_bias(mask), qbias, jnp.zeros((1,), jnp.float32)))
+    out = _sync(lambda t, m, p, q, s, kp: jax_dec(t, m, p, q, s, H, S, True,
+                                                  0.0, kp),
+                padded[0], jnp.asarray(mem), jnp.asarray(pos), padded[1],
+                padded[2],
+                tuple(ps) + (_bias(mask), qbias, jnp.zeros((1,), jnp.float32)))
     want_kernel = np.asarray(out).reshape(B, S, Qp, D)[:, :, :Q].reshape(
         B, S * Q, D)
     want_flax = layer.apply(pdict, *args, is_first=is_first,

@@ -45,6 +45,15 @@ def _t(a):
     return torch.from_numpy(np.array(a, dtype=np.float32))
 
 
+def _sync(fn, *args):
+    """fn(*args) as one jitted JAX call, waited for before anything else is
+    dispatched. The JAX package's Pallas kernels run in the threaded
+    interpreter here, whose io_callbacks dispatch JAX work of their own;
+    an eager dispatch from the test's thread while a kernel runs can
+    deadlock the process (a JAX issue, ROADMAP §C)."""
+    return jax.block_until_ready(jax.jit(fn)(*args))
+
+
 def _np(t):
     return t.detach().float().numpy()
 
@@ -105,8 +114,8 @@ def test_encoder_function_grads_match_jax(rng):
         y = jax_enc(x, pos, kernel_params(p), H, True, 0.0)
         return jnp.sum(jnp.sin(y))
 
-    gp, gx, gpos = jax.grad(loss, argnums=(0, 1, 2))(
-        params, jnp.asarray(x), jnp.asarray(pos))
+    gp, gx, gpos = _sync(jax.grad(loss, argnums=(0, 1, 2)),
+                         params, jnp.asarray(x), jnp.asarray(pos))
     want = encoder_layer_state_dict(jax.tree_util.tree_map(np.asarray, gp))
 
     sd = _leaves(encoder_layer_state_dict(
@@ -162,7 +171,7 @@ def test_decoder_function_grads_match_jax(rng, is_first):
                     _decoder_kernel_params(p, is_first) + extra)
         return jnp.sum(jnp.sin(y))
 
-    grads = jax.grad(loss, argnums=tuple(range(6)))(params, *args)
+    grads = _sync(jax.grad(loss, argnums=tuple(range(6))), params, *args)
     want = decoder_layer_state_dict(jax.tree_util.tree_map(np.asarray,
                                                            grads[0]))
 

@@ -41,6 +41,15 @@ def _t(a):
     return torch.from_numpy(np.array(a, dtype=np.float32))
 
 
+def _sync(fn, *args):
+    """fn(*args) as one jitted JAX call, waited for before anything else is
+    dispatched. The JAX package's Pallas kernels run in the threaded
+    interpreter here, whose io_callbacks dispatch JAX work of their own;
+    an eager dispatch from the test's thread while a kernel runs can
+    deadlock the process (a JAX issue, ROADMAP §C)."""
+    return jax.block_until_ready(jax.jit(fn)(*args))
+
+
 def _np(t):
     return t.detach().float().numpy()
 
@@ -105,7 +114,7 @@ def test_block_function_grads_match_jax(rng):
         y = jax_block(x, _block_kernel_params(p, H), 16, True, 0.0, 0.0, 0.0)
         return jnp.sum(jnp.sin(y))
 
-    gp, gx = jax.grad(loss, argnums=(0, 1))(params, jnp.asarray(x))
+    gp, gx = _sync(jax.grad(loss, argnums=(0, 1)), params, jnp.asarray(x))
     want = block_state_dict(jax.tree_util.tree_map(np.asarray, gp))
 
     sd = _leaves(block_state_dict(jax.tree_util.tree_map(np.asarray, params)))
@@ -130,8 +139,8 @@ def test_class_attn_function_grads_match_jax(rng):
         out, attn = jax_ca(cls, x, _ca_kernel_params(p), H, True)
         return jnp.sum(jnp.sin(out)) + jnp.sum(attn * w_attn)
 
-    gp, gcls, gx = jax.grad(loss, argnums=(0, 1, 2))(
-        params, jnp.asarray(cls), jnp.asarray(x))
+    gp, gcls, gx = _sync(jax.grad(loss, argnums=(0, 1, 2)),
+                         params, jnp.asarray(cls), jnp.asarray(x))
     want = class_attn_block_state_dict(jax.tree_util.tree_map(np.asarray, gp))
 
     sd = _leaves(class_attn_block_state_dict(

@@ -39,6 +39,15 @@ def _close(got, want, rel=REL, atol=1e-6):
                                atol=atol)
 
 
+def _sync(fn, *args):
+    """fn(*args) as one jitted JAX call, waited for before anything else is
+    dispatched. The JAX package's Pallas kernels run in the threaded
+    interpreter here, whose io_callbacks dispatch JAX work of their own;
+    an eager dispatch from the test's thread while a kernel runs can
+    deadlock the process (a JAX issue, ROADMAP §C)."""
+    return jax.block_until_ready(jax.jit(fn)(*args))
+
+
 # ---------------------------------------------------------------- kernel 5
 
 def test_cc_matches_jax_on_blobs_and_a_capped_maze(rng):
@@ -68,8 +77,8 @@ def test_cc_matches_pallas_interpret(rng):
     masks += [snake, np.indices((16, 16)).sum(0) % 2 == 0, diagonal_maze(16)]
     m = np.stack(masks)
     for cap in (tcc.MAX_SWEEPS, 3):
-        want = connected_components_pallas(jnp.asarray(m), max_iters=cap,
-                                           interpret=True)
+        want = _sync(lambda m: connected_components_pallas(
+            m, max_iters=cap, interpret=True), jnp.asarray(m))
         _eq(tcc.connected_components_reference(torch.from_numpy(m), cap), want)
 
 
@@ -124,8 +133,8 @@ def test_auction_matches_jax(rng, case):
                                                          jnp.asarray(mask))
     _eq(got, want)
     _eq(iters, want_iters)
-    pal, pal_iters = auction_phase_pallas(benefit, jnp.asarray(mask),
-                                          interpret=True)
+    pal, pal_iters = _sync(lambda b, m: auction_phase_pallas(
+        b, m, interpret=True), benefit, jnp.asarray(mask))
     _eq(got, pal)
     _eq(iters, pal_iters)
 

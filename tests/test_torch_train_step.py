@@ -94,6 +94,15 @@ def test_three_train_steps_all_fused_match_jax(rng):
     _three_steps(rng, {"use_fused_block": True, "use_fused_layers": True})
 
 
+def test_three_train_steps_pallas_attention_match_jax(rng):
+    """The fused flags off with use_pallas_attention on: the patch blocks'
+    attention through TalkingHeadsFn (B5), the class attention, the encoder
+    and the decoder cross-attention through MHAFn (B4), on the CPU their
+    plain training forwards and hand-derived backwards, against the same
+    JAX fused-off step: at rate 0 the math is the same."""
+    _three_steps(rng, {"use_pallas_attention": True})
+
+
 def test_compute_losses_replays_supervision(rng):
     """compute_losses returns the supervision it used (CAM pseudo-boxes,
     refinement targets, matching) and takes one in place of its own: the
