@@ -1140,7 +1140,7 @@ def phase_same_grads(cfg, label, noisy=None, batch=8):
     for k, v in lp.items():
         if abs(lf[k] - v) > MODEL_REL_TOL * abs(v) + 1e-6:
             bad.append(f"loss {k}: {lf[k]:.6f} vs {v:.6f}")
-    worst, escaped, zero = ("", 0.0), [], []
+    worst, escaped, zero, within = ("", 0.0), [], [], 0
     for n, w in gp.items():
         g = gf[n]
         # a bias shared by a softmax row has no gradient in exact
@@ -1157,6 +1157,7 @@ def phase_same_grads(cfg, label, noisy=None, batch=8):
         tol = MODEL_REL_TOL * top
         err = float((g - w).abs().max())
         if err <= tol:
+            within += 1
             if top > 0 and err / top > worst[1]:
                 worst = (n, err / top)
             continue
@@ -1199,7 +1200,7 @@ def phase_same_grads(cfg, label, noisy=None, batch=8):
           f"every fused flag off, same weights: losses {len(lp)} (total "
           f"fused {sum(lf.values()):.6f}, plain {sum(lp.values()):.6f}); "
           f"{len(gp)} parameter gradients (fused q|k|v tensors in thirds), "
-          f"{len(gp) - len(escaped)} within {MODEL_REL_TOL} of max|plain| "
+          f"{within} within {MODEL_REL_TOL} of max|plain| "
           f"(largest {worst[1]:.3e}, {worst[0]}); {held}; training launches "
           f"{({k: v for k, v in cf.items() if 'train' in k})}; parameters "
           f"without a gradient {len(zero)}", flush=True)

@@ -82,21 +82,26 @@ def model_tol(key, ref):
 
 # Some bias gradients are zero in exact arithmetic: a logit bias shared by a
 # whole softmax row moves no probability. These are the block's pre-softmax
-# head bias, every key projection's bias (class attention's, the encoder's
-# k third of in_proj_bias, the decoder's content and position key
-# projections in both attentions). Both sides compute rounding noise there,
-# so each is held to 1% of the largest magnitude of the matching weight's
-# gradient instead. `grad_views` names the thirds of the encoder's fused
-# q|k|v tensors `<name>[q]`, `<name>[k]`, `<name>[v]`.
+# head bias, every key projection's bias (the patch blocks' k third of
+# qkv.bias, class attention's, the encoder's k third of in_proj_bias, the
+# decoder's content and position key projections in both attentions). Both
+# sides compute rounding noise there, so each is held to 1% of the largest
+# magnitude of the matching weight's gradient instead. `grad_views` names
+# the thirds of the fused q|k|v tensors (the patch blocks' and the
+# encoder's) `<name>[q]`, `<name>[k]`, `<name>[v]`: each third is held to
+# its own scale, so a wrong q or k gradient cannot hide under the larger v
+# third (a zeroed talking-heads dQ stays within 5% of the whole tensor).
 ZERO_GRADS = {"attn.proj_l.bias": "attn.proj_l.weight",
               "proj_l.bias": "proj_l.weight",
+              "attn.qkv.bias[k]": "attn.qkv.weight[k]",
               "attn.k.bias": "attn.k.weight",
               "self_attn.in_proj_bias[k]": "self_attn.in_proj_weight[k]",
               "sa_kcontent_proj.bias": "sa_kcontent_proj.weight",
               "sa_kpos_proj.bias": "sa_kpos_proj.weight",
               "ca_kcontent_proj.bias": "ca_kcontent_proj.weight",
               "ca_kpos_proj.bias": "ca_kpos_proj.weight"}
-QKV_FUSED = ("self_attn.in_proj_weight", "self_attn.in_proj_bias")
+QKV_FUSED = ("attn.qkv.weight", "attn.qkv.bias", "self_attn.in_proj_weight",
+             "self_attn.in_proj_bias")
 
 
 def grad_views(grads):
