@@ -84,7 +84,10 @@ Phases, each printing its own lines; any failure exits non-zero:
                the same-grads check of that configuration against every
                fused flag and use_pallas_attention off, under phase 7's
                rule (the decoder self-attention's q/k gradients, plain on
-               both sides but bf16 noise at init, held to the f32 model),
+               both sides but bf16 noise at init, held to the f32 model);
+               a fourth run takes the kernels' plain versions in their
+               place, and the kernels are held to it, it to every flag
+               off, under the same rule (which names miss with each);
                and the step's device-time split.
 About 4 minutes of command time on an H100.
 The line before the last is a JSON object with one entry per kernel; the
@@ -96,6 +99,7 @@ or the JAX package (spe_tpu) was loaded by its end.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import re
@@ -685,10 +689,6 @@ FUSED_TRAIN_ARGV = STOCK_TRAIN_ARGV + OFF_FLAGS
 # attention but the decoder self-attention through the standalone kernels
 ATTN_TRAIN_ARGV = STOCK_TRAIN_ARGV + ["--no_use_fused_block",
                                       "--no_use_fused_layers"]
-# training forward launches per step of each fused layer (and as many
-# backward launches); also its eval launches per forward
-PER_STEP = {"pallas_block": 48, "pallas_ca_block": 2, "pallas_encoder": 3,
-            "pallas_decoder": 6}
 
 
 def _supervision_counters():
@@ -699,44 +699,52 @@ def _supervision_counters():
 
 
 def _attention_counters():
-    """The standalone attention kernels and their launches per forward (and
-    per training step, forward and backward) with the fused flags off and
-    use_pallas_attention on: fused_mha in the 2 class-attention blocks, the
-    3 encoder layers and the 6 decoder cross-attentions; the talking-heads
-    attention in the 48 patch blocks."""
+    """The standalone attention kernels: fused_mha serves the class
+    attention, the encoder and the decoder cross-attention of the layers
+    whose fused flag is off, the talking-heads attention the patch
+    blocks'."""
     from spe_tpu_torch.ops import fused_mha, talking_heads
 
-    return {"pallas_mha": (fused_mha.fused_mha, 2 + 3 + 6),
-            "pallas_attention": (talking_heads.talking_heads_attention, 48)}
+    return {"pallas_mha": fused_mha.fused_mha,
+            "pallas_attention": talking_heads.talking_heads_attention}
 
 
-def _fused_on(cfg):
-    """{fused layer: on under `cfg`} (use_fused_ca_block "auto" follows
-    use_fused_block)."""
-    fused_ca = {"auto": cfg.use_fused_block, "on": True,
-                "off": False}[cfg.use_fused_ca_block]
-    return {"pallas_block": cfg.use_fused_block, "pallas_ca_block": fused_ca,
-            "pallas_encoder": cfg.use_fused_layers,
-            "pallas_decoder": cfg.use_fused_layers}
+def _per_forward(model):
+    """{kernel: launches per forward} read off the built model's layers (a
+    training step launches each as often forward and backward): a layer
+    with use_fused set runs its fused kernel; one without it runs its
+    attention through the talking-heads kernel (block_attention) or
+    fused_mha (layer_attention), or plain."""
+    from spe_tpu_torch.models.cait import (LayerScaleBlock,
+                                           LayerScaleBlockClassAttn)
+    from spe_tpu_torch.models.transformer import (ConditionalDecoderLayer,
+                                                  TransformerEncoderLayer)
+    from spe_tpu_torch.ops.fused_mha import layer_attention
+    from spe_tpu_torch.ops.talking_heads import block_attention
 
-
-def _attention_per_step(cfg):
-    """{kernel: forward launches per step} of the standalone attention
-    kernels under `cfg`: each serves the layers whose fused flag is off."""
-    if not cfg.use_pallas_attention:
-        return {"pallas_mha": 0, "pallas_attention": 0}
-    on = _fused_on(cfg)
-    return {"pallas_mha": (0 if on["pallas_ca_block"] else 2)
-            + (0 if cfg.use_fused_layers else 3 + 6),
-            "pallas_attention": 0 if cfg.use_fused_block else 48}
+    fused = {LayerScaleBlock: "pallas_block",
+             LayerScaleBlockClassAttn: "pallas_ca_block",
+             TransformerEncoderLayer: "pallas_encoder",
+             ConditionalDecoderLayer: "pallas_decoder"}
+    attention = {block_attention: "pallas_attention",
+                 layer_attention: "pallas_mha"}
+    per = dict.fromkeys([*_counters(), *_attention_counters()], 0)
+    for m in model.modules():
+        if type(m) not in fused:
+            continue
+        if m.use_fused:
+            per[fused[type(m)]] += 1
+        elif m.attention in attention:
+            per[attention[m.attention]] += 1
+    return per
 
 
 def _all_counts(reset=False):
     """{counter name: launches} of every fused layer and standalone
     attention kernel (eval, training forward and backward) and the
     supervision kernels; with reset, set them all to 0 first."""
-    fns = {k: fn for k, (fn, _) in {**_counters(),
-                                    **_attention_counters()}.items()}
+    fns = {**{k: fn for k, (fn, _) in _counters().items()},
+           **_attention_counters()}
     names = {}
     for k, fn in fns.items():
         for attr in ("launches", "train_launches", "bwd_launches"):
@@ -773,8 +781,11 @@ def phase_train(kernel_results, mode, n_train=24, n_test=8, batch=8):
                  "backbone": ("train-fused", FUSED_TRAIN_ARGV),
                  "stock": ("train-stock", STOCK_TRAIN_ARGV),
                  "attention": ("train-attention", ATTN_TRAIN_ARGV)}[mode]
-    fused = {"off": (), "backbone": ("pallas_block", "pallas_ca_block"),
-             "stock": tuple(PER_STEP), "attention": ()}[mode]
+    # the kernels each mode's model runs (each a number of times per
+    # forward that _per_forward reads off the built model)
+    runs = {"off": (), "backbone": ("pallas_block", "pallas_ca_block"),
+            "stock": tuple(_counters()),
+            "attention": tuple(_attention_counters())}[mode]
     tmp = tempfile.TemporaryDirectory()
     devkit = write_mini_voc(tmp.name, n_test=n_test, n_trainval=n_train)
     out = f"{tmp.name}/out"
@@ -801,16 +812,16 @@ def phase_train(kernel_results, mode, n_train=24, n_test=8, batch=8):
     if steps != n_train // batch:
         bad.append(f"{steps} steps, expected {n_train // batch}")
     want = {k: steps for k in _supervision_counters()}
-    # the epoch's eval forwards launch the eval kernels of the fused layers
+    cfg = parse_config(argv)
+    built = build_model(cfg)
+    per = _per_forward(built)
+    if {k for k, n in per.items() if n} != set(runs):
+        bad.append(f"the model runs {per} per forward, expected only {runs}")
+    # the epoch's eval forwards launch the eval kernels
     forwards = epoch["eval"]["forwards"]
-    for k, per in PER_STEP.items():
-        on = k in fused
-        want[f"{k}.train_launches"] = per * steps if on else 0
-        want[f"{k}.bwd_launches"] = per * steps if on else 0
-        want[f"{k}.launches"] = per * forwards if on else 0
-    for k, per in _attention_per_step(parse_config(argv)).items():
-        want[f"{k}.train_launches"] = want[f"{k}.bwd_launches"] = per * steps
-        want[f"{k}.launches"] = per * forwards
+    for k, n in per.items():
+        want[f"{k}.train_launches"] = want[f"{k}.bwd_launches"] = n * steps
+        want[f"{k}.launches"] = n * forwards
     print(f"[{tag}] expected launches (training per step x {steps} steps; "
           f"eval per forward x {forwards} forwards): {want}", flush=True)
     for k, n in want.items():
@@ -825,8 +836,7 @@ def phase_train(kernel_results, mode, n_train=24, n_test=8, batch=8):
     state = res["state"]
     if state.bad_steps:
         bad.append(f"bad_steps {state.bad_steps}")
-    cfg = parse_config(argv)
-    init = build_model(cfg).state_dict()
+    init = built.state_dict()
     trained = state.model.state_dict()
     moved = max(float((trained[k].float() - v.float()).abs().max())
                 for k, v in init.items())
@@ -855,7 +865,7 @@ def phase_train(kernel_results, mode, n_train=24, n_test=8, batch=8):
     if bad:
         fail(f"{tag}: " + "; ".join(bad))
     if mode == "stock":   # this slice's main path: every kernel's count
-        for k in PER_STEP:
+        for k in _counters():
             kernel_results[f"{k}_bwd"]["launches"] = counts[f"{k}.bwd_launches"]
             kernel_results[k]["train_launches"] = counts[f"{k}.train_launches"]
         for k in _supervision_counters():
@@ -1027,10 +1037,11 @@ def _same_tree(a, b):
 # (their directions hold: the plain bf16 one's cosine with the f32 one is
 # 0.86-0.999). They react so to any rounding upstream: with the fused
 # flags off and the standalone attention kernels on, this self-attention is
-# plain on both sides, yet the kernels' other roundings in the backbone,
-# the encoder and the cross-attention move these gradients by up to 1.3x
-# their largest plain element, while they stay as close to the f32 model
-# as the plain bf16 ones (cosines within 0.01 of the plain one's).
+# plain on both sides, yet they miss 5% on the same names whether the
+# kernels or the kernels' plain versions (f32 scale and mixes) run in place
+# of the plain model's attentions, and the kernels miss it against their
+# own plain versions too (f32 sums in another order), while every path
+# stays as close to the f32 model as the plain bf16 one.
 NOISY = re.compile(r"transformer\.decoder\.layers\.\d+\."
                    r"sa_[qk](content|pos)_proj\.(weight|bias)$")
 # Such a gradient passes beyond MODEL_REL_TOL only if it is no further from
@@ -1059,88 +1070,34 @@ def _cos(a, b):
         if na and nb else 0.0
 
 
-def phase_same_grads(cfg, label, noisy=None, batch=8):
-    """One batch at dropout 0 through the same weights with the fused
-    layers of `cfg` on and every fused flag off (bf16 both). The fused run
-    replays the plain run's supervision (its pseudo-boxes, refinement
-    targets and matching, from compute_losses), so both differentiate one
-    loss: bf16 differences move near-tied matchings and top-k picks. The
-    losses agree within MODEL_REL_TOL of the plain side's magnitude, and
-    each parameter's gradient within MODEL_REL_TOL of its largest plain
-    magnitude. With `noisy` (a pattern of names; see NOISY), a third run,
-    the plain model in f32 with the supervision replayed, holds those
-    gradients that miss MODEL_REL_TOL to the f32 math instead. Every
-    parameter of the backbone, the encoder, the decoder (query_scale,
-    ref_point_head included) and the query embeddings gets a gradient on
-    both sides (the backbone's nonzero). Then the fused configuration's
-    step split."""
-    import torch
+@contextlib.contextmanager
+def _plain_attention(on=True):
+    """With on, the standalone attention Functions (MHAFn, TalkingHeadsFn)
+    take their plain versions on the card too, the training forwards and
+    hand-derived backwards that the kernel checks hold the kernels to: the
+    kernels' math (the scale on the f32 logits, the talking-heads mixes in
+    f32, unfolded) without the kernels."""
+    from spe_tpu_torch.ops import fused_mha, talking_heads
 
-    from spe_tpu_torch.data import train_data, write_mini_voc
-    from spe_tpu_torch.models.build import build_model
-    from spe_tpu_torch.ops.kernel_checks import (MODEL_REL_TOL, grad_views,
-                                                 zero_grad_ref)
-    from spe_tpu_torch.train import train_step as ts
-    from spe_tpu_torch.train.engine import train_batch
+    saved = fused_mha._plain, talking_heads._plain
+    if on:
+        fused_mha._plain = talking_heads._plain = lambda t: True
+    try:
+        yield
+    finally:
+        fused_mha._plain, talking_heads._plain = saved
 
-    tmp = tempfile.TemporaryDirectory()
-    devkit = write_mini_voc(tmp.name, n_test=1, n_trainval=batch, seed=2)
-    cfg = cfg.replace(test_path=str(devkit), dropout=0.0,
-                      backbone_drop_rate=0.0, drop_attn_rate=0.0,
-                      drop_path_rate=0.0)
-    plain_cfg = cfg.replace(use_fused_block=False, use_fused_layers=False,
-                            use_pallas_attention=False)
-    _, loader = train_data(cfg)
-    b = train_batch(next(iter(loader.epoch(0))), torch.device("cuda"))
-    gates = ts.Gates.for_epoch(cfg, 0)
 
-    def gen():
-        return torch.Generator("cuda").manual_seed(3)
+def _hold(gf, gp, g32, noisy):
+    """Hold the gradients gf to gp: each within MODEL_REL_TOL of its
+    largest plain magnitude; with `noisy` (a pattern of names) and the f32
+    model's gradients g32, a named one beyond it is held to the f32 math
+    instead (see NOISY). -> (failures, the escaped names' (name, err,
+    err vs f32, plain vs f32, cosines), names without a gradient on a
+    side, how many within, (worst name, its relative error))."""
+    from spe_tpu_torch.ops.kernel_checks import MODEL_REL_TOL, zero_grad_ref
 
-    runs, sup = {}, None
-    order = [("plain", plain_cfg)]
-    if noisy is not None:
-        order.append(("f32", plain_cfg.replace(compute_dtype="float32")))
-    order.append(("fused", cfg))
-    for run, run_cfg in order:
-        model = build_model(run_cfg).train()
-        if run == "fused":   # what the fused run would have used on its own
-            own = ts.compute_losses(model, b, run_cfg, gates, gen())[2]
-            own = {"cam": _same_tree(own["cam"], sup["cam"]),
-                   "refine": _same_tree(own["refine"], sup["refine"]),
-                   # the rows (its statistics count iterations)
-                   "matching": _same_tree(own["matching"][0],
-                                          sup["matching"][0])}
-        _all_counts(reset=True)
-        total, losses, used = ts.compute_losses(model, b, run_cfg, gates,
-                                                gen(), sup)
-        sup = used
-        total.backward()
-        torch.cuda.synchronize()
-        runs[run] = ({k: float(v.detach()) for k, v in losses.items()},
-                     grad_views({n: p.grad.detach().float().clone()
-                                 if p.grad is not None else None
-                                 for n, p in model.named_parameters()}),
-                     _all_counts())
-        if run == "fused":
-            fused_model = model
-        else:
-            del model, total, losses
-            torch.cuda.empty_cache()
-    (lf, gf, cf), (lp, gp, _) = runs["fused"], runs["plain"]
-    g32 = runs["f32"][1] if noisy is not None else None
-    bad = []
-    on = _fused_on(cfg)
-    want = {f"{k}.{a}": PER_STEP[k] if on[k] else 0 for k in PER_STEP
-            for a in ("train_launches", "bwd_launches")}
-    for k, per in _attention_per_step(cfg).items():
-        want[f"{k}.train_launches"] = want[f"{k}.bwd_launches"] = per
-    if any(cf[k] != n for k, n in want.items()):
-        bad.append(f"fused launches {cf}, expected {want}")
-    for k, v in lp.items():
-        if abs(lf[k] - v) > MODEL_REL_TOL * abs(v) + 1e-6:
-            bad.append(f"loss {k}: {lf[k]:.6f} vs {v:.6f}")
-    worst, escaped, zero, within = ("", 0.0), [], [], 0
+    worst, escaped, zero, within, bad = ("", 0.0), [], [], 0, []
     for n, w in gp.items():
         g = gf[n]
         # a bias shared by a softmax row has no gradient in exact
@@ -1181,37 +1138,151 @@ def phase_same_grads(cfg, label, noisy=None, batch=8):
                        f"plain {plain_f32:.3e} (at most {NOISE_FACTOR}x), "
                        f"cosine fused {cos_f} vs plain {cos_p} (at least "
                        f"{COS_MIN} and plain - {COS_MARGIN})")
+    return bad, escaped, zero, within, worst
+
+
+def _report(label, pair, lf, lp, n_grads, held, noisy):
+    """Print one pair's verdict of the same-grads check -> its failures."""
+    from spe_tpu_torch.ops.kernel_checks import MODEL_REL_TOL
+
+    bad, escaped, zero, within, worst = held
+    bad = list(bad)
+    for k, v in lp.items():
+        if abs(lf[k] - v) > MODEL_REL_TOL * abs(v) + 1e-6:
+            bad.append(f"loss {k}: {lf[k]:.6f} vs {v:.6f}")
     if zero:
         bad.append(f"no gradient on a side: {zero}")
+    cosines = [e[4] for e in escaped if e[4] is not None]
+    drops = [e[5] - e[4] for e in escaped if e[4] is not None]
+    rule = (f"{len(escaped)} decoder self-attention q/k gradients beyond "
+            f"it, held to the f32 model (vs f32 <= {NOISE_FACTOR} x plain "
+            f"bf16 vs f32, largest ratio "
+            f"{max((e[2] / max(e[3], 1e-30) for e in escaped), default=0):.2f}"
+            f"; cosine with f32 >= max({COS_MIN}, plain's - {COS_MARGIN}), "
+            f"lowest {min(cosines, default=1):.4f}, largest drop from "
+            f"the plain one's {max(drops, default=0):.4f})"
+            if noisy is not None else "none may miss it")
+    print(f"[same-grads] {label}: {pair}: losses {len(lp)} (total "
+          f"{sum(lf.values()):.6f} vs {sum(lp.values()):.6f}); "
+          f"{n_grads} parameter gradients (fused "
+          f"q|k|v tensors in thirds), {within} within {MODEL_REL_TOL} of "
+          f"max|plain| (largest {worst[1]:.3e}, {worst[0]}); {rule}; "
+          f"parameters without a gradient {len(zero)}", flush=True)
+    for n, e, e32, p32, cf_, cp_ in sorted(escaped, key=lambda r: -r[1]):
+        cos = "zero by construction" if cf_ is None else \
+            f"cosine with f32: {cf_:.4f} vs plain {cp_:.4f}"
+        print(f"[same-grads] {label}: {pair}: noise-dominated {n}: (all / "
+              f"max|plain|) vs plain {e:.3f}, vs f32 {e32:.3f}, plain vs "
+              f"f32 {p32:.3f}; {cos}", flush=True)
+    for line in bad[:20]:
+        print(f"[same-grads] {label}: {pair}: {line}", flush=True)
+    return bad
+
+
+def phase_same_grads(cfg, label, noisy=None, batch=8):
+    """One batch at dropout 0 through the same weights with the fused
+    layers of `cfg` on and every fused flag off (bf16 both). The fused run
+    replays the plain run's supervision (its pseudo-boxes, refinement
+    targets and matching, from compute_losses), so both differentiate one
+    loss: bf16 differences move near-tied matchings and top-k picks. The
+    losses agree within MODEL_REL_TOL of the plain side's magnitude, and
+    each parameter's gradient within MODEL_REL_TOL of its largest plain
+    magnitude. With `noisy` (a pattern of names; see NOISY), a third run,
+    the plain model in f32 with the supervision replayed, holds those
+    gradients that miss MODEL_REL_TOL to the f32 math instead. Every
+    parameter of the backbone, the encoder, the decoder (query_scale,
+    ref_point_head included) and the query embeddings gets a gradient on
+    both sides (the backbone's nonzero). Where `cfg` runs the standalone
+    attention kernels, one more run takes their plain versions in their
+    place (_plain_attention); the kernels are held to it, and it to the
+    plain model, by the same rule: whether a miss comes from the kernels
+    or from their math. Then the fused configuration's step split."""
+    import torch
+
+    from spe_tpu_torch.data import train_data, write_mini_voc
+    from spe_tpu_torch.models.build import build_model
+    from spe_tpu_torch.ops.kernel_checks import grad_views
+    from spe_tpu_torch.train import train_step as ts
+    from spe_tpu_torch.train.engine import train_batch
+
+    tmp = tempfile.TemporaryDirectory()
+    devkit = write_mini_voc(tmp.name, n_test=1, n_trainval=batch, seed=2)
+    cfg = cfg.replace(test_path=str(devkit), dropout=0.0,
+                      backbone_drop_rate=0.0, drop_attn_rate=0.0,
+                      drop_path_rate=0.0)
+    plain_cfg = cfg.replace(use_fused_block=False, use_fused_layers=False,
+                            use_pallas_attention=False)
+    _, loader = train_data(cfg)
+    b = train_batch(next(iter(loader.epoch(0))), torch.device("cuda"))
+    gates = ts.Gates.for_epoch(cfg, 0)
+
+    def gen():
+        return torch.Generator("cuda").manual_seed(3)
+
+    runs, sup = {}, None
+    order = [("plain", plain_cfg)]
+    if noisy is not None:
+        order.append(("f32", plain_cfg.replace(compute_dtype="float32")))
+    attention = any(_per_forward(build_model(cfg))[k]
+                    for k in _attention_counters())
+    if attention:
+        order.append(("kernel math", cfg))
+    order.append(("fused", cfg))
+    for run, run_cfg in order:
+        model = build_model(run_cfg).train()
+        if run == "fused":   # what the fused run would have used on its own
+            own = ts.compute_losses(model, b, run_cfg, gates, gen())[2]
+            own = {"cam": _same_tree(own["cam"], sup["cam"]),
+                   "refine": _same_tree(own["refine"], sup["refine"]),
+                   # the rows (its statistics count iterations)
+                   "matching": _same_tree(own["matching"][0],
+                                          sup["matching"][0])}
+        _all_counts(reset=True)
+        with _plain_attention(run == "kernel math"):
+            total, losses, used = ts.compute_losses(model, b, run_cfg, gates,
+                                                    gen(), sup)
+            sup = used
+            total.backward()
+        torch.cuda.synchronize()
+        runs[run] = ({k: float(v.detach()) for k, v in losses.items()},
+                     grad_views({n: p.grad.detach().float().clone()
+                                 if p.grad is not None else None
+                                 for n, p in model.named_parameters()}),
+                     _all_counts())
+        if run == "fused":
+            fused_model = model
+        else:
+            del model, total, losses
+            torch.cuda.empty_cache()
+    (lf, gf, cf), (lp, gp, _) = runs["fused"], runs["plain"]
+    g32 = runs["f32"][1] if noisy is not None else None
     print(f"[same-grads] {label}: the fused run's own supervision equal to "
           f"the plain run's (replayed, so all runs differentiate one loss): "
           f"{own}", flush=True)
-    cosines = [e[4] for e in escaped if e[4] is not None]
-    drops = [e[5] - e[4] for e in escaped if e[4] is not None]
-    held = (f"{len(escaped)} decoder self-attention q/k gradients beyond "
-            f"it, held to the f32 model (fused vs f32 <= {NOISE_FACTOR} x "
-            f"plain bf16 vs f32, largest ratio "
-            f"{max((e[2] / max(e[3], 1e-30) for e in escaped), default=0):.2f}"
-            f"; cosine with f32 >= max({COS_MIN}, plain's - {COS_MARGIN}), "
-            f"lowest fused {min(cosines, default=1):.4f}, largest drop from "
-            f"the plain one's {max(drops, default=0):.4f})"
-            if noisy is not None else "none may miss it")
-    print(f"[same-grads] {label}: one batch at dropout 0, fused layers vs "
-          f"every fused flag off, same weights: losses {len(lp)} (total "
-          f"fused {sum(lf.values()):.6f}, plain {sum(lp.values()):.6f}); "
-          f"{len(gp)} parameter gradients (fused q|k|v tensors in thirds), "
-          f"{within} within {MODEL_REL_TOL} of max|plain| "
-          f"(largest {worst[1]:.3e}, {worst[0]}); {held}; training launches "
-          f"{({k: v for k, v in cf.items() if 'train' in k})}; parameters "
-          f"without a gradient {len(zero)}", flush=True)
-    for n, e, e32, p32, cf_, cp_ in sorted(escaped, key=lambda r: -r[1]):
-        cos = "zero by construction" if cf_ is None else \
-            f"cosine with f32: fused {cf_:.4f}, plain {cp_:.4f}"
-        print(f"[same-grads] {label}: noise-dominated {n}: (all / "
-              f"max|plain|) fused vs plain {e:.3f}, fused vs f32 {e32:.3f}, "
-              f"plain vs f32 {p32:.3f}; {cos}", flush=True)
-    for line in bad[:20]:
-        print(f"[same-grads] {line}", flush=True)
+    bad = []
+    want = {f"{k}.{a}": n for k, n in _per_forward(fused_model).items()
+            for a in ("train_launches", "bwd_launches")}
+    if any(cf[k] != n for k, n in want.items()):
+        bad.append(f"fused launches {cf}, expected {want}")
+    held = _hold(gf, gp, g32, noisy)
+    bad += _report(label, "fused layers vs every fused flag off", lf, lp,
+                   len(gp), held, noisy)
+    if attention:
+        lm, gm, cm = runs["kernel math"]
+        if any(cm.values()):
+            bad.append(f"the kernel-math run launched kernels: {cm}")
+        bad += _report(label, "kernels vs their plain versions", lf, lm,
+                       len(gp), _hold(gf, gm, g32, noisy), noisy)
+        math = _hold(gm, gp, g32, noisy)
+        bad += _report(label, "their plain versions vs every fused flag off",
+                       lm, lp, len(gp), math, noisy)
+        missed = {e[0] for e in held[1]}
+        print(f"[same-grads] {label}: beyond {len(missed)} names with the "
+              f"kernels, {len(math[1])} with their plain versions, "
+              f"{len(missed & {e[0] for e in math[1]})} of them the same",
+              flush=True)
+    print(f"[same-grads] {label}: training launches "
+          f"{({k: v for k, v in cf.items() if 'train' in k})}", flush=True)
     if bad:
         fail(f"same grads ({label}): the fused layers disagree with the "
              "plain ones")

@@ -52,8 +52,8 @@ import torch
 from spe_tpu_torch.ops import kernels as K
 from spe_tpu_torch.ops.fused_encoder import attend_backward, attend_train
 from spe_tpu_torch.ops.refmath import (SITE_MHA_ATTN, CounterDropout,
-                                       draw_seed, key_bias, merge_heads,
-                                       needs_grad, no_dropout, split_heads)
+                                       draw_seed, key_bias, needs_grad,
+                                       no_dropout)
 
 
 def _scale(q, H):
@@ -64,38 +64,35 @@ def _bias(q, k, mask):
     return key_bias(mask, k.shape[0], k.shape[1], q.device)
 
 
-def fused_mha_reference(q, k, v, num_heads, key_padding_mask=None, drop=None,
-                        return_attn=False):
-    """Plain PyTorch version of `_fwd_kernel` (pallas_mha.py:45-83). q:
-    (B, Nq, H*dq); k: (B, Nk, H*dq); v: (B, Nk, H*dv); key_padding_mask:
-    (B, Nk) bool, True = padded, or None; drop: a refmath.CounterDropout
-    (its attention rate) or None -> out (B, Nq, H*dv) in q's dtype, and
-    with return_attn the probabilities (B, H, Nq, Nk) f32 before dropout."""
-    H = num_heads
-    logits = (split_heads(q, H).float()
-              @ split_heads(k, H).float().transpose(-1, -2)) * _scale(q, H)
-    bias = _bias(q, k, key_padding_mask)
-    if bias is not None:
-        logits = logits + bias[:, None, None, :]
-    probs = torch.softmax(logits, dim=-1)
-    z = probs if drop is None else drop.site(probs, SITE_MHA_ATTN, drop.attn,
-                                             head_dim=True)
-    out = merge_heads(z.to(v.dtype).float()
-                      @ split_heads(v, H).float()).to(q.dtype)
-    return (out, probs) if return_attn else out
-
-
 def fused_mha_train_reference(q, k, v, num_heads, key_padding_mask=None,
                               drop=None, return_attn=False):
-    """The training forward as the kernels compute it -> (out, lse (B, H,
-    Nq) f32: each row's log-sum-exp, saved for the backward), or (out,
-    probs, lse) with return_attn."""
+    """Plain PyTorch version of `_fwd_kernel` (pallas_mha.py:45-83) as the
+    kernels compute it in training. q: (B, Nq, H*dq); k: (B, Nk, H*dq); v:
+    (B, Nk, H*dv); key_padding_mask: (B, Nk) bool, True = padded, or None;
+    drop: a refmath.CounterDropout (its attention rate) or None -> (out
+    (B, Nq, H*dv) in q's dtype, lse (B, H, Nq) f32: each row's
+    log-sum-exp, saved for the backward), or (out, probs, lse) with
+    return_attn, the probabilities (B, H, Nq, Nk) f32 before dropout."""
     drop = drop or no_dropout(q.device)
     o, probs, _, lse = attend_train(q, k, v, num_heads, _scale(q, num_heads),
                                     _bias(q, k, key_padding_mask), drop,
                                     SITE_MHA_ATTN, num_heads)
     out = o.to(q.dtype)
     return (out, probs, lse) if return_attn else (out, lse)
+
+
+def _drop_lse(res, return_attn):
+    """A training forward's result without its lse, as the eval forward
+    returns it: out, or (out, probs) with return_attn."""
+    return res[:-1] if return_attn else res[0]
+
+
+def fused_mha_reference(q, k, v, num_heads, key_padding_mask=None, drop=None,
+                        return_attn=False):
+    """The plain eval forward: `fused_mha_train_reference` without the lse
+    -> out, or (out, probs) with return_attn."""
+    return _drop_lse(fused_mha_train_reference(
+        q, k, v, num_heads, key_padding_mask, drop, return_attn), return_attn)
 
 
 def fused_mha_backward_reference(dy, q, k, v, lse, num_heads,
@@ -153,9 +150,8 @@ def _train_cuda(q, k, v, num_heads, key_padding_mask=None, drop=None,
 def _forward_cuda(q, k, v, num_heads, key_padding_mask=None,
                   return_attn=False):
     """The kernels' eval forward: the training form at rate 0."""
-    res = _train_cuda(q, k, v, num_heads, key_padding_mask,
-                      return_attn=return_attn)[:-1]
-    return res if return_attn else res[0]
+    return _drop_lse(_train_cuda(q, k, v, num_heads, key_padding_mask,
+                                 return_attn=return_attn), return_attn)
 
 
 def _backward_cuda(dy, q, k, v, lse, num_heads, key_padding_mask=None,

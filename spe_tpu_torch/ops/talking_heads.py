@@ -74,25 +74,24 @@ def _mix_out(probs, v, p, H, drop):
     return zd, out.to(v.dtype)
 
 
-def talking_heads_reference(q, k, v, p, num_heads, drop=None):
-    """Plain PyTorch version of `_kernel` (pallas_attention.py:30-81). q/k/v
-    (B, N, H*dh); p {PARAM_NAMES: tensor}; drop: a refmath.CounterDropout
-    (its attention rate, keys (b, g, q, k) at site TH_ATTN) or None ->
-    (B, N, H*dh) in q's dtype."""
-    drop = drop or no_dropout(q.device)
-    _, m = _logits(q, k, p, num_heads)
-    return _mix_out(torch.softmax(m, dim=-1), v, p, num_heads,
-                    drop)[1].to(q.dtype)
-
-
 def talking_heads_train_reference(q, k, v, p, num_heads, drop=None):
-    """The training forward as the kernels compute it: -> (out, lse (B, H,
-    N) f32: each mixed row's log-sum-exp, saved for the backward)."""
+    """Plain PyTorch version of `_kernel` (pallas_attention.py:30-81) as the
+    kernels compute it in training. q/k/v (B, N, H*dh); p {PARAM_NAMES:
+    tensor}; drop: a refmath.CounterDropout (its attention rate, keys (b,
+    g, q, k) at site TH_ATTN) or None -> (out (B, N, H*dh) in q's dtype,
+    lse (B, H, N) f32: each mixed row's log-sum-exp, saved for the
+    backward)."""
     drop = drop or no_dropout(q.device)
     _, m = _logits(q, k, p, num_heads)
     lse = torch.logsumexp(m, dim=-1)
     out = _mix_out(torch.exp(m - lse[..., None]), v, p, num_heads, drop)[1]
     return out.to(q.dtype), lse
+
+
+def talking_heads_reference(q, k, v, p, num_heads, drop=None):
+    """The plain eval forward: `talking_heads_train_reference` without the
+    lse -> (B, N, H*dh) in q's dtype."""
+    return talking_heads_train_reference(q, k, v, p, num_heads, drop)[0]
 
 
 def talking_heads_backward_reference(dy, q, k, v, lse, p, num_heads,
