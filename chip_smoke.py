@@ -1,11 +1,16 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
     python3 chip_smoke.py            # all phases; needs one CUDA device
+    python3 chip_smoke.py --against DIR   # the toolkit classes on DIR's
+                                     # kernels and on these, in turns
 
 Phases, each printing its own lines; any failure exits non-zero:
   1. device  — the card's name and power limit (nvidia-smi); no card fails.
   2. build   — nvcc builds spe_tpu_torch/csrc/*.cu into build/spe_tpu_torch/
-               (one nvcc per source, all at once).
+               (one nvcc per source, all at once); cuobjdump counts the
+               tensor-core instructions (HMMA/HGMMA) in every
+               instantiation of attn_kernel and gemm_kernel, with their
+               registers and local memory, and fails on none.
   3. kernels — each fused-layer kernel at the voc0712 eval shapes (B=2)
                against its plain PyTorch version on the same bf16 inputs
                (max abs error vs the stated tolerance), and the standalone
@@ -30,6 +35,18 @@ Phases, each printing its own lines; any failure exits non-zero:
                auction problems of 120 x 300, plus an overfull shape),
                which must equal their plain versions exactly; CUDA-event
                times, and each kernel's bound (least time on the card).
+               Then the toolkit's two product kernels, gemm_kernel and
+               attn_kernel, at every shape class one stock training step,
+               one standalone-attention training step and one stock eval
+               forward give them (B=8; a recorder around kernels.gemm and
+               kernels.attention): each class replayed on fresh random
+               inputs of the recorded layout against its plain version
+               (gemm 1% of the largest magnitude, attention 4 bf16 ulps,
+               probabilities 1e-4), twice (identical bits), with its
+               launches per run, its time, the plain version's, the
+               bound and the library's (torch.matmul on pre-rounded
+               contiguous bf16 operands; scaled_dot_product_attention
+               where it computes the same function).
   4. slice   — `spe_tpu_torch.cli.main --preset voc0712 --eval` on a
                generated mini-VOC at full width, with the launch counters
                checked per forward; then one batch through a kernel model
@@ -89,7 +106,9 @@ Phases, each printing its own lines; any failure exits non-zero:
                place, and the kernels are held to it, it to every flag
                off, under the same rule (which names miss with each);
                and the step's device-time split.
-About 4 minutes of command time on an H100.
+Each profile also sums the device time of the product kernels by family
+(attn_kernel<192, 192, ...> apart). About 4 minutes of command time on an
+H100.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
 
@@ -141,6 +160,52 @@ def phase_build():
     kernels.lib()
     print(f"[build] {kernels.library_path()} built and loaded in "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
+    tensor_core_check(kernels)
+
+
+# the product kernels that must run on the tensor cores
+TENSOR_CORE_KERNELS = ("attn_kernel", "gemm_kernel")
+
+
+def tensor_core_check(kernels):
+    """Count the tensor-core instructions (HMMA, HGMMA) in the SASS of every
+    instantiation of attn_kernel and gemm_kernel in the built library
+    (cuobjdump of the nvcc's toolkit) and print their registers and local
+    memory (spills); fail if one has no tensor-core instruction."""
+    import os
+
+    tool = os.path.join(os.path.dirname(kernels._nvcc()), "cuobjdump")
+    so = str(kernels.library_path())
+    sass = subprocess.run([tool, "-sass", so], capture_output=True, text=True)
+    res = subprocess.run([tool, "-res-usage", so], capture_output=True,
+                         text=True)
+    if sass.returncode or res.returncode:
+        fail(f"cuobjdump failed: {sass.stderr.strip()} {res.stderr.strip()}")
+    counts, name = {}, None
+    for line in sass.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            counts[name] = 0
+        elif name and re.search(r"\bH(G)?MMA\b", line):
+            counts[name] += 1
+    usage = dict(re.findall(r"Function (\S+):\s*\n\s*(REG:\d+ STACK:\d+ "
+                            r"SHARED:\d+ LOCAL:\d+)", res.stdout))
+    bad = []
+    for fam in TENSOR_CORE_KERNELS:
+        mine = {n: c for n, c in counts.items() if fam in n}
+        if not mine:
+            bad.append(f"no {fam} in the library")
+        for n, c in sorted(mine.items()):
+            print(f"[build] {fam} {n}: {c} HMMA/HGMMA instructions; "
+                  f"{usage.get(n, 'no resource line')}", flush=True)
+            if c == 0:
+                bad.append(f"{n} has no tensor-core instruction")
+        print(f"[build] {fam}: {len(mine)} instantiations, "
+              f"{sum(mine.values())} tensor-core instructions in all",
+              flush=True)
+    if bad:
+        fail("; ".join(bad))
 
 
 def cuda_ms(fn, reps=10, warmup=2):
@@ -159,6 +224,47 @@ def cuda_ms(fn, reps=10, warmup=2):
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def graph_ms(fn, reps=20):
+    """Device milliseconds of one fn() without the host's launch overhead:
+    `reps` calls captured in one CUDA graph, the graph replayed between
+    CUDA events (median of 3 replays) / reps. None (printed "not
+    measured") if fn cannot be captured."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(g):
+            for _ in range(reps):
+                fn()
+    except RuntimeError as e:
+        print(f"[graph] not captured ({str(e).splitlines()[0][:120]})",
+              flush=True)
+        return None
+    g.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(3):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        g.replay()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b) / reps)
+    del g
+    return statistics.median(times)
+
+
+def _ms(t):
+    return "not measured" if t is None else f"{t:.4f} ms"
 
 
 def phase_kernels():
@@ -192,6 +298,7 @@ def phase_kernels():
     ok &= attention_kernels(results)
     if not ok:
         fail("a kernel disagrees with its plain version")
+    phase_toolkit(results)
     return results
 
 
@@ -239,21 +346,27 @@ def attention_kernels(results):
         errs, tols, finite = compare(fused, plain, args)
         passed = finite and all(e <= tl for e, tl in zip(errs, tols))
         ms = cuda_ms(lambda: fused(*args))
+        dev = graph_ms(lambda: fused(*args))
         plain_ms = cuda_ms(lambda: plain(*args), reps=5, warmup=1)
         bound, bound_by = layer_bound_ms(name, args)
-        lib_ms, lib_note = None, "no single PyTorch call computes it"
+        lib_ms = lib_dev = None
+        lib_note = "no single PyTorch call computes it"
         if name == "pallas_mha" and not args[6]:
             lib = _sdpa(args)
-            lib_ms = cuda_ms(lib)
+            lib_ms, lib_dev = cuda_ms(lib), graph_ms(lib)
             lib_err = max_err(merge_heads(lib()), plain(*args))
-            lib_note = (f"scaled_dot_product_attention {lib_ms:.3f} ms (its "
-                        f"max_abs_err vs plain {lib_err:.3e})")
+            ratio = (f"{dev / lib_dev:.2f}" if dev and lib_dev else
+                     "not measured")
+            lib_note = (f"scaled_dot_product_attention {lib_ms:.3f} ms, on "
+                        f"the device {_ms(lib_dev)} (its max_abs_err vs plain "
+                        f"{lib_err:.3e}); kernel / SDPA on the device {ratio}")
         ok &= passed
         print(f"[kernels] {name} ({label}, q {tuple(args[0].shape)}, k "
               f"{tuple(args[1].shape)}, v {tuple(args[2].shape)}): "
               f"max_abs_err {errs} tol {tols} ({ULPS} bf16 ulp at max|plain|; "
               f"probabilities 1e-4) finite {finite} -> "
-              f"{'ok' if passed else 'MISMATCH'}; kernel {ms:.3f} ms, plain "
+              f"{'ok' if passed else 'MISMATCH'}; kernel {ms:.3f} ms (on the "
+              f"device, in a CUDA graph: {_ms(dev)}), plain "
               f"{plain_ms:.3f} ms, bound {bound:.4f} ms ({bound_by}); "
               f"{lib_note}", flush=True)
         entry = results.setdefault(name, {
@@ -263,10 +376,328 @@ def attention_kernels(results):
         entry["max_abs_err"] = max(entry["max_abs_err"], *errs)
         entry["shapes"][label] = {"ms": ms, "plain_ms": plain_ms,
                                   "bound_ms": bound, "bound_by": bound_by,
-                                  "library_ms": lib_ms}
+                                  "library_ms": lib_ms, "device_ms": dev,
+                                  "library_device_ms": lib_dev}
         if label == MAIN_SHAPE[name]:
             entry.update(entry["shapes"][label])
     return ok
+
+
+# the toolkit's two product kernels, by the class of each call: gemm's M, N,
+# K, batch, operand dtypes, layout and epilogue; attention's template, Nq,
+# Nk and form
+TOOLKIT = {"gemm_kernel": ("spe_tpu_torch/csrc/grad.cu",
+                           "spe_tpu/ops/pallas_block.py:530"),
+           "attn_kernel": ("spe_tpu_torch/csrc/attention.cu",
+                           "spe_tpu/ops/pallas_mha.py:165")}
+
+
+def _layout(st, m_i, k_i):
+    """"k"/"m" (or "n"): which index of a 2-d operand has unit stride; "g":
+    neither."""
+    return "k" if st[k_i] == 1 else "m" if st[m_i] == 1 else "g"
+
+
+def _on(n, v):
+    """Is option n of a call on? (a dropout (site, rate) at rate 0 is off)"""
+    if v is None or hasattr(v, "data_ptr"):
+        return v is not None
+    return v[1] > 0 if n == "drop" else bool(v)
+
+
+def _gemm_class(a, b, c, kw):
+    epi = tuple(n for n in ("drop", "gelu_aux", "relu_aux", "col_group",
+                            "accumulate", "split_k") if _on(n, kw.get(n)))
+    if kw.get("alpha", 1.0) != 1.0:
+        epi += ("alpha",)
+    lay = (_layout(kw["a_str"], 2, 3) + _layout(kw["b_str"], 3, 2)
+           .replace("m", "n"))
+    return (kw["M"], kw["N"], kw["K"], tuple(kw.get("nb", (1, 1))),
+            str(a.dtype)[6:], str(b.dtype)[6:], str(c.dtype)[6:], lay, epi)
+
+
+def _attention_class(q, k, out, kw):
+    form = tuple(n for n in ("qscale", "kbias", "hbias", "probs", "lse",
+                             "drop") if _on(n, kw.get(n)))
+    return (kw["dq"], kw["dv"], q.shape[1], k.shape[1], q.shape[0],
+            kw["num_heads"], str(out.dtype)[6:], form)
+
+
+@contextlib.contextmanager
+def record_toolkit(classes, run):
+    """While active, count every kernels.gemm and kernels.attention call in
+    classes[(kernel, class)]["launches"][run], keeping the first call's
+    layout (tensor_meta of each tensor, the scalars) to replay it."""
+    from spe_tpu_torch.ops import kernels as K
+    from spe_tpu_torch.ops.kernel_checks import tensor_meta
+
+    gemm, attention = K.gemm, K.attention
+
+    def meta(kw):
+        return {n: (v.clone() if n == "seed" else tensor_meta(v))
+                if hasattr(v, "data_ptr") else v for n, v in kw.items()
+                if v is not None}
+
+    def note(kernel, cls, make):
+        entry = classes.setdefault((kernel, cls), {"launches": {}})
+        entry["launches"][run] = entry["launches"].get(run, 0) + 1
+        if "call" not in entry:
+            entry["call"] = make()
+
+    def rec_gemm(a, b, c, **kw):
+        note("gemm_kernel", _gemm_class(a, b, c, kw),
+             lambda: (tensor_meta(a), tensor_meta(b), tensor_meta(c),
+                      meta(kw)))
+        return gemm(a, b, c, **kw)
+
+    def rec_attention(q, k, v, out, **kw):
+        note("attn_kernel", _attention_class(q, k, out, kw),
+             lambda: (tensor_meta(q), tensor_meta(k), tensor_meta(v),
+                      (tuple(out.shape), out.dtype), meta(kw)))
+        return attention(q, k, v, out, **kw)
+
+    # the wrappers count their launches on the module's names: carried over
+    rec_gemm.launches, rec_attention.launches = gemm.launches, attention.launches
+    K.gemm, K.attention = rec_gemm, rec_attention
+    try:
+        yield classes
+    finally:
+        K.gemm, K.attention = gemm, attention
+        gemm.launches, attention.launches = (rec_gemm.launches,
+                                             rec_attention.launches)
+
+
+def _replay(kernel, call, gen):
+    """A recorded call as a kernel_checks case: fresh random tensors of the
+    recorded layouts (same storage sizes, offsets and strides)."""
+    import torch
+
+    from spe_tpu_torch.ops.kernel_checks import strided_like
+
+    def fresh(kw):
+        return {n: strided_like(v, gen, "cuda") if isinstance(v, tuple)
+                and v and isinstance(v[0], torch.dtype) else v
+                for n, v in kw.items()}
+
+    if kernel == "gemm_kernel":
+        a, b, c, kw = call
+        return dict(a=strided_like(a, gen, "cuda"),
+                    b=strided_like(b, gen, "cuda"),
+                    c=strided_like(c, gen, "cuda"), kw=fresh(kw))
+    q, k, v, out, kw = call
+    kw = dict(kw)
+    flags = {n: kw.pop(n, None) is not None for n in ("probs", "lse")}
+    return dict(q=strided_like(q, gen, "cuda"), k=strided_like(k, gen, "cuda"),
+                v=strided_like(v, gen, "cuda"), kw=fresh(kw), out=out, **flags)
+
+
+RECORDED_RUNS = ("stock step", "attention step", "eval forward")
+
+
+def record_classes(batch=8, extra=()):
+    """One training step of the stock preset and of the standalone-attention
+    configuration, and one stock eval forward (flip: 2 x batch images),
+    through the kernels at B=batch, with every gemm and attention call
+    recorded by class -> {(kernel, class): {"launches": {run: n}, "call"}}."""
+    import torch
+
+    from spe_tpu_torch.cli.main import parse_config
+    from spe_tpu_torch.data import eval_data, train_data, write_mini_voc
+    from spe_tpu_torch.models.build import build_model
+    from spe_tpu_torch.train import train_step as ts
+    from spe_tpu_torch.train.engine import infer_voc, train_batch
+    from spe_tpu_torch.train.optim import AdamW3
+
+    tmp = tempfile.TemporaryDirectory()
+    devkit = write_mini_voc(tmp.name, n_test=batch, n_trainval=batch, seed=3)
+    classes = {}
+    for run, argv in (("stock step", STOCK_TRAIN_ARGV),
+                      ("attention step", ATTN_TRAIN_ARGV)):
+        cfg = parse_config(argv + ["--test_path", str(devkit),
+                                   "--output_dir", f"{tmp.name}/o", *extra])
+        model = build_model(cfg).train()
+        _, loader = train_data(cfg)
+        b = train_batch(next(iter(loader.epoch(0))), torch.device("cuda"))
+        state = ts.TrainState(model, AdamW3(model.named_parameters(), cfg, 1))
+        with record_toolkit(classes, run):
+            ts.train_step(state, b, cfg, ts.Gates.for_epoch(cfg, 0),
+                          torch.Generator("cuda").manual_seed(4))
+            torch.cuda.synchronize()
+        if run == "stock step":
+            model.eval()
+            _, loader = eval_data(cfg)
+            e = next(iter(loader.epoch(0)))
+            with torch.no_grad(), record_toolkit(classes, "eval forward"):
+                infer_voc(model, torch.as_tensor(e["images"], device="cuda"),
+                          torch.as_tensor(e["pad_mask"], device="cuda"),
+                          torch.as_tensor(e["orig_size"], device="cuda"),
+                          with_flip=True)
+                torch.cuda.synchronize()
+        del model, state, b
+        torch.cuda.empty_cache()
+    tmp.cleanup()
+    return classes
+
+
+def phase_toolkit(results, extra=()):
+    """gemm_kernel and attn_kernel at every class the main path gives them
+    (record_classes), each on fresh random inputs of the recorded layout
+    against its plain version (gemm: 1% of the largest plain magnitude;
+    attention: 4 bf16 ulps at the output's, probabilities 1e-4), twice
+    (identical bits); their time beside the plain version's, the bound and
+    the library's (torch.matmul on pre-rounded contiguous bf16 operands;
+    scaled_dot_product_attention where it computes the same function).
+    Adds the two kernels' entries to `results`, the per-class numbers
+    under "classes" and the per-step sums at the top."""
+    import torch
+
+    from spe_tpu_torch.ops import kernels as K
+    from spe_tpu_torch.ops import kernel_checks as kc
+
+    t0 = time.perf_counter()
+    classes = record_classes(extra=extra)
+    print(f"[toolkit] recorded {len(classes)} classes over "
+          f"{', '.join(RECORDED_RUNS)} (B=8) in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    gen = torch.Generator().manual_seed(5)
+    ok = True
+    ratios = []
+    entries = {name: {"name": name, "route": "cuda", "source": src,
+                      "replaces": rep, "launches": 0, "max_abs_err": 0.0,
+                      "classes": []}
+               for name, (src, rep) in TOOLKIT.items()}
+    for (kernel, cls), rec in sorted(classes.items(), key=lambda kv: (
+            kv[0][0], -sum(kv[1]["launches"].values()))):
+        case = _replay(kernel, rec["call"], gen)
+        if kernel == "gemm_kernel":
+            err, tol, same, rest, finite = kc.gemm_check(K.gemm,
+                                                          K.gemm_reference,
+                                                          case)
+            errs = {"c": (err, tol)}
+            passed = finite and same and rest and err <= tol
+            c1, c2 = kc.clone_layout(case["c"]), kc.clone_layout(case["c"])
+            fn, plain = (lambda: K.gemm(case["a"], case["b"], c1, **case["kw"]),
+                         lambda: K.gemm_reference(case["a"], case["b"], c2,
+                                                  **case["kw"]))
+            bound = kc.gemm_bound_ms(case)
+            lib = kc.gemm_library(case)
+            extra = ""
+        else:
+            errs, same, finite = kc.attention_check(
+                K.attention, K.attention_reference, case)
+            passed = finite and same and all(e <= t for e, t in errs.values())
+            args, kw, _ = kc.attention_args(case)
+            fn, plain = (lambda: K.attention(*args, **kw),
+                         lambda: K.attention_reference(*args, **kw))
+            bound = kc.attention_bound_case_ms(case)
+            lib = kc.attention_library(case)
+            extra = (f"; K/V copies of {K.attention_copy_bytes(*args, **kw)} "
+                     "bytes")
+        host_ms = cuda_ms(fn)
+        ms = graph_ms(fn)
+        # the plain versions make their dropout keys on the host: timed
+        # from the host
+        plain_ms = cuda_ms(plain, reps=3, warmup=1)
+        lib_ms = graph_ms(lib) if lib is not None else None
+        if ms is None:
+            fail(f"{kernel} {cls}: not captured in a CUDA graph")
+        if lib_ms and kernel == "gemm_kernel":
+            ratios.append(ms / lib_ms)
+        ok &= passed
+        e = entries[kernel]
+        e["max_abs_err"] = max(e["max_abs_err"], *(v[0] for v in errs.values()))
+        e["classes"].append({
+            "class": repr(cls), "launches": rec["launches"], "ms": ms,
+            "host_ms": host_ms,
+            "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
+            "library_ms": lib_ms, "max_abs_err": {n: v[0] for n, v in
+                                                  errs.items()}})
+        lib_note = (f"library {lib_ms:.4f} ms (kernel / library "
+                    f"{ms / lib_ms:.2f})" if lib_ms is not None else
+                    "no single PyTorch call computes it")
+        print(f"[toolkit] {kernel} {cls}: launches {rec['launches']}; "
+              f"max_abs_err/tol "
+              f"{ {n: f'{v[0]:.3e}/{v[1]:.3e}' for n, v in errs.items()} } "
+              f"identical {same} finite {finite} -> "
+              f"{'ok' if passed else 'MISMATCH'}; on the device (CUDA graph): "
+              f"kernel {ms:.4f} ms, bound {bound[0]:.5f} ms ({bound[1]}), "
+              f"{lib_note}; one call from the host: kernel {host_ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms{extra}", flush=True)
+        del case
+        torch.cuda.empty_cache()
+    for name, e in entries.items():
+        # per-step sums over the classes: the stock step for gemm, the eval
+        # forward for attention (its main path), launches x time
+        run = "stock step" if name == "gemm_kernel" else "eval forward"
+        cl = [c for c in e["classes"] if c["launches"].get(run)]
+        if not cl:
+            fail(f"{name}: no launch in one {run}")
+        tot = {k: sum(c["launches"][run] * c[k] for c in cl)
+               for k in ("ms", "plain_ms", "bound_ms")}
+        libs = [c["library_ms"] for c in cl]
+        e.update(tot, bound_by=max(cl, key=lambda c: c["bound_ms"] * c[
+            "launches"][run])["bound_by"],
+            library_ms=None if None in libs else sum(
+                c["launches"][run] * c["library_ms"] for c in cl),
+            per=f"sums of launches x time over one {run} (B=8)")
+        print(f"[toolkit] {name}: {len(e['classes'])} classes; one {run}: "
+              f"{sum(c['launches'][run] for c in cl)} launches, kernel "
+              f"{tot['ms']:.3f} ms, plain {tot['plain_ms']:.3f} ms, bound "
+              f"{tot['bound_ms']:.4f} ms, library "
+              f"{e['library_ms'] if e['library_ms'] is None else round(e['library_ms'], 3)} ms",
+              flush=True)
+        results[name] = e
+    if ratios:
+        geo = math.exp(sum(math.log(r) for r in ratios) / len(ratios))
+        print(f"[toolkit] gemm_kernel / torch.matmul over {len(ratios)} "
+              f"classes: geometric mean {geo:.2f}, largest {max(ratios):.2f}",
+              flush=True)
+    if not ok:
+        fail("a toolkit kernel disagrees with its plain version")
+
+
+def phase_against(parent_root):
+    """The toolkit's classes (record_classes) on another checkout's
+    kernels: its spe_tpu_torch/ops/kernels.py loaded beside this one (its
+    own csrc, built into its own build/), each class's kernel timed on the
+    device in turns (other, this, this, other) on the same inputs."""
+    import importlib.util
+    import os
+
+    import torch
+
+    from spe_tpu_torch.ops import kernels as K
+    from spe_tpu_torch.ops import kernel_checks as kc
+
+    path = os.path.join(parent_root, "spe_tpu_torch", "ops", "kernels.py")
+    spec = importlib.util.spec_from_file_location("other_kernels", path)
+    other = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(other)
+    t0 = time.perf_counter()
+    other.lib()
+    print(f"[against] {other.library_path()} built in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    classes = record_classes()
+    gen = torch.Generator().manual_seed(5)
+    for (kernel, cls), rec in sorted(classes.items(), key=lambda kv: (
+            kv[0][0], -sum(kv[1]["launches"].values()))):
+        case = _replay(kernel, rec["call"], gen)
+        times = {}
+        for mod in (other, K, K, other):
+            if kernel == "gemm_kernel":
+                c1 = kc.clone_layout(case["c"])
+                fn = (lambda m=mod: m.gemm(case["a"], case["b"], c1,
+                                           **case["kw"]))
+            else:
+                args, kw, _ = kc.attention_args(case)
+                fn = (lambda m=mod: m.attention(*args, **kw))
+            times.setdefault(mod is K, []).append(graph_ms(fn))
+        print(f"[against] {kernel} {cls}: launches {rec['launches']}; on the "
+              f"device (CUDA graph), other then this then this then other: "
+              f"{times[False][0]:.4f} {times[True][0]:.4f} "
+              f"{times[True][1]:.4f} {times[False][1]:.4f} ms", flush=True)
+        del case
+        torch.cuda.empty_cache()
 
 
 def phase_masks():
@@ -773,6 +1204,7 @@ def phase_train(kernel_results, mode, n_train=24, n_test=8, batch=8):
     from spe_tpu_torch.cli.main import parse_config
     from spe_tpu_torch.data import write_mini_voc
     from spe_tpu_torch.models.build import build_model
+    from spe_tpu_torch.ops import kernels as K
     from spe_tpu_torch.train.checkpoint import restore_checkpoint
     from spe_tpu_torch.train.optim import AdamW3
     from spe_tpu_torch.train.train_step import TrainState
@@ -793,18 +1225,21 @@ def phase_train(kernel_results, mode, n_train=24, n_test=8, batch=8):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     _all_counts(reset=True)
+    K.gemm.launches = K.attention.launches = 0
     t0 = time.perf_counter()
     res = cli_main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     counts = _all_counts()
+    toolkit = {"gemm_kernel": K.gemm.launches,
+               "attn_kernel": K.attention.launches}
     (epoch,) = res["epochs"]
     hist = epoch["train"]["history"]
     steps = len(hist)
     print(f"[{tag}] cli over {n_train} images, batch {batch}: {steps} steps, "
-          f"then eval of {n_test}; {wall:.1f}s wall; launches {counts}",
-          flush=True)
+          f"then eval of {n_test}; {wall:.1f}s wall; launches {counts}; "
+          f"toolkit launches {toolkit}", flush=True)
     for h in hist:
         print(f"[{tag}] step " + " ".join(f"{k} {v:.4f}" for k, v in h.items()),
               flush=True)
@@ -864,6 +1299,16 @@ def phase_train(kernel_results, mode, n_train=24, n_test=8, batch=8):
           f"device memory {peak:.2f} GiB", flush=True)
     if bad:
         fail(f"{tag}: " + "; ".join(bad))
+    if mode in ("stock", "attention"):
+        # the toolkit's product kernels: the stock preset is their main
+        # path, the standalone attention runs them too
+        for k, n in toolkit.items():
+            if not n:
+                bad.append(f"{k}: no launch")
+            key = "launches" if mode == "stock" else "attention_launches"
+            kernel_results[k][key] = n
+        if bad:
+            fail(f"{tag}: " + "; ".join(bad))
     if mode == "stock":   # this slice's main path: every kernel's count
         for k in _counters():
             kernel_results[f"{k}_bwd"]["launches"] = counts[f"{k}.bwd_launches"]
@@ -1316,6 +1761,18 @@ def profile_forward(fn, batch, reps=2, what="eval forwards (flip)"):
         print(f"[profile] {e.self_device_time_total / 1e3:9.2f} ms "
               f"{100 * e.self_device_time_total / max(total, 1):5.1f}% "
               f"x{e.count:5d}  {e.key[:100]}", flush=True)
+    for fam in PROFILE_FAMILIES:
+        mine = [e for e in rows if fam in e.key]
+        t = sum(e.self_device_time_total for e in mine)
+        print(f"[profile] family {fam}: {t / 1e3:.2f} ms "
+              f"({100 * t / max(total, 1):.1f}% of device time), "
+              f"{sum(e.count for e in mine)} launches", flush=True)
+
+
+# kernels summed over their instantiations in each profile
+PROFILE_FAMILIES = ("attn_kernel<192, 192", "attn_kernel", "gemm_kernel",
+                    "th_bwd_rows_kernel", "th_fwd_rows_kernel",
+                    "linear_kernel")
 
 
 def main():
@@ -1347,4 +1804,10 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--against"]:
+        # python3 chip_smoke.py --against <root of another checkout>
+        phase_device()
+        phase_build()
+        phase_against(sys.argv[2])
+    else:
+        main()

@@ -29,10 +29,27 @@
 // a resident output; Hopper blocks run in no order, so every cross-block
 // sum here is written as partials and reduced by spe_reduce.
 //
-// What bounds it on the H100: the products (compute), run by this first
-// version on the CUDA cores: a 64 x 64 tile per block, 4 x 4 outputs per
-// thread, operands rounded to bf16 at the load as the TPU kernels round
-// them (`.astype(in_dt)` before each dot) and summed in f32.
+// What bounds it on the H100: gemm_kernel, the product under every backward
+// (rows 1b-4b, 7b and 9 of PERF.md, and B5's logit planes). Its largest
+// calls are write- or read-bound (f32 (B, H, N, N) planes of the logits and
+// of dY . V^T written, bf16 planes of zd and dl read, f32 dY read); the
+// rest are products of 10^8-10^10 multiply-adds. The design:
+// - mma.sync.m16n8k16 on bf16 operands with f32 accumulators; operands
+//   rounded to bf16 at the load, as the TPU kernels round them
+//   (`.astype(in_dt)` before each dot).
+// - bf16 shared tiles 32 deep in a 2-stage ring. Each operand's tile keeps
+//   its global unit-stride index contiguous: a bf16 operand with 16-byte
+//   rows goes in by cp.async; an f32 operand, a misaligned one or one
+//   without a unit stride by vector (or scalar) loads to registers,
+//   rounded at the shared store, fetched one k tile ahead. A transposed
+//   operand is read by ldmatrix.trans.
+// - Two tiles, chosen in spe_gemm from M, N and the batch: 128 x 128 (8
+//   warps of 64 x 32) where its grid fills every SM, 64 x 64 (4 warps of 32
+//   x 32) for the per-head products 24 or 48 wide or deep and for small
+//   grids; K is zero-padded to the tile's depth.
+// - The epilogue (alpha, dropout, GELU'/ReLU, column groups, accumulate)
+//   per accumulator element with the (m, n) semantics of before; no float
+//   atomics, so two backwards give the same bits.
 #include "common.cuh"
 
 struct GemmParams {
@@ -112,99 +129,398 @@ struct MaskParams {
 
 namespace {
 
-constexpr int BM = 64, BN = 64, BK = 16, NT = 256;
+constexpr int NT = 256;
 constexpr int LN_ROWS = 32;    // rows per block of the LayerNorm/branch backward
 
 __device__ __forceinline__ float ld_any(const void* p, long long i, int f32) {
   return f32 ? static_cast<const float*>(p)[i] : bf2f(static_cast<const bf16*>(p)[i]);
 }
 
-__global__ void __launch_bounds__(NT) gemm_kernel(GemmParams p) {
-  __shared__ float As[BK][BM + 4];
-  __shared__ float Bs[BK][BN + 4];
-  const int tid = threadIdx.x;
+// ---- gemm_kernel: the tensor-core batched product ----
+constexpr int GBK = 32;        // depth of a k tile
+// resident warps per SM the register budget is cut for (8 warps of 64 x 32
+// or 4 of 32 x 32 per block: 2 or 4 blocks; a few spilled registers cost
+// less than the occupancy they buy)
+constexpr int GEMM_MIN_WARPS = 16;
+
+// One operand of a block as the loaders see it: element (r, c) of the
+// operand's shared tile is at ptr[r * rs + c * cs] for r < rows, c < cols
+// (absolute indices; outside them it reads as 0). c runs along the tile's
+// contiguous shared-memory rows.
+struct Src {
+  const void* ptr;      // at this block's batch offset
+  long long rs, cs, rows, cols;
+  int f32;
+  int mode;             // 0 cp.async (bf16, cs == 1, 16-byte rows), 1 vector
+                        // loads of 4 (cs == 1, aligned), 2 scalar loads
+};
+
+__device__ __forceinline__ Src make_src(const void* base, int f32, long long zoff,
+                                        long long rs, long long cs, long long rows,
+                                        long long cols) {
+  Src s;
+  const int es = f32 ? 4 : 2;
+  s.ptr = static_cast<const char*>(base) + zoff * es;
+  s.rs = rs;
+  s.cs = cs;
+  s.rows = rows;
+  s.cols = cols;
+  s.f32 = f32;
+  const unsigned long long a =
+      reinterpret_cast<unsigned long long>(s.ptr) | static_cast<unsigned long long>(rs * es);
+  if (!f32 && cs == 1 && a % 16 == 0) {
+    s.mode = 0;
+  } else if (cs == 1 && a % (4 * es) == 0) {
+    s.mode = 1;
+  } else {
+    s.mode = 2;
+  }
+  return s;
+}
+
+// A ROWS x COLS bf16 tile in shared memory, rows padded to LD, filled by NTH
+// threads: by cp.async (16-byte chunks of 8, zero-filled past the edges) or
+// through registers (units of 4 values, rounded to bf16 at the store; the
+// fetch for the next k tile is issued before this one's products).
+template <int ROWS, int COLS, int NTH>
+struct TileIO {
+  static constexpr int LD = pad_ld(COLS);
+  static constexpr int ELEMS = ROWS * LD;
+  static constexpr int UNITS = ROWS * COLS / (4 * NTH);
+  static constexpr int CHUNKS = ROWS * COLS / (8 * NTH);
+  static_assert(UNITS * 4 * NTH == ROWS * COLS && CHUNKS * 8 * NTH == ROWS * COLS,
+                "tile does not divide among the threads");
+
+  static __device__ __forceinline__ void async(const Src& s, long long r0, long long c0,
+                                               bf16* dst) {
+#pragma unroll
+    for (int i = 0; i < CHUNKS; ++i) {
+      const int e = threadIdx.x + i * NTH;
+      const int r = e / (COLS / 8), c = (e % (COLS / 8)) * 8;
+      const long long gr = r0 + r, gc = c0 + c;
+      long long valid = 0;
+      if (gr < s.rows) valid = max(0LL, min(8LL, s.cols - gc));
+      const bf16* src = static_cast<const bf16*>(s.ptr);
+      if (valid) src += gr * s.rs + gc;
+      cp_async<16>(smem_u32(dst + r * LD + c), src, static_cast<int>(valid) * 2);
+    }
+  }
+
+  static __device__ __forceinline__ void fetch(const Src& s, long long r0, long long c0,
+                                               unsigned (&raw)[UNITS][4]) {
+#pragma unroll
+    for (int i = 0; i < UNITS; ++i) {
+      const int e = threadIdx.x + i * NTH;
+      const int r = e / (COLS / 4), c = (e % (COLS / 4)) * 4;
+      const long long gr = r0 + r, gc = c0 + c;
+      raw[i][0] = raw[i][1] = raw[i][2] = raw[i][3] = 0u;
+      if (gr >= s.rows) continue;
+      const long long base = gr * s.rs;
+      if (s.mode == 1 && gc + 4 <= s.cols) {
+        if (s.f32) {
+          const float4 v = *reinterpret_cast<const float4*>(
+              static_cast<const float*>(s.ptr) + base + gc);
+          raw[i][0] = __float_as_uint(v.x);
+          raw[i][1] = __float_as_uint(v.y);
+          raw[i][2] = __float_as_uint(v.z);
+          raw[i][3] = __float_as_uint(v.w);
+        } else {
+          const uint2 v = *reinterpret_cast<const uint2*>(
+              static_cast<const bf16*>(s.ptr) + base + gc);
+          raw[i][0] = v.x;
+          raw[i][1] = v.y;
+        }
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          if (gc + q < s.cols) {
+            const long long off = base + (gc + q) * s.cs;
+            if (s.f32) {
+              raw[i][q] = __float_as_uint(static_cast<const float*>(s.ptr)[off]);
+            } else {
+              const unsigned u = static_cast<const unsigned short*>(s.ptr)[off];
+              raw[i][q / 2] |= u << (16 * (q % 2));
+            }
+          }
+        }
+      }
+    }
+  }
+
+  static __device__ __forceinline__ void store(int f32, const unsigned (&raw)[UNITS][4],
+                                               bf16* dst) {
+#pragma unroll
+    for (int i = 0; i < UNITS; ++i) {
+      const int e = threadIdx.x + i * NTH;
+      const int r = e / (COLS / 4), c = (e % (COLS / 4)) * 4;
+      uint2 w;
+      if (f32) {
+        w.x = pack_bf16(__uint_as_float(raw[i][0]), __uint_as_float(raw[i][1]));
+        w.y = pack_bf16(__uint_as_float(raw[i][2]), __uint_as_float(raw[i][3]));
+      } else {
+        w.x = raw[i][0];
+        w.y = raw[i][1];
+      }
+      *reinterpret_cast<uint2*>(dst + r * LD + c) = w;
+    }
+  }
+};
+
+constexpr int GSTAGES = 4;     // the shared ring: cp.async runs 3 k tiles ahead
+
+// the dynamic shared memory of a gemm_kernel instantiation: the ring of
+// k tiles, then (reusing it) the f32 C tile of the epilogue, rows padded
+// by 8 against bank conflicts
+template <int BM, int BN, bool A_KM, bool B_KM, int NTH>
+constexpr size_t gemm_smem_bytes() {
+  const size_t ring = sizeof(bf16) * GSTAGES *
+                      (static_cast<size_t>(TileIO<A_KM ? BM : GBK, A_KM ? GBK : BM, NTH>::ELEMS) +
+                       TileIO<B_KM ? BN : GBK, B_KM ? GBK : BN, NTH>::ELEMS);
+  const size_t ctile = sizeof(float) * BM * (BN + 8);
+  return ring > ctile ? ring : ctile;
+}
+
+// the epilogue of one element (alpha applied): the dropout mask keyed
+// (sample, 0, row, n), then the activation derivative (act 1: GELU' of u,
+// 2: the ReLU mask of u)
+__device__ __forceinline__ float epilogue_value(float y, int drop_site, unsigned key, unsigned row,
+                                             unsigned n, unsigned thr, float scale, int act,
+                                             float u) {
+  if (drop_site) y = keep_bit(key, row, n, thr) ? y * scale : 0.f;
+  if (act == 1) y *= gelu_tanh_grad(u);
+  if (act == 2) y = u > 0.f ? y : 0.f;
+  return y;
+}
+
+// C tile BM x BN per block of WM x WN warps; each warp a (BM/WM) x (BN/WN)
+// tile of m16n8k16 products. A_KM: A's shared tile is [m][k] (k
+// contiguous), else [k][m] (read through ldmatrix.trans); B_KM: B's is
+// [n][k], else [k][n] (ldmatrix.trans).
+template <int BM, int BN, int WM, int WN, bool A_KM, bool B_KM>
+__global__ void __launch_bounds__(WM * WN * 32, GEMM_MIN_WARPS / (WM * WN))
+    gemm_kernel(GemmParams p) {
+  constexpr int NTH = WM * WN * 32;
+  constexpr int MT = BM / WM / 16, NT8 = BN / WN / 8;
+  static_assert(MT >= 1 && NT8 % 2 == 0, "warp tile");
+  using IOA = TileIO<A_KM ? BM : GBK, A_KM ? GBK : BM, NTH>;
+  using IOB = TileIO<B_KM ? BN : GBK, B_KM ? GBK : BN, NTH>;
+  extern __shared__ __align__(16) unsigned char gsmem[];
+  bf16* As = reinterpret_cast<bf16*>(gsmem);          // GSTAGES x IOA::ELEMS
+  bf16* Bs = As + GSTAGES * IOA::ELEMS;                // GSTAGES x IOB::ELEMS
+
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int wm0 = (warp / WN) * (BM / WM), wn0 = (warp % WN) * (BN / WN);
   const int z = blockIdx.z;
   const int z1 = z / p.nb2, z2 = z % p.nb2;
   const long long m0 = static_cast<long long>(blockIdx.x) * BM;
   const long long n0 = static_cast<long long>(blockIdx.y) * BN;
-  const long long aoff = z1 * p.a_s1 + z2 * p.a_s2;
-  const long long boff = z1 * p.b_s1 + z2 * p.b_s2;
   long long K = p.K;
   if (p.split) K = min(static_cast<long long>(p.K), p.kmax - static_cast<long long>(z1) * p.K);
-  // coalesce each operand along its unit-stride index
-  const bool a_m_fast = p.a_sm == 1, b_n_fast = p.b_sn == 1;
+  const long long aoff = z1 * p.a_s1 + z2 * p.a_s2;
+  const long long boff = z1 * p.b_s1 + z2 * p.b_s2;
+  const Src a = A_KM ? make_src(p.a, p.a_f32, aoff, p.a_sm, p.a_sk, p.M, K)
+                     : make_src(p.a, p.a_f32, aoff, p.a_sk, p.a_sm, K, p.M);
+  const Src b = B_KM ? make_src(p.b, p.b_f32, boff, p.b_sn, p.b_sk, p.N, K)
+                     : make_src(p.b, p.b_f32, boff, p.b_sk, p.b_sn, K, p.N);
 
-  const int tx = tid % 16, ty = tid / 16;
-  float acc[4][4];
+  float acc[MT][NT8][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < MT; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < NT8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
 
-  for (long long k0 = 0; k0 < K; k0 += BK) {
-#pragma unroll
-    for (int it = 0; it < (BM * BK) / NT; ++it) {
-      const int e = tid + it * NT;
-      const int r = a_m_fast ? e % BM : e / BK;
-      const int kk = a_m_fast ? e / BM : e % BK;
-      const long long m = m0 + r, k = k0 + kk;
-      As[kk][r] = (m < p.M && k < K)
-                      ? round_bf16(ld_any(p.a, aoff + m * p.a_sm + k * p.a_sk, p.a_f32))
-                      : 0.f;
+  unsigned ra[IOA::UNITS][4], rb[IOB::UNITS][4];
+  // the origins of a k tile in each operand's (row, contiguous) indices
+  auto a_r0 = [&](long long k0) { return A_KM ? m0 : k0; };
+  auto a_c0 = [&](long long k0) { return A_KM ? k0 : m0; };
+  auto b_r0 = [&](long long k0) { return B_KM ? n0 : k0; };
+  auto b_c0 = [&](long long k0) { return B_KM ? k0 : n0; };
+  // the cp.async operands of k tile kt into its stage, as one group (empty
+  // past the last tile)
+  auto issue = [&](int kt, int nk) {
+    if (kt < nk) {
+      const long long k0 = static_cast<long long>(kt) * GBK;
+      const int st = kt % GSTAGES;
+      if (a.mode == 0) IOA::async(a, a_r0(k0), a_c0(k0), As + st * IOA::ELEMS);
+      if (b.mode == 0) IOB::async(b, b_r0(k0), b_c0(k0), Bs + st * IOB::ELEMS);
     }
+    cp_async_commit();
+  };
+
+  const int nk = static_cast<int>((K + GBK - 1) / GBK);
 #pragma unroll
-    for (int it = 0; it < (BN * BK) / NT; ++it) {
-      const int e = tid + it * NT;
-      const int c = b_n_fast ? e % BN : e / BK;
-      const int kk = b_n_fast ? e / BN : e % BK;
-      const long long n = n0 + c, k = k0 + kk;
-      Bs[kk][c] = (n < p.N && k < K)
-                      ? round_bf16(ld_any(p.b, boff + k * p.b_sk + n * p.b_sn, p.b_f32))
-                      : 0.f;
+  for (int kt = 0; kt < GSTAGES - 1; ++kt) issue(kt, nk);
+  if (a.mode != 0) {
+    IOA::fetch(a, a_r0(0), a_c0(0), ra);
+    IOA::store(a.f32, ra, As);
+  }
+  if (b.mode != 0) {
+    IOB::fetch(b, b_r0(0), b_c0(0), rb);
+    IOB::store(b.f32, rb, Bs);
+  }
+
+  for (int kt = 0; kt < nk; ++kt) {
+    const bool more = kt + 1 < nk;
+    issue(kt + GSTAGES - 1, nk);
+    // the register operands of the next tile, stored after this one's products
+    if (more) {
+      const long long k1 = static_cast<long long>(kt + 1) * GBK;
+      if (a.mode != 0) IOA::fetch(a, a_r0(k1), a_c0(k1), ra);
+      if (b.mode != 0) IOB::fetch(b, b_r0(k1), b_c0(k1), rb);
     }
+    cp_async_wait<GSTAGES - 1>();   // this tile's group has landed
     __syncthreads();
+    const bf16* at = As + (kt % GSTAGES) * IOA::ELEMS;
+    const bf16* bt = Bs + (kt % GSTAGES) * IOB::ELEMS;
 #pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[4], w[4];
+    for (int kk = 0; kk < GBK; kk += 16) {
+      unsigned af[MT][4], bfr[NT8][2];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty + 16 * i];
+      for (int i = 0; i < MT; ++i) {
+        const int mrow = wm0 + 16 * i;
+        if (A_KM) {
+          ldsm_x4(af[i], smem_u32(at + (mrow + lane % 16) * IOA::LD + kk + (lane / 16) * 8));
+        } else {
+          ldsm_x4_t(af[i], smem_u32(at + (kk + lane % 8 + (lane / 16) * 8) * IOA::LD +
+                                    mrow + ((lane / 8) % 2) * 8));
+        }
+      }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) w[j] = Bs[kk][tx + 16 * j];
+      for (int jp = 0; jp < NT8 / 2; ++jp) {
+        const int ncol = wn0 + 16 * jp;
+        unsigned r[4];
+        if (B_KM) {
+          ldsm_x4(r, smem_u32(bt + (ncol + lane % 8 + (lane / 16) * 8) * IOB::LD + kk +
+                              ((lane / 8) % 2) * 8));
+        } else {
+          ldsm_x4_t(r, smem_u32(bt + (kk + lane % 8 + ((lane / 8) % 2) * 8) * IOB::LD +
+                                ncol + (lane / 16) * 8));
+        }
+        bfr[2 * jp][0] = r[0];
+        bfr[2 * jp][1] = r[1];
+        bfr[2 * jp + 1][0] = r[2];
+        bfr[2 * jp + 1][1] = r[3];
+      }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < MT; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
+        for (int j = 0; j < NT8; ++j) mma_bf16(acc[i][j], af[i], bfr[j][0], bfr[j][1]);
+    }
+    if (more) {
+      const int st = (kt + 1) % GSTAGES;
+      if (a.mode != 0) IOA::store(a.f32, ra, As + st * IOA::ELEMS);
+      if (b.mode != 0) IOB::store(b.f32, rb, Bs + st * IOB::ELEMS);
     }
     __syncthreads();
   }
+  cp_async_wait<0>();
 
+  // epilogue: the accumulators (times alpha) through a shared f32 C tile,
+  // then rows of 4 columns per thread, coalesced along n: the dropout mask,
+  // the activation derivative, the column-group store, accumulate
+  constexpr int LDC = BN + 8;
+  float* Cs = reinterpret_cast<float*>(gsmem);
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT8; ++j)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        float2 v = make_float2(p.alpha * acc[i][j][2 * hr], p.alpha * acc[i][j][2 * hr + 1]);
+        *reinterpret_cast<float2*>(Cs + (wm0 + 16 * i + lane / 4 + 8 * hr) * LDC + wn0 + 8 * j +
+                                   (lane % 4) * 2) = v;
+      }
+  __syncthreads();
   const long long coff = z1 * p.c_s1 + z2 * p.c_s2;
+  const int act = p.act_aux ? p.act_grad : 0;
+  const int rps = static_cast<int>(p.rps);
+  const bool grouped = p.cgrp < p.N;
+  const int vec = p.c_f32 ? 16 : 8;   // bytes of 4 values
+  const bool vec_ok = p.c_sn == 1 && reinterpret_cast<unsigned long long>(p.c) % vec == 0 &&
+                      (p.c_sm * (p.c_f32 ? 4 : 2)) % vec == 0 &&
+                      (coff * (p.c_f32 ? 4 : 2)) % vec == 0 && !grouped;
+  // the activation's aux rows as float4 where aligned
+  const bool aux4 = act && p.ld_aux % 4 == 0 &&
+                    reinterpret_cast<unsigned long long>(p.act_aux) % 16 == 0;
+  // unrolled so that the loads of several iterations are in flight together
+#pragma unroll 4
+  for (int idx = threadIdx.x; idx < BM * BN / 4; idx += NTH) {
+    const int r = idx / (BN / 4), c4 = (idx % (BN / 4)) * 4;
+    const long long m = m0 + r;
+    const int n = static_cast<int>(n0) + c4;
+    if (m >= p.M || n >= p.N) continue;
+    const float4 v4 = *reinterpret_cast<const float4*>(Cs + r * LDC + c4);
+    float y[4] = {v4.x, v4.y, v4.z, v4.w};
+    if (p.drop_site || act) {
+      const int mi = static_cast<int>(m);
+      const unsigned key =
+          p.drop_site ? head_key(*p.seed, p.drop_site, static_cast<unsigned>(mi / rps), 0u) : 0u;
+      const unsigned row = p.drop_site ? static_cast<unsigned>(mi % rps) : 0u;
+      float u[4] = {0.f, 0.f, 0.f, 0.f};
+      if (act) {
+        const float* ar = p.act_aux + m * p.ld_aux + n;
+        if (aux4 && n + 4 <= p.N) {
+          const float4 a4 = *reinterpret_cast<const float4*>(ar);
+          u[0] = a4.x;
+          u[1] = a4.y;
+          u[2] = a4.z;
+          u[3] = a4.w;
+        } else {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const long long m = m0 + ty + 16 * i;
-    if (m >= p.M) continue;
-    unsigned key = 0;
-    if (p.drop_site) key = head_key(*p.seed, p.drop_site, static_cast<unsigned>(m / p.rps), 0u);
+          for (int e = 0; e < 4; ++e) u[e] = n + e < p.N ? ar[e] : 0.f;
+        }
+      }
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const long long n = n0 + tx + 16 * j;
-      if (n >= p.N) continue;
-      float y = p.alpha * acc[i][j];
-      if (p.drop_site) {
-        y = keep_bit(key, static_cast<unsigned>(m % p.rps), static_cast<unsigned>(n),
-                     p.drop_thr) ? y * p.drop_scale : 0.f;
+      for (int e = 0; e < 4; ++e) {
+        if (n + e < p.N) {
+          y[e] = epilogue_value(y[e], p.drop_site, key, row, static_cast<unsigned>(n + e),
+                                p.drop_thr, p.drop_scale, act, u[e]);
+        }
       }
-      if (p.act_aux) {
-        const float u = p.act_aux[m * p.ld_aux + n];
-        y = p.act_grad == 1 ? y * gelu_tanh_grad(u) : (u > 0.f ? y : 0.f);
+    }
+    const long long roff = coff + m * p.c_sm;
+    if (vec_ok && n + 4 <= p.N) {
+      if (p.c_f32) {
+        float4* c = reinterpret_cast<float4*>(static_cast<float*>(p.c) + roff + n);
+        float4 o = make_float4(y[0], y[1], y[2], y[3]);
+        if (p.accumulate) {
+          const float4 w = *c;
+          o.x += w.x;
+          o.y += w.y;
+          o.z += w.z;
+          o.w += w.w;
+        }
+        *c = o;
+      } else {
+        uint2* c = reinterpret_cast<uint2*>(static_cast<bf16*>(p.c) + roff + n);
+        if (p.accumulate) {
+          const uint2 w = *c;
+          const __nv_bfloat162 w0 = *reinterpret_cast<const __nv_bfloat162*>(&w.x);
+          const __nv_bfloat162 w1 = *reinterpret_cast<const __nv_bfloat162*>(&w.y);
+          y[0] += bf2f(w0.x);
+          y[1] += bf2f(w0.y);
+          y[2] += bf2f(w1.x);
+          y[3] += bf2f(w1.y);
+        }
+        *c = make_uint2(pack_bf16(y[0], y[1]), pack_bf16(y[2], y[3]));
       }
-      const long long o = coff + m * p.c_sm + (n / p.cgrp) * p.cgstride + (n % p.cgrp) * p.c_sn;
+      continue;
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int ne = n + e;
+      if (ne >= p.N) break;
+      const long long o = roff + (grouped ? static_cast<long long>(ne / p.cgrp) * p.cgstride +
+                                                static_cast<long long>(ne % p.cgrp) * p.c_sn
+                                          : ne * p.c_sn);
       if (p.c_f32) {
         float* c = static_cast<float*>(p.c);
-        c[o] = p.accumulate ? c[o] + y : y;
+        c[o] = p.accumulate ? c[o] + y[e] : y[e];
       } else {
         bf16* c = static_cast<bf16*>(p.c);
-        c[o] = f2bf(p.accumulate ? bf2f(c[o]) + y : y);
+        c[o] = f2bf(p.accumulate ? bf2f(c[o]) + y[e] : y[e]);
       }
     }
   }
@@ -345,18 +661,72 @@ __global__ void mask_kernel(MaskParams p) {
 
 }  // namespace
 
+namespace {
+
+template <int BM, int BN, int WM, int WN, bool A_KM, bool B_KM>
+int launch_layout(const GemmParams* p, dim3 grid, cudaStream_t s) {
+  constexpr int nth = WM * WN * 32;
+  constexpr size_t smem = gemm_smem_bytes<BM, BN, A_KM, B_KM, nth>();
+  static bool sized = false;   // the shared-memory limit, raised once
+  if (!sized) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        gemm_kernel<BM, BN, WM, WN, A_KM, B_KM>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    sized = true;
+  }
+  gemm_kernel<BM, BN, WM, WN, A_KM, B_KM><<<grid, nth, smem, s>>>(*p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int BM, int BN, int WM, int WN>
+int launch_gemm(const GemmParams* p, bool a_km, bool b_km, cudaStream_t s) {
+  const long long gm = (p->M + BM - 1) / BM, gn = (p->N + BN - 1) / BN;
+  const long long gz = static_cast<long long>(p->nb1) * p->nb2;
+  if (gn > 65535 || gz > 65535 || gm > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
+  dim3 grid(static_cast<unsigned>(gm), static_cast<unsigned>(gn), static_cast<unsigned>(gz));
+  if (a_km && b_km) return launch_layout<BM, BN, WM, WN, true, true>(p, grid, s);
+  if (a_km) return launch_layout<BM, BN, WM, WN, true, false>(p, grid, s);
+  if (b_km) return launch_layout<BM, BN, WM, WN, false, true>(p, grid, s);
+  return launch_layout<BM, BN, WM, WN, false, false>(p, grid, s);
+}
+
+int sm_count() {
+  static int n = 0;
+  if (!n) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess || n <= 0) {
+      n = 132;
+    }
+  }
+  return n;
+}
+
+}  // namespace
+
+// The tile: large (128 x 128, 8 warps of 64 x 32) where both output
+// dimensions exceed 64 and its grid fills every SM at least once; narrow
+// (64 x 64, 4 warps of 32 x 32) otherwise: the per-head products whose
+// width or depth is a head (24 or 48) and the products too small to fill
+// the card with large tiles. Each operand's shared tile keeps its global
+// contiguous index contiguous (k for A = [m][k] unless A is m-contiguous;
+// k for B = [n][k] unless B is n-contiguous).
 extern "C" int spe_gemm(const GemmParams* p, void* stream) {
   if (p->M <= 0 || p->N <= 0 || p->K <= 0 || p->nb1 <= 0 || p->nb2 <= 0 || p->cgrp <= 0 ||
       (p->drop_site && (!p->seed || p->rps <= 0)) ||
       (p->act_aux && p->act_grad != 1 && p->act_grad != 2)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const long long gm = (p->M + BM - 1) / BM, gn = (p->N + BN - 1) / BN;
-  const long long gz = static_cast<long long>(p->nb1) * p->nb2;
-  if (gn > 65535 || gz > 65535 || gm > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
-  dim3 grid(static_cast<unsigned>(gm), static_cast<unsigned>(gn), static_cast<unsigned>(gz));
-  gemm_kernel<<<grid, NT, 0, static_cast<cudaStream_t>(stream)>>>(*p);
-  return static_cast<int>(cudaGetLastError());
+  const bool a_km = !(p->a_sm == 1 && p->a_sk != 1);
+  const bool b_km = p->b_sn != 1;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long large = ((p->M + 127) / 128) * ((p->N + 127) / 128) *
+                          static_cast<long long>(p->nb1) * p->nb2;
+  if (p->M > 64 && p->N > 64 && large >= sm_count()) {
+    return launch_gemm<128, 128, 2, 4>(p, a_km, b_km, s);
+  }
+  return launch_gemm<64, 64, 2, 2>(p, a_km, b_km, s);
 }
 
 extern "C" int spe_reduce(const ReduceParams* p, void* stream) {

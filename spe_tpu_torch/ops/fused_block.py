@@ -35,9 +35,10 @@ recomputes the linear parts and follows _block_bwd_kernel step by step
 (spe_gemm products, th_bwd_rows for the mix and softmax, th_dq for the
 fold, ln_backward, branch_backward); every parameter gradient is a sum of
 partials reduced in a fixed order, so two runs give the same bits. What
-bounds it on the H100: the products, run on the CUDA cores by this first
-version (about 10 B N^2 D attention operations plus twice the forward's
-linear products per backward).
+bounds it on the H100: the products (about 10 B N^2 D attention operations
+plus twice the forward's linear products per backward), the attention and
+the backward's on the tensor cores (attention.cu, grad.cu), the forward's
+linear products on the CUDA cores (linear.cu).
 
 Dispatch is by tensor device only: CPU tensors take the plain versions
 (`layer_scale_block_reference` at eval, `layer_scale_block_train_reference`
@@ -479,19 +480,13 @@ class LayerScaleBlockFn(torch.autograd.Function):
 def fused_layer_scale_block(x, params, num_heads, drop=None):
     """One CaiT LayerScale block. x: (B, N, D); drop: a
     refmath.CounterDropout in training, or None. With grad needed on x or
-    a parameter: the autograd Function; with dropout alone: the training
-    forward; otherwise the eval forward."""
+    a parameter, or any dropout rate: the autograd Function; otherwise the
+    eval forward."""
     p = {n: params[n] for n in PARAM_NAMES}
-    if needs_grad([x, *p.values()]):
+    if needs_grad([x, *p.values()]) or (drop is not None and any(drop.rates)):
         drop = drop or no_dropout(x.device)
         return LayerScaleBlockFn.apply(x, drop.seed, drop.rates, num_heads,
                                        *p.values())
-    if drop is not None and any(drop.rates):
-        if _plain(x):
-            return layer_scale_block_train_reference(x, p, num_heads, drop)[0]
-        out = _train_cuda(x, p, num_heads, drop)[0]
-        fused_layer_scale_block.train_launches += 1
-        return out
     if _plain(x):
         return layer_scale_block_reference(x, p, num_heads)
     out = _forward_cuda(x, p, num_heads)

@@ -33,16 +33,20 @@ head, the cross-attention's and its projection's on sites of their own).
 Both attentions drop inside their online softmax and write each row's
 log-sum-exp. The forward saves the inputs, o_sa and o_ca (bf16), the
 post-dropout FFN output h2d (f32) and the two log-sum-exps, as the TPU
-kernel's `save_residuals` form saves o_sa, o_ca and h2. The backward
-recomputes the linear parts and follows _dec_bwd_kernel :398-490 step by
-step; both attention backwards run through kernels.attention_backward
+kernel's `save_residuals` form saves o_sa, o_ca and h2, and linear1's
+pre-activation u (bf16), whose sign is the backward's ReLU mask: a
+backward on the same saved tensors takes the forward's ReLU decisions
+whatever its own recompute rounds. The backward recomputes the other
+linear parts and follows _dec_bwd_kernel :398-490 step by step; both attention backwards run through kernels.attention_backward
 (spe_gemm products on f32 planes, the attn_bwd_rows pass). For the
 cross-attention the products keep the interleaved layout: dl . KK gives
 [dqc_h | dsine_h] and dl^T . QQ gives [dkc_h | dkp_h] in one product each,
 their halves stored into two planes. Every parameter gradient is a sum of
 partials reduced in a fixed order (deterministic). What bounds it on the
 H100: the cross-attention (S*Q x N x (48 + 24) multiply-adds per head and
-direction) and the FFN, on the CUDA cores in this first version.
+direction) and the FFN: the attentions and every backward product run on
+the tensor cores (attention.cu, grad.cu), the forward's linear products
+still on the CUDA cores (linear.cu).
 
 Dispatch is by tensor device only: CPU tensors take the plain versions
 (`decoder_layer_reference` at eval, `decoder_layer_train_reference` and
@@ -219,7 +223,8 @@ def decoder_layer_train_reference(tgt, memory, pos, query_pos, sine,
     None: every rate 0) -> (out, o_sa, o_ca (B, S*Q, D) in tgt's dtype: the
     two attention outputs, h2d (B, S*Q, D) f32: the FFN output after its
     dropout, lse_sa (B*S, H, Q), lse_ca (B, H, S*Q) f32: the attention
-    rows' log-sum-exps)."""
+    rows' log-sum-exps, u (B, S*Q, F) in tgt's dtype: linear1's
+    pre-activation, whose sign is the backward's ReLU mask)."""
     drop = drop or no_dropout(tgt.device)
     r = _train_chain(tgt, memory, pos, query_pos, sine, key_padding_mask, p,
                      num_heads, num_sets, drop)
@@ -227,13 +232,13 @@ def decoder_layer_train_reference(tgt, memory, pos, query_pos, sine,
                     SITE_OUT, drop.proj)
     out = layer_norm(r["t2"] + h2d, p["norm3.weight"], p["norm3.bias"], EPS)
     return (out.to(tgt.dtype), r["o_sa"], r["o_ca"], h2d, r["lse_sa"],
-            r["lse_ca"])
+            r["lse_ca"], r["u"].to(tgt.dtype))
 
 
 def decoder_layer_backward_reference(dy, tgt, memory, pos, query_pos, sine,
                                      key_padding_mask, o_sa, o_ca, h2d,
-                                     lse_sa, lse_ca, p, num_heads, num_sets,
-                                     drop=None):
+                                     lse_sa, lse_ca, u, p, num_heads,
+                                     num_sets, drop=None):
     """Plain, hand-derived backward mirroring `_dec_bwd_kernel`
     (pallas_decoder.py:398-490) step by step, rounding where it rounds
     (every product's operands to the working dtype, f32 sums). -> (dtgt,
@@ -264,8 +269,8 @@ def decoder_layer_backward_reference(dy, tgt, memory, pos, query_pos, sine,
         dy.float(), r["t2"] + h2d, p["norm3.weight"], EPS)
     dh2 = drop.site(dy3, SITE_OUT, drop.proj)
     dense("linear2", dh2, r["urd"])
-    du = torch.where(r["u"] > 0, drop.site(c(dh2) @ w("linear2"), SITE_HIDDEN,
-                                           drop.proj), 0.0)
+    du = torch.where(u > 0, drop.site(c(dh2) @ w("linear2"), SITE_HIDDEN,
+                                      drop.proj), 0.0)
     dense("linear1", du, c(r["t2"]))
     dt2 = dy3 + c(du) @ w("linear1")
     dy2, g["norm2.weight"], g["norm2.bias"] = ln_backward_reference(
@@ -412,7 +417,7 @@ def _rows(tgt, memory, pos, query_pos, sine):
 def _layer_cuda(tgt, memory, pos, query_pos, sine, key_padding_mask, p,
                 num_heads, num_sets, drop=None):
     """The kernels' forward: eval without `drop`, else the training form
-    -> (out, o_sa, o_ca, h2d, lse_sa, lse_ca) (the last three None at
+    -> (out, o_sa, o_ca, h2d, lse_sa, lse_ca, u) (the last four None at
     eval)."""
     _need_bf16(tgt, memory, pos, query_pos, sine)
     B, SQ, D = tgt.shape
@@ -422,9 +427,11 @@ def _layer_cuda(tgt, memory, pos, query_pos, sine, key_padding_mask, p,
     dev = tgt.device
     t2d, qp2, sine2, mem2, pos2 = _rows(tgt, memory, pos, query_pos, sine)
     P = _Weights(p)
-    lse_sa = lse_ca = h2d = None
+    lse_sa = lse_ca = h2d = u32 = None
     tr_sa = tr_ca = {}
     if drop is not None:
+        u32 = torch.empty((B * SQ, p["linear1.weight"].shape[0]), device=dev,
+                          dtype=torch.float32)
         lse_sa = torch.empty((B * S, H, Q), device=dev, dtype=torch.float32)
         lse_ca = torch.empty((B, H, SQ), device=dev, dtype=torch.float32)
         h2d = torch.empty((B * SQ, D), device=dev, dtype=torch.float32)
@@ -460,14 +467,17 @@ def _layer_cuda(tgt, memory, pos, query_pos, sine, key_padding_mask, p,
     t2, _ = K.layernorm(y, P.f("norm2.weight"), P.f("norm2.bias"), EPS)
 
     # ---- FFN ----
-    u = K.ln_linear(t2, P.w("linear1"), P.b("linear1"), act="relu",
-                    **site(SITE_HIDDEN))
-    y = K.ln_linear(u, P.w("linear2"), P.b("linear2"), res=t2,
+    urd = K.ln_linear(t2, P.w("linear1"), P.b("linear1"), act="relu",
+                      **site(SITE_HIDDEN, aux=u32, aux_pre=True))
+    y = K.ln_linear(urd, P.w("linear2"), P.b("linear2"), res=t2,
                     out_dtype=torch.float32, **site(SITE_OUT, aux=h2d))
     _, out = K.layernorm(y, P.f("norm3.weight"), P.f("norm3.bias"), EPS,
                          want_f32=False, want_bf16=True)
-    return (out.view(B, SQ, D), o_sa.view(B, SQ, D), o_ca,
-            None if h2d is None else h2d.view(B, SQ, D), lse_sa, lse_ca)
+    if drop is None:
+        return (out.view(B, SQ, D), o_sa.view(B, SQ, D), o_ca, None, None,
+                None, None)
+    return (out.view(B, SQ, D), o_sa.view(B, SQ, D), o_ca, h2d.view(B, SQ, D),
+            lse_sa, lse_ca, u32.to(torch.bfloat16).view(B, SQ, -1))
 
 
 def _forward_cuda(tgt, memory, pos, query_pos, sine, key_padding_mask, p,
@@ -479,13 +489,13 @@ def _forward_cuda(tgt, memory, pos, query_pos, sine, key_padding_mask, p,
 def _train_cuda(tgt, memory, pos, query_pos, sine, key_padding_mask, p,
                 num_heads, num_sets, drop):
     """The kernels' training forward -> (out, o_sa, o_ca, h2d, lse_sa,
-    lse_ca) as the plain version returns them."""
+    lse_ca, u) as the plain version returns them."""
     return _layer_cuda(tgt, memory, pos, query_pos, sine, key_padding_mask,
                        p, num_heads, num_sets, drop)
 
 
 def _backward_cuda(dy, tgt, memory, pos, query_pos, sine, key_padding_mask,
-                   o_sa, o_ca, h2d, lse_sa, lse_ca, p, num_heads, num_sets,
+                   o_sa, o_ca, h2d, lse_sa, lse_ca, u, p, num_heads, num_sets,
                    drop):
     """The kernels' backward -> (dtgt, dmem, dpos, dqpos, dsine f32, {name:
     gradient}) as the plain version returns them (the input gradients
@@ -524,9 +534,9 @@ def _backward_cuda(dy, tgt, memory, pos, query_pos, sine, key_padding_mask,
                        P.b("cross_attn.out_proj"), res=t1, out_dtype=F32,
                        **site(SITE_CROSS_PROJ))
     t2, _ = K.layernorm(y_ca, P.f("norm2.weight"), P.f("norm2.bias"), EPS)
-    u = torch.empty((M, p["linear1.weight"].shape[0]), device=dev, dtype=F32)
-    urd = K.ln_linear(t2, P.w("linear1"), P.b("linear1"), act="relu", aux=u,
-                      aux_pre=True, **site(SITE_HIDDEN))
+    urd = K.ln_linear(t2, P.w("linear1"), P.b("linear1"), act="relu",
+                      **site(SITE_HIDDEN))
+    u = u.reshape(M, -1).float()   # the forward's ReLU decisions
 
     # FFN; dt2 accumulates dy3 + du . W1 in place
     dt2, g["norm3.weight"], g["norm3.bias"] = K.ln_backward(
@@ -644,7 +654,7 @@ class DecoderLayerFn(torch.autograd.Function):
     def backward(ctx, dy):
         inputs, (mask, seed), saved, params = (
             ctx.saved_tensors[:5], ctx.saved_tensors[5:7],
-            ctx.saved_tensors[7:12], ctx.saved_tensors[12:])
+            ctx.saved_tensors[7:13], ctx.saved_tensors[13:])
         p = dict(zip(ctx.names, params))
         args = (dy, *inputs, mask, *saved, p, ctx.num_heads, ctx.num_sets,
                 CounterDropout(seed, *ctx.rates))
@@ -665,22 +675,16 @@ def fused_decoder_layer(tgt, memory, pos, query_pos, sine, key_padding_mask,
                         params, num_heads, num_sets, drop=None):
     """One conditional decoder layer over `num_sets` stacked query sets
     -> (B, S*Q, D). drop: a refmath.CounterDropout in training, or None.
-    With grad needed on an input or a parameter: the autograd Function;
-    with dropout alone: the training forward; otherwise the eval forward."""
+    With grad needed on an input or a parameter, or any dropout rate: the
+    autograd Function; otherwise the eval forward."""
     names = param_names(params)
     p = {n: params[n] for n in names}
     args = (tgt, memory, pos, query_pos, sine, key_padding_mask)
-    if needs_grad([tgt, memory, pos, query_pos, sine, *p.values()]):
+    if needs_grad([tgt, memory, pos, query_pos, sine, *p.values()]) or (
+            drop is not None and (drop.attn or drop.proj)):
         drop = drop or no_dropout(tgt.device)
         return DecoderLayerFn.apply(*args, drop.seed, (drop.attn, drop.proj),
                                     num_heads, num_sets, names, *p.values())
-    if drop is not None and (drop.attn or drop.proj):
-        if _plain(tgt):
-            return decoder_layer_train_reference(*args, p, num_heads,
-                                                 num_sets, drop)[0]
-        out = _train_cuda(*args, p, num_heads, num_sets, drop)[0]
-        fused_decoder_layer.train_launches += 1
-        return out
     if _plain(tgt):
         return decoder_layer_reference(*args, p, num_heads, num_sets)
     out = _forward_cuda(*args, p, num_heads, num_sets)

@@ -13,8 +13,8 @@ backward (`_bwd_call` :344, `pallas_call` :357, body `_enc_bwd_kernel`
 once as the TPU kernel rounds qk_in), ln_linear (v), attention (8 heads of
 24, key bias -1e9 on padded keys, scale after the dot), ln_linear
 (out_proj + residual, f32), layernorm, ln_linear (linear1 + ReLU),
-ln_linear (linear2 + residual, f32), layernorm. A head width of 24 is no
-wgmma tile; the SIMT attention kernel takes it as it is.
+ln_linear (linear2 + residual, f32), layernorm. The attention kernel pads
+the head width of 24 to a q.k depth of 32 for its m16n8k16 products.
 
 **Training.** The same launches carry the four dropout sites (counter
 masks, refmath `counter_keep`): the attention kernel drops the
@@ -22,17 +22,20 @@ probabilities inside its online softmax and writes each row's log-sum-exp,
 and the projection launches drop in their epilogues. The forward saves x,
 pos, the attention output o (bf16), the post-dropout FFN output h2d (f32)
 and the log-sum-exp (B, H, N) f32, as the TPU kernel's `save_residuals`
-form saves o and h2: about 10 MB per layer at B=8, N=1024, against the
-(B, 8, N, N) f32 probabilities autograd keeps through the plain layer. The
-backward recomputes the linear parts and follows _enc_bwd_kernel :250-296
-step by step: ln_backward, dropout_grad, grad_weight, colsum_f32,
+form saves o and h2, and linear1's pre-activation u (bf16): its sign is
+the backward's ReLU mask, so a backward on the same saved tensors takes
+the forward's ReLU decisions whatever its own recompute rounds (about 44
+MB per layer at B=8, N=1024, against the (B, 8, N, N) f32 probabilities
+autograd keeps through the plain layer). The backward recomputes the
+other linear parts and follows _enc_bwd_kernel :250-296 step by step: ln_backward, dropout_grad, grad_weight, colsum_f32,
 matmul_dx (ReLU mask in its epilogue, accumulating into dx), and the
 attention backward of kernels.attention_backward (spe_gemm products on
 f32 (B, H, N, N) planes of the logits and dO . V^T, the attn_bwd_rows
 pass). Every parameter gradient is a sum of partials reduced in a fixed
 order, so two runs give the same bits. What bounds it on the H100: the
 FFN products (2 x N x 192 x 2048 multiply-adds per image and direction)
-and the 8-head attention, on the CUDA cores in this first version.
+and the 8-head attention: the attention and the backward products on the
+tensor cores, the forward's linear products on the CUDA cores.
 
 Dispatch is by tensor device only: CPU tensors take the plain versions
 (`encoder_layer_reference` at eval, `encoder_layer_train_reference` and
@@ -188,20 +191,21 @@ def encoder_layer_train_reference(x, pos, key_padding_mask, p, num_heads,
     """Plain training forward with the counter masks (refmath.CounterDropout;
     None: every rate 0) -> (out, o (B, N, D) in x's dtype, h2d (B, N, D)
     f32: the FFN output after its dropout, lse (B, H, N) f32: each
-    attention row's log-sum-exp)."""
+    attention row's log-sum-exp, u (B, N, F) in x's dtype: linear1's
+    pre-activation, whose sign is the backward's ReLU mask)."""
     drop = drop or no_dropout(x.device)
     dt = x.dtype
     *_, o, _, _, lse = _front(x, pos, key_padding_mask, p, num_heads, drop)
     o = o.to(dt)
-    _, s1, _, urd = _proj_fc1(x, o, p, drop)
+    _, s1, u, urd = _proj_fc1(x, o, p, drop)
     h2d = drop.site(mm(urd, p["linear2.weight"], p["linear2.bias"]), SITE_OUT,
                     drop.proj)
     out = layer_norm(s1 + h2d, p["norm2.weight"], p["norm2.bias"], EPS)
-    return out.to(dt), o, h2d, lse
+    return out.to(dt), o, h2d, lse, u.to(dt)
 
 
 def encoder_layer_backward_reference(dy, x, pos, key_padding_mask, o, h2d,
-                                     lse, p, num_heads, drop=None):
+                                     lse, u, p, num_heads, drop=None):
     """Plain, hand-derived backward mirroring `_enc_bwd_kernel`
     (pallas_encoder.py:250-296) step by step, rounding where it rounds
     (dh2, du, dao, do, dl, dq/dk/dv to the working dtype before each
@@ -218,7 +222,7 @@ def encoder_layer_backward_reference(dy, x, pos, key_padding_mask, o, h2d,
 
     qk_in, q, k, v, _, probs, zd, _ = _front(x, pos, key_padding_mask, p, H,
                                              drop, lse)
-    y1, s1, u, urd = _proj_fc1(x, o, p, drop)
+    y1, s1, _, urd = _proj_fc1(x, o, p, drop)
     w = p["self_attn.in_proj_weight"]
     g = {}
 
@@ -277,7 +281,7 @@ def _attn_args(x, H, mask):
 
 def _layer_cuda(x, pos, key_padding_mask, p, num_heads, drop=None):
     """The kernels' forward: eval without `drop`, else the training form
-    -> (out, o, h2d, lse) (h2d and lse None at eval)."""
+    -> (out, o, h2d, lse, u) (the last three None at eval)."""
     _need_bf16(x, pos)
     B, N, D = x.shape
     H = num_heads
@@ -286,11 +290,13 @@ def _layer_cuda(x, pos, key_padding_mask, p, num_heads, drop=None):
     qk, v = _qkv_cuda(x2, pos.reshape(M, D), p, D)
     qk, v = qk.view(B, N, 2 * D), v.view(B, N, D)
     o = torch.empty((B, N, D), device=x.device, dtype=torch.bfloat16)
-    lse = h2d = None
+    lse = h2d = u32 = None
     train = {}
     if drop is not None:
         lse = torch.empty((B, H, N), device=x.device, dtype=torch.float32)
         h2d = torch.empty((M, D), device=x.device, dtype=torch.float32)
+        u32 = torch.empty((M, p["linear1.weight"].shape[0]), device=x.device,
+                          dtype=torch.float32)
         train = dict(seed=drop.seed, drop=(SITE_ATTN, drop.attn), lse=lse)
     K.attention(qk[..., :D], qk[..., D:], v, o, o_hs=D // H,
                 **_attn_args(x, H, key_padding_mask), **train)
@@ -303,15 +309,17 @@ def _layer_cuda(x, pos, key_padding_mask, p, num_heads, drop=None):
                      _f(p["self_attn.out_proj.bias"]), res=x2,
                      out_dtype=torch.float32, **site(SITE_PROJ))
     s1, _ = K.layernorm(y1, _f(p["norm1.weight"]), _f(p["norm1.bias"]), EPS)
-    u = K.ln_linear(s1, _bf(p["linear1.weight"]), _f(p["linear1.bias"]),
-                    act="relu", **site(SITE_HIDDEN))
-    y2 = K.ln_linear(u, _bf(p["linear2.weight"]), _f(p["linear2.bias"]),
+    urd = K.ln_linear(s1, _bf(p["linear1.weight"]), _f(p["linear1.bias"]),
+                      act="relu", **site(SITE_HIDDEN, aux=u32, aux_pre=True))
+    y2 = K.ln_linear(urd, _bf(p["linear2.weight"]), _f(p["linear2.bias"]),
                      res=s1, out_dtype=torch.float32,
                      **site(SITE_OUT, aux=h2d))
     _, out = K.layernorm(y2, _f(p["norm2.weight"]), _f(p["norm2.bias"]), EPS,
                          want_f32=False, want_bf16=True)
-    return (out.view(B, N, D), o, None if h2d is None else h2d.view(B, N, D),
-            lse)
+    if drop is None:
+        return out.view(B, N, D), o, None, None, None
+    return (out.view(B, N, D), o, h2d.view(B, N, D), lse,
+            u32.to(torch.bfloat16).view(B, N, -1))
 
 
 def _forward_cuda(x, pos, key_padding_mask, p, num_heads):
@@ -319,13 +327,13 @@ def _forward_cuda(x, pos, key_padding_mask, p, num_heads):
 
 
 def _train_cuda(x, pos, key_padding_mask, p, num_heads, drop):
-    """The kernels' training forward -> (out, o, h2d, lse) as the plain
+    """The kernels' training forward -> (out, o, h2d, lse, u) as the plain
     version returns them."""
     return _layer_cuda(x, pos, key_padding_mask, p, num_heads, drop)
 
 
-def _backward_cuda(dy, x, pos, key_padding_mask, o, h2d, lse, p, num_heads,
-                   drop):
+def _backward_cuda(dy, x, pos, key_padding_mask, o, h2d, lse, u, p,
+                   num_heads, drop):
     """The kernels' backward -> (dx f32, dpos f32, {PARAM_NAMES: gradient})
     as the plain version returns them (dx and dpos before the cast to the
     inputs' dtype)."""
@@ -348,10 +356,9 @@ def _backward_cuda(dy, x, pos, key_padding_mask, o, h2d, lse, p, num_heads,
                      _f(p["self_attn.out_proj.bias"]), res=x2,
                      out_dtype=torch.float32, **site(SITE_PROJ))
     s1, _ = K.layernorm(y1, _f(p["norm1.weight"]), _f(p["norm1.bias"]), EPS)
-    u = torch.empty((M, w["linear1.weight"].shape[0]), device=x.device,
-                    dtype=torch.float32)
     urd = K.ln_linear(s1, w["linear1.weight"], _f(p["linear1.bias"]),
-                      act="relu", aux=u, aux_pre=True, **site(SITE_HIDDEN))
+                      act="relu", **site(SITE_HIDDEN))
+    u = u.reshape(M, -1).float()   # the forward's ReLU decisions
 
     # FFN branch; ds1 accumulates dy2 + du . W1 in place
     ds1, g["norm2.weight"], g["norm2.bias"] = K.ln_backward(
@@ -406,27 +413,27 @@ class EncoderLayerFn(torch.autograd.Function):
         p = dict(zip(PARAM_NAMES, params))
         drop = CounterDropout(seed, *rates)
         if _plain(x):
-            out, o, h2d, lse = encoder_layer_train_reference(
+            out, *saved = encoder_layer_train_reference(
                 x, pos, key_padding_mask, p, num_heads, drop)
         else:
-            out, o, h2d, lse = _train_cuda(x, pos, key_padding_mask, p,
-                                           num_heads, drop)
+            out, *saved = _train_cuda(x, pos, key_padding_mask, p, num_heads,
+                                      drop)
             fused_encoder_layer.train_launches += 1
-        ctx.save_for_backward(x, pos, key_padding_mask, seed, o, h2d, lse,
+        ctx.save_for_backward(x, pos, key_padding_mask, seed, *saved,
                               *params)
         ctx.rates, ctx.num_heads = rates, num_heads
         return out
 
     @staticmethod
     def backward(ctx, dy):
-        x, pos, mask, seed, o, h2d, lse, *params = ctx.saved_tensors
+        x, pos, mask, seed, o, h2d, lse, u, *params = ctx.saved_tensors
         p = dict(zip(PARAM_NAMES, params))
         drop = CounterDropout(seed, *ctx.rates)
         if _plain(x):
             dx, dpos, g = encoder_layer_backward_reference(
-                dy, x, pos, mask, o, h2d, lse, p, ctx.num_heads, drop)
+                dy, x, pos, mask, o, h2d, lse, u, p, ctx.num_heads, drop)
         else:
-            dx, dpos, g = _backward_cuda(dy, x, pos, mask, o, h2d, lse, p,
+            dx, dpos, g = _backward_cuda(dy, x, pos, mask, o, h2d, lse, u, p,
                                          ctx.num_heads, drop)
             fused_encoder_layer.bwd_launches += 1
         need = ctx.needs_input_grad
@@ -441,21 +448,15 @@ def fused_encoder_layer(x, pos, key_padding_mask, params, num_heads,
                         drop=None):
     """One post-norm encoder layer. x/pos: (B, N, D); drop: a
     refmath.CounterDropout in training, or None. With grad needed on x,
-    pos or a parameter: the autograd Function; with dropout alone: the
-    training forward; otherwise the eval forward."""
+    pos or a parameter, or any dropout rate: the autograd Function;
+    otherwise the eval forward."""
     p = {n: params[n] for n in PARAM_NAMES}
-    if needs_grad([x, pos, *p.values()]):
+    if needs_grad([x, pos, *p.values()]) or (
+            drop is not None and (drop.attn or drop.proj)):
         drop = drop or no_dropout(x.device)
         return EncoderLayerFn.apply(x, pos, key_padding_mask, drop.seed,
                                     (drop.attn, drop.proj), num_heads,
                                     *p.values())
-    if drop is not None and (drop.attn or drop.proj):
-        if _plain(x):
-            return encoder_layer_train_reference(x, pos, key_padding_mask, p,
-                                                 num_heads, drop)[0]
-        out = _train_cuda(x, pos, key_padding_mask, p, num_heads, drop)[0]
-        fused_encoder_layer.train_launches += 1
-        return out
     if _plain(x):
         return encoder_layer_reference(x, pos, key_padding_mask, p, num_heads)
     out = _forward_cuda(x, pos, key_padding_mask, p, num_heads)

@@ -749,3 +749,394 @@ def compare(fused, plain, args):
     tols = [bf16_tol(want[0])] + [PROBS_TOL] * (len(got) - 1)
     finite = all(bool(torch.isfinite(g).all()) for g in got)
     return errs, tols, finite
+
+
+# ---- the toolkit's two product kernels: gemm_kernel (kernels.gemm) and
+# attn_kernel (kernels.attention), each against its plain version
+# (kernels.gemm_reference, kernels.attention_reference) on the same inputs
+
+def strided_like(meta, gen, device):
+    """A random tensor laid out as meta = (dtype, storage elements,
+    storage offset, shape, strides) describes: the same storage size,
+    offset (so the same alignment), shape and strides."""
+    dtype, numel, offset, shape, stride = meta
+    if dtype in (torch.bool, torch.int32):
+        raise TypeError(f"no random layout copy of {dtype}")
+    base = torch.randn(numel, generator=gen).to(dtype).to(device)
+    return base.as_strided(shape, stride, offset)
+
+
+def tensor_meta(t):
+    """The layout of t as strided_like takes it."""
+    return (t.dtype, t.untyped_storage().nbytes() // t.element_size(),
+            t.storage_offset(), tuple(t.shape), tuple(t.stride()))
+
+
+def _span_meta(dtype, sizes, strides, offset=0):
+    span = 1 + sum((n - 1) * s for n, s in zip(sizes, strides))
+    return dtype, offset + span, offset, (span,), (1,)
+
+
+def _mat(dtype, nb, R, C, layout, off=0, aligned=True):
+    """meta and (s1, s2, s_row, s_col) of nb (R, C) matrices: layout "r"
+    rows contiguous, "c" columns contiguous, "g" neither; rows padded to a
+    multiple of 8 elements (aligned) or by an odd 3."""
+    def pad(x):
+        return (-x % 8) + 8 if aligned else 3
+    if layout == "r":
+        sr, sc, size = C + pad(C), 1, R * (C + pad(C))
+    elif layout == "c":
+        sr, sc, size = 1, R + pad(R), C * (R + pad(R))
+    else:
+        sr, sc, size = 2 * C + 3, 2, R * (2 * C + 3)
+    st = (nb[1] * size if nb[0] > 1 else 0, size if nb[1] > 1 else 0, sr, sc)
+    return _span_meta(dtype, (*nb, R, C), st, off), st
+
+
+GEMM_SHAPES = [
+    # label, M, N, K, nb, (A layout, dtype, offset, aligned), (B ...), C dtype, extras
+    ("logit planes: A bf16 k-contiguous, B bf16 k-contiguous (q . k^T), "
+     "K=24 padded, alpha", 100, 77, 24, (2, 3), ("r", "bf16", 0, True),
+     ("c", "bf16", 0, True), "f32", dict(alpha=0.35)),
+    ("dV: A bf16 m-contiguous plane, B f32 n-contiguous", 77, 24, 130, (2, 2),
+     ("c", "bf16", 0, True), ("r", "f32", 0, True), "f32", {}),
+    ("dQ: A bf16 k-contiguous, B bf16 n-contiguous, column groups", 65, 48,
+     200, (2, 2), ("r", "bf16", 0, True), ("r", "bf16", 0, True), "f32",
+     dict(col_group=24)),
+    ("dK: A bf16 m-contiguous, B bf16 n-contiguous, alpha", 130, 48, 65,
+     (2, 1), ("c", "bf16", 0, True), ("r", "bf16", 0, True), "f32",
+     dict(alpha=0.2)),
+    ("dX: A f32 rows, B bf16 rows, dropout epilogue", 150, 70, 96, (1, 1),
+     ("r", "f32", 0, True), ("r", "bf16", 0, True), "f32",
+     dict(drop=(2, 0.2), rows_per_sample=50)),
+    ("dX: GELU' epilogue", 150, 70, 96, (1, 1), ("r", "f32", 0, True),
+     ("r", "bf16", 0, True), "f32", dict(gelu=True)),
+    ("dX: ReLU mask, accumulate into f32", 150, 70, 96, (1, 1),
+     ("r", "bf16", 0, True), ("r", "bf16", 0, True), "f32",
+     dict(relu=True, accumulate=True)),
+    ("dW: A f32 m-contiguous, B bf16 rows, split over 3 row chunks (the "
+     "last short)", 70, 40, 50, (3, 1), ("c", "f32", 0, True),
+     ("r", "bf16", 0, True), "f32", dict(split=130)),
+    ("large tile: A bf16 k-contiguous, B bf16 k-contiguous, bf16 C", 300,
+     260, 96, (16, 1), ("r", "bf16", 0, True), ("c", "bf16", 0, True),
+     "bf16", {}),
+    ("large tile: A f32 m-contiguous, B bf16 n-contiguous, accumulate into "
+     "bf16", 300, 260, 70, (2, 8), ("c", "f32", 0, True),
+     ("r", "bf16", 0, True), "bf16", dict(accumulate=True)),
+    ("misaligned: A bf16 at an odd offset and row stride (scalar loads), B "
+     "bf16 8-byte aligned (vector loads)", 70, 90, 45, (1, 1),
+     ("r", "bf16", 1, False), ("r", "bf16", 4, True), "f32", {}),
+    ("no unit stride in A or B", 33, 21, 19, (2, 1), ("g", "f32", 0, True),
+     ("g", "bf16", 0, True), "f32", {}),
+    ("large tile, ragged: A f32 without unit stride, B bf16 k-contiguous at "
+     "a 4-byte offset", 257, 129, 33, (8, 4), ("g", "f32", 0, True),
+     ("c", "bf16", 2, False), "f32", dict(alpha=-1.5)),
+]
+
+
+def gemm_kernel_cases(device="cuda", seed=0):
+    """[(label, case)] of `kernels.gemm` over what the port asks of it:
+    every operand layout (A k- or m-contiguous, B n- or k-contiguous, no
+    unit stride), bf16 and f32 operands and outputs, ragged M, N and K
+    (none a multiple of a tile), both tile shapes, misaligned operands,
+    the row-chunked split, column groups, accumulate and every epilogue
+    (alpha, dropout, GELU', ReLU). A case is what gemm_run takes."""
+    gen = torch.Generator().manual_seed(seed + 3)
+    dt = {"bf16": torch.bfloat16, "f32": torch.float32}
+    cases = []
+    for label, M, N, K, nb, al, bl, cdt, ex in GEMM_SHAPES:
+        ex = dict(ex)
+        split = ex.pop("split", None)
+        kw = dict(M=M, N=N, K=K, nb=nb)
+        if split is None:
+            a_meta, kw["a_str"] = _mat(dt[al[1]], nb, M, K, al[0], al[2], al[3])
+            b_meta, kw["b_str"] = _mat(dt[bl[1]], nb, K, N, bl[0], bl[2], bl[3])
+        else:   # the chunks of one (M, split) x (split, N) product
+            a_meta, (_, _, sm, sk) = _mat(dt[al[1]], (1, 1), M, split, al[0],
+                                          al[2], al[3])
+            b_meta, (_, _, bk, bn) = _mat(dt[bl[1]], (1, 1), split, N, bl[0],
+                                          bl[2], bl[3])
+            kw.update(a_str=(K * sk, 0, sm, sk), b_str=(K * bk, 0, bk, bn),
+                      split_k=split)
+        grp = ex.pop("col_group", None)
+        ldc = (grp or N) + 8
+        plane = nb[0] * nb[1] * M * ldc
+        kw["c_str"] = (nb[1] * M * ldc, M * ldc, ldc, 1)
+        if grp:
+            kw.update(col_group=grp, col_stride=plane)
+        c_meta = _span_meta(dt[cdt], (N // (grp or N), plane), (plane, 1))
+        case = dict(a=strided_like(a_meta, gen, device),
+                    b=strided_like(b_meta, gen, device),
+                    c=strided_like(c_meta, gen, device), kw=kw)
+        if ex.pop("gelu", False) or ex.get("relu"):
+            aux = torch.randn((M, N), generator=gen).to(device)
+            kw["relu_aux" if ex.pop("relu", False) else "gelu_aux"] = aux
+        if "drop" in ex:
+            kw["seed"] = torch.tensor([20240613], dtype=torch.int32,
+                                      device=device)
+        kw.update(ex)
+        cases.append((label, case))
+    return cases
+
+
+def storage_of(t):
+    """The whole storage under t as a 1-d tensor of t's dtype."""
+    return torch.empty(0, dtype=t.dtype, device=t.device).set_(
+        t.untyped_storage())
+
+
+def clone_layout(t):
+    """A copy of t's whole storage, viewed with t's shape, strides and
+    offset."""
+    return storage_of(t).clone().as_strided(t.shape, t.stride(),
+                                            t.storage_offset())
+
+
+def gemm_run(fn, case):
+    """fn (kernels.gemm or kernels.gemm_reference) on the case's operands
+    into a fresh copy of its c -> that copy."""
+    c = clone_layout(case["c"])
+    fn(case["a"], case["b"], c, **case["kw"])
+    return c
+
+
+def gemm_check(kernel, plain, case):
+    """The kernel twice and the plain version on one case -> (max abs error
+    over the written elements, tolerance: GRAD_REL_TOL of their largest
+    plain magnitude, the two kernel runs bit-identical, the untouched
+    elements equal, all finite)."""
+    from spe_tpu_torch.ops.kernels import gemm_out_view
+
+    got, again, want = (gemm_run(kernel, case), gemm_run(kernel, case),
+                        gemm_run(plain, case))
+    gv, wv = (gemm_out_view(t, **case["kw"]) for t in (got, want))
+    rest_g, rest_w = clone_layout(got), clone_layout(want)
+    gemm_out_view(rest_g, **case["kw"]).zero_()
+    gemm_out_view(rest_w, **case["kw"]).zero_()
+    return (max_err(gv, wv), grad_tol(wv),
+            bool(torch.equal(storage_of(got), storage_of(again))),
+            bool(torch.equal(storage_of(rest_g), storage_of(rest_w))),
+            bool(torch.isfinite(gv.float()).all()))
+
+
+def _unique_elems(sizes, strides):
+    """Elements an operand of `sizes` addresses through `strides`, a batch
+    dimension of stride 0 counted once."""
+    return math.prod(n for n, s in zip(sizes, strides) if s or n == 1)
+
+
+def gemm_bound_ms(case):
+    """The least time of one gemm call: each operand element read once (in
+    its dtype; a batch stride of 0 shares it), C written once (and read
+    with accumulate, the activation's aux read) against 2 M N K per batch
+    entry at the bf16 tensor rate."""
+    kw = case["kw"]
+    M, N, K = kw["M"], kw["N"], kw["K"]
+    nb1, nb2 = kw.get("nb", (1, 1))
+    depth = kw.get("split_k")
+    a, b, c = case["a"], case["b"], case["c"]
+    if depth is None:
+        na = _unique_elems((nb1, nb2, M, K), kw["a_str"])
+        nbe = _unique_elems((nb1, nb2, K, N), kw["b_str"])
+        flops = 2 * nb1 * nb2 * M * N * K
+    else:
+        na, nbe, flops = M * depth, depth * N, 2 * M * N * depth
+    nc = nb1 * nb2 * M * N * (2 if kw.get("accumulate") else 1)
+    aux = kw.get("gelu_aux", kw.get("relu_aux"))
+    io = (na * a.element_size() + nbe * b.element_size() + nc * c.element_size()
+          + (aux.numel() * 4 if aux is not None else 0))
+    return bound_ms(io, [(flops, BF16_TENSOR_OPS_PER_MS)])
+
+
+def gemm_library(case):
+    """-> a call of torch.matmul on the case's operands as gathered bf16
+    contiguous (nb1 * nb2, M, K) and (., K, N) tensors (for a split, the
+    chunks as the batch): the library's time for the same product, timed
+    beside the kernel and never called by the port."""
+    kw = case["kw"]
+    M, N, K = kw["M"], kw["N"], kw["K"]
+    nb1, nb2 = kw.get("nb", (1, 1))
+    a, b = case["a"], case["b"]
+    depth = kw.get("split_k")
+    if depth is None:
+        A = a.as_strided((nb1, nb2, M, K), kw["a_str"], a.storage_offset())
+        B = b.as_strided((nb1, nb2, K, N), kw["b_str"], b.storage_offset())
+    else:   # zero-pad the short last chunk to a whole one
+        A = a.as_strided((M, depth), kw["a_str"][2:], a.storage_offset())
+        B = b.as_strided((depth, N), kw["b_str"][2:], b.storage_offset())
+        A = torch.nn.functional.pad(A, (0, nb1 * K - depth)).reshape(
+            M, nb1, K).transpose(0, 1)
+        B = torch.nn.functional.pad(B, (0, 0, 0, nb1 * K - depth)).reshape(
+            nb1, K, N)
+    A = A.to(torch.bfloat16).reshape(-1, M, K).contiguous()
+    B = B.to(torch.bfloat16).reshape(-1, K, N).contiguous()
+    return lambda: torch.matmul(A, B)
+
+
+def attention_kernel_cases(device="cuda", seed=0):
+    """[(label, case)] of `kernels.attention` on ragged shapes (Nq and Nk
+    not multiples of the 64-row tiles, a one-key last tile) for each of
+    its four head-width templates: every option (qscale, key and head
+    biases, dropout with mask_heads, probabilities, log-sum-exps, f32
+    output, heads shared by a stride of 0) and K/V views whose alignment
+    asks for each copy width (16, 8 and 4 bytes by cp.async, 2 by plain
+    loads; the width each case should get is its "copy_bytes"). A case is
+    what attention_run takes."""
+    gen = torch.Generator().manual_seed(seed + 4)
+
+    def act(B, N, cols, off=0, ld=None):
+        ld = ld or cols
+        meta = (torch.bfloat16, off + B * N * ld, off, (B, N, cols),
+                (N * ld, ld, 1))
+        return strided_like(meta, gen, device)
+
+    def f32(*shape, scale=1.0):
+        return scale * torch.randn(shape, generator=gen).to(device)
+
+    seed_t = torch.tensor([20240614], dtype=torch.int32, device=device)
+    cases = []
+
+    def add(label, B, H, Nq, Nk, dq, dv, *, q_hs=None, kv_hs=None, koff=0,
+            kld=None, out_f32=False, probs=False, lse=False, drop=None,
+            mask_heads=None, qscale=False, kbias=True, hbias=False, cw=16):
+        q_hs = dq if q_hs is None else q_hs
+        kv_hs = (dq, dv) if kv_hs is None else kv_hs
+        qc = dq + (H - 1) * q_hs
+        kc, vc = dq + (H - 1) * kv_hs[0], dv + (H - 1) * kv_hs[1]
+        kw = dict(num_heads=H, dq=dq, dv=dv, q_hs=q_hs, k_hs=kv_hs[0],
+                  v_hs=kv_hs[1], o_hs=dv, logit_scale=dq ** -0.5)
+        if qscale:
+            kw["qscale"] = 1.0 + 0.1 * f32(H, dq)
+        if kbias:
+            kb = 0.5 * f32(B, Nk)
+            kb[-1, Nk - Nk // 10:] = -1e9
+            kw["kbias"] = kb
+        if hbias:
+            kw["hbias"] = f32(H)
+        if drop:
+            kw.update(drop=drop, seed=seed_t, mask_heads=mask_heads)
+        cases.append((label, dict(
+            q=act(B, Nq, qc), k=act(B, Nk, kc, koff, kld),
+            v=act(B, Nk, vc, koff, kld and kld + vc - kc), kw=kw,
+            out=((B, Nq, H * dv), torch.float32 if out_f32 else torch.bfloat16),
+            probs=probs, lse=lse, copy_bytes=cw)))
+
+    add("24 x 24 (encoder): dropout, log-sum-exps", 2, 3, 100, 130, 24, 24,
+        drop=(10, 0.1), lse=True)
+    add("48 x 24 (cross-attention): q/k heads twice v's, dropout keyed by "
+        "mask_heads", 2, 2, 70, 129, 48, 24, drop=(7, 0.1), mask_heads=1,
+        lse=True)
+    add("48 x 48 (class attention): qscale, probabilities", 2, 4, 21, 150,
+        48, 48, qscale=True, probs=True)
+    add("192 x 192 (talking heads, wl-fold): q, k, v shared by head stride "
+        "0, qscale per head, head bias, f32 output", 2, 4, 90, 65, 192, 192,
+        q_hs=0, kv_hs=(0, 0), qscale=True, hbias=True, out_f32=True)
+    add("192 x 192: dropout, probabilities, log-sum-exps, one-key last tile",
+        1, 2, 70, 65, 192, 192, drop=(1, 0.1), probs=True, lse=True,
+        hbias=True)
+    add("24 x 24, K/V at a 4-byte offset (8-byte copies)", 2, 2, 65, 100,
+        24, 24, koff=4, kld=52, cw=8)
+    add("24 x 24, K/V at a 2-element offset (4-byte copies)", 2, 2, 65, 100,
+        24, 24, koff=2, kld=50, cw=4)
+    add("48 x 24, K/V at an odd offset and row stride (plain loads)", 2, 2,
+        33, 90, 48, 24, koff=1, kld=99, cw=2)
+    return cases
+
+
+def attention_args(case):
+    """The case's (q, k, v, out) and keywords with fresh zeroed outputs ->
+    (args, kw, {"out", and "probs", "lse" where asked})."""
+    q, k, v, kw = case["q"], case["k"], case["v"], dict(case["kw"])
+    B, Nq = q.shape[:2]
+    Nk, H = k.shape[1], kw["num_heads"]
+    outs = {"out": torch.zeros(case["out"][0], dtype=case["out"][1],
+                               device=q.device)}
+    if case["probs"]:
+        outs["probs"] = kw["probs"] = torch.zeros((B, H, Nq, Nk),
+                                                  device=q.device)
+    if case["lse"]:
+        outs["lse"] = kw["lse"] = torch.zeros((B, H, Nq), device=q.device)
+    return (q, k, v, outs["out"]), kw, outs
+
+
+def attention_run(fn, case):
+    """fn (kernels.attention or kernels.attention_reference) on the case's
+    inputs into fresh outputs -> {"out", and "probs", "lse" where asked}."""
+    args, kw, outs = attention_args(case)
+    fn(*args, **kw)
+    return outs
+
+
+def attention_check(kernel, plain, case):
+    """The kernel twice and the plain version on one case -> ({output:
+    (max abs error, tolerance)}: ULPS bf16 ulps at the largest plain
+    magnitude, the probabilities PROBS_TOL; the two kernel runs
+    bit-identical; all finite)."""
+    got, again, want = (attention_run(kernel, case),
+                        attention_run(kernel, case),
+                        attention_run(plain, case))
+    errs = {n: (max_err(got[n], want[n]),
+                PROBS_TOL if n == "probs" else bf16_tol(want[n]))
+            for n in want}
+    same = all(torch.equal(got[n], again[n]) for n in got)
+    finite = all(bool(torch.isfinite(t).all()) for t in got.values())
+    return errs, same, finite
+
+
+def attention_bound_case_ms(case):
+    """The least time of one attention call: q, k, v (a head stride of 0
+    read once), the biases and scales read, the output, probabilities and
+    log-sum-exps written once, against 2 (dq + dv) per (sample, head,
+    query, key) at the bf16 tensor rate and, with dropout, ~12 integer ops
+    per pair for the keep bits."""
+    q, k, v, kw = case["q"], case["k"], case["v"], case["kw"]
+    B, Nq = q.shape[:2]
+    Nk, H, dq, dv = k.shape[1], kw["num_heads"], kw["dq"], kw["dv"]
+    pairs = B * H * Nq * Nk
+
+    def heads(hs, d):
+        return (H if hs else 1) * d
+
+    io = 2 * (B * Nq * heads(kw["q_hs"], dq) + B * Nk * heads(kw["k_hs"], dq)
+              + B * Nk * heads(kw["v_hs"], dv))
+    io += B * Nq * H * dv * (4 if case["out"][1] == torch.float32 else 2)
+    io += sum(_nbytes(kw[n]) for n in ("qscale", "kbias", "hbias")
+              if kw.get(n) is not None)
+    io += pairs * 4 * bool(case["probs"]) + B * H * Nq * 4 * bool(case["lse"])
+    masks = 12 * pairs if kw.get("drop") else 0
+    return bound_ms(io, [(2 * pairs * (dq + dv), BF16_TENSOR_OPS_PER_MS),
+                         (masks, SCALAR_OPS_PER_MS)])
+
+
+def attention_library(case):
+    """-> scaled_dot_product_attention on the case's heads as contiguous
+    (B, H, N, d) bf16 tensors (q pre-scaled by qscale), the key and head
+    biases as a float mask, or None where no single PyTorch call computes
+    the same function (probabilities, dropout): the library's time, timed
+    beside the kernel and never called by the port."""
+    import torch.nn.functional as F
+
+    q, k, v, kw = case["q"], case["k"], case["v"], case["kw"]
+    if case["probs"] or kw.get("drop"):
+        return None
+    B, Nq = q.shape[:2]
+    Nk, H, dq, dv = k.shape[1], kw["num_heads"], kw["dq"], kw["dv"]
+
+    def heads(t, hs, d):
+        return t.as_strided((B, H, t.shape[1], d),
+                            (t.stride(0), hs, t.stride(1), 1),
+                            t.storage_offset()).contiguous()
+
+    qh = heads(q, kw["q_hs"], dq)
+    if kw.get("qscale") is not None:
+        qh = (qh.float() * kw["qscale"][None, :, None, :]).to(q.dtype)
+    kh, vh = heads(k, kw["k_hs"], dq), heads(v, kw["v_hs"], dv)
+    bias = torch.zeros((B, H, 1, Nk), device=q.device)
+    if kw.get("kbias") is not None:
+        bias = bias + kw["kbias"][:, None, None, :]
+    if kw.get("hbias") is not None:
+        bias = bias + kw["hbias"][None, :, None, None]
+    bias = bias.to(q.dtype).expand(B, H, Nq, Nk)
+    scale = kw.get("logit_scale", 1.0)
+    return lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=bias,
+                                                  scale=scale)

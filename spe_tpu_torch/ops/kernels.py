@@ -14,6 +14,11 @@ tensor.
 Every wrapper checks device, dtype, shape and strides and raises on what the
 kernel does not take; it allocates its outputs with torch.empty, launches on
 torch.cuda.current_stream() and raises if the launch reports an error.
+
+The two tensor-core product kernels, `gemm` (gemm_kernel) and `attention`
+(attn_kernel), count their launches (`.launches`) and have their plain
+versions beside them: `gemm_reference` and `attention_reference` take the
+same arguments and write the same elements.
 """
 
 from __future__ import annotations
@@ -28,7 +33,9 @@ from pathlib import Path
 
 import torch
 
-from spe_tpu_torch.ops.refmath import SITE_ATTN, keep_scale, keep_threshold
+from spe_tpu_torch.ops.refmath import (SITE_ATTN, counter_keep,
+                                       gelu_tanh_grad, keep_scale,
+                                       keep_threshold)
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "spe_tpu_torch"
@@ -263,6 +270,8 @@ def lib():
             fn = getattr(so, name)
             fn.argtypes = [ctypes.POINTER(struct), ctypes.c_void_p]
             fn.restype = ctypes.c_int
+        so.spe_attention_copy_bytes.argtypes = [ctypes.POINTER(_AttnParams)]
+        so.spe_attention_copy_bytes.restype = ctypes.c_int
         for name, struct in (("spe_attention", _AttnParams),
                              ("spe_th_rows", _THRowParams)):
             fn = getattr(so, name)
@@ -427,6 +436,33 @@ def attention(q, k, v, out, *, num_heads, dq, dv, q_hs, k_hs, v_hs, o_hs,
     probabilities with keep bits keyed (seed, site, z // mask_heads,
     z % mask_heads, row, key) for z = b * H + h (mask_heads defaults to
     H); lse: optional (B, H, Nq) f32 output of each row's log-sum-exp."""
+    p = _attn_params(q, k, v, out, num_heads=num_heads, dq=dq, dv=dv,
+                     q_hs=q_hs, k_hs=k_hs, v_hs=v_hs, o_hs=o_hs,
+                     qscale=qscale, kbias=kbias, hbias=hbias,
+                     logit_scale=logit_scale, probs=probs, seed=seed,
+                     drop=drop, mask_heads=mask_heads, lse=lse)
+    err = lib().spe_attention(ctypes.byref(p), dq, dv, _stream())
+    _check(err, f"spe_attention(dq={dq}, dv={dv})")
+    attention.launches += 1
+    return out
+
+
+attention.launches = 0
+
+
+def attention_copy_bytes(*args, **kw):
+    """The bytes of each K/V copy into shared memory that the kernel picks
+    for `attention(*args, **kw)`: 16 where every K and V row start is
+    16-byte aligned, else 8 or 4 (narrower cp.async), else 2 (plain
+    loads)."""
+    return lib().spe_attention_copy_bytes(ctypes.byref(_attn_params(*args,
+                                                                    **kw)))
+
+
+def _attn_params(q, k, v, out, *, num_heads, dq, dv, q_hs, k_hs, v_hs, o_hs,
+                 qscale=None, kbias=None, hbias=None, logit_scale=1.0,
+                 probs=None, seed=None, drop=None, mask_heads=None, lse=None):
+    """`attention`'s checks -> its _AttnParams."""
     for t, n in ((q, "q"), (k, "k"), (v, "v")):
         _need(t, _BF16, n, 3)
     _need(out, (_BF16, _F32), "out", 3)
@@ -480,8 +516,51 @@ def attention(q, k, v, out, *, num_heads, dq, dv, q_hs, k_hs, v_hs, o_hs,
         out_f32=int(out.dtype == _F32), seed=_ptr(seed), lse=_ptr(lse),
         drop_site=dsite, drop_thr=dthr, drop_scale=dscale,
         mask_heads=mask_heads)
-    err = lib().spe_attention(ctypes.byref(p), dq, dv, _stream())
-    _check(err, f"spe_attention(dq={dq}, dv={dv})")
+    return p
+
+
+def attention_keep(seed, drop, shape, mask_heads):
+    """The keep bits (B, H, Nq, Nk) of `attention`'s dropout: keyed (seed,
+    site, z // mask_heads, z % mask_heads, row, key) for z = b * H + h."""
+    Z = shape[0] * shape[1]
+    return counter_keep(seed, drop[0], drop[1],
+                        (Z // mask_heads, mask_heads, *shape[2:])).reshape(shape)
+
+
+def attention_reference(q, k, v, out, *, num_heads, dq, dv, q_hs, k_hs, v_hs,
+                        o_hs, qscale=None, kbias=None, hbias=None,
+                        logit_scale=1.0, probs=None, seed=None, drop=None,
+                        mask_heads=None, lse=None):
+    """Plain PyTorch version of `attention` (same arguments, same outputs
+    written): f32 logits logit_scale * bf16(q [* qscale]) . k^T plus the
+    key and head biases, the softmax (probs and lse taken from it), the
+    dropout, the probabilities rounded to bf16 before the product with V
+    in f32, as the kernel's PV operand is."""
+    B, H = q.shape[0], num_heads
+
+    def heads(t, hs, d):
+        return t.as_strided((B, H, t.shape[1], d),
+                            (t.stride(0), hs, t.stride(1), 1),
+                            t.storage_offset())
+
+    qh = heads(q, q_hs, dq).float()
+    if qscale is not None:
+        qh = (qh * qscale[None, :, None, :]).to(_BF16).float()
+    s = qh @ heads(k, k_hs, dq).float().transpose(-1, -2) * logit_scale
+    if kbias is not None:
+        s = s + kbias[:, None, None, :]
+    if hbias is not None:
+        s = s + hbias[None, :, None, None]
+    p = torch.softmax(s, dim=-1)
+    if probs is not None:
+        probs.copy_(p)
+    if lse is not None:
+        lse.copy_(torch.logsumexp(s, dim=-1))
+    if drop is not None and drop[1] > 0:
+        p = torch.where(attention_keep(seed, drop, p.shape, mask_heads or H),
+                        p * keep_scale(drop[1]), 0.0)
+    o = p.to(_BF16).float() @ heads(v, v_hs, dv).float()
+    heads(out, o_hs, dv).copy_(o.to(out.dtype))
     return out
 
 
@@ -641,6 +720,66 @@ def gemm(a, b, c, *, M, N, K, a_str, b_str, c_str, nb=(1, 1), alpha=1.0,
         act_grad=1 if gelu_aux is not None else 2, cgrp=grp,
         cgstride=col_stride, accumulate=int(accumulate))
     _check(lib().spe_gemm(ctypes.byref(p), _stream()), "spe_gemm")
+    gemm.launches += 1
+    return c
+
+
+gemm.launches = 0
+
+
+def row_keep(seed, drop, M, N, rows_per_sample):
+    """The keep bits (M, N) of a row-wise dropout site, drop = (site,
+    rate): keyed (seed, site, m // rows_per_sample, 0, m %
+    rows_per_sample, n)."""
+    site, rate = drop
+    rps = rows_per_sample
+    return counter_keep(seed, site, rate, (M // rps, 1, rps, N)).reshape(M, N)
+
+
+def gemm_out_view(c, *, M, N, c_str, nb=(1, 1), col_group=None, col_stride=0,
+                  **_):
+    """The elements of c that `gemm` writes, (nb1, nb2, M, N // col_group,
+    col_group); the other arguments of a gemm call are ignored."""
+    grp = col_group or N
+    if N % grp:
+        raise ValueError(f"{N} columns are not whole groups of {grp}")
+    return c.as_strided((*nb, M, N // grp, grp),
+                        (*c_str[:3], col_stride, c_str[3]), c.storage_offset())
+
+
+def gemm_reference(a, b, c, *, M, N, K, a_str, b_str, c_str, nb=(1, 1),
+                   alpha=1.0, split_k=None, seed=None, drop=None,
+                   rows_per_sample=1, gelu_aux=None, relu_aux=None,
+                   col_group=None, col_stride=0, accumulate=False):
+    """Plain PyTorch version of `gemm` (same arguments, same elements of c
+    written): the operands read through their strides and rounded to bf16,
+    the product summed in f32, then the epilogue in the kernel's order."""
+    def view(t, st, sizes):
+        return t.as_strided(sizes, st, t.storage_offset()).float().to(
+            _BF16).float()
+
+    nb1, nb2 = nb
+    if split_k is None:
+        y = view(a, a_str, (nb1, nb2, M, K)) @ view(b, b_str, (nb1, nb2, K, N))
+    else:
+        A = view(a, a_str[2:], (M, split_k))
+        Bm = view(b, b_str[2:], (split_k, N))
+        y = torch.stack([A[:, z * K:(z + 1) * K] @ Bm[z * K:(z + 1) * K]
+                         for z in range(nb1)])[:, None]
+    y = alpha * y
+    if drop is not None and drop[1] > 0:
+        y = torch.where(row_keep(seed, drop, M, N, rows_per_sample),
+                        y * keep_scale(drop[1]), 0.0)
+    if gelu_aux is not None:
+        y = y * gelu_tanh_grad(gelu_aux)
+    if relu_aux is not None:
+        y = torch.where(relu_aux > 0, y, 0.0)
+    out = gemm_out_view(c, M=M, N=N, c_str=c_str, nb=nb, col_group=col_group,
+                        col_stride=col_stride)
+    y = y.reshape(out.shape)
+    if accumulate:
+        y = out.float() + y
+    out.copy_(y.to(c.dtype))
     return c
 
 

@@ -32,7 +32,7 @@ partials of dww, dbw, dbl and dwl, reduced in a fixed order), then dV =
 zd^T dY, dQ = scale dL . K and dK = scale dL^T . Q (spe_gemm). Two runs of
 the backward give the same bits. What bounds it on the H100: the N^2 dh
 products per head, two forward and five backward (compute), and the f32
-planes (bytes); this first version runs the products on the CUDA cores.
+planes (bytes); spe_gemm runs the products on the tensor cores.
 
 Dispatch is by tensor device only: CPU tensors take the plain versions
 (`talking_heads_reference`, `talking_heads_train_reference`,

@@ -7,14 +7,18 @@ the two supervision kernels (connected components, auction) against
 their plain versions at the recipe's training shapes, and the standalone
 attention kernels (fused_mha in its three flavours, the talking-heads
 attention) forward and backward against their plain versions with cut
-sequence lengths. The kernels have no CPU mode, so without a card these
-tests skip.
+sequence lengths, and the two tensor-core product kernels (gemm_kernel,
+attn_kernel) against kernels.gemm_reference / attention_reference on
+ragged shapes, every layout and option, misaligned operands. The kernels
+have no CPU mode, so without a card these tests skip.
 
 Run on a machine with the card:  python -m pytest tests/test_torch_cuda.py -m cuda
 """
 
 import pytest
 import torch
+
+from spe_tpu_torch.ops.kernel_checks import GEMM_SHAPES
 
 pytestmark = pytest.mark.cuda
 
@@ -293,3 +297,48 @@ def test_attention_functions_count_launches(card):
         (b[0] + 1, b[1] + 1) for b in before]
     for t in (*ins, *lp.values()):
         assert torch.isfinite(t.grad.float()).all()
+
+
+@pytest.mark.parametrize("case", range(len(GEMM_SHAPES)))
+def test_gemm_kernel_matches_plain(card, case):
+    """gemm_kernel against gemm_reference on ragged shapes (M, N and K no
+    multiple of a tile), every layout, dtype, split, column group,
+    accumulate mode and epilogue the port uses, misaligned operands, both
+    tile shapes: the written elements within 1% of their largest
+    magnitude, nothing else touched, two runs bit-identical."""
+    from spe_tpu_torch.ops import kernels as K
+    from spe_tpu_torch.ops.kernel_checks import gemm_check, gemm_kernel_cases
+
+    label, c = gemm_kernel_cases()[case]
+    before = K.gemm.launches
+    err, tol, same, rest, finite = gemm_check(K.gemm, K.gemm_reference, c)
+    torch.cuda.synchronize()
+    assert finite and same and rest, label
+    assert err <= tol, (label, err, tol)
+    assert K.gemm.launches == before + 2
+
+
+@pytest.mark.parametrize("case", range(8))
+def test_attention_kernel_matches_plain_ragged(card, case):
+    """attn_kernel against attention_reference on ragged Nq and Nk (a
+    one-key last tile), each head-width template, dropout, probabilities,
+    log-sum-exps, shared heads and K/V views aligned for each copy width:
+    outputs within 4 bf16 ulps at their largest magnitude (probabilities
+    1e-4), two runs bit-identical, the copy width the alignment allows."""
+    from spe_tpu_torch.ops import kernels as K
+    from spe_tpu_torch.ops.kernel_checks import (attention_check,
+                                                 attention_kernel_cases)
+
+    cases = attention_kernel_cases()
+    assert len(cases) == 8
+    label, c = cases[case]
+    outs = {"out": torch.empty(c["out"][0], dtype=c["out"][1], device=card)}
+    assert K.attention_copy_bytes(c["q"], c["k"], c["v"], outs["out"],
+                                  **c["kw"]) == c["copy_bytes"], label
+    before = K.attention.launches
+    errs, same, finite = attention_check(K.attention, K.attention_reference, c)
+    torch.cuda.synchronize()
+    assert finite and same, label
+    for name, (e, tol) in errs.items():
+        assert e <= tol, (label, name, e, tol)
+    assert K.attention.launches == before + 2

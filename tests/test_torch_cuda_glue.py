@@ -17,21 +17,17 @@ import torch
 import torch.nn.functional as F
 
 from spe_tpu_torch.ops import kernels as K
+from spe_tpu_torch.ops.kernels import (attention_keep, attention_reference,
+                                       gemm_reference, row_keep)
 from spe_tpu_torch.ops.kernel_checks import (attention_cases, backward_args,
                                              bf16_tol, flat_grads, grad_tols,
                                              kernel_cases, max_err,
                                              plain_train, saved_outputs,
                                              train_cases)
-from spe_tpu_torch.ops.refmath import (counter_keep, gelu_tanh_grad,
-                                       keep_scale, ln_backward_reference,
-                                       path_keep)
+from spe_tpu_torch.ops.refmath import (counter_keep, keep_scale,
+                                       ln_backward_reference, path_keep)
 
 BF16 = torch.bfloat16
-
-
-def _row_keep(seed, spec, M, N, rps):
-    site, rate = spec
-    return counter_keep(seed, site, rate, (M // rps, 1, rps, N)).reshape(M, N)
 
 
 def _path_factor(seed, spec, M, rps):
@@ -56,7 +52,7 @@ def ln_linear(a, w, bias=None, *, ln=None, a2=None, act="none", res=None,
          "relu": torch.relu(y)}[act]
     M, N = y.shape
     if drop is not None and drop[1] > 0:
-        y = torch.where(_row_keep(seed, drop, M, N, rows_per_sample),
+        y = torch.where(row_keep(seed, drop, M, N, rows_per_sample),
                         y * keep_scale(drop[1]), 0.0)
     if aux is not None and not aux_pre:
         aux.copy_(y)
@@ -71,43 +67,6 @@ def ln_linear(a, w, bias=None, *, ln=None, a2=None, act="none", res=None,
     grp, stride = (col_group, col_stride) if col_group else (N, N)
     n = torch.arange(N)
     out[:, n // grp * stride + n % grp] = y.to(out.dtype)
-    return out
-
-
-def _attn_keep(seed, drop, shape, mask_heads):
-    """The attention keep bits of (B, H, Nq, Nk) keyed by mask_heads."""
-    Z = shape[0] * shape[1]
-    return counter_keep(seed, drop[0], drop[1],
-                        (Z // mask_heads, mask_heads, *shape[2:])).reshape(shape)
-
-
-def attention(q, k, v, out, *, num_heads, dq, dv, q_hs, k_hs, v_hs, o_hs,
-              qscale=None, kbias=None, hbias=None, logit_scale=1.0,
-              probs=None, seed=None, drop=None, mask_heads=None, lse=None):
-    B, H = q.shape[0], num_heads
-
-    def heads(t, hs, d):
-        return t.as_strided((B, H, t.shape[1], d),
-                            (t.stride(0), hs, t.stride(1), 1),
-                            t.storage_offset())
-
-    qh = heads(q, q_hs, dq).float()
-    if qscale is not None:
-        qh = (qh * qscale[None, :, None, :]).to(BF16).float()
-    s = qh @ heads(k, k_hs, dq).float().transpose(-1, -2) * logit_scale
-    if kbias is not None:
-        s = s + kbias[:, None, None, :]
-    if hbias is not None:
-        s = s + hbias[None, :, None, None]
-    p = torch.softmax(s, dim=-1)
-    if probs is not None:
-        probs.copy_(p)
-    if lse is not None:
-        lse.copy_(torch.logsumexp(s, dim=-1))
-    if drop is not None and drop[1] > 0:
-        p = torch.where(_attn_keep(seed, drop, p.shape, mask_heads or H),
-                        p * keep_scale(drop[1]), 0.0)
-    heads(out, o_hs, dv).copy_((p @ heads(v, v_hs, dv).float()).to(out.dtype))
     return out
 
 
@@ -126,37 +85,6 @@ def th_mix(pv, csum, ww, bw):
     mix = ww.repeat_interleave(dh, dim=0)                  # (D, H): row c -> head c // dh
     out = torch.einsum("bngc,cg->bnc", pv, mix) + bw.repeat_interleave(dh) * csum[:, None]
     return out.to(BF16)
-
-
-def gemm(a, b, c, *, M, N, K, a_str, b_str, c_str, nb=(1, 1), alpha=1.0,
-         split_k=None, seed=None, drop=None, rows_per_sample=1,
-         gelu_aux=None, relu_aux=None, col_group=None, col_stride=0,
-         accumulate=False):
-    def view(t, st, sizes):
-        return t.as_strided(sizes, st, t.storage_offset()).float().to(
-            BF16).float()
-
-    nb1, nb2 = nb
-    if split_k is None:
-        y = view(a, a_str, (nb1, nb2, M, K)) @ view(b, b_str, (nb1, nb2, K, N))
-    else:
-        A, Bm = view(a, a_str[2:], (M, split_k)), view(b, b_str[2:], (split_k, N))
-        y = torch.stack([A[:, z * K:(z + 1) * K] @ Bm[z * K:(z + 1) * K]
-                         for z in range(nb1)])[:, None]
-    y = alpha * y
-    if drop is not None and drop[1] > 0:
-        y = torch.where(_row_keep(seed, drop, M, N, rows_per_sample),
-                        y * keep_scale(drop[1]), 0.0)
-    if gelu_aux is not None:
-        y = y * gelu_tanh_grad(gelu_aux)
-    if relu_aux is not None:
-        y = torch.where(relu_aux > 0, y, 0.0)
-    grp = col_group or N
-    view = c.as_strided((nb1, nb2, M, N // grp, grp),
-                        (*c_str[:3], col_stride, c_str[3]), c.storage_offset())
-    y = y.reshape(view.shape).to(c.dtype)
-    view.add_(y) if accumulate else view.copy_(y)
-    return c
 
 
 def reduce_sum(parts, round_bf16=False):
@@ -181,7 +109,7 @@ def branch_backward(dres, val, gamma, *, seed=None, drop=None, path=None,
         dp = _path_factor(seed, path, M, rows_per_sample)
     d = dres * dp * (gamma if gamma is not None else 1.0)
     if drop is not None and drop[1] > 0:
-        d = torch.where(_row_keep(seed, drop, M, D, rows_per_sample),
+        d = torch.where(row_keep(seed, drop, M, D, rows_per_sample),
                         d * keep_scale(drop[1]), 0.0)
     return d, None if val is None else (dres * dp * val).sum(0)
 
@@ -242,7 +170,7 @@ def attention_bwd_rows(s, dzd, lse, kbias, seed, drop, *, num_heads,
     keep = torch.ones(s.shape, dtype=torch.bool)
     sc = 1.0
     if drop is not None and drop[1] > 0:
-        keep = _attn_keep(seed, drop, s.shape, mask_heads or num_heads)
+        keep = attention_keep(seed, drop, s.shape, mask_heads or num_heads)
         sc = keep_scale(drop[1])
     dp = torch.where(keep, dzd * sc, 0.0)
     return (torch.where(keep, p * sc, 0.0).to(BF16),
@@ -264,11 +192,13 @@ def emulated(monkeypatch):
     # the wrappers built on other wrappers (matmul_dx, grad_weight) run for
     # real, their checks without the device test
     monkeypatch.setattr(K, "_need", _check_but_device)
-    for fn in (ln_linear, attention, layernorm, colsum, th_mix, gemm,
-               reduce_sum, colsum_f32, ln_backward, branch_backward, th_fold,
-               th_fwd_rows, th_bwd_rows, th_dq, softmax_backward,
-               attention_bwd_rows):
+    for fn in (ln_linear, layernorm, colsum, th_mix, reduce_sum, colsum_f32,
+               ln_backward, branch_backward, th_fold, th_fwd_rows,
+               th_bwd_rows, th_dq, softmax_backward, attention_bwd_rows):
         monkeypatch.setattr(K, fn.__name__, fn)
+    # the two product kernels' plain versions live beside them
+    monkeypatch.setattr(K, "attention", attention_reference)
+    monkeypatch.setattr(K, "gemm", gemm_reference)
 
 
 @pytest.mark.parametrize("case", range(5))

@@ -240,7 +240,7 @@ def test_fused_layers_refuse_training_on_the_card():
         fe(x, x, None, enc, 2)
     with pytest.raises(ValueError, match="CUDA tensor"):
         fd(x, x, x, x, x, None, dec, 2, 1)
-    with torch.no_grad():                # dropout alone: the training forward
+    with torch.no_grad():                # dropout alone: the Function too
         with pytest.raises(ValueError, match="CUDA tensor"):
             fe(x, x, None, enc, 2, drop)
         with pytest.raises(ValueError, match="CUDA tensor"):

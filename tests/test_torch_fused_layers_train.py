@@ -229,12 +229,12 @@ def test_encoder_backward_reference_matches_autograd(rng, rate):
     drop = CounterDropout(torch.tensor([77], dtype=torch.int32), rate, rate)
     leaves = _leaves(p)
     xt, pt = x.clone().requires_grad_(), pos.clone().requires_grad_()
-    out, o, h2d, lse = fused_encoder.encoder_layer_train_reference(
+    out, *saved = fused_encoder.encoder_layer_train_reference(
         xt, pt, mask, leaves, H, drop)
     dy = _randn(rng, *out.shape)
     out.backward(dy)
     ref = fused_encoder.encoder_layer_backward_reference(
-        dy, x, pos, mask, o.detach(), h2d.detach(), lse.detach(), p, H, drop)
+        dy, x, pos, mask, *(t.detach() for t in saved), p, H, drop)
     _check_backward(ref, (xt, pt), leaves)
 
 

@@ -1,0 +1,193 @@
+"""The plain versions of the backward toolkit's two product kernels, on the
+CPU: `kernels.gemm_reference` against an independent gather-and-einsum in
+float64 over every operand layout, dtype, ragged edge, split, column
+group, accumulate mode and epilogue the port asks of `kernels.gemm`
+(kernel_checks.gemm_kernel_cases, the same cases the card tests hold the
+kernel to); `kernels.attention_reference` against `fused_mha_reference`,
+`fused_mha_train_reference` and `softmax_attention` (held to the JAX
+package by their own tests) at small sizes of each of the kernel's four
+head-width templates. No JAX here: the reference functions it is held to
+are the port's own plain versions.
+
+f32 outputs are held to 1e-5 of their largest magnitude (f32 sums against
+float64 ones, over bf16-rounded operands whose products are exact in
+f32); bf16 outputs to one bf16 ulp at their largest magnitude (a sum on
+either side of a rounding boundary)."""
+
+import pytest
+import torch
+import torch.nn.functional as F
+
+from spe_tpu_torch.ops import kernels as K
+from spe_tpu_torch.ops.fused_encoder import softmax_attention
+from spe_tpu_torch.ops.fused_mha import (fused_mha_reference,
+                                         fused_mha_train_reference)
+from spe_tpu_torch.ops.kernel_checks import (bf16_tol, gemm_kernel_cases,
+                                             gemm_run, max_err, storage_of)
+from spe_tpu_torch.ops.refmath import (SITE_MHA_ATTN, CounterDropout,
+                                       counter_keep, key_bias)
+
+BF16 = torch.bfloat16
+GEMM_CASES = gemm_kernel_cases(device="cpu")
+
+
+def _index(offset, sizes, strides):
+    idx = torch.tensor(offset)
+    for d, (n, s) in enumerate(zip(sizes, strides)):
+        shape = [1] * len(sizes)
+        shape[d] = n
+        idx = idx + torch.arange(n).reshape(shape) * s
+    return idx
+
+
+def _gather(t, sizes, strides):
+    """t's elements at offset + sum(i_d * stride_d), rounded to bf16, in
+    float64."""
+    return storage_of(t)[_index(t.storage_offset(), sizes, strides)].to(
+        BF16).double()
+
+
+def _expected_gemm(case):
+    """The storage of c after the call, computed element by element."""
+    a, b, c, kw = case["a"], case["b"], case["c"], case["kw"]
+    M, N, K, (nb1, nb2) = kw["M"], kw["N"], kw["K"], kw["nb"]
+    depth = kw.get("split_k")
+    if depth is None:
+        A = _gather(a, (nb1, nb2, M, K), kw["a_str"])
+        B = _gather(b, (nb1, nb2, K, N), kw["b_str"])
+        y = torch.einsum("xymk,xykn->xymn", A, B)
+    else:
+        A = _gather(a, (M, depth), kw["a_str"][2:])
+        B = _gather(b, (depth, N), kw["b_str"][2:])
+        y = torch.stack([torch.einsum("mk,kn->mn", A[:, z * K:(z + 1) * K],
+                                      B[z * K:(z + 1) * K])
+                         for z in range(nb1)])[:, None]
+    y = kw.get("alpha", 1.0) * y
+    if "drop" in kw:
+        site, rate = kw["drop"]
+        rps = kw["rows_per_sample"]
+        keep = counter_keep(kw["seed"], site, rate,
+                            (M // rps, 1, rps, N)).reshape(M, N)
+        y = torch.where(keep, y / (1.0 - rate), 0.0)
+    if "gelu_aux" in kw:
+        u = kw["gelu_aux"].double().requires_grad_()
+        (du,) = torch.autograd.grad(F.gelu(u, approximate="tanh").sum(), u)
+        y = y * du
+    if "relu_aux" in kw:
+        y = torch.where(kw["relu_aux"] > 0, y, 0.0)
+    grp = kw.get("col_group") or N
+    n = torch.arange(N)
+    s1, s2, sm, sn = kw["c_str"]
+    idx = (c.storage_offset() + _index(0, (nb1, nb2, M), (s1, s2, sm))[..., None]
+           + (n // grp) * kw.get("col_stride", 0) + (n % grp) * sn)
+    out = storage_of(c).clone()
+    if kw.get("accumulate"):
+        y = y + out[idx].double()
+    out[idx] = y.to(c.dtype)
+    return out, idx
+
+
+@pytest.mark.parametrize("case", range(len(GEMM_CASES)),
+                         ids=[label for label, _ in GEMM_CASES])
+def test_gemm_reference_matches_einsum(case):
+    """gemm_reference writes exactly the elements gemm addresses, with the
+    product of the bf16-rounded operands and the epilogue in order."""
+    _, c = GEMM_CASES[case]
+    got = storage_of(gemm_run(K.gemm_reference, c))
+    want, idx = _expected_gemm(c)
+    top = float(want[idx].double().abs().max())
+    tol = bf16_tol(want[idx], ulps=1) if want.dtype == BF16 else 1e-5 * top
+    assert top > 0
+    assert max_err(got, want) <= tol
+
+
+def _act(gen, *shape):
+    return torch.randn(shape, generator=gen).to(BF16)
+
+
+def _mask(B, N):
+    mask = torch.zeros((B, N), dtype=torch.bool)
+    mask[-1, N - N // 5:] = True
+    return mask
+
+
+def _heads_kw(H, dq, dv, **kw):
+    return dict(num_heads=H, dq=dq, dv=dv, q_hs=dq, k_hs=dq, v_hs=dv, o_hs=dv,
+                logit_scale=dq ** -0.5, **kw)
+
+
+def _mha_case(dq, dv, Nq, Nk, probs=False, drop=0.0, qscale=False):
+    """attention_reference as fused_mha calls it (the B4 shapes: 24 x 24
+    encoder, 48 x 24 cross-attention, 48 x 48 class attention) against
+    fused_mha's own plain version."""
+    gen = torch.Generator().manual_seed(dq * 1000 + dv + Nq)
+    B, H = 2, 2
+    q, k, v = (_act(gen, B, Nq, H * dq), _act(gen, B, Nk, H * dq),
+               _act(gen, B, Nk, H * dv))
+    mask = _mask(B, Nk)
+    kw = _heads_kw(H, dq, dv, kbias=key_bias(mask, B, Nk, "cpu"))
+    q_in = q
+    if qscale:   # the class attention's pre-scale: bf16(q * s) per column
+        s = 1.0 + 0.1 * torch.randn((H, dq), generator=gen)
+        kw["qscale"] = s
+        q_in = (q.float() * s.reshape(1, 1, H * dq)).to(BF16)
+    seed = torch.tensor([7], dtype=torch.int32)
+    cd = CounterDropout(seed, attn=drop) if drop else None
+    if drop:
+        kw.update(drop=(SITE_MHA_ATTN, drop), seed=seed, mask_heads=H)
+    want = fused_mha_train_reference(q_in, k, v, H, mask, cd,
+                                     return_attn=probs)
+    out = torch.empty((B, Nq, H * dv), dtype=BF16)
+    got = {"out": out, "lse": torch.empty((B, H, Nq))}
+    if probs:
+        got["probs"] = torch.empty((B, H, Nq, Nk))
+    K.attention_reference(q, k, v, out, lse=got["lse"], probs=got.get("probs"),
+                          **kw)
+    names = ("out", "probs", "lse") if probs else ("out", "lse")
+    return got, dict(zip(names, want))
+
+
+def _wl_fold_case():
+    """attention_reference as the talking-heads block calls it at eval (the
+    192 x 192 wl-fold: q, k and v shared by every head through a head
+    stride of 0, q scaled per head, a head bias, f32 output) against
+    softmax_attention on the heads written out."""
+    gen = torch.Generator().manual_seed(192)
+    B, H, N, D = 2, 3, 40, 192
+    q, k, v = _act(gen, B, N, D), _act(gen, B, N, D), _act(gen, B, N, D)
+    rows = 1.0 + 0.2 * torch.randn((H, D), generator=gen)
+    hb = torch.randn((H,), generator=gen)
+    out = torch.empty((B, N, H * D))
+    lse = torch.empty((B, H, N))
+    K.attention_reference(q, k, v, out, num_heads=H, dq=D, dv=D, q_hs=0,
+                          k_hs=0, v_hs=0, o_hs=D, qscale=rows, hbias=hb,
+                          logit_scale=D ** -0.5, lse=lse)
+    qh = (q.float()[:, :, None, :] * rows).to(BF16).reshape(B, N, H * D)
+    kh, vh = k.repeat(1, 1, H), v.repeat(1, 1, H)
+    want_out, probs = softmax_attention(qh, kh, vh, H, return_attn=True)
+    # a head bias is constant along each softmax row: it moves only the lse
+    logits = torch.log(probs) + torch.logsumexp(
+        torch.einsum("bnhd,bmhd->bhnm", qh.reshape(B, N, H, D).float(),
+                     kh.reshape(B, N, H, D).float()) * D ** -0.5, -1)[..., None]
+    want_lse = torch.logsumexp(logits, -1) + hb[None, :, None]
+    return {"out": out.to(BF16), "lse": lse}, {"out": want_out,
+                                               "lse": want_lse}
+
+
+ATTENTION_CASES = {
+    "24x24 encoder, key mask": lambda: _mha_case(24, 24, 37, 37),
+    "24x24 encoder, dropout": lambda: _mha_case(24, 24, 37, 37, drop=0.1),
+    "48x24 cross-attention, dropout": lambda: _mha_case(48, 24, 30, 45,
+                                                        drop=0.1),
+    "48x48 class attention, probabilities, q pre-scale": lambda: _mha_case(
+        48, 48, 5, 26, probs=True, qscale=True),
+    "192x192 talking-heads wl-fold": _wl_fold_case,
+}
+
+
+@pytest.mark.parametrize("case", list(ATTENTION_CASES))
+def test_attention_reference_matches_plain(case):
+    got, want = ATTENTION_CASES[case]()
+    for name, w in want.items():
+        tol = {"out": bf16_tol(w, ulps=1), "probs": 1e-6, "lse": 1e-5}[name]
+        assert max_err(got[name], w) <= tol, name
