@@ -9,8 +9,10 @@ Phases, each printing its own lines; any failure exits non-zero:
   2. build   — nvcc builds spe_tpu_torch/csrc/*.cu into build/spe_tpu_torch/
                (one nvcc per source, all at once); cuobjdump counts the
                tensor-core instructions (HMMA/HGMMA) in every
-               instantiation of attn_kernel and gemm_kernel, with their
-               registers and local memory, and fails on none.
+               instantiation of attn_kernel, gemm_kernel and linear_kernel,
+               with their registers and local memory, and fails on none;
+               it prints th_bwd_rows_kernel's registers and local memory
+               and fails if an H=4 instantiation uses local memory.
   3. kernels — each fused-layer kernel at the voc0712 eval shapes (B=2)
                against its plain PyTorch version on the same bf16 inputs
                (max abs error vs the stated tolerance), and the standalone
@@ -35,18 +37,20 @@ Phases, each printing its own lines; any failure exits non-zero:
                auction problems of 120 x 300, plus an overfull shape),
                which must equal their plain versions exactly; CUDA-event
                times, and each kernel's bound (least time on the card).
-               Then the toolkit's two product kernels, gemm_kernel and
-               attn_kernel, at every shape class one stock training step,
-               one standalone-attention training step and one stock eval
-               forward give them (B=8; a recorder around kernels.gemm and
-               kernels.attention): each class replayed on fresh random
-               inputs of the recorded layout against its plain version
-               (gemm 1% of the largest magnitude, attention 4 bf16 ulps,
-               probabilities 1e-4), twice (identical bits), with its
-               launches per run, its time, the plain version's, the
-               bound and the library's (torch.matmul on pre-rounded
-               contiguous bf16 operands; scaled_dot_product_attention
-               where it computes the same function).
+               Then the toolkit's kernels, gemm_kernel, attn_kernel,
+               linear_kernel and th_bwd_rows_kernel, at every shape class
+               one stock training step, one standalone-attention training
+               step and one stock eval forward give them (B=8; a recorder
+               around kernels.gemm, kernels.attention, kernels.ln_linear
+               and kernels.th_bwd_rows): each class replayed on fresh
+               random inputs of the recorded layout against its plain
+               version (gemm and th_bwd_rows 1% of the largest magnitude,
+               attention and ln_linear 4 bf16 ulps, probabilities 1e-4),
+               twice (identical bits), with its launches per run, its
+               time, the plain version's, the bound and the library's
+               (torch.matmul on pre-rounded contiguous bf16 operands;
+               scaled_dot_product_attention where it computes the same
+               function; torch.addmm for ln_linear).
   4. slice   — `spe_tpu_torch.cli.main --preset voc0712 --eval` on a
                generated mini-VOC at full width, with the launch counters
                checked per forward; then one batch through a kernel model
@@ -164,14 +168,16 @@ def phase_build():
 
 
 # the product kernels that must run on the tensor cores
-TENSOR_CORE_KERNELS = ("attn_kernel", "gemm_kernel")
+TENSOR_CORE_KERNELS = ("attn_kernel", "gemm_kernel", "linear_kernel")
 
 
 def tensor_core_check(kernels):
     """Count the tensor-core instructions (HMMA, HGMMA) in the SASS of every
-    instantiation of attn_kernel and gemm_kernel in the built library
-    (cuobjdump of the nvcc's toolkit) and print their registers and local
-    memory (spills); fail if one has no tensor-core instruction."""
+    instantiation of attn_kernel, gemm_kernel and linear_kernel in the
+    built library (cuobjdump of the nvcc's toolkit) and print their
+    registers and local memory (spills); fail if one has no tensor-core
+    instruction. Print th_bwd_rows_kernel's registers and local memory per
+    instantiation; fail if one for H=4 uses local memory."""
     import os
 
     tool = os.path.join(os.path.dirname(kernels._nvcc()), "cuobjdump")
@@ -204,6 +210,19 @@ def tensor_core_check(kernels):
         print(f"[build] {fam}: {len(mine)} instantiations, "
               f"{sum(mine.values())} tensor-core instructions in all",
               flush=True)
+    rows = {n: u for n, u in usage.items() if "th_bwd_rows_kernel" in n}
+    if not rows:
+        bad.append("no th_bwd_rows_kernel in the library")
+    for n, u in sorted(rows.items()):
+        m = re.search(r"th_bwd_rows_kernelILi(\d+)E", n)
+        # spilled registers live in the stack frame, in local memory
+        local = sum(int(re.search(rf"{k}:(\d+)", u).group(1))
+                    for k in ("LOCAL", "STACK"))
+        print(f"[build] th_bwd_rows_kernel H={m.group(1) if m else '?'} {n}: "
+              f"{u}", flush=True)
+        if m and m.group(1) == "4" and local:
+            bad.append(f"{n} (H=4) uses {local} bytes of local memory "
+                       "(LOCAL + STACK)")
     if bad:
         fail("; ".join(bad))
 
@@ -389,7 +408,20 @@ def attention_kernels(results):
 TOOLKIT = {"gemm_kernel": ("spe_tpu_torch/csrc/grad.cu",
                            "spe_tpu/ops/pallas_block.py:530"),
            "attn_kernel": ("spe_tpu_torch/csrc/attention.cu",
-                           "spe_tpu/ops/pallas_mha.py:165")}
+                           "spe_tpu/ops/pallas_mha.py:165"),
+           "linear_kernel": ("spe_tpu_torch/csrc/linear.cu",
+                             "spe_tpu/ops/pallas_block.py:166"),
+           "th_bwd_rows_kernel": ("spe_tpu_torch/csrc/th_train.cu",
+                                  "spe_tpu/ops/pallas_block.py:356")}
+# the runs each kernel's per-run sums (launches x time) are taken over; the
+# first is its main path, whose numbers head its entry
+SUM_RUNS = {"gemm_kernel": ("stock step", "attention step"),
+            "attn_kernel": ("eval forward",),
+            "linear_kernel": ("eval forward", "stock step"),
+            "th_bwd_rows_kernel": ("stock step", "attention step")}
+# the kernels.* wrapper of each toolkit kernel
+WRAPPER = {"gemm_kernel": "gemm", "attn_kernel": "attention",
+           "linear_kernel": "ln_linear", "th_bwd_rows_kernel": "th_bwd_rows"}
 
 
 def _layout(st, m_i, k_i):
@@ -402,7 +434,7 @@ def _on(n, v):
     """Is option n of a call on? (a dropout (site, rate) at rate 0 is off)"""
     if v is None or hasattr(v, "data_ptr"):
         return v is not None
-    return v[1] > 0 if n == "drop" else bool(v)
+    return v[1] > 0 if n in ("drop", "path") else bool(v)
 
 
 def _gemm_class(a, b, c, kw):
@@ -423,20 +455,48 @@ def _attention_class(q, k, out, kw):
             kw["num_heads"], str(out.dtype)[6:], form)
 
 
+def _linear_class(a, w, kw):
+    opts = tuple(n for n in ("ln", "a2", "res", "gamma", "drop", "path",
+                             "col_group") if _on(n, kw.get(n)))
+    if kw.get("aux") is not None:
+        opts += ("aux_pre" if kw.get("aux_pre") else "aux",)
+    out = kw.get("out")
+    odt = out.dtype if out is not None else kw.get("out_dtype", "bfloat16")
+    return (a.shape[0], w.shape[0], a.shape[1], str(a.dtype)[6:],
+            kw.get("act", "none"), str(odt).replace("torch.", ""), opts)
+
+
+def _th_bwd_class(s, rate, kw):
+    B, H, N, _ = s.shape
+    return (B, H, N, "drop" if rate > 0 else "no drop",
+            "wl" if kw.get("wl") is not None else "no wl")
+
+
 @contextlib.contextmanager
 def record_toolkit(classes, run):
-    """While active, count every kernels.gemm and kernels.attention call in
-    classes[(kernel, class)]["launches"][run], keeping the first call's
-    layout (tensor_meta of each tensor, the scalars) to replay it."""
+    """While active, count every kernels.gemm, kernels.attention,
+    kernels.ln_linear and kernels.th_bwd_rows call in classes[(kernel,
+    class)]["launches"][run], keeping the first call's layout (tensor_meta
+    of each tensor, the scalars) to replay it."""
     from spe_tpu_torch.ops import kernels as K
     from spe_tpu_torch.ops.kernel_checks import tensor_meta
 
-    gemm, attention = K.gemm, K.attention
+    gemm, attention, ln_linear, th_bwd_rows = (K.gemm, K.attention,
+                                               K.ln_linear, K.th_bwd_rows)
 
     def meta(kw):
-        return {n: (v.clone() if n == "seed" else tensor_meta(v))
-                if hasattr(v, "data_ptr") else v for n, v in kw.items()
-                if v is not None}
+        out = {}
+        for n, v in kw.items():
+            if v is None:
+                continue
+            if n == "seed":
+                v = v.clone()
+            elif n == "ln":
+                v = (tensor_meta(v[0]), tensor_meta(v[1]), v[2])
+            elif hasattr(v, "data_ptr"):
+                v = tensor_meta(v)
+            out[n] = v
+        return out
 
     def note(kernel, cls, make):
         entry = classes.setdefault((kernel, cls), {"launches": {}})
@@ -456,15 +516,30 @@ def record_toolkit(classes, run):
                       (tuple(out.shape), out.dtype), meta(kw)))
         return attention(q, k, v, out, **kw)
 
+    def rec_linear(a, w, bias=None, **kw):
+        note("linear_kernel", _linear_class(a, w, kw),
+             lambda: (tensor_meta(a), tensor_meta(w),
+                      meta({**kw, "bias": bias})))
+        return ln_linear(a, w, bias, **kw)
+
+    def rec_th_bwd(s, lse, dzd, bl, ww, bw, seed, rate, **kw):
+        note("th_bwd_rows_kernel", _th_bwd_class(s, rate, kw),
+             lambda: (tuple(s.shape), rate, kw.get("site", 1),
+                      kw.get("wl") is not None))
+        return th_bwd_rows(s, lse, dzd, bl, ww, bw, seed, rate, **kw)
+
     # the wrappers count their launches on the module's names: carried over
-    rec_gemm.launches, rec_attention.launches = gemm.launches, attention.launches
-    K.gemm, K.attention = rec_gemm, rec_attention
+    orig = (gemm, attention, ln_linear, th_bwd_rows)
+    recs = (rec_gemm, rec_attention, rec_linear, rec_th_bwd)
+    for o, r in zip(orig, recs):
+        r.launches = o.launches
+    K.gemm, K.attention, K.ln_linear, K.th_bwd_rows = recs
     try:
         yield classes
     finally:
-        K.gemm, K.attention = gemm, attention
-        gemm.launches, attention.launches = (rec_gemm.launches,
-                                             rec_attention.launches)
+        K.gemm, K.attention, K.ln_linear, K.th_bwd_rows = orig
+        for o, r in zip(orig, recs):
+            o.launches = r.launches
 
 
 def _replay(kernel, call, gen):
@@ -484,6 +559,23 @@ def _replay(kernel, call, gen):
         return dict(a=strided_like(a, gen, "cuda"),
                     b=strided_like(b, gen, "cuda"),
                     c=strided_like(c, gen, "cuda"), kw=fresh(kw))
+    if kernel == "linear_kernel":
+        a, w, kw = call
+        kw = dict(kw)
+        out, aux = kw.pop("out", None), kw.pop("aux", None)
+        ln = kw.pop("ln", None)
+        kw = fresh(kw)
+        if ln is not None:
+            kw["ln"] = (strided_like(ln[0], gen, "cuda"),
+                        strided_like(ln[1], gen, "cuda"), ln[2])
+        return dict(a=strided_like(a, gen, "cuda"),
+                    w=strided_like(w, gen, "cuda"), kw=kw, out=out, aux=aux)
+    if kernel == "th_bwd_rows_kernel":
+        from spe_tpu_torch.ops.kernel_checks import th_bwd_case
+
+        (B, H, N, _), rate, site, wl = call
+        args, kw = th_bwd_case(B, H, N, rate, wl, device="cuda", site=site)
+        return dict(args=args, kw=kw)
     q, k, v, out, kw = call
     kw = dict(kw)
     flags = {n: kw.pop(n, None) is not None for n in ("probs", "lse")}
@@ -539,16 +631,65 @@ def record_classes(batch=8, extra=()):
     return classes
 
 
+def _toolkit_case(K, kc, kernel, case):
+    """One replayed class -> (errors {output: (err, tol)}, the kernel's two
+    runs identical (gemm: and nothing else written), all finite, the
+    kernel call, the plain call, bound, library call or None, note)."""
+    import torch
+
+    if kernel == "gemm_kernel":
+        err, tol, same, rest, finite = kc.gemm_check(K.gemm, K.gemm_reference,
+                                                      case)
+        c1, c2 = kc.clone_layout(case["c"]), kc.clone_layout(case["c"])
+        return ({"c": (err, tol)}, same and rest, finite,
+                lambda: K.gemm(case["a"], case["b"], c1, **case["kw"]),
+                lambda: K.gemm_reference(case["a"], case["b"], c2,
+                                         **case["kw"]),
+                kc.gemm_bound_ms(case), kc.gemm_library(case), "")
+    if kernel == "attn_kernel":
+        errs, same, finite = kc.attention_check(K.attention,
+                                                K.attention_reference, case)
+        args, kw, _ = kc.attention_args(case)
+        return (errs, same, finite, lambda: K.attention(*args, **kw),
+                lambda: K.attention_reference(*args, **kw),
+                kc.attention_bound_case_ms(case), kc.attention_library(case),
+                f"; K/V copies of {K.attention_copy_bytes(*args, **kw)} bytes")
+    if kernel == "linear_kernel":
+        errs, same, finite = kc.linear_check(K.ln_linear, K.ln_linear_reference,
+                                             case)
+
+        def outs():   # the preallocated outputs of the recorded call
+            kw = dict(case["kw"])
+            for n in ("out", "aux"):
+                if case[n] is not None:
+                    kw[n] = kc.strided_like(case[n], torch.Generator(), "cuda")
+            return kw
+
+        kw1, kw2 = outs(), outs()
+        return (errs, same, finite,
+                lambda: K.ln_linear(case["a"], case["w"], **kw1),
+                lambda: K.ln_linear_reference(case["a"], case["w"], **kw2),
+                kc.linear_bound_ms(case), kc.linear_library(case), "")
+    args, kw = case["args"], case["kw"]
+    errs, same, finite = kc.th_bwd_check(K.th_bwd_rows, K.th_bwd_rows_reference,
+                                         args, kw)
+    return (errs, same, finite, lambda: K.th_bwd_rows(*args, **kw),
+            lambda: K.th_bwd_rows_reference(*args, **kw),
+            kc.th_bwd_bound_ms(args, kw), None, "")
+
+
 def phase_toolkit(results, extra=()):
-    """gemm_kernel and attn_kernel at every class the main path gives them
-    (record_classes), each on fresh random inputs of the recorded layout
-    against its plain version (gemm: 1% of the largest plain magnitude;
-    attention: 4 bf16 ulps at the output's, probabilities 1e-4), twice
+    """gemm_kernel, attn_kernel, linear_kernel and th_bwd_rows_kernel at
+    every class the main path gives them (record_classes), each on fresh
+    random inputs of the recorded layout against its plain version (gemm
+    and th_bwd_rows: 1% of the largest plain magnitude; attention and
+    ln_linear: 4 bf16 ulps at the output's, probabilities 1e-4), twice
     (identical bits); their time beside the plain version's, the bound and
     the library's (torch.matmul on pre-rounded contiguous bf16 operands;
-    scaled_dot_product_attention where it computes the same function).
-    Adds the two kernels' entries to `results`, the per-class numbers
-    under "classes" and the per-step sums at the top."""
+    scaled_dot_product_attention where it computes the same function;
+    torch.addmm for ln_linear). Adds the kernels' entries to `results`, the
+    per-class numbers under "classes" and the per-run sums (SUM_RUNS) at
+    the top (the main run's) and under "per_run"."""
     import torch
 
     from spe_tpu_torch.ops import kernels as K
@@ -561,7 +702,7 @@ def phase_toolkit(results, extra=()):
           f"{time.perf_counter() - t0:.1f}s", flush=True)
     gen = torch.Generator().manual_seed(5)
     ok = True
-    ratios = []
+    ratios = {"gemm_kernel": [], "linear_kernel": []}
     entries = {name: {"name": name, "route": "cuda", "source": src,
                       "replaces": rep, "launches": 0, "max_abs_err": 0.0,
                       "classes": []}
@@ -569,30 +710,9 @@ def phase_toolkit(results, extra=()):
     for (kernel, cls), rec in sorted(classes.items(), key=lambda kv: (
             kv[0][0], -sum(kv[1]["launches"].values()))):
         case = _replay(kernel, rec["call"], gen)
-        if kernel == "gemm_kernel":
-            err, tol, same, rest, finite = kc.gemm_check(K.gemm,
-                                                          K.gemm_reference,
-                                                          case)
-            errs = {"c": (err, tol)}
-            passed = finite and same and rest and err <= tol
-            c1, c2 = kc.clone_layout(case["c"]), kc.clone_layout(case["c"])
-            fn, plain = (lambda: K.gemm(case["a"], case["b"], c1, **case["kw"]),
-                         lambda: K.gemm_reference(case["a"], case["b"], c2,
-                                                  **case["kw"]))
-            bound = kc.gemm_bound_ms(case)
-            lib = kc.gemm_library(case)
-            extra = ""
-        else:
-            errs, same, finite = kc.attention_check(
-                K.attention, K.attention_reference, case)
-            passed = finite and same and all(e <= t for e, t in errs.values())
-            args, kw, _ = kc.attention_args(case)
-            fn, plain = (lambda: K.attention(*args, **kw),
-                         lambda: K.attention_reference(*args, **kw))
-            bound = kc.attention_bound_case_ms(case)
-            lib = kc.attention_library(case)
-            extra = (f"; K/V copies of {K.attention_copy_bytes(*args, **kw)} "
-                     "bytes")
+        errs, same, finite, fn, plain, bound, lib, extra_note = \
+            _toolkit_case(K, kc, kernel, case)
+        passed = finite and same and all(e <= t for e, t in errs.values())
         host_ms = cuda_ms(fn)
         ms = graph_ms(fn)
         # the plain versions make their dropout keys on the host: timed
@@ -601,8 +721,8 @@ def phase_toolkit(results, extra=()):
         lib_ms = graph_ms(lib) if lib is not None else None
         if ms is None:
             fail(f"{kernel} {cls}: not captured in a CUDA graph")
-        if lib_ms and kernel == "gemm_kernel":
-            ratios.append(ms / lib_ms)
+        if lib_ms and kernel in ratios:
+            ratios[kernel].append(ms / lib_ms)
         ok &= passed
         e = entries[kernel]
         e["max_abs_err"] = max(e["max_abs_err"], *(v[0] for v in errs.values()))
@@ -622,36 +742,45 @@ def phase_toolkit(results, extra=()):
               f"{'ok' if passed else 'MISMATCH'}; on the device (CUDA graph): "
               f"kernel {ms:.4f} ms, bound {bound[0]:.5f} ms ({bound[1]}), "
               f"{lib_note}; one call from the host: kernel {host_ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms{extra}", flush=True)
-        del case
+              f"plain {plain_ms:.4f} ms{extra_note}", flush=True)
+        del case, fn, plain, lib
         torch.cuda.empty_cache()
     for name, e in entries.items():
-        # per-step sums over the classes: the stock step for gemm, the eval
-        # forward for attention (its main path), launches x time
-        run = "stock step" if name == "gemm_kernel" else "eval forward"
-        cl = [c for c in e["classes"] if c["launches"].get(run)]
-        if not cl:
-            fail(f"{name}: no launch in one {run}")
-        tot = {k: sum(c["launches"][run] * c[k] for c in cl)
-               for k in ("ms", "plain_ms", "bound_ms")}
-        libs = [c["library_ms"] for c in cl]
-        e.update(tot, bound_by=max(cl, key=lambda c: c["bound_ms"] * c[
-            "launches"][run])["bound_by"],
-            library_ms=None if None in libs else sum(
-                c["launches"][run] * c["library_ms"] for c in cl),
-            per=f"sums of launches x time over one {run} (B=8)")
-        print(f"[toolkit] {name}: {len(e['classes'])} classes; one {run}: "
-              f"{sum(c['launches'][run] for c in cl)} launches, kernel "
-              f"{tot['ms']:.3f} ms, plain {tot['plain_ms']:.3f} ms, bound "
-              f"{tot['bound_ms']:.4f} ms, library "
-              f"{e['library_ms'] if e['library_ms'] is None else round(e['library_ms'], 3)} ms",
-              flush=True)
+        # per-run sums over the classes, launches x time
+        e["per_run"] = {}
+        for run in SUM_RUNS[name]:
+            cl = [c for c in e["classes"] if c["launches"].get(run)]
+            if not cl:
+                fail(f"{name}: no launch in one {run}")
+            tot = {k: sum(c["launches"][run] * c[k] for c in cl)
+                   for k in ("ms", "plain_ms", "bound_ms")}
+            libs = [c["library_ms"] for c in cl]
+            tot.update(
+                launches=sum(c["launches"][run] for c in cl),
+                bound_by=max(cl, key=lambda c: c["bound_ms"] * c[
+                    "launches"][run])["bound_by"],
+                library_ms=None if None in libs else sum(
+                    c["launches"][run] * c["library_ms"] for c in cl))
+            e["per_run"][run] = tot
+            print(f"[toolkit] {name}: {len(e['classes'])} classes; one {run}: "
+                  f"{tot['launches']} launches, kernel {tot['ms']:.3f} ms, "
+                  f"plain {tot['plain_ms']:.3f} ms, bound "
+                  f"{tot['bound_ms']:.4f} ms, library "
+                  f"{tot['library_ms'] if tot['library_ms'] is None else round(tot['library_ms'], 3)} ms",
+                  flush=True)
+        main = e["per_run"][SUM_RUNS[name][0]]
+        e.update({k: main[k] for k in ("ms", "plain_ms", "bound_ms",
+                                       "bound_by", "library_ms")},
+                 per=f"sums of launches x time over one "
+                     f"{SUM_RUNS[name][0]} (B=8)")
         results[name] = e
-    if ratios:
-        geo = math.exp(sum(math.log(r) for r in ratios) / len(ratios))
-        print(f"[toolkit] gemm_kernel / torch.matmul over {len(ratios)} "
-              f"classes: geometric mean {geo:.2f}, largest {max(ratios):.2f}",
-              flush=True)
+    for name, rs in ratios.items():
+        if rs:
+            geo = math.exp(sum(math.log(r) for r in rs) / len(rs))
+            lib = "torch.matmul" if name == "gemm_kernel" else "torch.addmm"
+            print(f"[toolkit] {name} / {lib} over {len(rs)} classes: "
+                  f"geometric mean {geo:.2f}, largest {max(rs):.2f}",
+                  flush=True)
     if not ok:
         fail("a toolkit kernel disagrees with its plain version")
 
@@ -679,6 +808,7 @@ def phase_against(parent_root):
           f"{time.perf_counter() - t0:.1f}s", flush=True)
     classes = record_classes()
     gen = torch.Generator().manual_seed(5)
+    sums = {}
     for (kernel, cls), rec in sorted(classes.items(), key=lambda kv: (
             kv[0][0], -sum(kv[1]["launches"].values()))):
         case = _replay(kernel, rec["call"], gen)
@@ -688,16 +818,34 @@ def phase_against(parent_root):
                 c1 = kc.clone_layout(case["c"])
                 fn = (lambda m=mod: m.gemm(case["a"], case["b"], c1,
                                            **case["kw"]))
-            else:
+            elif kernel == "attn_kernel":
                 args, kw, _ = kc.attention_args(case)
                 fn = (lambda m=mod: m.attention(*args, **kw))
+            elif kernel == "linear_kernel":
+                kw = dict(case["kw"])
+                for n in ("out", "aux"):
+                    if case[n] is not None:
+                        kw[n] = kc.strided_like(case[n], torch.Generator(),
+                                                "cuda")
+                fn = (lambda m=mod, kw=kw: m.ln_linear(case["a"], case["w"],
+                                                       **kw))
+            else:
+                fn = (lambda m=mod: m.th_bwd_rows(*case["args"], **case["kw"]))
             times.setdefault(mod is K, []).append(graph_ms(fn))
         print(f"[against] {kernel} {cls}: launches {rec['launches']}; on the "
               f"device (CUDA graph), other then this then this then other: "
               f"{times[False][0]:.4f} {times[True][0]:.4f} "
               f"{times[True][1]:.4f} {times[False][1]:.4f} ms", flush=True)
+        for run in SUM_RUNS[kernel]:
+            n = rec["launches"].get(run, 0)
+            tot = sums.setdefault((kernel, run), [0.0, 0.0])
+            tot[0] += n * statistics.mean(times[False])
+            tot[1] += n * statistics.mean(times[True])
         del case
         torch.cuda.empty_cache()
+    for (kernel, run), (o, t) in sorted(sums.items()):
+        print(f"[against] {kernel}: one {run}, launches x time (mean of the "
+              f"two turns): other {o:.3f} ms, this {t:.3f} ms", flush=True)
 
 
 def phase_masks():
@@ -1225,15 +1373,15 @@ def phase_train(kernel_results, mode, n_train=24, n_test=8, batch=8):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     _all_counts(reset=True)
-    K.gemm.launches = K.attention.launches = 0
+    for name in WRAPPER.values():
+        getattr(K, name).launches = 0
     t0 = time.perf_counter()
     res = cli_main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     counts = _all_counts()
-    toolkit = {"gemm_kernel": K.gemm.launches,
-               "attn_kernel": K.attention.launches}
+    toolkit = {k: getattr(K, name).launches for k, name in WRAPPER.items()}
     (epoch,) = res["epochs"]
     hist = epoch["train"]["history"]
     steps = len(hist)
@@ -1300,10 +1448,11 @@ def phase_train(kernel_results, mode, n_train=24, n_test=8, batch=8):
     if bad:
         fail(f"{tag}: " + "; ".join(bad))
     if mode in ("stock", "attention"):
-        # the toolkit's product kernels: the stock preset is their main
-        # path, the standalone attention runs them too
+        # the toolkit's kernels: the stock preset is their main path, the
+        # standalone attention runs all but linear_kernel (its layers are
+        # plain) too
         for k, n in toolkit.items():
-            if not n:
+            if not n and (mode == "stock" or k != "linear_kernel"):
                 bad.append(f"{k}: no launch")
             key = "launches" if mode == "stock" else "attention_launches"
             kernel_results[k][key] = n

@@ -41,11 +41,22 @@
 //
 // What bounds it on the H100: these row kernels read and write each plane
 // element a few times (bytes); the N^2 products around them run in spe_gemm.
-// One block per (sample, query row) holds the H rows of a head group in
-// shared memory, so the row sums need no second launch; every per-row
-// parameter partial is reduced later by spe_reduce (deterministic).
-// attn_bwd_rows has no parameter partials: one warp per row, two passes
-// over it (the row sum, then dl), a fixed shuffle tree for the sum.
+// th_fwd_rows: one block per (sample, query row) holds the H rows of a head
+// group in shared memory, so the row sums need no second launch.
+// th_bwd_rows (the talking-heads softmax backward of _block_bwd_kernel,
+// pallas_block.py:356-451, and of pallas_attention_bwd.py:245-301
+// _bwd_kernel) reads s and dzd (f32) and writes zd and ds (bf16), 12 bytes
+// per plane element: 0.12 ms at B=8, H=4, N=1024. Its design: H is a
+// template parameter, so every per-head array stays in registers; each
+// thread keeps its 4 columns of every head (p_h, dp_h and, with wl, the
+// logits, read once) in registers across the one block reduction a row
+// needs (rowsum(dp_h p_h), H values); 16-byte loads and 8-byte stores; a
+// fixed grid of at most TH_BLOCKS blocks walks fixed runs of rows and
+// accumulates the parameter partials (dww, dbw, dbl, dwl) in registers,
+// reduced once per block, then across blocks by spe_reduce, so two runs
+// give the same bits. attn_bwd_rows has no parameter partials: one warp per
+// row, two passes over it (the row sum, then dl), a fixed shuffle tree for
+// the sum.
 #include "common.cuh"
 
 constexpr int MAXH = 8;
@@ -69,8 +80,8 @@ struct THRowParams {
   const unsigned* seed;
   bf16* zd;           // (B, H, N, N)
   bf16* ds;           // (B, H, N, N) backward only: dm_g, or with wl dL_h
-  float* parts;       // (B*N, H*H + 2H) backward only: dww[g,h], dbw[g], dbl[g];
-                      // with wl (B*N, 2H*H + 2H), then dwl[g,h]
+  float* parts;       // (blocks, H*H + 2H) backward only: dww[g,h], dbw[g], dbl[g];
+                      // with wl (blocks, 2H*H + 2H), then dwl[g,h]
   int B, H, N;
   int drop;           // attention dropout on
   unsigned thr;
@@ -186,98 +197,209 @@ __global__ void __launch_bounds__(NT) th_fwd_rows_kernel(THRowParams p) {
   }
 }
 
-__global__ void __launch_bounds__(NT) th_bwd_rows_kernel(THRowParams p) {
-  extern __shared__ float sm[];   // p_h (H*N), then dp_h (H*N)
-  __shared__ float red[32];
-  __shared__ float s_dsum[MAXH];
-  const int b = blockIdx.x / p.N, i = blockIdx.x % p.N;
-  const int H = p.H, N = p.N;
-  float* sp = sm;
-  float* sdp = sm + H * N;
-  float lse[MAXH];
-  unsigned keys[MAXH];
-  for (int h = 0; h < H; ++h) {
-    lse[h] = p.lse[(static_cast<long long>(b) * H + h) * N + i];
-    keys[h] = p.drop ? head_key(*p.seed, p.site, b, h) : 0u;
+// th_bwd_rows_kernel: TH_BLOCKS blocks (fewer for few rows) of TH_NT
+// threads, each over a fixed run of rows_per_block consecutive (sample,
+// query) rows; a thread keeps 4 consecutive columns of every head in
+// registers (H is a template parameter, so every per-head array is indexed
+// at compile time). Per row: one 16-byte load of each head's logits and
+// dzd, 8-byte stores of zd and ds, one block reduction of the H values
+// rowsum(dp_h p_h); the parameter partials accumulate in registers over
+// the block's rows and are reduced once at its end into parts[block].
+constexpr int TH_NT = 256;
+constexpr int TH_BLOCKS = 1024;
+
+// 4 f32 values of a row at column c (0 at and past n)
+__device__ __forceinline__ void load_row4(const float* row, int c, int n, bool vec,
+                                          float (&v)[4]) {
+  if (vec && c + 4 <= n) {
+    const float4 x = *reinterpret_cast<const float4*>(row + c);
+    v[0] = x.x;
+    v[1] = x.y;
+    v[2] = x.z;
+    v[3] = x.w;
+    return;
   }
-  float a_ww[MAXH * MAXH], a_bw[MAXH], a_dsum[MAXH];
-  for (int e = 0; e < H * H; ++e) a_ww[e] = 0.f;
-  for (int h = 0; h < H; ++h) a_bw[h] = a_dsum[h] = 0.f;
-  for (int j = threadIdx.x; j < N; j += NT) {
-    float pr[MAXH], dz[MAXH], l[MAXH];
-    load_logits(p, b, i, j, l);
-    for (int h = 0; h < H; ++h) {
-      pr[h] = expf(mixed_logit(p, l, h) - lse[h]);
-      sp[h * N + j] = pr[h];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) v[e] = c + e < n ? row[c + e] : 0.f;
+}
+
+__device__ __forceinline__ void store_row4(bf16* row, int c, int n, bool vec,
+                                           const float (&v)[4]) {
+  if (vec && c + 4 <= n) {
+    *reinterpret_cast<uint2*>(row + c) = make_uint2(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]));
+    return;
+  }
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    if (c + e < n) row[c + e] = f2bf(v[e]);
+  }
+}
+
+template <int H, bool WL>
+__global__ void __launch_bounds__(TH_NT) th_bwd_rows_kernel(THRowParams p, int rows_per_block) {
+  constexpr int NW = TH_NT / 32;
+  constexpr int WIDTH = (WL ? 2 * H * H : H * H) + 2 * H;
+  __shared__ float red[2][NW][H];
+  __shared__ float fin[NW][WIDTH];
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int N = p.N;
+  const int r0 = blockIdx.x * rows_per_block;
+  const int r1 = min(p.B * N, r0 + rows_per_block);
+  const int c0 = 4 * threadIdx.x;            // this thread's 4 columns
+  const bool on = c0 < N;
+  const bool vec = N % 4 == 0;                // 16-byte rows
+  const float sc = p.drop ? p.scale : 1.f;
+
+  float ww[H * H], wl[WL ? H * H : 1], bl[H], bw[H];
+#pragma unroll
+  for (int e = 0; e < H * H; ++e) {
+    ww[e] = p.ww[e];
+    if constexpr (WL) wl[e] = p.wl[e];
+  }
+#pragma unroll
+  for (int h = 0; h < H; ++h) {
+    bl[h] = p.bl[h];
+    bw[h] = p.bw[h];
+  }
+  float a_ww[H * H], a_wl[WL ? H * H : 1], a_bw[H], a_bl[H];
+#pragma unroll
+  for (int e = 0; e < H * H; ++e) {
+    a_ww[e] = 0.f;
+    if constexpr (WL) a_wl[e] = 0.f;
+  }
+#pragma unroll
+  for (int h = 0; h < H; ++h) a_bw[h] = a_bl[h] = 0.f;
+
+  for (int r = r0; r < r1; ++r) {
+    const int b = r / N, i = r % N;
+    // row (b, h, i) of a (B, H, N, N) plane starts at ((b * H + h) * N + i) * N
+    const long long row0 = (static_cast<long long>(b) * H * N + i) * N;
+    const long long hstride = static_cast<long long>(N) * N;
+    float pr[H][4], dpv[H][4], lg[WL ? H : 1][4], dot[H];
+#pragma unroll
+    for (int h = 0; h < H; ++h) dot[h] = 0.f;
+    if (on) {
+      float l[H][4];
+#pragma unroll
+      for (int h = 0; h < H; ++h) load_row4(p.s + row0 + h * hstride, c0, N, vec, l[h]);
+#pragma unroll
+      for (int g = 0; g < H; ++g) {
+        const float lse = p.lse[(static_cast<long long>(b) * H + g) * N + i];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float m;
+          if constexpr (WL) {
+            m = 0.f;
+#pragma unroll
+            for (int h = 0; h < H; ++h) m += wl[g * H + h] * l[h][e];
+            m += bl[g];
+          } else {
+            m = l[g][e] + bl[g];
+          }
+          pr[g][e] = c0 + e < N ? expf(m - lse) : 0.f;
+        }
+      }
+      if constexpr (WL) {
+#pragma unroll
+        for (int h = 0; h < H; ++h)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) lg[h][e] = l[h][e];
+      }
+      float dz[H][4];
+#pragma unroll
+      for (int g = 0; g < H; ++g) {
+        const unsigned key = p.drop ? head_key(*p.seed, p.site, b, g) : 0u;
+        float d[4], zo[4];
+        load_row4(p.dzd + row0 + g * hstride, c0, N, vec, d);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float z = bw[g];
+#pragma unroll
+          for (int h = 0; h < H; ++h) z += ww[g * H + h] * pr[h][e];
+          const bool keep = !p.drop || keep_bit(key, i, c0 + e, p.thr);
+          zo[e] = keep ? z * sc : 0.f;
+          dz[g][e] = keep ? d[e] * sc : 0.f;
+          a_bw[g] += dz[g][e];
+#pragma unroll
+          for (int h = 0; h < H; ++h) a_ww[g * H + h] += pr[h][e] * dz[g][e];
+        }
+        store_row4(p.zd + row0 + g * hstride, c0, N, vec, zo);
+      }
+#pragma unroll
+      for (int h = 0; h < H; ++h)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float d = 0.f;
+#pragma unroll
+          for (int g = 0; g < H; ++g) d += ww[g * H + h] * dz[g][e];
+          dpv[h][e] = d;
+          dot[h] += d * pr[h][e];
+        }
     }
-    for (int g = 0; g < H; ++g) {
-      const long long o = ((static_cast<long long>(b) * H + g) * N + i) * N + j;
-      float z = p.bw[g];
-      for (int h = 0; h < H; ++h) z += p.ww[g * H + h] * pr[h];
-      const bool keep = !p.drop || keep_bit(keys[g], i, j, p.thr);
-      const float sc = p.drop ? p.scale : 1.f;
-      p.zd[o] = f2bf(keep ? z * sc : 0.f);
-      dz[g] = keep ? p.dzd[o] * sc : 0.f;
-      a_bw[g] += dz[g];
-      for (int h = 0; h < H; ++h) a_ww[g * H + h] += pr[h] * dz[g];
-    }
+    // rowsum(dp_h p_h): a fixed shuffle tree, then the warps in order
+    const int par = (r - r0) & 1;
+#pragma unroll
     for (int h = 0; h < H; ++h) {
-      float d = 0.f;
-      for (int g = 0; g < H; ++g) d += p.ww[g * H + h] * dz[g];
-      sdp[h * N + j] = d;
-      a_dsum[h] += d * pr[h];
+      const float t = warp_sum(dot[h]);
+      if (lane == 0) red[par][warp][h] = t;
+    }
+    __syncthreads();
+    if (!on) continue;
+    float S[H];
+#pragma unroll
+    for (int h = 0; h < H; ++h) {
+      S[h] = 0.f;
+      for (int w = 0; w < NW; ++w) S[h] += red[par][w][h];
+    }
+    float dm[H][4];
+#pragma unroll
+    for (int g = 0; g < H; ++g)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        dm[g][e] = pr[g][e] * (dpv[g][e] - S[g]);
+        a_bl[g] += dm[g][e];
+      }
+    if constexpr (!WL) {
+#pragma unroll
+      for (int g = 0; g < H; ++g) store_row4(p.ds + row0 + g * hstride, c0, N, vec, dm[g]);
+    } else {
+#pragma unroll
+    for (int h = 0; h < H; ++h) {
+      float dl[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        dl[e] = 0.f;
+#pragma unroll
+        for (int g = 0; g < H; ++g) {
+          dl[e] += wl[g * H + h] * dm[g][e];
+          a_wl[g * H + h] += lg[h][e] * dm[g][e];
+        }
+      }
+      store_row4(p.ds + row0 + h * hstride, c0, N, vec, dl);
+    }
     }
   }
-  for (int h = 0; h < H; ++h) {
-    const float t = block_sum(a_dsum[h], red);
-    if (threadIdx.x == 0) s_dsum[h] = t;
+  // the block's partials: [dww (H*H) | dbw (H) | dbl (H) | dwl (H*H)]
+#pragma unroll
+  for (int e = 0; e < WIDTH; ++e) {
+    float v = 0.f;
+    if (e < H * H) {
+      v = a_ww[e];
+    } else if (e < H * H + H) {
+      v = a_bw[e - H * H];
+    } else if (e < H * H + 2 * H) {
+      v = a_bl[e - H * H - H];
+    } else if constexpr (WL) {
+      v = a_wl[e - H * H - 2 * H];
+    }
+    v = warp_sum(v);
+    if (lane == 0) fin[warp][e] = v;
   }
   __syncthreads();
-  float a_bl[MAXH], a_wl[MAXH * MAXH];
-  for (int h = 0; h < H; ++h) a_bl[h] = 0.f;
-  for (int e = 0; e < H * H; ++e) a_wl[e] = 0.f;
-  for (int j = threadIdx.x; j < N; j += NT) {
-    float dm[MAXH];
-    for (int g = 0; g < H; ++g) {
-      dm[g] = sp[g * N + j] * (sdp[g * N + j] - s_dsum[g]);
-      a_bl[g] += dm[g];
-    }
-    if (!p.wl) {
-      for (int g = 0; g < H; ++g) {
-        p.ds[((static_cast<long long>(b) * H + g) * N + i) * N + j] = f2bf(dm[g]);
-      }
-      continue;
-    }
-    float l[MAXH];
-    load_logits(p, b, i, j, l);
-    for (int h = 0; h < H; ++h) {
-      float dl = 0.f;
-      for (int g = 0; g < H; ++g) {
-        dl += p.wl[g * H + h] * dm[g];
-        a_wl[g * H + h] += l[h] * dm[g];
-      }
-      p.ds[((static_cast<long long>(b) * H + h) * N + i) * N + j] = f2bf(dl);
-    }
-  }
-  const int width = (p.wl ? 2 * H * H : H * H) + 2 * H;
-  float* part = p.parts + static_cast<long long>(blockIdx.x) * width;
-  for (int e = 0; e < H * H; ++e) {
-    const float t = block_sum(a_ww[e], red);
-    if (threadIdx.x == 0) part[e] = t;
-  }
-  for (int g = 0; g < H; ++g) {
-    const float t1 = block_sum(a_bw[g], red);
-    const float t2 = block_sum(a_bl[g], red);
-    if (threadIdx.x == 0) {
-      part[H * H + g] = t1;
-      part[H * H + H + g] = t2;
-    }
-  }
-  if (p.wl) {
-    for (int e = 0; e < H * H; ++e) {
-      const float t = block_sum(a_wl[e], red);
-      if (threadIdx.x == 0) part[H * H + 2 * H + e] = t;
-    }
+  for (int e = threadIdx.x; e < WIDTH; e += TH_NT) {
+    float t = 0.f;
+    for (int w = 0; w < NW; ++w) t += fin[w][e];
+    p.parts[static_cast<long long>(blockIdx.x) * WIDTH + e] = t;
   }
 }
 
@@ -380,28 +502,53 @@ extern "C" int spe_th_fold(const THFoldParams* p, void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// the forward (backward == 0) or the backward (backward == 1) row pass
+namespace {
+
+template <int H>
+int launch_th_bwd(const THRowParams* p, cudaStream_t s) {
+  const long long rows = static_cast<long long>(p->B) * p->N;
+  const long long per = (rows + TH_BLOCKS - 1) / TH_BLOCKS;
+  const unsigned blocks = static_cast<unsigned>((rows + per - 1) / per);
+  if (p->wl) {
+    th_bwd_rows_kernel<H, true><<<blocks, TH_NT, 0, s>>>(*p, static_cast<int>(per));
+  } else {
+    th_bwd_rows_kernel<H, false><<<blocks, TH_NT, 0, s>>>(*p, static_cast<int>(per));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// the forward (backward == 0) or the backward (backward == 1) row pass.
+// The backward takes N <= 4 * TH_NT (a thread's 4 columns of a row) and
+// writes parts as (blocks, width): blocks = ceil(B*N / ceil(B*N /
+// TH_BLOCKS)), a function of the shape alone.
 extern "C" int spe_th_rows(const THRowParams* p, int backward, void* stream) {
   if (p->B <= 0 || p->H <= 0 || p->H > MAXH || p->N <= 0 ||
-      (p->drop && (!p->seed || p->site <= 0)) ||
-      2 * p->H * p->N * static_cast<int>(sizeof(float)) > 200 * 1024) {
+      static_cast<long long>(p->B) * p->N > 2147483647LL ||
+      (p->drop && (!p->seed || p->site <= 0))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned blocks = static_cast<unsigned>(p->B) * p->N;
-  const int plane = p->H * p->N * static_cast<int>(sizeof(float));
-  cudaError_t err;
   if (backward) {
-    err = cudaFuncSetAttribute(th_bwd_rows_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, 2 * plane);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    th_bwd_rows_kernel<<<blocks, NT, 2 * plane, s>>>(*p);
-  } else {
-    err = cudaFuncSetAttribute(th_fwd_rows_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, plane);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    th_fwd_rows_kernel<<<blocks, NT, plane, s>>>(*p);
+    if (p->N > 4 * TH_NT) return static_cast<int>(cudaErrorInvalidValue);
+    switch (p->H) {
+      case 1: return launch_th_bwd<1>(p, s);
+      case 2: return launch_th_bwd<2>(p, s);
+      case 3: return launch_th_bwd<3>(p, s);
+      case 4: return launch_th_bwd<4>(p, s);
+      case 5: return launch_th_bwd<5>(p, s);
+      case 6: return launch_th_bwd<6>(p, s);
+      case 7: return launch_th_bwd<7>(p, s);
+      default: return launch_th_bwd<8>(p, s);
+    }
   }
+  const int plane = p->H * p->N * static_cast<int>(sizeof(float));
+  if (2 * plane > 200 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = cudaFuncSetAttribute(
+      th_fwd_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, plane);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  th_fwd_rows_kernel<<<static_cast<unsigned>(p->B) * p->N, NT, plane, s>>>(*p);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1140,3 +1140,272 @@ def attention_library(case):
     scale = kw.get("logit_scale", 1.0)
     return lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=bias,
                                                   scale=scale)
+
+
+# ---- ln_linear (linear_kernel) and th_bwd_rows (th_bwd_rows_kernel), each
+# against its plain version (kernels.ln_linear_reference,
+# kernels.th_bwd_rows_reference) on the same inputs. A linear case is
+# dict(a, w, kw, out, aux): out and aux are None or the layout (tensor_meta)
+# of a preallocated output the call writes into.
+
+LINEAR_SHAPES = [
+    # label, M, N, K, (A dtype, row stride - K, storage offset), options
+    ("LayerNorm, bf16 A, ragged M, N and K", 150, 70, 100, ("bf16", 4, 0),
+     dict(ln=True)),
+    ("LayerNorm, f32 A at an odd row stride and offset (scalar loads), "
+     "GELU, aux before it, dropout", 130, 96, 76, ("f32", 3, 1),
+     dict(ln=True, act="gelu", aux="pre", drop=(3, 0.2), rps=65)),
+    ("a2 sum, bf16 A and a2 at an odd row stride", 70, 90, 60,
+     ("bf16", 5, 0), dict(a2=True)),
+    ("bf16 A at a 2-element offset (8-byte loads, registers), ReLU, "
+     "dropout, aux after it", 200, 130, 72, ("bf16", 4, 2),
+     dict(act="relu", drop=(3, 0.1), rps=50, aux="post")),
+    ("f32 residual, gamma, DropPath, f32 out", 160, 192, 96, ("bf16", 8, 0),
+     dict(res="f32", gamma=True, path=(5, 0.2), rps=40, out="f32")),
+    ("bf16 residual, head-interleaved column store", 90, 48, 64,
+     ("bf16", 0, 0), dict(res="bf16", col_group=12, col_stride=40)),
+    ("large stream tile (128 x 128): 1550 x 1280 x 264, bf16 out", 1550,
+     1280, 264, ("bf16", 8, 0), dict()),
+    ("large stream tile, ragged N: 1550 x 1320 x 264, bf16 residual", 1550,
+     1320, 264, ("bf16", 8, 0), dict(res="bf16")),
+    ("small stream tile (64 x 64): bf16 A at an odd row stride, K=300",
+     70, 90, 300, ("bf16", 3, 0), dict(act="gelu")),
+    ("LayerNorm panel, several N tiles a block (8300 rows), K=24, GELU",
+     8300, 700, 24, ("bf16", 8, 0), dict(ln=True, act="gelu")),
+    ("f32 A panel, several N tiles a block, dropout, aux after it", 8300,
+     650, 72, ("f32", 4, 0), dict(drop=(3, 0.1), rps=100, aux="post")),
+    ("bf16 A by cp.async, several N tiles a block, K=256", 8300, 650, 256,
+     ("bf16", 8, 0), dict(res="f32", out="f32")),
+    ("deep panel (64 rows): LayerNorm over K=770, f32 A", 96, 80, 770,
+     ("f32", 0, 0), dict(ln=True)),
+    ("deep stream: K=2050 (W rows not 16-byte aligned: registers), f32 "
+     "residual and out", 130, 70, 2050, ("bf16", 6, 0),
+     dict(res="f32", out="f32")),
+    ("odd N, misaligned out and residual rows (scalar epilogue)", 70, 37, 64,
+     ("bf16", 0, 0), dict(res="f32", out="f32", pad=1)),
+]
+
+
+def _zeros_meta(meta, device):
+    dtype, numel, offset, shape, stride = meta
+    return torch.zeros(numel, dtype=dtype, device=device).as_strided(
+        shape, stride, offset)
+
+
+def linear_kernel_cases(device="cuda", seed=0):
+    """[(label, case)] of `kernels.ln_linear` on ragged M, N and K (none a
+    multiple of a tile), f32 and bf16 A at misaligned row strides and
+    offsets, the three paths (K <= 256: the A panel by cp.async or built
+    through registers and W's whole-K tiles, one and several N tiles a
+    block, W by cp.async or through registers; a LayerNorm/f32 A deeper:
+    the 64-row panel; a bf16 A deeper: the stream in both tiles) and every
+    epilogue (bias, GELU,
+    ReLU, dropout, aux before and after the activation, bf16 and f32
+    residuals, gamma, DropPath, the column-group store, f32 out, scalar
+    stores). A case is what linear_run takes."""
+    gen = torch.Generator().manual_seed(seed + 6)
+    dt = {"bf16": torch.bfloat16, "f32": torch.float32}
+
+    def f32(*shape, scale=1.0, shift=0.0):
+        return (shift + scale * torch.randn(shape, generator=gen)).to(device)
+
+    cases = []
+    for label, M, N, K, (adt, pad, off), o in LINEAR_SHAPES:
+        lda = K + pad
+        meta = (dt[adt], off + M * lda, off, (M, K), (lda, 1))
+        kw = dict(bias=f32(N))
+        if o.get("a2"):
+            kw["a2"] = strided_like(meta, gen, device)
+        if o.get("ln"):
+            kw["ln"] = (f32(K, scale=0.1, shift=1.0), f32(K, scale=0.1), 1e-6)
+        if "act" in o:
+            kw["act"] = o["act"]
+        if "res" in o:
+            ldr = N + o.get("pad", 0)
+            kw["res"] = strided_like((dt[o["res"]], M * ldr, 0, (M, N),
+                                      (ldr, 1)), gen, device)
+        if o.get("gamma"):
+            kw["gamma"] = f32(N, scale=0.5, shift=1.0)
+        for k in ("drop", "path"):
+            if k in o:
+                kw[k] = o[k]
+                kw["rows_per_sample"] = o["rps"]
+                kw["seed"] = torch.tensor([20240615], dtype=torch.int32,
+                                          device=device)
+        out = None
+        odt = dt[o.get("out", "bf16")]
+        if "col_group" in o:
+            grp, stride = o["col_group"], o["col_stride"]
+            width = (N - 1) // grp * stride + (N - 1) % grp + 1
+            ldo = width + (-width % 8)
+            kw.update(col_group=grp, col_stride=stride)
+            out = (odt, M * ldo, 0, (M, ldo), (ldo, 1))
+        elif o.get("pad"):
+            ldo = N + o["pad"]
+            out = (odt, 1 + M * ldo, 1, (M, N), (ldo, 1))
+        else:
+            kw["out_dtype"] = odt
+        aux = None
+        if "aux" in o:
+            aux = (torch.float32, M * N, 0, (M, N), (N, 1))
+            kw["aux_pre"] = o["aux"] == "pre"
+        w = (torch.randn((N, K), generator=gen) * K ** -0.5).to(
+            torch.bfloat16).to(device)
+        cases.append((label, dict(a=strided_like(meta, gen, device), w=w,
+                                  kw=kw, out=out, aux=aux)))
+    return cases
+
+
+def linear_run(fn, case):
+    """fn (kernels.ln_linear or ln_linear_reference) on the case's inputs
+    into fresh zeroed outputs -> {"out": the whole out storage or the
+    returned tensor, "aux"}."""
+    kw = dict(case["kw"])
+    dev = case["a"].device
+    if case["out"] is not None:
+        kw["out"] = _zeros_meta(case["out"], dev)
+    if case["aux"] is not None:
+        kw["aux"] = _zeros_meta(case["aux"], dev)
+    y = fn(case["a"], case["w"], **kw)
+    outs = {"out": storage_of(kw["out"]) if "out" in kw else y}
+    if "aux" in kw:
+        outs["aux"] = kw["aux"]
+    return outs
+
+
+def linear_check(kernel, plain, case):
+    """The kernel twice and the plain version on one case -> ({output:
+    (max abs error, tolerance ULPS bf16 ulps at its largest plain
+    magnitude)}, the two kernel runs bit-identical, all finite)."""
+    got, again, want = (linear_run(kernel, case), linear_run(kernel, case),
+                        linear_run(plain, case))
+    errs = {n: (max_err(got[n], want[n]), bf16_tol(want[n])) for n in want}
+    same = all(torch.equal(got[n], again[n]) for n in got)
+    finite = all(bool(torch.isfinite(t.float()).all()) for t in got.values())
+    return errs, same, finite
+
+
+def _linear_io(case):
+    """-> (M, N, K, bytes each input read once and each output written
+    once)."""
+    a, w, kw = case["a"], case["w"], case["kw"]
+    M, K = a.shape
+    N = w.shape[0]
+    io = M * K * (a.element_size() + (2 if kw.get("a2") is not None else 0))
+    io += N * K * 2 + _nbytes(*(kw[n] for n in ("bias", "gamma")
+                                if kw.get(n) is not None))
+    if kw.get("ln") is not None:
+        io += _nbytes(*kw["ln"][:2])
+    if kw.get("res") is not None:
+        io += M * N * kw["res"].element_size()
+    odt = case["out"][0] if case["out"] is not None else kw.get(
+        "out_dtype", torch.bfloat16)
+    io += M * N * torch.empty((), dtype=odt).element_size()
+    io += M * N * 4 * (case["aux"] is not None)
+    return M, N, K, io
+
+
+def linear_bound_ms(case):
+    """The least time of one ln_linear call: its bytes (_linear_io) against
+    2 M N K at the bf16 tensor rate and, at the f32 rate, ~12 integer ops
+    per element for a dropout mask and ~10 per element for a GELU."""
+    M, N, K, io = _linear_io(case)
+    kw = case["kw"]
+    drop = kw.get("drop")
+    scalar = M * N * (12 * bool(drop and drop[1] > 0)
+                      + 10 * (kw.get("act") == "gelu"))
+    return bound_ms(io, [(2 * M * N * K, BF16_TENSOR_OPS_PER_MS),
+                         (scalar, SCALAR_OPS_PER_MS)])
+
+
+def linear_library(case):
+    """-> torch.addmm(bias, A, W^T) on A after the LayerNorm and a2,
+    pre-rounded to contiguous bf16, with bf16 out (torch.mm without a
+    bias): the library's time for the same product, timed beside the
+    kernel and never called by the port."""
+    import torch.nn.functional as F
+
+    a, w, kw = case["a"], case["w"], case["kw"]
+    x = a.float()
+    if kw.get("a2") is not None:
+        x = x + kw["a2"].float()
+    if kw.get("ln") is not None:
+        g, b, eps = kw["ln"]
+        x = F.layer_norm(x, (x.shape[-1],), g, b, eps)
+    A = x.to(torch.bfloat16).contiguous()
+    W = w.contiguous()
+    if kw.get("bias") is None:
+        return lambda: torch.mm(A, W.t())
+    bias = kw["bias"].to(torch.bfloat16)
+    return lambda: torch.addmm(bias, A, W.t())
+
+
+# th_bwd_rows: (label, B, H, N, dropout rate, with wl)
+TH_BWD_SHAPES = [
+    ("H=4, N=130 (not a multiple of 4: scalar rows), dropout", 2, 4, 130,
+     0.1, False),
+    ("H=4, N=130, wl (the standalone attention), no dropout", 2, 4, 130, 0.0,
+     True),
+    ("H=4, N=1024 (a thread's 4 columns x 256), dropout, wl", 1, 4, 1024,
+     0.05, True),
+    ("H=3, N=77, dropout, wl", 2, 3, 77, 0.1, True),
+    ("H=2, N=64, no dropout", 3, 2, 64, 0.0, False),
+]
+
+
+def th_bwd_case(B, H, N, rate, wl, device="cuda", seed=0, site=1):
+    """th_bwd_rows' arguments at one shape: logits and dzd random, the
+    mixes near the identity, lse consistent with the logits (from
+    th_fwd_rows_reference) -> (args, kw)."""
+    from spe_tpu_torch.ops.kernels import th_fwd_rows_reference
+
+    gen = torch.Generator().manual_seed(seed + 7 + H * 1000 + N)
+
+    def f32(*shape, scale=1.0):
+        return (scale * torch.randn(shape, generator=gen)).to(device)
+
+    eye = torch.eye(H, device=device)
+    s = f32(B, H, N, N, scale=2.0)
+    dzd = f32(B, H, N, N, scale=1e-3)
+    ww, bw, bl = eye + f32(H, H, scale=0.2), f32(H, scale=0.1), f32(H)
+    kw = dict(site=site)
+    if wl:
+        kw["wl"] = (eye + f32(H, H, scale=0.2)).contiguous()
+    seed_t = torch.tensor([20240616], dtype=torch.int32, device=device)
+    lse = th_fwd_rows_reference(s, bl, ww, bw, seed_t, rate, **kw)[0]
+    return (s, lse.contiguous(), dzd, bl, ww.contiguous(), bw, seed_t,
+            rate), kw
+
+
+TH_BWD_NAMES = ("zd", "ds", "dww", "dbw", "dbl", "dwl")
+
+
+def th_bwd_check(kernel, plain, args, kw):
+    """The kernel twice and the plain version on one case -> ({output:
+    (max abs error, tolerance GRAD_REL_TOL of its largest plain
+    magnitude)}, the two kernel runs bit-identical, all finite). dbl is
+    zero in exact arithmetic (a bias shared by a softmax row): held to the
+    scale of the pre-softmax mix's gradient dwl, or without wl of dww."""
+    got, again, want = (kernel(*args, **kw), kernel(*args, **kw),
+                        plain(*args, **kw))
+    ref = dict(zip(TH_BWD_NAMES, want))
+    ref["dbl"] = ref.get("dwl", ref["dww"])
+    errs = {n: (max_err(g, w), grad_tol(ref[n]))
+            for n, g, w in zip(TH_BWD_NAMES, got, want)}
+    same = all(torch.equal(g, a) for g, a in zip(got, again))
+    finite = all(bool(torch.isfinite(g.float()).all()) for g in got)
+    return errs, same, finite
+
+
+def th_bwd_bound_ms(args, kw):
+    """The least time of one th_bwd_rows call: s and dzd (f32) read, zd and
+    ds (bf16) written, lse read: 12 bytes per plane element; against, per
+    element at the f32 rate, the mixes (2 H ops each: z, dp, the
+    parameter partials and with wl the logit mix, dL and dwl), ~4 for the
+    exponential and ~12 for a dropout mask."""
+    s, lse, rate = args[0], args[1], args[7]
+    H = s.shape[1]
+    wl = kw.get("wl") is not None
+    io = s.numel() * (4 + 4 + 2 + 2) + lse.numel() * 4
+    per = 2 * H * (3 + 3 * wl) + 4 + 12 * (rate > 0)
+    return bound_ms(io, [(s.numel() * per, SCALAR_OPS_PER_MS)])

@@ -15,10 +15,13 @@ Every wrapper checks device, dtype, shape and strides and raises on what the
 kernel does not take; it allocates its outputs with torch.empty, launches on
 torch.cuda.current_stream() and raises if the launch reports an error.
 
-The two tensor-core product kernels, `gemm` (gemm_kernel) and `attention`
-(attn_kernel), count their launches (`.launches`) and have their plain
-versions beside them: `gemm_reference` and `attention_reference` take the
-same arguments and write the same elements.
+The tensor-core product kernels, `ln_linear` (linear_kernel), `gemm`
+(gemm_kernel) and `attention` (attn_kernel), and the talking-heads softmax
+backward `th_bwd_rows` count their launches (`.launches`) and have their
+plain versions beside them: `ln_linear_reference`, `gemm_reference`,
+`attention_reference` and `th_bwd_rows_reference` (`th_fwd_rows_reference`
+shares its probabilities) take the same arguments and return or write the
+same values. Nothing on the card's main path calls them.
 """
 
 from __future__ import annotations
@@ -32,10 +35,11 @@ import tempfile
 from pathlib import Path
 
 import torch
+import torch.nn.functional as F
 
 from spe_tpu_torch.ops.refmath import (SITE_ATTN, counter_keep,
                                        gelu_tanh_grad, keep_scale,
-                                       keep_threshold)
+                                       keep_threshold, path_keep)
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "spe_tpu_torch"
@@ -361,7 +365,8 @@ def ln_linear(a, w, bias=None, *, ln=None, a2=None, act="none", res=None,
     masks Y, path = (site, rate) scales the residual branch by each
     sample's DropPath factor dp, samples being runs of rows_per_sample
     rows; aux: optional (M, N) f32 receiving Y before the activation
-    (aux_pre) or after the dropout."""
+    (aux_pre) or after the dropout. A LayerNorm, a2 or f32 A is built
+    into a shared-memory panel of whole rows: K <= PANEL_KMAX."""
     _need(a, (_BF16, _F32), "a", 2)
     _need(w, _BF16, "w", 2)
     M, K = a.shape
@@ -389,6 +394,10 @@ def ln_linear(a, w, bias=None, *, ln=None, a2=None, act="none", res=None,
             raise ValueError(f"res must be {(M, N)}, got {tuple(res.shape)}")
     if act not in ACTS:
         raise ValueError(f"act must be one of {sorted(ACTS)}")
+    if (ln is not None or a2 is not None or a.dtype == _F32) and \
+            K > PANEL_KMAX:
+        raise ValueError(f"a LayerNorm, a2 or f32 A takes K <= {PANEL_KMAX}, "
+                         f"got {K}")
     if col_group is None:
         col_group, col_stride = N, N
     if out is None:
@@ -421,6 +430,57 @@ def ln_linear(a, w, bias=None, *, ln=None, a2=None, act="none", res=None,
         drop_site=dsite, drop_thr=dthr, drop_scale=dscale, path_site=psite,
         path_thr=pthr, path_scale=pscale, aux_pre=int(aux_pre))
     _check(lib().spe_linear(ctypes.byref(p), _stream()), "spe_linear")
+    ln_linear.launches += 1
+    return out
+
+
+ln_linear.launches = 0
+PANEL_KMAX = 1472   # csrc/linear.cu: the deepest A panel
+
+
+def _path_factor(seed, path, M, rows_per_sample):
+    """(M, 1) DropPath factors of path = (site, rate), samples of
+    rows_per_sample rows."""
+    keep = path_keep(seed, path[0], path[1], M // rows_per_sample)
+    return torch.where(keep, keep_scale(path[1]), 0.0).repeat_interleave(
+        rows_per_sample)[:, None]
+
+
+def ln_linear_reference(a, w, bias=None, *, ln=None, a2=None, act="none",
+                        res=None, gamma=None, out_dtype=_BF16, out=None,
+                        col_group=None, col_stride=None, seed=None, drop=None,
+                        path=None, rows_per_sample=1, aux=None,
+                        aux_pre=False):
+    """Plain PyTorch version of `ln_linear` (same arguments, same elements
+    of out and aux written): A (+ a2) in f32, the LayerNorm, A rounded to
+    bf16 once, the product with W in f32, then the epilogue in the
+    kernel's order, the output rounded once."""
+    x = a.float() + (a2.float() if a2 is not None else 0.0)
+    if ln is not None:
+        x = F.layer_norm(x, (x.shape[-1],), ln[0], ln[1], ln[2])
+    y = x.to(_BF16).float() @ w.float().T
+    if bias is not None:
+        y = y + bias
+    if aux is not None and aux_pre:
+        aux.copy_(y)
+    y = {"none": y, "gelu": F.gelu(y, approximate="tanh"),
+         "relu": torch.relu(y)}[act]
+    M, N = y.shape
+    if drop is not None and drop[1] > 0:
+        y = torch.where(row_keep(seed, drop, M, N, rows_per_sample),
+                        y * keep_scale(drop[1]), 0.0)
+    if aux is not None and not aux_pre:
+        aux.copy_(y)
+    if res is not None:
+        dp = 1.0
+        if path is not None and path[1] > 0:
+            dp = _path_factor(seed, path, M, rows_per_sample)
+        y = res.float() + dp * (gamma if gamma is not None else 1.0) * y
+    if out is None:
+        out = torch.empty((M, N), device=a.device, dtype=out_dtype)
+    grp, stride = (col_group, col_stride) if col_group else (N, N)
+    n = torch.arange(N, device=a.device)
+    out[:, n // grp * stride + n % grp] = y.to(out.dtype)
     return out
 
 
@@ -994,30 +1054,91 @@ def th_fwd_rows(s, bl, ww, bw, seed, rate, *, wl=None, site=SITE_ATTN):
     return lse, zd
 
 
+TH_NT = 256        # csrc/th_train.cu: threads of th_bwd_rows_kernel, 4
+TH_BLOCKS = 1024   # columns each; at most TH_BLOCKS blocks
+
+
+def th_bwd_blocks(B, N):
+    """The blocks of th_bwd_rows_kernel (rows of parts) for B * N rows: a
+    function of the shape alone, so the partial sums' order is fixed."""
+    rows = B * N
+    per = -(-rows // TH_BLOCKS)
+    return -(-rows // per)
+
+
 def th_bwd_rows(s, lse, dzd, bl, ww, bw, seed, rate, *, wl=None,
                 site=SITE_ATTN):
     """Talking-heads backward row pass: -> (zd bf16, ds bf16 (B, H, N, N),
     dww (H, H), dbw (H,), dbl (H,) f32). With wl (see th_fwd_rows) ds holds
-    dL_h = sum_g wl[g, h] dm_g, and dwl (H, H) f32 is returned last."""
+    dL_h = sum_g wl[g, h] dm_g, and dwl (H, H) f32 is returned last.
+    Takes N <= 4 * TH_NT."""
     B, H, N, _ = s.shape
     _need(lse, _F32, "lse", 3)
     _need(dzd, _F32, "dzd", 4)
     if tuple(lse.shape) != (B, H, N) or dzd.shape != s.shape or \
             not (lse.is_contiguous() and dzd.is_contiguous()):
         raise ValueError("lse (B, H, N) and dzd (B, H, N, N) must be contiguous")
+    if N > 4 * TH_NT:
+        raise ValueError(f"th_bwd_rows takes rows of at most {4 * TH_NT} "
+                         f"keys, got {N}")
     zd = torch.empty(s.shape, device=s.device, dtype=_BF16)
     ds = torch.empty(s.shape, device=s.device, dtype=_BF16)
     width = (2 if wl is not None else 1) * H * H + 2 * H
-    parts = torch.empty((B * N, width), device=s.device, dtype=_F32)
+    parts = torch.empty((th_bwd_blocks(B, N), width), device=s.device,
+                        dtype=_F32)
     p = _THRowParams(**_th_row_params(
         s, bl, ww, bw, seed, rate, wl, site, dzd=dzd.data_ptr(),
         lse=lse.data_ptr(), zd=zd.data_ptr(), ds=ds.data_ptr(),
         parts=parts.data_ptr()))
     _check(lib().spe_th_rows(ctypes.byref(p), 1, _stream()), "spe_th_rows")
+    th_bwd_rows.launches += 1
     sums = reduce_sum(parts)
     out = (zd, ds, sums[:H * H].view(H, H), sums[H * H:H * H + H],
            sums[H * H + H:H * H + 2 * H])
     return out + (sums[H * H + 2 * H:].view(H, H),) if wl is not None else out
+
+
+th_bwd_rows.launches = 0
+
+
+def _th_probs(s, lse, bl, ww, bw, seed, rate, wl, site):
+    """The talking-heads row pass in plain PyTorch: -> (lse, p_h, keep,
+    scale, zd in f32)."""
+    if wl is not None:   # each head's own logits, mixed before the softmax
+        s = torch.einsum("bhqk,gh->bgqk", s, wl)
+    s = s + bl[None, :, None, None]
+    lse = torch.logsumexp(s, -1) if lse is None else lse
+    pr = torch.exp(s - lse[..., None])
+    z = torch.einsum("bhqk,gh->bgqk", pr, ww) + bw[None, :, None, None]
+    keep = counter_keep(seed, site, rate, s.shape) if rate > 0 else \
+        torch.ones(s.shape, dtype=torch.bool, device=s.device)
+    sc = keep_scale(rate)
+    return lse, pr, keep, sc, torch.where(keep, z * sc, 0.0)
+
+
+def th_fwd_rows_reference(s, bl, ww, bw, seed, rate, *, wl=None,
+                          site=SITE_ATTN):
+    """Plain PyTorch version of `th_fwd_rows`."""
+    lse, _, _, _, zd = _th_probs(s, None, bl, ww, bw, seed, rate, wl, site)
+    return lse, zd.to(_BF16)
+
+
+def th_bwd_rows_reference(s, lse, dzd, bl, ww, bw, seed, rate, *, wl=None,
+                          site=SITE_ATTN):
+    """Plain PyTorch version of `th_bwd_rows` (same arguments, same
+    outputs): dz = M (.) dzd / keep, dp_h = sum_g ww[g, h] dz_g, ds = p (dp
+    - rowsum(dp p)), and the parameter gradients summed in f32."""
+    _, pr, keep, sc, zd = _th_probs(s, lse, bl, ww, bw, seed, rate, wl, site)
+    dz = torch.where(keep, dzd * sc, 0.0)
+    dp = torch.einsum("bgqk,gh->bhqk", dz, ww)
+    ds = pr * (dp - (dp * pr).sum(-1, keepdim=True))
+    out = (zd.to(_BF16), ds.to(_BF16), torch.einsum("bhqk,bgqk->gh", pr, dz),
+           dz.sum((0, 2, 3)), ds.sum((0, 2, 3)))
+    if wl is None:
+        return out
+    dl = torch.einsum("bgqk,gh->bhqk", ds, wl).contiguous()
+    return (*out[:1], dl.to(_BF16), *out[2:],
+            torch.einsum("bhqk,bgqk->gh", s, ds))
 
 
 def th_dq(dqt, q, rows, scale, out):

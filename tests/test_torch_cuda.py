@@ -9,8 +9,10 @@ attention kernels (fused_mha in its three flavours, the talking-heads
 attention) forward and backward against their plain versions with cut
 sequence lengths, and the two tensor-core product kernels (gemm_kernel,
 attn_kernel) against kernels.gemm_reference / attention_reference on
-ragged shapes, every layout and option, misaligned operands. The kernels
-have no CPU mode, so without a card these tests skip.
+ragged shapes, every layout and option, misaligned operands, likewise
+linear_kernel against ln_linear_reference and th_bwd_rows_kernel against
+th_bwd_rows_reference. The kernels have no CPU mode, so without a card
+these tests skip.
 
 Run on a machine with the card:  python -m pytest tests/test_torch_cuda.py -m cuda
 """
@@ -18,7 +20,8 @@ Run on a machine with the card:  python -m pytest tests/test_torch_cuda.py -m cu
 import pytest
 import torch
 
-from spe_tpu_torch.ops.kernel_checks import GEMM_SHAPES
+from spe_tpu_torch.ops.kernel_checks import (GEMM_SHAPES, LINEAR_SHAPES,
+                                             TH_BWD_SHAPES)
 
 pytestmark = pytest.mark.cuda
 
@@ -342,3 +345,44 @@ def test_attention_kernel_matches_plain_ragged(card, case):
     for name, (e, tol) in errs.items():
         assert e <= tol, (label, name, e, tol)
     assert K.attention.launches == before + 2
+
+
+@pytest.mark.parametrize("case", range(len(LINEAR_SHAPES)))
+def test_linear_kernel_matches_plain(card, case):
+    """linear_kernel against ln_linear_reference on ragged M, N and K,
+    misaligned f32 and bf16 A, both A paths and tiles and every epilogue
+    (kernel_checks.LINEAR_SHAPES): out and aux within 4 bf16 ulps of their
+    largest magnitude, two runs bit-identical."""
+    from spe_tpu_torch.ops import kernels as K
+    from spe_tpu_torch.ops.kernel_checks import (linear_check,
+                                                 linear_kernel_cases)
+
+    label, c = linear_kernel_cases()[case]
+    before = K.ln_linear.launches
+    errs, same, finite = linear_check(K.ln_linear, K.ln_linear_reference, c)
+    torch.cuda.synchronize()
+    assert finite and same, label
+    for name, (e, tol) in errs.items():
+        assert e <= tol, (label, name, e, tol)
+    assert K.ln_linear.launches == before + 2
+
+
+@pytest.mark.parametrize("case", range(len(TH_BWD_SHAPES)))
+def test_th_bwd_rows_kernel_matches_plain(card, case):
+    """th_bwd_rows_kernel against th_bwd_rows_reference at H=4 and other
+    H, N not a multiple of 4, dropout on and off, with and without wl:
+    every output within 1% of its largest magnitude (dbl against the mix
+    gradient's), two runs bit-identical."""
+    from spe_tpu_torch.ops import kernels as K
+    from spe_tpu_torch.ops.kernel_checks import th_bwd_case, th_bwd_check
+
+    label, B, H, N, rate, wl = TH_BWD_SHAPES[case]
+    args, kw = th_bwd_case(B, H, N, rate, wl)
+    before = K.th_bwd_rows.launches
+    errs, same, finite = th_bwd_check(K.th_bwd_rows, K.th_bwd_rows_reference,
+                                      args, kw)
+    torch.cuda.synchronize()
+    assert finite and same, label
+    for name, (e, tol) in errs.items():
+        assert e <= tol, (label, name, e, tol)
+    assert K.th_bwd_rows.launches == before + 2

@@ -17,57 +17,19 @@ import torch
 import torch.nn.functional as F
 
 from spe_tpu_torch.ops import kernels as K
-from spe_tpu_torch.ops.kernels import (attention_keep, attention_reference,
-                                       gemm_reference, row_keep)
+from spe_tpu_torch.ops.kernels import (_path_factor, attention_keep,
+                                       attention_reference, gemm_reference,
+                                       ln_linear_reference, row_keep,
+                                       th_bwd_rows_reference,
+                                       th_fwd_rows_reference)
 from spe_tpu_torch.ops.kernel_checks import (attention_cases, backward_args,
                                              bf16_tol, flat_grads, grad_tols,
                                              kernel_cases, max_err,
                                              plain_train, saved_outputs,
                                              train_cases)
-from spe_tpu_torch.ops.refmath import (counter_keep, keep_scale,
-                                       ln_backward_reference, path_keep)
+from spe_tpu_torch.ops.refmath import keep_scale, ln_backward_reference
 
 BF16 = torch.bfloat16
-
-
-def _path_factor(seed, spec, M, rps):
-    keep = path_keep(seed, spec[0], spec[1], M // rps)
-    return torch.where(keep, keep_scale(spec[1]), 0.0).repeat_interleave(
-        rps)[:, None]
-
-
-def ln_linear(a, w, bias=None, *, ln=None, a2=None, act="none", res=None,
-              gamma=None, out_dtype=BF16, out=None, col_group=None,
-              col_stride=None, seed=None, drop=None, path=None,
-              rows_per_sample=1, aux=None, aux_pre=False):
-    x = a.float() + (a2.float() if a2 is not None else 0.0)
-    if ln is not None:
-        x = F.layer_norm(x, (x.shape[-1],), ln[0], ln[1], ln[2])
-    y = x.to(BF16).float() @ w.float().T
-    if bias is not None:
-        y = y + bias
-    if aux is not None and aux_pre:
-        aux.copy_(y)
-    y = {"none": y, "gelu": F.gelu(y, approximate="tanh"),
-         "relu": torch.relu(y)}[act]
-    M, N = y.shape
-    if drop is not None and drop[1] > 0:
-        y = torch.where(row_keep(seed, drop, M, N, rows_per_sample),
-                        y * keep_scale(drop[1]), 0.0)
-    if aux is not None and not aux_pre:
-        aux.copy_(y)
-    if res is not None:
-        dp = 1.0
-        if path is not None and path[1] > 0:
-            dp = _path_factor(seed, path, M, rows_per_sample)
-        y = res.float() + dp * (gamma if gamma is not None else 1.0) * y
-    M, N = y.shape
-    if out is None:
-        out = torch.empty((M, N), dtype=out_dtype)
-    grp, stride = (col_group, col_stride) if col_group else (N, N)
-    n = torch.arange(N)
-    out[:, n // grp * stride + n % grp] = y.to(out.dtype)
-    return out
 
 
 def layernorm(x, weight, bias, eps, *, want_f32=True, want_bf16=False):
@@ -118,38 +80,6 @@ def th_fold(q, rows):
     return (q.float()[:, None] * rows[None, :, None, :]).to(BF16)
 
 
-def _th_probs(s, lse, bl, ww, bw, seed, rate, wl, site):
-    if wl is not None:   # each head's own logits, mixed before the softmax
-        s = torch.einsum("bhqk,gh->bgqk", s, wl)
-    s = s + bl[None, :, None, None]
-    lse = torch.logsumexp(s, -1) if lse is None else lse
-    pr = torch.exp(s - lse[..., None])
-    z = torch.einsum("bhqk,gh->bgqk", pr, ww) + bw[None, :, None, None]
-    keep = counter_keep(seed, site, rate, s.shape) if rate > 0 else \
-        torch.ones(s.shape, dtype=torch.bool)
-    sc = keep_scale(rate)
-    return lse, pr, keep, sc, torch.where(keep, z * sc, 0.0)
-
-
-def th_fwd_rows(s, bl, ww, bw, seed, rate, *, wl=None, site=1):
-    lse, _, _, _, zd = _th_probs(s, None, bl, ww, bw, seed, rate, wl, site)
-    return lse, zd.to(BF16)
-
-
-def th_bwd_rows(s, lse, dzd, bl, ww, bw, seed, rate, *, wl=None, site=1):
-    _, pr, keep, sc, zd = _th_probs(s, lse, bl, ww, bw, seed, rate, wl, site)
-    dz = torch.where(keep, dzd * sc, 0.0)
-    dp = torch.einsum("bgqk,gh->bhqk", dz, ww)
-    ds = pr * (dp - (dp * pr).sum(-1, keepdim=True))
-    out = (zd.to(BF16), ds.to(BF16), torch.einsum("bhqk,bgqk->gh", pr, dz),
-           dz.sum((0, 2, 3)), ds.sum((0, 2, 3)))
-    if wl is None:
-        return out
-    dl = torch.einsum("bgqk,gh->bhqk", ds, wl).contiguous()
-    return (*out[:1], dl.to(BF16), *out[2:],
-            torch.einsum("bhqk,bgqk->gh", s, ds))
-
-
 def th_dq(dqt, q, rows, scale, out):
     B, H, N, D = dqt.shape
     out.copy_((dqt * rows[None, :, None, :]).sum(1))
@@ -192,13 +122,17 @@ def emulated(monkeypatch):
     # the wrappers built on other wrappers (matmul_dx, grad_weight) run for
     # real, their checks without the device test
     monkeypatch.setattr(K, "_need", _check_but_device)
-    for fn in (ln_linear, layernorm, colsum, th_mix, reduce_sum, colsum_f32,
-               ln_backward, branch_backward, th_fold, th_fwd_rows,
-               th_bwd_rows, th_dq, softmax_backward, attention_bwd_rows):
+    for fn in (layernorm, colsum, th_mix, reduce_sum, colsum_f32,
+               ln_backward, branch_backward, th_fold, th_dq, softmax_backward,
+               attention_bwd_rows):
         monkeypatch.setattr(K, fn.__name__, fn)
-    # the two product kernels' plain versions live beside them
-    monkeypatch.setattr(K, "attention", attention_reference)
-    monkeypatch.setattr(K, "gemm", gemm_reference)
+    # the product kernels' and th_*_rows' plain versions live beside them
+    for name, fn in (("attention", attention_reference),
+                     ("gemm", gemm_reference),
+                     ("ln_linear", ln_linear_reference),
+                     ("th_fwd_rows", th_fwd_rows_reference),
+                     ("th_bwd_rows", th_bwd_rows_reference)):
+        monkeypatch.setattr(K, name, fn)
 
 
 @pytest.mark.parametrize("case", range(5))

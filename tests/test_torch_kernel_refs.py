@@ -6,8 +6,13 @@ group, accumulate mode and epilogue the port asks of `kernels.gemm`
 kernel to); `kernels.attention_reference` against `fused_mha_reference`,
 `fused_mha_train_reference` and `softmax_attention` (held to the JAX
 package by their own tests) at small sizes of each of the kernel's four
-head-width templates. No JAX here: the reference functions it is held to
-are the port's own plain versions.
+head-width templates; `kernels.ln_linear_reference` against F.layer_norm,
+F.linear, the activation, masks and residual written out in f32 over every
+option of kernel_checks.linear_kernel_cases (the cases the card tests hold
+linear_kernel to); `kernels.th_bwd_rows_reference` against autograd
+through the plain talking-heads softmax and mixes in float64. No JAX
+here: the reference functions it is held to are the port's own plain
+versions and torch's.
 
 f32 outputs are held to 1e-5 of their largest magnitude (f32 sums against
 float64 ones, over bf16-rounded operands whose products are exact in
@@ -23,9 +28,11 @@ from spe_tpu_torch.ops.fused_encoder import softmax_attention
 from spe_tpu_torch.ops.fused_mha import (fused_mha_reference,
                                          fused_mha_train_reference)
 from spe_tpu_torch.ops.kernel_checks import (bf16_tol, gemm_kernel_cases,
-                                             gemm_run, max_err, storage_of)
+                                             gemm_run, linear_kernel_cases,
+                                             linear_run, max_err, storage_of,
+                                             th_bwd_case)
 from spe_tpu_torch.ops.refmath import (SITE_MHA_ATTN, CounterDropout,
-                                       counter_keep, key_bias)
+                                       counter_keep, key_bias, path_keep)
 
 BF16 = torch.bfloat16
 GEMM_CASES = gemm_kernel_cases(device="cpu")
@@ -191,3 +198,128 @@ def test_attention_reference_matches_plain(case):
     for name, w in want.items():
         tol = {"out": bf16_tol(w, ulps=1), "probs": 1e-6, "lse": 1e-5}[name]
         assert max_err(got[name], w) <= tol, name
+
+
+LINEAR_CASES = linear_kernel_cases(device="cpu")
+
+
+def _expected_linear(case):
+    """{"out", "aux"} of one ln_linear call written out: F.layer_norm, A
+    rounded to bf16, F.linear with the bias, the activation, the counter
+    mask of (seed, site, m // rps, 0, m % rps, n), the DropPath factor of
+    each sample, the residual and the column-group store."""
+    a, w, kw = case["a"], case["w"], case["kw"]
+    M, K = a.shape
+    N = w.shape[0]
+    x = a.float() + (kw["a2"].float() if "a2" in kw else 0.0)
+    if "ln" in kw:
+        x = F.layer_norm(x, (K,), kw["ln"][0], kw["ln"][1], kw["ln"][2])
+    y = F.linear(x.to(BF16).float(), w.float(), kw["bias"])
+    pre = y
+    act = kw.get("act", "none")
+    if act == "gelu":
+        y = F.gelu(y, approximate="tanh")
+    elif act == "relu":
+        y = y.clamp_min(0.0)
+    rps = kw.get("rows_per_sample", 1)
+    if "drop" in kw:
+        site, rate = kw["drop"]
+        keep = counter_keep(kw["seed"], site, rate,
+                            (M // rps, 1, rps, N)).reshape(M, N)
+        y = torch.where(keep, y / (1.0 - rate), 0.0)
+    want = {}
+    if case["aux"] is not None:
+        want["aux"] = pre if kw["aux_pre"] else y
+    if "res" in kw:
+        dp = torch.ones((M, 1))
+        if "path" in kw:
+            site, rate = kw["path"]
+            dp = torch.where(path_keep(kw["seed"], site, rate, M // rps),
+                             1.0 / (1.0 - rate), 0.0).repeat_interleave(
+                                 rps)[:, None]
+        y = kw["res"].float() + dp * kw.get("gamma", torch.ones(N)) * y
+    if case["out"] is None:
+        want["out"] = y.to(kw.get("out_dtype", BF16))
+        return want
+    dtype, numel, off, shape, stride = case["out"]
+    out = torch.zeros(numel, dtype=dtype)
+    grp, st = kw.get("col_group", N), kw.get("col_stride", N)
+    n = torch.arange(N)
+    rows = off + torch.arange(M)[:, None] * stride[0]
+    out[rows + (n // grp * st + n % grp)] = y.to(dtype)
+    want["out"] = out
+    return want
+
+
+@pytest.mark.parametrize("case", range(len(LINEAR_CASES)),
+                         ids=[label for label, _ in LINEAR_CASES])
+def test_ln_linear_reference_matches_torch(case):
+    """ln_linear_reference writes exactly what the layer computes: f32
+    outputs within 1e-5 of their largest magnitude (the bias added inside
+    F.linear or after the product), bf16 outputs within one bf16 ulp (a
+    sum on either side of a rounding boundary); the elements outside the
+    column groups untouched."""
+    _, c = LINEAR_CASES[case]
+    got = linear_run(K.ln_linear_reference, c)
+    want = _expected_linear(c)
+    assert set(got) == set(want)
+    for name, w in want.items():
+        top = float(w.float().abs().max())
+        tol = bf16_tol(w, ulps=1) if w.dtype == BF16 else 1e-5 * top
+        assert top > 0, name
+        assert got[name].dtype == w.dtype, name
+        assert max_err(got[name], w) <= tol, name
+
+
+TH_BWD_REF_CASES = {
+    "H=4, dropout": (2, 4, 24, 0.1, False),
+    "H=4, wl": (2, 4, 24, 0.0, True),
+    "H=2, wl, dropout": (2, 2, 20, 0.1, True),
+    "H=2": (1, 2, 16, 0.0, False),
+}
+
+
+@pytest.mark.parametrize("case", list(TH_BWD_REF_CASES))
+def test_th_bwd_rows_reference_matches_autograd(case):
+    """th_bwd_rows_reference against autograd in float64 through the plain
+    talking-heads attention: m_g = sum_h wl[g, h] s_h + bl_g (without wl
+    m = s + bl), p = softmax(m), z_g = sum_h ww[g, h] p_h + bw_g, the
+    counter mask (seed, site, b, g, i, j) and 1 / (1 - rate), dzd the
+    cotangent of the masked z. zd and ds (bf16) within one bf16 ulp at
+    their largest magnitude; the parameter gradients (f32 sums over every
+    element against float64) within 1e-4 of theirs, dbl (zero in exact
+    arithmetic) within 1e-4 of dww's."""
+    B, H, N, rate, wl = TH_BWD_REF_CASES[case]
+    args, kw = th_bwd_case(B, H, N, rate, wl, device="cpu")
+    s, _, dzd, bl, ww, bw, seed, _ = args
+    got = K.th_bwd_rows_reference(*args, **kw)
+    leaves = {n: t.double().requires_grad_() for n, t in
+              (("s", s), ("bl", bl), ("ww", ww), ("bw", bw))}
+    if wl:
+        leaves["wl"] = kw["wl"].double().requires_grad_()
+    m = leaves["s"]
+    if wl:
+        m = torch.einsum("bhqk,gh->bgqk", m, leaves["wl"])
+    p = torch.softmax(m + leaves["bl"][None, :, None, None], -1)
+    z = torch.einsum("bhqk,gh->bgqk", p, leaves["ww"]) + \
+        leaves["bw"][None, :, None, None]
+    if rate:
+        z = torch.where(counter_keep(seed, kw["site"], rate, z.shape),
+                        z / (1.0 - rate), 0.0)
+    (z * dzd.double()).sum().backward()
+    want = {"zd": z.detach(), "ds": leaves["s"].grad,
+            "dww": leaves["ww"].grad, "dbw": leaves["bw"].grad,
+            "dbl": leaves["bl"].grad}
+    if wl:
+        want["dwl"] = leaves["wl"].grad
+    names = ("zd", "ds", "dww", "dbw", "dbl", "dwl")
+    assert len(got) == len(want)
+    for name, g in zip(names, got):
+        w = want[name]
+        if name in ("zd", "ds"):
+            assert g.dtype == BF16, name
+            tol = bf16_tol(w, ulps=1)
+        else:
+            tol = 1e-4 * float((want["dww"] if name == "dbl" else w)
+                               .abs().max())
+        assert max_err(g, w) <= tol, name
