@@ -11,8 +11,10 @@ Phases, each printing its own lines; any failure exits non-zero:
                tensor-core instructions (HMMA/HGMMA) in every
                instantiation of attn_kernel, gemm_kernel and linear_kernel,
                with their registers and local memory, and fails on none;
-               it prints th_bwd_rows_kernel's registers and local memory
-               and fails if an H=4 instantiation uses local memory.
+               it prints the registers and local memory of every
+               instantiation of th_bwd_rows_kernel, th_fwd_rows_kernel and
+               attn_bwd_rows_kernel and fails if an H=4 one of the first
+               two or any of the third uses local memory.
   3. kernels — each fused-layer kernel at the voc0712 eval shapes (B=2)
                against its plain PyTorch version on the same bf16 inputs
                (max abs error vs the stated tolerance), and the standalone
@@ -38,19 +40,28 @@ Phases, each printing its own lines; any failure exits non-zero:
                which must equal their plain versions exactly; CUDA-event
                times, and each kernel's bound (least time on the card).
                Then the toolkit's kernels, gemm_kernel, attn_kernel,
-               linear_kernel and th_bwd_rows_kernel, at every shape class
-               one stock training step, one standalone-attention training
-               step and one stock eval forward give them (B=8; a recorder
-               around kernels.gemm, kernels.attention, kernels.ln_linear
-               and kernels.th_bwd_rows): each class replayed on fresh
+               linear_kernel, th_bwd_rows_kernel, th_fwd_rows_kernel and
+               attn_bwd_rows_kernel, at every shape class one stock
+               training step, one standalone-attention training step and
+               one stock eval forward give them (B=8; a recorder around
+               their kernels.* wrappers): each class replayed on fresh
                random inputs of the recorded layout against its plain
-               version (gemm and th_bwd_rows 1% of the largest magnitude,
-               attention and ln_linear 4 bf16 ulps, probabilities 1e-4),
-               twice (identical bits), with its launches per run, its
-               time, the plain version's, the bound and the library's
+               version (gemm, th_bwd_rows and attention_bwd_rows 1% of the
+               largest magnitude, attention, ln_linear and th_fwd_rows' zd
+               4 bf16 ulps, th_fwd_rows' lse 1e-5 relative, probabilities
+               1e-4), twice (identical bits), with its launches per run,
+               its time, the plain version's, the bound and the library's
                (torch.matmul on pre-rounded contiguous bf16 operands;
                scaled_dot_product_attention where it computes the same
-               function; torch.addmm for ln_linear).
+               function; torch.addmm for ln_linear). The same runs record
+               the other wrappers (layernorm, colsum, th_mix, reduce_sum,
+               colsum_f32, ln_backward, branch_backward, th_fold, th_dq,
+               softmax_backward): each class's first call replayed on
+               copies of its inputs against its plain version (1% of the
+               largest magnitude, twice identical), with launches, time,
+               byte bound and, where one PyTorch call computes it
+               (F.layer_norm, native_layer_norm_backward, torch.sum), the
+               library's time.
   4. slice   — `spe_tpu_torch.cli.main --preset voc0712 --eval` on a
                generated mini-VOC at full width, with the launch counters
                checked per forward; then one batch through a kernel model
@@ -111,7 +122,8 @@ Phases, each printing its own lines; any failure exits non-zero:
                off, under the same rule (which names miss with each);
                and the step's device-time split.
 Each profile also sums the device time of the product kernels by family
-(attn_kernel<192, 192, ...> apart). About 4 minutes of command time on an
+(attn_kernel<192, 192, ...> apart) and of every __global__ function in
+spe_tpu_torch/csrc. About 5 minutes of command time on an
 H100.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -169,6 +181,11 @@ def phase_build():
 
 # the product kernels that must run on the tensor cores
 TENSOR_CORE_KERNELS = ("attn_kernel", "gemm_kernel", "linear_kernel")
+# the row kernels whose per-row arrays must stay in registers: by the
+# template arguments of an instantiation, must it use no local memory?
+ROW_KERNELS = {"th_bwd_rows_kernel": lambda a: a[0] == "4",
+               "th_fwd_rows_kernel": lambda a: a[0] == "4",
+               "attn_bwd_rows_kernel": lambda a: True}
 
 
 def tensor_core_check(kernels):
@@ -176,8 +193,9 @@ def tensor_core_check(kernels):
     instantiation of attn_kernel, gemm_kernel and linear_kernel in the
     built library (cuobjdump of the nvcc's toolkit) and print their
     registers and local memory (spills); fail if one has no tensor-core
-    instruction. Print th_bwd_rows_kernel's registers and local memory per
-    instantiation; fail if one for H=4 uses local memory."""
+    instruction. Print the registers and local memory of every
+    instantiation of the row kernels (ROW_KERNELS); fail if one that must
+    keep its arrays in registers uses local memory."""
     import os
 
     tool = os.path.join(os.path.dirname(kernels._nvcc()), "cuobjdump")
@@ -210,19 +228,22 @@ def tensor_core_check(kernels):
         print(f"[build] {fam}: {len(mine)} instantiations, "
               f"{sum(mine.values())} tensor-core instructions in all",
               flush=True)
-    rows = {n: u for n, u in usage.items() if "th_bwd_rows_kernel" in n}
-    if not rows:
-        bad.append("no th_bwd_rows_kernel in the library")
-    for n, u in sorted(rows.items()):
-        m = re.search(r"th_bwd_rows_kernelILi(\d+)E", n)
-        # spilled registers live in the stack frame, in local memory
-        local = sum(int(re.search(rf"{k}:(\d+)", u).group(1))
-                    for k in ("LOCAL", "STACK"))
-        print(f"[build] th_bwd_rows_kernel H={m.group(1) if m else '?'} {n}: "
-              f"{u}", flush=True)
-        if m and m.group(1) == "4" and local:
-            bad.append(f"{n} (H=4) uses {local} bytes of local memory "
-                       "(LOCAL + STACK)")
+    for fam, no_local in ROW_KERNELS.items():
+        rows = {n: u for n, u in usage.items() if fam in n}
+        if not rows:
+            bad.append(f"no {fam} in the library")
+        for n, u in sorted(rows.items()):
+            # the template arguments of the mangled name: Li<int>E, Lb<bool>E
+            m = re.search(rf"{fam}I((?:L[ib]\d+E)+)E", n)
+            args = tuple(re.findall(r"L[ib](\d+)E", m.group(1))) if m \
+                else ("?",)
+            # spilled registers live in the stack frame, in local memory
+            local = sum(int(re.search(rf"{k}:(\d+)", u).group(1))
+                        for k in ("LOCAL", "STACK"))
+            print(f"[build] {fam} <{', '.join(args)}> {n}: {u}", flush=True)
+            if local and no_local(args):
+                bad.append(f"{n} uses {local} bytes of local memory "
+                           "(LOCAL + STACK)")
     if bad:
         fail("; ".join(bad))
 
@@ -412,16 +433,33 @@ TOOLKIT = {"gemm_kernel": ("spe_tpu_torch/csrc/grad.cu",
            "linear_kernel": ("spe_tpu_torch/csrc/linear.cu",
                              "spe_tpu/ops/pallas_block.py:166"),
            "th_bwd_rows_kernel": ("spe_tpu_torch/csrc/th_train.cu",
-                                  "spe_tpu/ops/pallas_block.py:356")}
+                                  "spe_tpu/ops/pallas_block.py:356"),
+           "th_fwd_rows_kernel": ("spe_tpu_torch/csrc/th_train.cu",
+                                  "spe_tpu/ops/pallas_block.py:166"),
+           "attn_bwd_rows_kernel": ("spe_tpu_torch/csrc/th_train.cu",
+                                    "spe_tpu/ops/pallas_encoder.py:97")}
 # the runs each kernel's per-run sums (launches x time) are taken over; the
 # first is its main path, whose numbers head its entry
 SUM_RUNS = {"gemm_kernel": ("stock step", "attention step"),
             "attn_kernel": ("eval forward",),
             "linear_kernel": ("eval forward", "stock step"),
-            "th_bwd_rows_kernel": ("stock step", "attention step")}
+            "th_bwd_rows_kernel": ("stock step", "attention step"),
+            "th_fwd_rows_kernel": ("stock step", "attention step"),
+            "attn_bwd_rows_kernel": ("stock step", "attention step")}
 # the kernels.* wrapper of each toolkit kernel
 WRAPPER = {"gemm_kernel": "gemm", "attn_kernel": "attention",
-           "linear_kernel": "ln_linear", "th_bwd_rows_kernel": "th_bwd_rows"}
+           "linear_kernel": "ln_linear", "th_bwd_rows_kernel": "th_bwd_rows",
+           "th_fwd_rows_kernel": "th_fwd_rows",
+           "attn_bwd_rows_kernel": "attention_bwd_rows"}
+# the other wrappers of the main path and the kernels each launches
+# (kernels.dropout_mask's mask_kernel serves phase 3's mask check only)
+SMALL = {"layernorm": ("layernorm_kernel",), "colsum": ("colsum_kernel",),
+         "th_mix": ("th_mix_kernel",),
+         "reduce_sum": ("reduce_thread_kernel", "reduce_block_kernel"),
+         "colsum_f32": ("colsum_f32_kernel",), "ln_backward": ("ln_bwd_kernel",),
+         "branch_backward": ("branch_bwd_kernel",),
+         "th_fold": ("th_fold_kernel",), "th_dq": ("th_dq_kernel",),
+         "softmax_backward": ("softmax_bwd_kernel",)}
 
 
 def _layout(st, m_i, k_i):
@@ -466,23 +504,69 @@ def _linear_class(a, w, kw):
             kw.get("act", "none"), str(odt).replace("torch.", ""), opts)
 
 
-def _th_bwd_class(s, rate, kw):
+def _th_rows_class(s, rate, kw):
     B, H, N, _ = s.shape
     return (B, H, N, "drop" if rate > 0 else "no drop",
             "wl" if kw.get("wl") is not None else "no wl")
 
 
+def _attn_rows_class(s, kbias, drop, kw):
+    mh = kw.get("mask_heads")
+    return (*s.shape, "kbias" if kbias is not None else "no kbias",
+            "drop" if _on("drop", drop) else "no drop",
+            f"mask_heads {mh}" if mh else "mask_heads H")
+
+
+def _small_class(args, kw):
+    """Shapes and dtypes of the tensors, the other arguments as given."""
+    def key(v):
+        if hasattr(v, "data_ptr"):
+            return (tuple(v.shape), str(v.dtype)[6:])
+        return tuple(key(x) for x in v) if isinstance(v, tuple) else v
+    return (tuple(key(a) for a in args),
+            tuple(sorted((n, key(v)) for n, v in kw.items())))
+
+
+def _tensors(v):
+    if hasattr(v, "data_ptr"):
+        return [v]
+    if isinstance(v, (tuple, list)):
+        return [t for x in v for t in _tensors(x)]
+    if isinstance(v, dict):
+        return [t for x in v.values() for t in _tensors(x)]
+    return []
+
+
+def _copy(v):
+    """A copy of every tensor in v in its own storage (the same strides
+    where they do not overlap)."""
+    import torch
+
+    if hasattr(v, "data_ptr"):
+        if min(v.stride(), default=1) > 0:
+            return torch.empty_strided(v.shape, v.stride(), dtype=v.dtype,
+                                       device=v.device).copy_(v)
+        return v.clone()
+    if isinstance(v, tuple):
+        return tuple(_copy(x) for x in v)
+    if isinstance(v, dict):
+        return {n: _copy(x) for n, x in v.items()}
+    return v
+
+
 @contextlib.contextmanager
 def record_toolkit(classes, run):
-    """While active, count every kernels.gemm, kernels.attention,
-    kernels.ln_linear and kernels.th_bwd_rows call in classes[(kernel,
+    """While active, count every call of a WRAPPER in classes[(kernel,
     class)]["launches"][run], keeping the first call's layout (tensor_meta
-    of each tensor, the scalars) to replay it."""
+    of each tensor, the scalars) to replay it; and every call of a SMALL
+    wrapper in classes[(name, class)], keeping a copy of the first call's
+    arguments and its bytes (each tensor argument and output once)."""
     from spe_tpu_torch.ops import kernels as K
     from spe_tpu_torch.ops.kernel_checks import tensor_meta
 
-    gemm, attention, ln_linear, th_bwd_rows = (K.gemm, K.attention,
-                                               K.ln_linear, K.th_bwd_rows)
+    gemm, attention, ln_linear, th_bwd_rows, th_fwd_rows, attn_rows = (
+        K.gemm, K.attention, K.ln_linear, K.th_bwd_rows, K.th_fwd_rows,
+        K.attention_bwd_rows)
 
     def meta(kw):
         out = {}
@@ -523,23 +607,58 @@ def record_toolkit(classes, run):
         return ln_linear(a, w, bias, **kw)
 
     def rec_th_bwd(s, lse, dzd, bl, ww, bw, seed, rate, **kw):
-        note("th_bwd_rows_kernel", _th_bwd_class(s, rate, kw),
+        note("th_bwd_rows_kernel", _th_rows_class(s, rate, kw),
              lambda: (tuple(s.shape), rate, kw.get("site", 1),
                       kw.get("wl") is not None))
         return th_bwd_rows(s, lse, dzd, bl, ww, bw, seed, rate, **kw)
 
+    def rec_th_fwd(s, bl, ww, bw, seed, rate, **kw):
+        note("th_fwd_rows_kernel", _th_rows_class(s, rate, kw),
+             lambda: (tuple(s.shape), rate, kw.get("site", 1),
+                      kw.get("wl") is not None))
+        return th_fwd_rows(s, bl, ww, bw, seed, rate, **kw)
+
+    def rec_attn_rows(s, dzd, lse, kbias, seed, drop, **kw):
+        note("attn_bwd_rows_kernel", _attn_rows_class(s, kbias, drop, kw),
+             lambda: (tuple(s.shape), kbias is not None, drop,
+                      kw.get("mask_heads")))
+        return attn_rows(s, dzd, lse, kbias, seed, drop, **kw)
+
+    def rec_small(name, fn):
+        def rec(*args, **kw):
+            entry = classes.setdefault((name, _small_class(args, kw)),
+                                       {"launches": {}})
+            entry["launches"][run] = entry["launches"].get(run, 0) + 1
+            first = "call" not in entry
+            if first:
+                entry["call"] = (_copy(args), _copy(kw))
+            out = fn(*args, **kw)
+            if first:
+                entry["bytes"] = sum(t.numel() * t.element_size()
+                                     for t in _tensors((args, kw, out)))
+            return out
+        return rec
+
     # the wrappers count their launches on the module's names: carried over
-    orig = (gemm, attention, ln_linear, th_bwd_rows)
-    recs = (rec_gemm, rec_attention, rec_linear, rec_th_bwd)
-    for o, r in zip(orig, recs):
-        r.launches = o.launches
-    K.gemm, K.attention, K.ln_linear, K.th_bwd_rows = recs
+    orig = {"gemm": gemm, "attention": attention, "ln_linear": ln_linear,
+            "th_bwd_rows": th_bwd_rows, "th_fwd_rows": th_fwd_rows,
+            "attention_bwd_rows": attn_rows}
+    recs = {"gemm": rec_gemm, "attention": rec_attention,
+            "ln_linear": rec_linear, "th_bwd_rows": rec_th_bwd,
+            "th_fwd_rows": rec_th_fwd, "attention_bwd_rows": rec_attn_rows}
+    for n, r in recs.items():
+        r.launches = orig[n].launches
+    orig.update({n: getattr(K, n) for n in SMALL})
+    recs.update({n: rec_small(n, getattr(K, n)) for n in SMALL})
+    for n, r in recs.items():
+        setattr(K, n, r)
     try:
         yield classes
     finally:
-        K.gemm, K.attention, K.ln_linear, K.th_bwd_rows = orig
-        for o, r in zip(orig, recs):
-            o.launches = r.launches
+        for n, o in orig.items():
+            setattr(K, n, o)
+            if hasattr(recs[n], "launches"):
+                o.launches = recs[n].launches
 
 
 def _replay(kernel, call, gen):
@@ -570,11 +689,20 @@ def _replay(kernel, call, gen):
                         strided_like(ln[1], gen, "cuda"), ln[2])
         return dict(a=strided_like(a, gen, "cuda"),
                     w=strided_like(w, gen, "cuda"), kw=kw, out=out, aux=aux)
-    if kernel == "th_bwd_rows_kernel":
-        from spe_tpu_torch.ops.kernel_checks import th_bwd_case
+    if kernel in ("th_bwd_rows_kernel", "th_fwd_rows_kernel"):
+        from spe_tpu_torch.ops.kernel_checks import th_bwd_case, th_fwd_case
 
         (B, H, N, _), rate, site, wl = call
-        args, kw = th_bwd_case(B, H, N, rate, wl, device="cuda", site=site)
+        make = th_bwd_case if kernel == "th_bwd_rows_kernel" else th_fwd_case
+        args, kw = make(B, H, N, rate, wl, device="cuda", site=site)
+        return dict(args=args, kw=kw)
+    if kernel == "attn_bwd_rows_kernel":
+        from spe_tpu_torch.ops.kernel_checks import attn_rows_case
+
+        (B, H, Nq, Nk), kbias, drop, mask_heads = call
+        site, rate = drop if drop is not None else (10, 0.0)
+        args, kw = attn_rows_case(B, H, Nq, Nk, kbias, rate, mask_heads,
+                                  device="cuda", site=site)
         return dict(args=args, kw=kw)
     q, k, v, out, kw = call
     kw = dict(kw)
@@ -589,8 +717,9 @@ RECORDED_RUNS = ("stock step", "attention step", "eval forward")
 def record_classes(batch=8, extra=()):
     """One training step of the stock preset and of the standalone-attention
     configuration, and one stock eval forward (flip: 2 x batch images),
-    through the kernels at B=batch, with every gemm and attention call
-    recorded by class -> {(kernel, class): {"launches": {run: n}, "call"}}."""
+    through the kernels at B=batch, with every call of a WRAPPER or SMALL
+    wrapper recorded by class -> {(kernel or wrapper, class): {"launches":
+    {run: n}, "call", and for a SMALL one "bytes"}}."""
     import torch
 
     from spe_tpu_torch.cli.main import parse_config
@@ -671,25 +800,131 @@ def _toolkit_case(K, kc, kernel, case):
                 lambda: K.ln_linear_reference(case["a"], case["w"], **kw2),
                 kc.linear_bound_ms(case), kc.linear_library(case), "")
     args, kw = case["args"], case["kw"]
-    errs, same, finite = kc.th_bwd_check(K.th_bwd_rows, K.th_bwd_rows_reference,
-                                         args, kw)
-    return (errs, same, finite, lambda: K.th_bwd_rows(*args, **kw),
-            lambda: K.th_bwd_rows_reference(*args, **kw),
-            kc.th_bwd_bound_ms(args, kw), None, "")
+    check, bound = {"th_bwd_rows_kernel": (kc.th_bwd_check, kc.th_bwd_bound_ms),
+                    "th_fwd_rows_kernel": (kc.th_fwd_check, kc.th_fwd_bound_ms),
+                    "attn_bwd_rows_kernel": (kc.attn_rows_check,
+                                             kc.attn_rows_bound_ms)}[kernel]
+    fn = getattr(K, WRAPPER[kernel])
+    plain = getattr(K, f"{WRAPPER[kernel]}_reference")
+    errs, same, finite = check(fn, plain, args, kw)
+    return (errs, same, finite, lambda: fn(*args, **kw),
+            lambda: plain(*args, **kw), bound(args, kw), None, "")
+
+
+# the argument a SMALL wrapper writes in place (an output of the call)
+WRITES = {"th_dq": 4}
+
+
+def _small_outputs(fn, name, args, kw):
+    """fn on the arguments (a fresh copy of the one it writes) -> its
+    output tensors."""
+    args = list(args)
+    if name in WRITES:
+        args[WRITES[name]] = _copy(args[WRITES[name]])
+    outs = _tensors(fn(*args, **kw))
+    return outs + ([args[WRITES[name]]] if name in WRITES else [])
+
+
+def _small_library(name, args, kw):
+    """One PyTorch call that computes the SMALL wrapper's function on the
+    recorded inputs (converted outside the timed call), or None: timed
+    beside the kernel, never called by the port."""
+    import torch
+    import torch.nn.functional as F
+
+    if name == "layernorm":
+        x, w, b, eps = args
+        w, b = w.to(x.dtype), b.to(x.dtype)
+        return lambda: F.layer_norm(x, (x.shape[-1],), w, b, eps)
+    if name == "ln_backward" and kw.get("res") is None:
+        dy, x, w, eps = args
+        xf = x.float().contiguous()
+        mean = xf.mean(-1, keepdim=True)
+        rstd = torch.rsqrt(xf.var(-1, unbiased=False, keepdim=True) + eps)
+        zero = torch.zeros_like(w)
+        return lambda: torch.ops.aten.native_layer_norm_backward(
+            dy, xf, [x.shape[-1]], mean, rstd, w, zero, [True, True, True])
+    if name == "colsum":
+        return lambda: torch.sum(args[0], 1, dtype=torch.float32)
+    if name in ("colsum_f32", "reduce_sum"):
+        return lambda: torch.sum(args[0], 0)
+    return None
+
+
+def small_kernels(classes):
+    """The SMALL wrappers' recorded classes (record_toolkit): each first
+    call replayed on copies of its inputs, the kernel twice and its plain
+    version (kernels.<name>_reference) once, every output within
+    GRAD_REL_TOL of its largest plain magnitude and the two runs
+    bit-identical; its device time in a CUDA graph, its bound (the call's
+    bytes over the memory rate) and the library's time; then the sums
+    over each recorded run (launches x time). Fails on a mismatch."""
+    import torch
+
+    from spe_tpu_torch.ops import kernels as K
+    from spe_tpu_torch.ops.kernel_checks import (HBM_BYTES_PER_MS, grad_tol,
+                                                 max_err)
+
+    bad, sums = [], {}
+    for (name, cls), rec in sorted(
+            ((k, v) for k, v in classes.items() if k[0] in SMALL),
+            key=lambda kv: (kv[0][0], -sum(kv[1]["launches"].values()))):
+        args, kw = rec["call"]
+        fn, plain = getattr(K, name), getattr(K, f"{name}_reference")
+        got, again, want = (_small_outputs(f, name, args, kw)
+                            for f in (fn, fn, plain))
+        errs = [(max_err(g, w), grad_tol(w)) for g, w in zip(got, want)]
+        same = len(got) == len(want) and all(
+            torch.equal(g, a) for g, a in zip(got, again))
+        finite = all(bool(torch.isfinite(g.float()).all()) for g in got)
+        passed = same and finite and all(e <= t for e, t in errs)
+        ms = graph_ms(lambda: fn(*args, **kw))
+        lib = _small_library(name, args, kw)
+        lib_ms = graph_ms(lib) if lib is not None else None
+        bound = rec["bytes"] / HBM_BYTES_PER_MS
+        if ms is None:
+            fail(f"{name} {cls}: not captured in a CUDA graph")
+        shapes = [list(t.shape) for t in _tensors((args, kw))] + [
+            v for v in (*args, *kw.items()) if not _tensors(v)]
+        print(f"[small] {name} {shapes}: launches {rec['launches']}; "
+              f"max_abs_err/tol {[f'{e:.2e}/{t:.2e}' for e, t in errs]} "
+              f"identical {same} finite {finite} -> "
+              f"{'ok' if passed else 'MISMATCH'}; on the device (CUDA graph): "
+              f"kernel {ms:.4f} ms, bound {bound:.5f} ms (bytes), library "
+              f"{'none' if lib is None else _ms(lib_ms)}", flush=True)
+        if not passed:
+            bad.append(f"{name} {shapes}")
+        for run, n in rec["launches"].items():
+            tot = sums.setdefault((name, run), [0, 0.0, 0.0, 0.0])
+            tot[0] += n
+            tot[1] += n * ms
+            tot[2] += n * bound
+            tot[3] = None if lib_ms is None or tot[3] is None else \
+                tot[3] + n * lib_ms
+        del args, kw, got, again, want
+    for (name, run), (n, ms, bound, lib_ms) in sorted(sums.items()):
+        print(f"[small] {name} ({', '.join(SMALL[name])}): one {run}: {n} "
+              f"launches, kernel {ms:.3f} ms, bound {bound:.4f} ms, library "
+              f"{'none' if lib_ms is None else _ms(lib_ms)}", flush=True)
+    torch.cuda.empty_cache()
+    if bad:
+        fail(f"kernels disagree with their plain versions: {bad}")
 
 
 def phase_toolkit(results, extra=()):
-    """gemm_kernel, attn_kernel, linear_kernel and th_bwd_rows_kernel at
-    every class the main path gives them (record_classes), each on fresh
-    random inputs of the recorded layout against its plain version (gemm
-    and th_bwd_rows: 1% of the largest plain magnitude; attention and
-    ln_linear: 4 bf16 ulps at the output's, probabilities 1e-4), twice
-    (identical bits); their time beside the plain version's, the bound and
-    the library's (torch.matmul on pre-rounded contiguous bf16 operands;
-    scaled_dot_product_attention where it computes the same function;
-    torch.addmm for ln_linear). Adds the kernels' entries to `results`, the
-    per-class numbers under "classes" and the per-run sums (SUM_RUNS) at
-    the top (the main run's) and under "per_run"."""
+    """The WRAPPER kernels (gemm_kernel, attn_kernel, linear_kernel and the
+    three row kernels) at every class the main path gives them
+    (record_classes), each on fresh random inputs of the recorded layout
+    against its plain version (gemm, th_bwd_rows and attention_bwd_rows:
+    1% of the largest plain magnitude; attention, ln_linear and
+    th_fwd_rows' zd: 4 bf16 ulps at the output's, th_fwd_rows' lse 1e-5
+    relative, probabilities 1e-4), twice (identical bits); their time
+    beside the plain version's, the bound and the library's (torch.matmul
+    on pre-rounded contiguous bf16 operands; scaled_dot_product_attention
+    where it computes the same function; torch.addmm for ln_linear). Adds
+    the kernels' entries to `results`, the per-class numbers under
+    "classes" and the per-run sums (SUM_RUNS) at the top (the main run's)
+    and under "per_run". Then the SMALL wrappers' classes (small_kernels)."""
     import torch
 
     from spe_tpu_torch.ops import kernels as K
@@ -709,6 +944,8 @@ def phase_toolkit(results, extra=()):
                for name, (src, rep) in TOOLKIT.items()}
     for (kernel, cls), rec in sorted(classes.items(), key=lambda kv: (
             kv[0][0], -sum(kv[1]["launches"].values()))):
+        if kernel in SMALL:
+            continue
         case = _replay(kernel, rec["call"], gen)
         errs, same, finite, fn, plain, bound, lib, extra_note = \
             _toolkit_case(K, kc, kernel, case)
@@ -783,6 +1020,7 @@ def phase_toolkit(results, extra=()):
                   flush=True)
     if not ok:
         fail("a toolkit kernel disagrees with its plain version")
+    small_kernels(classes)
 
 
 def phase_against(parent_root):
@@ -811,6 +1049,8 @@ def phase_against(parent_root):
     sums = {}
     for (kernel, cls), rec in sorted(classes.items(), key=lambda kv: (
             kv[0][0], -sum(kv[1]["launches"].values()))):
+        if kernel in SMALL:
+            continue
         case = _replay(kernel, rec["call"], gen)
         times = {}
         for mod in (other, K, K, other):
@@ -830,7 +1070,8 @@ def phase_against(parent_root):
                 fn = (lambda m=mod, kw=kw: m.ln_linear(case["a"], case["w"],
                                                        **kw))
             else:
-                fn = (lambda m=mod: m.th_bwd_rows(*case["args"], **case["kw"]))
+                fn = (lambda m=mod, w=WRAPPER[kernel]: getattr(m, w)(
+                    *case["args"], **case["kw"]))
             times.setdefault(mod is K, []).append(graph_ms(fn))
         print(f"[against] {kernel} {cls}: launches {rec['launches']}; on the "
               f"device (CUDA graph), other then this then this then other: "
@@ -1916,12 +2157,36 @@ def profile_forward(fn, batch, reps=2, what="eval forwards (flip)"):
         print(f"[profile] family {fam}: {t / 1e3:.2f} ms "
               f"({100 * t / max(total, 1):.1f}% of device time), "
               f"{sum(e.count for e in mine)} launches", flush=True)
+    mine = {}
+    for name in csrc_kernels():
+        pat = re.compile(rf"\b{name}\b")
+        hits = [e for e in rows if pat.search(e.key)]
+        mine[name] = (sum(e.self_device_time_total for e in hits) / 1e3,
+                      sum(e.count for e in hits))
+    t = sum(ms for ms, _ in mine.values())
+    print(f"[profile] the csrc kernels: {t:.2f} ms "
+          f"({100 * t * 1e3 / max(total, 1):.1f}% of device time); by "
+          "__global__ (ms/launches): " + ", ".join(
+              f"{n} {ms:.3f}/{c}" for n, (ms, c) in
+              sorted(mine.items(), key=lambda kv: -kv[1][0])), flush=True)
 
 
 # kernels summed over their instantiations in each profile
 PROFILE_FAMILIES = ("attn_kernel<192, 192", "attn_kernel", "gemm_kernel",
                     "th_bwd_rows_kernel", "th_fwd_rows_kernel",
-                    "linear_kernel")
+                    "attn_bwd_rows_kernel", "linear_kernel")
+
+
+def csrc_kernels():
+    """The names of the __global__ functions in spe_tpu_torch/csrc/*.cu."""
+    from spe_tpu_torch.ops import kernels
+
+    names = []
+    for src in sorted(kernels.CSRC.glob("*.cu")):
+        names += re.findall(r"__global__\s+void\s+(?:__launch_bounds__\("
+                            r"(?:[^()]|\([^()]*\))*\)\s*)?(\w+)\s*\(",
+                            src.read_text())
+    return names
 
 
 def main():

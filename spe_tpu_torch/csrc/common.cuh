@@ -239,6 +239,12 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
 // tanh-form GELU, as the TPU kernels and flax nn.gelu compute it
 __device__ __forceinline__ float gelu_tanh(float u) {
   const float c = 0.7978845608028654f;  // sqrt(2/pi)
@@ -284,9 +290,19 @@ __device__ __forceinline__ unsigned head_key(unsigned seed, int site, unsigned b
   return mix_step(mix_step(mix_step(seed, static_cast<unsigned>(site)), b), h);
 }
 
+// keep_bit in two steps, for a kernel that walks the columns of a row: the
+// row's key once, then each column
+__device__ __forceinline__ unsigned row_key(unsigned hkey, unsigned row) {
+  return mix_step(hkey, row);
+}
+
+__device__ __forceinline__ bool keep_col(unsigned rkey, unsigned col, unsigned thr) {
+  return (mix_step(rkey, col) >> 8) < thr;
+}
+
 __device__ __forceinline__ bool keep_bit(unsigned hkey, unsigned row, unsigned col,
                                          unsigned thr) {
-  return (mix_step(mix_step(hkey, row), col) >> 8) < thr;
+  return keep_col(row_key(hkey, row), col, thr);
 }
 
 __device__ __forceinline__ bool path_bit(unsigned seed, int site, unsigned b,
@@ -305,16 +321,4 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   float s = 0.f;
   for (int w = 0; w < static_cast<int>(blockDim.x / 32); ++w) s += red[w];
   return s;
-}
-
-__device__ __forceinline__ float block_max(float v, float* red) {
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  __syncthreads();
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  float m = -INFINITY;
-  for (int w = 0; w < static_cast<int>(blockDim.x / 32); ++w) m = fmaxf(m, red[w]);
-  return m;
 }

@@ -5,9 +5,9 @@
 // whole rows:
 //   th_fold        q~_g = bf16(q (.) row_g), the wl-fold of the pre-softmax
 //                  mix into the q side (spe_tpu/ops/pallas_block.py:104);
-//   th_fwd_rows    pass 1 after s_g = q~_g . k^T (spe_gemm): per row the
+//   th_fwd_rows    after s_g = q~_g . k^T (spe_gemm): per row the
 //                  log-sum-exp of each mixed head (saved for the backward),
-//                  then pass 2: p_h = exp(s_h + bl_h - lse_h),
+//                  then p_h = exp(s_h + bl_h - lse_h),
 //                  z_g = sum_h ww[g, h] p_h + bw_g, counter dropout, written
 //                  in bf16 for the product with V_g (spe_gemm);
 //   th_bwd_rows    from s (recomputed), lse and dzd_g = do_g . V_g^T: zd_g
@@ -41,22 +41,31 @@
 //
 // What bounds it on the H100: these row kernels read and write each plane
 // element a few times (bytes); the N^2 products around them run in spe_gemm.
-// th_fwd_rows: one block per (sample, query row) holds the H rows of a head
-// group in shared memory, so the row sums need no second launch.
-// th_bwd_rows (the talking-heads softmax backward of _block_bwd_kernel,
-// pallas_block.py:356-451, and of pallas_attention_bwd.py:245-301
-// _bwd_kernel) reads s and dzd (f32) and writes zd and ds (bf16), 12 bytes
-// per plane element: 0.12 ms at B=8, H=4, N=1024. Its design: H is a
-// template parameter, so every per-head array stays in registers; each
-// thread keeps its 4 columns of every head (p_h, dp_h and, with wl, the
-// logits, read once) in registers across the one block reduction a row
-// needs (rowsum(dp_h p_h), H values); 16-byte loads and 8-byte stores; a
-// fixed grid of at most TH_BLOCKS blocks walks fixed runs of rows and
-// accumulates the parameter partials (dww, dbw, dbl, dwl) in registers,
-// reduced once per block, then across blocks by spe_reduce, so two runs
-// give the same bits. attn_bwd_rows has no parameter partials: one warp per
-// row, two passes over it (the row sum, then dl), a fixed shuffle tree for
-// the sum.
+// th_fwd_rows reads s (f32) and writes zd (bf16), 6 bytes per plane
+// element: 0.060 ms at B=8, H=4, N=1024. th_bwd_rows reads s and dzd (f32)
+// and writes zd and ds (bf16), 12 bytes per plane element: 0.12 ms at that
+// shape. Both share one design: H (and wl) are template parameters, so
+// no per-head array is indexed at run time; each thread keeps its 4
+// columns of every head in registers, read once with one 16-byte load per
+// head (8-byte stores); a fixed grid walks fixed runs of consecutive rows.
+// The forward needs two block reductions a row (the H row maxima, then the
+// H sums of exp(m - max)), each a fixed shuffle tree and the warps in
+// order, and loads the next row's logits before them. On the H100 it runs
+// at about 1.7x its byte bound: two exponentials and a counter hash per
+// element and head make its instruction issue about as long as its memory
+// time. The backward needs
+// one reduction (rowsum(dp_h p_h), H values) and accumulates the
+// parameter partials (dww, dbw, dbl, dwl) in registers, reduced once per
+// block, then across blocks by spe_reduce, so two runs give the same bits.
+// Both take N <= 4 * TH_NT = 1024 (a larger N waits for a
+// columns-per-thread template).
+// attn_bwd_rows (12 bytes per element: 0.24 ms for the encoder's 64 x
+// 1024 x 1024 at B=8) has no parameter partials: a row's s and dzd are
+// read once into registers by a group of W warps (U units of 4 columns a
+// thread, both template parameters chosen from Nk), each element's
+// exponential and keep bit computed once, the row sum a fixed shuffle tree
+// (then the group's warps in order), 16-byte loads and 8-byte stores where
+// Nk % 4 == 0 and scalar ones otherwise.
 #include "common.cuh"
 
 constexpr int MAXH = 8;
@@ -131,23 +140,6 @@ namespace {
 
 constexpr int NT = 256;
 
-// the pre-softmax logit of mixed head g at one key from the H logits l_h of
-// that key: sum_h wl[g, h] l_h + bl_g with wl, else l_g + bl_g
-__device__ __forceinline__ float mixed_logit(const THRowParams& p, const float* l,
-                                             int g) {
-  if (!p.wl) return l[g] + p.bl[g];
-  float m = 0.f;
-  for (int h = 0; h < p.H; ++h) m += p.wl[g * p.H + h] * l[h];
-  return m + p.bl[g];
-}
-
-__device__ __forceinline__ void load_logits(const THRowParams& p, int b, int i, int j,
-                                            float* l) {
-  for (int h = 0; h < p.H; ++h) {
-    l[h] = p.s[((static_cast<long long>(b) * p.H + h) * p.N + i) * p.N + j];
-  }
-}
-
 __global__ void th_fold_kernel(THFoldParams p) {
   const long long total = static_cast<long long>(p.B) * p.H * p.N * p.D;
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -157,44 +149,6 @@ __global__ void th_fold_kernel(THFoldParams p) {
   const int g = static_cast<int>((i / (static_cast<long long>(p.D) * p.N)) % p.H);
   const int b = static_cast<int>(i / (static_cast<long long>(p.D) * p.N * p.H));
   p.out[i] = f2bf(bf2f(p.q[b * p.q_sb + n * p.q_sn + c]) * p.rows[g * p.D + c]);
-}
-
-__global__ void __launch_bounds__(NT) th_fwd_rows_kernel(THRowParams p) {
-  extern __shared__ float sm[];          // H * N mixed logits (+ head bias)
-  __shared__ float red[32];
-  __shared__ float s_lse[MAXH];
-  const int b = blockIdx.x / p.N, i = blockIdx.x % p.N;
-  const int H = p.H, N = p.N;
-  for (int j = threadIdx.x; j < N; j += NT) {
-    float l[MAXH];
-    load_logits(p, b, i, j, l);
-    for (int g = 0; g < H; ++g) sm[g * N + j] = mixed_logit(p, l, g);
-  }
-  for (int h = 0; h < H; ++h) {
-    float mx = -INFINITY;
-    for (int j = threadIdx.x; j < N; j += NT) mx = fmaxf(mx, sm[h * N + j]);
-    mx = block_max(mx, red);
-    float l = 0.f;
-    for (int j = threadIdx.x; j < N; j += NT) l += expf(sm[h * N + j] - mx);
-    l = block_sum(l, red);
-    if (threadIdx.x == 0) {
-      s_lse[h] = mx + logf(l);
-      p.lse[(static_cast<long long>(b) * H + h) * N + i] = s_lse[h];
-    }
-  }
-  __syncthreads();
-  unsigned keys[MAXH];
-  for (int g = 0; g < H; ++g) keys[g] = p.drop ? head_key(*p.seed, p.site, b, g) : 0u;
-  for (int j = threadIdx.x; j < N; j += NT) {
-    float pr[MAXH];
-    for (int h = 0; h < H; ++h) pr[h] = expf(sm[h * N + j] - s_lse[h]);
-    for (int g = 0; g < H; ++g) {
-      float z = p.bw[g];
-      for (int h = 0; h < H; ++h) z += p.ww[g * H + h] * pr[h];
-      if (p.drop) z = keep_bit(keys[g], i, j, p.thr) ? z * p.scale : 0.f;
-      p.zd[((static_cast<long long>(b) * H + g) * N + i) * N + j] = f2bf(z);
-    }
-  }
 }
 
 // th_bwd_rows_kernel: TH_BLOCKS blocks (fewer for few rows) of TH_NT
@@ -403,6 +357,151 @@ __global__ void __launch_bounds__(TH_NT) th_bwd_rows_kernel(THRowParams p, int r
   }
 }
 
+// th_fwd_rows_kernel: th_bwd_rows_kernel's layout (a thread's 4 columns of
+// every head, fixed runs of consecutive rows; one wave of blocks, at most
+// TH_BLOCKS). Per row: the mixed logits m_g (+ bl_g) from the H logits
+// loaded during the row before, the next row's loads issued, then two block
+// reductions of H values (the row maxima, then the sums of exp(m - max)),
+// lse = max + log(sum), p_h = exp(m_h - lse_h) as th_bwd_rows_kernel
+// recomputes it, z_g = sum_h ww[g, h] p_h + bw_g, the counter mask (the
+// head keys made once per sample) and 8-byte stores of zd.
+template <int H, bool WL>
+__global__ void __launch_bounds__(TH_NT) th_fwd_rows_kernel(THRowParams p, int rows_per_block) {
+  constexpr int NW = TH_NT / 32;
+  __shared__ float red_max[NW][H], red_sum[NW][H];
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int N = p.N;
+  const int r0 = blockIdx.x * rows_per_block;
+  const int r1 = min(p.B * N, r0 + rows_per_block);
+  const int c0 = 4 * threadIdx.x;            // this thread's 4 columns
+  const bool on = c0 < N;
+  const bool vec = N % 4 == 0;                // 16-byte rows
+  const float sc = p.drop ? p.scale : 1.f;
+  const long long hstride = static_cast<long long>(N) * N;
+
+  float ww[H * H], wl[WL ? H * H : 1], bl[H], bw[H];
+#pragma unroll
+  for (int e = 0; e < H * H; ++e) {
+    ww[e] = p.ww[e];
+    if constexpr (WL) wl[e] = p.wl[e];
+  }
+#pragma unroll
+  for (int h = 0; h < H; ++h) {
+    bl[h] = p.bl[h];
+    bw[h] = p.bw[h];
+  }
+  unsigned key[H];
+  int key_b = -1;                             // the sample of key[]
+#pragma unroll
+  for (int h = 0; h < H; ++h) key[h] = 0u;
+
+  // row (b, h, i) of a (B, H, N, N) plane starts at ((b * H + h) * N + i) * N
+  float nx[H][4];                             // the logits of the next row
+#pragma unroll
+  for (int h = 0; h < H; ++h)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) nx[h][e] = 0.f;
+  int b = r0 / N, i = r0 % N;
+  long long row0 = (static_cast<long long>(b) * H * N + i) * N;
+  if (on && r0 < r1) {
+#pragma unroll
+    for (int h = 0; h < H; ++h) load_row4(p.s + row0 + h * hstride, c0, N, vec, nx[h]);
+  }
+  for (int r = r0; r < r1; ++r) {
+    float m[H][4];
+#pragma unroll
+    for (int g = 0; g < H; ++g)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float v;
+        if constexpr (WL) {
+          v = 0.f;
+#pragma unroll
+          for (int h = 0; h < H; ++h) v += wl[g * H + h] * nx[h][e];
+          v += bl[g];
+        } else {
+          v = nx[g][e] + bl[g];
+        }
+        m[g][e] = v;
+      }
+    if (c0 + 4 > N) {                         // -inf past the row's end
+#pragma unroll
+      for (int g = 0; g < H; ++g)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (c0 + e >= N) m[g][e] = -INFINITY;
+    }
+    // the next row (b, i + 1), or (b + 1, 0) after the sample's last
+    const long long next = i + 1 < N ? row0 + N : static_cast<long long>(b + 1) * H * N * N;
+    if (on && r + 1 < r1) {
+#pragma unroll
+      for (int h = 0; h < H; ++h) load_row4(p.s + next + h * hstride, c0, N, vec, nx[h]);
+    }
+    // the row maxima, then the sums: each a fixed shuffle tree, then the
+    // warps in order (red_max of the next row is written only after every
+    // thread passed this row's second barrier). The sums take the fast
+    // exponential and logarithm: lse moves by a few f32 ulps, and p below
+    // is the exact expf(m - lse) that th_bwd_rows_kernel recomputes.
+#pragma unroll
+    for (int g = 0; g < H; ++g) {
+      const float t = warp_max(fmaxf(fmaxf(m[g][0], m[g][1]), fmaxf(m[g][2], m[g][3])));
+      if (lane == 0) red_max[warp][g] = t;
+    }
+    __syncthreads();
+    float mx[H];
+#pragma unroll
+    for (int g = 0; g < H; ++g) {
+      mx[g] = red_max[0][g];
+      for (int w = 1; w < NW; ++w) mx[g] = fmaxf(mx[g], red_max[w][g]);
+      float t = 0.f;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) t += __expf(m[g][e] - mx[g]);
+      t = warp_sum(t);
+      if (lane == 0) red_sum[warp][g] = t;
+    }
+    __syncthreads();
+    float lse[H];
+#pragma unroll
+    for (int g = 0; g < H; ++g) {
+      float l = 0.f;
+      for (int w = 0; w < NW; ++w) l += red_sum[w][g];
+      lse[g] = mx[g] + __logf(l);
+      if (threadIdx.x == g) p.lse[(static_cast<long long>(b) * H + g) * N + i] = lse[g];
+    }
+    if (on) {
+      if (p.drop && b != key_b) {
+#pragma unroll
+        for (int g = 0; g < H; ++g) key[g] = head_key(*p.seed, p.site, b, g);
+        key_b = b;
+      }
+      float pr[H][4];
+#pragma unroll
+      for (int h = 0; h < H; ++h)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) pr[h][e] = expf(m[h][e] - lse[h]);   // 0 past the row's end
+#pragma unroll
+      for (int g = 0; g < H; ++g) {
+        const unsigned rk = row_key(key[g], static_cast<unsigned>(i));
+        float zo[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float z = bw[g];
+#pragma unroll
+          for (int h = 0; h < H; ++h) z += ww[g * H + h] * pr[h][e];
+          const bool keep = !p.drop || keep_col(rk, static_cast<unsigned>(c0 + e), p.thr);
+          zo[e] = keep ? z * sc : 0.f;
+        }
+        store_row4(p.zd + row0 + g * hstride, c0, N, vec, zo);
+      }
+    }
+    row0 = next;
+    if (++i == N) {
+      i = 0;
+      ++b;
+    }
+  }
+}
+
 __global__ void th_dq_kernel(THDqParams p) {
   extern __shared__ float sm[];   // H * D products q (.) dq~_g
   const int b = blockIdx.x / p.N, i = blockIdx.x % p.N;
@@ -440,58 +539,124 @@ __global__ void softmax_bwd_kernel(SoftmaxBwdParams p) {
   }
 }
 
-__device__ __forceinline__ void attn_row_values(const AttnRowParams& p, long long o,
-                                                const float* kb, float lse, unsigned key,
-                                                unsigned i, int j, float* pr, float* dp,
-                                                bool* keep) {
-  *pr = expf(p.s[o + j] + (kb ? kb[j] : 0.f) - lse);
-  *keep = !p.drop_site || keep_bit(key, i, static_cast<unsigned>(j), p.drop_thr);
-  const float sc = p.drop_site ? p.drop_scale : 1.f;
-  *dp = *keep ? p.dzd[o + j] * sc : 0.f;
-}
+// attn_bwd_rows_kernel<U, W>: a group of W warps per row (AB_NT / (32 W)
+// rows a block); thread t of a group holds U units of 4 columns, unit k at
+// column 4 (t + 32 W k), so one unit of a warp is 512 contiguous bytes of a
+// row. s and dzd are read once (16-byte loads where Nk % 4 == 0 and the
+// rows are aligned, else scalar), each element's p, keep bit and masked dp
+// made once and kept in registers across the row sum rowsum(dp p) (a fixed
+// shuffle tree, then the group's warps in order through shared memory);
+// zd is stored before the sum, dl after it (8-byte stores where aligned).
+constexpr int AB_NT = 256;
 
-__global__ void __launch_bounds__(NT) attn_bwd_rows_kernel(AttnRowParams p) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const long long row = static_cast<long long>(blockIdx.x) * (NT / 32) + warp;
-  if (row >= static_cast<long long>(p.Z) * p.Nq) return;
+template <int U, int W>
+__global__ void __launch_bounds__(AB_NT) attn_bwd_rows_kernel(AttnRowParams p) {
+  constexpr int G = 32 * W;                   // threads per row
+  __shared__ float red[AB_NT / 32];
+  const int warp = threadIdx.x / 32, t = threadIdx.x % G;
+  const long long row = static_cast<long long>(blockIdx.x) * (AB_NT / G) + threadIdx.x / G;
+  const bool live = row < static_cast<long long>(p.Z) * p.Nq;
+  if (W == 1 && !live) return;                // W > 1: every thread meets the barrier
+  const int Nk = p.Nk;
+  const long long o = live ? row * Nk : 0;
   const int z = static_cast<int>(row / p.Nq);
   const unsigned i = static_cast<unsigned>(row % p.Nq);
-  const long long o = row * p.Nk;
   const float* kb = p.kbias ? p.kbias + (z / p.H) * p.kb_sb : nullptr;
-  const float lse = p.lse[row];
-  const unsigned key =
-      p.drop_site ? head_key(*p.seed, p.drop_site, z / p.mask_heads, z % p.mask_heads) : 0u;
-  const float sc = p.drop_site ? p.drop_scale : 1.f;
+  const bool drop = p.drop_site != 0;
+  const float sc = drop ? p.drop_scale : 1.f;
+  const unsigned long long al =
+      reinterpret_cast<unsigned long long>(p.s) | reinterpret_cast<unsigned long long>(p.dzd);
+  const unsigned long long al2 =
+      reinterpret_cast<unsigned long long>(p.zd) | reinterpret_cast<unsigned long long>(p.dl);
+  const bool vec = Nk % 4 == 0 && al % 16 == 0 && al2 % 8 == 0;
+  const bool kvec = vec && reinterpret_cast<unsigned long long>(kb) % 16 == 0;
+  float pr[U][4], dp[U][4];
   float acc = 0.f;
-  for (int j = lane; j < p.Nk; j += 32) {
-    float pr, dp;
-    bool keep;
-    attn_row_values(p, o, kb, lse, key, i, j, &pr, &dp, &keep);
-    p.zd[o + j] = f2bf(keep ? pr * sc : 0.f);
-    acc += dp * pr;
+  if (live) {
+    const float lse = p.lse[row];
+    const unsigned rk =
+        drop ? row_key(head_key(*p.seed, p.drop_site, z / p.mask_heads, z % p.mask_heads), i)
+             : 0u;
+    float sv[U][4], dv[U][4];
+#pragma unroll
+    for (int k = 0; k < U; ++k) {
+      const int c = 4 * (t + G * k);
+      load_row4(p.s + o, c, Nk, vec, sv[k]);
+      load_row4(p.dzd + o, c, Nk, vec, dv[k]);
+    }
+#pragma unroll
+    for (int k = 0; k < U; ++k) {
+      const int c = 4 * (t + G * k);
+      float kv[4] = {0.f, 0.f, 0.f, 0.f};
+      if (kb) load_row4(kb, c, Nk, kvec, kv);
+      float zo[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float pe = c + e < Nk ? expf(sv[k][e] + kv[e] - lse) : 0.f;
+        const bool keep = !drop || keep_col(rk, static_cast<unsigned>(c + e), p.drop_thr);
+        zo[e] = keep ? pe * sc : 0.f;
+        dp[k][e] = keep ? dv[k][e] * sc : 0.f;
+        pr[k][e] = pe;
+        acc += dp[k][e] * pe;
+      }
+      store_row4(p.zd + o, c, Nk, vec, zo);
+    }
   }
-  const float sum = warp_sum(acc);
-  for (int j = lane; j < p.Nk; j += 32) {
-    float pr, dp;
-    bool keep;
-    attn_row_values(p, o, kb, lse, key, i, j, &pr, &dp, &keep);
-    p.dl[o + j] = f2bf(pr * (dp - sum));
+  float sum = warp_sum(acc);
+  if constexpr (W > 1) {
+    if (threadIdx.x % 32 == 0) red[warp] = sum;
+    __syncthreads();
+    const int w0 = warp / W * W;
+    sum = 0.f;
+#pragma unroll
+    for (int w = 0; w < W; ++w) sum += red[w0 + w];
   }
+  if (!live) return;
+#pragma unroll
+  for (int k = 0; k < U; ++k) {
+    float d[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) d[e] = pr[k][e] * (dp[k][e] - sum);
+    store_row4(p.dl + o, 4 * (t + G * k), Nk, vec, d);
+  }
+}
+
+template <int U, int W>
+int launch_attn_bwd(const AttnRowParams* p, long long rows, cudaStream_t s) {
+  constexpr int RPB = AB_NT / (32 * W);
+  const long long blocks = (rows + RPB - 1) / RPB;
+  if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
+  attn_bwd_rows_kernel<U, W><<<static_cast<unsigned>(blocks), AB_NT, 0, s>>>(*p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// Nk <= 8192: one warp a row with ceil(Nk / 128) units a thread up to
+// Nk = 1152 (the class attention's 1045 included), else 2, 4 or 8 warps a
+// row with 8 units a thread.
 extern "C" int spe_attn_bwd_rows(const AttnRowParams* p, void* stream) {
   const long long rows = static_cast<long long>(p->Z) * p->Nq;
-  if (p->Z <= 0 || p->H <= 0 || p->Nq <= 0 || p->Nk <= 0 ||
+  if (p->Z <= 0 || p->H <= 0 || p->Nq <= 0 || p->Nk <= 0 || p->Nk > 8192 ||
       (p->drop_site && (!p->seed || p->mask_heads <= 0))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const long long blocks = (rows + NT / 32 - 1) / (NT / 32);
-  if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
-  attn_bwd_rows_kernel<<<static_cast<unsigned>(blocks), NT, 0,
-                         static_cast<cudaStream_t>(stream)>>>(*p);
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch ((p->Nk + 127) / 128) {
+    case 1: return launch_attn_bwd<1, 1>(p, rows, s);
+    case 2: return launch_attn_bwd<2, 1>(p, rows, s);
+    case 3: return launch_attn_bwd<3, 1>(p, rows, s);
+    case 4: return launch_attn_bwd<4, 1>(p, rows, s);
+    case 5: return launch_attn_bwd<5, 1>(p, rows, s);
+    case 6: return launch_attn_bwd<6, 1>(p, rows, s);
+    case 7: return launch_attn_bwd<7, 1>(p, rows, s);
+    case 8: return launch_attn_bwd<8, 1>(p, rows, s);
+    case 9: return launch_attn_bwd<9, 1>(p, rows, s);
+    default: break;
+  }
+  if (p->Nk <= 2048) return launch_attn_bwd<8, 2>(p, rows, s);
+  if (p->Nk <= 4096) return launch_attn_bwd<8, 4>(p, rows, s);
+  return launch_attn_bwd<8, 8>(p, rows, s);
 }
 
 extern "C" int spe_th_fold(const THFoldParams* p, void* stream) {
@@ -517,39 +682,58 @@ int launch_th_bwd(const THRowParams* p, cudaStream_t s) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// the forward's grid: the blocks of one wave (at most TH_BLOCKS), each
+// over an equal run of rows
+template <int H, bool WL>
+int launch_th_fwd_form(const THRowParams* p, cudaStream_t s) {
+  static const int wave = [] {
+    int n = 0;
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, th_fwd_rows_kernel<H, WL>, TH_NT,
+                                                      0) != cudaSuccess || n <= 0) {
+      n = 1;
+    }
+    return n * sm_count() < TH_BLOCKS ? n * sm_count() : TH_BLOCKS;
+  }();
+  const long long rows = static_cast<long long>(p->B) * p->N;
+  const long long per = (rows + wave - 1) / wave;
+  const unsigned blocks = static_cast<unsigned>((rows + per - 1) / per);
+  th_fwd_rows_kernel<H, WL><<<blocks, TH_NT, 0, s>>>(*p, static_cast<int>(per));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int H>
+int launch_th_fwd(const THRowParams* p, cudaStream_t s) {
+  return p->wl ? launch_th_fwd_form<H, true>(p, s) : launch_th_fwd_form<H, false>(p, s);
+}
+
+template <int H>
+int launch_th_rows(const THRowParams* p, int backward, cudaStream_t s) {
+  return backward ? launch_th_bwd<H>(p, s) : launch_th_fwd<H>(p, s);
+}
+
 }  // namespace
 
-// the forward (backward == 0) or the backward (backward == 1) row pass.
-// The backward takes N <= 4 * TH_NT (a thread's 4 columns of a row) and
+// the forward (backward == 0) or the backward (backward == 1) row pass,
+// both for N <= 4 * TH_NT (a thread's 4 columns of a row). The backward
 // writes parts as (blocks, width): blocks = ceil(B*N / ceil(B*N /
 // TH_BLOCKS)), a function of the shape alone.
 extern "C" int spe_th_rows(const THRowParams* p, int backward, void* stream) {
-  if (p->B <= 0 || p->H <= 0 || p->H > MAXH || p->N <= 0 ||
+  if (p->B <= 0 || p->H <= 0 || p->H > MAXH || p->N <= 0 || p->N > 4 * TH_NT ||
       static_cast<long long>(p->B) * p->N > 2147483647LL ||
       (p->drop && (!p->seed || p->site <= 0))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (backward) {
-    if (p->N > 4 * TH_NT) return static_cast<int>(cudaErrorInvalidValue);
-    switch (p->H) {
-      case 1: return launch_th_bwd<1>(p, s);
-      case 2: return launch_th_bwd<2>(p, s);
-      case 3: return launch_th_bwd<3>(p, s);
-      case 4: return launch_th_bwd<4>(p, s);
-      case 5: return launch_th_bwd<5>(p, s);
-      case 6: return launch_th_bwd<6>(p, s);
-      case 7: return launch_th_bwd<7>(p, s);
-      default: return launch_th_bwd<8>(p, s);
-    }
+  switch (p->H) {
+    case 1: return launch_th_rows<1>(p, backward, s);
+    case 2: return launch_th_rows<2>(p, backward, s);
+    case 3: return launch_th_rows<3>(p, backward, s);
+    case 4: return launch_th_rows<4>(p, backward, s);
+    case 5: return launch_th_rows<5>(p, backward, s);
+    case 6: return launch_th_rows<6>(p, backward, s);
+    case 7: return launch_th_rows<7>(p, backward, s);
+    default: return launch_th_rows<8>(p, backward, s);
   }
-  const int plane = p->H * p->N * static_cast<int>(sizeof(float));
-  if (2 * plane > 200 * 1024) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t err = cudaFuncSetAttribute(
-      th_fwd_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, plane);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  th_fwd_rows_kernel<<<static_cast<unsigned>(p->B) * p->N, NT, plane, s>>>(*p);
-  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int spe_th_dq(const THDqParams* p, void* stream) {

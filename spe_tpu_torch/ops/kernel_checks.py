@@ -1142,9 +1142,10 @@ def attention_library(case):
                                                   scale=scale)
 
 
-# ---- ln_linear (linear_kernel) and th_bwd_rows (th_bwd_rows_kernel), each
-# against its plain version (kernels.ln_linear_reference,
-# kernels.th_bwd_rows_reference) on the same inputs. A linear case is
+# ---- ln_linear (linear_kernel), th_bwd_rows (th_bwd_rows_kernel),
+# th_fwd_rows (th_fwd_rows_kernel) and attention_bwd_rows
+# (attn_bwd_rows_kernel), each against its plain version
+# (kernels.<name>_reference) on the same inputs. A linear case is
 # dict(a, w, kw, out, aux): out and aux are None or the layout (tensor_meta)
 # of a preallocated output the call writes into.
 
@@ -1380,21 +1381,29 @@ def th_bwd_case(B, H, N, rate, wl, device="cuda", seed=0, site=1):
 TH_BWD_NAMES = ("zd", "ds", "dww", "dbw", "dbl", "dwl")
 
 
+def _rows_check(kernel, plain, args, kw, names, tol):
+    """A row kernel twice and its plain version on one case -> ({output:
+    (max abs error, tol(name, {name: plain output}))}, the two kernel runs
+    bit-identical, all finite)."""
+    got, again, want = (kernel(*args, **kw), kernel(*args, **kw),
+                        plain(*args, **kw))
+    ref = dict(zip(names, want))
+    errs = {n: (max_err(g, w), tol(n, ref))
+            for n, g, w in zip(names, got, want)}
+    same = all(torch.equal(g, a) for g, a in zip(got, again))
+    finite = all(bool(torch.isfinite(g.float()).all()) for g in got)
+    return errs, same, finite
+
+
 def th_bwd_check(kernel, plain, args, kw):
     """The kernel twice and the plain version on one case -> ({output:
     (max abs error, tolerance GRAD_REL_TOL of its largest plain
     magnitude)}, the two kernel runs bit-identical, all finite). dbl is
     zero in exact arithmetic (a bias shared by a softmax row): held to the
     scale of the pre-softmax mix's gradient dwl, or without wl of dww."""
-    got, again, want = (kernel(*args, **kw), kernel(*args, **kw),
-                        plain(*args, **kw))
-    ref = dict(zip(TH_BWD_NAMES, want))
-    ref["dbl"] = ref.get("dwl", ref["dww"])
-    errs = {n: (max_err(g, w), grad_tol(ref[n]))
-            for n, g, w in zip(TH_BWD_NAMES, got, want)}
-    same = all(torch.equal(g, a) for g, a in zip(got, again))
-    finite = all(bool(torch.isfinite(g.float()).all()) for g in got)
-    return errs, same, finite
+    def tol(n, ref):
+        return grad_tol(ref.get("dwl", ref["dww"]) if n == "dbl" else ref[n])
+    return _rows_check(kernel, plain, args, kw, TH_BWD_NAMES, tol)
 
 
 def th_bwd_bound_ms(args, kw):
@@ -1408,4 +1417,116 @@ def th_bwd_bound_ms(args, kw):
     wl = kw.get("wl") is not None
     io = s.numel() * (4 + 4 + 2 + 2) + lse.numel() * 4
     per = 2 * H * (3 + 3 * wl) + 4 + 12 * (rate > 0)
+    return bound_ms(io, [(s.numel() * per, SCALAR_OPS_PER_MS)])
+
+
+# th_fwd_rows: (label, B, H, N, dropout rate, with wl)
+TH_FWD_SHAPES = [
+    ("H=4, N=130 (not a multiple of 4: scalar rows), dropout", 2, 4, 130,
+     0.1, False),
+    ("H=3, N=77, wl, dropout", 2, 3, 77, 0.1, True),
+    ("H=4, N=1024 (a thread's 4 columns x 256), dropout, wl", 1, 4, 1024,
+     0.05, True),
+    ("H=2, N=64, no dropout", 3, 2, 64, 0.0, False),
+]
+
+
+def th_fwd_case(B, H, N, rate, wl, device="cuda", seed=0, site=1):
+    """th_fwd_rows' arguments at one shape (th_bwd_case's logits and
+    mixes) -> (args, kw)."""
+    (s, _, _, bl, ww, bw, seed_t, _), kw = th_bwd_case(B, H, N, rate, wl,
+                                                       device, seed, site)
+    return (s, bl, ww, bw, seed_t, rate), kw
+
+
+TH_FWD_NAMES = ("lse", "zd")
+LSE_REL_TOL = 1e-5
+
+
+def th_fwd_check(kernel, plain, args, kw):
+    """The kernel twice and the plain version on one case -> ({output:
+    (max abs error, tolerance)}, the two kernel runs bit-identical, all
+    finite): zd within ULPS bf16 ulps of its largest plain magnitude, lse
+    (f32 sums in another order) within LSE_REL_TOL of its largest."""
+    def tol(n, ref):
+        if n == "lse":
+            return LSE_REL_TOL * float(ref["lse"].abs().max())
+        return bf16_tol(ref["zd"])
+    return _rows_check(kernel, plain, args, kw, TH_FWD_NAMES, tol)
+
+
+def th_fwd_bound_ms(args, kw):
+    """The least time of one th_fwd_rows call: s (f32) read, zd (bf16) and
+    lse (f32) written: 6 bytes per plane element; against, per element at
+    the f32 rate, the post-softmax mix (2 H ops; with wl the logit mix too),
+    ~4 for each of the two exponentials, ~2 for the row max and sum and ~12
+    for a dropout mask."""
+    s, rate = args[0], args[5]
+    B, H, N, _ = s.shape
+    wl = kw.get("wl") is not None
+    io = s.numel() * (4 + 2) + B * H * N * 4
+    per = 2 * H * (1 + wl) + 8 + 2 + 12 * (rate > 0)
+    return bound_ms(io, [(s.numel() * per, SCALAR_OPS_PER_MS)])
+
+
+# attention_bwd_rows: (label, B, H, Nq, Nk, key bias, dropout rate,
+# mask_heads or None)
+ATTN_ROWS_SHAPES = [
+    ("1024 x 1024 (the encoder), key bias, dropout", 1, 2, 1024, 1024, True,
+     0.1, None),
+    ("300 x 300 (the decoder self-attention), mask_heads 4 of 2 x 2 heads, "
+     "dropout", 4, 2, 300, 300, False, 0.1, 4),
+    ("600 x 1024 (the cross-attention), key bias, dropout", 1, 2, 600, 1024,
+     True, 0.1, None),
+    ("21 x 1045 (the class attention: scalar rows), dropout", 2, 4, 21, 1045,
+     False, 0.05, None),
+    ("ragged 7 x 33, key bias, no dropout", 2, 3, 7, 33, True, 0.0, None),
+    ("9 x 2500 (4 warps a row), key bias, dropout", 2, 2, 9, 2500, True, 0.1,
+     None),
+]
+
+
+def attn_rows_case(B, H, Nq, Nk, kbias, rate, mask_heads, device="cuda",
+                   seed=0, site=10):
+    """attention_bwd_rows' arguments at one shape: logits and dzd random,
+    the last tenth of the last sample's keys masked (key bias -1e9), lse
+    consistent with the logits -> (args, kw)."""
+    from spe_tpu_torch.ops.refmath import key_bias
+
+    gen = torch.Generator().manual_seed(seed + 11 + Nq * 7 + Nk)
+
+    def f32(*shape, scale=1.0):
+        return (scale * torch.randn(shape, generator=gen)).to(device)
+
+    s = f32(B, H, Nq, Nk, scale=2.0)
+    dzd = f32(B, H, Nq, Nk, scale=1e-3)
+    kb = key_bias(_key_mask(B, Nk, "cpu"), B, Nk, device) if kbias else None
+    lse = torch.logsumexp(s + (kb[:, None, None, :] if kbias else 0.0), -1)
+    seed_t = torch.tensor([20240617], dtype=torch.int32, device=device)
+    return ((s, dzd, lse.contiguous(), kb, seed_t, (site, rate)),
+            dict(num_heads=H, mask_heads=mask_heads))
+
+
+ATTN_ROWS_NAMES = ("zd", "dl")
+
+
+def attn_rows_check(kernel, plain, args, kw):
+    """The kernel twice and the plain version on one case -> ({output:
+    (max abs error, tolerance GRAD_REL_TOL of its largest plain
+    magnitude)}, the two kernel runs bit-identical, all finite)."""
+    return _rows_check(kernel, plain, args, kw, ATTN_ROWS_NAMES,
+                       lambda n, ref: grad_tol(ref[n]))
+
+
+def attn_rows_bound_ms(args, kw):
+    """The least time of one attention_bwd_rows call: s and dzd (f32) read,
+    zd and dl (bf16) written, lse and the key bias read: 12 bytes per
+    plane element; against, per element at the f32 rate, ~4 for the
+    exponential, ~6 for the masked dp, the row sum and dl, and ~12 for a
+    dropout mask."""
+    s, lse, kb, drop = args[0], args[2], args[3], args[5]
+    io = s.numel() * (4 + 4 + 2 + 2) + lse.numel() * 4
+    if kb is not None:
+        io += kb.numel() * 4
+    per = 4 + 6 + 12 * (drop is not None and drop[1] > 0)
     return bound_ms(io, [(s.numel() * per, SCALAR_OPS_PER_MS)])

@@ -15,13 +15,16 @@ Every wrapper checks device, dtype, shape and strides and raises on what the
 kernel does not take; it allocates its outputs with torch.empty, launches on
 torch.cuda.current_stream() and raises if the launch reports an error.
 
-The tensor-core product kernels, `ln_linear` (linear_kernel), `gemm`
-(gemm_kernel) and `attention` (attn_kernel), and the talking-heads softmax
-backward `th_bwd_rows` count their launches (`.launches`) and have their
-plain versions beside them: `ln_linear_reference`, `gemm_reference`,
-`attention_reference` and `th_bwd_rows_reference` (`th_fwd_rows_reference`
-shares its probabilities) take the same arguments and return or write the
-same values. Nothing on the card's main path calls them.
+Every wrapper of one kernel has its plain PyTorch version beside it,
+`<name>_reference`: the same arguments, the same values returned or
+written (the supervision kernels' stand in ops/connected_components.py and
+ops/auction.py, the dropout masks' is refmath.counter_keep). Nothing on the
+card's main path calls them; they are the CPU tests' emulations of the
+kernels and the kernels' oracle on the card. The tensor-core product
+kernels, `ln_linear` (linear_kernel), `gemm` (gemm_kernel) and `attention`
+(attn_kernel), and the row passes over the (B, H, N, N) planes,
+`th_fwd_rows`, `th_bwd_rows` and `attention_bwd_rows`, count their
+launches (`.launches`).
 """
 
 from __future__ import annotations
@@ -40,6 +43,8 @@ import torch.nn.functional as F
 from spe_tpu_torch.ops.refmath import (SITE_ATTN, counter_keep,
                                        gelu_tanh_grad, keep_scale,
                                        keep_threshold, path_keep)
+from spe_tpu_torch.ops.refmath import \
+    ln_backward_reference as ln_backward_rows
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "spe_tpu_torch"
@@ -639,6 +644,13 @@ def layernorm(x, weight, bias, eps, *, want_f32=True, want_bf16=False):
     return o32, o16
 
 
+def layernorm_reference(x, weight, bias, eps, *, want_f32=True,
+                        want_bf16=False):
+    """Plain PyTorch version of `layernorm` (F.layer_norm in f32)."""
+    y = F.layer_norm(x.float(), (x.shape[-1],), weight, bias, eps)
+    return (y if want_f32 else None), (y.to(_BF16) if want_bf16 else None)
+
+
 def colsum(v):
     """(B, N, C) bf16 view -> (B, C) f32 column sums over N."""
     _need(v, _BF16, "v", 3)
@@ -648,6 +660,11 @@ def colsum(v):
                       sn=v.stride(1), B=B, N=N, C=C)
     _check(lib().spe_colsum(ctypes.byref(p), _stream()), "spe_colsum")
     return out
+
+
+def colsum_reference(v):
+    """Plain PyTorch version of `colsum`."""
+    return v.float().sum(1)
 
 
 def th_mix(pv, csum, ww, bw):
@@ -670,6 +687,17 @@ def th_mix(pv, csum, ww, bw):
                    D=D)
     _check(lib().spe_th_mix(ctypes.byref(p), _stream()), "spe_th_mix")
     return out
+
+
+def th_mix_reference(pv, csum, ww, bw):
+    """Plain PyTorch version of `th_mix`: out[b, n, c] = sum_g pv[b, n, g,
+    c] ww[c // dh, g] + bw[c // dh] csum[b, c]."""
+    B, N, H, D = pv.shape
+    dh = D // H
+    mix = ww.repeat_interleave(dh, dim=0)          # (D, H): row c -> head c // dh
+    out = torch.einsum("bngc,cg->bnc", pv, mix) + \
+        bw.repeat_interleave(dh) * csum[:, None]
+    return out.to(_BF16)
 
 
 def connected_components(masks, max_sweeps):
@@ -857,6 +885,12 @@ def reduce_sum(parts, round_bf16=False):
     return out
 
 
+def reduce_sum_reference(parts, round_bf16=False):
+    """Plain PyTorch version of `reduce_sum`."""
+    s = parts.sum(0)
+    return s.to(_BF16).float() if round_bf16 else s
+
+
 ROW_CHUNK = 512   # rows per partial of a weight gradient
 
 
@@ -918,6 +952,11 @@ def colsum_f32(x):
     return reduce_sum(parts)
 
 
+def colsum_f32_reference(x):
+    """Plain PyTorch version of `colsum_f32`."""
+    return x.sum(0)
+
+
 LN_ROWS = 32   # rows per block of spe_ln_backward / spe_branch_backward
 
 
@@ -946,6 +985,13 @@ def ln_backward(dy, x, weight, eps, *, res=None, out_dtype=_F32):
     _check(lib().spe_ln_backward(ctypes.byref(p), _stream()), "spe_ln_backward")
     dwb = reduce_sum(parts)
     return dx, dwb[0], dwb[1]
+
+
+def ln_backward_reference(dy, x, weight, eps, *, res=None, out_dtype=_F32):
+    """Plain PyTorch version of `ln_backward` (refmath's LayerNorm
+    backward, then the residual and the output type)."""
+    dx, dw, db = ln_backward_rows(dy, x, weight, eps)
+    return (dx + (res if res is not None else 0.0)).to(out_dtype), dw, db
 
 
 def branch_backward(dres, val, gamma, *, seed=None, drop=None, path=None,
@@ -980,6 +1026,20 @@ def branch_backward(dres, val, gamma, *, seed=None, drop=None, path=None,
     _check(lib().spe_branch_backward(ctypes.byref(p), _stream()),
            "spe_branch_backward")
     return d, None if parts is None else reduce_sum(parts)
+
+
+def branch_backward_reference(dres, val, gamma, *, seed=None, drop=None,
+                              path=None, rows_per_sample=1):
+    """Plain PyTorch version of `branch_backward`."""
+    M, D = dres.shape
+    dp = 1.0
+    if path is not None and path[1] > 0:
+        dp = _path_factor(seed, path, M, rows_per_sample)
+    d = dres * dp * (gamma if gamma is not None else 1.0)
+    if drop is not None and drop[1] > 0:
+        d = torch.where(row_keep(seed, drop, M, D, rows_per_sample),
+                        d * keep_scale(drop[1]), 0.0)
+    return d, None if val is None else (dres * dp * val).sum(0)
 
 
 def dropout_grad(dy, seed, drop, rows_per_sample):
@@ -1020,6 +1080,11 @@ def th_fold(q, rows):
     return out
 
 
+def th_fold_reference(q, rows):
+    """Plain PyTorch version of `th_fold`."""
+    return (q.float()[:, None] * rows[None, :, None, :]).to(_BF16)
+
+
 def _th_row_params(s, bl, ww, bw, seed, rate, wl, site, **kw):
     _need(s, _F32, "s", 4)
     B, H, N, N2 = s.shape
@@ -1039,23 +1104,35 @@ def _th_row_params(s, bl, ww, bw, seed, rate, wl, site, **kw):
                 site=dsite, **kw)
 
 
+TH_NT = 256        # csrc/th_train.cu: threads of th_fwd_rows_kernel and
+TH_BLOCKS = 1024   # th_bwd_rows_kernel, 4 columns each; at most TH_BLOCKS
+                   # blocks
+
+
+def _th_rows_domain(name, N):
+    if N > 4 * TH_NT:
+        raise ValueError(f"{name} takes rows of at most {4 * TH_NT} keys, "
+                         f"got {N}")
+
+
 def th_fwd_rows(s, bl, ww, bw, seed, rate, *, wl=None, site=SITE_ATTN):
     """Talking-heads training forward row pass over the logits s (B, H, N,
     N) f32 (without bl; with wl (H, H) each head's own logits, mixed as
     m_g = sum_h wl[g, h] s_h): -> (lse (B, H, N) f32 of the mixed logits +
     bl, zd (B, H, N, N) bf16 = drop(sum_h ww[g, h] softmax_h + bw_g)), the
-    mask keyed (seed, site, b, g, row, key)."""
+    mask keyed (seed, site, b, g, row, key). Takes N <= 4 * TH_NT."""
     B, H, N, _ = s.shape
+    params = _th_row_params(s, bl, ww, bw, seed, rate, wl, site)
+    _th_rows_domain("th_fwd_rows", N)
     lse = torch.empty((B, H, N), device=s.device, dtype=_F32)
     zd = torch.empty(s.shape, device=s.device, dtype=_BF16)
-    p = _THRowParams(**_th_row_params(s, bl, ww, bw, seed, rate, wl, site,
-                                      lse=lse.data_ptr(), zd=zd.data_ptr()))
+    p = _THRowParams(**params, lse=lse.data_ptr(), zd=zd.data_ptr())
     _check(lib().spe_th_rows(ctypes.byref(p), 0, _stream()), "spe_th_rows")
+    th_fwd_rows.launches += 1
     return lse, zd
 
 
-TH_NT = 256        # csrc/th_train.cu: threads of th_bwd_rows_kernel, 4
-TH_BLOCKS = 1024   # columns each; at most TH_BLOCKS blocks
+th_fwd_rows.launches = 0
 
 
 def th_bwd_blocks(B, N):
@@ -1078,9 +1155,7 @@ def th_bwd_rows(s, lse, dzd, bl, ww, bw, seed, rate, *, wl=None,
     if tuple(lse.shape) != (B, H, N) or dzd.shape != s.shape or \
             not (lse.is_contiguous() and dzd.is_contiguous()):
         raise ValueError("lse (B, H, N) and dzd (B, H, N, N) must be contiguous")
-    if N > 4 * TH_NT:
-        raise ValueError(f"th_bwd_rows takes rows of at most {4 * TH_NT} "
-                         f"keys, got {N}")
+    _th_rows_domain("th_bwd_rows", N)
     zd = torch.empty(s.shape, device=s.device, dtype=_BF16)
     ds = torch.empty(s.shape, device=s.device, dtype=_BF16)
     width = (2 if wl is not None else 1) * H * H + 2 * H
@@ -1162,6 +1237,14 @@ def th_dq(dqt, q, rows, scale, out):
     return reduce_sum(parts)
 
 
+def th_dq_reference(dqt, q, rows, scale, out):
+    """Plain PyTorch version of `th_dq` (writes `out`, returns dwl)."""
+    B, H, N, D = dqt.shape
+    out.copy_((dqt * rows[None, :, None, :]).sum(1))
+    qdq = q.float()[:, None] * dqt
+    return scale * qdq.reshape(B, H, N, H, D // H).sum((0, 2, 4))
+
+
 def softmax_backward(probs, dp, dattn=None):
     """Rows of probabilities (..., C) f32 with dp (and an optional dattn
     cotangent) -> dl = p * (dp + dattn - rowsum(p * (dp + dattn))) bf16."""
@@ -1180,6 +1263,15 @@ def softmax_backward(probs, dp, dattn=None):
     return dl
 
 
+def softmax_backward_reference(probs, dp, dattn=None):
+    """Plain PyTorch version of `softmax_backward`."""
+    d = dp + (dattn if dattn is not None else 0.0)
+    return (probs * (d - (d * probs).sum(-1, keepdim=True))).to(_BF16)
+
+
+ATTN_ROWS_MAX_NK = 8192   # csrc/th_train.cu spe_attn_bwd_rows
+
+
 def attention_bwd_rows(s, dzd, lse, kbias, seed, drop, *, num_heads,
                        mask_heads=None):
     """The row pass of the standard attention backward. s: (B, H, Nq, Nk)
@@ -1187,7 +1279,8 @@ def attention_bwd_rows(s, dzd, lse, kbias, seed, drop, *, num_heads,
     lse: (B, H, Nq) f32 of s + kbias (the forward's); kbias: (B, Nk) f32 or
     None; drop = (site, rate) with the forward's keys (see `attention`)
     -> (zd, dl) bf16 (B, H, Nq, Nk): the dropped probabilities and
-    p (dp - rowsum(dp p)) with dp the masked dzd."""
+    p (dp - rowsum(dp p)) with dp the masked dzd. Takes Nk <=
+    ATTN_ROWS_MAX_NK."""
     _need(s, _F32, "s", 4)
     _need(dzd, _F32, "dzd", 4)
     _need(lse, _F32, "lse", 3)
@@ -1202,6 +1295,9 @@ def attention_bwd_rows(s, dzd, lse, kbias, seed, drop, *, num_heads,
         _need(kbias, _F32, "kbias", 2)
         if tuple(kbias.shape) != (B, Nk):
             raise ValueError(f"kbias must be ({B}, {Nk})")
+    if Nk > ATTN_ROWS_MAX_NK:
+        raise ValueError(f"attention_bwd_rows takes rows of at most "
+                         f"{ATTN_ROWS_MAX_NK} keys, got {Nk}")
     dsite, dthr, dscale = _site(drop)
     _need_seed(seed, dsite)
     zd = torch.empty(s.shape, device=s.device, dtype=_BF16)
@@ -1215,7 +1311,28 @@ def attention_bwd_rows(s, dzd, lse, kbias, seed, drop, *, num_heads,
                        mask_heads=H if mask_heads is None else mask_heads)
     _check(lib().spe_attn_bwd_rows(ctypes.byref(p), _stream()),
            "spe_attn_bwd_rows")
+    attention_bwd_rows.launches += 1
     return zd, dl
+
+
+attention_bwd_rows.launches = 0
+
+
+def attention_bwd_rows_reference(s, dzd, lse, kbias, seed, drop, *,
+                                 num_heads, mask_heads=None):
+    """Plain PyTorch version of `attention_bwd_rows` (same arguments, same
+    outputs)."""
+    if kbias is not None:
+        s = s + kbias[:, None, None, :]
+    p = torch.exp(s - lse[..., None])
+    keep = torch.ones(s.shape, dtype=torch.bool, device=s.device)
+    sc = 1.0
+    if drop is not None and drop[1] > 0:
+        keep = attention_keep(seed, drop, s.shape, mask_heads or num_heads)
+        sc = keep_scale(drop[1])
+    dp = torch.where(keep, dzd * sc, 0.0)
+    return (torch.where(keep, p * sc, 0.0).to(_BF16),
+            (p * (dp - (dp * p).sum(-1, keepdim=True))).to(_BF16))
 
 
 def _heads(t, hs):

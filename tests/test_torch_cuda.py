@@ -10,9 +10,10 @@ attention) forward and backward against their plain versions with cut
 sequence lengths, and the two tensor-core product kernels (gemm_kernel,
 attn_kernel) against kernels.gemm_reference / attention_reference on
 ragged shapes, every layout and option, misaligned operands, likewise
-linear_kernel against ln_linear_reference and th_bwd_rows_kernel against
-th_bwd_rows_reference. The kernels have no CPU mode, so without a card
-these tests skip.
+linear_kernel against ln_linear_reference, th_bwd_rows_kernel against
+th_bwd_rows_reference, th_fwd_rows_kernel against th_fwd_rows_reference
+and attn_bwd_rows_kernel against attention_bwd_rows_reference. The
+kernels have no CPU mode, so without a card these tests skip.
 
 Run on a machine with the card:  python -m pytest tests/test_torch_cuda.py -m cuda
 """
@@ -20,8 +21,9 @@ Run on a machine with the card:  python -m pytest tests/test_torch_cuda.py -m cu
 import pytest
 import torch
 
-from spe_tpu_torch.ops.kernel_checks import (GEMM_SHAPES, LINEAR_SHAPES,
-                                             TH_BWD_SHAPES)
+from spe_tpu_torch.ops.kernel_checks import (ATTN_ROWS_SHAPES, GEMM_SHAPES,
+                                             LINEAR_SHAPES, TH_BWD_SHAPES,
+                                             TH_FWD_SHAPES)
 
 pytestmark = pytest.mark.cuda
 
@@ -386,3 +388,59 @@ def test_th_bwd_rows_kernel_matches_plain(card, case):
     for name, (e, tol) in errs.items():
         assert e <= tol, (label, name, e, tol)
     assert K.th_bwd_rows.launches == before + 2
+
+
+@pytest.mark.parametrize("case", range(len(TH_FWD_SHAPES)))
+def test_th_fwd_rows_kernel_matches_plain(card, case):
+    """th_fwd_rows_kernel against th_fwd_rows_reference at H=4 and other H,
+    N not a multiple of 4, dropout on and off, with and without wl
+    (kernel_checks.TH_FWD_SHAPES): zd within 4 bf16 ulps of its largest
+    magnitude, lse within 1e-5 of its largest, two runs bit-identical."""
+    from spe_tpu_torch.ops import kernels as K
+    from spe_tpu_torch.ops.kernel_checks import th_fwd_case, th_fwd_check
+
+    label, B, H, N, rate, wl = TH_FWD_SHAPES[case]
+    args, kw = th_fwd_case(B, H, N, rate, wl)
+    before = K.th_fwd_rows.launches
+    errs, same, finite = th_fwd_check(K.th_fwd_rows, K.th_fwd_rows_reference,
+                                      args, kw)
+    torch.cuda.synchronize()
+    assert finite and same, label
+    for name, (e, tol) in errs.items():
+        assert e <= tol, (label, name, e, tol)
+    assert K.th_fwd_rows.launches == before + 2
+
+
+def test_th_fwd_rows_kernel_refuses_long_rows(card):
+    """A row of more than 4 * TH_NT = 1024 keys is refused before a
+    launch."""
+    from spe_tpu_torch.ops import kernels as K
+    from spe_tpu_torch.ops.kernel_checks import th_fwd_case
+
+    args, kw = th_fwd_case(1, 2, 1025, 0.0, False)
+    before = K.th_fwd_rows.launches
+    with pytest.raises(ValueError, match="at most 1024"):
+        K.th_fwd_rows(*args, **kw)
+    assert K.th_fwd_rows.launches == before
+
+
+@pytest.mark.parametrize("case", range(len(ATTN_ROWS_SHAPES)))
+def test_attention_bwd_rows_kernel_matches_plain(card, case):
+    """attn_bwd_rows_kernel against attention_bwd_rows_reference at the
+    encoder's, the decoder's (mask_heads), the cross-attention's and the
+    class attention's (Nk = 1045: scalar rows) row lengths and a ragged
+    one (kernel_checks.ATTN_ROWS_SHAPES): zd and dl within 1% of their
+    largest magnitude, two runs bit-identical."""
+    from spe_tpu_torch.ops import kernels as K
+    from spe_tpu_torch.ops.kernel_checks import attn_rows_case, attn_rows_check
+
+    label, *shape = ATTN_ROWS_SHAPES[case]
+    args, kw = attn_rows_case(*shape)
+    before = K.attention_bwd_rows.launches
+    errs, same, finite = attn_rows_check(
+        K.attention_bwd_rows, K.attention_bwd_rows_reference, args, kw)
+    torch.cuda.synchronize()
+    assert finite and same, label
+    for name, (e, tol) in errs.items():
+        assert e <= tol, (label, name, e, tol)
+    assert K.attention_bwd_rows.launches == before + 2

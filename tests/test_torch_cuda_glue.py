@@ -2,10 +2,9 @@
 `_train_cuda`, `_backward_cuda` and the autograd Function's save and
 restore: the views, strides, head strides, head-interleaved stores and
 their two-plane gradients, residual/LN wiring, in-place accumulation and
-dropout sites and keys it hands the kernels) run on the CPU against torch
-emulations of the C entry points,
-which follow the contract the wrappers in spe_tpu_torch/ops/kernels.py
-document. This checks the wiring, not the kernels: the kernels themselves
+dropout sites and keys it hands the kernels) run on the CPU with every
+kernel wrapper replaced by its plain version (kernels.<name>_reference),
+which follows the contract the wrapper documents. This checks the wiring, not the kernels: the kernels themselves
 run only on the card (tests/test_torch_cuda.py, chip_smoke.py). Forward
 outputs are held to 2 bf16 ulps of the plain versions; backward
 gradients to kernel_checks.grad_tols, 1% of each gradient's largest
@@ -14,97 +13,20 @@ orders)."""
 
 import pytest
 import torch
-import torch.nn.functional as F
 
 from spe_tpu_torch.ops import kernels as K
-from spe_tpu_torch.ops.kernels import (_path_factor, attention_keep,
-                                       attention_reference, gemm_reference,
-                                       ln_linear_reference, row_keep,
-                                       th_bwd_rows_reference,
-                                       th_fwd_rows_reference)
 from spe_tpu_torch.ops.kernel_checks import (attention_cases, backward_args,
                                              bf16_tol, flat_grads, grad_tols,
                                              kernel_cases, max_err,
                                              plain_train, saved_outputs,
                                              train_cases)
-from spe_tpu_torch.ops.refmath import keep_scale, ln_backward_reference
-
-BF16 = torch.bfloat16
 
 
-def layernorm(x, weight, bias, eps, *, want_f32=True, want_bf16=False):
-    y = F.layer_norm(x.float(), (x.shape[-1],), weight, bias, eps)
-    return (y if want_f32 else None), (y.to(BF16) if want_bf16 else None)
-
-
-def colsum(v):
-    return v.float().sum(1)
-
-
-def th_mix(pv, csum, ww, bw):
-    B, N, H, D = pv.shape
-    dh = D // H
-    mix = ww.repeat_interleave(dh, dim=0)                  # (D, H): row c -> head c // dh
-    out = torch.einsum("bngc,cg->bnc", pv, mix) + bw.repeat_interleave(dh) * csum[:, None]
-    return out.to(BF16)
-
-
-def reduce_sum(parts, round_bf16=False):
-    s = parts.sum(0)
-    return s.to(BF16).float() if round_bf16 else s
-
-
-def colsum_f32(x):
-    return x.sum(0)
-
-
-def ln_backward(dy, x, weight, eps, *, res=None, out_dtype=torch.float32):
-    dx, dw, db = ln_backward_reference(dy, x, weight, eps)
-    return (dx + (res if res is not None else 0.0)).to(out_dtype), dw, db
-
-
-def branch_backward(dres, val, gamma, *, seed=None, drop=None, path=None,
-                    rows_per_sample=1):
-    M, D = dres.shape
-    dp = 1.0
-    if path is not None and path[1] > 0:
-        dp = _path_factor(seed, path, M, rows_per_sample)
-    d = dres * dp * (gamma if gamma is not None else 1.0)
-    if drop is not None and drop[1] > 0:
-        d = torch.where(row_keep(seed, drop, M, D, rows_per_sample),
-                        d * keep_scale(drop[1]), 0.0)
-    return d, None if val is None else (dres * dp * val).sum(0)
-
-
-def th_fold(q, rows):
-    return (q.float()[:, None] * rows[None, :, None, :]).to(BF16)
-
-
-def th_dq(dqt, q, rows, scale, out):
-    B, H, N, D = dqt.shape
-    out.copy_((dqt * rows[None, :, None, :]).sum(1))
-    qdq = q.float()[:, None] * dqt
-    return scale * qdq.reshape(B, H, N, H, D // H).sum((0, 2, 4))
-
-
-def softmax_backward(probs, dp, dattn=None):
-    d = dp + (dattn if dattn is not None else 0.0)
-    return (probs * (d - (d * probs).sum(-1, keepdim=True))).to(BF16)
-
-
-def attention_bwd_rows(s, dzd, lse, kbias, seed, drop, *, num_heads,
-                       mask_heads=None):
-    if kbias is not None:
-        s = s + kbias[:, None, None, :]
-    p = torch.exp(s - lse[..., None])
-    keep = torch.ones(s.shape, dtype=torch.bool)
-    sc = 1.0
-    if drop is not None and drop[1] > 0:
-        keep = attention_keep(seed, drop, s.shape, mask_heads or num_heads)
-        sc = keep_scale(drop[1])
-    dp = torch.where(keep, dzd * sc, 0.0)
-    return (torch.where(keep, p * sc, 0.0).to(BF16),
-            (p * (dp - (dp * p).sum(-1, keepdim=True))).to(BF16))
+# the wrappers replaced by their plain versions (kernels.<name>_reference)
+EMULATED = ("layernorm", "colsum", "th_mix", "reduce_sum", "colsum_f32",
+            "ln_backward", "branch_backward", "th_fold", "th_dq",
+            "softmax_backward", "attention_bwd_rows", "attention", "gemm",
+            "ln_linear", "th_fwd_rows", "th_bwd_rows")
 
 
 def _check_but_device(t, dtype, name, ndim=None):
@@ -122,17 +44,9 @@ def emulated(monkeypatch):
     # the wrappers built on other wrappers (matmul_dx, grad_weight) run for
     # real, their checks without the device test
     monkeypatch.setattr(K, "_need", _check_but_device)
-    for fn in (layernorm, colsum, th_mix, reduce_sum, colsum_f32,
-               ln_backward, branch_backward, th_fold, th_dq, softmax_backward,
-               attention_bwd_rows):
-        monkeypatch.setattr(K, fn.__name__, fn)
-    # the product kernels' and th_*_rows' plain versions live beside them
-    for name, fn in (("attention", attention_reference),
-                     ("gemm", gemm_reference),
-                     ("ln_linear", ln_linear_reference),
-                     ("th_fwd_rows", th_fwd_rows_reference),
-                     ("th_bwd_rows", th_bwd_rows_reference)):
-        monkeypatch.setattr(K, name, fn)
+    # every kernel's plain version lives beside its wrapper
+    for name in EMULATED:
+        monkeypatch.setattr(K, name, getattr(K, f"{name}_reference"))
 
 
 @pytest.mark.parametrize("case", range(5))

@@ -10,7 +10,10 @@ head-width templates; `kernels.ln_linear_reference` against F.layer_norm,
 F.linear, the activation, masks and residual written out in f32 over every
 option of kernel_checks.linear_kernel_cases (the cases the card tests hold
 linear_kernel to); `kernels.th_bwd_rows_reference` against autograd
-through the plain talking-heads softmax and mixes in float64. No JAX
+through the plain talking-heads softmax and mixes in float64,
+`kernels.th_fwd_rows_reference` against that softmax itself, and
+`kernels.attention_bwd_rows_reference` against autograd through the
+masked softmax with its key bias and dropout. No JAX
 here: the reference functions it is held to are the port's own plain
 versions and torch's.
 
@@ -27,10 +30,11 @@ from spe_tpu_torch.ops import kernels as K
 from spe_tpu_torch.ops.fused_encoder import softmax_attention
 from spe_tpu_torch.ops.fused_mha import (fused_mha_reference,
                                          fused_mha_train_reference)
-from spe_tpu_torch.ops.kernel_checks import (bf16_tol, gemm_kernel_cases,
-                                             gemm_run, linear_kernel_cases,
-                                             linear_run, max_err, storage_of,
-                                             th_bwd_case)
+from spe_tpu_torch.ops.kernel_checks import (attn_rows_case, bf16_tol,
+                                             gemm_kernel_cases, gemm_run,
+                                             linear_kernel_cases, linear_run,
+                                             max_err, storage_of, th_bwd_case,
+                                             th_fwd_case)
 from spe_tpu_torch.ops.refmath import (SITE_MHA_ATTN, CounterDropout,
                                        counter_keep, key_bias, path_keep)
 
@@ -323,3 +327,70 @@ def test_th_bwd_rows_reference_matches_autograd(case):
             tol = 1e-4 * float((want["dww"] if name == "dbl" else w)
                                .abs().max())
         assert max_err(g, w) <= tol, name
+
+
+TH_FWD_REF_CASES = {
+    "H=4, dropout": (2, 4, 24, 0.1, False),
+    "H=4, wl": (2, 4, 24, 0.0, True),
+    "H=2, wl, dropout": (2, 2, 20, 0.1, True),
+    "H=2": (1, 2, 16, 0.0, False),
+}
+
+
+@pytest.mark.parametrize("case", list(TH_FWD_REF_CASES))
+def test_th_fwd_rows_reference_matches_softmax(case):
+    """th_fwd_rows_reference against the talking-heads softmax in float64:
+    m_g = sum_h wl[g, h] s_h + bl_g (without wl m = s + bl), lse =
+    logsumexp(m), z_g = sum_h ww[g, h] softmax(m)_h + bw_g, the counter
+    mask (seed, site, b, g, i, j) and 1 / (1 - rate). lse within 1e-5 of
+    its largest magnitude (f32 against float64), zd (bf16) within one bf16
+    ulp at its largest."""
+    B, H, N, rate, wl = TH_FWD_REF_CASES[case]
+    args, kw = th_fwd_case(B, H, N, rate, wl, device="cpu")
+    s, bl, ww, bw, seed, _ = args
+    lse, zd = K.th_fwd_rows_reference(*args, **kw)
+    m = s.double()
+    if wl:
+        m = torch.einsum("bhqk,gh->bgqk", m, kw["wl"].double())
+    m = m + bl.double()[None, :, None, None]
+    z = torch.einsum("bhqk,gh->bgqk", torch.softmax(m, -1), ww.double()) + \
+        bw.double()[None, :, None, None]
+    if rate:
+        z = torch.where(counter_keep(seed, kw["site"], rate, z.shape),
+                        z / (1.0 - rate), 0.0)
+    want_lse = torch.logsumexp(m, -1)
+    assert lse.dtype == torch.float32 and zd.dtype == BF16
+    assert max_err(lse, want_lse) <= 1e-5 * float(want_lse.abs().max())
+    assert max_err(zd, z) <= bf16_tol(z, ulps=1)
+
+
+ATTN_ROWS_REF_CASES = {
+    "key bias, dropout": (2, 2, 5, 24, True, 0.1, None),
+    "mask_heads 4 of 2 x 2 heads, dropout": (4, 2, 6, 12, False, 0.1, 4),
+    "key bias, no dropout": (1, 3, 4, 33, True, 0.0, None),
+}
+
+
+@pytest.mark.parametrize("case", list(ATTN_ROWS_REF_CASES))
+def test_attention_bwd_rows_reference_matches_autograd(case):
+    """attention_bwd_rows_reference against autograd in float64 through
+    the masked softmax: p = softmax(s + kbias), z = M (.) p / (1 - rate)
+    with the counter mask keyed (seed, site, z // mask_heads, z %
+    mask_heads, i, j), dzd the cotangent of z. zd and dl (bf16) within one
+    bf16 ulp at their largest magnitude."""
+    B, H, Nq, Nk, kbias, rate, mask_heads = ATTN_ROWS_REF_CASES[case]
+    args, kw = attn_rows_case(B, H, Nq, Nk, kbias, rate, mask_heads,
+                              device="cpu")
+    s, dzd, _, kb, seed, drop = args
+    zd, dl = K.attention_bwd_rows_reference(*args, **kw)
+    leaf = s.double().requires_grad_()
+    m = leaf + (kb.double()[:, None, None, :] if kbias else 0.0)
+    z = torch.softmax(m, -1)
+    if rate:
+        keep = counter_keep(seed, drop[0], rate, (B * H // (mask_heads or H),
+                                                  mask_heads or H, Nq, Nk))
+        z = torch.where(keep.reshape(z.shape), z / (1.0 - rate), 0.0)
+    (z * dzd.double()).sum().backward()
+    assert zd.dtype == BF16 and dl.dtype == BF16
+    assert max_err(zd, z.detach()) <= bf16_tol(z.detach(), ulps=1)
+    assert max_err(dl, leaf.grad) <= bf16_tol(leaf.grad, ulps=1)
