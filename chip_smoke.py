@@ -12,9 +12,10 @@ Phases, each printing its own lines; any failure exits non-zero:
                instantiation of attn_kernel, gemm_kernel and linear_kernel,
                with their registers and local memory, and fails on none;
                it prints the registers and local memory of every
-               instantiation of th_bwd_rows_kernel, th_fwd_rows_kernel and
-               attn_bwd_rows_kernel and fails if an H=4 one of the first
-               two or any of the third uses local memory.
+               instantiation of th_bwd_rows_kernel, th_fwd_rows_kernel,
+               attn_bwd_rows_kernel, colsum_kernel and th_fold_kernel and
+               fails if an H=4 one of the first two or any of the others
+               uses local memory.
   3. kernels — each fused-layer kernel at the voc0712 eval shapes (B=2)
                against its plain PyTorch version on the same bf16 inputs
                (max abs error vs the stated tolerance), and the standalone
@@ -60,8 +61,10 @@ Phases, each printing its own lines; any failure exits non-zero:
                copies of its inputs against its plain version (1% of the
                largest magnitude, twice identical), with launches, time,
                byte bound and, where one PyTorch call computes it
-               (F.layer_norm, native_layer_norm_backward, torch.sum), the
-               library's time.
+               (F.layer_norm, native_layer_norm_backward, torch.sum,
+               torch.mul with a bf16 out=), the library's time; th_fold
+               bit for bit, and colsum's and th_fold's time also with the
+               L2 cache flushed before each call.
   4. slice   — `spe_tpu_torch.cli.main --preset voc0712 --eval` on a
                generated mini-VOC at full width, with the launch counters
                checked per forward; then one batch through a kernel model
@@ -185,7 +188,9 @@ TENSOR_CORE_KERNELS = ("attn_kernel", "gemm_kernel", "linear_kernel")
 # template arguments of an instantiation, must it use no local memory?
 ROW_KERNELS = {"th_bwd_rows_kernel": lambda a: a[0] == "4",
                "th_fwd_rows_kernel": lambda a: a[0] == "4",
-               "attn_bwd_rows_kernel": lambda a: True}
+               "attn_bwd_rows_kernel": lambda a: True,
+               "colsum_kernel": lambda a: True,
+               "th_fold_kernel": lambda a: True}
 
 
 def tensor_core_check(kernels):
@@ -301,6 +306,34 @@ def graph_ms(fn, reps=20):
         times.append(a.elapsed_time(b) / reps)
     del g
     return statistics.median(times)
+
+
+# bytes written between the calls cold_ms times: more than the H100's 50 MB
+# of L2
+FLUSH_BYTES = 128 << 20
+
+
+def cold_ms(fn, reps=20):
+    """Median device milliseconds of one fn() with the L2 cache flushed
+    before it: a FLUSH_BYTES buffer written, then a spin kernel that keeps
+    the device busy while the host launches fn, then fn between CUDA
+    events."""
+    import torch
+
+    flush = torch.empty(FLUSH_BYTES // 4, device="cuda")
+    fn()
+    events = []
+    for _ in range(reps):
+        flush.fill_(1.0)
+        torch.cuda._sleep(200_000)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        events.append((a, b))
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in events)
 
 
 def _ms(t):
@@ -441,7 +474,7 @@ TOOLKIT = {"gemm_kernel": ("spe_tpu_torch/csrc/grad.cu",
 # the runs each kernel's per-run sums (launches x time) are taken over; the
 # first is its main path, whose numbers head its entry
 SUM_RUNS = {"gemm_kernel": ("stock step", "attention step"),
-            "attn_kernel": ("eval forward",),
+            "attn_kernel": ("eval forward", "stock step", "attention step"),
             "linear_kernel": ("eval forward", "stock step"),
             "th_bwd_rows_kernel": ("stock step", "attention step"),
             "th_fwd_rows_kernel": ("stock step", "attention step"),
@@ -813,6 +846,10 @@ def _toolkit_case(K, kc, kernel, case):
 
 # the argument a SMALL wrapper writes in place (an output of the call)
 WRITES = {"th_dq": 4}
+# the SMALL wrappers held to their plain versions bit for bit, and those
+# also timed with the L2 cache flushed before each call (cold_ms)
+EXACT = ("th_fold",)
+COLD = ("colsum", "th_fold")
 
 
 def _small_outputs(fn, name, args, kw):
@@ -846,6 +883,11 @@ def _small_library(name, args, kw):
             dy, xf, [x.shape[-1]], mean, rstd, w, zero, [True, True, True])
     if name == "colsum":
         return lambda: torch.sum(args[0], 1, dtype=torch.float32)
+    if name == "th_fold":
+        q, rows = args
+        out = torch.empty((q.shape[0], rows.shape[0], *q.shape[1:]),
+                          dtype=torch.bfloat16, device=q.device)
+        return lambda: torch.mul(q[:, None], rows[None, :, None, :], out=out)
     if name in ("colsum_f32", "reduce_sum"):
         return lambda: torch.sum(args[0], 0)
     return None
@@ -855,10 +897,11 @@ def small_kernels(classes):
     """The SMALL wrappers' recorded classes (record_toolkit): each first
     call replayed on copies of its inputs, the kernel twice and its plain
     version (kernels.<name>_reference) once, every output within
-    GRAD_REL_TOL of its largest plain magnitude and the two runs
-    bit-identical; its device time in a CUDA graph, its bound (the call's
-    bytes over the memory rate) and the library's time; then the sums
-    over each recorded run (launches x time). Fails on a mismatch."""
+    GRAD_REL_TOL of its largest plain magnitude (EXACT ones equal to it)
+    and the two runs bit-identical; its device time in a CUDA graph (COLD
+    ones also with the L2 cache flushed), its bound (the call's bytes over
+    the memory rate) and the library's time (COLD ones also flushed); then the sums over each
+    recorded run (launches x time). Fails on a mismatch."""
     import torch
 
     from spe_tpu_torch.ops import kernels as K
@@ -873,39 +916,49 @@ def small_kernels(classes):
         fn, plain = getattr(K, name), getattr(K, f"{name}_reference")
         got, again, want = (_small_outputs(f, name, args, kw)
                             for f in (fn, fn, plain))
-        errs = [(max_err(g, w), grad_tol(w)) for g, w in zip(got, want)]
+        errs = [(max_err(g, w), 0.0 if name in EXACT else grad_tol(w))
+                for g, w in zip(got, want)]
         same = len(got) == len(want) and all(
             torch.equal(g, a) for g, a in zip(got, again))
         finite = all(bool(torch.isfinite(g.float()).all()) for g in got)
         passed = same and finite and all(e <= t for e, t in errs)
         ms = graph_ms(lambda: fn(*args, **kw))
+        cold = cold_ms(lambda: fn(*args, **kw)) if name in COLD else None
         lib = _small_library(name, args, kw)
         lib_ms = graph_ms(lib) if lib is not None else None
+        lib_cold = cold_ms(lib) if lib is not None and name in COLD else None
         bound = rec["bytes"] / HBM_BYTES_PER_MS
         if ms is None:
             fail(f"{name} {cls}: not captured in a CUDA graph")
         shapes = [list(t.shape) for t in _tensors((args, kw))] + [
             v for v in (*args, *kw.items()) if not _tensors(v)]
+        cold_note = "" if cold is None else f", L2-cold {cold:.4f} ms"
+        lib_note = "" if lib_cold is None else f", L2-cold {lib_cold:.4f} ms"
         print(f"[small] {name} {shapes}: launches {rec['launches']}; "
               f"max_abs_err/tol {[f'{e:.2e}/{t:.2e}' for e, t in errs]} "
               f"identical {same} finite {finite} -> "
               f"{'ok' if passed else 'MISMATCH'}; on the device (CUDA graph): "
-              f"kernel {ms:.4f} ms, bound {bound:.5f} ms (bytes), library "
-              f"{'none' if lib is None else _ms(lib_ms)}", flush=True)
+              f"kernel {ms:.4f} ms{cold_note}, bound {bound:.5f} ms (bytes), "
+              f"library {'none' if lib is None else _ms(lib_ms)}{lib_note}",
+              flush=True)
         if not passed:
             bad.append(f"{name} {shapes}")
         for run, n in rec["launches"].items():
-            tot = sums.setdefault((name, run), [0, 0.0, 0.0, 0.0])
+            tot = sums.setdefault((name, run), [0, 0.0, 0.0, 0.0, 0.0])
             tot[0] += n
             tot[1] += n * ms
             tot[2] += n * bound
             tot[3] = None if lib_ms is None or tot[3] is None else \
                 tot[3] + n * lib_ms
+            tot[4] = None if cold is None or tot[4] is None else \
+                tot[4] + n * cold
         del args, kw, got, again, want
-    for (name, run), (n, ms, bound, lib_ms) in sorted(sums.items()):
+    for (name, run), (n, ms, bound, lib_ms, cold) in sorted(sums.items()):
+        cold_note = "" if cold is None else f" (L2-cold {cold:.3f} ms)"
         print(f"[small] {name} ({', '.join(SMALL[name])}): one {run}: {n} "
-              f"launches, kernel {ms:.3f} ms, bound {bound:.4f} ms, library "
-              f"{'none' if lib_ms is None else _ms(lib_ms)}", flush=True)
+              f"launches, kernel {ms:.3f} ms{cold_note}, bound {bound:.4f} "
+              f"ms, library {'none' if lib_ms is None else _ms(lib_ms)}",
+              flush=True)
     torch.cuda.empty_cache()
     if bad:
         fail(f"kernels disagree with their plain versions: {bad}")
@@ -1027,7 +1080,10 @@ def phase_against(parent_root):
     """The toolkit's classes (record_classes) on another checkout's
     kernels: its spe_tpu_torch/ops/kernels.py loaded beside this one (its
     own csrc, built into its own build/), each class's kernel timed on the
-    device in turns (other, this, this, other) on the same inputs."""
+    device in turns (other, this, this, other) on the same inputs, the
+    WRAPPER kernels' on fresh inputs of the recorded layout, the SMALL
+    wrappers' on the recorded call's copies (the COLD ones also with the
+    L2 cache flushed); then the sums over each run (launches x time)."""
     import importlib.util
     import os
 
@@ -1049,12 +1105,16 @@ def phase_against(parent_root):
     sums = {}
     for (kernel, cls), rec in sorted(classes.items(), key=lambda kv: (
             kv[0][0], -sum(kv[1]["launches"].values()))):
-        if kernel in SMALL:
-            continue
-        case = _replay(kernel, rec["call"], gen)
-        times = {}
+        small = kernel in SMALL
+        case = None if small else _replay(kernel, rec["call"], gen)
+        times, cold = {}, {}
         for mod in (other, K, K, other):
-            if kernel == "gemm_kernel":
+            if small:
+                args, kw = rec["call"]
+                fn = (lambda m=mod, a=args, k=kw: getattr(m, kernel)(*a, **k))
+                if kernel in COLD:
+                    cold.setdefault(mod is K, []).append(cold_ms(fn))
+            elif kernel == "gemm_kernel":
                 c1 = kc.clone_layout(case["c"])
                 fn = (lambda m=mod: m.gemm(case["a"], case["b"], c1,
                                            **case["kw"]))
@@ -1077,7 +1137,11 @@ def phase_against(parent_root):
               f"device (CUDA graph), other then this then this then other: "
               f"{times[False][0]:.4f} {times[True][0]:.4f} "
               f"{times[True][1]:.4f} {times[False][1]:.4f} ms", flush=True)
-        for run in SUM_RUNS[kernel]:
+        if cold:
+            print(f"[against] {kernel} {cls}: L2-cold, other then this then "
+                  f"this then other: {cold[False][0]:.4f} {cold[True][0]:.4f} "
+                  f"{cold[True][1]:.4f} {cold[False][1]:.4f} ms", flush=True)
+        for run in rec["launches"] if small else SUM_RUNS[kernel]:
             n = rec["launches"].get(run, 0)
             tot = sums.setdefault((kernel, run), [0.0, 0.0])
             tot[0] += n * statistics.mean(times[False])
@@ -2183,8 +2247,9 @@ def csrc_kernels():
 
     names = []
     for src in sorted(kernels.CSRC.glob("*.cu")):
-        names += re.findall(r"__global__\s+void\s+(?:__launch_bounds__\("
-                            r"(?:[^()]|\([^()]*\))*\)\s*)?(\w+)\s*\(",
+        # past the attributes: __launch_bounds__(...), __cluster_dims__(...)
+        names += re.findall(r"__global__\s+void\s+(?:__\w+__\("
+                            r"(?:[^()]|\([^()]*\))*\)\s*)*(\w+)\s*\(",
                             src.read_text())
     return names
 

@@ -102,12 +102,6 @@ __device__ __forceinline__ float load_a(const LinearParams& p, long long i) {
   return v;
 }
 
-// two bf16 in one register -> two floats (exact)
-__device__ __forceinline__ void unpack2(unsigned u, float& lo, float& hi) {
-  lo = __uint_as_float(u << 16);
-  hi = __uint_as_float(u & 0xffff0000u);
-}
-
 // A (+ a2) at row offset `base`, columns c..c+3 (0 past K) as f32
 __device__ __forceinline__ void load_a4(const LinearParams& p, long long base, int c, bool vec,
                                         float (&v)[4]) {

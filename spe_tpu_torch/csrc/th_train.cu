@@ -66,9 +66,13 @@
 // exponential and keep bit computed once, the row sum a fixed shuffle tree
 // (then the group's warps in order), 16-byte loads and 8-byte stores where
 // Nk % 4 == 0 and scalar ones otherwise.
+#include <stdint.h>
+
 #include "common.cuh"
 
 constexpr int MAXH = 8;
+// th_fold's rows in shared memory: at most the H100's 227 KB a block
+constexpr long long FOLD_MAX_SMEM = 232448;
 
 struct THFoldParams {
   const bf16* q;      // (B, N, D) rows with strides q_sb, q_sn
@@ -140,15 +144,96 @@ namespace {
 
 constexpr int NT = 256;
 
-__global__ void th_fold_kernel(THFoldParams p) {
-  const long long total = static_cast<long long>(p.B) * p.H * p.N * p.D;
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  const int c = static_cast<int>(i % p.D);
-  const int n = static_cast<int>((i / p.D) % p.N);
-  const int g = static_cast<int>((i / (static_cast<long long>(p.D) * p.N)) % p.H);
-  const int b = static_cast<int>(i / (static_cast<long long>(p.D) * p.N * p.H));
-  p.out[i] = f2bf(bf2f(p.q[b * p.q_sb + n * p.q_sn + c]) * p.rows[g * p.D + c]);
+// th_fold_kernel replaces `(qf * rows[g]).astype(in_dt)` of the TPU block
+// kernels' _attention (spe_tpu/ops/pallas_block.py:136, the rows from
+// _mix_rows at :104), run inside the block's forward (:495) and backward
+// (:530) pallas_calls. What bounds it: bytes. At the stock step's (B, H,
+// N, D) = (8, 4, 1024, 192) it reads 3.1 MB of q (a view of qkv with row
+// stride 3D) and writes 12.6 MB: 0.0047 ms at 3.35 TB/s. The design: a
+// work item is W consecutive columns of one (sample, row) of q, W = 8 (one
+// 16-byte load, then H 16-byte stores, one to each head's output row)
+// where D % 8 == 0 and q's rows are 16-byte aligned, W = 1 otherwise; q is
+// read once for all H heads. rows (H x D f32) sits in shared memory, read
+// once per block. A thread keeps one unit column and steps over rows, its
+// (sample, row) kept by increments (one division a thread); the next
+// item's load is issued before the current item's stores. A grid of
+// FOLD_BLOCKS blocks per SM (one wave) walks the B * N rows in fixed runs
+// of slabs of FOLD_NT / units rows. f2bf rounds to nearest even, as the
+// plain version's .to(bfloat16) does: the output equals it bit for bit.
+constexpr int FOLD_NT = 256;
+constexpr int FOLD_BLOCKS = 4;
+
+template <int W>
+__device__ __forceinline__ void fold_load(const bf16* src, float (&x)[W]) {
+  if constexpr (W == 8) {
+    const uint4 v = *reinterpret_cast<const uint4*>(src);
+    unpack2(v.x, x[0], x[1]);
+    unpack2(v.y, x[2], x[3]);
+    unpack2(v.z, x[4], x[5]);
+    unpack2(v.w, x[6], x[7]);
+  } else {
+    x[0] = bf2f(*src);
+  }
+}
+
+template <int W>
+__global__ void __launch_bounds__(FOLD_NT, FOLD_BLOCKS) th_fold_kernel(THFoldParams p, int slabs) {
+  extern __shared__ float rows_s[];  // (H, D)
+  const int units = p.D / W;
+  const int ustep = min(units, FOLD_NT);
+  const int rpb = FOLD_NT / ustep;  // rows of a slab
+  const int rr = threadIdx.x / ustep;
+  const int R = p.B * p.N;
+  // this block's run of slabs, in even shares
+  const int s0 = static_cast<int>(static_cast<long long>(blockIdx.x) * slabs / gridDim.x);
+  const int s1 = static_cast<int>(static_cast<long long>(blockIdx.x + 1) * slabs / gridDim.x);
+  const int rend = min(R, s1 * rpb);
+  int r = s0 * rpb + rr, u = threadIdx.x % ustep;
+  int b = r / p.N, n = r - b * p.N;
+  const bool live = rr < rpb && r < rend;
+  float x[W];
+  if (live) fold_load<W>(p.q + b * p.q_sb + n * p.q_sn + u * W, x);
+  for (int i = threadIdx.x; i < p.H * p.D; i += FOLD_NT) rows_s[i] = p.rows[i];
+  __syncthreads();
+  if (!live) return;
+  const long long plane = static_cast<long long>(p.N) * p.D;
+  for (;;) {
+    bf16* dst = p.out + (static_cast<long long>(b) * p.H * p.N + n) * p.D + u * W;
+    const float* w = rows_s + u * W;
+    float y[W];
+#pragma unroll
+    for (int e = 0; e < W; ++e) y[e] = x[e];
+    // the next item: the next unit of this row, else this unit of the
+    // row one slab further
+    int nu = u + ustep, nr = r, nb = b, nn = n;
+    if (nu >= units) {
+      nu = threadIdx.x % ustep;
+      nr += rpb;
+      nn += rpb;
+      while (nn >= p.N) {
+        nn -= p.N;
+        ++nb;
+      }
+    }
+    const bool more = nr < rend;
+    if (more) fold_load<W>(p.q + nb * p.q_sb + nn * p.q_sn + nu * W, x);
+    for (int g = 0; g < p.H; ++g, dst += plane, w += p.D) {
+      if constexpr (W == 8) {
+        const float4 w0 = *reinterpret_cast<const float4*>(w);
+        const float4 w1 = *reinterpret_cast<const float4*>(w + 4);
+        *reinterpret_cast<uint4*>(dst) =
+            make_uint4(pack_bf16(y[0] * w0.x, y[1] * w0.y), pack_bf16(y[2] * w0.z, y[3] * w0.w),
+                       pack_bf16(y[4] * w1.x, y[5] * w1.y), pack_bf16(y[6] * w1.z, y[7] * w1.w));
+      } else {
+        *dst = f2bf(y[0] * w[0]);
+      }
+    }
+    if (!more) break;
+    u = nu;
+    r = nr;
+    b = nb;
+    n = nn;
+  }
 }
 
 // th_bwd_rows_kernel: TH_BLOCKS blocks (fewer for few rows) of TH_NT
@@ -659,12 +744,36 @@ extern "C" int spe_attn_bwd_rows(const AttnRowParams* p, void* stream) {
   return launch_attn_bwd<8, 8>(p, rows, s);
 }
 
-extern "C" int spe_th_fold(const THFoldParams* p, void* stream) {
-  if (p->B <= 0 || p->H <= 0 || p->N <= 0 || p->D <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const long long total = static_cast<long long>(p->B) * p->H * p->N * p->D;
-  th_fold_kernel<<<static_cast<unsigned>((total + NT - 1) / NT), NT, 0,
-                   static_cast<cudaStream_t>(stream)>>>(*p);
+namespace {
+
+template <int W>
+int launch_th_fold(const THFoldParams* p, int units, cudaStream_t s) {
+  const int rpb = FOLD_NT / (units < FOLD_NT ? units : FOLD_NT);
+  const long long slabs = (static_cast<long long>(p->B) * p->N + rpb - 1) / rpb;
+  const long long most = static_cast<long long>(FOLD_BLOCKS) * sm_count();
+  const unsigned blocks = static_cast<unsigned>(slabs < most ? slabs : most);
+  const int smem = p->H * p->D * static_cast<int>(sizeof(float));
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        th_fold_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  th_fold_kernel<W><<<blocks, FOLD_NT, smem, s>>>(*p, static_cast<int>(slabs));
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int spe_th_fold(const THFoldParams* p, void* stream) {
+  if (p->B <= 0 || p->H <= 0 || p->H > MAXH || p->N <= 0 || p->D <= 0 ||
+      static_cast<long long>(p->B) * p->N > 2147483647LL - FOLD_NT ||
+      static_cast<long long>(p->H) * p->D * sizeof(float) > FOLD_MAX_SMEM) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const bool vec = p->D % 8 == 0 && reinterpret_cast<uintptr_t>(p->q) % 16 == 0 &&
+                   p->q_sb % 8 == 0 && p->q_sn % 8 == 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return vec ? launch_th_fold<8>(p, p->D / 8, s) : launch_th_fold<1>(p, p->D, s);
 }
 
 namespace {

@@ -1530,3 +1530,61 @@ def attn_rows_bound_ms(args, kw):
         io += kb.numel() * 4
     per = 4 + 6 + 12 * (drop is not None and drop[1] > 0)
     return bound_ms(io, [(s.numel() * per, SCALAR_OPS_PER_MS)])
+
+
+def bf16_rows(B, N, C, ld, offset, gen, device):
+    """A (B, N, C) bf16 view of random values with row stride ld at
+    storage offset `offset` (as qkv[..., a:b] of a (B, N, ld) tensor)."""
+    base = torch.randn(offset + B * N * ld, generator=gen).to(torch.bfloat16)
+    return base.to(device).as_strided((B, N, C), (N * ld, ld, 1), offset)
+
+
+# colsum: (label, B, N, C, row stride, storage offset); the recipe's view is
+# qkv[..., 2D:]
+COLSUM_SHAPES = [
+    ("the eval recipe: qkv[..., 2D:] of (16, 1024, 576)", 16, 1024, 192, 576,
+     384),
+    ("offset by one element (no 16-byte loads)", 2, 1024, 192, 576, 385),
+    ("N=1", 3, 1, 192, 192, 0),
+    ("B=1, N=1025 (not a multiple of the cluster's 8 blocks)", 1, 1025, 192,
+     200, 0),
+    ("C=13 (not a multiple of 8), N=1025", 4, 1025, 13, 16, 0),
+    ("C=264 (two column strips), B=16", 16, 100, 264, 264, 0),
+]
+# f32 sums in any order of bf16 values: within this share of sum |v|
+COLSUM_REL_TOL = 1e-5
+
+
+def colsum_case(B, N, C, ld, offset=0, device="cuda", seed=0):
+    """colsum's argument: bf16_rows at one shape."""
+    gen = torch.Generator().manual_seed(seed + 31 * N + C)
+    return bf16_rows(B, N, C, ld, offset, gen, device)
+
+
+def colsum_err(got, want, v):
+    """The largest |got - want| as a share of the column's sum |v|."""
+    scale = v.float().abs().sum(1).clamp_min(1e-30)
+    return float(((got.double() - want.double()).abs() / scale).max())
+
+
+# th_fold: (label, B, H, N, D, row stride of q, storage offset); the stock
+# step's q is qkv3[..., :D]
+TH_FOLD_SHAPES = [
+    ("the stock step: qkv3[..., :D] of (8, 1024, 576), H=4", 8, 4, 1024, 192,
+     576, 0),
+    ("offset by one element (no 16-byte loads)", 2, 4, 1024, 192, 576, 1),
+    ("N=1, H=8, B=16", 16, 8, 1, 192, 192, 0),
+    ("B=1, N=1025, H=1", 1, 1, 1025, 192, 200, 0),
+    ("D=13 (not a multiple of 8), H=3", 3, 3, 50, 13, 13, 0),
+    ("D=2056 (257 units of 8: more than a block's threads), H=2", 1, 2, 5,
+     2056, 2056, 0),
+    ("D=260 (scalar: 260 columns a row), H=4", 2, 4, 33, 260, 261, 0),
+]
+
+
+def th_fold_case(B, H, N, D, ld, offset=0, device="cuda", seed=0):
+    """th_fold's arguments: q = bf16_rows at one shape, rows (H, D) f32."""
+    gen = torch.Generator().manual_seed(seed + 17 * N + D + H)
+    q = bf16_rows(B, N, D, ld, offset, gen, device)
+    rows = (1.0 + 0.5 * torch.randn((H, D), generator=gen)).to(device)
+    return q, rows

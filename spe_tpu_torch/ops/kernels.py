@@ -651,10 +651,20 @@ def layernorm_reference(x, weight, bias, eps, *, want_f32=True,
     return (y if want_f32 else None), (y.to(_BF16) if want_bf16 else None)
 
 
+# colsum_kernel's grid: a cluster of 8 blocks per sample on x, strips of at
+# least 32 columns on y
+COLSUM_MAX_B = (2 ** 31 - 1) // 8
+COLSUM_MAX_C = 65535 * 32
+
+
 def colsum(v):
-    """(B, N, C) bf16 view -> (B, C) f32 column sums over N."""
+    """(B, N, C) bf16 view -> (B, C) f32 column sums over N, summed in a
+    fixed order (two calls give the same bits)."""
     _need(v, _BF16, "v", 3)
     B, N, C = v.shape
+    if B > COLSUM_MAX_B or C > COLSUM_MAX_C:
+        raise ValueError(f"colsum takes at most {COLSUM_MAX_B} samples of "
+                         f"{COLSUM_MAX_C} columns, got {tuple(v.shape)}")
     out = torch.empty((B, C), device=v.device, dtype=_F32)
     p = _ColsumParams(v=v.data_ptr(), out=out.data_ptr(), sb=v.stride(0),
                       sn=v.stride(1), B=B, N=N, C=C)
@@ -1064,15 +1074,30 @@ def dropout_mask(seed, site, rate, shape):
     return out.bool()
 
 
+# th_fold_kernel: at most 8 heads (th_train.cu MAXH), rows (H, D) f32 in one
+# block's shared memory, B * N rows counted in 32 bits
+TH_FOLD_MAX_H = 8
+TH_FOLD_MAX_SMEM = 232448
+TH_FOLD_MAX_ROWS = 2 ** 31 - 1 - 256
+
+
 def th_fold(q, rows):
     """q (B, N, D) bf16 view (last dim contiguous), rows (H, D) f32 ->
-    (B, H, N, D) bf16: bf16(q * rows[g])."""
+    (B, H, N, D) bf16: bf16(q * rows[g]), rounded once from the f32
+    product."""
     _need(q, _BF16, "q", 3)
     _need(rows, _F32, "rows", 2)
     B, N, D = q.shape
     H = rows.shape[0]
     if rows.shape[1] != D or not rows.is_contiguous():
         raise ValueError(f"rows must be ({H}, {D}) contiguous")
+    if (H > TH_FOLD_MAX_H or H * D * 4 > TH_FOLD_MAX_SMEM
+            or B * N > TH_FOLD_MAX_ROWS):
+        raise ValueError(
+            f"th_fold takes at most {TH_FOLD_MAX_H} heads, H * D * 4 <= "
+            f"{TH_FOLD_MAX_SMEM} bytes of rows and B * N <= "
+            f"{TH_FOLD_MAX_ROWS}, got q {tuple(q.shape)}, rows "
+            f"{tuple(rows.shape)}")
     out = torch.empty((B, H, N, D), device=q.device, dtype=_BF16)
     p = _THFoldParams(q=q.data_ptr(), rows=rows.data_ptr(), out=out.data_ptr(),
                       q_sb=q.stride(0), q_sn=q.stride(1), B=B, H=H, N=N, D=D)

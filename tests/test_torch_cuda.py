@@ -11,8 +11,11 @@ sequence lengths, and the two tensor-core product kernels (gemm_kernel,
 attn_kernel) against kernels.gemm_reference / attention_reference on
 ragged shapes, every layout and option, misaligned operands, likewise
 linear_kernel against ln_linear_reference, th_bwd_rows_kernel against
-th_bwd_rows_reference, th_fwd_rows_kernel against th_fwd_rows_reference
-and attn_bwd_rows_kernel against attention_bwd_rows_reference. The
+th_bwd_rows_reference, th_fwd_rows_kernel against th_fwd_rows_reference,
+attn_bwd_rows_kernel against attention_bwd_rows_reference, and
+colsum_kernel and th_fold_kernel against colsum_reference and
+th_fold_reference (th_fold bit for bit) on ragged and misaligned views.
+The
 kernels have no CPU mode, so without a card these tests skip.
 
 Run on a machine with the card:  python -m pytest tests/test_torch_cuda.py -m cuda
@@ -21,8 +24,9 @@ Run on a machine with the card:  python -m pytest tests/test_torch_cuda.py -m cu
 import pytest
 import torch
 
-from spe_tpu_torch.ops.kernel_checks import (ATTN_ROWS_SHAPES, GEMM_SHAPES,
-                                             LINEAR_SHAPES, TH_BWD_SHAPES,
+from spe_tpu_torch.ops.kernel_checks import (ATTN_ROWS_SHAPES, COLSUM_SHAPES,
+                                             GEMM_SHAPES, LINEAR_SHAPES,
+                                             TH_BWD_SHAPES, TH_FOLD_SHAPES,
                                              TH_FWD_SHAPES)
 
 pytestmark = pytest.mark.cuda
@@ -444,3 +448,56 @@ def test_attention_bwd_rows_kernel_matches_plain(card, case):
     for name, (e, tol) in errs.items():
         assert e <= tol, (label, name, e, tol)
     assert K.attention_bwd_rows.launches == before + 2
+
+
+@pytest.mark.parametrize("case", range(len(COLSUM_SHAPES)))
+def test_colsum_kernel_matches_plain(card, case):
+    """colsum_kernel against colsum_reference at the eval recipe's view of
+    qkv and at ragged and misaligned ones (kernel_checks.COLSUM_SHAPES):
+    each column within COLSUM_REL_TOL of its sum |v|, two runs
+    bit-identical."""
+    from spe_tpu_torch.ops import kernels as K
+    from spe_tpu_torch.ops.kernel_checks import (COLSUM_REL_TOL, colsum_case,
+                                                 colsum_err)
+
+    label, *shape = COLSUM_SHAPES[case]
+    v = colsum_case(*shape)
+    got, again = K.colsum(v), K.colsum(v)
+    want = K.colsum_reference(v)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again), label
+    assert colsum_err(got, want, v) <= COLSUM_REL_TOL, label
+
+
+@pytest.mark.parametrize("case", range(len(TH_FOLD_SHAPES)))
+def test_th_fold_kernel_equals_plain(card, case):
+    """th_fold_kernel equals th_fold_reference bit for bit at the stock
+    step's view of qkv and at ragged and misaligned ones
+    (kernel_checks.TH_FOLD_SHAPES)."""
+    from spe_tpu_torch.ops import kernels as K
+    from spe_tpu_torch.ops.kernel_checks import th_fold_case
+
+    label, *shape = TH_FOLD_SHAPES[case]
+    q, rows = th_fold_case(*shape)
+    got = K.th_fold(q, rows)
+    torch.cuda.synchronize()
+    assert torch.equal(got, K.th_fold_reference(q, rows)), label
+
+
+@pytest.mark.parametrize("kernel", ["colsum", "th_fold"])
+def test_row_kernels_refuse_shapes(card, kernel):
+    """A shape past a kernel's grid or shared memory raises before a
+    launch: colsum wider than COLSUM_MAX_C columns, th_fold with more than
+    8 heads."""
+    from spe_tpu_torch.ops import kernels as K
+
+    if kernel == "colsum":
+        v = torch.zeros((1, 1, K.COLSUM_MAX_C + 1), dtype=torch.bfloat16,
+                        device=card)
+        with pytest.raises(ValueError, match="at most"):
+            K.colsum(v)
+    else:
+        q = torch.zeros((1, 4, 192), dtype=torch.bfloat16, device=card)
+        rows = torch.ones((9, 192), device=card)
+        with pytest.raises(ValueError, match="at most 8 heads"):
+            K.th_fold(q, rows)

@@ -13,7 +13,9 @@ linear_kernel to); `kernels.th_bwd_rows_reference` against autograd
 through the plain talking-heads softmax and mixes in float64,
 `kernels.th_fwd_rows_reference` against that softmax itself, and
 `kernels.attention_bwd_rows_reference` against autograd through the
-masked softmax with its key bias and dropout. No JAX
+masked softmax with its key bias and dropout; `kernels.colsum_reference`
+against a float64 sum and `kernels.th_fold_reference` against the exact
+product rounded once (and torch.mul with a bf16 out=). No JAX
 here: the reference functions it is held to are the port's own plain
 versions and torch's.
 
@@ -30,11 +32,12 @@ from spe_tpu_torch.ops import kernels as K
 from spe_tpu_torch.ops.fused_encoder import softmax_attention
 from spe_tpu_torch.ops.fused_mha import (fused_mha_reference,
                                          fused_mha_train_reference)
-from spe_tpu_torch.ops.kernel_checks import (attn_rows_case, bf16_tol,
+from spe_tpu_torch.ops.kernel_checks import (COLSUM_REL_TOL, attn_rows_case,
+                                             bf16_tol, colsum_case, colsum_err,
                                              gemm_kernel_cases, gemm_run,
                                              linear_kernel_cases, linear_run,
                                              max_err, storage_of, th_bwd_case,
-                                             th_fwd_case)
+                                             th_fold_case, th_fwd_case)
 from spe_tpu_torch.ops.refmath import (SITE_MHA_ATTN, CounterDropout,
                                        counter_keep, key_bias, path_keep)
 
@@ -394,3 +397,34 @@ def test_attention_bwd_rows_reference_matches_autograd(case):
     assert zd.dtype == BF16 and dl.dtype == BF16
     assert max_err(zd, z.detach()) <= bf16_tol(z.detach(), ulps=1)
     assert max_err(dl, leaf.grad) <= bf16_tol(leaf.grad, ulps=1)
+
+
+COLSUM_REF_CASES = [(16, 1, 192), (1, 1, 13), (4, 7, 192), (16, 7, 13),
+                    (2, 1025, 192), (16, 1025, 13)]
+
+
+@pytest.mark.parametrize("B,N,C", COLSUM_REF_CASES)
+def test_colsum_reference_matches_float64(B, N, C):
+    """colsum_reference (f32 column sums of a strided bf16 view) against
+    the float64 sum: each column within COLSUM_REL_TOL of its sum |v|."""
+    v = colsum_case(B, N, C, C + 5, offset=3, device="cpu")
+    got = K.colsum_reference(v)
+    assert got.dtype == torch.float32 and got.shape == (B, C)
+    assert colsum_err(got, v.double().sum(1), v) <= COLSUM_REL_TOL
+
+
+@pytest.mark.parametrize("H", [1, 4, 8])
+def test_th_fold_reference_is_one_rounding(H):
+    """th_fold_reference on a strided q view (row stride 3D, as
+    qkv3[..., :D]) equals the exact product (bf16 x f32 is exact in
+    float64) rounded to f32 and then once to bf16, bit for bit, and so
+    does torch.mul with a bf16 out= (the library call the smoke times)."""
+    B, N, D = 3, 37, 48
+    q, rows = th_fold_case(B, H, N, D, 3 * D, offset=5, device="cpu")
+    got = K.th_fold_reference(q, rows)
+    want = (q.double()[:, None] * rows.double()[None, :, None, :]).float()
+    lib = torch.empty((B, H, N, D), dtype=BF16)
+    torch.mul(q[:, None], rows[None, :, None, :], out=lib)
+    assert got.dtype == BF16 and got.shape == (B, H, N, D)
+    assert torch.equal(got, want.to(BF16))
+    assert torch.equal(lib, got)
