@@ -13,9 +13,10 @@ Phases, each printing its own lines; any failure exits non-zero:
                with their registers and local memory, and fails on none;
                it prints the registers and local memory of every
                instantiation of th_bwd_rows_kernel, th_fwd_rows_kernel,
-               attn_bwd_rows_kernel, colsum_kernel and th_fold_kernel and
-               fails if an H=4 one of the first two or any of the others
-               uses local memory.
+               attn_bwd_rows_kernel, colsum_kernel, th_fold_kernel,
+               colsum_f32_kernel and ln_bwd_kernel and fails if an H=4
+               one of the first two or any of the others uses local
+               memory.
   3. kernels — each fused-layer kernel at the voc0712 eval shapes (B=2)
                against its plain PyTorch version on the same bf16 inputs
                (max abs error vs the stated tolerance), and the standalone
@@ -63,8 +64,12 @@ Phases, each printing its own lines; any failure exits non-zero:
                byte bound and, where one PyTorch call computes it
                (F.layer_norm, native_layer_norm_backward, torch.sum,
                torch.mul with a bf16 out=), the library's time; th_fold
-               bit for bit, and colsum's and th_fold's time also with the
-               L2 cache flushed before each call.
+               bit for bit, and colsum's, th_fold's, colsum_f32's and
+               ln_backward's time also with the L2 cache flushed before
+               each call; colsum_f32's and ln_backward's plain versions
+               timed and their stock-step sums in the JSON line; the
+               reduce_* launches per run beside those of the two-pass
+               design they replaced.
   4. slice   — `spe_tpu_torch.cli.main --preset voc0712 --eval` on a
                generated mini-VOC at full width, with the launch counters
                checked per forward; then one batch through a kernel model
@@ -190,7 +195,9 @@ ROW_KERNELS = {"th_bwd_rows_kernel": lambda a: a[0] == "4",
                "th_fwd_rows_kernel": lambda a: a[0] == "4",
                "attn_bwd_rows_kernel": lambda a: True,
                "colsum_kernel": lambda a: True,
-               "th_fold_kernel": lambda a: True}
+               "th_fold_kernel": lambda a: True,
+               "colsum_f32_kernel": lambda a: True,
+               "ln_bwd_kernel": lambda a: True}
 
 
 def tensor_core_check(kernels):
@@ -849,7 +856,16 @@ WRITES = {"th_dq": 4}
 # the SMALL wrappers held to their plain versions bit for bit, and those
 # also timed with the L2 cache flushed before each call (cold_ms)
 EXACT = ("th_fold",)
-COLD = ("colsum", "th_fold")
+COLD = ("colsum", "th_fold", "colsum_f32", "ln_backward")
+# the SMALL wrappers with an entry of their own in the JSON line (their
+# kernel, its source and the TPU code it replaces): the two that finish
+# their sums in one launch, where they called reduce_sum once a call before
+SMALL_ENTRIES = {"colsum_f32": ("colsum_f32_kernel",
+                                "spe_tpu_torch/csrc/grad.cu",
+                                "spe_tpu/ops/pallas_block.py:336"),
+                 "ln_backward": ("ln_bwd_kernel",
+                                 "spe_tpu_torch/csrc/grad.cu",
+                                 "spe_tpu/ops/pallas_block.py:74")}
 
 
 def _small_outputs(fn, name, args, kw):
@@ -893,15 +909,19 @@ def _small_library(name, args, kw):
     return None
 
 
-def small_kernels(classes):
+def small_kernels(classes, results):
     """The SMALL wrappers' recorded classes (record_toolkit): each first
     call replayed on copies of its inputs, the kernel twice and its plain
     version (kernels.<name>_reference) once, every output within
     GRAD_REL_TOL of its largest plain magnitude (EXACT ones equal to it)
     and the two runs bit-identical; its device time in a CUDA graph (COLD
     ones also with the L2 cache flushed), its bound (the call's bytes over
-    the memory rate) and the library's time (COLD ones also flushed); then the sums over each
-    recorded run (launches x time). Fails on a mismatch."""
+    the memory rate) and the library's time (COLD ones also flushed); then
+    the sums over each recorded run (launches x time), and the reduce_*
+    launches beside those of the two-pass design (one more a call of the
+    SMALL_ENTRIES wrappers). The SMALL_ENTRIES wrappers' plain versions
+    are timed too, and their stock-step sums go into `results`. Fails on
+    a mismatch."""
     import torch
 
     from spe_tpu_torch.ops import kernels as K
@@ -923,6 +943,8 @@ def small_kernels(classes):
         finite = all(bool(torch.isfinite(g.float()).all()) for g in got)
         passed = same and finite and all(e <= t for e, t in errs)
         ms = graph_ms(lambda: fn(*args, **kw))
+        plain_ms = graph_ms(lambda: plain(*args, **kw)) \
+            if name in SMALL_ENTRIES else None
         cold = cold_ms(lambda: fn(*args, **kw)) if name in COLD else None
         lib = _small_library(name, args, kw)
         lib_ms = graph_ms(lib) if lib is not None else None
@@ -943,8 +965,10 @@ def small_kernels(classes):
               flush=True)
         if not passed:
             bad.append(f"{name} {shapes}")
+        err = max((e for e, _ in errs), default=0.0)
         for run, n in rec["launches"].items():
-            tot = sums.setdefault((name, run), [0, 0.0, 0.0, 0.0, 0.0])
+            tot = sums.setdefault((name, run), [0, 0.0, 0.0, 0.0, 0.0, 0.0,
+                                                0.0])
             tot[0] += n
             tot[1] += n * ms
             tot[2] += n * bound
@@ -952,12 +976,33 @@ def small_kernels(classes):
                 tot[3] + n * lib_ms
             tot[4] = None if cold is None or tot[4] is None else \
                 tot[4] + n * cold
+            tot[5] = None if plain_ms is None or tot[5] is None else \
+                tot[5] + n * plain_ms
+            tot[6] = max(tot[6], err)
         del args, kw, got, again, want
-    for (name, run), (n, ms, bound, lib_ms, cold) in sorted(sums.items()):
+    for (name, run), (n, ms, bound, lib_ms, cold, plain_ms, err) in \
+            sorted(sums.items()):
         cold_note = "" if cold is None else f" (L2-cold {cold:.3f} ms)"
+        plain_note = "" if plain_ms is None else f", plain {plain_ms:.3f} ms"
         print(f"[small] {name} ({', '.join(SMALL[name])}): one {run}: {n} "
-              f"launches, kernel {ms:.3f} ms{cold_note}, bound {bound:.4f} "
-              f"ms, library {'none' if lib_ms is None else _ms(lib_ms)}",
+              f"launches, kernel {ms:.3f} ms{cold_note}{plain_note}, bound "
+              f"{bound:.4f} ms, library "
+              f"{'none' if lib_ms is None else _ms(lib_ms)}", flush=True)
+        if name in SMALL_ENTRIES and run == "stock step":
+            kernel, source, replaces = SMALL_ENTRIES[name]
+            results[kernel] = {
+                "name": kernel, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": n, "max_abs_err": err,
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                "bound_by": "bytes", "library_ms": lib_ms, "cold_ms": cold,
+                "per": "sums of launches x time over one stock step (B=8), "
+                       "each class replayed in a CUDA graph"}
+    for run in RECORDED_RUNS:
+        n = {name: sums.get((name, run), [0])[0]
+             for name in ("reduce_sum", *SMALL_ENTRIES)}
+        print(f"[small] reduce_* launches over one {run}: {n['reduce_sum']} "
+              f"(the two-pass design: {sum(n.values())}, with one a call of "
+              f"{' and '.join(f'{k} ({n[k]})' for k in SMALL_ENTRIES)})",
               flush=True)
     torch.cuda.empty_cache()
     if bad:
@@ -1073,7 +1118,7 @@ def phase_toolkit(results, extra=()):
                   flush=True)
     if not ok:
         fail("a toolkit kernel disagrees with its plain version")
-    small_kernels(classes)
+    small_kernels(classes, results)
 
 
 def phase_against(parent_root):

@@ -11,9 +11,9 @@
 //   spe_reduce         sums Z partial arrays in a fixed order (the second
 //                      pass of every parameter gradient: no float atomics,
 //                      so two runs give the same bits);
-//   spe_colsum_f32     per-chunk column sums of f32 rows (bias gradients);
+//   spe_colsum_f32     column sums of f32 rows (bias gradients), one launch;
 //   spe_ln_backward    LayerNorm backward of whole rows plus a residual,
-//                      with per-block dgamma/dbeta partials;
+//                      dgamma/dbeta summed in the same launch;
 //   spe_branch_backward  the LayerScale/DropPath/dropout branch
 //                      `x + dp * gamma * drop(y)`: d(y) and dgamma partials
 //                      (without gamma and val: the dropout mask alone);
@@ -26,8 +26,10 @@
 // spe_tpu/ops/pallas_encoder.py:181 _enc_bwd_kernel and
 // spe_tpu/ops/pallas_decoder.py:292 _dec_bwd_kernel. The TPU kernels run the
 // batch as a sequential grid and add each sample's parameter gradients into
-// a resident output; Hopper blocks run in no order, so every cross-block
-// sum here is written as partials and reduced by spe_reduce.
+// a resident output; Hopper blocks run in no order, so a cross-block sum
+// here is either written as partials and reduced by spe_reduce (the weight
+// gradients, branch_bwd_kernel) or finished inside its one launch in a
+// fixed order (colsum_f32_kernel, ln_bwd_kernel: see their notes).
 //
 // What bounds it on the H100: gemm_kernel, the product under every backward
 // (rows 1b-4b, 7b and 9 of PERF.md, and B5's logit planes). Its largest
@@ -50,6 +52,9 @@
 // - The epilogue (alpha, dropout, GELU'/ReLU, column groups, accumulate)
 //   per accumulator element with the (m, n) semantics of before; no float
 //   atomics, so two backwards give the same bits.
+#include <cooperative_groups.h>
+#include <stdint.h>
+
 #include "common.cuh"
 
 struct GemmParams {
@@ -85,9 +90,13 @@ struct ReduceParams {
 
 struct ColsumF32Params {
   const float* x;   // (M, C) with row stride ld
-  float* parts;     // (Z, C): chunk z sums rows [z*chunk, (z+1)*chunk)
-  long long M, ld, chunk;
-  int C, Z;
+  float* out;       // (C)
+  long long M, ld;
+  long long run;    // rows per block: block k of a cluster sums [k*run, (k+1)*run)
+  int C;
+  int strip;        // columns per cluster (a power of two, 4 to 128)
+  int cluster;      // blocks per cluster, 1 to 16
+  int vec;          // 16-byte loads: C % 4 == 0, ld % 4 == 0, x 16-byte aligned
 };
 
 struct LNBwdParams {
@@ -96,9 +105,15 @@ struct LNBwdParams {
   const float* g;     // (D)
   const float* res;   // optional (M, D) f32 added to dx, stride ld_res
   void* dx;           // (M, D) contiguous, bf16 or f32 (dx_f32)
-  float* parts;       // (gridDim, 2, D): dgamma then dbeta per block
+  float* dwb;         // (2, D): dgamma then dbeta
+  float* ws;          // (ws_rows, 2, D): one row per cluster
+  unsigned* ticket;   // (cluster): one per slice, 0 between launches (reset by its last block)
   long long M, ld_dy, ld_x, ld_res;
+  long long run;      // rows per warp: warp w of the grid takes [w*run, (w+1)*run)
   int D, x_f32, dx_f32;
+  int blocks;         // the grid
+  int cluster;        // blocks per cluster: 1, 2, 4 or 8, dividing the grid
+  int ws_rows;
   float eps;
 };
 
@@ -130,11 +145,7 @@ struct MaskParams {
 namespace {
 
 constexpr int NT = 256;
-constexpr int LN_ROWS = 32;    // rows per block of the LayerNorm/branch backward
-
-__device__ __forceinline__ float ld_any(const void* p, long long i, int f32) {
-  return f32 ? static_cast<const float*>(p)[i] : bf2f(static_cast<const bf16*>(p)[i]);
-}
+constexpr int LN_ROWS = 32;    // rows per block of branch_bwd_kernel
 
 // ---- gemm_kernel: the tensor-core batched product ----
 constexpr int GBK = 32;        // depth of a k tile
@@ -423,76 +434,358 @@ __global__ void reduce_block_kernel(ReduceParams p) {
   if (threadIdx.x == 0) p.out[i] = p.round_bf16 ? round_bf16(s) : s;
 }
 
-__global__ void colsum_f32_kernel(ColsumF32Params p) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  const int z = blockIdx.y;
-  if (c >= p.C) return;
-  const long long r0 = z * p.chunk;
-  const long long r1 = min(p.M, r0 + p.chunk);
-  float s = 0.f;
-  for (long long r = r0; r < r1; ++r) s += p.x[r * p.ld + c];
-  p.parts[static_cast<long long>(z) * p.C + c] = s;
+// colsum_f32_kernel: the bias gradients, column sums of (M, C) f32 rows
+// (dY of every Dense layer in the four backward TPU kernels above). What
+// bounds it: the bytes of x, read once (6.3 MB at (8192, 192): 1.9 us at
+// 3.35 TB/s; 67 MB at (8192, 2048)). The design: one thread-block cluster
+// of `cluster` blocks (8, or the non-portable 16) per strip of `strip`
+// columns; block k of a cluster sums rows [k*run, (k+1)*run). A thread
+// owns one unit of W columns (W = 4: one 16-byte load a row, W = 1: the
+// scalar path of a misaligned view or C % 4 != 0, where no row after the
+// first keeps 16-byte alignment) and every groups-th row of the run,
+// CF_BATCH rows' loads in flight before any is summed. The row groups of a
+// warp meet in a fixed shuffle tree, the block's warps in order through
+// shared memory; each block stores its partial row into block 0's shared
+// memory (distributed shared memory), and after one cluster barrier block
+// 0 sums the rows in rank order. No workspace, no atomics, one launch:
+// two runs give the same bits. The strip and cluster
+// come from kernels.colsum_f32_plan: the widest strip whose grid puts a
+// block on every SM, in clusters of 8 unless that leaves strips under 16
+// columns (at (8192, 192): clusters of 16, strips of 16, 192 blocks).
+// A block may store into another block's shared memory only once that
+// block has started: each block arrives (relaxed) at a cluster barrier as
+// it starts and waits on it just before its first remote store, by when
+// every block has long arrived.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
 }
 
-// LN_ROWS rows per block, one warp per row for the row statistics and dx;
-// then the block's dgamma/dbeta partial over its rows, column by column
-__global__ void __launch_bounds__(NT) ln_bwd_kernel(LNBwdParams p) {
-  extern __shared__ float sm[];
-  float* s_mean = sm;
-  float* s_rstd = sm + LN_ROWS;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const long long r0 = static_cast<long long>(blockIdx.x) * LN_ROWS;
-  const float invD = 1.f / static_cast<float>(p.D);
-  for (int rr = warp; rr < LN_ROWS; rr += NT / 32) {
-    const long long m = r0 + rr;
-    if (m >= p.M) break;
-    const long long xo = m * p.ld_x, go = m * p.ld_dy;
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+constexpr int CF_NT = 256;
+constexpr int CF_BATCH = 8;
+constexpr int CF_MAX_STRIP = 128;
+constexpr int CF_MAX_CLUSTER = 16;
+
+template <int W>
+__global__ void __launch_bounds__(CF_NT) colsum_f32_kernel(ColsumF32Params p) {
+  // the partial rows of the block: its warps' (units < 32) or its row
+  // groups' (units >= 32); at most CF_NT * W values
+  __shared__ __align__(16) float red[CF_NT * 4];
+  __shared__ float gather[CF_MAX_CLUSTER * CF_MAX_STRIP];  // block 0's: the cluster's rows
+  cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int c0 = static_cast<int>(blockIdx.x / p.cluster) * p.strip;
+  const int cols = min(p.strip, p.C - c0);
+  const int units = p.strip / W;
+  const int groups = CF_NT / units;
+  const int u = threadIdx.x % units, g = threadIdx.x / units;
+  const long long r0 = rank * p.run, r1 = min(p.M, r0 + p.run);
+  cluster_arrive_relaxed();
+  float acc[W];
+#pragma unroll
+  for (int e = 0; e < W; ++e) acc[e] = 0.f;
+  if (u * W < cols) {
+    const float* src = p.x + c0 + u * W;
+    for (long long n = r0 + g; n < r1; n += static_cast<long long>(CF_BATCH) * groups) {
+      float v[CF_BATCH][W];
+#pragma unroll
+      for (int k = 0; k < CF_BATCH; ++k) {
+        const long long m = n + static_cast<long long>(k) * groups;
+        if (m >= r1) continue;
+        if constexpr (W == 4) {
+          const float4 t = __ldg(reinterpret_cast<const float4*>(src + m * p.ld));
+          v[k][0] = t.x;
+          v[k][1] = t.y;
+          v[k][2] = t.z;
+          v[k][3] = t.w;
+        } else {
+          v[k][0] = __ldg(src + m * p.ld);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < CF_BATCH; ++k) {
+        if (n + static_cast<long long>(k) * groups >= r1) continue;
+#pragma unroll
+        for (int e = 0; e < W; ++e) acc[e] += v[k][e];
+      }
+    }
+  }
+  int rows;  // partial rows in red
+  if (units < 32) {
+    // the warp's row groups in a fixed butterfly; every lane ends with the sum
+    for (int o = units; o < 32; o <<= 1) {
+#pragma unroll
+      for (int e = 0; e < W; ++e) acc[e] += __shfl_xor_sync(0xffffffffu, acc[e], o);
+    }
+    if (lane < units) {
+#pragma unroll
+      for (int e = 0; e < W; ++e) red[warp * p.strip + u * W + e] = acc[e];
+    }
+    rows = CF_NT / 32;
+  } else {
+#pragma unroll
+    for (int e = 0; e < W; ++e) red[g * p.strip + u * W + e] = acc[e];
+    rows = groups;
+  }
+  __syncthreads();
+  // the block's row into block 0's shared memory, then one barrier
+  cluster_wait();
+  float* dst = cluster.map_shared_rank(gather, 0) + rank * p.strip;
+  for (int c = threadIdx.x; c < p.strip; c += CF_NT) {
     float s = 0.f;
-    for (int c = lane; c < p.D; c += 32) s += ld_any(p.x, xo + c, p.x_f32);
+    for (int r = 0; r < rows; ++r) s += red[r * p.strip + c];
+    dst[c] = s;
+  }
+  cluster.sync();  // every block's row has landed; none is read remotely after it
+  if (rank == 0) {
+    for (int c = threadIdx.x; c < cols; c += CF_NT) {
+      float s = 0.f;
+      for (int r = 0; r < p.cluster; ++r) s += gather[r * p.strip + c];
+      p.out[c0 + c] = s;
+    }
+  }
+}
+
+// ln_bwd_kernel: LayerNorm backward of (M, D) rows, D = 192 or 256 (the
+// `_ln_bwd` of the four backward TPU kernels above): dx (+ a residual)
+// and dgamma/dbeta summed over every row. What bounds it: bytes, each row
+// of dy (f32), x (bf16 or f32), the residual (f32) read once and dx
+// written once: 19 MB at the patch blocks' (8192, 192) with a residual
+// and bf16 x and dx, 5.6 us at 3.35 TB/s. The design:
+// - A warp holds a row in registers, read once with 16-byte loads (8-byte
+//   for bf16 x): lane l owns columns [4l, 4l + 4) and NB = (D - 128) / 32
+//   columns at 128 + NB*l. Mean, variance and the two dx sums come from
+//   those registers; the next row's loads go out before this row's
+//   reductions; dx leaves in vector stores.
+// - A one-wave grid of LNB_NT-thread blocks (kernels.ln_backward_plan,
+//   sized by the card's occupancy query: 3 blocks a SM at D = 192, 2 at
+//   D = 256, less what clusters of 8 leave unused); warp w walks the fixed
+//   run of rows [w*run, (w+1)*run), its lanes keeping their columns'
+//   dgamma/dbeta in registers across the run.
+// - The same launch finishes the sums in a fixed order: the block's warps
+//   in order through shared memory; the cluster's blocks in rank order,
+//   block r owning a slice of 2D / cluster columns: every block stores its
+//   sums of each slice into the owner's shared memory (distributed shared
+//   memory, one cluster barrier), and the owner writes the cluster's row
+//   of that slice to `ws`; then a ticket per slice (threadfence, one
+//   atomicAdd a block): the last of the slice's owners to arrive sums it
+//   over the cluster rows in index order, its threads splitting the rows
+//   in fixed runs, and resets the ticket. The order depends on the shape
+//   alone, never on who arrives last, so two runs give the same bits. The
+//   cluster step cuts the rows a last block sums from one per block
+//   (~360) to one per cluster, and spreads the columns over `cluster`
+//   last blocks.
+constexpr int LNB_NT = 256;
+constexpr int LNB_WARPS = LNB_NT / 32;
+constexpr int LNB_BATCH = 16;   // cluster rows a thread of the last cluster loads at once
+
+// a lane's E = D / 32 columns of a row: 4 at 4*lane, NB at 128 + NB*lane
+template <int D>
+struct LnCols {
+  static_assert(D == 192 || D == 256, "ln_bwd_kernel takes D = 192 or 256");
+  static constexpr int NB = (D - 128) / 32;
+  static constexpr int E = 4 + NB;
+  static __device__ __forceinline__ int col(int lane, int i) {
+    return i < 4 ? 4 * lane + i : 128 + NB * lane + (i - 4);
+  }
+  static __device__ __forceinline__ void load_f32(const float* row, int lane, float (&v)[E]) {
+    const float4 a = __ldg(reinterpret_cast<const float4*>(row + 4 * lane));
+    v[0] = a.x;
+    v[1] = a.y;
+    v[2] = a.z;
+    v[3] = a.w;
+    if constexpr (NB == 4) {
+      const float4 b = __ldg(reinterpret_cast<const float4*>(row + 128 + 4 * lane));
+      v[4] = b.x;
+      v[5] = b.y;
+      v[6] = b.z;
+      v[7] = b.w;
+    } else {
+      const float2 b = __ldg(reinterpret_cast<const float2*>(row + 128 + 2 * lane));
+      v[4] = b.x;
+      v[5] = b.y;
+    }
+  }
+  static __device__ __forceinline__ void load_bf16(const bf16* row, int lane, float (&v)[E]) {
+    const uint2 a = __ldg(reinterpret_cast<const uint2*>(row + 4 * lane));
+    unpack2(a.x, v[0], v[1]);
+    unpack2(a.y, v[2], v[3]);
+    if constexpr (NB == 4) {
+      const uint2 b = __ldg(reinterpret_cast<const uint2*>(row + 128 + 4 * lane));
+      unpack2(b.x, v[4], v[5]);
+      unpack2(b.y, v[6], v[7]);
+    } else {
+      unpack2(__ldg(reinterpret_cast<const unsigned*>(row + 128 + 2 * lane)), v[4], v[5]);
+    }
+  }
+  static __device__ __forceinline__ void store_f32(float* row, int lane, const float (&v)[E]) {
+    *reinterpret_cast<float4*>(row + 4 * lane) = make_float4(v[0], v[1], v[2], v[3]);
+    if constexpr (NB == 4) {
+      *reinterpret_cast<float4*>(row + 128 + 4 * lane) = make_float4(v[4], v[5], v[6], v[7]);
+    } else {
+      *reinterpret_cast<float2*>(row + 128 + 2 * lane) = make_float2(v[4], v[5]);
+    }
+  }
+  static __device__ __forceinline__ void store_bf16(bf16* row, int lane, const float (&v)[E]) {
+    *reinterpret_cast<uint2*>(row + 4 * lane) =
+        make_uint2(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]));
+    if constexpr (NB == 4) {
+      *reinterpret_cast<uint2*>(row + 128 + 4 * lane) =
+          make_uint2(pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7]));
+    } else {
+      *reinterpret_cast<unsigned*>(row + 128 + 2 * lane) = pack_bf16(v[4], v[5]);
+    }
+  }
+};
+
+template <int D>
+__global__ void __launch_bounds__(LNB_NT, 2) ln_bwd_kernel(LNBwdParams p) {
+  using L = LnCols<D>;
+  constexpr int E = L::E;
+  __shared__ float red[LNB_WARPS * 2 * D];  // the warps' dgamma | dbeta, then the last sums
+  __shared__ float gather[2 * D];           // the cluster's blocks' rows of this block's slice
+  __shared__ int last;
+  cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const long long w = static_cast<long long>(blockIdx.x) * LNB_WARPS + warp;
+  const long long m0 = min(p.M, w * p.run), m1 = min(p.M, m0 + p.run);
+  const float invD = 1.f / static_cast<float>(D);
+  cluster_arrive_relaxed();
+  float gw[E], dg[E], db[E];
+  L::load_f32(p.g, lane, gw);
+#pragma unroll
+  for (int i = 0; i < E; ++i) dg[i] = db[i] = 0.f;
+
+  float x[E], dy[E], rs[E];
+  auto load = [&](long long m, float (&xv)[E], float (&dyv)[E], float (&rv)[E]) {
+    if (p.x_f32) {
+      L::load_f32(static_cast<const float*>(p.x) + m * p.ld_x, lane, xv);
+    } else {
+      L::load_bf16(static_cast<const bf16*>(p.x) + m * p.ld_x, lane, xv);
+    }
+    L::load_f32(p.dy + m * p.ld_dy, lane, dyv);
+    if (p.res) L::load_f32(p.res + m * p.ld_res, lane, rv);
+  };
+  if (m0 < m1) load(m0, x, dy, rs);
+  for (long long m = m0; m < m1; ++m) {
+    float nx[E], ndy[E], nrs[E];
+    if (m + 1 < m1) load(m + 1, nx, ndy, nrs);
+    float s = 0.f;
+#pragma unroll
+    for (int i = 0; i < E; ++i) s += x[i];
     const float mean = warp_sum(s) * invD;
     float v = 0.f;
-    for (int c = lane; c < p.D; c += 32) {
-      const float d = ld_any(p.x, xo + c, p.x_f32) - mean;
+#pragma unroll
+    for (int i = 0; i < E; ++i) {
+      const float d = x[i] - mean;
       v += d * d;
     }
     const float rstd = rsqrtf(warp_sum(v) * invD + p.eps);
-    float m1 = 0.f, m2 = 0.f;
-    for (int c = lane; c < p.D; c += 32) {
-      const float xh = (ld_any(p.x, xo + c, p.x_f32) - mean) * rstd;
-      const float dxh = p.dy[go + c] * p.g[c];
-      m1 += dxh;
-      m2 += dxh * xh;
+    float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+    for (int i = 0; i < E; ++i) {
+      const float xh = (x[i] - mean) * rstd;
+      const float dxh = dy[i] * gw[i];
+      x[i] = xh;
+      s1 += dxh;
+      s2 += dxh * xh;
+      dg[i] += dy[i] * xh;
+      db[i] += dy[i];
     }
-    m1 = warp_sum(m1) * invD;
-    m2 = warp_sum(m2) * invD;
-    for (int c = lane; c < p.D; c += 32) {
-      const float xh = (ld_any(p.x, xo + c, p.x_f32) - mean) * rstd;
-      float dx = (p.dy[go + c] * p.g[c] - m1 - xh * m2) * rstd;
-      if (p.res) dx += p.res[m * p.ld_res + c];
-      if (p.dx_f32) {
-        static_cast<float*>(p.dx)[m * p.D + c] = dx;
-      } else {
-        static_cast<bf16*>(p.dx)[m * p.D + c] = f2bf(dx);
-      }
+    s1 = warp_sum(s1) * invD;
+    s2 = warp_sum(s2) * invD;
+    float out[E];
+#pragma unroll
+    for (int i = 0; i < E; ++i) {
+      out[i] = (dy[i] * gw[i] - s1 - x[i] * s2) * rstd;
+      if (p.res) out[i] += rs[i];
     }
-    if (lane == 0) {
-      s_mean[rr] = mean;
-      s_rstd[rr] = rstd;
+    if (p.dx_f32) {
+      L::store_f32(static_cast<float*>(p.dx) + m * D, lane, out);
+    } else {
+      L::store_bf16(static_cast<bf16*>(p.dx) + m * D, lane, out);
     }
+#pragma unroll
+    for (int i = 0; i < E; ++i) {
+      x[i] = nx[i];
+      dy[i] = ndy[i];
+      rs[i] = nrs[i];
+    }
+  }
+
+  // 1. the block: its warps in order
+#pragma unroll
+  for (int i = 0; i < E; ++i) {
+    red[warp * 2 * D + L::col(lane, i)] = dg[i];
+    red[warp * 2 * D + D + L::col(lane, i)] = db[i];
   }
   __syncthreads();
-  const int rows = static_cast<int>(min(static_cast<long long>(LN_ROWS), p.M - r0));
-  for (int c = threadIdx.x; c < p.D; c += blockDim.x) {
-    float dg = 0.f, db = 0.f;
-    for (int rr = 0; rr < rows; ++rr) {
-      const long long m = r0 + rr;
-      const float dy = p.dy[m * p.ld_dy + c];
-      dg += dy * (ld_any(p.x, m * p.ld_x + c, p.x_f32) - s_mean[rr]) * s_rstd[rr];
-      db += dy;
-    }
-    p.parts[(static_cast<long long>(blockIdx.x) * 2) * p.D + c] = dg;
-    p.parts[(static_cast<long long>(blockIdx.x) * 2 + 1) * p.D + c] = db;
+  // 2. the cluster: block r owns the columns [r*per, (r+1)*per) of 2D; each
+  // block stores its sums of every slice into the owner's shared memory,
+  // then one barrier, and the owner sums them in rank order into the
+  // cluster's row of ws
+  const int cl = p.cluster;
+  const int per = 2 * D / cl;
+  const long long cid = blockIdx.x / cl;
+  const long long nclusters = gridDim.x / cl;
+  cluster_wait();
+  for (int c = threadIdx.x; c < 2 * D; c += LNB_NT) {
+    float s = 0.f;
+#pragma unroll
+    for (int r = 0; r < LNB_WARPS; ++r) s += red[r * 2 * D + c];
+    cluster.map_shared_rank(gather, c / per)[rank * per + c % per] = s;
   }
+  cluster.sync();  // every slice has landed; none is read remotely after it
+  for (int j = threadIdx.x; j < per; j += LNB_NT) {
+    float s = 0.f;
+    for (int r = 0; r < cl; ++r) s += gather[r * per + j];
+    p.ws[cid * 2 * D + rank * per + j] = s;
+  }
+  // 3. the ticket of this slice: the last of the nclusters blocks that own
+  // it sums it over the cluster rows and resets the ticket
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    last = atomicAdd(p.ticket + rank, 1u) == static_cast<unsigned>(nclusters - 1);
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  // the cluster rows in index order: thread slice s sums rows [s*chunk,
+  // (s+1)*chunk) of column j, LNB_BATCH loads in flight before any is
+  // summed, then slice 0's thread the slices in order
+  const int slices = per >= LNB_NT ? 1 : LNB_NT / per;
+  const long long chunk = (nclusters + slices - 1) / slices;
+  for (int idx = threadIdx.x; idx < slices * per; idx += LNB_NT) {
+    const int j = idx % per, sl = idx / per;
+    const float* col = p.ws + rank * per + j;
+    const long long k1 = min(nclusters, (sl + 1) * chunk);
+    float s = 0.f;
+    for (long long k0 = sl * chunk; k0 < k1; k0 += LNB_BATCH) {
+      float t[LNB_BATCH];
+#pragma unroll
+      for (int b = 0; b < LNB_BATCH; ++b) {
+        if (k0 + b < k1) t[b] = __ldcg(col + (k0 + b) * 2 * D);
+      }
+#pragma unroll
+      for (int b = 0; b < LNB_BATCH; ++b) {
+        if (k0 + b < k1) s += t[b];
+      }
+    }
+    red[sl * per + j] = s;
+  }
+  __syncthreads();
+  for (int j = threadIdx.x; j < per; j += LNB_NT) {
+    float s = 0.f;
+    for (int sl = 0; sl < slices; ++sl) s += red[sl * per + j];
+    p.dwb[rank * per + j] = s;
+  }
+  if (threadIdx.x == 0) p.ticket[rank] = 0u;
 }
 
 __global__ void branch_bwd_kernel(BranchBwdParams p) {
@@ -605,21 +898,100 @@ extern "C" int spe_reduce(const ReduceParams* p, void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+namespace {
+
+// a launch of `blocks` blocks in clusters of `cluster` (cudaLaunchKernelEx:
+// the cluster size is the plan's, not a compile-time attribute)
+template <typename Params>
+int launch_clustered(void (*kernel)(Params), const Params& p, long long blocks, int threads,
+                     int cluster, cudaStream_t s) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(blocks));
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, p);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+template <int W>
+int launch_colsum_f32(const ColsumF32Params* p, long long blocks, cudaStream_t s) {
+  static bool sized = false;  // clusters of up to 16 blocks, allowed once
+  if (!sized) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        colsum_f32_kernel<W>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    sized = true;
+  }
+  return launch_clustered(colsum_f32_kernel<W>, *p, blocks, CF_NT, p->cluster, s);
+}
+
+bool aligned(const void* ptr, long long ld, int bytes, int elem) {
+  return reinterpret_cast<uintptr_t>(ptr) % bytes == 0 && (ld * elem) % bytes == 0;
+}
+
+}  // namespace
+
 extern "C" int spe_colsum_f32(const ColsumF32Params* p, void* stream) {
-  if (p->M <= 0 || p->C <= 0 || p->Z <= 0 || p->Z > 65535 || p->chunk <= 0) {
+  const bool pow2 = p->strip >= 4 && p->strip <= CF_MAX_STRIP && (p->strip & (p->strip - 1)) == 0;
+  const long long strips = pow2 && p->C > 0 ? (p->C + p->strip - 1) / p->strip : 0;
+  if (p->M <= 0 || p->C <= 0 || !pow2 || p->cluster < 1 || p->cluster > CF_MAX_CLUSTER ||
+      p->run <= 0 || p->run * p->cluster < p->M || strips * p->cluster > 2147483647LL ||
+      (p->vec && (p->C % 4 || !aligned(p->x, p->ld, 16, 4)))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  dim3 grid((p->C + 127) / 128, p->Z);
-  colsum_f32_kernel<<<grid, 128, 0, static_cast<cudaStream_t>(stream)>>>(*p);
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long blocks = strips * p->cluster;
+  return p->vec ? launch_colsum_f32<4>(p, blocks, s) : launch_colsum_f32<1>(p, blocks, s);
 }
 
 extern "C" int spe_ln_backward(const LNBwdParams* p, void* stream) {
-  if (p->M <= 0 || p->D <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const long long blocks = (p->M + LN_ROWS - 1) / LN_ROWS;
-  ln_bwd_kernel<<<static_cast<unsigned>(blocks), NT, 2 * LN_ROWS * sizeof(float),
-                  static_cast<cudaStream_t>(stream)>>>(*p);
-  return static_cast<int>(cudaGetLastError());
+  const int cl = p->cluster;
+  const int xb = p->x_f32 ? 16 : 8, xe = p->x_f32 ? 4 : 2;
+  if (p->M <= 0 || (p->D != 192 && p->D != 256) || p->run <= 0 ||
+      (cl != 1 && cl != 2 && cl != 4 && cl != 8) || p->blocks <= 0 || p->blocks % cl ||
+      p->blocks / cl > p->ws_rows ||
+      static_cast<long long>(p->blocks) * LNB_WARPS * p->run < p->M || !p->ws || !p->ticket ||
+      !p->dwb || !aligned(p->dy, p->ld_dy, 16, 4) || !aligned(p->x, p->ld_x, xb, xe) ||
+      (p->res && !aligned(p->res, p->ld_res, 16, 4)) ||
+      !aligned(p->dx, 0, p->dx_f32 ? 16 : 8, 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (p->D == 192) return launch_clustered(ln_bwd_kernel<192>, *p, p->blocks, LNB_NT, cl, s);
+  return launch_clustered(ln_bwd_kernel<256>, *p, p->blocks, LNB_NT, cl, s);
+}
+
+// the blocks of one wave of ln_bwd_kernel<D> in clusters of `cluster`:
+// the clusters of that size the card can run at once (the occupancy
+// query), times the size
+extern "C" int spe_ln_backward_wave(int D, int cluster, int* blocks) {
+  if ((D != 192 && D != 256) || cluster < 1 || cluster > 8 || !blocks) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster);
+  cfg.blockDim = dim3(LNB_NT);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int n = 0;
+  const cudaError_t err =
+      D == 192 ? cudaOccupancyMaxActiveClusters(&n, ln_bwd_kernel<192>, &cfg)
+               : cudaOccupancyMaxActiveClusters(&n, ln_bwd_kernel<256>, &cfg);
+  *blocks = n * cluster;
+  return static_cast<int>(err);
 }
 
 extern "C" int spe_branch_backward(const BranchBwdParams* p, void* stream) {

@@ -1588,3 +1588,74 @@ def th_fold_case(B, H, N, D, ld, offset=0, device="cuda", seed=0):
     q = bf16_rows(B, N, D, ld, offset, gen, device)
     rows = (1.0 + 0.5 * torch.randn((H, D), generator=gen)).to(device)
     return q, rows
+
+
+# the card's SMs the plans are tested for (an H100 SXM: 132)
+H100_SMS = 132
+
+# colsum_f32 (bias gradients): the (M, C) classes one stock step gives it
+# (chip_smoke's record: patch blocks and encoder at 8192 rows, decoder at
+# 4800, class attention at 168 = 8 x 21 class tokens and 8360 = 8 x 1045)
+COLSUM_F32_MAIN = [(8192, 192), (8192, 576), (8192, 768), (4800, 192),
+                   (4800, 2048), (4800, 576), (168, 192), (8192, 2048),
+                   (168, 768), (8360, 576)]
+# (label, M, C, row stride, storage offset): every main class, then ragged
+# and misaligned ones
+COLSUM_F32_SHAPES = [(f"the main path's ({M}, {C})", M, C, C, 0)
+                     for M, C in COLSUM_F32_MAIN] + [
+    ("M = 1001 (not a multiple of the cluster's blocks), C = 200 (of the "
+     "strip)", 1001, 200, 200, 0),
+    ("M = 8, C = 13 (scalar path)", 8, 13, 13, 0),
+    ("a view: row stride 301 (no 16-byte loads), offset 1", 333, 256, 301,
+     1),
+    ("a view: row stride 260, offset 4 (16-byte loads)", 2000, 100, 260, 4),
+]
+
+
+def colsum_f32_case(M, C, ld, offset=0, device="cuda", seed=0):
+    """colsum_f32's argument: an (M, C) f32 view of random values with row
+    stride ld at storage offset `offset`."""
+    gen = torch.Generator().manual_seed(seed + 13 * M + C)
+    base = torch.randn(offset + M * ld, generator=gen)
+    return base.to(device).as_strided((M, C), (ld, 1), offset)
+
+
+# ln_backward: the (M, D) classes one stock step gives it (the same record;
+# every LayerNorm of the stock model is 192 wide)
+LN_BWD_MAIN = [(8192, 192), (4800, 192), (168, 192), (8360, 192)]
+# (label, M, D, x bf16, with a residual, dx bf16): every main class with its
+# types, then D = 256 and ragged ones
+LN_BWD_SHAPES = [
+    ("patch block norm2 (8192, 192): f32 x, residual", 8192, 192, False,
+     True, False),
+    ("patch block norm1 (8192, 192): bf16 x and dx, residual", 8192, 192,
+     True, True, True),
+    ("decoder (4800, 192): f32 x", 4800, 192, False, False, False),
+    ("encoder (8192, 192): f32 x", 8192, 192, False, False, False),
+    ("class attention norm2 (168, 192): f32 x, residual", 168, 192, False,
+     True, False),
+    ("class attention norm1 (8360, 192): bf16 x", 8360, 192, True, False,
+     False),
+    ("D = 256 (4800, 256): f32 x", 4800, 256, False, False, False),
+    ("M = 1001 (not a multiple of the warps' runs), D = 256: bf16 x and dx, "
+     "residual", 1001, 256, True, True, True),
+    ("M = 9, D = 192: bf16 x, f32 dx", 9, 192, True, False, False),
+]
+
+
+def ln_backward_case(M, D, x_bf16, res, dx_bf16, device="cuda", seed=0):
+    """ln_backward's arguments at one shape -> (args, kw): dy small, x
+    off-centre, the weight near 1, eps 1e-6, a residual if asked."""
+    gen = torch.Generator().manual_seed(seed + 7 * M + D)
+
+    def f32(*shape, scale=1.0, shift=0.0):
+        return (shift + scale * torch.randn(shape, generator=gen)).to(device)
+
+    dy = f32(M, D, scale=1e-2)
+    x = f32(M, D, scale=2.0, shift=0.5)
+    if x_bf16:
+        x = x.to(torch.bfloat16)
+    kw = dict(out_dtype=torch.bfloat16 if dx_bf16 else torch.float32)
+    if res:
+        kw["res"] = f32(M, D, scale=1e-2)
+    return (dy, x, f32(D, scale=0.1, shift=1.0), 1e-6), kw

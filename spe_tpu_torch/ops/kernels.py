@@ -208,12 +208,14 @@ class _ReduceParams(ctypes.Structure):
 
 
 class _ColsumF32Params(ctypes.Structure):
-    _fields_ = _struct((_P, "x parts"), (_LL, "M ld chunk"), (_I, "C Z"))
+    _fields_ = _struct((_P, "x out"), (_LL, "M ld run"),
+                       (_I, "C strip cluster vec"))
 
 
 class _LNBwdParams(ctypes.Structure):
-    _fields_ = _struct((_P, "dy x g res dx parts"),
-                       (_LL, "M ld_dy ld_x ld_res"), (_I, "D x_f32 dx_f32"),
+    _fields_ = _struct((_P, "dy x g res dx dwb ws ticket"),
+                       (_LL, "M ld_dy ld_x ld_res run"),
+                       (_I, "D x_f32 dx_f32 blocks cluster ws_rows"),
                        (_FL, "eps"))
 
 
@@ -279,6 +281,9 @@ def lib():
             fn = getattr(so, name)
             fn.argtypes = [ctypes.POINTER(struct), ctypes.c_void_p]
             fn.restype = ctypes.c_int
+        so.spe_ln_backward_wave.argtypes = [ctypes.c_int, ctypes.c_int,
+                                            ctypes.POINTER(ctypes.c_int)]
+        so.spe_ln_backward_wave.restype = ctypes.c_int
         so.spe_attention_copy_bytes.argtypes = [ctypes.POINTER(_AttnParams)]
         so.spe_attention_copy_bytes.restype = ctypes.c_int
         for name, struct in (("spe_attention", _AttnParams),
@@ -948,18 +953,67 @@ def grad_weight(dy, x, round_bf16=True):
     return reduce_sum(parts, round_bf16)
 
 
+def _index(device) -> int:
+    index = torch.device(device).index
+    return torch.cuda.current_device() if index is None else index
+
+
+def sm_count(device) -> int:
+    """The streaming multiprocessors of a CUDA device (the one-wave plans
+    below size their grids by it)."""
+    index = _index(device)
+    if index not in _SMS:
+        _SMS[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return _SMS[index]
+
+
+_SMS = {}
+
+# colsum_f32_kernel: strips of these widths (columns), the widest whose grid
+# puts a block on every SM; clusters of 8 blocks, or of 16 (the H100's
+# non-portable size) where 8 would leave strips narrower than
+# COLSUM_F32_MIN_STRIP columns (one 64-byte segment a row: the narrow
+# classes, (8192, 192) and (4800, 192), run faster so, the wide ones with
+# 8); halved while a block would sum fewer than COLSUM_F32_MIN_RUN rows
+COLSUM_F32_STRIPS = (128, 64, 32, 16, 8, 4)
+COLSUM_F32_CLUSTERS = (8, 16)
+COLSUM_F32_MIN_STRIP = 16
+COLSUM_F32_MIN_RUN = 64
+# blocks of 256 threads a SM can hold at once (chip_smoke's build phase
+# prints the registers): a grid of at most this many a SM is one wave
+COLSUM_F32_BLOCKS_PER_SM = 4
+
+
+def colsum_f32_plan(M, C, n_sm):
+    """colsum_f32_kernel's grid for (M, C) rows on n_sm SMs -> (strip,
+    cluster, run): one cluster of `cluster` blocks per strip of `strip`
+    columns (ceil(C / strip) strips), block k of a cluster summing rows
+    [k * run, (k + 1) * run). A function of the shape and the card, so
+    the sums' order is fixed."""
+    for most in COLSUM_F32_CLUSTERS:
+        cluster = most
+        while cluster > 1 and -(-M // cluster) < COLSUM_F32_MIN_RUN:
+            cluster //= 2
+        strip = next((s for s in COLSUM_F32_STRIPS
+                      if -(-C // s) * cluster >= n_sm), COLSUM_F32_STRIPS[-1])
+        if strip >= COLSUM_F32_MIN_STRIP:
+            break
+    return strip, cluster, -(-M // cluster)
+
+
 def colsum_f32(x):
-    """(M, C) f32 rows -> (C,) column sums (chunks of 256 rows, then
-    reduce_sum)."""
+    """(M, C) f32 rows -> (C,) column sums, in one launch and a fixed order
+    (two calls give the same bits)."""
     _need(x, _F32, "x", 2)
     M, C = x.shape
-    chunk = 256
-    Z = -(-M // chunk)
-    parts = torch.empty((Z, C), device=x.device, dtype=_F32)
-    p = _ColsumF32Params(x=x.data_ptr(), parts=parts.data_ptr(), M=M,
-                         ld=x.stride(0), chunk=chunk, C=C, Z=Z)
+    strip, cluster, run = colsum_f32_plan(M, C, sm_count(x.device))
+    vec = C % 4 == 0 and x.stride(0) % 4 == 0 and x.data_ptr() % 16 == 0
+    out = torch.empty((C,), device=x.device, dtype=_F32)
+    p = _ColsumF32Params(x=x.data_ptr(), out=out.data_ptr(), M=M,
+                         ld=x.stride(0), run=run, C=C, strip=strip,
+                         cluster=cluster, vec=int(vec))
     _check(lib().spe_colsum_f32(ctypes.byref(p), _stream()), "spe_colsum_f32")
-    return reduce_sum(parts)
+    return out
 
 
 def colsum_f32_reference(x):
@@ -967,33 +1021,111 @@ def colsum_f32_reference(x):
     return x.sum(0)
 
 
-LN_ROWS = 32   # rows per block of spe_ln_backward / spe_branch_backward
+# ln_bwd_kernel: the widths it is built for (template instantiations), the
+# warps of a block, the largest cluster
+LN_BWD_WIDTHS = (192, 256)
+LN_BWD_WARPS = 8
+LN_BWD_CLUSTER = 8
+
+
+def ln_backward_wave(device, D):
+    """The blocks of one wave of ln_bwd_kernel<D> on a CUDA device, in
+    clusters of LN_BWD_CLUSTER (the card's occupancy query: the number of
+    such clusters that can run at once, times their size)."""
+    index = _index(device)
+    if (index, D) not in _LN_WAVE:
+        n = ctypes.c_int(0)
+        with torch.cuda.device(index):
+            _check(lib().spe_ln_backward_wave(D, LN_BWD_CLUSTER,
+                                              ctypes.byref(n)),
+                   "spe_ln_backward_wave")
+        if n.value < LN_BWD_CLUSTER:
+            raise RuntimeError(f"ln_bwd_kernel<{D}>: no cluster of "
+                               f"{LN_BWD_CLUSTER} blocks fits the card")
+        _LN_WAVE[(index, D)] = n.value
+    return _LN_WAVE[(index, D)]
+
+
+_LN_WAVE = {}
+
+
+def ln_backward_plan(M, wave):
+    """ln_bwd_kernel's grid for M rows -> (blocks, cluster, run): warp w of
+    the grid (LN_BWD_WARPS a block) takes rows [w * run, (w + 1) * run), in
+    at most `wave` blocks (a multiple of LN_BWD_CLUSTER: ln_backward_wave);
+    clusters of `cluster` blocks (a power of two up to LN_BWD_CLUSTER
+    dividing `blocks`). A function of the shape and the card, so the sums'
+    order is fixed."""
+    run = -(-M // (wave * LN_BWD_WARPS))
+    blocks = -(-(-(-M // run)) // LN_BWD_WARPS)
+    cluster = min(LN_BWD_CLUSTER, 1 << (blocks.bit_length() - 1))
+    return -(-blocks // cluster) * cluster, cluster, run
+
+
+def ln_backward_ws_rows(n_sm):
+    """Rows of ln_bwd_kernel's cluster workspace: one per cluster of any
+    plan on n_sm SMs (a wave holds at most 8 blocks of 256 threads a SM,
+    in clusters of LN_BWD_CLUSTER, or one smaller cluster)."""
+    return n_sm * 8 // LN_BWD_CLUSTER + 1
+
+
+def ln_backward_scratch(device):
+    """ln_bwd_kernel's per-device scratch, allocated once: the tickets (one
+    int32 counter per column slice of a cluster, 0 between launches: the
+    slice's last block resets it) and one (2, 256) f32 row per cluster
+    (ln_backward_ws_rows)."""
+    index = _index(device)
+    if index not in _LN_SCRATCH:
+        rows = ln_backward_ws_rows(sm_count(device))
+        dev = torch.device("cuda", index)
+        _LN_SCRATCH[index] = (
+            torch.zeros(LN_BWD_CLUSTER, device=dev, dtype=torch.int32),
+            torch.empty((rows, 2, max(LN_BWD_WIDTHS)), device=dev, dtype=_F32))
+    return _LN_SCRATCH[index]
+
+
+_LN_SCRATCH = {}
 
 
 def ln_backward(dy, x, weight, eps, *, res=None, out_dtype=_F32):
-    """LayerNorm backward of (M, D) rows: dy f32, x the LayerNorm's input
-    (bf16/f32), weight f32 -> (dx (+ res) in out_dtype, dweight, dbias)."""
+    """LayerNorm backward of (M, D) rows, D in LN_BWD_WIDTHS: dy f32, x the
+    LayerNorm's input (bf16/f32), weight f32 -> (dx (+ res) in out_dtype,
+    dweight, dbias), in one launch; dweight and dbias summed in a fixed
+    order (two calls give the same bits). Rows 16-byte aligned (8 for bf16
+    x). Launches on one stream at a time: the launches share the tickets."""
     _need(dy, _F32, "dy", 2)
     _need(x, (_BF16, _F32), "x", 2)
     _need(weight, _F32, "weight", 1)
     M, D = x.shape
     if tuple(dy.shape) != (M, D) or weight.shape[0] != D:
         raise ValueError("dy, x and weight disagree")
+    if D not in LN_BWD_WIDTHS:
+        raise ValueError(f"ln_backward takes D in {LN_BWD_WIDTHS}, got {D}")
     if res is not None:
         _need(res, _F32, "res", 2)
         if tuple(res.shape) != (M, D):
             raise ValueError("res must match x")
+    if not weight.is_contiguous():
+        raise ValueError("weight must be contiguous")
+    for t, n in ((dy, "dy"), (x, "x"), (res, "res")):
+        align = 8 if t is not None and t.dtype == _BF16 else 16
+        if t is not None and (t.data_ptr() % align or
+                              t.stride(0) * t.element_size() % align):
+            raise ValueError(f"ln_backward reads {n} in {align}-byte aligned "
+                             "rows")
+    ticket, ws = ln_backward_scratch(x.device)
+    blocks, cluster, run = ln_backward_plan(M, ln_backward_wave(x.device, D))
     dx = torch.empty((M, D), device=x.device, dtype=out_dtype)
-    blocks = -(-M // LN_ROWS)
-    parts = torch.empty((blocks, 2, D), device=x.device, dtype=_F32)
+    dwb = torch.empty((2, D), device=x.device, dtype=_F32)
     p = _LNBwdParams(dy=dy.data_ptr(), x=x.data_ptr(), g=weight.data_ptr(),
-                     res=_ptr(res), dx=dx.data_ptr(), parts=parts.data_ptr(),
-                     M=M, ld_dy=dy.stride(0), ld_x=x.stride(0),
-                     ld_res=res.stride(0) if res is not None else 0, D=D,
-                     x_f32=int(x.dtype == _F32), dx_f32=int(out_dtype == _F32),
-                     eps=float(eps))
+                     res=_ptr(res), dx=dx.data_ptr(), dwb=dwb.data_ptr(),
+                     ws=ws.data_ptr(), ticket=ticket.data_ptr(), M=M,
+                     ld_dy=dy.stride(0), ld_x=x.stride(0),
+                     ld_res=res.stride(0) if res is not None else 0, run=run,
+                     D=D, x_f32=int(x.dtype == _F32),
+                     dx_f32=int(out_dtype == _F32), blocks=blocks,
+                     cluster=cluster, ws_rows=ws.shape[0], eps=float(eps))
     _check(lib().spe_ln_backward(ctypes.byref(p), _stream()), "spe_ln_backward")
-    dwb = reduce_sum(parts)
     return dx, dwb[0], dwb[1]
 
 
@@ -1002,6 +1134,9 @@ def ln_backward_reference(dy, x, weight, eps, *, res=None, out_dtype=_F32):
     backward, then the residual and the output type)."""
     dx, dw, db = ln_backward_rows(dy, x, weight, eps)
     return (dx + (res if res is not None else 0.0)).to(out_dtype), dw, db
+
+
+LN_ROWS = 32   # rows per block of spe_branch_backward
 
 
 def branch_backward(dres, val, gamma, *, seed=None, drop=None, path=None,

@@ -12,9 +12,13 @@ attn_kernel) against kernels.gemm_reference / attention_reference on
 ragged shapes, every layout and option, misaligned operands, likewise
 linear_kernel against ln_linear_reference, th_bwd_rows_kernel against
 th_bwd_rows_reference, th_fwd_rows_kernel against th_fwd_rows_reference,
-attn_bwd_rows_kernel against attention_bwd_rows_reference, and
+attn_bwd_rows_kernel against attention_bwd_rows_reference,
 colsum_kernel and th_fold_kernel against colsum_reference and
-th_fold_reference (th_fold bit for bit) on ragged and misaligned views.
+th_fold_reference (th_fold bit for bit) on ragged and misaligned views,
+and the one-launch colsum_f32_kernel and ln_bwd_kernel against
+colsum_f32_reference and ln_backward_reference at every class the main
+path gives them and on ragged and misaligned ones (one launch a call, no
+reduce_* kernel, the tickets back at 0).
 The
 kernels have no CPU mode, so without a card these tests skip.
 
@@ -24,10 +28,11 @@ Run on a machine with the card:  python -m pytest tests/test_torch_cuda.py -m cu
 import pytest
 import torch
 
-from spe_tpu_torch.ops.kernel_checks import (ATTN_ROWS_SHAPES, COLSUM_SHAPES,
+from spe_tpu_torch.ops.kernel_checks import (ATTN_ROWS_SHAPES,
+                                             COLSUM_F32_SHAPES, COLSUM_SHAPES,
                                              GEMM_SHAPES, LINEAR_SHAPES,
-                                             TH_BWD_SHAPES, TH_FOLD_SHAPES,
-                                             TH_FWD_SHAPES)
+                                             LN_BWD_SHAPES, TH_BWD_SHAPES,
+                                             TH_FOLD_SHAPES, TH_FWD_SHAPES)
 
 pytestmark = pytest.mark.cuda
 
@@ -501,3 +506,92 @@ def test_row_kernels_refuse_shapes(card, kernel):
         rows = torch.ones((9, 192), device=card)
         with pytest.raises(ValueError, match="at most 8 heads"):
             K.th_fold(q, rows)
+
+
+@pytest.mark.parametrize("case", range(len(COLSUM_F32_SHAPES)))
+def test_colsum_f32_kernel_matches_plain(card, case):
+    """colsum_f32_kernel against colsum_f32_reference at every class the
+    main path gives it and at ragged and misaligned views
+    (kernel_checks.COLSUM_F32_SHAPES): within grad_tol (1% of the largest
+    plain magnitude), two runs bit-identical."""
+    from spe_tpu_torch.ops import kernels as K
+    from spe_tpu_torch.ops.kernel_checks import (colsum_f32_case, grad_tol,
+                                                 max_err)
+
+    label, *shape = COLSUM_F32_SHAPES[case]
+    x = colsum_f32_case(*shape)
+    got, again = K.colsum_f32(x), K.colsum_f32(x)
+    want = K.colsum_f32_reference(x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again), label
+    assert max_err(got, want) <= grad_tol(want), label
+
+
+@pytest.mark.parametrize("case", range(len(LN_BWD_SHAPES)))
+def test_ln_backward_kernel_matches_plain(card, case):
+    """ln_bwd_kernel against ln_backward_reference at every class the main
+    path gives it and at ragged ones, with and without a residual, x bf16
+    and f32, dx f32 and bf16 (kernel_checks.LN_BWD_SHAPES): dx, dweight
+    and dbias within grad_tol, two runs bit-identical, the tickets back at
+    0 after each."""
+    from spe_tpu_torch.ops import kernels as K
+    from spe_tpu_torch.ops.kernel_checks import (grad_tol, ln_backward_case,
+                                                 max_err)
+
+    label, *shape = LN_BWD_SHAPES[case]
+    args, kw = ln_backward_case(*shape)
+    got = K.ln_backward(*args, **kw)
+    again = K.ln_backward(*args, **kw)
+    want = K.ln_backward_reference(*args, **kw)
+    torch.cuda.synchronize()
+    assert got[0].dtype == kw["out_dtype"], label
+    for name, g, a, w in zip(("dx", "dweight", "dbias"), got, again, want):
+        assert torch.equal(g, a), (label, name)
+        assert max_err(g, w) <= grad_tol(w), (label, name)
+    assert not bool(K.ln_backward_scratch(card)[0].any()), label
+
+
+def test_ln_backward_refuses_widths(card):
+    """ln_backward takes D = 192 or 256 (its template instantiations) and
+    rows its vector loads can read, and raises on any other before a
+    launch."""
+    from spe_tpu_torch.ops import kernels as K
+
+    for D in (128, 255, 320):
+        dy = torch.zeros((4, D), device=card)
+        x = torch.zeros((4, D), device=card, dtype=torch.bfloat16)
+        w = torch.ones(D, device=card)
+        with pytest.raises(ValueError, match="takes D in"):
+            K.ln_backward(dy, x, w, 1e-6)
+    w = torch.ones(192, device=card)
+    base = torch.zeros(4 * 193 + 1, device=card)
+    for dy, x in ((base[1:1 + 4 * 192].view(4, 192), base[:4 * 192].view(4, 192)),
+                  (base[:4 * 192].view(4, 192),
+                   base.as_strided((4, 192), (193, 1)))):
+        with pytest.raises(ValueError, match="aligned rows"):
+            K.ln_backward(dy, x, w, 1e-6)
+
+
+def test_bias_and_ln_grads_one_launch(card):
+    """colsum_f32 and ln_backward each launch their one kernel a call and
+    nothing else: no reduce_* kernel, no partials (torch.profiler's kernel
+    names over one call each, after a first call that allocates the
+    ticket)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from spe_tpu_torch.ops import kernels as K
+    from spe_tpu_torch.ops.kernel_checks import (colsum_f32_case,
+                                                 ln_backward_case)
+
+    x = colsum_f32_case(8192, 192, 192)
+    args, kw = ln_backward_case(8192, 192, True, True, True)
+    for fn, a, k, name in ((K.colsum_f32, (x,), {}, "colsum_f32_kernel"),
+                           (K.ln_backward, args, kw, "ln_bwd_kernel")):
+        fn(*a, **k)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn(*a, **k)
+            torch.cuda.synchronize()
+        kernels = [e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert len(kernels) == 1 and name in kernels[0], kernels

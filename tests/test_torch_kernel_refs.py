@@ -15,7 +15,12 @@ through the plain talking-heads softmax and mixes in float64,
 `kernels.attention_bwd_rows_reference` against autograd through the
 masked softmax with its key bias and dropout; `kernels.colsum_reference`
 against a float64 sum and `kernels.th_fold_reference` against the exact
-product rounded once (and torch.mul with a bf16 out=). No JAX
+product rounded once (and torch.mul with a bf16 out=);
+`kernels.colsum_f32_reference` against a float64 sum and
+`kernels.ln_backward_reference` against float64 autograd of F.layer_norm
+plus the residual; and the one-launch kernels' grid plans
+(`colsum_f32_plan`, `ln_backward_plan`) at every class the main path
+gives them: each row and column covered once, within one wave. No JAX
 here: the reference functions it is held to are the port's own plain
 versions and torch's.
 
@@ -32,11 +37,15 @@ from spe_tpu_torch.ops import kernels as K
 from spe_tpu_torch.ops.fused_encoder import softmax_attention
 from spe_tpu_torch.ops.fused_mha import (fused_mha_reference,
                                          fused_mha_train_reference)
-from spe_tpu_torch.ops.kernel_checks import (COLSUM_REL_TOL, attn_rows_case,
-                                             bf16_tol, colsum_case, colsum_err,
+from spe_tpu_torch.ops.kernel_checks import (COLSUM_F32_MAIN, COLSUM_REL_TOL,
+                                             H100_SMS, LN_BWD_MAIN,
+                                             attn_rows_case, bf16_tol,
+                                             colsum_case, colsum_err,
+                                             colsum_f32_case,
                                              gemm_kernel_cases, gemm_run,
                                              linear_kernel_cases, linear_run,
-                                             max_err, storage_of, th_bwd_case,
+                                             ln_backward_case, max_err,
+                                             storage_of, th_bwd_case,
                                              th_fold_case, th_fwd_case)
 from spe_tpu_torch.ops.refmath import (SITE_MHA_ATTN, CounterDropout,
                                        counter_keep, key_bias, path_keep)
@@ -428,3 +437,93 @@ def test_th_fold_reference_is_one_rounding(H):
     assert got.dtype == BF16 and got.shape == (B, H, N, D)
     assert torch.equal(got, want.to(BF16))
     assert torch.equal(lib, got)
+
+
+COLSUM_F32_REF_CASES = [(1, 1), (8, 192), (1001, 200), (4800, 256),
+                        (777, 13)]
+
+
+@pytest.mark.parametrize("M,C", COLSUM_F32_REF_CASES)
+def test_colsum_f32_reference_matches_float64(M, C):
+    """colsum_f32_reference (f32 column sums of a strided f32 view) against
+    the float64 sum: each column within COLSUM_REL_TOL of its sum |x|."""
+    x = colsum_f32_case(M, C, C + 3, offset=1, device="cpu")
+    got = K.colsum_f32_reference(x)
+    want = x.double().sum(0)
+    scale = x.double().abs().sum(0).clamp_min(1e-30)
+    assert got.dtype == torch.float32 and got.shape == (C,)
+    assert float(((got.double() - want).abs() / scale).max()) <= COLSUM_REL_TOL
+
+
+LN_BWD_REF_CASES = {
+    "D=192, bf16 x and dx, residual": (192, True, True, True),
+    "D=192, f32 x": (192, False, False, False),
+    "D=192, f32 x, residual": (192, False, True, False),
+    "D=256, bf16 x": (256, True, False, False),
+    "D=256, f32 x, residual, bf16 dx": (256, False, True, True),
+}
+
+
+@pytest.mark.parametrize("case", list(LN_BWD_REF_CASES))
+def test_ln_backward_reference_matches_autograd(case):
+    """ln_backward_reference against float64 autograd of F.layer_norm (its
+    input as the kernel reads it), plus the residual: f32 outputs within
+    1e-5 of their largest magnitude, a bf16 dx within one bf16 ulp."""
+    args, kw = ln_backward_case(37, *LN_BWD_REF_CASES[case], device="cpu")
+    dy, x, w, eps = args
+    dx, dw, db = K.ln_backward_reference(*args, **kw)
+    xd = x.double().requires_grad_()
+    wd = w.double().requires_grad_()
+    bd = torch.zeros_like(wd, requires_grad=True)
+    F.layer_norm(xd, (x.shape[1],), wd, bd, eps).backward(dy.double())
+    want = xd.grad + (kw["res"].double() if "res" in kw else 0.0)
+    assert dx.dtype == kw["out_dtype"] and dx.shape == x.shape
+    tol = (bf16_tol(want, ulps=1) if dx.dtype == BF16
+           else 1e-5 * float(want.abs().max()))
+    assert max_err(dx, want) <= tol
+    for got, ref in ((dw, wd.grad), (db, bd.grad)):
+        assert got.dtype == torch.float32
+        assert max_err(got, ref) <= 1e-5 * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("M,C", COLSUM_F32_MAIN)
+def test_colsum_f32_plan_covers_once(M, C):
+    """colsum_f32_plan at each class of the main path on an H100: the
+    strips and the clusters' row runs cover every element once; strips of
+    whole 16-byte units, at least COLSUM_F32_MIN_STRIP columns wide where
+    the rows fill the clusters; a grid within one wave that puts a block on
+    every SM there."""
+    strip, cluster, run = K.colsum_f32_plan(M, C, H100_SMS)
+    strips = -(-C // strip)
+    count = torch.zeros((M, C), dtype=torch.int32)
+    for s in range(strips):
+        for k in range(cluster):
+            count[k * run:(k + 1) * run, s * strip:(s + 1) * strip] += 1
+    assert bool((count == 1).all())
+    assert strip in K.COLSUM_F32_STRIPS and 1 <= cluster <= 16
+    blocks = strips * cluster
+    assert blocks <= H100_SMS * K.COLSUM_F32_BLOCKS_PER_SM
+    if M >= max(K.COLSUM_F32_CLUSTERS) * K.COLSUM_F32_MIN_RUN:
+        assert blocks >= H100_SMS and strip >= K.COLSUM_F32_MIN_STRIP
+
+
+# a wave of ln_bwd_kernel on an H100 if only two blocks a SM fit, in
+# clusters of 8 (ln_backward_wave asks the card)
+LN_BWD_TEST_WAVE = H100_SMS * 2 // 8 * 8
+
+
+@pytest.mark.parametrize("M,D", LN_BWD_MAIN)
+def test_ln_backward_plan_covers_once(M, D):
+    """ln_backward_plan at each class of the main path on an H100: the
+    warps' row runs cover every row once; at most a wave of blocks; clusters
+    of a power of two up to 8 blocks that divide the grid and the 2D
+    columns; the workspace holds a row per cluster."""
+    blocks, cluster, run = K.ln_backward_plan(M, LN_BWD_TEST_WAVE)
+    count = torch.zeros(M, dtype=torch.int32)
+    for w in range(blocks * K.LN_BWD_WARPS):
+        count[min(M, w * run):min(M, (w + 1) * run)] += 1
+    assert bool((count == 1).all())
+    assert blocks <= LN_BWD_TEST_WAVE
+    assert cluster in (1, 2, 4, 8) and blocks % cluster == 0
+    assert (2 * D) % cluster == 0 and D in K.LN_BWD_WIDTHS
+    assert blocks // cluster <= K.ln_backward_ws_rows(H100_SMS)
