@@ -14,9 +14,9 @@ Phases, each printing its own lines; any failure exits non-zero:
                it prints the registers and local memory of every
                instantiation of th_bwd_rows_kernel, th_fwd_rows_kernel,
                attn_bwd_rows_kernel, colsum_kernel, th_fold_kernel,
-               colsum_f32_kernel and ln_bwd_kernel and fails if an H=4
-               one of the first two or any of the others uses local
-               memory.
+               colsum_f32_kernel, ln_bwd_kernel, branch_bwd_kernel and
+               th_dq_kernel and fails if an H=4 one of the first two or
+               any of the others uses local memory.
   3. kernels — each fused-layer kernel at the voc0712 eval shapes (B=2)
                against its plain PyTorch version on the same bf16 inputs
                (max abs error vs the stated tolerance), and the standalone
@@ -64,12 +64,14 @@ Phases, each printing its own lines; any failure exits non-zero:
                byte bound and, where one PyTorch call computes it
                (F.layer_norm, native_layer_norm_backward, torch.sum,
                torch.mul with a bf16 out=), the library's time; th_fold
-               bit for bit, and colsum's, th_fold's, colsum_f32's and
-               ln_backward's time also with the L2 cache flushed before
-               each call; colsum_f32's and ln_backward's plain versions
-               timed and their stock-step sums in the JSON line; the
-               reduce_* launches per run beside those of the two-pass
-               design they replaced.
+               bit for bit, and colsum's, th_fold's, colsum_f32's,
+               ln_backward's, branch_backward's and th_dq's time also with
+               the L2 cache flushed before each call; the plain versions
+               of colsum_f32, ln_backward, branch_backward and th_dq (the
+               four that finish their sums in their one launch) timed and
+               their stock-step sums in the JSON line; the reduce_*
+               launches per run beside those of the two-pass design they
+               replaced.
   4. slice   — `spe_tpu_torch.cli.main --preset voc0712 --eval` on a
                generated mini-VOC at full width, with the launch counters
                checked per forward; then one batch through a kernel model
@@ -197,7 +199,9 @@ ROW_KERNELS = {"th_bwd_rows_kernel": lambda a: a[0] == "4",
                "colsum_kernel": lambda a: True,
                "th_fold_kernel": lambda a: True,
                "colsum_f32_kernel": lambda a: True,
-               "ln_bwd_kernel": lambda a: True}
+               "ln_bwd_kernel": lambda a: True,
+               "branch_bwd_kernel": lambda a: True,
+               "th_dq_kernel": lambda a: True}
 
 
 def tensor_core_check(kernels):
@@ -856,16 +860,34 @@ WRITES = {"th_dq": 4}
 # the SMALL wrappers held to their plain versions bit for bit, and those
 # also timed with the L2 cache flushed before each call (cold_ms)
 EXACT = ("th_fold",)
-COLD = ("colsum", "th_fold", "colsum_f32", "ln_backward")
+COLD = ("colsum", "th_fold", "colsum_f32", "ln_backward", "branch_backward",
+        "th_dq")
 # the SMALL wrappers with an entry of their own in the JSON line (their
-# kernel, its source and the TPU code it replaces): the two that finish
-# their sums in one launch, where they called reduce_sum once a call before
+# kernel, its source and the TPU code it replaces): the four that finish
+# their sums in one launch, where they called reduce_sum before
 SMALL_ENTRIES = {"colsum_f32": ("colsum_f32_kernel",
                                 "spe_tpu_torch/csrc/grad.cu",
                                 "spe_tpu/ops/pallas_block.py:336"),
                  "ln_backward": ("ln_bwd_kernel",
                                  "spe_tpu_torch/csrc/grad.cu",
-                                 "spe_tpu/ops/pallas_block.py:74")}
+                                 "spe_tpu/ops/pallas_block.py:74"),
+                 "branch_backward": ("branch_bwd_kernel",
+                                     "spe_tpu_torch/csrc/grad.cu",
+                                     "spe_tpu/ops/pallas_block.py:332"),
+                 "th_dq": ("th_dq_kernel", "spe_tpu_torch/csrc/th_train.cu",
+                           "spe_tpu/ops/pallas_block.py:432")}
+
+
+def two_pass_reduces(name, args, kw):
+    """The reduce_sum launches a call of a SMALL_ENTRIES wrapper made in
+    the two-pass design it replaced: one a call, branch_backward's only
+    with val (the dgamma sum)."""
+    return int(args[1] is not None) if name == "branch_backward" else 1
+
+
+# the SMALL_ENTRIES wrappers whose plain versions make their dropout keys
+# from host scalars (no CUDA graph): timed from the host
+PLAIN_HOST = ("branch_backward",)
 
 
 def _small_outputs(fn, name, args, kw):
@@ -918,8 +940,8 @@ def small_kernels(classes, results):
     ones also with the L2 cache flushed), its bound (the call's bytes over
     the memory rate) and the library's time (COLD ones also flushed); then
     the sums over each recorded run (launches x time), and the reduce_*
-    launches beside those of the two-pass design (one more a call of the
-    SMALL_ENTRIES wrappers). The SMALL_ENTRIES wrappers' plain versions
+    launches beside those of the two-pass design (two_pass_reduces of each
+    SMALL_ENTRIES call). The SMALL_ENTRIES wrappers' plain versions
     are timed too, and their stock-step sums go into `results`. Fails on
     a mismatch."""
     import torch
@@ -928,7 +950,7 @@ def small_kernels(classes, results):
     from spe_tpu_torch.ops.kernel_checks import (HBM_BYTES_PER_MS, grad_tol,
                                                  max_err)
 
-    bad, sums = [], {}
+    bad, sums, two_pass = [], {}, {}
     for (name, cls), rec in sorted(
             ((k, v) for k, v in classes.items() if k[0] in SMALL),
             key=lambda kv: (kv[0][0], -sum(kv[1]["launches"].values()))):
@@ -943,8 +965,10 @@ def small_kernels(classes, results):
         finite = all(bool(torch.isfinite(g.float()).all()) for g in got)
         passed = same and finite and all(e <= t for e, t in errs)
         ms = graph_ms(lambda: fn(*args, **kw))
-        plain_ms = graph_ms(lambda: plain(*args, **kw)) \
-            if name in SMALL_ENTRIES else None
+        plain_ms = None
+        if name in SMALL_ENTRIES:
+            timer = cuda_ms if name in PLAIN_HOST else graph_ms
+            plain_ms = timer(lambda: plain(*args, **kw))
         cold = cold_ms(lambda: fn(*args, **kw)) if name in COLD else None
         lib = _small_library(name, args, kw)
         lib_ms = graph_ms(lib) if lib is not None else None
@@ -967,6 +991,9 @@ def small_kernels(classes, results):
             bad.append(f"{name} {shapes}")
         err = max((e for e, _ in errs), default=0.0)
         for run, n in rec["launches"].items():
+            if name in SMALL_ENTRIES:
+                two_pass[run] = two_pass.get(run, 0) + n * two_pass_reduces(
+                    name, args, kw)
             tot = sums.setdefault((name, run), [0, 0.0, 0.0, 0.0, 0.0, 0.0,
                                                 0.0])
             tot[0] += n
@@ -998,12 +1025,12 @@ def small_kernels(classes, results):
                 "per": "sums of launches x time over one stock step (B=8), "
                        "each class replayed in a CUDA graph"}
     for run in RECORDED_RUNS:
-        n = {name: sums.get((name, run), [0])[0]
-             for name in ("reduce_sum", *SMALL_ENTRIES)}
-        print(f"[small] reduce_* launches over one {run}: {n['reduce_sum']} "
-              f"(the two-pass design: {sum(n.values())}, with one a call of "
-              f"{' and '.join(f'{k} ({n[k]})' for k in SMALL_ENTRIES)})",
-              flush=True)
+        n = sums.get(("reduce_sum", run), [0])[0]
+        calls = ", ".join(f"{k} {sums.get((k, run), [0])[0]}"
+                          for k in SMALL_ENTRIES)
+        print(f"[small] reduce_* launches over one {run}: {n} (the two-pass "
+              f"design: {n + two_pass.get(run, 0)}, with one a call of "
+              f"{calls}, branch_backward's with val only)", flush=True)
     torch.cuda.empty_cache()
     if bad:
         fail(f"kernels disagree with their plain versions: {bad}")

@@ -15,8 +15,9 @@
 //   spe_ln_backward    LayerNorm backward of whole rows plus a residual,
 //                      dgamma/dbeta summed in the same launch;
 //   spe_branch_backward  the LayerScale/DropPath/dropout branch
-//                      `x + dp * gamma * drop(y)`: d(y) and dgamma partials
-//                      (without gamma and val: the dropout mask alone);
+//                      `x + dp * gamma * drop(y)`: d(y), dgamma summed in
+//                      the same launch (without val: the elementwise pass
+//                      alone, the dropout mask's gradient);
 //   spe_dropout_mask   the counter masks themselves (common.cuh), for
 //                      holding them against the torch version bit for bit.
 //
@@ -28,8 +29,8 @@
 // batch as a sequential grid and add each sample's parameter gradients into
 // a resident output; Hopper blocks run in no order, so a cross-block sum
 // here is either written as partials and reduced by spe_reduce (the weight
-// gradients, branch_bwd_kernel) or finished inside its one launch in a
-// fixed order (colsum_f32_kernel, ln_bwd_kernel: see their notes).
+// gradients) or finished inside its one launch in a fixed order
+// (colsum_f32_kernel, ln_bwd_kernel, branch_bwd_kernel: see their notes).
 //
 // What bounds it on the H100: gemm_kernel, the product under every backward
 // (rows 1b-4b, 7b and 9 of PERF.md, and B5's logit planes). Its largest
@@ -118,14 +119,18 @@ struct LNBwdParams {
 };
 
 struct BranchBwdParams {
-  const float* dres;    // (M, D) f32: gradient of the residual stream
-  const float* val;     // optional (M, D) f32: the branch after its dropout
+  const float* dres;    // (M, D) f32 contiguous: gradient of the residual stream
+  const float* val;     // optional (M, D) f32 contiguous: the branch after its dropout
   const float* gamma;   // optional (D), 1 without
   const unsigned* seed;
   float* d;             // (M, D) f32: drop(dres * dp * gamma)
-  float* parts;         // (gridDim, D): sum of dres * dp * val (with val)
+  float* dgamma;        // (D): sum over the rows of dres * dp * val (with val)
   long long M, rps;
+  long long run;        // rows per block: block k of a strip's cluster takes [k*run, (k+1)*run)
   int D;
+  int strip;            // columns per cluster (a power of two, 4 to 128)
+  int cluster;          // blocks per strip, 1 to 16 (a thread-block cluster with val)
+  int vec;              // 16-byte accesses: D % 4 == 0, dres, val and d 16-byte aligned
   int drop_site;
   unsigned drop_thr;
   float drop_scale;
@@ -145,7 +150,6 @@ struct MaskParams {
 namespace {
 
 constexpr int NT = 256;
-constexpr int LN_ROWS = 32;    // rows per block of branch_bwd_kernel
 
 // ---- gemm_kernel: the tensor-core batched product ----
 constexpr int GBK = 32;        // depth of a k tile
@@ -469,51 +473,32 @@ constexpr int CF_BATCH = 8;
 constexpr int CF_MAX_STRIP = 128;
 constexpr int CF_MAX_CLUSTER = 16;
 
+// The shared memory of cluster_colsum: the block's partial rows (its
+// warps' when units < 32, else its row groups'; at most CF_NT * 4 values)
+// and, in block 0, the cluster's rows.
+struct ClusterColsumSmem {
+  __align__(16) float red[CF_NT * 4];
+  float gather[CF_MAX_CLUSTER * CF_MAX_STRIP];
+};
+
+// The finish of a strip's column sums over a cluster (colsum_f32_kernel,
+// branch_bwd_kernel): thread (u, g) of the block holds the W column sums
+// `acc` of unit u (columns [u*W, (u+1)*W) of the strip) over its row
+// group g. The row groups of a warp meet in a fixed butterfly (units <
+// 32), the block's warps or row groups in order through shared memory;
+// each block then stores its row into block 0's shared memory
+// (distributed shared memory), and after one cluster barrier block 0
+// sums the rows in rank order into out[0, cols). Every block must have
+// called cluster_arrive_relaxed() as it started: its first remote store
+// waits on that barrier. No atomics: two runs give the same bits.
 template <int W>
-__global__ void __launch_bounds__(CF_NT) colsum_f32_kernel(ColsumF32Params p) {
-  // the partial rows of the block: its warps' (units < 32) or its row
-  // groups' (units >= 32); at most CF_NT * W values
-  __shared__ __align__(16) float red[CF_NT * 4];
-  __shared__ float gather[CF_MAX_CLUSTER * CF_MAX_STRIP];  // block 0's: the cluster's rows
+__device__ __forceinline__ void cluster_colsum(float (&acc)[W], int strip, int cols,
+                                               int csize, ClusterColsumSmem& sm, float* out) {
   cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int c0 = static_cast<int>(blockIdx.x / p.cluster) * p.strip;
-  const int cols = min(p.strip, p.C - c0);
-  const int units = p.strip / W;
-  const int groups = CF_NT / units;
+  const int units = strip / W;
   const int u = threadIdx.x % units, g = threadIdx.x / units;
-  const long long r0 = rank * p.run, r1 = min(p.M, r0 + p.run);
-  cluster_arrive_relaxed();
-  float acc[W];
-#pragma unroll
-  for (int e = 0; e < W; ++e) acc[e] = 0.f;
-  if (u * W < cols) {
-    const float* src = p.x + c0 + u * W;
-    for (long long n = r0 + g; n < r1; n += static_cast<long long>(CF_BATCH) * groups) {
-      float v[CF_BATCH][W];
-#pragma unroll
-      for (int k = 0; k < CF_BATCH; ++k) {
-        const long long m = n + static_cast<long long>(k) * groups;
-        if (m >= r1) continue;
-        if constexpr (W == 4) {
-          const float4 t = __ldg(reinterpret_cast<const float4*>(src + m * p.ld));
-          v[k][0] = t.x;
-          v[k][1] = t.y;
-          v[k][2] = t.z;
-          v[k][3] = t.w;
-        } else {
-          v[k][0] = __ldg(src + m * p.ld);
-        }
-      }
-#pragma unroll
-      for (int k = 0; k < CF_BATCH; ++k) {
-        if (n + static_cast<long long>(k) * groups >= r1) continue;
-#pragma unroll
-        for (int e = 0; e < W; ++e) acc[e] += v[k][e];
-      }
-    }
-  }
   int rows;  // partial rows in red
   if (units < 32) {
     // the warp's row groups in a fixed butterfly; every lane ends with the sum
@@ -523,30 +508,183 @@ __global__ void __launch_bounds__(CF_NT) colsum_f32_kernel(ColsumF32Params p) {
     }
     if (lane < units) {
 #pragma unroll
-      for (int e = 0; e < W; ++e) red[warp * p.strip + u * W + e] = acc[e];
+      for (int e = 0; e < W; ++e) sm.red[warp * strip + u * W + e] = acc[e];
     }
     rows = CF_NT / 32;
   } else {
 #pragma unroll
-    for (int e = 0; e < W; ++e) red[g * p.strip + u * W + e] = acc[e];
-    rows = groups;
+    for (int e = 0; e < W; ++e) sm.red[g * strip + u * W + e] = acc[e];
+    rows = CF_NT / units;
   }
   __syncthreads();
   // the block's row into block 0's shared memory, then one barrier
   cluster_wait();
-  float* dst = cluster.map_shared_rank(gather, 0) + rank * p.strip;
-  for (int c = threadIdx.x; c < p.strip; c += CF_NT) {
+  float* dst = cluster.map_shared_rank(sm.gather, 0) + rank * strip;
+  for (int c = threadIdx.x; c < strip; c += CF_NT) {
     float s = 0.f;
-    for (int r = 0; r < rows; ++r) s += red[r * p.strip + c];
+    for (int r = 0; r < rows; ++r) s += sm.red[r * strip + c];
     dst[c] = s;
   }
   cluster.sync();  // every block's row has landed; none is read remotely after it
   if (rank == 0) {
     for (int c = threadIdx.x; c < cols; c += CF_NT) {
       float s = 0.f;
-      for (int r = 0; r < p.cluster; ++r) s += gather[r * p.strip + c];
-      p.out[c0 + c] = s;
+      for (int r = 0; r < csize; ++r) s += sm.gather[r * strip + c];
+      out[c] = s;
     }
+  }
+}
+
+// (rows counted in 32 bits: ptxas holds the kernel to 64 registers, and
+// 64-bit row counters made it spill)
+template <int W>
+__global__ void __launch_bounds__(CF_NT) colsum_f32_kernel(ColsumF32Params p) {
+  __shared__ ClusterColsumSmem sm;
+  const int rank = static_cast<int>(blockIdx.x % p.cluster);
+  const int c0 = static_cast<int>(blockIdx.x / p.cluster) * p.strip;
+  const int cols = min(p.strip, p.C - c0);
+  const int units = p.strip / W;
+  const int groups = CF_NT / units;
+  const int u = threadIdx.x % units, g = threadIdx.x / units;
+  const int r0 = static_cast<int>(min(p.M, rank * p.run));
+  const int r1 = static_cast<int>(min(p.M, r0 + p.run));
+  cluster_arrive_relaxed();
+  float acc[W];
+#pragma unroll
+  for (int e = 0; e < W; ++e) acc[e] = 0.f;
+  if (u * W < cols) {
+    const float* src = p.x + c0 + u * W;
+    for (int n = r0 + g; n < r1; n += CF_BATCH * groups) {
+      float v[CF_BATCH][W];
+#pragma unroll
+      for (int k = 0; k < CF_BATCH; ++k) {
+        const int m = n + k * groups;
+        if (m >= r1) continue;
+        if constexpr (W == 4) {
+          const float4 t = __ldg(reinterpret_cast<const float4*>(src + static_cast<long long>(m) * p.ld));
+          v[k][0] = t.x;
+          v[k][1] = t.y;
+          v[k][2] = t.z;
+          v[k][3] = t.w;
+        } else {
+          v[k][0] = __ldg(src + static_cast<long long>(m) * p.ld);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < CF_BATCH; ++k) {
+        if (n + k * groups >= r1) continue;
+#pragma unroll
+        for (int e = 0; e < W; ++e) acc[e] += v[k][e];
+      }
+    }
+  }
+  cluster_colsum<W>(acc, p.strip, cols, p.cluster, sm, p.out + c0);
+}
+
+// branch_bwd_kernel<W, SUM>: the backward of the residual branch
+// `x + dp * gamma * drop(y)` of the patch blocks and the class attention
+// (pallas_block.py:332-334 and :349-351, pallas_ca_block.py likewise), for
+// (M, D) f32 rows: d = drop(dres * dp * gamma) and, with SUM (val given),
+// dgamma = sum over the rows of dres * dp * val; without val it is the
+// elementwise pass of the encoder's and decoder's dropout gradients. What
+// bounds it: bytes, dres and val read once and d written once (18.9 MB at
+// the patch blocks' (8192, 192): 5.6 us at 3.35 TB/s). The design is
+// colsum_f32_kernel's grid (kernels.branch_backward_plan): a cluster of
+// `cluster` blocks per strip of `strip` columns, block k of it over rows
+// [k*run, (k+1)*run); a thread owns one unit of W columns (W = 4: 16-byte
+// loads and stores, W = 1: the scalar path) and every groups-th row of
+// the run, CF_BATCH rows' loads in flight before any is used. A row's
+// DropPath factor and dropout key come from the sample's key, made once
+// per sample a thread meets, and the row's key once per row. dgamma is
+// finished in the same launch by cluster_colsum (no partials, no atomics:
+// two runs give the same bits).
+template <int W, bool SUM>
+__global__ void __launch_bounds__(CF_NT) branch_bwd_kernel(BranchBwdParams p) {
+  const int rank = static_cast<int>(blockIdx.x % p.cluster);
+  const int c0 = static_cast<int>(blockIdx.x / p.cluster) * p.strip;
+  const int cols = min(p.strip, p.D - c0);
+  const int units = p.strip / W;
+  const int groups = CF_NT / units;
+  const int u = threadIdx.x % units, g = threadIdx.x / units;
+  const long long r0 = rank * p.run, r1 = min(p.M, r0 + p.run);
+  if constexpr (SUM) cluster_arrive_relaxed();
+  float acc[W];
+#pragma unroll
+  for (int e = 0; e < W; ++e) acc[e] = 0.f;
+  if (u * W < cols) {
+    const int c = c0 + u * W;
+    const float* __restrict__ dres = p.dres + c;
+    const float* __restrict__ val = SUM ? p.val + c : nullptr;
+    float* __restrict__ dst = p.d + c;
+    float gm[W];
+#pragma unroll
+    for (int e = 0; e < W; ++e) gm[e] = p.gamma ? __ldg(p.gamma + c + e) : 1.f;
+    const bool drop = p.drop_site != 0, path = p.path_site != 0;
+    const unsigned seed = drop || path ? __ldg(p.seed) : 0u;
+    const unsigned rps = static_cast<unsigned>(p.rps);
+    unsigned sample = 0xffffffffu, hkey = 0u;
+    float dp = 1.f;
+    for (long long n = r0 + g; n < r1; n += static_cast<long long>(CF_BATCH) * groups) {
+      float dr[CF_BATCH][W], vl[CF_BATCH][W];
+#pragma unroll
+      for (int k = 0; k < CF_BATCH; ++k) {
+        const long long m = n + static_cast<long long>(k) * groups;
+        if (m >= r1) continue;
+        if constexpr (W == 4) {
+          const float4 a = __ldg(reinterpret_cast<const float4*>(dres + m * p.D));
+          dr[k][0] = a.x;
+          dr[k][1] = a.y;
+          dr[k][2] = a.z;
+          dr[k][3] = a.w;
+          if constexpr (SUM) {
+            const float4 b = __ldg(reinterpret_cast<const float4*>(val + m * p.D));
+            vl[k][0] = b.x;
+            vl[k][1] = b.y;
+            vl[k][2] = b.z;
+            vl[k][3] = b.w;
+          }
+        } else {
+          dr[k][0] = __ldg(dres + m * p.D);
+          if constexpr (SUM) vl[k][0] = __ldg(val + m * p.D);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < CF_BATCH; ++k) {
+        const long long m = n + static_cast<long long>(k) * groups;
+        if (m >= r1) continue;
+        unsigned rk = 0u;
+        if (drop || path) {
+          const unsigned mi = static_cast<unsigned>(m);
+          const unsigned b = mi / rps;
+          if (b != sample) {   // the sample's DropPath factor and dropout key
+            sample = b;
+            if (path) dp = path_bit(seed, p.path_site, b, p.path_thr) ? p.path_scale : 0.f;
+            if (drop) hkey = head_key(seed, p.drop_site, b, 0u);
+          }
+          if (drop) rk = row_key(hkey, mi - b * rps);
+        }
+        float o[W];
+#pragma unroll
+        for (int e = 0; e < W; ++e) {
+          const float x = dr[k][e] * dp;
+          if constexpr (SUM) acc[e] += x * vl[k][e];
+          o[e] = x * gm[e];
+          if (drop) {
+            o[e] = keep_col(rk, static_cast<unsigned>(c + e), p.drop_thr) ? o[e] * p.drop_scale
+                                                                           : 0.f;
+          }
+        }
+        if constexpr (W == 4) {
+          *reinterpret_cast<float4*>(dst + m * p.D) = make_float4(o[0], o[1], o[2], o[3]);
+        } else {
+          dst[m * p.D] = o[0];
+        }
+      }
+    }
+  }
+  if constexpr (SUM) {
+    __shared__ ClusterColsumSmem sm;
+    cluster_colsum<W>(acc, p.strip, cols, p.cluster, sm, p.dgamma + c0);
   }
 }
 
@@ -788,32 +926,6 @@ __global__ void __launch_bounds__(LNB_NT, 2) ln_bwd_kernel(LNBwdParams p) {
   if (threadIdx.x == 0) p.ticket[rank] = 0u;
 }
 
-__global__ void branch_bwd_kernel(BranchBwdParams p) {
-  const long long r0 = static_cast<long long>(blockIdx.x) * LN_ROWS;
-  const int rows = static_cast<int>(min(static_cast<long long>(LN_ROWS), p.M - r0));
-  for (int c = threadIdx.x; c < p.D; c += blockDim.x) {
-    float dg = 0.f;
-    for (int rr = 0; rr < rows; ++rr) {
-      const long long m = r0 + rr;
-      float dp = 1.f;
-      if (p.path_site) {
-        dp = path_bit(*p.seed, p.path_site, static_cast<unsigned>(m / p.rps), p.path_thr)
-                 ? p.path_scale : 0.f;
-      }
-      const float dr = p.dres[m * p.D + c];
-      if (p.val) dg += dr * dp * p.val[m * p.D + c];
-      float d = dr * dp * (p.gamma ? p.gamma[c] : 1.f);
-      if (p.drop_site) {
-        const unsigned key = head_key(*p.seed, p.drop_site, static_cast<unsigned>(m / p.rps), 0u);
-        d = keep_bit(key, static_cast<unsigned>(m % p.rps), static_cast<unsigned>(c),
-                     p.drop_thr) ? d * p.drop_scale : 0.f;
-      }
-      p.d[m * p.D + c] = d;
-    }
-    if (p.val) p.parts[static_cast<long long>(blockIdx.x) * p.D + c] = dg;
-  }
-}
-
 __global__ void mask_kernel(MaskParams p) {
   const long long total = p.path ? p.B : static_cast<long long>(p.B) * p.H * p.R * p.C;
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -921,16 +1033,25 @@ int launch_clustered(void (*kernel)(Params), const Params& p, long long blocks, 
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
-template <int W>
-int launch_colsum_f32(const ColsumF32Params* p, long long blocks, cudaStream_t s) {
-  static bool sized = false;  // clusters of up to 16 blocks, allowed once
+// a clustered launch of CF_NT-thread blocks whose clusters may hold up to
+// 16 blocks (the H100's non-portable size, allowed once per kernel)
+template <typename Params, void (*Kernel)(Params)>
+int launch_wide_clusters(const Params& p, long long blocks, int cluster, cudaStream_t s) {
+  static bool sized = false;
   if (!sized) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        colsum_f32_kernel<W>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    const cudaError_t err =
+        cudaFuncSetAttribute(Kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (err != cudaSuccess) return static_cast<int>(err);
     sized = true;
   }
-  return launch_clustered(colsum_f32_kernel<W>, *p, blocks, CF_NT, p->cluster, s);
+  return launch_clustered(Kernel, p, blocks, CF_NT, cluster, s);
+}
+
+// the strips of a colsum_f32_kernel / branch_bwd_kernel grid over C
+// columns, 0 if the strip is not a power of two from 4 to CF_MAX_STRIP
+long long strips_of(int strip, int C) {
+  const bool pow2 = strip >= 4 && strip <= CF_MAX_STRIP && (strip & (strip - 1)) == 0;
+  return pow2 && C > 0 ? (C + strip - 1) / strip : 0;
 }
 
 bool aligned(const void* ptr, long long ld, int bytes, int elem) {
@@ -940,16 +1061,19 @@ bool aligned(const void* ptr, long long ld, int bytes, int elem) {
 }  // namespace
 
 extern "C" int spe_colsum_f32(const ColsumF32Params* p, void* stream) {
-  const bool pow2 = p->strip >= 4 && p->strip <= CF_MAX_STRIP && (p->strip & (p->strip - 1)) == 0;
-  const long long strips = pow2 && p->C > 0 ? (p->C + p->strip - 1) / p->strip : 0;
-  if (p->M <= 0 || p->C <= 0 || !pow2 || p->cluster < 1 || p->cluster > CF_MAX_CLUSTER ||
+  const long long strips = strips_of(p->strip, p->C);
+  if (p->M <= 0 || p->M > 2147483647LL || strips == 0 || p->cluster < 1 ||
+      p->cluster > CF_MAX_CLUSTER ||
       p->run <= 0 || p->run * p->cluster < p->M || strips * p->cluster > 2147483647LL ||
       (p->vec && (p->C % 4 || !aligned(p->x, p->ld, 16, 4)))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long blocks = strips * p->cluster;
-  return p->vec ? launch_colsum_f32<4>(p, blocks, s) : launch_colsum_f32<1>(p, blocks, s);
+  return p->vec ? launch_wide_clusters<ColsumF32Params, colsum_f32_kernel<4>>(*p, blocks,
+                                                                             p->cluster, s)
+                : launch_wide_clusters<ColsumF32Params, colsum_f32_kernel<1>>(*p, blocks,
+                                                                             p->cluster, s);
 }
 
 extern "C" int spe_ln_backward(const LNBwdParams* p, void* stream) {
@@ -994,14 +1118,32 @@ extern "C" int spe_ln_backward_wave(int D, int cluster, int* blocks) {
   return static_cast<int>(err);
 }
 
+// With val: clusters of p->cluster blocks (dgamma summed in the launch);
+// without: the same grid, no cluster.
 extern "C" int spe_branch_backward(const BranchBwdParams* p, void* stream) {
-  if (p->M <= 0 || p->D <= 0 ||
-      ((p->drop_site || p->path_site) && (!p->seed || p->rps <= 0))) {
+  const long long strips = strips_of(p->strip, p->D);
+  if (p->M <= 0 || p->M > 2147483647LL || strips == 0 || p->cluster < 1 ||
+      p->cluster > CF_MAX_CLUSTER || p->run <= 0 || p->run * p->cluster < p->M ||
+      strips * p->cluster > 2147483647LL || !p->dres || !p->d || (p->val && !p->dgamma) ||
+      ((p->drop_site || p->path_site) && (!p->seed || p->rps <= 0)) ||
+      (p->vec && (p->D % 4 || !aligned(p->dres, 0, 16, 1) || !aligned(p->d, 0, 16, 1) ||
+                  (p->val && !aligned(p->val, 0, 16, 1))))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const long long blocks = (p->M + LN_ROWS - 1) / LN_ROWS;
-  branch_bwd_kernel<<<static_cast<unsigned>(blocks), NT, 0,
-                      static_cast<cudaStream_t>(stream)>>>(*p);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long blocks = strips * p->cluster;
+  if (p->val) {
+    return p->vec ? launch_wide_clusters<BranchBwdParams, branch_bwd_kernel<4, true>>(
+                        *p, blocks, p->cluster, s)
+                  : launch_wide_clusters<BranchBwdParams, branch_bwd_kernel<1, true>>(
+                        *p, blocks, p->cluster, s);
+  }
+  const unsigned grid = static_cast<unsigned>(blocks);
+  if (p->vec) {
+    branch_bwd_kernel<4, false><<<grid, CF_NT, 0, s>>>(*p);
+  } else {
+    branch_bwd_kernel<1, false><<<grid, CF_NT, 0, s>>>(*p);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

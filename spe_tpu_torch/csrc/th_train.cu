@@ -15,7 +15,8 @@
 //                  dp_h = sum_g ww[g, h] dz_g, ds_g = p_g (dp_g - rowsum(dp_g p_g))
 //                  in bf16 (for dq~ = ds . K and dK = sum_g ds_g^T q~_g), and
 //                  per row partials of dww, dbw and dbl;
-//   th_dq          dQ = sum_g dq~_g (.) row_g and per row partials of dwl;
+//   th_dq          dQ = sum_g dq~_g (.) row_g and dwl, summed in the same
+//                  launch;
 //   th_*_rows with wl  the standalone talking-heads attention
 //                  (spe_tpu/ops/pallas_attention.py:30 _kernel and
 //                  pallas_attention_bwd.py:40 _bwd_kernel): s holds each
@@ -105,13 +106,19 @@ struct THRowParams {
 };
 
 struct THDqParams {
-  const float* dqt;   // (B, H, N, D) dq~_g
+  const float* dqt;   // (B, H, N, D) dq~_g, contiguous
   const bf16* q;      // (B, N, D) rows with strides q_sb, q_sn
-  const float* rows;  // (H, D)
+  const float* rows;  // (H, D) contiguous
   float* dq;          // (B, N, D) rows with strides o_sb, o_sn
-  float* parts;       // (B*N, H*H): dwl[g, h]
+  float* dwl;         // (H, H): dwl[g, h]
+  float* ws;          // (ws_size): the blocks' (H, H) sums, block-major
+  unsigned* ticket;   // 0 between launches (reset by the last block)
   long long q_sb, q_sn, o_sb, o_sn;
+  long long run;      // rows (b, i) per block: block k takes [k*run, (k+1)*run)
+  long long ws_size;
   int B, H, N, D;
+  int group;          // threads per row (a chunk of V columns each, per pass)
+  int vec;            // 16-byte dq~/rows/dQ and 8-byte q accesses (V = 4)
   float scale;        // dh^-0.5
 };
 
@@ -587,27 +594,184 @@ __global__ void __launch_bounds__(TH_NT) th_fwd_rows_kernel(THRowParams p, int r
   }
 }
 
-__global__ void th_dq_kernel(THDqParams p) {
-  extern __shared__ float sm[];   // H * D products q (.) dq~_g
-  const int b = blockIdx.x / p.N, i = blockIdx.x % p.N;
-  const int H = p.H, D = p.D, dh = D / H;
-  for (int c = threadIdx.x; c < D; c += blockDim.x) {
-    const float q = bf2f(p.q[b * p.q_sb + static_cast<long long>(i) * p.q_sn + c]);
-    float acc = 0.f;
-    for (int g = 0; g < H; ++g) {
-      const float d = p.dqt[((static_cast<long long>(b) * H + g) * p.N + i) * D + c];
-      acc += d * p.rows[g * D + c];
-      sm[g * D + c] = q * d;
+// th_dq_kernel<HM, V>: dQ = sum_g dq~_g (.) row_g and
+// dwl[g, h] = scale * sum over the rows and head h's columns of q (.) dq~_g
+// (pallas_block.py:430-438), for H <= HM heads. What bounds it: bytes,
+// dq~ (f32, H planes) read once, q (bf16) read once, dQ (f32) written
+// once: 34.6 MB at B=8, H=4, N=1024, D=192, 10.3 us at 3.35 TB/s. The
+// design:
+// - A group of `group` threads per row (b, i), DQ_NT / group rows a block;
+//   a thread owns a chunk of V columns (V = 4: one 16-byte load of each
+//   head's dq~ and of rows, an 8-byte load of q and a 16-byte store of dQ
+//   where the views are aligned, else scalar; V = 1 where dh % 4 != 0), so
+//   a chunk lies in one head. A pass takes `group` chunks of every row of
+//   the block's run; D / V chunks take ceil(D / V / group) passes.
+// - A one-wave grid of blocks (kernels.th_dq_plan), block k over the fixed
+//   run of rows [k*run, (k+1)*run); a thread keeps its chunk's H sums of
+//   q (.) dq~_g in registers across the rows of a pass, and its chunk's
+//   rows (the H fold rows) across the pass.
+// - dwl is finished in the same launch in a fixed order: after each pass
+//   the block's row slots in order, then thread g*H + h sums the chunks of
+//   head h in order through shared memory, into a register over the
+//   passes; then a ticket (threadfence, one atomicAdd a block): the last
+//   block sums the blocks' rows of ws in index order, its threads
+//   splitting the blocks in fixed runs, and resets the ticket. The order
+//   depends on the shape alone, so two runs give the same bits. No float
+//   atomics, no dynamic shared memory.
+constexpr int DQ_NT = 256;
+constexpr int DQ_BATCH = 16;   // ws rows a thread of the last block loads at once
+
+template <int V>
+__device__ __forceinline__ void load_chunk(const float* src, bool vec, float (&v)[V]) {
+  if constexpr (V == 4) {
+    if (vec) {
+      const float4 a = __ldg(reinterpret_cast<const float4*>(src));
+      v[0] = a.x;
+      v[1] = a.y;
+      v[2] = a.z;
+      v[3] = a.w;
+      return;
     }
-    p.dq[b * p.o_sb + static_cast<long long>(i) * p.o_sn + c] = acc;
+  }
+#pragma unroll
+  for (int e = 0; e < V; ++e) v[e] = __ldg(src + e);
+}
+
+template <int HM, int V>
+__global__ void __launch_bounds__(DQ_NT) th_dq_kernel(THDqParams p) {
+  __shared__ float red[DQ_NT * HM];
+  __shared__ int last;
+  const int H = p.H, N = p.N, D = p.D, HH = H * H;
+  const int G = p.group, R = DQ_NT / G;
+  const int t = threadIdx.x % G, r = threadIdx.x / G;
+  const int chunks = D / V, per_head = D / H / V;
+  const bool vec = V == 4 && p.vec;
+  const long long BN = static_cast<long long>(p.B) * N;
+  const long long m0 = min(BN, blockIdx.x * p.run), m1 = min(BN, m0 + p.run);
+  const int k = threadIdx.x;   // the block's (g, h) = (k / H, k % H) for k < H*H
+  float hs = 0.f;
+  for (int j0 = 0; j0 < chunks; j0 += G) {
+    const int j = j0 + t;
+    const bool on = r < R && j < chunks;
+    float acc[HM];
+#pragma unroll
+    for (int g = 0; g < HM; ++g) acc[g] = 0.f;
+    if (on) {
+      const int c = j * V;
+      float wr[HM][V];
+#pragma unroll
+      for (int g = 0; g < HM; ++g) {
+        if (g < H) {
+          load_chunk<V>(p.rows + g * D + c, vec, wr[g]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < V; ++e) wr[g][e] = 0.f;
+        }
+      }
+      for (long long m = m0 + r; m < m1; m += R) {
+        const int mi = static_cast<int>(m), b = mi / N, i = mi - b * N;
+        const bf16* qs = p.q + b * p.q_sb + i * p.q_sn + c;
+        float qv[V];
+        if constexpr (V == 4) {
+          if (vec) {
+            const uint2 a = __ldg(reinterpret_cast<const uint2*>(qs));
+            unpack2(a.x, qv[0], qv[1]);
+            unpack2(a.y, qv[2], qv[3]);
+          } else {
+#pragma unroll
+            for (int e = 0; e < V; ++e) qv[e] = bf2f(qs[e]);
+          }
+        } else {
+          qv[0] = bf2f(qs[0]);
+        }
+        const float* dsrc = p.dqt + (static_cast<long long>(b) * H * N + i) * D + c;
+        float dv[HM][V];
+#pragma unroll
+        for (int g = 0; g < HM; ++g) {
+          if (g < H) load_chunk<V>(dsrc + static_cast<long long>(g) * N * D, vec, dv[g]);
+        }
+        float o[V];
+#pragma unroll
+        for (int e = 0; e < V; ++e) o[e] = 0.f;
+#pragma unroll
+        for (int g = 0; g < HM; ++g) {
+          if (g < H) {
+            float sq = 0.f;
+#pragma unroll
+            for (int e = 0; e < V; ++e) {
+              o[e] += dv[g][e] * wr[g][e];
+              sq += qv[e] * dv[g][e];
+            }
+            acc[g] += sq;
+          }
+        }
+        float* dst = p.dq + b * p.o_sb + i * p.o_sn + c;
+        if (V == 4 && vec) {
+          *reinterpret_cast<float4*>(dst) = make_float4(o[0], o[1], o[2], o[3]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < V; ++e) dst[e] = o[e];
+        }
+      }
+#pragma unroll
+      for (int g = 0; g < HM; ++g) red[threadIdx.x * HM + g] = acc[g];
+    }
+    __syncthreads();
+    // the pass's sums: each (chunk, g) over the row slots in order, into
+    // row slot 0's place (only this thread reads or writes those places)
+    const int live = min(G, chunks - j0);
+    for (int idx = threadIdx.x; idx < live * H; idx += DQ_NT) {
+      const int tc = idx / H, g = idx % H;
+      float s = 0.f;
+      for (int rr = 0; rr < R; ++rr) s += red[(rr * G + tc) * HM + g];
+      red[tc * HM + g] = s;
+    }
+    __syncthreads();
+    // then (g, h) over the chunks of head h in this pass, in order
+    if (k < HH) {
+      const int g = k / H, h = k % H;
+      const int lo = max(h * per_head, j0), hi = min((h + 1) * per_head, j0 + live);
+      for (int jj = lo; jj < hi; ++jj) hs += red[(jj - j0) * HM + g];
+    }
+    __syncthreads();
+  }
+  // the block's (H, H) sums into its row of ws; the last block sums the rows
+  if (k < HH) p.ws[static_cast<long long>(blockIdx.x) * HH + k] = hs;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(p.ticket, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  // the blocks in index order: thread slice sl sums blocks [sl*chunk,
+  // (sl+1)*chunk) of entry k, DQ_BATCH loads in flight, then thread k the
+  // slices in order
+  const int slices = DQ_NT / HH;
+  const long long nb = gridDim.x, chunk = (nb + slices - 1) / slices;
+  if (threadIdx.x < slices * HH) {
+    const int kk = threadIdx.x % HH, sl = threadIdx.x / HH;
+    const long long b1 = min(nb, (sl + 1) * chunk);
+    float s = 0.f;
+    for (long long b0 = sl * chunk; b0 < b1; b0 += DQ_BATCH) {
+      float v[DQ_BATCH];
+#pragma unroll
+      for (int q = 0; q < DQ_BATCH; ++q) {
+        if (b0 + q < b1) v[q] = __ldcg(p.ws + (b0 + q) * HH + kk);
+      }
+#pragma unroll
+      for (int q = 0; q < DQ_BATCH; ++q) {
+        if (b0 + q < b1) s += v[q];
+      }
+    }
+    red[sl * HH + kk] = s;
   }
   __syncthreads();
-  if (static_cast<int>(threadIdx.x) < H * H) {
-    const int g = threadIdx.x / H, h = threadIdx.x % H;
+  if (k < HH) {
     float s = 0.f;
-    for (int c = h * dh; c < (h + 1) * dh; ++c) s += sm[g * D + c];
-    p.parts[static_cast<long long>(blockIdx.x) * H * H + threadIdx.x] = p.scale * s;
+    for (int sl = 0; sl < slices; ++sl) s += red[sl * HH + k];
+    p.dwl[k] = p.scale * s;
   }
+  if (threadIdx.x == 0) *p.ticket = 0u;
 }
 
 __global__ void softmax_bwd_kernel(SoftmaxBwdParams p) {
@@ -845,14 +1009,44 @@ extern "C" int spe_th_rows(const THRowParams* p, int backward, void* stream) {
   }
 }
 
+namespace {
+
+template <int HM>
+int launch_th_dq(const THDqParams* p, int V, unsigned blocks, cudaStream_t s) {
+  if (V == 4) {
+    th_dq_kernel<HM, 4><<<blocks, DQ_NT, 0, s>>>(*p);
+  } else {
+    th_dq_kernel<HM, 1><<<blocks, DQ_NT, 0, s>>>(*p);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// H <= 16 heads of dh = D / H columns; chunks of 4 columns where dh % 4
+// == 0, of 1 otherwise. The grid is ceil(B*N / run) blocks.
 extern "C" int spe_th_dq(const THDqParams* p, void* stream) {
-  if (p->B <= 0 || p->H <= 0 || p->N <= 0 || p->D % p->H != 0 || p->H * p->H > 256) {
+  const long long rows = static_cast<long long>(p->B) * p->N;
+  if (p->B <= 0 || p->H <= 0 || p->H * p->H > DQ_NT || p->N <= 0 || p->D <= 0 ||
+      p->D % p->H != 0 || p->run <= 0 || rows > 2147483647LL || p->group <= 0 ||
+      p->group > DQ_NT || !p->ticket || !p->ws || !p->dwl) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int bytes = p->H * p->D * static_cast<int>(sizeof(float));
-  th_dq_kernel<<<static_cast<unsigned>(p->B) * p->N, 256, bytes,
-                 static_cast<cudaStream_t>(stream)>>>(*p);
-  return static_cast<int>(cudaGetLastError());
+  const long long blocks = (rows + p->run - 1) / p->run;
+  const int V = (p->D / p->H) % 4 == 0 ? 4 : 1;
+  const uintptr_t al = reinterpret_cast<uintptr_t>(p->dqt) | reinterpret_cast<uintptr_t>(p->rows) |
+                       reinterpret_cast<uintptr_t>(p->dq) |
+                       static_cast<uintptr_t>((p->o_sb | p->o_sn) * 4);
+  const uintptr_t alq = reinterpret_cast<uintptr_t>(p->q) |
+                        static_cast<uintptr_t>((p->q_sb | p->q_sn) * 2);
+  if (blocks * p->H * p->H > p->ws_size || (p->vec && (V != 4 || al % 16 || alq % 8))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const unsigned grid = static_cast<unsigned>(blocks);
+  if (p->H <= 4) return launch_th_dq<4>(p, V, grid, s);
+  if (p->H <= 8) return launch_th_dq<8>(p, V, grid, s);
+  return launch_th_dq<16>(p, V, grid, s);
 }
 
 extern "C" int spe_softmax_backward(const SoftmaxBwdParams* p, void* stream) {

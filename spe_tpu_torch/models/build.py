@@ -17,6 +17,7 @@ from spe_tpu_torch.config import SPEConfig
 from spe_tpu_torch.models.cait import build_cait_config
 from spe_tpu_torch.models.detector import SPEDetector
 from spe_tpu_torch.models.layers import lecun_normal_, trunc_normal_
+from spe_tpu_torch.ops import kernels
 
 
 def resolve_device(cfg: SPEConfig) -> torch.device:
@@ -69,6 +70,49 @@ def init_weights(model: SPEDetector, seed: int) -> SPEDetector:
     return model
 
 
+def training_patches(cfg: SPEConfig, patch_size: int) -> int:
+    """The most patches a training image of cfg gives: max_size (rounded
+    up to bucket_quantum, or to the loader's 16, unless fixed_size) over
+    the patch size, squared."""
+    side = cfg.max_size
+    if not cfg.fixed_size:
+        q = cfg.bucket_quantum if cfg.bucket_quantum > 0 else 16
+        side = -(-side // q) * q
+    return (side // patch_size) ** 2
+
+
+def kernel_domain_errors(cfg: SPEConfig) -> list:
+    """What of cfg's model lies outside the shapes the card's kernels
+    take, when a fused flag or use_pallas_attention routes it through them
+    (nothing with all of them off: plain PyTorch takes any shape). The
+    kernels' declared domains: spe_attention's dq x dv forms
+    (kernels.ATTENTION_FORMS) for the patch blocks' wl-fold (D x D), the
+    class attention (dh x dh), the encoder self-attention (dt x dt, dt =
+    D / nheads) and the decoder cross-attention (2 dt x dt); ln_backward's
+    widths (kernels.LN_BWD_WIDTHS); the talking-heads row passes' heads
+    (kernels.TH_ROWS_MAX_H) and keys (kernels.TH_ROWS_MAX_N, against the
+    most patches of a training image)."""
+    if not (cfg.use_fused_block or cfg.use_fused_layers or
+            cfg.use_pallas_attention or cfg.use_fused_ca_block == "on"):
+        return []
+    bb = build_cait_config(cfg.backbone, num_classes=cfg.num_classes,
+                           layer_to_det=cfg.layer_to_det)
+    D, H = bb.embed_dim, bb.num_heads
+    dh, dt = D // H, D // cfg.nheads
+    errors = [f"attention {name} {dq} x {dv}" for name, dq, dv in (
+        ("wl-fold", D, D), ("class", dh, dh), ("encoder", dt, dt),
+        ("cross", 2 * dt, dt)) if (dq, dv) not in kernels.ATTENTION_FORMS]
+    if D not in kernels.LN_BWD_WIDTHS:
+        errors.append(f"ln_backward D={D} (takes {kernels.LN_BWD_WIDTHS})")
+    if H > kernels.TH_ROWS_MAX_H:
+        errors.append(f"talking heads H={H} (at most {kernels.TH_ROWS_MAX_H})")
+    n = training_patches(cfg, bb.patch_size)
+    if n > kernels.TH_ROWS_MAX_N:
+        errors.append(f"{n} training patches (at most "
+                      f"{kernels.TH_ROWS_MAX_N})")
+    return errors
+
+
 def build_model(cfg: SPEConfig, device=None) -> SPEDetector:
     """The detector of `cfg` on `device` (default: resolve_device(cfg)),
     initialised from cfg.seed, in eval mode. Post-norm encoder and sine
@@ -78,7 +122,8 @@ def build_model(cfg: SPEConfig, device=None) -> SPEDetector:
     attention through the standalone kernels (talking_heads B5 in the
     patch blocks, fused_mha B4 in the class attention, the encoder and the
     decoder cross-attention), as spe_tpu/models/build.py:38,60 routes
-    them."""
+    them. On a CUDA device a configuration outside the kernels' shapes
+    (kernel_domain_errors) is refused by name."""
     if cfg.pre_norm or cfg.masks or cfg.position_embedding not in ("sine", "v2"):
         raise NotImplementedError(
             "spe_tpu_torch ports the post-norm, sine-embedding detector "
@@ -87,6 +132,13 @@ def build_model(cfg: SPEConfig, device=None) -> SPEDetector:
         raise NotImplementedError("tensor parallelism is not ported to "
                                   "spe_tpu_torch")
     device = resolve_device(cfg) if device is None else torch.device(device)
+    errors = kernel_domain_errors(cfg) if device.type == "cuda" else []
+    if errors:
+        raise NotImplementedError(
+            f"{cfg.backbone} with the fused flags or use_pallas_attention on "
+            f"lies outside the CUDA kernels' shapes: {'; '.join(errors)}. "
+            "--no_use_fused_block --no_use_fused_layers "
+            "--no_use_pallas_attention runs it in plain PyTorch")
     backbone_cfg = build_cait_config(
         cfg.backbone, num_classes=cfg.num_classes,
         layer_to_det=cfg.layer_to_det, use_fused_block=cfg.use_fused_block,

@@ -421,13 +421,14 @@ def _backward_cuda(dy, x, o, md, lse, p, num_heads, drop):
     K.gemm(ds, qkv3[..., D:2 * D], dqt, M=N, N=D, K=N, nb=(B, H),  # dq~_g
            a_str=(H * N * N, N * N, N, 1), b_str=(N * 3 * D, 0, 3 * D, 1),
            c_str=(H * N * D, N * D, D, 1))
+    # dQ and dwl while dq~ (25 MB at the recipe's shape) is still in L2
+    g["attn.proj_l.weight"] = K.th_dq(dqt, qkv3[..., :D], rows, dh ** -0.5,
+                                      dqkv[..., :D])
+    del dqt
     K.gemm(ds, qg, dqkv[..., D:2 * D], M=N, N=D, K=H * N, nb=(B, 1),  # dK
            a_str=(H * N * N, 0, 1, N), b_str=(H * N * D, 0, D, 1),
            c_str=(N * 3 * D, 0, 3 * D, 1))
     del ds, qg
-    g["attn.proj_l.weight"] = K.th_dq(dqt, qkv3[..., :D], rows, dh ** -0.5,
-                                      dqkv[..., :D])
-    del dqt
     dqkv2 = dqkv.view(M, 3 * D)
     g["attn.qkv.weight"] = K.grad_weight(dqkv2, h1)
     g["attn.qkv.bias"] = K.colsum_f32(dqkv2)

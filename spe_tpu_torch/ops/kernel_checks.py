@@ -1659,3 +1659,94 @@ def ln_backward_case(M, D, x_bf16, res, dx_bf16, device="cuda", seed=0):
     if res:
         kw["res"] = f32(M, D, scale=1e-2)
     return (dy, x, f32(D, scale=0.1, shift=1.0), 1e-6), kw
+
+
+# branch_backward: the classes one stock step gives it (the patch blocks'
+# two branches at (8192, 192) with val, gamma, dropout and DropPath; the
+# class attention's at B * t = 168 rows with val and gamma; the encoder's
+# and the decoder's dropout gradients at (8192, 192) and (4800, 192), 1024
+# and 600 rows a sample) as (M, D, with val and gamma, dropout, DropPath,
+# rows per sample)
+BRANCH_BWD_MAIN = [(8192, 192, True, True, True, 1024),
+                   (168, 192, True, False, False, 21),
+                   (8192, 192, False, True, False, 1024),
+                   (4800, 192, False, True, False, 600)]
+# (label, M, D, with val and gamma, dropout, DropPath, rows per sample,
+# storage offset of dres and val): every main class, then the widths of
+# the other backbones, ragged and misaligned ones
+BRANCH_BWD_SHAPES = [
+    (f"the main path's ({M}, {D}){' with val' if v else ''}"
+     f"{', dropout' if d else ''}{', DropPath' if p else ''}", M, D, v, d, p,
+     rps, 0) for M, D, v, d, p, rps in BRANCH_BWD_MAIN] + [
+    ("M = 3 rows, D = 192", 3, 192, True, True, True, 1, 0),
+    ("M = 1001 (not a multiple of a block's run), D = 256", 1001, 256, True,
+     True, True, 77, 0),
+    ("XS24 width D = 288", 2 * 577, 288, True, True, True, 577, 0),
+    ("S24/S36 width D = 384", 2 * 577, 384, True, True, True, 577, 0),
+    ("M36/M48 width D = 768", 2 * 577, 768, True, True, True, 577, 0),
+    ("D = 100, dropout only", 1000, 100, False, True, False, 10, 0),
+    ("misaligned dres and val (scalar path), D = 192", 512, 192, True, True,
+     True, 64, 1),
+    ("D = 13 (scalar path)", 333, 13, True, True, False, 3, 0),
+]
+BRANCH_BWD_SITES = ((4, 0.05), (6, 0.2))   # (SITE_OUT, proj), (SITE_PATH2, path)
+
+
+def branch_backward_case(M, D, val, drop, path, rps, offset=0, device="cuda",
+                         seed=0):
+    """branch_backward's arguments at one shape -> (args, kw): dres and val
+    (M, D) f32, contiguous at storage offset `offset`, gamma near 1 (with
+    val), the recipe's dropout and DropPath rates."""
+    gen = torch.Generator().manual_seed(seed + 11 * M + D)
+
+    def rows():
+        base = torch.randn(offset + M * D, generator=gen).to(device)
+        return base[offset:].view(M, D)
+
+    dres = rows()
+    v = rows() if val else None
+    gamma = (1.0 + 0.1 * torch.randn(D, generator=gen)).to(device) \
+        if val else None
+    kw = dict(rows_per_sample=rps)
+    if drop or path:
+        kw["seed"] = torch.tensor([7 + seed], dtype=torch.int32, device=device)
+    if drop:
+        kw["drop"] = BRANCH_BWD_SITES[0]
+    if path:
+        kw["path"] = BRANCH_BWD_SITES[1]
+    return (dres, v, gamma), kw
+
+
+# th_dq: the class one stock step gives it (B=8, 4 heads, 1024 patches,
+# D=192; q and dQ the first D columns of the (B, N, 3D) qkv and dqkv)
+TH_DQ_MAIN = [(8, 4, 1024, 192)]
+# (label, B, H, N, D, q row stride, out row stride, q offset, out offset)
+TH_DQ_SHAPES = [
+    (f"the main path's ({B}, {H}, {N}, {D}), views of qkv and dqkv", B, H, N,
+     D, 3 * D, 3 * D, 0, 0) for B, H, N, D in TH_DQ_MAIN] + [
+    ("M36/M48: H = 16, D = 768, views of qkv and dqkv", 2, 16, 100, 768,
+     3 * 768, 3 * 768, 0, 0),
+    ("XS24: H = 6, D = 288", 2, 6, 77, 288, 3 * 288, 3 * 288, 0, 0),
+    ("S24/S36: H = 8, D = 384", 2, 8, 65, 384, 3 * 384, 3 * 384, 0, 0),
+    ("3 rows", 1, 4, 3, 192, 192, 192, 0, 0),
+    ("misaligned views (scalar path)", 2, 4, 33, 192, 577, 579, 1, 3),
+    ("dh = 10 (chunks of one column)", 2, 3, 17, 30, 30, 30, 0, 0),
+    ("D = 1100 in one head (two passes of 256 chunks)", 1, 1, 5, 1100, 1100,
+     1100, 0, 0),
+]
+
+
+def th_dq_case(B, H, N, D, q_ld, o_ld, q_off=0, o_off=0, device="cuda",
+               seed=0):
+    """th_dq's arguments at one shape: dqt (B, H, N, D) f32, q a (B, N, D)
+    bf16 view with row stride q_ld at offset q_off, rows (H, D) f32 near
+    1, the scale dh^-0.5 and out a (B, N, D) f32 view (row stride o_ld,
+    offset o_off) of a NaN-filled storage."""
+    gen = torch.Generator().manual_seed(seed + 5 * B + 3 * H + N + D)
+    dqt = torch.randn((B, H, N, D), generator=gen).to(device)
+    qs = torch.randn(q_off + B * N * q_ld, generator=gen).to(torch.bfloat16)
+    q = qs.to(device).as_strided((B, N, D), (N * q_ld, q_ld, 1), q_off)
+    rows = (1.0 + 0.1 * torch.randn((H, D), generator=gen)).to(device)
+    out = torch.full((o_off + B * N * o_ld,), float("nan"), device=device)
+    out = out.as_strided((B, N, D), (N * o_ld, o_ld, 1), o_off)
+    return dqt, q, rows, (D // H) ** -0.5, out

@@ -220,8 +220,9 @@ class _LNBwdParams(ctypes.Structure):
 
 
 class _BranchBwdParams(ctypes.Structure):
-    _fields_ = _struct((_P, "dres val gamma seed d parts"), (_LL, "M rps"),
-                       (_I, "D drop_site"), (_U, "drop_thr"),
+    _fields_ = _struct((_P, "dres val gamma seed d dgamma"),
+                       (_LL, "M rps run"),
+                       (_I, "D strip cluster vec drop_site"), (_U, "drop_thr"),
                        (_FL, "drop_scale"), (_I, "path_site"),
                        (_U, "path_thr"), (_FL, "path_scale"))
 
@@ -243,9 +244,9 @@ class _THRowParams(ctypes.Structure):
 
 
 class _THDqParams(ctypes.Structure):
-    _fields_ = _struct((_P, "dqt q rows dq parts"),
-                       (_LL, "q_sb q_sn o_sb o_sn"), (_I, "B H N D"),
-                       (_FL, "scale"))
+    _fields_ = _struct((_P, "dqt q rows dq dwl ws ticket"),
+                       (_LL, "q_sb q_sn o_sb o_sn run ws_size"),
+                       (_I, "B H N D group vec"), (_FL, "scale"))
 
 
 class _SoftmaxBwdParams(ctypes.Structure):
@@ -492,6 +493,12 @@ def ln_linear_reference(a, w, bias=None, *, ln=None, a2=None, act="none",
     n = torch.arange(N, device=a.device)
     out[:, n // grp * stride + n % grp] = y.to(out.dtype)
     return out
+
+
+# the dq x dv forms spe_attention is built for (csrc/attention.cu): the patch
+# blocks' wl-fold over all of D, the class attention, the encoder and
+# decoder self-attention, the conditional cross-attention
+ATTENTION_FORMS = ((192, 192), (48, 48), (24, 24), (48, 24))
 
 
 def attention(q, k, v, out, *, num_heads, dq, dv, q_hs, k_hs, v_hs, o_hs,
@@ -1006,6 +1013,8 @@ def colsum_f32(x):
     (two calls give the same bits)."""
     _need(x, _F32, "x", 2)
     M, C = x.shape
+    if M > 2 ** 31 - 1:
+        raise ValueError(f"colsum_f32 takes at most 2^31 - 1 rows, got {M}")
     strip, cluster, run = colsum_f32_plan(M, C, sm_count(x.device))
     vec = C % 4 == 0 and x.stride(0) % 4 == 0 and x.data_ptr() % 16 == 0
     out = torch.empty((C,), device=x.device, dtype=_F32)
@@ -1136,14 +1145,28 @@ def ln_backward_reference(dy, x, weight, eps, *, res=None, out_dtype=_F32):
     return (dx + (res if res is not None else 0.0)).to(out_dtype), dw, db
 
 
-LN_ROWS = 32   # rows per block of spe_branch_backward
+# branch_bwd_kernel: blocks of 256 threads a SM can hold at once (chip_smoke's
+# build phase prints the registers): its main classes' grids stay within
+# one wave of this many
+BRANCH_BWD_BLOCKS_PER_SM = 2
+
+
+def branch_backward_plan(M, D, n_sm):
+    """branch_bwd_kernel's grid for (M, D) rows on n_sm SMs -> (strip,
+    cluster, run): colsum_f32_kernel's (colsum_f32_plan), since with val
+    the kernel sums dgamma over the rows as colsum_f32 sums a bias
+    gradient. A function of the shape and the card, so the sums' order is
+    fixed."""
+    return colsum_f32_plan(M, D, n_sm)
 
 
 def branch_backward(dres, val, gamma, *, seed=None, drop=None, path=None,
                     rows_per_sample=1):
     """The residual branch `x + dp * gamma * val`, val = drop(y) (M, D) f32:
     -> (dy = drop(dres * dp * gamma) f32, dgamma = sum dres * dp * val).
-    Without gamma it counts as 1; without val no dgamma is summed (None)."""
+    Without gamma it counts as 1; without val no dgamma is summed (None).
+    One launch; dgamma summed in a fixed order (two calls give the same
+    bits)."""
     _need(dres, _F32, "dres", 2)
     M, D = dres.shape
     for t, n in ((val, "val"), (gamma, "gamma")):
@@ -1153,24 +1176,30 @@ def branch_backward(dres, val, gamma, *, seed=None, drop=None, path=None,
         if t is not None and (tuple(t.shape) != (M, D) or
                               not t.is_contiguous()):
             raise ValueError("dres and val must be contiguous (M, D)")
-    if gamma is not None and tuple(gamma.shape) != (D,):
-        raise ValueError(f"gamma must have {D} entries")
+    if gamma is not None and (tuple(gamma.shape) != (D,) or
+                              not gamma.is_contiguous()):
+        raise ValueError(f"gamma must hold {D} contiguous entries")
+    if M > 2 ** 31 - 1:
+        raise ValueError(f"branch_backward takes at most 2^31 - 1 rows, got {M}")
     dsite, dthr, dscale = _site(drop)
     psite, pthr, pscale = _site(path)
     _need_seed(seed, dsite or psite, rows_per_sample, M)
+    strip, cluster, run = branch_backward_plan(M, D, sm_count(dres.device))
     d = torch.empty((M, D), device=dres.device, dtype=_F32)
-    blocks = -(-M // LN_ROWS)
-    parts = None if val is None else torch.empty((blocks, D),
-                                                 device=dres.device, dtype=_F32)
+    dgamma = None if val is None else torch.empty((D,), device=dres.device,
+                                                  dtype=_F32)
+    vec = D % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in (dres, val, d)
+                             if t is not None)
     p = _BranchBwdParams(dres=dres.data_ptr(), val=_ptr(val),
                          gamma=_ptr(gamma), seed=_ptr(seed),
-                         d=d.data_ptr(), parts=_ptr(parts), M=M,
-                         rps=rows_per_sample, D=D, drop_site=dsite,
+                         d=d.data_ptr(), dgamma=_ptr(dgamma), M=M,
+                         rps=rows_per_sample, run=run, D=D, strip=strip,
+                         cluster=cluster, vec=int(vec), drop_site=dsite,
                          drop_thr=dthr, drop_scale=dscale, path_site=psite,
                          path_thr=pthr, path_scale=pscale)
     _check(lib().spe_branch_backward(ctypes.byref(p), _stream()),
            "spe_branch_backward")
-    return d, None if parts is None else reduce_sum(parts)
+    return d, dgamma
 
 
 def branch_backward_reference(dres, val, gamma, *, seed=None, drop=None,
@@ -1269,9 +1298,13 @@ TH_BLOCKS = 1024   # th_bwd_rows_kernel, 4 columns each; at most TH_BLOCKS
                    # blocks
 
 
+TH_ROWS_MAX_N = 4 * TH_NT   # 4 columns a thread
+TH_ROWS_MAX_H = 8           # csrc/th_train.cu MAXH
+
+
 def _th_rows_domain(name, N):
-    if N > 4 * TH_NT:
-        raise ValueError(f"{name} takes rows of at most {4 * TH_NT} keys, "
+    if N > TH_ROWS_MAX_N:
+        raise ValueError(f"{name} takes rows of at most {TH_ROWS_MAX_N} keys, "
                          f"got {N}")
 
 
@@ -1376,25 +1409,86 @@ def th_bwd_rows_reference(s, lse, dzd, bl, ww, bw, seed, rate, *, wl=None,
             torch.einsum("bhqk,bgqk->gh", s, ds))
 
 
+# th_dq_kernel: threads of a block, the most heads (H * H <= TH_DQ_NT),
+# blocks of TH_DQ_NT threads a SM in the plan's wave: three of the stock
+# th_dq_kernel<4, 4> (72 registers; chip_smoke's build phase prints them)
+# fit a SM, so the stock grid is one wave
+TH_DQ_NT = 256
+TH_DQ_MAX_H = 16
+TH_DQ_BLOCKS_PER_SM = 3
+
+
+def th_dq_chunk(D, H):
+    """The columns of a th_dq_kernel chunk: 4 where a head's dh = D / H
+    columns are whole 16-byte units, else 1 (a chunk lies in one head)."""
+    return 4 if (D // H) % 4 == 0 else 1
+
+
+def th_dq_plan(B, N, H, D, n_sm):
+    """th_dq_kernel's grid for (B, H, N, D) on n_sm SMs -> (group, blocks,
+    run): `group` threads a row (one chunk of th_dq_chunk columns each, the
+    row's chunks in ceil(chunks / group) passes), TH_DQ_NT // group rows a
+    block, at most TH_DQ_BLOCKS_PER_SM blocks a SM, block k over rows
+    [k * run, (k + 1) * run). A function of the shape and the card, so
+    dwl's order is fixed."""
+    group = min(D // th_dq_chunk(D, H), TH_DQ_NT)
+    rows = B * N
+    slots = TH_DQ_NT // group
+    run = -(-rows // min(-(-rows // slots), n_sm * TH_DQ_BLOCKS_PER_SM))
+    return group, -(-rows // run), run
+
+
+def th_dq_scratch(device):
+    """th_dq_kernel's per-device scratch, allocated once: the ticket (int32,
+    0 between launches: the last block resets it) and a row of TH_DQ_NT
+    (the most H * H) f32 sums for every block of a wave."""
+    index = _index(device)
+    if index not in _DQ_SCRATCH:
+        dev = torch.device("cuda", index)
+        blocks = sm_count(device) * TH_DQ_BLOCKS_PER_SM
+        _DQ_SCRATCH[index] = (
+            torch.zeros(1, device=dev, dtype=torch.int32),
+            torch.empty(blocks * TH_DQ_NT, device=dev, dtype=_F32))
+    return _DQ_SCRATCH[index]
+
+
+_DQ_SCRATCH = {}
+
+
 def th_dq(dqt, q, rows, scale, out):
     """dQ = sum_g dqt[:, g] * rows[g] into `out` (B, N, D) f32 view, from
     dqt (B, H, N, D) f32; returns dwl (H, H) f32, [g, h] = scale *
-    sum q_h * dqt_g[head h columns]."""
+    sum q_h * dqt_g[head h columns]. One launch; dwl summed in a fixed
+    order (two calls give the same bits). Launches on one stream at a
+    time: the launches share the ticket."""
     _need(dqt, _F32, "dqt", 4)
     _need(q, _BF16, "q", 3)
     _need(rows, _F32, "rows", 2)
     _need(out, _F32, "out", 3)
     B, H, N, D = dqt.shape
-    if not dqt.is_contiguous() or tuple(q.shape) != (B, N, D) or \
-            tuple(out.shape) != (B, N, D) or tuple(rows.shape) != (H, D):
+    if not dqt.is_contiguous() or not rows.is_contiguous() or \
+            tuple(q.shape) != (B, N, D) or tuple(out.shape) != (B, N, D) or \
+            tuple(rows.shape) != (H, D):
         raise ValueError("th_dq operand shapes disagree")
-    parts = torch.empty((B * N, H, H), device=dqt.device, dtype=_F32)
+    if H > TH_DQ_MAX_H or D % H or B * N > 2 ** 31 - 1:
+        raise ValueError(f"th_dq takes at most {TH_DQ_MAX_H} heads of "
+                         f"D / H columns and 2^31 - 1 rows, got H={H}, "
+                         f"D={D}, B*N={B * N}")
+    ticket, ws = th_dq_scratch(dqt.device)
+    group, blocks, run = th_dq_plan(B, N, H, D, sm_count(dqt.device))
+    vec = (th_dq_chunk(D, H) == 4 and
+           (dqt.data_ptr() | rows.data_ptr() | out.data_ptr()) % 16 == 0 and
+           q.data_ptr() % 8 == 0 and
+           all(st % 4 == 0 for st in (*q.stride()[:2], *out.stride()[:2])))
+    dwl = torch.empty((H, H), device=dqt.device, dtype=_F32)
     p = _THDqParams(dqt=dqt.data_ptr(), q=q.data_ptr(), rows=rows.data_ptr(),
-                    dq=out.data_ptr(), parts=parts.data_ptr(),
-                    q_sb=q.stride(0), q_sn=q.stride(1), o_sb=out.stride(0),
-                    o_sn=out.stride(1), B=B, H=H, N=N, D=D, scale=float(scale))
+                    dq=out.data_ptr(), dwl=dwl.data_ptr(), ws=ws.data_ptr(),
+                    ticket=ticket.data_ptr(), q_sb=q.stride(0),
+                    q_sn=q.stride(1), o_sb=out.stride(0), o_sn=out.stride(1),
+                    run=run, ws_size=ws.numel(), B=B, H=H, N=N, D=D,
+                    group=group, vec=int(vec), scale=float(scale))
     _check(lib().spe_th_dq(ctypes.byref(p), _stream()), "spe_th_dq")
-    return reduce_sum(parts)
+    return dwl
 
 
 def th_dq_reference(dqt, q, rows, scale, out):

@@ -15,10 +15,12 @@ th_bwd_rows_reference, th_fwd_rows_kernel against th_fwd_rows_reference,
 attn_bwd_rows_kernel against attention_bwd_rows_reference,
 colsum_kernel and th_fold_kernel against colsum_reference and
 th_fold_reference (th_fold bit for bit) on ragged and misaligned views,
-and the one-launch colsum_f32_kernel and ln_bwd_kernel against
-colsum_f32_reference and ln_backward_reference at every class the main
-path gives them and on ragged and misaligned ones (one launch a call, no
-reduce_* kernel, the tickets back at 0).
+and the one-launch colsum_f32_kernel, ln_bwd_kernel, branch_bwd_kernel
+and th_dq_kernel against colsum_f32_reference, ln_backward_reference,
+branch_backward_reference and th_dq_reference at every class the main
+path gives them, at the other backbones' widths and on ragged and
+misaligned ones (one launch a call, no reduce_* kernel, the tickets back
+at 0).
 The
 kernels have no CPU mode, so without a card these tests skip.
 
@@ -29,10 +31,12 @@ import pytest
 import torch
 
 from spe_tpu_torch.ops.kernel_checks import (ATTN_ROWS_SHAPES,
+                                             BRANCH_BWD_SHAPES,
                                              COLSUM_F32_SHAPES, COLSUM_SHAPES,
                                              GEMM_SHAPES, LINEAR_SHAPES,
                                              LN_BWD_SHAPES, TH_BWD_SHAPES,
-                                             TH_FOLD_SHAPES, TH_FWD_SHAPES)
+                                             TH_DQ_SHAPES, TH_FOLD_SHAPES,
+                                             TH_FWD_SHAPES)
 
 pytestmark = pytest.mark.cuda
 
@@ -587,6 +591,114 @@ def test_bias_and_ln_grads_one_launch(card):
     args, kw = ln_backward_case(8192, 192, True, True, True)
     for fn, a, k, name in ((K.colsum_f32, (x,), {}, "colsum_f32_kernel"),
                            (K.ln_backward, args, kw, "ln_bwd_kernel")):
+        fn(*a, **k)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn(*a, **k)
+            torch.cuda.synchronize()
+        kernels = [e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert len(kernels) == 1 and name in kernels[0], kernels
+
+
+@pytest.mark.parametrize("case", range(len(BRANCH_BWD_SHAPES)))
+def test_branch_backward_kernel_matches_plain(card, case):
+    """branch_bwd_kernel against branch_backward_reference at every class
+    the main path gives it, at the other backbones' widths (D = 256, 288,
+    384, 768) and on ragged and misaligned ones
+    (kernel_checks.BRANCH_BWD_SHAPES): d and dgamma within grad_tol (1% of
+    the largest plain magnitude), two runs bit-identical."""
+    from spe_tpu_torch.ops import kernels as K
+    from spe_tpu_torch.ops.kernel_checks import (branch_backward_case,
+                                                 grad_tol, max_err)
+
+    label, *shape = BRANCH_BWD_SHAPES[case]
+    args, kw = branch_backward_case(*shape)
+    got = K.branch_backward(*args, **kw)
+    again = K.branch_backward(*args, **kw)
+    want = K.branch_backward_reference(*args, **kw)
+    torch.cuda.synchronize()
+    for name, g, a, w in zip(("d", "dgamma"), got, again, want):
+        if w is None:
+            assert g is None and a is None, (label, name)
+            continue
+        assert torch.equal(g, a), (label, name)
+        assert max_err(g, w) <= grad_tol(w), (label, name)
+
+
+@pytest.mark.parametrize("case", range(len(TH_DQ_SHAPES)))
+def test_th_dq_kernel_matches_plain(card, case):
+    """th_dq_kernel against th_dq_reference at the stock step's class, at
+    H = 16, D = 768 with the strided qkv/dqkv views, the other backbones'
+    widths, a few rows, a misaligned view (the scalar path), dh = 10 and a
+    row of two passes (kernel_checks.TH_DQ_SHAPES): dQ and dwl within
+    grad_tol, dQ written into the out view only, two runs bit-identical,
+    the ticket back at 0."""
+    from spe_tpu_torch.ops import kernels as K
+    from spe_tpu_torch.ops.kernel_checks import (grad_tol, max_err,
+                                                 storage_of, th_dq_case)
+
+    label, *shape = TH_DQ_SHAPES[case]
+    dqt, q, rows, scale, out = th_dq_case(*shape)
+    # three copies of out's whole storage, viewed as out
+    outs = [storage_of(out).clone().as_strided(out.shape, out.stride(),
+                                               out.storage_offset())
+            for _ in range(3)]
+    got = K.th_dq(dqt, q, rows, scale, outs[0])
+    again = K.th_dq(dqt, q, rows, scale, outs[1])
+    want = K.th_dq_reference(dqt, q, rows, scale, outs[2])
+    torch.cuda.synchronize()
+    assert torch.equal(got, again), label
+    assert max_err(got, want) <= grad_tol(want), label
+    assert torch.equal(outs[0], outs[1]), label
+    assert max_err(outs[0], outs[2]) <= grad_tol(outs[2]), label
+    assert torch.equal(storage_of(outs[0]).isnan(),
+                       storage_of(outs[2]).isnan()), label
+    assert not bool(K.th_dq_scratch(card)[0].any()), label
+
+
+def test_branch_and_dq_refuse_shapes(card):
+    """branch_backward refuses a val that is not contiguous (M, D) and a
+    gamma of the wrong length; th_dq refuses more than 16 heads, D not a
+    multiple of H and a dqt that is not contiguous, before a launch."""
+    from spe_tpu_torch.ops import kernels as K
+    from spe_tpu_torch.ops.kernel_checks import th_dq_case
+
+    dres = torch.zeros((8, 192), device=card)
+    with pytest.raises(ValueError, match="contiguous"):
+        K.branch_backward(dres, torch.zeros((192, 8), device=card).t(), None)
+    with pytest.raises(ValueError, match="gamma"):
+        K.branch_backward(dres, dres, torch.ones(191, device=card))
+    for H, D in ((17, 17 * 4), (4, 190)):
+        dqt = torch.zeros((1, H, 3, D), device=card)
+        q = torch.zeros((1, 3, D), device=card, dtype=torch.bfloat16)
+        rows = torch.ones((H, D), device=card)
+        with pytest.raises(ValueError, match="at most 16 heads"):
+            K.th_dq(dqt, q, rows, 1.0, torch.zeros((1, 3, D), device=card))
+    dqt, q, rows, scale, out = th_dq_case(1, 4, 3, 192, 192, 192)
+    wide = torch.zeros((1, 4, 3, 2 * 192), device=card)
+    wide[..., :192] = dqt
+    with pytest.raises(ValueError, match="disagree"):
+        K.th_dq(wide[..., :192], q, rows, scale, out)
+
+
+def test_branch_and_dq_one_launch(card):
+    """branch_backward (with and without val) and th_dq each launch their
+    one kernel a call and nothing else: no reduce_* kernel, no partials
+    (torch.profiler's kernel names over one call each, after a first call
+    that allocates the scratch)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from spe_tpu_torch.ops import kernels as K
+    from spe_tpu_torch.ops.kernel_checks import (BRANCH_BWD_MAIN,
+                                                 branch_backward_case,
+                                                 th_dq_case)
+
+    calls = [(K.branch_backward, *branch_backward_case(*shape),
+              "branch_bwd_kernel") for shape in BRANCH_BWD_MAIN[::2]]
+    calls.append((K.th_dq, th_dq_case(8, 4, 1024, 192, 576, 576), {},
+                  "th_dq_kernel"))
+    for fn, a, k, name in calls:
         fn(*a, **k)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:

@@ -18,17 +18,22 @@ against a float64 sum and `kernels.th_fold_reference` against the exact
 product rounded once (and torch.mul with a bf16 out=);
 `kernels.colsum_f32_reference` against a float64 sum and
 `kernels.ln_backward_reference` against float64 autograd of F.layer_norm
-plus the residual; and the one-launch kernels' grid plans
-(`colsum_f32_plan`, `ln_backward_plan`) at every class the main path
-gives them: each row and column covered once, within one wave. No JAX
-here: the reference functions it is held to are the port's own plain
-versions and torch's.
+plus the residual; `kernels.branch_backward_reference` against the
+branch's backward in float64 (the counter masks as refmath defines them)
+and `kernels.th_dq_reference` against float64 numpy of the TPU kernel's
+dQ/dwl loop (spe_tpu/ops/pallas_block.py:430-438) on strided views; and
+the one-launch kernels' grid plans (`colsum_f32_plan`,
+`ln_backward_plan`, `branch_backward_plan`, `th_dq_plan`) at every class
+the main path gives them: each row and column covered once, within one
+wave. No JAX here: the reference functions it is held to are the port's
+own plain versions, torch's and numpy's.
 
 f32 outputs are held to 1e-5 of their largest magnitude (f32 sums against
 float64 ones, over bf16-rounded operands whose products are exact in
 f32); bf16 outputs to one bf16 ulp at their largest magnitude (a sum on
 either side of a rounding boundary)."""
 
+import numpy as np
 import pytest
 import torch
 import torch.nn.functional as F
@@ -37,16 +42,21 @@ from spe_tpu_torch.ops import kernels as K
 from spe_tpu_torch.ops.fused_encoder import softmax_attention
 from spe_tpu_torch.ops.fused_mha import (fused_mha_reference,
                                          fused_mha_train_reference)
-from spe_tpu_torch.ops.kernel_checks import (COLSUM_F32_MAIN, COLSUM_REL_TOL,
+from spe_tpu_torch.ops.kernel_checks import (BRANCH_BWD_MAIN,
+                                             BRANCH_BWD_SHAPES,
+                                             COLSUM_F32_MAIN, COLSUM_REL_TOL,
                                              H100_SMS, LN_BWD_MAIN,
+                                             TH_DQ_MAIN, TH_DQ_SHAPES,
                                              attn_rows_case, bf16_tol,
+                                             branch_backward_case,
                                              colsum_case, colsum_err,
                                              colsum_f32_case,
                                              gemm_kernel_cases, gemm_run,
                                              linear_kernel_cases, linear_run,
                                              ln_backward_case, max_err,
                                              storage_of, th_bwd_case,
-                                             th_fold_case, th_fwd_case)
+                                             th_dq_case, th_fold_case,
+                                             th_fwd_case)
 from spe_tpu_torch.ops.refmath import (SITE_MHA_ATTN, CounterDropout,
                                        counter_keep, key_bias, path_keep)
 
@@ -527,3 +537,160 @@ def test_ln_backward_plan_covers_once(M, D):
     assert cluster in (1, 2, 4, 8) and blocks % cluster == 0
     assert (2 * D) % cluster == 0 and D in K.LN_BWD_WIDTHS
     assert blocks // cluster <= K.ln_backward_ws_rows(H100_SMS)
+
+
+# (M, D, with val, with gamma, dropout, DropPath, rows per sample): every
+# option on and off, M not a multiple of a block's run (1001), a few rows
+BRANCH_BWD_REF_CASES = [
+    (1001, 192, True, True, True, True, 77),
+    (1001, 192, True, False, True, True, 77),
+    (168, 192, True, True, False, False, 21),
+    (3, 288, True, True, True, False, 1),
+    (600, 100, False, False, True, False, 60),
+    (256, 13, True, True, False, True, 16),
+    (64, 768, False, True, False, True, 8),
+]
+
+
+@pytest.mark.parametrize("M,D,val,gamma,drop,path,rps", BRANCH_BWD_REF_CASES)
+def test_branch_backward_reference_matches_float64(M, D, val, gamma, drop,
+                                                   path, rps):
+    """branch_backward_reference against the branch `x + dp * gamma *
+    drop(y)` differentiated in float64: d = keep * dres * dp * gamma /
+    (1 - rate) within 1e-5 of its largest magnitude, dgamma = sum dres *
+    dp * val within COLSUM_REL_TOL of each column's sum of magnitudes; the
+    masks are refmath's counter_keep (keyed by sample and row) and
+    path_keep (by sample)."""
+    (dres, v, g), kw = branch_backward_case(M, D, val, drop, path, rps,
+                                            device="cpu")
+    g = g if gamma else None
+    d, dg = K.branch_backward_reference(dres, v, g, **kw)
+    dp = torch.ones((M, 1), dtype=torch.float64)
+    if path:
+        site, rate = kw["path"]
+        keep = path_keep(kw["seed"], site, rate, M // rps)
+        dp = (keep.double() / (1 - rate)).repeat_interleave(rps)[:, None]
+    want = dres.double() * dp * (g.double() if g is not None else 1.0)
+    if drop:
+        site, rate = kw["drop"]
+        keep = counter_keep(kw["seed"], site, rate,
+                            (M // rps, 1, rps, D)).reshape(M, D)
+        want = torch.where(keep, want / (1 - rate), 0.0)
+    assert d.dtype == torch.float32 and d.shape == (M, D)
+    assert max_err(d, want) <= 1e-5 * float(want.abs().max())
+    if not val:
+        assert dg is None
+        return
+    terms = dres.double() * dp * v.double()
+    scale = terms.abs().sum(0).clamp_min(1e-30)
+    assert dg.dtype == torch.float32 and dg.shape == (D,)
+    assert float(((dg.double() - terms.sum(0)).abs() / scale).max()) <= \
+        COLSUM_REL_TOL
+
+
+def _th_dq_numpy(dqt, q, rows, scale):
+    """pallas_block.py:430-438 in float64 numpy, every row at once: dq~ =
+    sum_g dqt_g * rows[g] and the dwl columns, stacked [h, g] as the TPU
+    kernel stacks them."""
+    B, H, N, D = dqt.shape
+    dh = D // H
+    qf = q.double().numpy().reshape(B * N, D)
+    dq_t = np.zeros((B * N, D))
+    cols = []
+    for g in range(H):
+        dqt_g = dqt[:, g].double().numpy().reshape(B * N, D)
+        dq_t = dq_t + dqt_g * rows[g].double().numpy()
+        qdq = qf * dqt_g
+        cols.append(scale * np.stack(
+            [np.sum(qdq[:, h * dh:(h + 1) * dh]) for h in range(H)]))
+        del qdq
+    return dq_t.reshape(B, N, D), np.stack(cols, axis=1)
+
+
+@pytest.mark.parametrize("case", TH_DQ_SHAPES, ids=lambda c: c[0])
+def test_th_dq_reference_matches_numpy(case):
+    """th_dq_reference against float64 numpy of the TPU kernel's formula
+    at every card-test shape with B <= 2 and N <= 40 (H = 1, 3, 4, 6, 8,
+    16; q and out views of a (B, N, 3D) tensor or misaligned ones): dQ
+    written into the out view only (the
+    rest of its storage untouched) within 1e-5 of its largest magnitude,
+    dwl in the torch Linear layout (the TPU kernel's [h, g] transposed)
+    within 1e-5 of each entry's sum of magnitudes."""
+    _, B, H, N, D, q_ld, o_ld, q_off, o_off = case
+    B, N = min(B, 2), min(N, 40)
+    dqt, q, rows, scale, out = th_dq_case(B, H, N, D, q_ld, o_ld, q_off,
+                                          o_off, device="cpu")
+    dwl = K.th_dq_reference(dqt, q, rows, scale, out)
+    want_dq, want_hg = _th_dq_numpy(dqt, q, rows, scale)
+    assert max_err(out, torch.from_numpy(want_dq)) <= \
+        1e-5 * float(np.abs(want_dq).max())
+    mask = torch.ones(storage_of(out).shape, dtype=torch.bool)
+    mask.as_strided(out.shape, out.stride(), out.storage_offset()).fill_(False)
+    assert bool(storage_of(out)[mask].isnan().all())
+    qa = np.abs(q.double().numpy())[:, None]
+    prod = qa * np.abs(dqt.double().numpy())                 # (B, H, N, D)
+    dh = D // H
+    mag = np.stack([prod[..., h * dh:(h + 1) * dh].sum((0, 2, 3))
+                    for h in range(H)])                         # [h, g]
+    want = torch.from_numpy(want_hg.T)
+    assert dwl.dtype == torch.float32 and dwl.shape == (H, H)
+    assert float(((dwl.double() - want).abs() /
+                  torch.from_numpy(scale * mag.T).clamp_min(1e-30)).max()) \
+        <= 1e-5
+
+
+BRANCH_BWD_PLAN_CASES = sorted({(M, D) for _, M, D, *_ in BRANCH_BWD_SHAPES})
+
+
+@pytest.mark.parametrize("M,D", BRANCH_BWD_PLAN_CASES)
+def test_branch_backward_plan_covers_once(M, D):
+    """branch_backward_plan at every class of the main path and the card
+    tests' shapes on an H100: the strips and the clusters' row runs cover
+    every element once; at most BRANCH_BWD_BLOCKS_PER_SM blocks a SM (one
+    wave) at the main classes; a function of the shape alone."""
+    strip, cluster, run = K.branch_backward_plan(M, D, H100_SMS)
+    assert K.branch_backward_plan(M, D, H100_SMS) == (strip, cluster, run)
+    strips = -(-D // strip)
+    count = torch.zeros((M, D), dtype=torch.int32)
+    for s in range(strips):
+        for k in range(cluster):
+            count[k * run:(k + 1) * run, s * strip:(s + 1) * strip] += 1
+    assert bool((count == 1).all())
+    assert strip in K.COLSUM_F32_STRIPS and 1 <= cluster <= 16
+    if (M, D) in {(m, d) for m, d, *_ in BRANCH_BWD_MAIN}:
+        assert strips * cluster <= H100_SMS * K.BRANCH_BWD_BLOCKS_PER_SM
+
+
+TH_DQ_PLAN_CASES = sorted({c[1:5] for c in TH_DQ_SHAPES} | set(TH_DQ_MAIN))
+
+
+@pytest.mark.parametrize("B,H,N,D", TH_DQ_PLAN_CASES)
+def test_th_dq_plan_covers_once(B, H, N, D):
+    """th_dq_plan at the main path's class and the card tests' shapes on an
+    H100: the blocks' row runs, split over a block's row slots, cover every
+    row once, and a row's chunks over the passes cover every column once,
+    each chunk in one head; at most TH_DQ_BLOCKS_PER_SM blocks a SM (one
+    wave); the workspace holds a (H, H) row per block; a function of the
+    shape alone."""
+    group, blocks, run = K.th_dq_plan(B, N, H, D, H100_SMS)
+    assert K.th_dq_plan(B, N, H, D, H100_SMS) == (group, blocks, run)
+    rows, slots = B * N, K.TH_DQ_NT // group
+    assert 1 <= group <= K.TH_DQ_NT and slots >= 1
+    count = torch.zeros(rows, dtype=torch.int32)
+    for k in range(blocks):
+        m0, m1 = min(rows, k * run), min(rows, (k + 1) * run)
+        for r in range(slots):
+            count[m0 + r:m1:slots] += 1
+    assert bool((count == 1).all())
+    V = K.th_dq_chunk(D, H)
+    chunks, dh = D // V, D // H
+    assert chunks * V == D and dh % V == 0
+    cover = torch.zeros(D, dtype=torch.int32)
+    for j0 in range(0, chunks, group):
+        for t in range(group):
+            if j0 + t < chunks:
+                cover[(j0 + t) * V:(j0 + t + 1) * V] += 1
+                assert ((j0 + t) * V) // dh == ((j0 + t + 1) * V - 1) // dh
+    assert bool((cover == 1).all())
+    assert blocks <= H100_SMS * K.TH_DQ_BLOCKS_PER_SM
+    assert blocks * H * H <= H100_SMS * K.TH_DQ_BLOCKS_PER_SM * K.TH_DQ_NT
