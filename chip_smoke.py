@@ -2,7 +2,9 @@
 
     python3 chip_smoke.py            # all phases; needs one CUDA device
     python3 chip_smoke.py --against DIR   # the toolkit classes on DIR's
-                                     # kernels and on these, in turns
+                                     # kernels and on these, in turns (the
+                                     # other wrappers' outputs compared
+                                     # bit for bit)
 
 Phases, each printing its own lines; any failure exits non-zero:
   1. device  — the card's name and power limit (nvidia-smi); no card fails.
@@ -14,9 +16,10 @@ Phases, each printing its own lines; any failure exits non-zero:
                it prints the registers and local memory of every
                instantiation of th_bwd_rows_kernel, th_fwd_rows_kernel,
                attn_bwd_rows_kernel, colsum_kernel, th_fold_kernel,
-               colsum_f32_kernel, ln_bwd_kernel, branch_bwd_kernel and
-               th_dq_kernel and fails if an H=4 one of the first two or
-               any of the others uses local memory.
+               colsum_f32_kernel, ln_bwd_kernel, branch_bwd_kernel,
+               th_dq_kernel, layernorm_kernel and th_mix_kernel and fails
+               if an H=4 one of the first two or any of the others uses
+               local memory.
   3. kernels — each fused-layer kernel at the voc0712 eval shapes (B=2)
                against its plain PyTorch version on the same bf16 inputs
                (max abs error vs the stated tolerance), and the standalone
@@ -63,15 +66,20 @@ Phases, each printing its own lines; any failure exits non-zero:
                largest magnitude, twice identical), with launches, time,
                byte bound and, where one PyTorch call computes it
                (F.layer_norm, native_layer_norm_backward, torch.sum,
-               torch.mul with a bf16 out=), the library's time; th_fold
-               bit for bit, and colsum's, th_fold's, colsum_f32's,
-               ln_backward's, branch_backward's and th_dq's time also with
-               the L2 cache flushed before each call; the plain versions
-               of colsum_f32, ln_backward, branch_backward and th_dq (the
-               four that finish their sums in their one launch) timed and
-               their stock-step sums in the JSON line; the reduce_*
-               launches per run beside those of the two-pass design they
-               replaced.
+               torch.mul with a bf16 out=, torch._softmax_backward_data),
+               the library's time; th_fold bit for bit, layernorm's bf16
+               output equal to ln_linear's LayerNorm panel bit for bit,
+               and the time of colsum, th_fold, colsum_f32, ln_backward,
+               branch_backward, th_dq, layernorm and th_mix also with the
+               L2 cache flushed before each call; the plain versions of
+               colsum_f32, ln_backward, branch_backward, th_dq (the four
+               that finish their sums in their one launch), layernorm and
+               th_mix timed and their sums over one stock step (th_mix:
+               one eval forward) in the JSON line; layernorm's and
+               th_mix's own launch counters held to the recorded calls of
+               each run; the reduce_* launches per run beside those of the
+               two-pass design they replaced; mask_kernel's byte bound
+               beside each mask check.
   4. slice   — `spe_tpu_torch.cli.main --preset voc0712 --eval` on a
                generated mini-VOC at full width, with the launch counters
                checked per forward; then one batch through a kernel model
@@ -201,7 +209,9 @@ ROW_KERNELS = {"th_bwd_rows_kernel": lambda a: a[0] == "4",
                "colsum_f32_kernel": lambda a: True,
                "ln_bwd_kernel": lambda a: True,
                "branch_bwd_kernel": lambda a: True,
-               "th_dq_kernel": lambda a: True}
+               "th_dq_kernel": lambda a: True,
+               "layernorm_kernel": lambda a: True,
+               "th_mix_kernel": lambda a: True}
 
 
 def tensor_core_check(kernels):
@@ -694,6 +704,10 @@ def record_toolkit(classes, run):
         r.launches = orig[n].launches
     orig.update({n: getattr(K, n) for n in SMALL})
     recs.update({n: rec_small(n, getattr(K, n)) for n in SMALL})
+    # the SMALL wrappers that count their launches start this run at 0
+    counted = [n for n in SMALL if hasattr(orig[n], "launches")]
+    for n in counted:
+        recs[n].launches = 0
     for n, r in recs.items():
         setattr(K, n, r)
     try:
@@ -703,6 +717,12 @@ def record_toolkit(classes, run):
             setattr(K, n, o)
             if hasattr(recs[n], "launches"):
                 o.launches = recs[n].launches
+    for n in counted:
+        calls = sum(e["launches"].get(run, 0) for (k, _), e in
+                    classes.items() if k == n)
+        if recs[n].launches != calls:
+            fail(f"{n}: {recs[n].launches} kernel launches counted over one "
+                 f"{run}, {calls} calls recorded")
 
 
 def _replay(kernel, call, gen):
@@ -861,25 +881,40 @@ WRITES = {"th_dq": 4}
 # also timed with the L2 cache flushed before each call (cold_ms)
 EXACT = ("th_fold",)
 COLD = ("colsum", "th_fold", "colsum_f32", "ln_backward", "branch_backward",
-        "th_dq")
+        "th_dq", "layernorm", "th_mix")
 # the SMALL wrappers with an entry of their own in the JSON line (their
-# kernel, its source and the TPU code it replaces): the four that finish
-# their sums in one launch, where they called reduce_sum before
+# kernel, its source, the TPU code it replaces and the run whose sums head
+# the entry): the four that finish their sums in one launch, where they
+# called reduce_sum before, and the row passes layernorm and th_mix
 SMALL_ENTRIES = {"colsum_f32": ("colsum_f32_kernel",
                                 "spe_tpu_torch/csrc/grad.cu",
-                                "spe_tpu/ops/pallas_block.py:336"),
+                                "spe_tpu/ops/pallas_block.py:336",
+                                "stock step"),
                  "ln_backward": ("ln_bwd_kernel",
                                  "spe_tpu_torch/csrc/grad.cu",
-                                 "spe_tpu/ops/pallas_block.py:74"),
+                                 "spe_tpu/ops/pallas_block.py:74",
+                                 "stock step"),
                  "branch_backward": ("branch_bwd_kernel",
                                      "spe_tpu_torch/csrc/grad.cu",
-                                     "spe_tpu/ops/pallas_block.py:332"),
+                                     "spe_tpu/ops/pallas_block.py:332",
+                                     "stock step"),
                  "th_dq": ("th_dq_kernel", "spe_tpu_torch/csrc/th_train.cu",
-                           "spe_tpu/ops/pallas_block.py:432")}
+                           "spe_tpu/ops/pallas_block.py:432", "stock step"),
+                 "layernorm": ("layernorm_kernel",
+                               "spe_tpu_torch/csrc/rowops.cu",
+                               "spe_tpu/ops/pallas_block.py:63 (_ln_fwd; "
+                               "pallas_encoder.py:163,174, "
+                               "pallas_decoder.py:247,273,284)",
+                               "stock step"),
+                 "th_mix": ("th_mix_kernel", "spe_tpu_torch/csrc/rowops.cu",
+                            "spe_tpu/ops/pallas_block.py:143-148",
+                            "eval forward")}
+# the SMALL_ENTRIES wrappers that called reduce_sum in their first design
+ONE_LAUNCH_SUMS = ("colsum_f32", "ln_backward", "branch_backward", "th_dq")
 
 
 def two_pass_reduces(name, args, kw):
-    """The reduce_sum launches a call of a SMALL_ENTRIES wrapper made in
+    """The reduce_sum launches a call of a ONE_LAUNCH_SUMS wrapper made in
     the two-pass design it replaced: one a call, branch_backward's only
     with val (the dgamma sum)."""
     return int(args[1] is not None) if name == "branch_backward" else 1
@@ -921,6 +956,11 @@ def _small_library(name, args, kw):
             dy, xf, [x.shape[-1]], mean, rstd, w, zero, [True, True, True])
     if name == "colsum":
         return lambda: torch.sum(args[0], 1, dtype=torch.float32)
+    if name == "softmax_backward" and args[2:3] in ((), (None,)) and \
+            kw.get("dattn") is None:
+        probs, dp = args[:2]
+        return lambda: torch._softmax_backward_data(dp, probs, -1,
+                                                    torch.float32)
     if name == "th_fold":
         q, rows = args
         out = torch.empty((q.shape[0], rows.shape[0], *q.shape[1:]),
@@ -929,6 +969,22 @@ def _small_library(name, args, kw):
     if name in ("colsum_f32", "reduce_sum"):
         return lambda: torch.sum(args[0], 0)
     return None
+
+
+def ln_panel_equal(x, weight, bias, eps):
+    """layernorm's bf16 output against ln_linear's LayerNorm panel on the
+    same rows (an identity weight and a zero bias: the products are exact),
+    bit for bit: both take common.cuh's statistics and normalisation."""
+    import torch
+
+    from spe_tpu_torch.ops import kernels as K
+
+    D = x.shape[1]
+    eye = torch.eye(D, device=x.device, dtype=torch.bfloat16)
+    zero = torch.zeros(D, device=x.device)
+    got = K.layernorm(x, weight, bias, eps, want_f32=False, want_bf16=True)[1]
+    return bool(torch.equal(got, K.ln_linear(x, eye, zero,
+                                             ln=(weight, bias, eps))))
 
 
 def small_kernels(classes, results):
@@ -964,6 +1020,11 @@ def small_kernels(classes, results):
             torch.equal(g, a) for g, a in zip(got, again))
         finite = all(bool(torch.isfinite(g.float()).all()) for g in got)
         passed = same and finite and all(e <= t for e, t in errs)
+        panel_note = ""
+        if name == "layernorm":
+            panel = ln_panel_equal(*args)
+            passed &= panel
+            panel_note = f", bf16 out == ln_linear's panel {panel}"
         ms = graph_ms(lambda: fn(*args, **kw))
         plain_ms = None
         if name in SMALL_ENTRIES:
@@ -982,7 +1043,7 @@ def small_kernels(classes, results):
         lib_note = "" if lib_cold is None else f", L2-cold {lib_cold:.4f} ms"
         print(f"[small] {name} {shapes}: launches {rec['launches']}; "
               f"max_abs_err/tol {[f'{e:.2e}/{t:.2e}' for e, t in errs]} "
-              f"identical {same} finite {finite} -> "
+              f"identical {same} finite {finite}{panel_note} -> "
               f"{'ok' if passed else 'MISMATCH'}; on the device (CUDA graph): "
               f"kernel {ms:.4f} ms{cold_note}, bound {bound:.5f} ms (bytes), "
               f"library {'none' if lib is None else _ms(lib_ms)}{lib_note}",
@@ -991,7 +1052,7 @@ def small_kernels(classes, results):
             bad.append(f"{name} {shapes}")
         err = max((e for e, _ in errs), default=0.0)
         for run, n in rec["launches"].items():
-            if name in SMALL_ENTRIES:
+            if name in ONE_LAUNCH_SUMS:
                 two_pass[run] = two_pass.get(run, 0) + n * two_pass_reduces(
                     name, args, kw)
             tot = sums.setdefault((name, run), [0, 0.0, 0.0, 0.0, 0.0, 0.0,
@@ -1015,19 +1076,19 @@ def small_kernels(classes, results):
               f"launches, kernel {ms:.3f} ms{cold_note}{plain_note}, bound "
               f"{bound:.4f} ms, library "
               f"{'none' if lib_ms is None else _ms(lib_ms)}", flush=True)
-        if name in SMALL_ENTRIES and run == "stock step":
-            kernel, source, replaces = SMALL_ENTRIES[name]
+        if name in SMALL_ENTRIES and run == SMALL_ENTRIES[name][3]:
+            kernel, source, replaces, _ = SMALL_ENTRIES[name]
             results[kernel] = {
                 "name": kernel, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": n, "max_abs_err": err,
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
                 "bound_by": "bytes", "library_ms": lib_ms, "cold_ms": cold,
-                "per": "sums of launches x time over one stock step (B=8), "
+                "per": f"sums of launches x time over one {run} (B=8), "
                        "each class replayed in a CUDA graph"}
     for run in RECORDED_RUNS:
         n = sums.get(("reduce_sum", run), [0])[0]
         calls = ", ".join(f"{k} {sums.get((k, run), [0])[0]}"
-                          for k in SMALL_ENTRIES)
+                          for k in ONE_LAUNCH_SUMS)
         print(f"[small] reduce_* launches over one {run}: {n} (the two-pass "
               f"design: {n + two_pass.get(run, 0)}, with one a call of "
               f"{calls}, branch_backward's with val only)", flush=True)
@@ -1180,6 +1241,15 @@ def phase_against(parent_root):
         small = kernel in SMALL
         case = None if small else _replay(kernel, rec["call"], gen)
         times, cold = {}, {}
+        same_note = ""
+        if small:
+            args, kw = rec["call"]
+            mine, theirs = (_small_outputs(getattr(m, kernel), kernel, args, kw)
+                            for m in (K, other))
+            same_note = "; outputs equal to DIR's bit for bit: " + str(
+                len(mine) == len(theirs) and
+                all(torch.equal(a, b) for a, b in zip(mine, theirs)))
+            del mine, theirs
         for mod in (other, K, K, other):
             if small:
                 args, kw = rec["call"]
@@ -1208,7 +1278,8 @@ def phase_against(parent_root):
         print(f"[against] {kernel} {cls}: launches {rec['launches']}; on the "
               f"device (CUDA graph), other then this then this then other: "
               f"{times[False][0]:.4f} {times[True][0]:.4f} "
-              f"{times[True][1]:.4f} {times[False][1]:.4f} ms", flush=True)
+              f"{times[True][1]:.4f} {times[False][1]:.4f} ms{same_note}",
+              flush=True)
         if cold:
             print(f"[against] {kernel} {cls}: L2-cold, other then this then "
                   f"this then other: {cold[False][0]:.4f} {cold[True][0]:.4f} "
@@ -1232,7 +1303,9 @@ def phase_masks():
     import torch
 
     from spe_tpu_torch.ops import kernels as K
-    from spe_tpu_torch.ops.kernel_checks import RECIPE_RATES, TRANSFORMER_RATE
+    from spe_tpu_torch.ops.kernel_checks import (HBM_BYTES_PER_MS,
+                                                 RECIPE_RATES,
+                                                 TRANSFORMER_RATE)
     from spe_tpu_torch.ops.refmath import (SITE_ATTN, SITE_CROSS_ATTN,
                                            SITE_CROSS_PROJ, SITE_HIDDEN,
                                            SITE_MHA_ATTN, SITE_OUT,
@@ -1271,9 +1344,12 @@ def phase_masks():
         sigma = (rate * (1 - rate) / got.numel()) ** 0.5
         within = abs(share - (1 - rate)) <= 4 * sigma
         ok &= same and within
+        # mask_kernel writes one byte an element and reads the seed
+        bound = got.numel() / HBM_BYTES_PER_MS
         print(f"[masks] site {site} rate {rate} {shape}: kernel == torch "
               f"{same}; kept {share:.5f} vs {1 - rate:.5f} (4 sigma "
-              f"{4 * sigma:.5f}) -> {'ok' if same and within else 'BAD'}",
+              f"{4 * sigma:.5f}) -> {'ok' if same and within else 'BAD'}; "
+              f"mask_kernel bound {bound:.5f} ms (bytes written)",
               flush=True)
     if not ok:
         fail("the kernels' dropout masks differ from the torch formula")

@@ -328,3 +328,62 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   for (int w = 0; w < static_cast<int>(blockDim.x / 32); ++w) s += red[w];
   return s;
 }
+
+// LayerNorm of a row that one warp holds in 4-column chunks, lane l's
+// chunk h at columns c = 4 l + 128 h, values past the row's K columns 0:
+// linear_kernel's A panel (linear.cu build_panel) and layernorm_kernel
+// (rowops.cu) both call these, so the two give the same bits (the
+// backward's recomputed h1/h2 equal the forward panel's). The mean, then
+// the centred variance, as the TPU kernels' _ln_fwd
+// (spe_tpu/ops/pallas_block.py:63). Every rounding is pinned (__fadd_rn,
+// __fmul_rn, __fmaf_rn), so nvcc cannot contract the two kernels' copies
+// differently.
+__device__ __forceinline__ float ln_inv(int K) { return 1.f / static_cast<float>(K); }
+
+__device__ __forceinline__ float ln_chunk_sum(const float (&v)[4]) {
+  return __fadd_rn(__fadd_rn(v[0], v[1]), __fadd_rn(v[2], v[3]));
+}
+
+// q plus the squared deviations of the chunk's columns inside K
+__device__ __forceinline__ float ln_chunk_sq(float q, const float (&v)[4], int c, int K,
+                                             float mean) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float d = c + e < K ? __fsub_rn(v[e], mean) : 0.f;
+    q = __fmaf_rn(d, d, q);
+  }
+  return q;
+}
+
+// the warp's sums of the lanes' t (chunk sums) and q (squared deviations)
+__device__ __forceinline__ float ln_mean(float t, float invK) {
+  return __fmul_rn(warp_sum(t), invK);
+}
+
+__device__ __forceinline__ float ln_rstd(float q, float invK, float eps) {
+  return rsqrtf(__fmaf_rn(warp_sum(q), invK, eps));
+}
+
+// mean and 1/std of a row held as NC chunks a lane (all lanes call it)
+template <int NC>
+__device__ __forceinline__ void ln_row_stats(const float (&v)[NC][4], int lane, int K,
+                                             float invK, float eps, float& mean,
+                                             float& rstd) {
+  float t = 0.f;
+#pragma unroll
+  for (int h = 0; h < NC; ++h) t = __fadd_rn(t, ln_chunk_sum(v[h]));
+  mean = ln_mean(t, invK);
+  float q = 0.f;
+#pragma unroll
+  for (int h = 0; h < NC; ++h) q = ln_chunk_sq(q, v[h], 4 * lane + 128 * h, K, mean);
+  rstd = ln_rstd(q, invK, eps);
+}
+
+// (v - mean) rstd g + b on the chunk's columns inside K
+__device__ __forceinline__ void ln_apply4(float (&v)[4], int c, int K, float mean, float rstd,
+                                          const float (&g)[4], const float (&b)[4]) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    if (c + e < K) v[e] = __fmaf_rn(__fmul_rn(__fsub_rn(v[e], mean), rstd), g[e], b[e]);
+  }
+}

@@ -133,20 +133,23 @@ __device__ __forceinline__ void load_a4(const LinearParams& p, long long base, i
 
 // The block's A panel: rows m0..m0+BM of LN?(A [+ a2]) rounded to bf16,
 // columns 0..KP (zero past K and past M), row stride LDP. One warp per row,
-// 4-column chunks, 16-byte loads where aligned; the LayerNorm takes the
-// mean, then the centred variance (as the TPU kernels' _ln_fwd). For K <=
-// 256 a lane holds its 8 values of PANEL_RG rows in registers, so the loads
-// of those rows are in flight together and each is read once; deeper rows
-// are read once per pass.
+// 4-column chunks, 16-byte loads where aligned; the LayerNorm's statistics
+// and normalisation are common.cuh's (ln_row_stats, ln_apply4), which
+// layernorm_kernel calls too. For K <= 256 a lane holds its 8 values of
+// PANEL_RG rows in registers, so the loads of those rows are in flight
+// together and each is read once; deeper rows are read once per pass.
 constexpr int PANEL_RG = 4;
 
 __device__ __forceinline__ void panel_row_store(const LinearParams& p, bf16* dst, int c, int K,
                                                 float mean, float rstd, float (&v)[4]) {
   if (p.ln_g) {
+    float g[4], b[4];
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      if (c + e < K) v[e] = (v[e] - mean) * rstd * p.ln_g[c + e] + p.ln_b[c + e];
+      g[e] = c + e < K ? p.ln_g[c + e] : 0.f;
+      b[e] = c + e < K ? p.ln_b[c + e] : 0.f;
     }
+    ln_apply4(v, c, K, mean, rstd, g, b);
   }
   *reinterpret_cast<uint2*>(dst + c) = make_uint2(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]));
 }
@@ -160,7 +163,7 @@ __device__ void build_panel(const LinearParams& p, int m0, int KP, int LDP, bf16
                                 reinterpret_cast<unsigned long long>(p.a2);
   const bool vec = al % (4 * es) == 0;   // a2 (bf16 A only) is in `al` too
   const int K = static_cast<int>(p.K);
-  const float invK = 1.f / static_cast<float>(K);
+  const float invK = ln_inv(K);
   if (KP <= 256) {
     for (int r0 = warp * PANEL_RG; r0 < BM; r0 += (NTH / 32) * PANEL_RG) {
       float v[PANEL_RG][2][4];
@@ -179,21 +182,7 @@ __device__ void build_panel(const LinearParams& p, int m0, int KP, int LDP, bf16
 #pragma unroll
       for (int g = 0; g < PANEL_RG; ++g) {
         float mean = 0.f, rstd = 1.f;
-        if (p.ln_g) {
-          float t = 0.f;
-#pragma unroll
-          for (int h = 0; h < 2; ++h) t += (v[g][h][0] + v[g][h][1]) + (v[g][h][2] + v[g][h][3]);
-          mean = warp_sum(t) * invK;
-          float q = 0.f;
-#pragma unroll
-          for (int h = 0; h < 2; ++h)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              const float d = 4 * lane + 128 * h + e < K ? v[g][h][e] - mean : 0.f;
-              q += d * d;
-            }
-          rstd = rsqrtf(warp_sum(q) * invK + p.ln_eps);
-        }
+        if (p.ln_g) ln_row_stats<2>(v[g], lane, K, invK, p.ln_eps, mean, rstd);
         const bool live = m0 + r0 + g < p.M;
         bf16* dst = Ap + (r0 + g) * LDP;
 #pragma unroll
@@ -224,20 +213,16 @@ __device__ void build_panel(const LinearParams& p, int m0, int KP, int LDP, bf16
       for (int c = 4 * lane; c < K; c += 128) {
         float v[4];
         load_a4(p, base, c, vec, v);
-        t += (v[0] + v[1]) + (v[2] + v[3]);
+        t = __fadd_rn(t, ln_chunk_sum(v));
       }
-      mean = warp_sum(t) * invK;
+      mean = ln_mean(t, invK);
       float q = 0.f;
       for (int c = 4 * lane; c < K; c += 128) {
         float v[4];
         load_a4(p, base, c, vec, v);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float d = c + e < K ? v[e] - mean : 0.f;
-          q += d * d;
-        }
+        q = ln_chunk_sq(q, v, c, K, mean);
       }
-      rstd = rsqrtf(warp_sum(q) * invK + p.ln_eps);
+      rstd = ln_rstd(q, invK, p.ln_eps);
     }
     for (int c = 4 * lane; c < KP; c += 128) {
       float v[4];

@@ -91,7 +91,8 @@ def kernel_domain_errors(cfg: SPEConfig) -> list:
     D / nheads) and the decoder cross-attention (2 dt x dt); ln_backward's
     widths (kernels.LN_BWD_WIDTHS); the talking-heads row passes' heads
     (kernels.TH_ROWS_MAX_H) and keys (kernels.TH_ROWS_MAX_N, against the
-    most patches of a training image)."""
+    most patches of a training image); th_mix's heads of a multiple of 8
+    columns."""
     if not (cfg.use_fused_block or cfg.use_fused_layers or
             cfg.use_pallas_attention or cfg.use_fused_ca_block == "on"):
         return []
@@ -106,6 +107,8 @@ def kernel_domain_errors(cfg: SPEConfig) -> list:
         errors.append(f"ln_backward D={D} (takes {kernels.LN_BWD_WIDTHS})")
     if H > kernels.TH_ROWS_MAX_H:
         errors.append(f"talking heads H={H} (at most {kernels.TH_ROWS_MAX_H})")
+    if dh % 8:
+        errors.append(f"talking heads mix dh={dh} (a multiple of 8)")
     n = training_patches(cfg, bb.patch_size)
     if n > kernels.TH_ROWS_MAX_N:
         errors.append(f"{n} training patches (at most "

@@ -1750,3 +1750,109 @@ def th_dq_case(B, H, N, D, q_ld, o_ld, q_off=0, o_off=0, device="cuda",
     out = torch.full((o_off + B * N * o_ld,), float("nan"), device=device)
     out = out.as_strided((B, N, D), (N * o_ld, o_ld, 1), o_off)
     return dqt, q, rows, (D // H) ** -0.5, out
+
+
+# layernorm: the classes the three recorded runs give it (chip_smoke's
+# record, B=8) as (M, D, x bf16, f32 out, bf16 out, eps): the patch blocks'
+# backward recompute of h1 (bf16 x) and h2 (f32 x), the class attention's
+# (8 x 1045 and 8 x 21 rows), the encoder's two (8192 rows) and the
+# decoder's (4800 rows) in the stock step; the encoder's and decoder's at
+# eval (16 images with flip: 16384 and 9600 rows)
+LAYERNORM_MAIN = [(8192, 192, True, False, True, 1e-6),
+                  (8192, 192, False, False, True, 1e-6),
+                  (8360, 192, True, False, True, 1e-6),
+                  (168, 192, False, False, True, 1e-6),
+                  (8192, 192, False, True, False, 1e-5),
+                  (8192, 192, False, False, True, 1e-5),
+                  (4800, 192, False, True, False, 1e-5),
+                  (4800, 192, False, False, True, 1e-5),
+                  (16384, 192, False, True, False, 1e-5),
+                  (16384, 192, False, False, True, 1e-5),
+                  (9600, 192, False, True, False, 1e-5),
+                  (9600, 192, False, False, True, 1e-5)]
+# (label, M, D, x bf16, f32 out, bf16 out, eps, row stride, storage
+# offset): every main class, then the other backbones' widths, ragged rows
+# and widths, strided and misaligned views, every output combination
+LAYERNORM_SHAPES = [
+    (f"the main path's ({M}, {D}) {'bf16' if xb else 'f32'} x"
+     f"{', f32 out' if o32 else ''}{', bf16 out' if o16 else ''}, eps {e}",
+     M, D, xb, o32, o16, e, D, 0)
+    for M, D, xb, o32, o16, e in LAYERNORM_MAIN] + [
+    ("D = 256, both outputs", 4800, 256, False, True, True, 1e-5, 256, 0),
+    ("XS24 width D = 288, bf16 x, both outputs", 1154, 288, True, True, True,
+     1e-6, 288, 0),
+    ("S24/S36 width D = 384", 1154, 384, False, False, True, 1e-6, 384, 0),
+    ("M36/M48 width D = 768, bf16 x, both outputs", 1154, 768, True, True,
+     True, 1e-6, 768, 0),
+    ("M = 3 rows (fewer than a warp has in flight)", 3, 192, True, True, True,
+     1e-6, 192, 0),
+    ("M = 1001 (not a multiple of a warp's run)", 1001, 192, False, True,
+     True, 1e-5, 192, 0),
+    ("a view: row stride 577, offset 1 (scalar loads), bf16 x", 333, 192,
+     True, True, True, 1e-6, 577, 1),
+    ("a view: row stride 260, offset 4 (16-byte loads), f32 x", 2000, 192,
+     False, True, True, 1e-5, 260, 4),
+    ("D = 13 (scalar loads and stores)", 257, 13, False, True, True, 1e-5, 13,
+     0),
+    ("D = 100 (a partial chunk row), bf16 x", 100, 100, True, True, False,
+     1e-6, 100, 0),
+    ("D = 700, stride 701 (scalar loads), f32 x", 50, 700, False, True, True,
+     1e-5, 701, 0),
+]
+
+
+def layernorm_case(M, D, x_bf16, want_f32, want_bf16, eps, ld, offset=0,
+                   device="cuda", seed=0):
+    """layernorm's arguments at one shape -> (args, kw): x an (M, D) view
+    of off-centre random rows with row stride ld at storage offset
+    `offset`, the weight near 1, the bias small."""
+    gen = torch.Generator().manual_seed(seed + 19 * M + D)
+    base = 0.5 + 2.0 * torch.randn(offset + M * ld, generator=gen)
+    if x_bf16:
+        base = base.to(torch.bfloat16)
+    x = base.to(device).as_strided((M, D), (ld, 1), offset)
+    w = (1.0 + 0.1 * torch.randn(D, generator=gen)).to(device)
+    b = (0.1 * torch.randn(D, generator=gen)).to(device)
+    return (x, w, b, eps), dict(want_f32=want_f32, want_bf16=want_bf16)
+
+
+def layernorm_kernel_cases(device="cuda", seed=0):
+    """[(label, (args, kw))] of `kernels.layernorm` over LAYERNORM_SHAPES."""
+    return [(label, layernorm_case(*shape, device=device, seed=seed))
+            for label, *shape in LAYERNORM_SHAPES]
+
+
+# th_mix: the class the eval forward gives it (16 images with flip, 1024
+# patches, 4 heads of 48: pv (16, 1024, 4, 192)) as (B, N, H, D)
+TH_MIX_MAIN = [(16, 1024, 4, 192)]
+# (label, B, N, H, D): the main class, the other backbones' widths (dh =
+# 48), heads up to 16, samples that end inside a thread's run
+TH_MIX_SHAPES = [
+    (f"the main path's ({B}, {N}, {H}, {D})", B, N, H, D)
+    for B, N, H, D in TH_MIX_MAIN] + [
+    ("XS24: H = 6, D = 288", 2, 100, 6, 288),
+    ("S24/S36: H = 8, D = 384", 2, 100, 8, 384),
+    ("M36/M48: H = 16, D = 768", 2, 100, 16, 768),
+    ("H = 12, D = 576 (12 of 16 register heads)", 2, 37, 12, 576),
+    ("H = 3, dh = 8", 3, 50, 3, 24),
+    ("H = 1, B = 16, N = 1", 16, 1, 1, 192),
+    ("B = 600, N = 7 (samples end inside a thread's run of rows)", 600, 7,
+     4, 192),
+]
+
+
+def th_mix_case(B, N, H, D, device="cuda", seed=0):
+    """th_mix's arguments at one shape: pv (B, N, H, D) f32, column sums
+    (B, D) of N-row magnitude, ww (H, H) and bw (H,) random."""
+    gen = torch.Generator().manual_seed(seed + 23 * B + 7 * N + 3 * H + D)
+    pv = torch.randn((B, N, H, D), generator=gen).to(device)
+    csum = (N ** 0.5 * torch.randn((B, D), generator=gen)).to(device)
+    ww = torch.randn((H, H), generator=gen).to(device)
+    bw = (0.1 * torch.randn(H, generator=gen)).to(device)
+    return pv, csum, ww, bw
+
+
+def th_mix_kernel_cases(device="cuda", seed=0):
+    """[(label, args)] of `kernels.th_mix` over TH_MIX_SHAPES."""
+    return [(label, th_mix_case(*shape, device=device, seed=seed))
+            for label, *shape in TH_MIX_SHAPES]

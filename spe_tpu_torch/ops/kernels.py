@@ -22,9 +22,9 @@ ops/auction.py, the dropout masks' is refmath.counter_keep). Nothing on the
 card's main path calls them; they are the CPU tests' emulations of the
 kernels and the kernels' oracle on the card. The tensor-core product
 kernels, `ln_linear` (linear_kernel), `gemm` (gemm_kernel) and `attention`
-(attn_kernel), and the row passes over the (B, H, N, N) planes,
-`th_fwd_rows`, `th_bwd_rows` and `attention_bwd_rows`, count their
-launches (`.launches`).
+(attn_kernel), the row passes over the (B, H, N, N) planes,
+`th_fwd_rows`, `th_bwd_rows` and `attention_bwd_rows`, and `layernorm` and
+`th_mix` count their launches (`.launches`).
 """
 
 from __future__ import annotations
@@ -153,7 +153,8 @@ class _LNParams(ctypes.Structure):
                 ("out_bf16", ctypes.c_void_p),
                 ("M", ctypes.c_longlong), ("ldx", ctypes.c_longlong),
                 ("D", ctypes.c_int), ("x_f32", ctypes.c_int),
-                ("eps", ctypes.c_float)]
+                ("eps", ctypes.c_float), ("vec", ctypes.c_int),
+                ("blocks", ctypes.c_int), ("run", ctypes.c_int)]
 
 
 class _ColsumParams(ctypes.Structure):
@@ -166,7 +167,8 @@ class _MixParams(ctypes.Structure):
     _fields_ = [("pv", ctypes.c_void_p), ("colsum", ctypes.c_void_p),
                 ("ww", ctypes.c_void_p), ("bw", ctypes.c_void_p),
                 ("out", ctypes.c_void_p), ("rows", ctypes.c_longlong),
-                ("N", ctypes.c_int), ("H", ctypes.c_int), ("D", ctypes.c_int)]
+                ("N", ctypes.c_int), ("H", ctypes.c_int), ("D", ctypes.c_int),
+                ("blocks", ctypes.c_int), ("run", ctypes.c_int)]
 
 
 class _CCParams(ctypes.Structure):
@@ -285,6 +287,13 @@ def lib():
         so.spe_ln_backward_wave.argtypes = [ctypes.c_int, ctypes.c_int,
                                             ctypes.POINTER(ctypes.c_int)]
         so.spe_ln_backward_wave.restype = ctypes.c_int
+        so.spe_layernorm_wave.argtypes = [ctypes.c_int, ctypes.c_int,
+                                          ctypes.c_int,
+                                          ctypes.POINTER(ctypes.c_int)]
+        so.spe_layernorm_wave.restype = ctypes.c_int
+        so.spe_th_mix_wave.argtypes = [ctypes.c_int,
+                                       ctypes.POINTER(ctypes.c_int)]
+        so.spe_th_mix_wave.restype = ctypes.c_int
         so.spe_attention_copy_bytes.argtypes = [ctypes.POINTER(_AttnParams)]
         so.spe_attention_copy_bytes.restype = ctypes.c_int
         for name, struct in (("spe_attention", _AttnParams),
@@ -641,19 +650,79 @@ def attention_reference(q, k, v, out, *, num_heads, dq, dv, q_hs, k_hs, v_hs,
     return out
 
 
+# layernorm_kernel: blocks of LAYERNORM_NT threads, one warp a row, rows of
+# at most LAYERNORM_MAX_D columns (csrc/rowops.cu: LN_MAX_NC chunks of 128)
+LAYERNORM_NT = 256
+LAYERNORM_MAX_D = 768
+
+
+def _wave(key, device, query):
+    """The blocks of one wave of a kernel variant on a CUDA device:
+    query(byref(n)) asks the card's occupancy; cached by (device, key),
+    key = (C entry point, variant...)."""
+    index = _index(device)
+    if (index, key) not in _WAVES:
+        n = ctypes.c_int(0)
+        with torch.cuda.device(index):
+            _check(query(ctypes.byref(n)), key[0])
+        if n.value < 1:
+            raise RuntimeError(f"{key}: no block fits the card")
+        _WAVES[(index, key)] = n.value
+    return _WAVES[(index, key)]
+
+
+_WAVES = {}
+
+
+def layernorm_wave(device, D, x_f32, vec):
+    """The blocks of one wave of the layernorm_kernel variant that runs at
+    width D for an f32 (x_f32) or bf16 x, with whole-chunk accesses (vec)
+    or scalar ones."""
+    key = (D, int(x_f32), int(vec))
+    return _wave(("spe_layernorm_wave", *key), device,
+                 lambda n: lib().spe_layernorm_wave(*key, n))
+
+
+def layernorm_plan(M, wave):
+    """layernorm_kernel's grid for M rows -> (blocks, run): warp w of the
+    grid (LAYERNORM_NT // 32 a block) takes rows [w * run, (w + 1) * run),
+    in at most `wave` blocks (layernorm_wave: one wave)."""
+    warps = LAYERNORM_NT // 32
+    run = -(-M // (wave * warps))
+    return -(-(-(-M // run)) // warps), run
+
+
 def layernorm(x, weight, bias, eps, *, want_f32=True, want_bf16=False):
-    """Row LayerNorm of (M, D) bf16/f32 rows -> (f32 or None, bf16 or None)."""
+    """Row LayerNorm of (M, D) bf16/f32 rows (any row stride, D at most
+    LAYERNORM_MAX_D) -> (f32 or None, bf16 or None). The statistics and
+    normalisation are linear_kernel's panel's (csrc/common.cuh), so the bf16
+    output equals ln_linear's LayerNorm prologue bit for bit."""
     _need(x, (_BF16, _F32), "x", 2)
     _need(weight, _F32, "weight", 1)
     _need(bias, _F32, "bias", 1)
     M, D = x.shape
+    if D > LAYERNORM_MAX_D or M > 2 ** 31 - 1:
+        raise ValueError(f"layernorm takes D <= {LAYERNORM_MAX_D} and fewer "
+                         f"than 2^31 rows, got {tuple(x.shape)}")
+    if weight.shape != (D,) or bias.shape != (D,):
+        raise ValueError(f"layernorm weight and bias must be ({D},)")
+    x_f32 = x.dtype == _F32
+    es = x.element_size()
+    vec = D % 4 == 0 and (x.data_ptr() | x.stride(0) * es) % (4 * es) == 0 \
+        and (weight.data_ptr() | bias.data_ptr()) % 16 == 0
+    blocks, run = layernorm_plan(M, layernorm_wave(x.device, D, x_f32, vec))
     o32 = torch.empty((M, D), device=x.device, dtype=_F32) if want_f32 else None
     o16 = torch.empty((M, D), device=x.device, dtype=_BF16) if want_bf16 else None
     p = _LNParams(x=x.data_ptr(), g=weight.data_ptr(), b=bias.data_ptr(),
                   out_f32=_ptr(o32), out_bf16=_ptr(o16), M=M, ldx=x.stride(0),
-                  D=D, x_f32=int(x.dtype == _F32), eps=float(eps))
+                  D=D, x_f32=int(x_f32), eps=float(eps), vec=int(vec),
+                  blocks=blocks, run=run)
     _check(lib().spe_layernorm(ctypes.byref(p), _stream()), "spe_layernorm")
+    layernorm.launches += 1
     return o32, o16
+
+
+layernorm.launches = 0
 
 
 def layernorm_reference(x, weight, bias, eps, *, want_f32=True,
@@ -689,10 +758,35 @@ def colsum_reference(v):
     return v.float().sum(1)
 
 
+# th_mix_kernel: blocks of TH_MIX_NT threads, each thread a unit of 8
+# columns, at most TH_MIX_MAX_H heads
+TH_MIX_NT = 256
+TH_MIX_MAX_H = 16
+
+
+def th_mix_wave(device, H):
+    """The blocks of one wave of th_mix_kernel for H heads."""
+    hb = 4 if H <= 4 else 8 if H <= 8 else 16   # its variant
+    return _wave(("spe_th_mix_wave", hb), device,
+                 lambda n: lib().spe_th_mix_wave(hb, n))
+
+
+def th_mix_plan(rows, D, wave):
+    """th_mix_kernel's grid for `rows` rows of D columns -> (blocks, run):
+    thread t of the grid takes unit t % (D / 8) of rows [s * run, (s + 1) *
+    run), s = t // (D / 8), in at most `wave` blocks (th_mix_wave: one
+    wave) unless one row's units need more."""
+    units = D // 8
+    slots = max(1, wave * TH_MIX_NT // units)
+    run = -(-rows // slots)
+    return -(-(-(-rows // run) * units) // TH_MIX_NT), run
+
+
 def th_mix(pv, csum, ww, bw):
     """Talking-heads post-softmax mix. pv: (B, N, H, D) f32 (P_g V per mixed
     head g); csum: (B, D) f32; ww: (H, H) f32 torch Linear layout; bw: (H,)
-    f32 -> (B, N, D) bf16."""
+    f32 -> (B, N, D) bf16. At most TH_MIX_MAX_H heads of a multiple of 8
+    columns; pv and csum 16-byte aligned."""
     _need(pv, _F32, "pv", 4)
     if not pv.is_contiguous():
         raise ValueError("pv must be contiguous")
@@ -701,14 +795,26 @@ def th_mix(pv, csum, ww, bw):
     _need(ww, _F32, "ww", 2)
     _need(bw, _F32, "bw", 1)
     if tuple(csum.shape) != (B, D) or tuple(ww.shape) != (H, H) or \
-            bw.shape[0] != H or not ww.is_contiguous():
+            bw.shape[0] != H or not ww.is_contiguous() or \
+            not csum.is_contiguous():
         raise ValueError("th_mix operand shapes disagree")
+    if H > TH_MIX_MAX_H or D % H or (D // H) % 8 or B * N > 2 ** 31 - 1:
+        raise ValueError(f"th_mix takes at most {TH_MIX_MAX_H} heads of a "
+                         f"multiple of 8 columns and fewer than 2^31 rows, "
+                         f"got {tuple(pv.shape)}")
+    if (pv.data_ptr() | csum.data_ptr()) % 16:
+        raise ValueError("th_mix takes 16-byte aligned pv and colsum")
+    blocks, run = th_mix_plan(B * N, D, th_mix_wave(pv.device, H))
     out = torch.empty((B, N, D), device=pv.device, dtype=_BF16)
     p = _MixParams(pv=pv.data_ptr(), colsum=csum.data_ptr(), ww=ww.data_ptr(),
                    bw=bw.data_ptr(), out=out.data_ptr(), rows=B * N, N=N, H=H,
-                   D=D)
+                   D=D, blocks=blocks, run=run)
     _check(lib().spe_th_mix(ctypes.byref(p), _stream()), "spe_th_mix")
+    th_mix.launches += 1
     return out
+
+
+th_mix.launches = 0
 
 
 def th_mix_reference(pv, csum, ww, bw):
@@ -1041,21 +1147,12 @@ def ln_backward_wave(device, D):
     """The blocks of one wave of ln_bwd_kernel<D> on a CUDA device, in
     clusters of LN_BWD_CLUSTER (the card's occupancy query: the number of
     such clusters that can run at once, times their size)."""
-    index = _index(device)
-    if (index, D) not in _LN_WAVE:
-        n = ctypes.c_int(0)
-        with torch.cuda.device(index):
-            _check(lib().spe_ln_backward_wave(D, LN_BWD_CLUSTER,
-                                              ctypes.byref(n)),
-                   "spe_ln_backward_wave")
-        if n.value < LN_BWD_CLUSTER:
-            raise RuntimeError(f"ln_bwd_kernel<{D}>: no cluster of "
-                               f"{LN_BWD_CLUSTER} blocks fits the card")
-        _LN_WAVE[(index, D)] = n.value
-    return _LN_WAVE[(index, D)]
-
-
-_LN_WAVE = {}
+    n = _wave(("spe_ln_backward_wave", D), device,
+              lambda n: lib().spe_ln_backward_wave(D, LN_BWD_CLUSTER, n))
+    if n < LN_BWD_CLUSTER:
+        raise RuntimeError(f"ln_bwd_kernel<{D}>: no cluster of "
+                           f"{LN_BWD_CLUSTER} blocks fits the card")
+    return n
 
 
 def ln_backward_plan(M, wave):

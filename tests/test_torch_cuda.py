@@ -20,7 +20,10 @@ and th_dq_kernel against colsum_f32_reference, ln_backward_reference,
 branch_backward_reference and th_dq_reference at every class the main
 path gives them, at the other backbones' widths and on ragged and
 misaligned ones (one launch a call, no reduce_* kernel, the tickets back
-at 0).
+at 0); layernorm_kernel and th_mix_kernel against layernorm_reference and
+th_mix_reference likewise (every class of the three recorded runs, the
+other widths, ragged and misaligned views), layernorm's bf16 output
+against ln_linear's LayerNorm panel bit for bit.
 The
 kernels have no CPU mode, so without a card these tests skip.
 
@@ -33,10 +36,11 @@ import torch
 from spe_tpu_torch.ops.kernel_checks import (ATTN_ROWS_SHAPES,
                                              BRANCH_BWD_SHAPES,
                                              COLSUM_F32_SHAPES, COLSUM_SHAPES,
-                                             GEMM_SHAPES, LINEAR_SHAPES,
-                                             LN_BWD_SHAPES, TH_BWD_SHAPES,
-                                             TH_DQ_SHAPES, TH_FOLD_SHAPES,
-                                             TH_FWD_SHAPES)
+                                             GEMM_SHAPES, LAYERNORM_SHAPES,
+                                             LINEAR_SHAPES, LN_BWD_SHAPES,
+                                             TH_BWD_SHAPES, TH_DQ_SHAPES,
+                                             TH_FOLD_SHAPES, TH_FWD_SHAPES,
+                                             TH_MIX_SHAPES)
 
 pytestmark = pytest.mark.cuda
 
@@ -699,6 +703,126 @@ def test_branch_and_dq_one_launch(card):
     calls.append((K.th_dq, th_dq_case(8, 4, 1024, 192, 576, 576), {},
                   "th_dq_kernel"))
     for fn, a, k, name in calls:
+        fn(*a, **k)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn(*a, **k)
+            torch.cuda.synchronize()
+        kernels = [e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert len(kernels) == 1 and name in kernels[0], kernels
+
+
+@pytest.mark.parametrize("case", range(len(LAYERNORM_SHAPES)))
+def test_layernorm_kernel_matches_plain(card, case):
+    """layernorm_kernel against layernorm_reference at every class the
+    three recorded runs give it, the other backbones' widths, ragged rows
+    and widths, strided and misaligned views, bf16 and f32 x and each
+    output combination (kernel_checks.LAYERNORM_SHAPES): every output
+    within grad_tol (1% of the largest plain magnitude), two runs
+    bit-identical, one launch counted a call."""
+    from spe_tpu_torch.ops import kernels as K
+    from spe_tpu_torch.ops.kernel_checks import (grad_tol, layernorm_case,
+                                                 max_err)
+
+    label, *shape = LAYERNORM_SHAPES[case]
+    args, kw = layernorm_case(*shape)
+    before = K.layernorm.launches
+    got = K.layernorm(*args, **kw)
+    again = K.layernorm(*args, **kw)
+    want = K.layernorm_reference(*args, **kw)
+    torch.cuda.synchronize()
+    assert K.layernorm.launches == before + 2, label
+    for name, g, a, w in zip(("f32", "bf16"), got, again, want):
+        if w is None:
+            assert g is None and a is None, (label, name)
+            continue
+        assert torch.equal(g, a), (label, name)
+        assert max_err(g, w) <= grad_tol(w), (label, name)
+
+
+@pytest.mark.parametrize("case", range(len(TH_MIX_SHAPES)))
+def test_th_mix_kernel_matches_plain(card, case):
+    """th_mix_kernel against th_mix_reference at eval's class, the other
+    backbones' widths, up to 16 heads and samples that end inside a
+    thread's run (kernel_checks.TH_MIX_SHAPES): within grad_tol, two runs
+    bit-identical, one launch counted a call."""
+    from spe_tpu_torch.ops import kernels as K
+    from spe_tpu_torch.ops.kernel_checks import grad_tol, max_err, th_mix_case
+
+    label, *shape = TH_MIX_SHAPES[case]
+    args = th_mix_case(*shape)
+    before = K.th_mix.launches
+    got, again = K.th_mix(*args), K.th_mix(*args)
+    want = K.th_mix_reference(*args)
+    torch.cuda.synchronize()
+    assert K.th_mix.launches == before + 2, label
+    assert torch.equal(got, again), label
+    assert max_err(got, want) <= grad_tol(want), label
+
+
+@pytest.mark.parametrize("D", [192, 256])
+@pytest.mark.parametrize("x_bf16", [True, False])
+def test_layernorm_equals_ln_linear_panel(card, D, x_bf16):
+    """layernorm's bf16 output equals ln_linear's LayerNorm panel bit for
+    bit (an identity weight and a zero bias: the products are exact): both
+    take common.cuh's statistics and normalisation."""
+    from spe_tpu_torch.ops import kernels as K
+    from spe_tpu_torch.ops.kernel_checks import layernorm_case
+
+    (x, w, b, eps), _ = layernorm_case(1001, D, x_bf16, False, True, 1e-6, D)
+    got = K.layernorm(x, w, b, eps, want_f32=False, want_bf16=True)[1]
+    eye = torch.eye(D, device=card, dtype=torch.bfloat16)
+    want = K.ln_linear(x, eye, torch.zeros(D, device=card), ln=(w, b, eps))
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_layernorm_and_th_mix_refuse_shapes(card):
+    """layernorm refuses rows wider than LAYERNORM_MAX_D and a weight of
+    the wrong width; th_mix refuses more than 16 heads, D not a multiple
+    of H, heads of a width not a multiple of 8, a misaligned pv and column
+    sums that are not contiguous, before a launch."""
+    from spe_tpu_torch.ops import kernels as K
+    from spe_tpu_torch.ops.kernel_checks import th_mix_case
+
+    D = K.LAYERNORM_MAX_D + 1
+    x = torch.zeros((4, D), device=card)
+    with pytest.raises(ValueError, match="takes D <="):
+        K.layernorm(x, torch.ones(D, device=card), torch.zeros(D, device=card),
+                    1e-5)
+    with pytest.raises(ValueError, match="weight and bias"):
+        K.layernorm(x[:, :192], torch.ones(191, device=card),
+                    torch.zeros(192, device=card), 1e-5)
+    before = K.th_mix.launches
+    for H, D in ((17, 17 * 8), (4, 190), (3, 30)):
+        pv = torch.zeros((1, 3, H, D), device=card)
+        with pytest.raises(ValueError, match="at most 16 heads"):
+            K.th_mix(pv, torch.zeros((1, D), device=card),
+                     torch.zeros((H, H), device=card),
+                     torch.zeros(H, device=card))
+    pv, csum, ww, bw = th_mix_case(2, 5, 4, 192)
+    with pytest.raises(ValueError, match="disagree"):
+        K.th_mix(pv, torch.zeros((2, 400), device=card)[:, :192], ww, bw)
+    odd = torch.zeros(pv.numel() + 1, device=card)[1:].view(pv.shape)
+    with pytest.raises(ValueError, match="aligned"):
+        K.th_mix(odd, csum, ww, bw)
+    assert K.th_mix.launches == before
+
+
+def test_layernorm_and_th_mix_one_launch(card):
+    """layernorm and th_mix each launch their one kernel a call and nothing
+    else (torch.profiler's kernel names over one call each, after a first
+    call that queries the wave)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from spe_tpu_torch.ops import kernels as K
+    from spe_tpu_torch.ops.kernel_checks import layernorm_case, th_mix_case
+
+    args, kw = layernorm_case(8192, 192, False, True, True, 1e-5, 192)
+    for fn, a, k, name in ((K.layernorm, args, kw, "layernorm_kernel"),
+                           (K.th_mix, th_mix_case(2, 1024, 4, 192), {},
+                            "th_mix_kernel")):
         fn(*a, **k)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:

@@ -21,11 +21,13 @@ product rounded once (and torch.mul with a bf16 out=);
 plus the residual; `kernels.branch_backward_reference` against the
 branch's backward in float64 (the counter masks as refmath defines them)
 and `kernels.th_dq_reference` against float64 numpy of the TPU kernel's
-dQ/dwl loop (spe_tpu/ops/pallas_block.py:430-438) on strided views; and
-the one-launch kernels' grid plans (`colsum_f32_plan`,
-`ln_backward_plan`, `branch_backward_plan`, `th_dq_plan`) at every class
-the main path gives them: each row and column covered once, within one
-wave. No JAX here: the reference functions it is held to are the port's
+dQ/dwl loop (spe_tpu/ops/pallas_block.py:430-438) on strided views;
+`kernels.layernorm_reference` against float64 numpy of the TPU kernels'
+_ln_fwd and `kernels.th_mix_reference` against float64 numpy of the TPU
+post-softmax mix (pallas_block.py:143-148) on real softmax rows; and the
+grid plans (`colsum_f32_plan`, `ln_backward_plan`, `branch_backward_plan`,
+`th_dq_plan`, `layernorm_plan`, `th_mix_plan`) at every class the main
+path gives them: each row and column covered once, within one wave. No JAX here: the reference functions it is held to are the port's
 own plain versions, torch's and numpy's.
 
 f32 outputs are held to 1e-5 of their largest magnitude (f32 sums against
@@ -45,13 +47,15 @@ from spe_tpu_torch.ops.fused_mha import (fused_mha_reference,
 from spe_tpu_torch.ops.kernel_checks import (BRANCH_BWD_MAIN,
                                              BRANCH_BWD_SHAPES,
                                              COLSUM_F32_MAIN, COLSUM_REL_TOL,
-                                             H100_SMS, LN_BWD_MAIN,
-                                             TH_DQ_MAIN, TH_DQ_SHAPES,
+                                             H100_SMS, LAYERNORM_MAIN,
+                                             LN_BWD_MAIN, TH_DQ_MAIN,
+                                             TH_DQ_SHAPES, TH_MIX_SHAPES,
                                              attn_rows_case, bf16_tol,
                                              branch_backward_case,
                                              colsum_case, colsum_err,
                                              colsum_f32_case,
                                              gemm_kernel_cases, gemm_run,
+                                             layernorm_case,
                                              linear_kernel_cases, linear_run,
                                              ln_backward_case, max_err,
                                              storage_of, th_bwd_case,
@@ -694,3 +698,111 @@ def test_th_dq_plan_covers_once(B, H, N, D):
     assert bool((cover == 1).all())
     assert blocks <= H100_SMS * K.TH_DQ_BLOCKS_PER_SM
     assert blocks * H * H <= H100_SMS * K.TH_DQ_BLOCKS_PER_SM * K.TH_DQ_NT
+
+
+# (M, D, x bf16, eps, row stride, storage offset): bf16 and f32 rows at
+# both eps, the widths of the registered backbones, a strided view
+LN_REF_CASES = [(64, 192, True, 1e-6, 192, 0), (64, 192, False, 1e-5, 192, 0),
+                (33, 768, True, 1e-5, 768, 0), (21, 288, False, 1e-6, 288, 0),
+                (17, 13, False, 1e-6, 13, 0), (40, 192, True, 1e-5, 577, 1)]
+
+
+@pytest.mark.parametrize("M,D,x_bf16,eps,ld,off", LN_REF_CASES)
+def test_layernorm_reference_matches_float64(M, D, x_bf16, eps, ld, off):
+    """layernorm_reference against float64 numpy of the TPU kernels'
+    _ln_fwd (spe_tpu/ops/pallas_block.py:63: the mean, then the centred
+    variance): the f32 output within 1e-5 of its largest magnitude, the
+    bf16 one within one bf16 ulp."""
+    (x, w, b, _), kw = layernorm_case(M, D, x_bf16, True, True, eps, ld, off,
+                                      device="cpu")
+    y32, y16 = K.layernorm_reference(x, w, b, eps, **kw)
+    xf = x.double().numpy()
+    mu = xf.mean(-1, keepdims=True)
+    xc = xf - mu
+    var = (xc * xc).mean(-1, keepdims=True)
+    want = torch.from_numpy(xc / np.sqrt(var + eps) * w.double().numpy()
+                            + b.double().numpy())
+    assert y32.dtype == torch.float32 and y16.dtype == BF16
+    assert y32.shape == y16.shape == (M, D)
+    assert max_err(y32, want) <= 1e-5 * float(want.abs().max())
+    assert max_err(y16, want) <= bf16_tol(want, ulps=1)
+    assert K.layernorm_reference(x, w, b, eps, want_f32=False)[0] is None
+
+
+# (B, N, H, dh): the recipe's heads of 48 and narrow ones
+TH_MIX_REF_CASES = [(2, 16, 4, 48), (1, 9, 3, 8), (3, 5, 1, 16),
+                    (1, 12, 6, 48)]
+
+
+@pytest.mark.parametrize("B,N,H,dh", TH_MIX_REF_CASES)
+def test_th_mix_reference_matches_tpu_mix(B, N, H, dh):
+    """th_mix_reference against float64 numpy of the TPU kernel's
+    post-softmax mix (spe_tpu/ops/pallas_block.py:143-148): z_g = sum_h
+    ww[h, g] P_h + bw_g, out_g = z_g V_g, with P real softmax rows; the
+    port's operands are P_g V per head g, the column sums of V and ww in
+    the JAX layout transposed as models/convert.py does. Within one bf16
+    ulp at the largest magnitude."""
+    from spe_tpu_torch.models.convert import _t
+
+    rng = np.random.default_rng(100 * B + 10 * N + H)
+    D = H * dh
+    logits = 2.0 * rng.standard_normal((B, H, N, N))
+    P = np.exp(logits - logits.max(-1, keepdims=True))
+    P /= P.sum(-1, keepdims=True)
+    V = rng.standard_normal((B, N, D))
+    ww_jax = rng.standard_normal((H, H))
+    bw = 0.1 * rng.standard_normal(H)
+    want = np.zeros((B, N, D))
+    for g in range(H):
+        z = sum(P[:, h] * ww_jax[h, g] for h in range(H)) + bw[g]
+        cols = slice(g * dh, (g + 1) * dh)
+        want[..., cols] = z @ V[..., cols]
+    pv = torch.from_numpy(np.einsum("bgnm,bmc->bngc", P, V)).float()
+    csum = torch.from_numpy(V.sum(1)).float()
+    got = K.th_mix_reference(pv.contiguous(), csum, _t(ww_jax),
+                             torch.from_numpy(bw).float())
+    want = torch.from_numpy(want)
+    assert got.dtype == BF16 and got.shape == (B, N, D)
+    assert max_err(got, want) <= bf16_tol(want, ulps=1)
+
+
+# one wave of blocks at a few occupancies (the card's query decides it)
+PLAN_WAVES = [H100_SMS * k for k in (2, 3, 4)]
+
+
+@pytest.mark.parametrize("wave", PLAN_WAVES)
+@pytest.mark.parametrize("M", sorted({c[0] for c in LAYERNORM_MAIN}))
+def test_layernorm_plan_covers_once(M, wave):
+    """layernorm_plan at each row count the main path gives it: the warps'
+    runs cover every row once, within one wave of blocks."""
+    blocks, run = K.layernorm_plan(M, wave)
+    assert K.layernorm_plan(M, wave) == (blocks, run)
+    count = torch.zeros(M, dtype=torch.int32)
+    for w in range(blocks * K.LAYERNORM_NT // 32):
+        count[min(M, w * run):min(M, (w + 1) * run)] += 1
+    assert bool((count == 1).all())
+    assert blocks <= wave and run >= 1
+
+
+TH_MIX_PLAN_CASES = sorted({(B * N, D) for _, B, N, H, D in TH_MIX_SHAPES})
+
+
+@pytest.mark.parametrize("wave", PLAN_WAVES)
+@pytest.mark.parametrize("rows,D", TH_MIX_PLAN_CASES)
+def test_th_mix_plan_covers_once(rows, D, wave):
+    """th_mix_plan at the main path's class and the card tests' shapes:
+    the threads' (unit of 8 columns, run of rows) pairs cover every unit of
+    every row once, within one wave of blocks."""
+    blocks, run = K.th_mix_plan(rows, D, wave)
+    units = D // 8
+    t = torch.arange(blocks * K.TH_MIX_NT)
+    slot, u = t // units, t % units
+    count = torch.zeros((rows, units), dtype=torch.int32)
+    for k in range(run):
+        r = slot * run + k
+        live = r < rows
+        count.index_put_((r[live], u[live]),
+                         torch.ones(int(live.sum()), dtype=torch.int32),
+                         accumulate=True)
+    assert bool((count == 1).all())
+    assert blocks <= wave
