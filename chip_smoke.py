@@ -1,10 +1,11 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
     python3 chip_smoke.py            # all phases; needs one CUDA device
-    python3 chip_smoke.py --against DIR   # the toolkit classes on DIR's
-                                     # kernels and on these, in turns (the
-                                     # other wrappers' outputs compared
-                                     # bit for bit)
+    python3 chip_smoke.py --against DIR   # the toolkit classes and CC on
+                                     # DIR's kernels and on these, in turns
+                                     # (the other wrappers', th_bwd_rows'
+                                     # and CC's outputs compared bit for
+                                     # bit)
 
 Phases, each printing its own lines; any failure exits non-zero:
   1. device  — the card's name and power limit (nvidia-smi); no card fails.
@@ -17,9 +18,9 @@ Phases, each printing its own lines; any failure exits non-zero:
                instantiation of th_bwd_rows_kernel, th_fwd_rows_kernel,
                attn_bwd_rows_kernel, colsum_kernel, th_fold_kernel,
                colsum_f32_kernel, ln_bwd_kernel, branch_bwd_kernel,
-               th_dq_kernel, layernorm_kernel and th_mix_kernel and fails
-               if an H=4 one of the first two or any of the others uses
-               local memory.
+               th_dq_kernel, layernorm_kernel, th_mix_kernel and cc_kernel
+               and fails if an H=4 one of the first two or any of the
+               others uses local memory.
   3. kernels — each fused-layer kernel at the voc0712 eval shapes (B=2)
                against its plain PyTorch version on the same bf16 inputs
                (max abs error vs the stated tolerance), and the standalone
@@ -40,10 +41,12 @@ Phases, each printing its own lines; any failure exits non-zero:
                the recipe shapes and rates (B=2), the backward twice
                (identical bits); the
                two supervision kernels at the recipe's training shapes (64
-               CC masks of 64 x 64 with two mazes past the sweep cap; 96
-               auction problems of 120 x 300, plus an overfull shape),
-               which must equal their plain versions exactly; CUDA-event
-               times, and each kernel's bound (least time on the card).
+               CC masks of 64 x 64 with two mazes past the sweep cap,
+               labels and sweep counts; 96 auction problems of 120 x 300,
+               plus an overfull shape), which must equal their plain
+               versions exactly; CUDA-event times (CC's also in a CUDA
+               graph, per sweep of the slowest mask), and each kernel's
+               bound (least time on the card).
                Then the toolkit's kernels, gemm_kernel, attn_kernel,
                linear_kernel, th_bwd_rows_kernel, th_fwd_rows_kernel and
                attn_bwd_rows_kernel, at every shape class one stock
@@ -77,9 +80,13 @@ Phases, each printing its own lines; any failure exits non-zero:
                th_mix timed and their sums over one stock step (th_mix:
                one eval forward) in the JSON line; layernorm's and
                th_mix's own launch counters held to the recorded calls of
-               each run; the reduce_* launches per run beside those of the
-               two-pass design they replaced; mask_kernel's byte bound
-               beside each mask check.
+               each run; the reduce_* launches per run (and per kernel,
+               with their time and bound) beside those of the two-pass
+               design they replaced, none allowed in the standalone-
+               attention step; the CC masks of each recorded run replayed
+               against the plain version (labels and sweep counts,
+               exactly) and timed; mask_kernel's byte bound beside each
+               mask check.
   4. slice   — `spe_tpu_torch.cli.main --preset voc0712 --eval` on a
                generated mini-VOC at full width, with the launch counters
                checked per forward; then one batch through a kernel model
@@ -211,7 +218,8 @@ ROW_KERNELS = {"th_bwd_rows_kernel": lambda a: a[0] == "4",
                "branch_bwd_kernel": lambda a: True,
                "th_dq_kernel": lambda a: True,
                "layernorm_kernel": lambda a: True,
-               "th_mix_kernel": lambda a: True}
+               "th_mix_kernel": lambda a: True,
+               "cc_kernel": lambda a: True}
 
 
 def tensor_core_check(kernels):
@@ -612,15 +620,17 @@ def _copy(v):
 def record_toolkit(classes, run):
     """While active, count every call of a WRAPPER in classes[(kernel,
     class)]["launches"][run], keeping the first call's layout (tensor_meta
-    of each tensor, the scalars) to replay it; and every call of a SMALL
+    of each tensor, the scalars) to replay it; every call of a SMALL
     wrapper in classes[(name, class)], keeping a copy of the first call's
-    arguments and its bytes (each tensor argument and output once)."""
+    arguments and its bytes (each tensor argument and output once); and
+    every CC launch in classes[("cc_kernel", masks' shape)], keeping a copy
+    of each run's first masks under "masks"."""
     from spe_tpu_torch.ops import kernels as K
     from spe_tpu_torch.ops.kernel_checks import tensor_meta
 
-    gemm, attention, ln_linear, th_bwd_rows, th_fwd_rows, attn_rows = (
+    gemm, attention, ln_linear, th_bwd_rows, th_fwd_rows, attn_rows, cc = (
         K.gemm, K.attention, K.ln_linear, K.th_bwd_rows, K.th_fwd_rows,
-        K.attention_bwd_rows)
+        K.attention_bwd_rows, K.connected_components)
 
     def meta(kw):
         out = {}
@@ -678,6 +688,13 @@ def record_toolkit(classes, run):
                       kw.get("mask_heads")))
         return attn_rows(s, dzd, lse, kbias, seed, drop, **kw)
 
+    def rec_cc(masks, max_sweeps):
+        entry = classes.setdefault(("cc_kernel", tuple(masks.shape)),
+                                   {"launches": {}, "masks": {}})
+        entry["launches"][run] = entry["launches"].get(run, 0) + 1
+        entry["masks"].setdefault(run, masks.clone())
+        return cc(masks, max_sweeps)
+
     def rec_small(name, fn):
         def rec(*args, **kw):
             entry = classes.setdefault((name, _small_class(args, kw)),
@@ -702,6 +719,7 @@ def record_toolkit(classes, run):
             "th_fwd_rows": rec_th_fwd, "attention_bwd_rows": rec_attn_rows}
     for n, r in recs.items():
         r.launches = orig[n].launches
+    orig["connected_components"], recs["connected_components"] = cc, rec_cc
     orig.update({n: getattr(K, n) for n in SMALL})
     recs.update({n: rec_small(n, getattr(K, n)) for n in SMALL})
     # the SMALL wrappers that count their launches start this run at 0
@@ -920,6 +938,13 @@ def two_pass_reduces(name, args, kw):
     return int(args[1] is not None) if name == "branch_backward" else 1
 
 
+def reduce_kernel(parts):
+    """The kernel spe_reduce launches for a reduce_sum call on parts."""
+    Z = parts.shape[0]
+    return "reduce_block_kernel" if Z >= 256 and parts.numel() // Z <= 65535 \
+        else "reduce_thread_kernel"
+
+
 # the SMALL_ENTRIES wrappers whose plain versions make their dropout keys
 # from host scalars (no CUDA graph): timed from the host
 PLAIN_HOST = ("branch_backward",)
@@ -1006,7 +1031,7 @@ def small_kernels(classes, results):
     from spe_tpu_torch.ops.kernel_checks import (HBM_BYTES_PER_MS, grad_tol,
                                                  max_err)
 
-    bad, sums, two_pass = [], {}, {}
+    bad, sums, two_pass, split = [], {}, {}, {}
     for (name, cls), rec in sorted(
             ((k, v) for k, v in classes.items() if k[0] in SMALL),
             key=lambda kv: (kv[0][0], -sum(kv[1]["launches"].values()))):
@@ -1052,6 +1077,12 @@ def small_kernels(classes, results):
             bad.append(f"{name} {shapes}")
         err = max((e for e, _ in errs), default=0.0)
         for run, n in rec["launches"].items():
+            if name == "reduce_sum":
+                tot = split.setdefault((reduce_kernel(args[0]), run),
+                                       [0, 0.0, 0.0])
+                tot[0] += n
+                tot[1] += n * ms
+                tot[2] += n * bound
             if name in ONE_LAUNCH_SUMS:
                 two_pass[run] = two_pass.get(run, 0) + n * two_pass_reduces(
                     name, args, kw)
@@ -1085,16 +1116,25 @@ def small_kernels(classes, results):
                 "bound_by": "bytes", "library_ms": lib_ms, "cold_ms": cold,
                 "per": f"sums of launches x time over one {run} (B=8), "
                        "each class replayed in a CUDA graph"}
+    for (kernel, run), (n, ms, bound) in sorted(split.items()):
+        print(f"[small] {kernel}: one {run}: {n} launches, kernel {ms:.3f} "
+              f"ms, bound {bound:.4f} ms", flush=True)
     for run in RECORDED_RUNS:
         n = sums.get(("reduce_sum", run), [0])[0]
+        rows = sum(e["launches"].get(run, 0) for (k, _), e in classes.items()
+                   if k == "th_bwd_rows_kernel")
         calls = ", ".join(f"{k} {sums.get((k, run), [0])[0]}"
                           for k in ONE_LAUNCH_SUMS)
         print(f"[small] reduce_* launches over one {run}: {n} (the two-pass "
-              f"design: {n + two_pass.get(run, 0)}, with one a call of "
-              f"{calls}, branch_backward's with val only)", flush=True)
+              f"design: {n + two_pass.get(run, 0) + rows}, with one a call "
+              f"of {calls}, th_bwd_rows {rows}, branch_backward's with val "
+              "only)", flush=True)
+        if run == "attention step" and n:
+            bad.append(f"{n} reduce_* launches over one attention step")
     torch.cuda.empty_cache()
     if bad:
-        fail(f"kernels disagree with their plain versions: {bad}")
+        fail(f"kernels disagree with their plain versions, or the "
+             f"attention step launched reduce_*: {bad}")
 
 
 def phase_toolkit(results, extra=()):
@@ -1130,7 +1170,7 @@ def phase_toolkit(results, extra=()):
                for name, (src, rep) in TOOLKIT.items()}
     for (kernel, cls), rec in sorted(classes.items(), key=lambda kv: (
             kv[0][0], -sum(kv[1]["launches"].values()))):
-        if kernel in SMALL:
+        if kernel in SMALL or kernel == "cc_kernel":
             continue
         case = _replay(kernel, rec["call"], gen)
         errs, same, finite, fn, plain, bound, lib, extra_note = \
@@ -1207,6 +1247,42 @@ def phase_toolkit(results, extra=()):
     if not ok:
         fail("a toolkit kernel disagrees with its plain version")
     small_kernels(classes, results)
+    recorded_cc(classes, results)
+
+
+def recorded_cc(classes, results):
+    """The CC masks each recorded run gave the kernel (record_toolkit):
+    labels and sweep counts against the plain version, exactly; the
+    kernel's device time (CUDA graph) and its bound; under the "recorded"
+    key of the pallas_cc entry. Fails on a mismatch."""
+    from spe_tpu_torch.ops import connected_components as cc
+    from spe_tpu_torch.ops import kernels as K
+    from spe_tpu_torch.ops.kernel_checks import cc_bound_ms
+
+    out = {}
+    for (kernel, shape), rec in classes.items():
+        if kernel != "cc_kernel":
+            continue
+        for run, masks in rec["masks"].items():
+            labels, sweeps = K.connected_components(masks, cc.MAX_SWEEPS)
+            want, want_sweeps = cc.connected_components_reference(
+                masks, with_sweeps=True)
+            same, err = _exact((labels, sweeps), (want, want_sweeps))
+            ms = graph_ms(lambda: K.connected_components(masks, cc.MAX_SWEEPS))
+            bound, bound_by = cc_bound_ms(masks, want_sweeps)
+            print(f"[toolkit] cc_kernel {shape} of one {run}: launches "
+                  f"{rec['launches']}; sweeps {sorted(set(sweeps.tolist()))};"
+                  f" labels and sweeps equal {same} (max_abs_err {err}); on "
+                  f"the device (CUDA graph): kernel {_ms(ms)}, bound "
+                  f"{bound:.5f} ms ({bound_by})", flush=True)
+            if not same:
+                fail(f"cc_kernel {shape} of one {run}: labels or sweeps "
+                     "differ from the plain version")
+            out[run] = {"shape": list(shape), "ms": ms, "bound_ms": bound,
+                        "max_sweeps": int(sweeps.max())}
+    if not out:
+        fail("no CC launch recorded")
+    results.setdefault("pallas_cc", {})["recorded"] = out
 
 
 def phase_against(parent_root):
@@ -1238,14 +1314,20 @@ def phase_against(parent_root):
     sums = {}
     for (kernel, cls), rec in sorted(classes.items(), key=lambda kv: (
             kv[0][0], -sum(kv[1]["launches"].values()))):
+        if kernel == "cc_kernel":
+            continue
         small = kernel in SMALL
         case = None if small else _replay(kernel, rec["call"], gen)
         times, cold = {}, {}
         same_note = ""
-        if small:
-            args, kw = rec["call"]
-            mine, theirs = (_small_outputs(getattr(m, kernel), kernel, args, kw)
-                            for m in (K, other))
+        if small or kernel == "th_bwd_rows_kernel":
+            if small:
+                args, kw = rec["call"]
+                mine, theirs = (_small_outputs(getattr(m, kernel), kernel,
+                                               args, kw) for m in (K, other))
+            else:
+                mine, theirs = (m.th_bwd_rows(*case["args"], **case["kw"])
+                                for m in (K, other))
             same_note = "; outputs equal to DIR's bit for bit: " + str(
                 len(mine) == len(theirs) and
                 all(torch.equal(a, b) for a, b in zip(mine, theirs)))
@@ -1291,9 +1373,46 @@ def phase_against(parent_root):
             tot[1] += n * statistics.mean(times[True])
         del case
         torch.cuda.empty_cache()
+    against_cc(other, classes, sums)
     for (kernel, run), (o, t) in sorted(sums.items()):
         print(f"[against] {kernel}: one {run}, launches x time (mean of the "
               f"two turns): other {o:.3f} ms, this {t:.3f} ms", flush=True)
+
+
+def against_cc(other, classes, sums):
+    """CC on cc_masks() (two mazes at the sweep cap) and on each recorded
+    run's masks, on the other checkout's kernel and on this one in turns
+    (CUDA graph), the labels and sweep counts of the two compared; the
+    recorded runs' launches x time added to sums."""
+    import torch
+
+    from spe_tpu_torch.ops import kernels as K
+    from spe_tpu_torch.ops.connected_components import MAX_SWEEPS
+    from spe_tpu_torch.ops.kernel_checks import cc_masks
+
+    cases = [("cc_masks()", cc_masks().cuda(), None, 0)]
+    for (kernel, _), rec in classes.items():
+        if kernel == "cc_kernel":
+            cases += [(f"one {run}'s", m, run, rec["launches"][run])
+                      for run, m in rec["masks"].items()]
+    for label, masks, run, n in cases:
+        mine, theirs = (m.connected_components(masks, MAX_SWEEPS)
+                        for m in (K, other))
+        same = all(torch.equal(a, b) for a, b in zip(mine, theirs))
+        times = {}
+        for mod in (other, K, K, other):
+            times.setdefault(mod is K, []).append(graph_ms(
+                lambda m=mod: m.connected_components(masks, MAX_SWEEPS)))
+        print(f"[against] cc_kernel {label} {tuple(masks.shape)} masks "
+              f"(sweeps up to {int(mine[1].max())}): on the device (CUDA "
+              f"graph), other then this then this then other: "
+              f"{times[False][0]:.4f} {times[True][0]:.4f} "
+              f"{times[True][1]:.4f} {times[False][1]:.4f} ms; labels and "
+              f"sweeps equal to DIR's: {same}", flush=True)
+        if run is not None:
+            tot = sums.setdefault(("cc_kernel", run), [0.0, 0.0])
+            tot[0] += n * statistics.mean(times[False])
+            tot[1] += n * statistics.mean(times[True])
 
 
 def phase_masks():
@@ -1503,38 +1622,47 @@ def _exact(got, want):
 
 
 def phase_supervision_kernels(results):
-    """Kernels 5 and 6 against their plain versions on the card, exactly."""
+    """Kernels 5 and 6 against their plain versions on the card, exactly
+    (CC: labels and sweep counts, on 64 masks of 64 x 64 with two mazes
+    past the sweep cap)."""
     import torch
 
     from spe_tpu_torch.ops import auction as auc
     from spe_tpu_torch.ops import connected_components as cc
+    from spe_tpu_torch.ops import kernels as K
     from spe_tpu_torch.ops.kernel_checks import (auction_bound_ms,
                                                  auction_problems,
                                                  cc_bound_ms, cc_masks)
 
     masks = cc_masks().cuda()
-    got = (cc.connected_components(masks),)
+    got = (cc.connected_components(masks),
+           *K.connected_components(masks, cc.MAX_SWEEPS))
     labels, sweeps = cc.connected_components_reference(masks,
                                                        with_sweeps=True)
-    same, err = _exact(got, (labels,))
+    same, err = _exact(got, (labels, labels, sweeps))
     ms = cuda_ms(lambda: cc.connected_components(masks))
+    dev_ms = graph_ms(lambda: K.connected_components(masks, cc.MAX_SWEEPS))
     plain_ms = cuda_ms(lambda: cc.connected_components_reference(masks),
                        reps=5, warmup=1)
     bound, bound_by = cc_bound_ms(masks, sweeps)
+    per_sweep = "not measured" if dev_ms is None else \
+        f"{1e3 * dev_ms / int(sweeps.max()):.2f} us"
     print(f"[kernels] pallas_cc: {tuple(masks.shape)} masks, sweeps "
-          f"{sorted(set(sweeps.tolist()))} (cap {cc.MAX_SWEEPS}); labels equal "
-          f"{same} (max_abs_err {err}); kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.3f} ms, bound {bound:.5f} ms ({bound_by}); no single "
-          "PyTorch call computes it", flush=True)
+          f"{sorted(set(sweeps.tolist()))} (cap {cc.MAX_SWEEPS}); labels and "
+          f"sweep counts equal {same} (max_abs_err {err}); kernel {ms:.4f} ms "
+          f"(on the device, CUDA graph: {_ms(dev_ms)}, {per_sweep} a sweep of "
+          f"the slowest mask), plain {plain_ms:.3f} ms, bound {bound:.5f} ms "
+          f"({bound_by}); no single PyTorch call computes it", flush=True)
     if not same or int(sweeps.max()) != cc.MAX_SWEEPS:
-        fail("pallas_cc: labels differ from the plain version, or no mask "
-             "reached the sweep cap")
-    results["pallas_cc"] = {
+        fail("pallas_cc: labels or sweep counts differ from the plain "
+             "version, or no mask reached the sweep cap")
+    results.setdefault("pallas_cc", {}).update({
         "name": "pallas_cc", "route": "cuda",
         "source": "spe_tpu_torch/csrc/cc.cu",
         "replaces": "spe_tpu/ops/pallas_cc.py:109", "launches": 0,
-        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound, "bound_by": bound_by, "library_ms": None}
+        "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+        "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+        "library_ms": None})
 
     benefit, pmask = auction_problems(device="cuda")
     got = auc.auction_phase(benefit, pmask)

@@ -9,8 +9,10 @@
 //                      gradients land in two planes) and an accumulate
 //                      mode (C += A . B: dX of a sum of products);
 //   spe_reduce         sums Z partial arrays in a fixed order (the second
-//                      pass of every parameter gradient: no float atomics,
-//                      so two runs give the same bits);
+//                      pass of the weight gradients, dW = dY^T X over row
+//                      chunks: no float atomics, so two runs give the same
+//                      bits; reduce_thread_kernel, one thread an output, at
+//                      ~83% of its byte bound there);
 //   spe_colsum_f32     column sums of f32 rows (bias gradients), one launch;
 //   spe_ln_backward    LayerNorm backward of whole rows plus a residual,
 //                      dgamma/dbeta summed in the same launch;
@@ -29,8 +31,10 @@
 // batch as a sequential grid and add each sample's parameter gradients into
 // a resident output; Hopper blocks run in no order, so a cross-block sum
 // here is either written as partials and reduced by spe_reduce (the weight
-// gradients) or finished inside its one launch in a fixed order
-// (colsum_f32_kernel, ln_bwd_kernel, branch_bwd_kernel: see their notes).
+// gradients, whose split-K chunks gemm_kernel writes) or finished inside
+// its one launch in a fixed order (colsum_f32_kernel, ln_bwd_kernel,
+// branch_bwd_kernel here, th_bwd_rows_kernel and th_dq_kernel in
+// th_train.cu: see their notes).
 //
 // What bounds it on the H100: gemm_kernel, the product under every backward
 // (rows 1b-4b, 7b and 9 of PERF.md, and B5's logit planes). Its largest

@@ -14,7 +14,7 @@
 //                  (for dV = zd^T do), dz = M (.) dzd / keep,
 //                  dp_h = sum_g ww[g, h] dz_g, ds_g = p_g (dp_g - rowsum(dp_g p_g))
 //                  in bf16 (for dq~ = ds . K and dK = sum_g ds_g^T q~_g), and
-//                  per row partials of dww, dbw and dbl;
+//                  dww, dbw and dbl, summed in the same launch;
 //   th_dq          dQ = sum_g dq~_g (.) row_g and dwl, summed in the same
 //                  launch;
 //   th_*_rows with wl  the standalone talking-heads attention
@@ -25,7 +25,7 @@
 //                  TPU kernels do in f32 (no wl-fold); the backward writes
 //                  dL_h = sum_g wl[g, h] dm_g in bf16 in place of dm (for
 //                  dQ_h = scale dL_h . K_h and dK_h = scale dL_h^T . Q_h) and
-//                  adds per row partials of dwl[g, h] = <L_h, dm_g>;
+//                  adds dwl[g, h] = <L_h, dm_g> to its sums;
 //   softmax_bwd    class attention: dl = p (dp + dattn - rowsum(...)), bf16;
 //   attn_bwd_rows  the encoder's and decoder's standard attention: from the
 //                  logits s = scale q . k^T (spe_gemm), the saved row
@@ -55,9 +55,11 @@
 // at about 1.7x its byte bound: two exponentials and a counter hash per
 // element and head make its instruction issue about as long as its memory
 // time. The backward needs
-// one reduction (rowsum(dp_h p_h), H values) and accumulates the
-// parameter partials (dww, dbw, dbl, dwl) in registers, reduced once per
-// block, then across blocks by spe_reduce, so two runs give the same bits.
+// one reduction (rowsum(dp_h p_h), H values), loads each row a row ahead
+// and accumulates the parameter partials (dww, dbw, dbl, dwl) in
+// registers, reduced once per block, then across blocks by the launch's
+// last block in a fixed order (a ticket, no float atomics), so two runs
+// give the same bits.
 // Both take N <= 4 * TH_NT = 1024 (a larger N waits for a
 // columns-per-thread template).
 // attn_bwd_rows (12 bytes per element: 0.24 ms for the encoder's 64 x
@@ -94,8 +96,7 @@ struct THRowParams {
   const unsigned* seed;
   bf16* zd;           // (B, H, N, N)
   bf16* ds;           // (B, H, N, N) backward only: dm_g, or with wl dL_h
-  float* parts;       // (blocks, H*H + 2H) backward only: dww[g,h], dbw[g], dbl[g];
-                      // with wl (blocks, 2H*H + 2H), then dwl[g,h]
+  float* ws;          // backward only, scratch: each block's width sums, block-major
   int B, H, N;
   int drop;           // attention dropout on
   unsigned thr;
@@ -103,6 +104,16 @@ struct THRowParams {
   const float* wl;    // optional (H, H) pre-softmax mix, torch Linear layout:
                       // m_g = sum_h wl[g*H+h] s_h + bl_g
   int site;           // the dropout site of the keys (seed, site, b, g, i, j)
+};
+
+// the backward's: the row pass's parameters and its one-launch sums (a
+// struct of its own, so the forward kernel's parameters keep their layout)
+struct THBwdParams {
+  THRowParams row;
+  unsigned* ticket;   // 0 between launches (reset by the last block)
+  float* sums;        // (width): dww[g,h] (H*H), dbw[g], dbl[g]; with wl
+                      // (width = 2H*H + 2H) then dwl[g,h]
+  long long ws_size;  // floats of row.ws
 };
 
 struct THDqParams {
@@ -243,16 +254,127 @@ __global__ void __launch_bounds__(FOLD_NT, FOLD_BLOCKS) th_fold_kernel(THFoldPar
   }
 }
 
-// th_bwd_rows_kernel: TH_BLOCKS blocks (fewer for few rows) of TH_NT
-// threads, each over a fixed run of rows_per_block consecutive (sample,
-// query) rows; a thread keeps 4 consecutive columns of every head in
-// registers (H is a template parameter, so every per-head array is indexed
-// at compile time). Per row: one 16-byte load of each head's logits and
-// dzd, 8-byte stores of zd and ds, one block reduction of the H values
-// rowsum(dp_h p_h); the parameter partials accumulate in registers over
-// the block's rows and are reduced once at its end into parts[block].
+// th_bwd_rows_kernel: one wave of blocks (th_wave: the blocks a SM holds x
+// the SMs, at most TH_BLOCKS) of TH_NT threads, each over a fixed run of
+// rows_per_block consecutive (sample, query) rows; a thread keeps 4
+// consecutive columns of every head in registers (H is a template
+// parameter, so every per-head array is indexed at compile time). Per row:
+// one 16-byte load of each head's logits and dzd, issued a row ahead
+// (th_bwd_fetch: the next row's loads are in flight during this row's
+// reduction and stores), 8-byte stores of zd and ds, one block reduction
+// of the H values rowsum(dp_h p_h), the dropout keep bits as masks (no
+// branch per element); the parameter partials accumulate in registers over
+// the block's rows and are reduced once at its end into the block's row of
+// the scratch ws. The parameter sums finish in the same launch: one thread
+// a block takes a ticket after the block's barrier (ticket_arrive: a
+// release, and an acquire for the last block), and the last block sums the
+// rows (th_bwd_finish) and resets the ticket. These sums replace the TPU
+// kernels' resident accumulators of dww, dbw, dbl (and dwl) over the
+// sequential grid (spe_tpu/ops/pallas_block.py:513 `_bwd_call`,
+// spe_tpu/ops/pallas_attention_bwd.py:136 `_bwd_call`). At the recipe
+// shapes (B = 8, H = 4, N = 1024) the row pass moves 402 MB (s and dzd
+// read, zd and ds written, 0.120 ms at 3.35 TB/s) and its sums are 256
+// rows of 24 floats (131 of 40 with wl): 25 KB read from L2 by the last
+// block, ~1.5 us after the last block arrives, where a second launch
+// (spe_reduce) cost ~3 us. One wave keeps the release's wait for the
+// block's stores to one per SM slot (with 1024 blocks, ~4 waves, it cost
+// ~6 us). The sums' order is fixed by the shape and the card (two runs
+// give the same bits; no float atomics).
 constexpr int TH_NT = 256;
 constexpr int TH_BLOCKS = 1024;
+// The ticket of a one-launch sum, taken by one thread after its block's
+// barrier: a release (fence.acq_rel, then the add; cumulative over the
+// block's writes before the barrier) and, for the block that comes last,
+// an acquire (the same fence after it) -> the count before this block.
+__device__ __forceinline__ unsigned ticket_arrive(unsigned* ticket) {
+  unsigned prev;
+  asm volatile(
+      "fence.acq_rel.gpu;\n\t"
+      "atom.relaxed.gpu.global.add.u32 %0, [%1], 1;\n\t"
+      "fence.acq_rel.gpu;"
+      : "=r"(prev)
+      : "l"(ticket)
+      : "memory");
+  return prev;
+}
+
+constexpr int TH_FIN_E = 40;     // entries the last block sums in one pass
+constexpr int TH_FIN_G = 8;      // row groups of its second step
+
+// The Z rows of ws (WIDTH floats each, written by the other blocks: read
+// from L2) summed into out in a fixed order, TH_FIN_E entries a pass:
+// thread t sums rows t, t + TH_NT, ... (16-byte loads where the rows allow)
+// into st[t]; thread (g, j) sums st rows g*32 .. g*32 + 31 of entry j in
+// turn; thread j the TH_FIN_G groups in turn. Not inlined: its loads in
+// flight do not add to the row pass's registers.
+template <int WIDTH>
+__device__ __noinline__ void th_bwd_finish(const float* ws, int Z, float* out) {
+  // equal passes of at most TH_FIN_E entries (a multiple of 4 where the
+  // rows are whole 16-byte units)
+  constexpr int NP = (WIDTH + TH_FIN_E - 1) / TH_FIN_E;
+  constexpr int EQ = (WIDTH + NP - 1) / NP;
+  constexpr int EC = WIDTH % 4 == 0 ? (EQ + 3) / 4 * 4 : EQ;
+  constexpr int SE = EC + 1;  // padded: a warp's column reads hit distinct banks
+  constexpr bool VEC = WIDTH % 4 == 0 && EC % 4 == 0;
+  static_assert(TH_FIN_G * 32 == TH_NT, "a row group is a warp's rows");
+  __shared__ float st[TH_NT * SE];
+  __shared__ float part[TH_FIN_G][EC];
+  const int t = threadIdx.x;
+#pragma unroll 1
+  for (int e0 = 0; e0 < WIDTH; e0 += EC) {
+    const int ec = min(EC, WIDTH - e0);
+    float acc[EC];
+#pragma unroll
+    for (int j = 0; j < EC; ++j) acc[j] = 0.f;
+    for (int z = t; z < Z; z += TH_NT) {
+      const float* row = ws + static_cast<long long>(z) * WIDTH + e0;
+      if constexpr (VEC) {
+        float4 v[EC / 4];
+#pragma unroll
+        for (int q = 0; q < EC / 4; ++q) {
+          if (4 * q < ec) v[q] = __ldcg(reinterpret_cast<const float4*>(row) + q);
+        }
+#pragma unroll
+        for (int q = 0; q < EC / 4; ++q) {
+          if (4 * q < ec) {
+            acc[4 * q] += v[q].x;
+            acc[4 * q + 1] += v[q].y;
+            acc[4 * q + 2] += v[q].z;
+            acc[4 * q + 3] += v[q].w;
+          }
+        }
+      } else {
+        float v[EC];
+#pragma unroll
+        for (int j = 0; j < EC; ++j) {
+          if (j < ec) v[j] = __ldcg(row + j);
+        }
+#pragma unroll
+        for (int j = 0; j < EC; ++j) {
+          if (j < ec) acc[j] += v[j];
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < EC; ++j) st[t * SE + j] = acc[j];
+    __syncthreads();
+    for (int u = t; u < TH_FIN_G * ec; u += TH_NT) {
+      const int g = u / ec, j = u - g * ec;
+      float s = 0.f;
+#pragma unroll 8
+      for (int r = 0; r < 32; ++r) s += st[(g * 32 + r) * SE + j];
+      part[g][j] = s;
+    }
+    __syncthreads();
+    if (t < ec) {
+      float s = 0.f;
+#pragma unroll
+      for (int g = 0; g < TH_FIN_G; ++g) s += part[g][t];
+      out[e0 + t] = s;
+    }
+    __syncthreads();
+  }
+}
 
 // 4 f32 values of a row at column c (0 at and past n)
 __device__ __forceinline__ void load_row4(const float* row, int c, int n, bool vec,
@@ -281,8 +403,28 @@ __device__ __forceinline__ void store_row4(bf16* row, int c, int n, bool vec,
   }
 }
 
+// row r's loads for th_bwd_rows_kernel: each head's logits and dzd (a
+// thread's 4 columns) and log-sum-exp
+template <int H>
+__device__ __forceinline__ void th_bwd_fetch(const THRowParams& p, int r, int c0, bool vec,
+                                             float (&l)[H][4], float (&dd)[H][4],
+                                             float (&ls)[H]) {
+  const int N = p.N, b = r / N, i = r % N;
+  const long long row0 = (static_cast<long long>(b) * H * N + i) * N;
+  const long long hstride = static_cast<long long>(N) * N;
+#pragma unroll
+  for (int h = 0; h < H; ++h) {
+    load_row4(p.s + row0 + h * hstride, c0, N, vec, l[h]);
+    load_row4(p.dzd + row0 + h * hstride, c0, N, vec, dd[h]);
+    ls[h] = p.lse[(static_cast<long long>(b) * H + h) * N + i];
+  }
+}
+
+// two blocks a SM where the row's registers allow it (H <= 4 without wl:
+// 128 registers, no spill), so one block's row latency hides the other's
 template <int H, bool WL>
-__global__ void __launch_bounds__(TH_NT) th_bwd_rows_kernel(THRowParams p, int rows_per_block) {
+__global__ void __launch_bounds__(TH_NT, (!WL && H <= 4) ? 2 : 1) th_bwd_rows_kernel(THBwdParams pb, int rows_per_block) {
+  const THRowParams& p = pb.row;
   constexpr int NW = TH_NT / 32;
   constexpr int WIDTH = (WL ? 2 * H * H : H * H) + 2 * H;
   __shared__ float red[2][NW][H];
@@ -316,6 +458,10 @@ __global__ void __launch_bounds__(TH_NT) th_bwd_rows_kernel(THRowParams p, int r
 #pragma unroll
   for (int h = 0; h < H; ++h) a_bw[h] = a_bl[h] = 0.f;
 
+  // the row's loads, issued a row ahead: row r + 1's are in flight while
+  // row r's reduction and stores run
+  float l[H][4], dd[H][4], ls[H];
+  if (on && r0 < r1) th_bwd_fetch<H>(p, r0, c0, vec, l, dd, ls);
   for (int r = r0; r < r1; ++r) {
     const int b = r / N, i = r % N;
     // row (b, h, i) of a (B, H, N, N) plane starts at ((b * H + h) * N + i) * N
@@ -325,12 +471,9 @@ __global__ void __launch_bounds__(TH_NT) th_bwd_rows_kernel(THRowParams p, int r
 #pragma unroll
     for (int h = 0; h < H; ++h) dot[h] = 0.f;
     if (on) {
-      float l[H][4];
-#pragma unroll
-      for (int h = 0; h < H; ++h) load_row4(p.s + row0 + h * hstride, c0, N, vec, l[h]);
 #pragma unroll
       for (int g = 0; g < H; ++g) {
-        const float lse = p.lse[(static_cast<long long>(b) * H + g) * N + i];
+        const float lse = ls[g];
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           float m;
@@ -354,23 +497,29 @@ __global__ void __launch_bounds__(TH_NT) th_bwd_rows_kernel(THRowParams p, int r
       float dz[H][4];
 #pragma unroll
       for (int g = 0; g < H; ++g) {
-        const unsigned key = p.drop ? head_key(*p.seed, p.site, b, g) : 0u;
-        float d[4], zo[4];
-        load_row4(p.dzd + row0 + g * hstride, c0, N, vec, d);
+        // the keep bits as masks (all ones: kept), so a dropped element is
+        // +0 by a bitwise and: no branch per element
+        unsigned km[4] = {~0u, ~0u, ~0u, ~0u};
+        if (p.drop) {
+          const unsigned rk = row_key(head_key(*p.seed, p.site, b, g), i);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) km[e] = keep_col(rk, c0 + e, p.thr) ? ~0u : 0u;
+        }
+        float zo[4];
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           float z = bw[g];
 #pragma unroll
           for (int h = 0; h < H; ++h) z += ww[g * H + h] * pr[h][e];
-          const bool keep = !p.drop || keep_bit(key, i, c0 + e, p.thr);
-          zo[e] = keep ? z * sc : 0.f;
-          dz[g][e] = keep ? d[e] * sc : 0.f;
+          zo[e] = __uint_as_float(__float_as_uint(z * sc) & km[e]);
+          dz[g][e] = __uint_as_float(__float_as_uint(dd[g][e] * sc) & km[e]);
           a_bw[g] += dz[g][e];
 #pragma unroll
           for (int h = 0; h < H; ++h) a_ww[g * H + h] += pr[h][e] * dz[g][e];
         }
         store_row4(p.zd + row0 + g * hstride, c0, N, vec, zo);
       }
+      if (r + 1 < r1) th_bwd_fetch<H>(p, r + 1, c0, vec, l, dd, ls);
 #pragma unroll
       for (int h = 0; h < H; ++h)
 #pragma unroll
@@ -445,8 +594,18 @@ __global__ void __launch_bounds__(TH_NT) th_bwd_rows_kernel(THRowParams p, int r
   for (int e = threadIdx.x; e < WIDTH; e += TH_NT) {
     float t = 0.f;
     for (int w = 0; w < NW; ++w) t += fin[w][e];
-    p.parts[static_cast<long long>(blockIdx.x) * WIDTH + e] = t;
+    p.ws[static_cast<long long>(blockIdx.x) * WIDTH + e] = t;
   }
+  // the ticket: one thread, a release after the block's barrier (the
+  // block's rows of ws go with it); the last block acquires and sums the
+  // rows
+  __shared__ bool last;
+  __syncthreads();
+  if (threadIdx.x == 0) last = ticket_arrive(pb.ticket) == gridDim.x - 1;
+  __syncthreads();
+  if (!last) return;
+  th_bwd_finish<WIDTH>(p.ws, gridDim.x, pb.sums);
+  if (threadIdx.x == 0) *pb.ticket = 0u;
 }
 
 // th_fwd_rows_kernel: th_bwd_rows_kernel's layout (a thread's 4 columns of
@@ -942,31 +1101,43 @@ extern "C" int spe_th_fold(const THFoldParams* p, void* stream) {
 
 namespace {
 
-template <int H>
-int launch_th_bwd(const THRowParams* p, cudaStream_t s) {
-  const long long rows = static_cast<long long>(p->B) * p->N;
-  const long long per = (rows + TH_BLOCKS - 1) / TH_BLOCKS;
-  const unsigned blocks = static_cast<unsigned>((rows + per - 1) / per);
-  if (p->wl) {
-    th_bwd_rows_kernel<H, true><<<blocks, TH_NT, 0, s>>>(*p, static_cast<int>(per));
-  } else {
-    th_bwd_rows_kernel<H, false><<<blocks, TH_NT, 0, s>>>(*p, static_cast<int>(per));
+// a row kernel's blocks in one wave on this card (at most TH_BLOCKS)
+template <typename Kernel>
+int th_wave(Kernel kernel) {
+  int n = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, TH_NT, 0) != cudaSuccess ||
+      n <= 0) {
+    n = 1;
   }
+  return n * sm_count() < TH_BLOCKS ? n * sm_count() : TH_BLOCKS;
+}
+
+// the backward's grid: the blocks of one wave, each over an equal run of
+// rows (one fence and ticket a block, the blocks ending together)
+template <int H, bool WL>
+int launch_th_bwd_form(const THBwdParams* p, cudaStream_t s) {
+  static const int wave = th_wave(th_bwd_rows_kernel<H, WL>);
+  const long long rows = static_cast<long long>(p->row.B) * p->row.N;
+  const long long per = (rows + wave - 1) / wave;
+  const unsigned blocks = static_cast<unsigned>((rows + per - 1) / per);
+  const long long width = (WL ? 2 : 1) * H * H + 2 * H;
+  if (!p->row.ws || !p->ticket || !p->sums || blocks * width > p->ws_size) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  th_bwd_rows_kernel<H, WL><<<blocks, TH_NT, 0, s>>>(*p, static_cast<int>(per));
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int H>
+int launch_th_bwd(const THBwdParams* p, cudaStream_t s) {
+  return p->row.wl ? launch_th_bwd_form<H, true>(p, s) : launch_th_bwd_form<H, false>(p, s);
 }
 
 // the forward's grid: the blocks of one wave (at most TH_BLOCKS), each
 // over an equal run of rows
 template <int H, bool WL>
 int launch_th_fwd_form(const THRowParams* p, cudaStream_t s) {
-  static const int wave = [] {
-    int n = 0;
-    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, th_fwd_rows_kernel<H, WL>, TH_NT,
-                                                      0) != cudaSuccess || n <= 0) {
-      n = 1;
-    }
-    return n * sm_count() < TH_BLOCKS ? n * sm_count() : TH_BLOCKS;
-  }();
+  static const int wave = th_wave(th_fwd_rows_kernel<H, WL>);
   const long long rows = static_cast<long long>(p->B) * p->N;
   const long long per = (rows + wave - 1) / wave;
   const unsigned blocks = static_cast<unsigned>((rows + per - 1) / per);
@@ -980,24 +1151,27 @@ int launch_th_fwd(const THRowParams* p, cudaStream_t s) {
 }
 
 template <int H>
-int launch_th_rows(const THRowParams* p, int backward, cudaStream_t s) {
-  return backward ? launch_th_bwd<H>(p, s) : launch_th_fwd<H>(p, s);
+int launch_th_rows(const THBwdParams* p, int backward, cudaStream_t s) {
+  return backward ? launch_th_bwd<H>(p, s) : launch_th_fwd<H>(&p->row, s);
 }
 
 }  // namespace
 
 // the forward (backward == 0) or the backward (backward == 1) row pass,
-// both for N <= 4 * TH_NT (a thread's 4 columns of a row). The backward
-// writes parts as (blocks, width): blocks = ceil(B*N / ceil(B*N /
-// TH_BLOCKS)), a function of the shape alone.
-extern "C" int spe_th_rows(const THRowParams* p, int backward, void* stream) {
-  if (p->B <= 0 || p->H <= 0 || p->H > MAXH || p->N <= 0 || p->N > 4 * TH_NT ||
-      static_cast<long long>(p->B) * p->N > 2147483647LL ||
-      (p->drop && (!p->seed || p->site <= 0))) {
+// both for N <= 4 * TH_NT (a thread's 4 columns of a row), each on a
+// one-wave grid. The backward writes its blocks' sums into ws as (blocks,
+// width) rows, blocks = ceil(B*N / ceil(B*N / wave)), a function of the
+// shape and the card, and their sum into sums in the same launch; launches
+// on one stream at a time (they share the ticket).
+extern "C" int spe_th_rows(const THBwdParams* p, int backward, void* stream) {
+  const THRowParams& r = p->row;
+  if (r.B <= 0 || r.H <= 0 || r.H > MAXH || r.N <= 0 || r.N > 4 * TH_NT ||
+      static_cast<long long>(r.B) * r.N > 2147483647LL ||
+      (r.drop && (!r.seed || r.site <= 0))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (p->H) {
+  switch (r.H) {
     case 1: return launch_th_rows<1>(p, backward, s);
     case 2: return launch_th_rows<2>(p, backward, s);
     case 3: return launch_th_rows<3>(p, backward, s);

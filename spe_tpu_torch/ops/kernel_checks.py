@@ -420,6 +420,23 @@ def diagonal_maze(S):
     return m
 
 
+def cc_patterns(S, n, seed=0):
+    """(n, S, S) bool: the CC kernel's test patterns in turn (blobs as
+    cc_masks draws them, all foreground, all background, a checkerboard, a
+    snake of one pixel a row, and diagonal_maze in both orientations)."""
+    ii, jj = np.indices((S, S))
+    snake = np.zeros((S, S), bool)
+    snake[np.arange(S), (np.arange(S) * 3) % S] = True
+    fixed = [np.ones((S, S), bool), np.zeros((S, S), bool),
+             (ii + jj) % 2 == 0, snake, diagonal_maze(S),
+             diagonal_maze(S)[::-1].copy()]
+    blobs = cc_masks(n=max(1, n - len(fixed)), S=S, n_mazes=0,
+                     seed=seed).numpy()
+    out = [fixed[k // 2] if k % 2 and k // 2 < len(fixed) else
+           blobs[k // 2 % len(blobs)] for k in range(n)]
+    return torch.from_numpy(np.stack(out))
+
+
 def cc_masks(n=64, S=64, n_mazes=2, seed=0):
     """(n, S, S) bool: thresholded sums of random Gaussian blobs (what the
     CAM masks look like) and `n_mazes` diagonal mazes that bind the cap."""
@@ -1351,7 +1368,23 @@ TH_BWD_SHAPES = [
      0.05, True),
     ("H=3, N=77, dropout, wl", 2, 3, 77, 0.1, True),
     ("H=2, N=64, no dropout", 3, 2, 64, 0.0, False),
+    ("the stock step's class: B=8, H=4, N=1024, dropout", 8, 4, 1024, 0.1,
+     False),
+    ("the standalone step's class: B=8, H=4, N=1024, wl, dropout", 8, 4,
+     1024, 0.1, True),
+    ("H=4, B*N=3000 (1000 blocks of 3 rows), wl", 3, 4, 1000, 0.0, True),
+    ("H=1, B*N=120 (fewer blocks than threads: rows in order)", 3, 1, 40,
+     0.0, False),
+    ("H=1, N=33, wl, dropout", 2, 1, 33, 0.1, True),
+    ("H=2, B*N=400, wl", 2, 2, 200, 0.0, True),
+    ("H=8, B*N=288, dropout", 3, 8, 96, 0.1, False),
+    ("H=8, B*N=128 (fewer blocks than threads), wl", 2, 8, 64, 0.0, True),
+    ("H=8, B*N=1154 (577 blocks of 2 rows), wl, dropout", 2, 8, 577, 0.1,
+     True),
 ]
+# th_bwd_rows' classes on the main path, (B, H, N, with wl): the stock step
+# (the patch blocks' wl-folded logits) and the standalone-attention step
+TH_BWD_MAIN = [(8, 4, 1024, False), (8, 4, 1024, True)]
 
 
 def th_bwd_case(B, H, N, rate, wl, device="cuda", seed=0, site=1):

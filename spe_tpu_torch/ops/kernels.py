@@ -23,8 +23,8 @@ card's main path calls them; they are the CPU tests' emulations of the
 kernels and the kernels' oracle on the card. The tensor-core product
 kernels, `ln_linear` (linear_kernel), `gemm` (gemm_kernel) and `attention`
 (attn_kernel), the row passes over the (B, H, N, N) planes,
-`th_fwd_rows`, `th_bwd_rows` and `attention_bwd_rows`, and `layernorm` and
-`th_mix` count their launches (`.launches`).
+`th_fwd_rows`, `th_bwd_rows` and `attention_bwd_rows`, `layernorm`, `th_mix`
+and `reduce_sum` count their launches (`.launches`).
 """
 
 from __future__ import annotations
@@ -240,9 +240,10 @@ class _THFoldParams(ctypes.Structure):
 
 
 class _THRowParams(ctypes.Structure):
-    _fields_ = _struct((_P, "s dzd lse bl ww bw seed zd ds parts"),
+    _fields_ = _struct((_P, "s dzd lse bl ww bw seed zd ds ws"),
                        (_I, "B H N drop"), (_U, "thr"), (_FL, "scale"),
-                       (_P, "wl"), (_I, "site"))
+                       (_P, "wl"), (_I, "site"), (_P, "ticket sums"),
+                       (_LL, "ws_size"))
 
 
 class _THDqParams(ctypes.Structure):
@@ -1010,7 +1011,11 @@ def reduce_sum(parts, round_bf16=False):
     p = _ReduceParams(parts=parts.data_ptr(), out=out.data_ptr(),
                       L=out.numel(), Z=Z, round_bf16=int(round_bf16))
     _check(lib().spe_reduce(ctypes.byref(p), _stream()), "spe_reduce")
+    reduce_sum.launches += 1
     return out
+
+
+reduce_sum.launches = 0
 
 
 def reduce_sum_reference(parts, round_bf16=False):
@@ -1397,6 +1402,8 @@ TH_BLOCKS = 1024   # th_bwd_rows_kernel, 4 columns each; at most TH_BLOCKS
 
 TH_ROWS_MAX_N = 4 * TH_NT   # 4 columns a thread
 TH_ROWS_MAX_H = 8           # csrc/th_train.cu MAXH
+# th_bwd_rows' sums a row: dww, dbw, dbl and dwl at the most heads
+TH_BWD_MAX_WIDTH = 2 * TH_ROWS_MAX_H ** 2 + 2 * TH_ROWS_MAX_H
 
 
 def _th_rows_domain(name, N):
@@ -1425,12 +1432,32 @@ def th_fwd_rows(s, bl, ww, bw, seed, rate, *, wl=None, site=SITE_ATTN):
 th_fwd_rows.launches = 0
 
 
-def th_bwd_blocks(B, N):
-    """The blocks of th_bwd_rows_kernel (rows of parts) for B * N rows: a
-    function of the shape alone, so the partial sums' order is fixed."""
+def th_bwd_blocks(B, N, wave):
+    """The blocks of th_bwd_rows_kernel for B * N rows on a card that holds
+    `wave` of its blocks at once (csrc/th_train.cu th_wave: the blocks a SM
+    takes x the SMs, at most TH_BLOCKS): block k over rows [k * per, (k +
+    1) * per) with per = ceil(B * N / wave), each writing one row of the
+    scratch. A function of the shape and the card, so the sums' order is
+    fixed."""
     rows = B * N
-    per = -(-rows // TH_BLOCKS)
+    per = -(-rows // wave)
     return -(-rows // per)
+
+
+def th_bwd_scratch(device):
+    """th_bwd_rows_kernel's per-device scratch, allocated once: the ticket
+    (int32, 0 between launches: the last block resets it) and a row of
+    TH_BWD_MAX_WIDTH f32 sums for each of TH_BLOCKS blocks."""
+    index = _index(device)
+    if index not in _TH_BWD_SCRATCH:
+        dev = torch.device("cuda", index)
+        _TH_BWD_SCRATCH[index] = (
+            torch.zeros(1, device=dev, dtype=torch.int32),
+            torch.empty(TH_BLOCKS * TH_BWD_MAX_WIDTH, device=dev, dtype=_F32))
+    return _TH_BWD_SCRATCH[index]
+
+
+_TH_BWD_SCRATCH = {}
 
 
 def th_bwd_rows(s, lse, dzd, bl, ww, bw, seed, rate, *, wl=None,
@@ -1438,7 +1465,9 @@ def th_bwd_rows(s, lse, dzd, bl, ww, bw, seed, rate, *, wl=None,
     """Talking-heads backward row pass: -> (zd bf16, ds bf16 (B, H, N, N),
     dww (H, H), dbw (H,), dbl (H,) f32). With wl (see th_fwd_rows) ds holds
     dL_h = sum_g wl[g, h] dm_g, and dwl (H, H) f32 is returned last.
-    Takes N <= 4 * TH_NT."""
+    Takes N <= 4 * TH_NT. One launch; the parameter sums in a fixed order
+    (two calls give the same bits). Launches on one stream at a time: the
+    launches share the ticket."""
     B, H, N, _ = s.shape
     _need(lse, _F32, "lse", 3)
     _need(dzd, _F32, "dzd", 4)
@@ -1449,15 +1478,15 @@ def th_bwd_rows(s, lse, dzd, bl, ww, bw, seed, rate, *, wl=None,
     zd = torch.empty(s.shape, device=s.device, dtype=_BF16)
     ds = torch.empty(s.shape, device=s.device, dtype=_BF16)
     width = (2 if wl is not None else 1) * H * H + 2 * H
-    parts = torch.empty((th_bwd_blocks(B, N), width), device=s.device,
-                        dtype=_F32)
+    sums = torch.empty(width, device=s.device, dtype=_F32)
+    ticket, ws = th_bwd_scratch(s.device)
     p = _THRowParams(**_th_row_params(
         s, bl, ww, bw, seed, rate, wl, site, dzd=dzd.data_ptr(),
         lse=lse.data_ptr(), zd=zd.data_ptr(), ds=ds.data_ptr(),
-        parts=parts.data_ptr()))
+        ws=ws.data_ptr(), ticket=ticket.data_ptr(), sums=sums.data_ptr(),
+        ws_size=ws.numel()))
     _check(lib().spe_th_rows(ctypes.byref(p), 1, _stream()), "spe_th_rows")
     th_bwd_rows.launches += 1
-    sums = reduce_sum(parts)
     out = (zd, ds, sums[:H * H].view(H, H), sums[H * H:H * H + H],
            sums[H * H + H:H * H + 2 * H])
     return out + (sums[H * H + 2 * H:].view(H, H),) if wl is not None else out

@@ -4,14 +4,18 @@ sequence lengths, every fused layer's training forward and backward
 kernels and their dropout masks likewise, a small full-width detector
 through the kernels against the same weights through the plain versions,
 the two supervision kernels (connected components, auction) against
-their plain versions at the recipe's training shapes, and the standalone
+their plain versions at the recipe's training shapes (CC also at every
+mask size it takes, 1 to 300 masks, labels and sweep counts; the
+wrapper's refusals), and the standalone
 attention kernels (fused_mha in its three flavours, the talking-heads
 attention) forward and backward against their plain versions with cut
 sequence lengths, and the two tensor-core product kernels (gemm_kernel,
 attn_kernel) against kernels.gemm_reference / attention_reference on
 ragged shapes, every layout and option, misaligned operands, likewise
 linear_kernel against ln_linear_reference, th_bwd_rows_kernel against
-th_bwd_rows_reference, th_fwd_rows_kernel against th_fwd_rows_reference,
+th_bwd_rows_reference (one launch a call, no reduce_* kernel, the ticket
+back at 0 between shapes called back to back), th_fwd_rows_kernel against
+th_fwd_rows_reference,
 attn_bwd_rows_kernel against attention_bwd_rows_reference,
 colsum_kernel and th_fold_kernel against colsum_reference and
 th_fold_reference (th_fold bit for bit) on ragged and misaligned views,
@@ -113,17 +117,63 @@ def test_small_detector_through_kernels(card):
 
 def test_connected_components_kernel_equals_plain(card):
     """Kernel 5 at the recipe's shapes (64 masks of 64 x 64: blobs and two
-    mazes that bind the 96-sweep cap): labels exactly equal."""
+    mazes that bind the 96-sweep cap): labels and sweep counts exactly
+    equal, one launch."""
     from spe_tpu_torch.ops import connected_components as cc
+    from spe_tpu_torch.ops import kernels as K
     from spe_tpu_torch.ops.kernel_checks import cc_masks
 
     masks = cc_masks().to(card)
     before = cc.connected_components.launches
     got = cc.connected_components(masks)
-    want = cc.connected_components_reference(masks)
+    want, sweeps = cc.connected_components_reference(masks, with_sweeps=True)
     torch.cuda.synchronize()
     assert cc.connected_components.launches == before + 1
     assert torch.equal(got, want)
+    assert torch.equal(K.connected_components(masks, cc.MAX_SWEEPS)[1], sweeps)
+
+
+CC_SIZES = [(S, N) for S in (16, 32, 64, 128) for N in (1, 300)] + \
+    [(1, 3), (50, 40), (100, 20)]
+
+
+@pytest.mark.parametrize("S,N", CC_SIZES)
+def test_connected_components_kernel_every_size(card, S, N):
+    """cc_kernel at S = 16, 32, 64 (compiled in), 128 and the odd sizes 1,
+    50, 100 (S read at run time), 1 mask and 300 (past one wave of
+    blocks): blobs, all foreground, all background, a checkerboard, a snake
+    and both diagonal mazes (past the 96-sweep cap from S = 32 on), at the
+    cap and at a cap of 3 sweeps: labels and sweep counts exactly equal to
+    connected_components_reference."""
+    from spe_tpu_torch.ops import connected_components as cc
+    from spe_tpu_torch.ops import kernels as K
+    from spe_tpu_torch.ops.kernel_checks import cc_patterns
+
+    masks = cc_patterns(S, N, seed=S).to(card)
+    for cap in (cc.MAX_SWEEPS, 3):
+        labels, sweeps = K.connected_components(masks, cap)
+        want, want_sweeps = cc.connected_components_reference(
+            masks, cap, with_sweeps=True)
+        torch.cuda.synchronize()
+        assert torch.equal(labels, want), (S, N, cap)
+        assert torch.equal(sweeps, want_sweeps), (S, N, cap)
+    if N == 300 and S >= 32:
+        assert int(want_sweeps.max()) == 3
+        assert int(cc.connected_components_reference(
+            masks, with_sweeps=True)[1].max()) == cc.MAX_SWEEPS
+
+
+def test_connected_components_refuses_shapes(card):
+    """The wrapper's checks: S > 128, a non-square batch and a
+    non-contiguous one are refused by name."""
+    from spe_tpu_torch.ops import kernels as K
+
+    bad = [torch.zeros((2, 129, 129), dtype=torch.bool, device=card),
+           torch.zeros((2, 16, 32), dtype=torch.bool, device=card),
+           torch.zeros((2, 32, 64), dtype=torch.bool, device=card)[:, :, :32]]
+    for masks in bad:
+        with pytest.raises(ValueError):
+            K.connected_components(masks, 96)
 
 
 @pytest.mark.parametrize("shape", [(96, 120, 300), (3, 120, 60)])
@@ -388,16 +438,18 @@ def test_linear_kernel_matches_plain(card, case):
 
 @pytest.mark.parametrize("case", range(len(TH_BWD_SHAPES)))
 def test_th_bwd_rows_kernel_matches_plain(card, case):
-    """th_bwd_rows_kernel against th_bwd_rows_reference at H=4 and other
-    H, N not a multiple of 4, dropout on and off, with and without wl:
-    every output within 1% of its largest magnitude (dbl against the mix
-    gradient's), two runs bit-identical."""
+    """th_bwd_rows_kernel against th_bwd_rows_reference at H = 1, 2, 3, 4
+    and 8, N not a multiple of 4, dropout on and off, with and without wl,
+    the two main-path classes, B*N not a multiple of 1024 and B*N under
+    TH_NT (the finish's two orders): every output within 1% of its largest
+    magnitude (dbl against the mix gradient's), two runs bit-identical, one
+    launch a call and no reduce_sum, the ticket back at 0."""
     from spe_tpu_torch.ops import kernels as K
     from spe_tpu_torch.ops.kernel_checks import th_bwd_case, th_bwd_check
 
     label, B, H, N, rate, wl = TH_BWD_SHAPES[case]
     args, kw = th_bwd_case(B, H, N, rate, wl)
-    before = K.th_bwd_rows.launches
+    before, reduces = K.th_bwd_rows.launches, K.reduce_sum.launches
     errs, same, finite = th_bwd_check(K.th_bwd_rows, K.th_bwd_rows_reference,
                                       args, kw)
     torch.cuda.synchronize()
@@ -405,6 +457,39 @@ def test_th_bwd_rows_kernel_matches_plain(card, case):
     for name, (e, tol) in errs.items():
         assert e <= tol, (label, name, e, tol)
     assert K.th_bwd_rows.launches == before + 2
+    assert K.reduce_sum.launches == reduces
+    assert int(K.th_bwd_scratch(card)[0].item()) == 0
+
+
+def test_th_bwd_rows_one_launch_back_to_back(card):
+    """th_bwd_rows launches th_bwd_rows_kernel and nothing else (no reduce_*
+    kernel: torch.profiler's names), three shapes back to back on one
+    stream and the first again: each call equal to its shape's first call
+    bit for bit (each launch starts from a ticket at 0), the ticket at 0
+    after them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from spe_tpu_torch.ops import kernels as K
+    from spe_tpu_torch.ops.kernel_checks import th_bwd_case
+
+    cases = [th_bwd_case(8, 4, 1024, 0.1, False),
+             th_bwd_case(2, 8, 577, 0.1, True), th_bwd_case(3, 1, 40, 0.0, False)]
+    cases.append(cases[0])
+    first = [K.th_bwd_rows(*a, **k) for a, k in cases[:3]]
+    torch.cuda.synchronize()
+    before, reduces = K.th_bwd_rows.launches, K.reduce_sum.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        again = [K.th_bwd_rows(*a, **k) for a, k in cases]
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 4 and all("th_bwd_rows_kernel" in n
+                                     for n in kernels), kernels
+    assert K.th_bwd_rows.launches == before + 4
+    assert K.reduce_sum.launches == reduces
+    assert int(K.th_bwd_scratch(card)[0].item()) == 0
+    for got, want in zip(again, first + first[:1]):
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
 @pytest.mark.parametrize("case", range(len(TH_FWD_SHAPES)))

@@ -48,7 +48,8 @@ from spe_tpu_torch.ops.kernel_checks import (BRANCH_BWD_MAIN,
                                              BRANCH_BWD_SHAPES,
                                              COLSUM_F32_MAIN, COLSUM_REL_TOL,
                                              H100_SMS, LAYERNORM_MAIN,
-                                             LN_BWD_MAIN, TH_DQ_MAIN,
+                                             LN_BWD_MAIN, TH_BWD_MAIN,
+                                             TH_BWD_SHAPES, TH_DQ_MAIN,
                                              TH_DQ_SHAPES, TH_MIX_SHAPES,
                                              attn_rows_case, bf16_tol,
                                              branch_backward_case,
@@ -663,6 +664,36 @@ def test_branch_backward_plan_covers_once(M, D):
     assert strip in K.COLSUM_F32_STRIPS and 1 <= cluster <= 16
     if (M, D) in {(m, d) for m, d, *_ in BRANCH_BWD_MAIN}:
         assert strips * cluster <= H100_SMS * K.BRANCH_BWD_BLOCKS_PER_SM
+
+
+TH_BWD_PLAN_CASES = sorted({(B, H, N, wl) for _, B, H, N, _, wl in
+                            TH_BWD_SHAPES} | set(TH_BWD_MAIN))
+
+
+@pytest.mark.parametrize("B,H,N,wl", TH_BWD_PLAN_CASES)
+def test_th_bwd_scratch_covers_once(B, H, N, wl):
+    """th_bwd_rows_kernel's one-wave grid at the main path's classes and the
+    card tests' shapes, for a wave of one and two blocks a SM on an H100
+    and for the most blocks: the blocks' row runs cover every (sample,
+    query) row once, at most a wave of blocks, each block's sums a row of
+    the scratch (blocks x width within TH_BLOCKS x TH_BWD_MAX_WIDTH, so
+    every H the kernel takes fits); a function of the shape and the
+    wave."""
+    rows = B * N
+    width = (2 if wl else 1) * H * H + 2 * H
+    assert width <= K.TH_BWD_MAX_WIDTH
+    for wave in (H100_SMS, 2 * H100_SMS, K.TH_BLOCKS):
+        blocks = K.th_bwd_blocks(B, N, wave)
+        assert K.th_bwd_blocks(B, N, wave) == blocks
+        per = -(-rows // wave)
+        count = torch.zeros(rows, dtype=torch.int32)
+        for k in range(blocks):
+            count[k * per:(k + 1) * per] += 1
+        assert bool((count == 1).all())
+        assert 1 <= blocks <= wave
+        assert blocks * width <= K.TH_BLOCKS * K.TH_BWD_MAX_WIDTH
+        if (B, H, N, wl) in TH_BWD_MAIN:
+            assert blocks > wave - per
 
 
 TH_DQ_PLAN_CASES = sorted({c[1:5] for c in TH_DQ_SHAPES} | set(TH_DQ_MAIN))

@@ -66,6 +66,21 @@ def test_cc_matches_jax_on_blobs_and_a_capped_maze(rng):
     assert not torch.equal(full, got[-2:])  # the cap did bind
 
 
+def test_cc_matches_jax_at_the_recipe_size():
+    """The recipe's 64 x 64 masks (cam_cc_size): kernel_checks.cc_masks'
+    blobs and both diagonal mazes, whose labels need 457 sweeps: labels
+    and sweep counts through the plain version, labels through the JAX
+    sweep, exactly equal at the 96-sweep cap."""
+    from spe_tpu_torch.ops.kernel_checks import cc_masks
+
+    m = cc_masks(n=8, S=64).numpy()
+    got, sweeps = tcc.connected_components_reference(torch.from_numpy(m),
+                                                     with_sweeps=True)
+    _eq(got, _sync(jax.vmap(jcam._connected_components), jnp.asarray(m)))
+    assert sweeps[-1] == sweeps[-2] == tcc.MAX_SWEEPS
+    assert int(sweeps[:-2].max()) < tcc.MAX_SWEEPS
+
+
 def test_cc_matches_pallas_interpret(rng):
     """tests/test_cam_boxes.py's 16 x 16 Pallas masks (percolation noise,
     a diagonal snake, a checkerboard), at the full cap and at a cap of 3
