@@ -1,11 +1,12 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
     python3 chip_smoke.py            # all phases; needs one CUDA device
-    python3 chip_smoke.py --against DIR   # the toolkit classes and CC on
-                                     # DIR's kernels and on these, in turns
-                                     # (the other wrappers', th_bwd_rows'
-                                     # and CC's outputs compared bit for
-                                     # bit)
+    python3 chip_smoke.py --against DIR   # the toolkit classes, CC and the
+                                     # auction on DIR's kernels and on
+                                     # these, in turns (the other
+                                     # wrappers', th_bwd_rows', CC's and
+                                     # the auction's outputs compared bit
+                                     # for bit)
 
 Phases, each printing its own lines; any failure exits non-zero:
   1. device  — the card's name and power limit (nvidia-smi); no card fails.
@@ -18,9 +19,9 @@ Phases, each printing its own lines; any failure exits non-zero:
                instantiation of th_bwd_rows_kernel, th_fwd_rows_kernel,
                attn_bwd_rows_kernel, colsum_kernel, th_fold_kernel,
                colsum_f32_kernel, ln_bwd_kernel, branch_bwd_kernel,
-               th_dq_kernel, layernorm_kernel, th_mix_kernel and cc_kernel
-               and fails if an H=4 one of the first two or any of the
-               others uses local memory.
+               th_dq_kernel, layernorm_kernel, th_mix_kernel, cc_kernel and
+               auction_kernel and fails if an H=4 one of the first two or
+               any of the others uses local memory.
   3. kernels — each fused-layer kernel at the voc0712 eval shapes (B=2)
                against its plain PyTorch version on the same bf16 inputs
                (max abs error vs the stated tolerance), and the standalone
@@ -43,10 +44,12 @@ Phases, each printing its own lines; any failure exits non-zero:
                two supervision kernels at the recipe's training shapes (64
                CC masks of 64 x 64 with two mazes past the sweep cap,
                labels and sweep counts; 96 auction problems of 120 x 300,
-               plus an overfull shape), which must equal their plain
-               versions exactly; CUDA-event times (CC's also in a CUDA
-               graph, per sweep of the slowest mask), and each kernel's
-               bound (least time on the card).
+               96 of coco17's 240 x 300, whose rows pass shared memory,
+               and an overfull shape), which must equal their plain
+               versions exactly; CUDA-event times (CC's and the
+               auction's also in a CUDA graph, per sweep or iteration of
+               the slowest mask or problem), and each kernel's bound
+               (least time on the card).
                Then the toolkit's kernels, gemm_kernel, attn_kernel,
                linear_kernel, th_bwd_rows_kernel, th_fwd_rows_kernel and
                attn_bwd_rows_kernel, at every shape class one stock
@@ -83,10 +86,11 @@ Phases, each printing its own lines; any failure exits non-zero:
                each run; the reduce_* launches per run (and per kernel,
                with their time and bound) beside those of the two-pass
                design they replaced, none allowed in the standalone-
-               attention step; the CC masks of each recorded run replayed
-               against the plain version (labels and sweep counts,
-               exactly) and timed; mask_kernel's byte bound beside each
-               mask check.
+               attention step; the CC masks and the auction problems of
+               each recorded run replayed against the plain versions
+               (labels and sweep counts; assignments, iteration and bid
+               counts; exactly) and timed; mask_kernel's byte bound beside
+               each mask check.
   4. slice   — `spe_tpu_torch.cli.main --preset voc0712 --eval` on a
                generated mini-VOC at full width, with the launch counters
                checked per forward; then one batch through a kernel model
@@ -219,7 +223,8 @@ ROW_KERNELS = {"th_bwd_rows_kernel": lambda a: a[0] == "4",
                "th_dq_kernel": lambda a: True,
                "layernorm_kernel": lambda a: True,
                "th_mix_kernel": lambda a: True,
-               "cc_kernel": lambda a: True}
+               "cc_kernel": lambda a: True,
+               "auction_kernel": lambda a: True}
 
 
 def tensor_core_check(kernels):
@@ -623,14 +628,16 @@ def record_toolkit(classes, run):
     of each tensor, the scalars) to replay it; every call of a SMALL
     wrapper in classes[(name, class)], keeping a copy of the first call's
     arguments and its bytes (each tensor argument and output once); and
-    every CC launch in classes[("cc_kernel", masks' shape)], keeping a copy
-    of each run's first masks under "masks"."""
+    every CC launch in classes[("cc_kernel", masks' shape)] and every
+    auction launch in classes[("auction_kernel", benefit's shape)], keeping
+    a copy of each run's first arguments under "inputs" (RECORDED_INPUTS)."""
     from spe_tpu_torch.ops import kernels as K
     from spe_tpu_torch.ops.kernel_checks import tensor_meta
 
-    gemm, attention, ln_linear, th_bwd_rows, th_fwd_rows, attn_rows, cc = (
-        K.gemm, K.attention, K.ln_linear, K.th_bwd_rows, K.th_fwd_rows,
-        K.attention_bwd_rows, K.connected_components)
+    gemm, attention, ln_linear, th_bwd_rows, th_fwd_rows, attn_rows, cc, \
+        auction = (K.gemm, K.attention, K.ln_linear, K.th_bwd_rows,
+                   K.th_fwd_rows, K.attention_bwd_rows, K.connected_components,
+                   K.auction)
 
     def meta(kw):
         out = {}
@@ -688,12 +695,14 @@ def record_toolkit(classes, run):
                       kw.get("mask_heads")))
         return attn_rows(s, dzd, lse, kbias, seed, drop, **kw)
 
-    def rec_cc(masks, max_sweeps):
-        entry = classes.setdefault(("cc_kernel", tuple(masks.shape)),
-                                   {"launches": {}, "masks": {}})
-        entry["launches"][run] = entry["launches"].get(run, 0) + 1
-        entry["masks"].setdefault(run, masks.clone())
-        return cc(masks, max_sweeps)
+    def rec_inputs(kernel, fn):
+        def rec(*args):
+            entry = classes.setdefault((kernel, tuple(args[0].shape)),
+                                       {"launches": {}, "inputs": {}})
+            entry["launches"][run] = entry["launches"].get(run, 0) + 1
+            entry["inputs"].setdefault(run, _copy(args))
+            return fn(*args)
+        return rec
 
     def rec_small(name, fn):
         def rec(*args, **kw):
@@ -719,7 +728,10 @@ def record_toolkit(classes, run):
             "th_fwd_rows": rec_th_fwd, "attention_bwd_rows": rec_attn_rows}
     for n, r in recs.items():
         r.launches = orig[n].launches
-    orig["connected_components"], recs["connected_components"] = cc, rec_cc
+    orig["connected_components"] = cc
+    recs["connected_components"] = rec_inputs("cc_kernel", cc)
+    orig["auction"], recs["auction"] = auction, rec_inputs("auction_kernel",
+                                                           auction)
     orig.update({n: getattr(K, n) for n in SMALL})
     recs.update({n: rec_small(n, getattr(K, n)) for n in SMALL})
     # the SMALL wrappers that count their launches start this run at 0
@@ -794,6 +806,51 @@ def _replay(kernel, call, gen):
 
 
 RECORDED_RUNS = ("stock step", "attention step", "eval forward")
+# the classes record_toolkit keeps the inputs of, replayed apart
+# (recorded_inputs, against_inputs; what each needs: _recorded_kernel)
+RECORDED_INPUTS = ("cc_kernel", "auction_kernel")
+
+
+def _recorded_kernel(kernel):
+    """What recorded_inputs and against_inputs need of a RECORDED_INPUTS
+    kernel: its entry in the JSON line, its wrapper on a module of kernels
+    (this checkout's or DIR's) and the recorded arguments, its plain
+    version, its bound from the arguments and the plain outputs (whose
+    second is the sweep or iteration count), a note on the problem, and
+    the inputs phase 3 checks, also compared under --against."""
+    from spe_tpu_torch.ops import auction as auc
+    from spe_tpu_torch.ops import connected_components as cc
+    from spe_tpu_torch.ops import kernel_checks as kc
+
+    if kernel == "cc_kernel":
+        return dict(
+            entry="pallas_cc", count="sweeps",
+            call=lambda m, x: m.connected_components(*x),
+            plain=lambda x: cc.connected_components_reference(
+                *x, with_sweeps=True),
+            bound=lambda x, want: kc.cc_bound_ms(x[0], want[1]),
+            note=lambda x, want: f"sweeps {sorted(set(want[1].tolist()))}",
+            checked=lambda: [("cc_masks()", (kc.cc_masks().cuda(),
+                                             cc.MAX_SWEEPS))])
+    return dict(
+        entry="pallas_auction", count="iterations",
+        call=lambda m, x: m.auction(*x),
+        plain=lambda x: auc.auction_phase_reference(*x),
+        bound=lambda x, want: kc.auction_bound_ms(x[0], want[2], x[1]),
+        note=lambda x, want: (
+            f"valid persons {int(x[1].sum())}, iterations max "
+            f"{int(want[1].max())} mean {float(want[1].float().mean()):.1f},"
+            f" bids {int(want[2].sum())}"),
+        checked=lambda: [(f"{name}'s auction_problems{shape}",
+                          (*kc.auction_problems(*shape, device="cuda"),
+                           auc.EPS, auc.MAX_ITERS))
+                         for name, shape in AUCTION_CHECKED])
+
+
+# phase 3's auction problems, kernel_checks.auction_problems' (P, T, Q, K):
+# the voc0712 recipe's (T = 24 boxes x 5) and coco17's (T = 48 x 5, 91
+# classes), whose rows pass shared memory (the kernel's device-memory path)
+AUCTION_CHECKED = (("voc0712", ()), ("coco17", (96, 240, 300, 91)))
 
 
 def record_classes(batch=8, extra=()):
@@ -1170,7 +1227,7 @@ def phase_toolkit(results, extra=()):
                for name, (src, rep) in TOOLKIT.items()}
     for (kernel, cls), rec in sorted(classes.items(), key=lambda kv: (
             kv[0][0], -sum(kv[1]["launches"].values()))):
-        if kernel in SMALL or kernel == "cc_kernel":
+        if kernel in SMALL or kernel in RECORDED_INPUTS:
             continue
         case = _replay(kernel, rec["call"], gen)
         errs, same, finite, fn, plain, bound, lib, extra_note = \
@@ -1247,42 +1304,42 @@ def phase_toolkit(results, extra=()):
     if not ok:
         fail("a toolkit kernel disagrees with its plain version")
     small_kernels(classes, results)
-    recorded_cc(classes, results)
+    recorded_inputs(classes, results)
 
 
-def recorded_cc(classes, results):
-    """The CC masks each recorded run gave the kernel (record_toolkit):
-    labels and sweep counts against the plain version, exactly; the
-    kernel's device time (CUDA graph) and its bound; under the "recorded"
-    key of the pallas_cc entry. Fails on a mismatch."""
-    from spe_tpu_torch.ops import connected_components as cc
+def recorded_inputs(classes, results):
+    """The inputs each recorded run gave each RECORDED_INPUTS kernel
+    (record_toolkit): its outputs against its plain version, exactly (CC:
+    labels and sweep counts; the auction: assignments, iteration and bid
+    counts); the kernel's device time (CUDA graph) and its bound; under the
+    "recorded" key of the kernel's entry. Fails on a mismatch or on a
+    kernel with no launch recorded."""
     from spe_tpu_torch.ops import kernels as K
-    from spe_tpu_torch.ops.kernel_checks import cc_bound_ms
 
-    out = {}
-    for (kernel, shape), rec in classes.items():
-        if kernel != "cc_kernel":
-            continue
-        for run, masks in rec["masks"].items():
-            labels, sweeps = K.connected_components(masks, cc.MAX_SWEEPS)
-            want, want_sweeps = cc.connected_components_reference(
-                masks, with_sweeps=True)
-            same, err = _exact((labels, sweeps), (want, want_sweeps))
-            ms = graph_ms(lambda: K.connected_components(masks, cc.MAX_SWEEPS))
-            bound, bound_by = cc_bound_ms(masks, want_sweeps)
-            print(f"[toolkit] cc_kernel {shape} of one {run}: launches "
-                  f"{rec['launches']}; sweeps {sorted(set(sweeps.tolist()))};"
-                  f" labels and sweeps equal {same} (max_abs_err {err}); on "
-                  f"the device (CUDA graph): kernel {_ms(ms)}, bound "
-                  f"{bound:.5f} ms ({bound_by})", flush=True)
-            if not same:
-                fail(f"cc_kernel {shape} of one {run}: labels or sweeps "
-                     "differ from the plain version")
-            out[run] = {"shape": list(shape), "ms": ms, "bound_ms": bound,
-                        "max_sweeps": int(sweeps.max())}
-    if not out:
-        fail("no CC launch recorded")
-    results.setdefault("pallas_cc", {})["recorded"] = out
+    for kernel in RECORDED_INPUTS:
+        spec = _recorded_kernel(kernel)
+        out = {}
+        for (name, shape), rec in classes.items():
+            if name != kernel:
+                continue
+            for run, x in rec["inputs"].items():
+                want = spec["plain"](x)
+                same, err = _exact(spec["call"](K, x), want)
+                ms = graph_ms(lambda: spec["call"](K, x))
+                bound, bound_by = spec["bound"](x, want)
+                print(f"[toolkit] {kernel} {shape} of one {run}: launches "
+                      f"{rec['launches']}; {spec['note'](x, want)}; outputs "
+                      f"equal {same} (max_abs_err {err}); on the device "
+                      f"(CUDA graph): kernel {_ms(ms)}, bound {bound:.5f} ms "
+                      f"({bound_by})", flush=True)
+                if not same:
+                    fail(f"{kernel} {shape} of one {run}: the kernel differs "
+                         "from the plain version")
+                out[run] = {"shape": list(shape), "ms": ms, "bound_ms": bound,
+                            f"max_{spec['count']}": int(want[1].max())}
+        if not out:
+            fail(f"no {kernel} launch recorded")
+        results.setdefault(spec["entry"], {})["recorded"] = out
 
 
 def phase_against(parent_root):
@@ -1314,7 +1371,7 @@ def phase_against(parent_root):
     sums = {}
     for (kernel, cls), rec in sorted(classes.items(), key=lambda kv: (
             kv[0][0], -sum(kv[1]["launches"].values()))):
-        if kernel == "cc_kernel":
+        if kernel in RECORDED_INPUTS:
             continue
         small = kernel in SMALL
         case = None if small else _replay(kernel, rec["call"], gen)
@@ -1373,46 +1430,47 @@ def phase_against(parent_root):
             tot[1] += n * statistics.mean(times[True])
         del case
         torch.cuda.empty_cache()
-    against_cc(other, classes, sums)
+    against_inputs(other, classes, sums)
     for (kernel, run), (o, t) in sorted(sums.items()):
         print(f"[against] {kernel}: one {run}, launches x time (mean of the "
               f"two turns): other {o:.3f} ms, this {t:.3f} ms", flush=True)
 
 
-def against_cc(other, classes, sums):
-    """CC on cc_masks() (two mazes at the sweep cap) and on each recorded
-    run's masks, on the other checkout's kernel and on this one in turns
-    (CUDA graph), the labels and sweep counts of the two compared; the
+def against_inputs(other, classes, sums):
+    """Each RECORDED_INPUTS kernel on phase 3's inputs and on each recorded
+    run's, on the other checkout's kernel and on this one in turns (CUDA
+    graph), the outputs of the two compared (a mismatch fails); the
     recorded runs' launches x time added to sums."""
     import torch
 
     from spe_tpu_torch.ops import kernels as K
-    from spe_tpu_torch.ops.connected_components import MAX_SWEEPS
-    from spe_tpu_torch.ops.kernel_checks import cc_masks
 
-    cases = [("cc_masks()", cc_masks().cuda(), None, 0)]
-    for (kernel, _), rec in classes.items():
-        if kernel == "cc_kernel":
-            cases += [(f"one {run}'s", m, run, rec["launches"][run])
-                      for run, m in rec["masks"].items()]
-    for label, masks, run, n in cases:
-        mine, theirs = (m.connected_components(masks, MAX_SWEEPS)
-                        for m in (K, other))
-        same = all(torch.equal(a, b) for a, b in zip(mine, theirs))
-        times = {}
-        for mod in (other, K, K, other):
-            times.setdefault(mod is K, []).append(graph_ms(
-                lambda m=mod: m.connected_components(masks, MAX_SWEEPS)))
-        print(f"[against] cc_kernel {label} {tuple(masks.shape)} masks "
-              f"(sweeps up to {int(mine[1].max())}): on the device (CUDA "
-              f"graph), other then this then this then other: "
-              f"{times[False][0]:.4f} {times[True][0]:.4f} "
-              f"{times[True][1]:.4f} {times[False][1]:.4f} ms; labels and "
-              f"sweeps equal to DIR's: {same}", flush=True)
-        if run is not None:
-            tot = sums.setdefault(("cc_kernel", run), [0.0, 0.0])
-            tot[0] += n * statistics.mean(times[False])
-            tot[1] += n * statistics.mean(times[True])
+    for kernel in RECORDED_INPUTS:
+        spec = _recorded_kernel(kernel)
+        cases = [(label, x, None, 0) for label, x in spec["checked"]()]
+        for (name, _), rec in classes.items():
+            if name == kernel:
+                cases += [(f"one {run}'s", x, run, rec["launches"][run])
+                          for run, x in rec["inputs"].items()]
+        for label, x, run, n in cases:
+            mine, theirs = (spec["call"](m, x) for m in (K, other))
+            same = all(torch.equal(a, b) for a, b in zip(mine, theirs))
+            times = {}
+            for mod in (other, K, K, other):
+                times.setdefault(mod is K, []).append(graph_ms(
+                    lambda m=mod: spec["call"](m, x)))
+            print(f"[against] {kernel} {label} {tuple(x[0].shape)} "
+                  f"({spec['count']} up to {int(mine[1].max())}): on the "
+                  f"device (CUDA graph), other then this then this then "
+                  f"other: {times[False][0]:.4f} {times[True][0]:.4f} "
+                  f"{times[True][1]:.4f} {times[False][1]:.4f} ms; outputs "
+                  f"equal to DIR's: {same}", flush=True)
+            if not same:
+                fail(f"{kernel} {label}: the outputs differ from DIR's")
+            if run is not None:
+                tot = sums.setdefault((kernel, run), [0.0, 0.0])
+                tot[0] += n * statistics.mean(times[False])
+                tot[1] += n * statistics.mean(times[True])
 
 
 def phase_masks():
@@ -1664,32 +1722,46 @@ def phase_supervision_kernels(results):
         "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
         "library_ms": None})
 
-    benefit, pmask = auction_problems(device="cuda")
-    got = auc.auction_phase(benefit, pmask)
-    want = auc.auction_phase_reference(benefit, pmask)
-    same, err = _exact(got, want)
     over = auction_problems(3, 120, 60, seed=1, device="cuda")
     same_over, _ = _exact(auc.auction_phase(*over),
                           auc.auction_phase_reference(*over))
-    ms = cuda_ms(lambda: auc.auction_phase(benefit, pmask))
-    plain_ms = cuda_ms(lambda: auc.auction_phase_reference(benefit, pmask),
-                       reps=3, warmup=1)
-    bound, bound_by = auction_bound_ms(benefit, want[2])
-    print(f"[kernels] pallas_auction: {tuple(benefit.shape)} problems, "
-          f"iterations max {int(want[1].max())} mean "
-          f"{float(want[1].float().mean()):.1f}, bids {int(want[2].sum())}; "
-          f"assignments/iterations/bids equal {same} (max_abs_err {err}), "
-          f"overfull (3, 120, 60) equal {same_over}; kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.3f} ms, bound {bound:.5f} ms ({bound_by}); no "
-          "single PyTorch call computes it", flush=True)
-    if not (same and same_over):
-        fail("pallas_auction: the kernel differs from the plain version")
-    results["pallas_auction"] = {
-        "name": "pallas_auction", "route": "cuda",
-        "source": "spe_tpu_torch/csrc/auction.cu",
-        "replaces": "spe_tpu/ops/pallas_auction.py:123", "launches": 0,
-        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound, "bound_by": bound_by, "library_ms": None}
+    entry = results.setdefault("pallas_auction", {})
+    for k, (name, shape) in enumerate(AUCTION_CHECKED):
+        benefit, pmask = auction_problems(*shape, device="cuda")
+        got = auc.auction_phase(benefit, pmask)
+        want = auc.auction_phase_reference(benefit, pmask)
+        same, err = _exact(got, want)
+        ms = cuda_ms(lambda: auc.auction_phase(benefit, pmask))
+        dev_ms = graph_ms(lambda: K.auction(benefit, pmask, auc.EPS,
+                                            auc.MAX_ITERS))
+        plain_ms = cuda_ms(lambda: auc.auction_phase_reference(benefit, pmask),
+                           reps=3, warmup=1)
+        bound, bound_by = auction_bound_ms(benefit, want[2], pmask)
+        per_iter = "not measured" if dev_ms is None else \
+            f"{1e3 * dev_ms / int(want[1].max()):.3f} us"
+        print(f"[kernels] pallas_auction: {name}'s {tuple(benefit.shape)} "
+              f"problems, valid persons {int(pmask.sum())}, iterations max "
+              f"{int(want[1].max())} mean {float(want[1].float().mean()):.1f}"
+              f", bids {int(want[2].sum())}; assignments/iterations/bids "
+              f"equal {same} (max_abs_err {err}), overfull (3, 120, 60) "
+              f"equal {same_over}; kernel {ms:.4f} ms (on the device, CUDA "
+              f"graph: {_ms(dev_ms)}, {per_iter} an iteration of the slowest "
+              f"problem), plain {plain_ms:.3f} ms, bound {bound:.5f} ms "
+              f"({bound_by}); no single PyTorch call computes it", flush=True)
+        if not (same and same_over):
+            fail(f"pallas_auction: {name}'s problems: the kernel differs "
+                 "from the plain version")
+        times = {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                 "bound_ms": bound, "bound_by": bound_by}
+        if k:
+            entry[name] = {"shape": list(benefit.shape),
+                            "max_iterations": int(want[1].max()), **times}
+            continue
+        entry.update({
+            "name": "pallas_auction", "route": "cuda",
+            "source": "spe_tpu_torch/csrc/auction.cu",
+            "replaces": "spe_tpu/ops/pallas_auction.py:123", "launches": 0,
+            "max_abs_err": err, **times, "library_ms": None})
     torch.cuda.synchronize()
 
 

@@ -20,7 +20,8 @@ near the identity).
 `cc_masks()` and `auction_problems()` draw the supervision kernels' inputs
 at the recipe's training shapes (B * max_pos = 64 masks of 64 x 64; S * L *
 B = 96 problems of 120 targets x 300 queries); both kernels must equal
-their plain versions exactly.
+their plain versions exactly. `auction_case()` draws the auction kernel's
+card-test shapes (AUCTION_CASES), one or more for each of its paths.
 
 `*_bound_ms()` give the least time the H100 could take for the same work:
 the larger of the bytes the function must move (each input read once,
@@ -393,12 +394,14 @@ def cc_bound_ms(masks, sweeps):
     return bound_ms(N * S * S * (1 + 4), [(ops, SCALAR_OPS_PER_MS)])
 
 
-def auction_bound_ms(benefit, bids):
-    """benefit (P, T, Q) f32 and the person mask in, assignments and
-    iteration counts out; `bids` the persons' bids evaluated."""
+def auction_bound_ms(benefit, bids, person_mask):
+    """The valid persons' benefit rows (P, T, Q) f32 and the person mask
+    in, assignments, iteration and bid counts out: a padded person's row is
+    never read. `bids` the persons' bids evaluated."""
     P, T, Q = benefit.shape
     ops = float(bids.sum()) * Q * AUCTION_OPS_PER_BID_OBJECT
-    return bound_ms(P * T * Q * 4 + P * T * (1 + 4) + P * 4,
+    rows = int(person_mask.sum())
+    return bound_ms(rows * Q * 4 + P * T * (1 + 4) + P * (4 + 4),
                     [(ops, SCALAR_OPS_PER_MS)])
 
 
@@ -481,6 +484,61 @@ def auction_problems(P=96, T=120, Q=300, K=21, seed=0, device="cpu"):
     mask[P // 2] = False
     cost = matcher_cost(logits, torch.cat([cxcy, wh], -1), labels, tb, mask)
     return (_normalize_benefit(cost, mask).to(device), mask.to(device))
+
+
+def auction_ties(P=5, T=12, Q=9, seed=0):
+    """(benefit (P, T, Q) f32, person mask (P, T) bool) made of exact ties:
+    benefits on a grid of quarters, a column and a row repeated in every
+    problem, problem 0 of zeros of both signs (the float compare takes -0
+    == +0) among -0.5s, masks that are not a prefix and problem 1 with
+    every person padded. T >= 4, Q >= 2, P >= 2."""
+    rng = np.random.default_rng(seed)
+    b = rng.integers(-3, 3, size=(P, T, Q)).astype(np.float32) / 4
+    b[:, :, Q - 1] = b[:, :, Q // 2]
+    b[:, T - 1] = b[:, T // 2]
+    b[0] = -0.5
+    b[0, :, Q // 3] = -0.0
+    b[0, :, (2 * Q) // 3] = 0.0
+    mask = rng.uniform(size=(P, T)) > 0.3
+    mask[1] = False
+    return torch.from_numpy(b), torch.from_numpy(mask)
+
+
+def auction_case(name):
+    """-> (benefit, person mask, max_iters) on the CPU, one of AUCTION_CASES:
+    the shapes the auction kernel must take, each through the path it
+    exercises (rows by TMA bulk copies; by plain loads where Q * 4 is not a
+    multiple of 16; from device memory past 227 KB of shared memory, Q odd
+    there too; T past one thread a person)."""
+    from spe_tpu_torch.ops.auction import MAX_ITERS
+
+    if name == "random_masks":
+        rng = np.random.default_rng(9)
+        mask = torch.from_numpy(rng.uniform(size=(8, 120)) > 0.4)
+        mask[3] = False
+        return auction_problems(8, 120, 300, seed=8)[0], mask, MAX_ITERS
+    if name.startswith("ties"):
+        args = (6, 40, 24, 1) if name == "ties_overfull" else (6, 12, 30, 0)
+        return (*auction_ties(*args), MAX_ITERS)
+    shape, seed = _AUCTION_PROBLEMS[name]
+    return (*auction_problems(*shape, seed=seed),
+            3 if name == "cap3" else MAX_ITERS)
+
+
+# auction_problems' (P, T, Q) and seed of each case drawn from it
+_AUCTION_PROBLEMS = {
+    "recipe": ((96, 120, 300), 0),
+    "overfull": ((3, 120, 60), 1),
+    "q301": ((8, 120, 301), 2),
+    "q7": ((8, 40, 7), 3),
+    "q1": ((8, 20, 1), 4),
+    "t1100_smem": ((2, 1100, 8), 5),
+    "t1030_device": ((2, 1030, 1100), 6),
+    "device_memory": ((4, 120, 600), 7),
+    "q301_device": ((2, 240, 301), 10),
+    "cap3": ((96, 120, 300), 0),
+}
+AUCTION_CASES = (*_AUCTION_PROBLEMS, "random_masks", "ties", "ties_overfull")
 
 
 def _makers(gen, device, D):

@@ -182,8 +182,7 @@ class _AuctionParams(ctypes.Structure):
                 ("assigned", ctypes.c_void_p), ("iters", ctypes.c_void_p),
                 ("bids", ctypes.c_void_p), ("P", ctypes.c_int),
                 ("T", ctypes.c_int), ("Q", ctypes.c_int),
-                ("max_iters", ctypes.c_int), ("eps", ctypes.c_float),
-                ("benefit_in_smem", ctypes.c_int)]
+                ("max_iters", ctypes.c_int), ("eps", ctypes.c_float)]
 
 
 def _struct(*groups):
@@ -866,8 +865,7 @@ def auction(benefit, person_mask, eps, max_iters):
                        mask=person_mask.data_ptr(),
                        assigned=assigned.data_ptr(), iters=iters.data_ptr(),
                        bids=bids.data_ptr(), P=P, T=T, Q=Q,
-                       max_iters=int(max_iters), eps=float(eps),
-                       benefit_in_smem=0)
+                       max_iters=int(max_iters), eps=float(eps))
     _check(lib().spe_auction(ctypes.byref(p), _stream()), "spe_auction")
     return assigned, iters, bids
 

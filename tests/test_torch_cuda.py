@@ -6,7 +6,8 @@ through the kernels against the same weights through the plain versions,
 the two supervision kernels (connected components, auction) against
 their plain versions at the recipe's training shapes (CC also at every
 mask size it takes, 1 to 300 masks, labels and sweep counts; the
-wrapper's refusals), and the standalone
+wrapper's refusals; the auction through each of its paths, iteration and
+bid counts too, and back to back), and the standalone
 attention kernels (fused_mha in its three flavours, the talking-heads
 attention) forward and backward against their plain versions with cut
 sequence lengths, and the two tensor-core product kernels (gemm_kernel,
@@ -38,7 +39,7 @@ import pytest
 import torch
 
 from spe_tpu_torch.ops.kernel_checks import (ATTN_ROWS_SHAPES,
-                                             BRANCH_BWD_SHAPES,
+                                             AUCTION_CASES, BRANCH_BWD_SHAPES,
                                              COLSUM_F32_SHAPES, COLSUM_SHAPES,
                                              GEMM_SHAPES, LAYERNORM_SHAPES,
                                              LINEAR_SHAPES, LN_BWD_SHAPES,
@@ -176,23 +177,57 @@ def test_connected_components_refuses_shapes(card):
             K.connected_components(masks, 96)
 
 
-@pytest.mark.parametrize("shape", [(96, 120, 300), (3, 120, 60)])
-def test_auction_kernel_equals_plain(card, shape):
-    """Kernel 6 on DETR-like costs: the recipe's 96 problems of 120 x 300,
-    and an overfull shape (more targets than queries): assignments,
-    iteration counts and bid counts exactly equal."""
+@pytest.mark.parametrize("case", [*AUCTION_CASES, "unaligned"])
+def test_auction_kernel_equals_plain(card, case):
+    """Kernel 6 against auction_phase_reference, assignments, iteration
+    counts and bid counts exactly equal, on kernel_checks.auction_case:
+    the recipe's 96 DETR-like problems of 120 x 300, an overfull shape
+    (more targets than queries), Q = 301 and 7 (rows copied by plain loads),
+    Q = 1 (top2 at its -1e30 floor), T = 1100 and 1030 (past one thread a
+    person; the second from device memory), (T, Q) past 227 KB of shared
+    memory (rows from device memory; Q even and odd), masks that are not a prefix with one problem all padded, exact
+    ties (duplicate rows and columns, zeros of both signs) and a cap of 3
+    iterations; and the recipe's rows at a 4-byte offset (unaligned: plain
+    loads)."""
     from spe_tpu_torch.ops import auction
-    from spe_tpu_torch.ops.kernel_checks import auction_problems
+    from spe_tpu_torch.ops.kernel_checks import auction_case
 
-    P, T, Q = shape
-    benefit, mask = auction_problems(P, T, Q, device=card)
+    benefit, mask, max_iters = auction_case("recipe" if case == "unaligned"
+                                            else case)
+    benefit, mask = benefit.to(card), mask.to(card)
+    if case == "unaligned":
+        buf = torch.empty(benefit.numel() + 1, device=card)
+        buf[1:] = benefit.flatten()
+        benefit = buf[1:].view(benefit.shape)
+        assert benefit.data_ptr() % 16 != 0
     before = auction.auction_phase.launches
-    got = auction.auction_phase(benefit, mask)
-    want = auction.auction_phase_reference(benefit, mask)
+    got = auction.auction_phase(benefit, mask, max_iters=max_iters)
+    want = auction.auction_phase_reference(benefit, mask,
+                                           max_iters=max_iters)
     torch.cuda.synchronize()
     assert auction.auction_phase.launches == before + 1
     for g, w in zip(got, want):
-        assert torch.equal(g, w)
+        assert torch.equal(g, w), case
+    if case == "cap3":
+        assert int(want[1].max()) == 3
+
+
+def test_auction_kernel_back_to_back(card):
+    """Two launches on different problems with nothing between them, then
+    the first again: each equal to the plain version, no state carried."""
+    from spe_tpu_torch.ops import kernels as K
+    from spe_tpu_torch.ops.auction import EPS, MAX_ITERS, \
+        auction_phase_reference
+    from spe_tpu_torch.ops.kernel_checks import auction_problems
+
+    first = [t.to(card) for t in auction_problems(16, 120, 300, seed=11)]
+    second = [t.to(card) for t in auction_problems(16, 60, 300, seed=12)]
+    outs = [K.auction(*p, EPS, MAX_ITERS) for p in (first, second, first)]
+    wants = [auction_phase_reference(*first), auction_phase_reference(*second)]
+    torch.cuda.synchronize()
+    for got, want in zip(outs, wants + wants[:1]):
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
 
 
 def test_dropout_masks_equal_torch(card):

@@ -41,6 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from spe_tpu_torch.ops import kernels as K
+from spe_tpu_torch.ops.auction import EPS, MAX_ITERS, auction_phase_reference
 from spe_tpu_torch.ops.fused_encoder import softmax_attention
 from spe_tpu_torch.ops.fused_mha import (fused_mha_reference,
                                          fused_mha_train_reference)
@@ -51,7 +52,10 @@ from spe_tpu_torch.ops.kernel_checks import (BRANCH_BWD_MAIN,
                                              LN_BWD_MAIN, TH_BWD_MAIN,
                                              TH_BWD_SHAPES, TH_DQ_MAIN,
                                              TH_DQ_SHAPES, TH_MIX_SHAPES,
-                                             attn_rows_case, bf16_tol,
+                                             HBM_BYTES_PER_MS,
+                                             attn_rows_case, auction_bound_ms,
+                                             auction_case, auction_problems,
+                                             bf16_tol,
                                              branch_backward_case,
                                              colsum_case, colsum_err,
                                              colsum_f32_case,
@@ -837,3 +841,234 @@ def test_th_mix_plan_covers_once(rows, D, wave):
                          accumulate=True)
     assert bool((count == 1).all())
     assert blocks <= wave
+
+
+# ---- the auction kernel's algorithm (csrc/auction.cu), lane by lane in
+# numpy: the warp merge of three redux instructions and the kernel's three
+# phases, against auction_phase_reference exactly
+
+F32 = np.float32
+NEG = F32(-1e30)
+U32 = np.uint64(0xffffffff)
+
+
+def _fkey(v):
+    """float_key: f32 -> uint32 (as uint64) in the float's order."""
+    u = np.asarray(v, F32).view(np.uint32).astype(np.uint64)
+    return np.where(u & 0x80000000, ~u & U32, u | 0x80000000).astype(np.uint64)
+
+
+def _kfloat(k):
+    k = np.asarray(k, np.uint64)
+    return np.where(k & 0x80000000, k & 0x7fffffff,
+                    ~k & U32).astype(np.uint32).view(F32)
+
+
+def _lanes(Q, smem):
+    """(32, S) the objects each lane scans, in its order (-1: past the
+    prices, not visited): in shared memory 4 consecutive objects at a time
+    up to Q rounded to 128 (the padding's price is +inf), from device
+    memory every 32nd object up to Q."""
+    if smem:
+        Qp = -(-Q // 128) * 128
+        f = np.arange(32)[:, None] + 32 * np.arange(Qp // 128)[None, :]
+        return (4 * f[:, :, None] + np.arange(4)).reshape(32, -1)
+    q = np.arange(32)[:, None] + 32 * np.arange(-(-Q // 32))[None, :]
+    return np.where(q < Q, q, -1)
+
+
+def _warp_bid(vals, bens, lanes):
+    """vals, bens (B, Qp) f32 -> (object, top2, benefit at the object) a
+    row, as warp_bid computes them: each lane's (v1, i1, v2) over its
+    objects in order, then the best key, the first index at it and top2 by
+    max/min over the lanes (-0 keyed as +0)."""
+    v = np.where(lanes >= 0, vals[:, np.where(lanes >= 0, lanes, 0)],
+                 np.nan).astype(F32)
+    B = len(vals)
+    v1 = np.full((B, 32), -np.inf, F32)
+    v2 = np.full((B, 32), NEG, F32)
+    i1 = np.full((B, 32), 0xffffffff, np.int64)
+    for s in range(lanes.shape[1]):
+        x = v[:, :, s]
+        gt = x > v1
+        v2 = np.fmax(v2, np.where(gt, v1, x)).astype(F32)
+        v1 = np.fmax(v1, x)
+        i1 = np.where(gt, lanes[None, :, s], i1)
+    k1 = _fkey(np.where(v1 == 0, F32(0), v1))
+    best = k1.max(1, keepdims=True)
+    obj = np.where(k1 == best, i1, 0xffffffff).min(1, keepdims=True)
+    mine = i1 == obj
+    top2 = _kfloat(_fkey(np.where(mine, v2, v1)).max(1))
+    return obj[:, 0], top2, bens[np.arange(B), obj[:, 0]]
+
+
+def _auction_emulation(benefit, mask, eps, max_iters, smem, seed=0):
+    """The kernel's iterations on numpy: A (more bidders than the 32 warps:
+    bid words, `choice`, the pass over the persons), B (a bidder a warp,
+    kept by the warp: a winner over an owner hands it the turn), C (the
+    last person alone) -> (assigned, iters, bids) like the kernel's."""
+    rng = np.random.default_rng(seed)
+    P, T, Q = benefit.shape
+    lanes = _lanes(Q, smem)
+    Qp = lanes.max() + 1
+    out = (np.zeros((P, T), np.int32), np.zeros(P, np.int32),
+           np.zeros(P, np.int32))
+    eps = F32(eps)
+    garbage = np.array([np.nan, np.inf, -np.inf, 1e30, -1e30, -0.0, 5.0], F32)
+    for p in range(P):
+        rows = rng.choice(garbage, size=(T, Qp))   # the padding reads these
+        rows[:, :Q] = benefit[p]
+        price = np.full(Qp, np.inf, F32)
+        price[:Q] = 0
+        owner = np.full(Q, -1, np.int64)
+        word = np.zeros(Q, np.uint64)
+        a = np.where(mask[p], -1, -2).astype(np.int64)
+        n_un = int(mask[p].sum())
+        n_over = max(n_un - Q, 0)
+        it = bids = 0
+
+        def bid(ts):
+            with np.errstate(invalid="ignore"):
+                obj, top2, b1 = _warp_bid((rows[ts] - price).astype(F32),
+                                          rows[ts], lanes)
+            b = ((b1 - top2).astype(F32) + eps).astype(F32)
+            words = (_fkey(b) << np.uint64(32)) | (~ts.astype(np.uint64) & U32)
+            return obj, b, words
+
+        while n_un > max(n_over, 32) and it < max_iters:          # A
+            bids += n_un
+            ts = np.nonzero(a == -1)[0]
+            objs, _, words = bid(ts)
+            for q, w in zip(objs, words):
+                word[q] = max(word[q], w)
+            for i in rng.permutation(len(ts)):
+                t, q = ts[i], objs[i]
+                if int(word[q] & U32) == ~int(t) & 0xffffffff:
+                    prev = owner[q]
+                    if prev >= 0:
+                        a[prev] = -1
+                    else:
+                        n_un -= 1
+                    owner[q], a[t] = t, q
+                    price[q] = _kfloat(word[q] >> np.uint64(32))
+                    word[q] = 0
+            it += 1
+        un = np.nonzero(a == -1)[0]
+        slot = np.full(32, -1)
+        if n_un > n_over and it < max_iters:
+            slot[:min(len(un), 32)] = un[:32]
+        while n_un > max(n_over, 1) and it < max_iters:            # B
+            bids += n_un
+            ws = np.nonzero(slot >= 0)[0]
+            objs, b, words = bid(slot[ws])
+            prevs = owner[objs].copy()
+            for q, w in zip(objs, words):
+                word[q] = max(word[q], w)
+            won = (word[objs] & U32) == (~slot[ws].astype(np.uint64) & U32)
+            for w, t, q, bq, prev in zip(ws[won], slot[ws][won], objs[won],
+                                         b[won], prevs[won]):
+                owner[q], price[q], a[t] = t, bq, q
+                if prev >= 0:
+                    a[prev] = -1
+                else:
+                    n_un -= 1
+                slot[w] = prev
+            word[objs] = 0
+            it += 1
+            assert sorted(slot[slot >= 0]) == list(np.nonzero(a == -1)[0])
+        if n_un == 1 and n_over == 0 and it < max_iters:           # C
+            t = int(slot[slot >= 0][0])
+            while t >= 0 and it < max_iters:
+                (q,), (bq,), _ = bid(np.array([t]))
+                prev = owner[q]
+                owner[q], price[q], a[t] = t, bq, q
+                if prev >= 0:
+                    a[prev] = -1
+                else:
+                    n_un -= 1
+                t, bids, it = prev, bids + 1, it + 1
+        assert n_un == int((a == -1).sum())
+        out[0][p], out[1][p], out[2][p] = a, it, bids
+    return out
+
+
+AUCTION_EMULATED = {
+    # of the first 8, the two slowest (209 and 185 iterations; 6 padded)
+    "recipe_1_and_6": lambda: (*[x[[1, 6]] for x in auction_problems()],
+                               MAX_ITERS),
+    "overfull": lambda: auction_case("overfull"),
+    "q301": lambda: (*auction_problems(4, 20, 301, seed=2), MAX_ITERS),
+    "q7": lambda: auction_case("q7"),
+    "q1": lambda: auction_case("q1"),
+    "random_masks": lambda: (*[x[:4] for x in
+                               auction_case("random_masks")[:2]], MAX_ITERS),
+    "ties": lambda: auction_case("ties"),
+    "ties_overfull": lambda: auction_case("ties_overfull"),
+    "cap3": lambda: (*auction_problems(2, 120, 300), 3),
+}
+
+
+@pytest.fixture
+def one_thread():
+    """torch on one thread: the plain auction's few thousand small ops
+    otherwise spin its thread pool against the other test processes (20x
+    slower on a loaded CPU)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize("smem", [True, False], ids=["smem", "device"])
+@pytest.mark.parametrize("case", sorted(AUCTION_EMULATED))
+def test_auction_kernel_emulation_equals_plain(case, smem, one_thread):
+    """csrc/auction.cu's algorithm, emulated lane by lane (the rows' padding
+    holding NaN, infinities and other garbage), equals
+    auction_phase_reference exactly: assignments, iteration and bid
+    counts, on contested DETR-like problems, overfull ones, Q = 1, 7 and
+    301, masks that are not a prefix, exact ties and zeros of both signs,
+    and a cap of 3 iterations."""
+    benefit, mask, max_iters = AUCTION_EMULATED[case]()
+    got = _auction_emulation(benefit.numpy(), mask.numpy(), EPS, max_iters,
+                             smem)
+    want = auction_phase_reference(benefit, mask, EPS, max_iters)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w.numpy())
+
+
+@pytest.mark.parametrize("Q", [1, 7, 300, 301])
+@pytest.mark.parametrize("smem", [True, False], ids=["smem", "device"])
+def test_auction_warp_merge_matches_argmax(Q, smem):
+    """The warp merge (each lane's best, first index and second best, then
+    max / min / max over the lanes) gives numpy's first argmax and the
+    maximum over the other objects (floored at -1e30) on random rows and on
+    rows of exact ties, zeros of both signs among them."""
+    rng = np.random.default_rng(Q)
+    rand = rng.normal(size=(64, Q)).astype(F32)
+    tied = (rng.integers(-2, 2, size=(64, Q)) / 4).astype(F32)
+    tied[::3] = np.where(tied[::3] == 0, F32(-0.0), tied[::3])
+    lanes = _lanes(Q, smem)
+    for rows in (rand, tied):
+        pad = np.full((64, lanes.max() + 1 - Q), -np.inf, F32)
+        obj, top2, b1 = _warp_bid(np.concatenate([rows, pad], 1),
+                                  np.concatenate([rows, pad], 1), lanes)
+        want = rows.argmax(1)
+        others = np.where(np.arange(Q) == want[:, None], NEG, rows)
+        np.testing.assert_array_equal(obj, want)
+        np.testing.assert_array_equal(top2, np.maximum(others.max(1), NEG))
+        np.testing.assert_array_equal(b1, rows[np.arange(64), want])
+
+
+def test_auction_bound_counts_valid_rows():
+    """auction_bound_ms reads the valid persons' rows only (the kernel
+    never reads a padded person's row): the bytes term falls with the
+    padded persons, and with every person valid it is every row."""
+    benefit, mask = auction_problems(8, 20, 300)
+    no_bids = torch.zeros(8, dtype=torch.int32)
+    rest = 8 * 20 * (1 + 4) + 8 * (4 + 4)
+    for m in (mask, torch.ones_like(mask), torch.zeros_like(mask)):
+        ms, by = auction_bound_ms(benefit, no_bids, m)
+        assert by == "bytes"
+        assert ms == (int(m.sum()) * 300 * 4 + rest) / HBM_BYTES_PER_MS
+    assert auction_bound_ms(benefit, no_bids, mask)[0] < \
+        auction_bound_ms(benefit, no_bids, torch.ones_like(mask))[0]

@@ -23,7 +23,7 @@ from spe_tpu.train import criterion as jcrit
 from spe_tpu_torch.ops import auction as tauction
 from spe_tpu_torch.ops import cam_boxes as tcam
 from spe_tpu_torch.ops import connected_components as tcc
-from spe_tpu_torch.ops.kernel_checks import diagonal_maze
+from spe_tpu_torch.ops.kernel_checks import auction_problems, diagonal_maze
 from spe_tpu_torch.ops.postprocess import postprocess_refine
 from spe_tpu_torch.train import criterion as tcrit
 
@@ -162,6 +162,34 @@ def test_auction_matches_jax(rng, case):
     _eq(stats["cleanup"], jstats["cleanup"])
     if case == "masked_and_empty":
         assert int(iters[2]) == 0
+
+
+@pytest.fixture
+def one_thread():
+    """torch on one thread: the plain auction's few thousand small ops
+    otherwise spin its thread pool against the other test processes (20x
+    slower on a loaded CPU)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_auction_matches_jax_on_contested_problems(one_thread):
+    """The first 8 of kernel_checks.auction_problems() at the recipe's 120
+    persons x 300 objects (5x near-duplicate targets that bid up the same
+    queries for hundreds of iterations, a quarter of the persons padded on
+    half of them): the plain auction phase equals the vmapped JAX
+    `_auction_phase`, assignments and iteration counts exactly."""
+    benefit, mask = (x[:8] for x in auction_problems())
+    got, iters, _ = tauction.auction_phase_reference(benefit, mask)
+    _, _, want, want_iters = _sync(jax.vmap(
+        lambda b, m: jassign._auction_phase(b, m, jnp.zeros(300, jnp.float32),
+                                            2e-3, 5000)),
+        jnp.asarray(benefit.numpy()), jnp.asarray(mask.numpy()))
+    _eq(got, want)
+    _eq(iters, want_iters)
+    assert int(iters.max()) > 100
 
 
 def test_hungarian_host_is_exact(rng):
