@@ -53,9 +53,12 @@ Phases, each printing its own lines; any failure exits non-zero:
                Then the toolkit's kernels, gemm_kernel, attn_kernel,
                linear_kernel, th_bwd_rows_kernel, th_fwd_rows_kernel and
                attn_bwd_rows_kernel, at every shape class one stock
-               training step, one standalone-attention training step and
-               one stock eval forward give them (B=8; a recorder around
-               their kernels.* wrappers): each class replayed on fresh
+               training step, one standalone-attention training step, one
+               coco17 training step (91 class tokens, 128 CC masks, 96
+               auctions of 240 x 300), one stock eval forward and one
+               coco17 COCO eval of 8 images (8 auctions of 48 x 300) give
+               them (B=8; a recorder around their kernels.* wrappers):
+               each class replayed on fresh
                random inputs of the recorded layout against its plain
                version (gemm, th_bwd_rows and attention_bwd_rows 1% of the
                largest magnitude, attention, ln_linear and th_fwd_rows' zd
@@ -150,6 +153,28 @@ Phases, each printing its own lines; any failure exits non-zero:
                place, and the kernels are held to it, it to every flag
                off, under the same rule (which names miss with each);
                and the step's device-time split.
+  9. coco    — the CLI trains `--preset coco17` (every fused flag on) on a
+               generated mini-COCO of 90 classes (24 train, 8 val images,
+               resized to 512^2): phase 7's checks (48 + 48 block, 2 + 2
+               class-attention, 3 + 3 encoder, 6 + 6 decoder, one CC and
+               one auction launch per step) and the epoch's eval of both
+               refinement stages (the aux layer, top-100, NMS, COCO AP/AR;
+               the eval losses: one more auction launch a forward): the
+               stats finite, AP/AR in [0, 1] or -1, eval/stage{s}_000.npz
+               written, each stage's eval time on the 8 val images and on
+               64 others (a cost an image and one an eval), a profiled
+               stage-0 eval of the 64 (the auction at 48 x 300, one a
+               batch), and `--eval --resume` of the
+               checkpoint within 1e-9 of the epoch's stats; then one
+               coco17 batch's supervision kernels against their plain
+               versions as in phase 5 (each CC and auction launch
+               replayed: labels, sweeps, assignments, iteration and bid
+               counts exactly) and the step's split, whose auction must
+               run once as auction_kernel<0> (rows from device memory);
+               then phase 4's kernel-vs-plain model check at coco17 width
+               on the aux layer's logits and boxes of both stages, the 90
+               CAMs and the first class-attention block's 91 x 1115
+               probabilities.
 Each profile also sums the device time of the product kernels by family
 (attn_kernel<192, 192, ...> apart) and of every __global__ function in
 spe_tpu_torch/csrc. About 5 minutes of command time on an
@@ -166,6 +191,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -805,7 +831,8 @@ def _replay(kernel, call, gen):
                 v=strided_like(v, gen, "cuda"), kw=fresh(kw), out=out, **flags)
 
 
-RECORDED_RUNS = ("stock step", "attention step", "eval forward")
+RECORDED_RUNS = ("stock step", "attention step", "eval forward",
+                 "coco17 step", "coco17 eval")
 # the classes record_toolkit keeps the inputs of, replayed apart
 # (recorded_inputs, against_inputs; what each needs: _recorded_kernel)
 RECORDED_INPUTS = ("cc_kernel", "auction_kernel")
@@ -854,27 +881,36 @@ AUCTION_CHECKED = (("voc0712", ()), ("coco17", (96, 240, 300, 91)))
 
 
 def record_classes(batch=8, extra=()):
-    """One training step of the stock preset and of the standalone-attention
-    configuration, and one stock eval forward (flip: 2 x batch images),
-    through the kernels at B=batch, with every call of a WRAPPER or SMALL
-    wrapper recorded by class -> {(kernel or wrapper, class): {"launches":
-    {run: n}, "call", and for a SMALL one "bytes"}}."""
+    """One training step of the stock preset, of the standalone-attention
+    configuration and of the coco17 preset (90 classes: 91 class tokens,
+    128 CC masks, 240 x 300 auctions), one stock eval forward (flip:
+    2 x batch images) and one coco17 COCO eval of batch images
+    (engine.evaluate_coco: the t = 91 eval forward and the eval losses'
+    batch x 48 x 300 auction), through the kernels at B=batch, with every
+    call of a WRAPPER or SMALL wrapper recorded by class -> {(kernel or
+    wrapper, class): {"launches": {run: n}, "call", and for a SMALL one
+    "bytes"}}."""
     import torch
 
     from spe_tpu_torch.cli.main import parse_config
-    from spe_tpu_torch.data import eval_data, train_data, write_mini_voc
+    from spe_tpu_torch.data import (eval_data, train_data, write_mini_coco,
+                                    write_mini_voc)
     from spe_tpu_torch.models.build import build_model
     from spe_tpu_torch.train import train_step as ts
-    from spe_tpu_torch.train.engine import infer_voc, train_batch
+    from spe_tpu_torch.train.engine import (evaluate_coco, infer_voc,
+                                            train_batch)
     from spe_tpu_torch.train.optim import AdamW3
 
     tmp = tempfile.TemporaryDirectory()
     devkit = write_mini_voc(tmp.name, n_test=batch, n_trainval=batch, seed=3)
+    coco = write_mini_coco(tmp.name, n_train=batch, n_val=batch, seed=3)
+    data = ["--test_path", str(devkit), "--coco_path", str(coco)]
     classes = {}
     for run, argv in (("stock step", STOCK_TRAIN_ARGV),
-                      ("attention step", ATTN_TRAIN_ARGV)):
-        cfg = parse_config(argv + ["--test_path", str(devkit),
-                                   "--output_dir", f"{tmp.name}/o", *extra])
+                      ("attention step", ATTN_TRAIN_ARGV),
+                      ("coco17 step", COCO_TRAIN_ARGV)):
+        cfg = parse_config(argv + data + ["--output_dir", f"{tmp.name}/o",
+                                          *extra])
         model = build_model(cfg).train()
         _, loader = train_data(cfg)
         b = train_batch(next(iter(loader.epoch(0))), torch.device("cuda"))
@@ -892,6 +928,12 @@ def record_classes(batch=8, extra=()):
                           torch.as_tensor(e["pad_mask"], device="cuda"),
                           torch.as_tensor(e["orig_size"], device="cuda"),
                           with_flip=True)
+                torch.cuda.synchronize()
+        if run == "coco17 step":
+            ds, loader = eval_data(cfg)
+            with record_toolkit(classes, "coco17 eval"):
+                evaluate_coco(model, loader, ds.raw, cfg,
+                              torch.device("cuda"))
                 torch.cuda.synchronize()
         del model, state, b
         torch.cuda.empty_cache()
@@ -1783,14 +1825,67 @@ def _first_ca_probs(model, store):
         lambda mod, args, out: store.__setitem__("probs", out[1]))
 
 
+def kernel_vs_plain(cfg, b, tag, pick):
+    """One batch b through a kernel model and a plain-version model of cfg
+    with the same weights -> (model, plain, pairs, failures). The stock
+    LayerScale (1e-5) would let every block's branches round away in bf16
+    on both sides, so this pair is built with LayerScale 1; the last bbox
+    layer is zero at init (conditional_detr.py:63-66), which leaves the
+    boxes blind to the decoder, so both models get the same random one.
+    pick(kernel outputs, plain outputs, the first class-attention block's
+    probabilities of each) -> {name: (kernel, plain)}: each finite and
+    within 5% of the plain one's largest magnitude (a map's: of its range,
+    kernel_checks.MAP_KEYS)."""
+    import torch
+
+    from spe_tpu_torch.models.build import build_model
+    from spe_tpu_torch.ops.kernel_checks import MAP_KEYS, max_err, model_tol
+
+    cfg = cfg.replace(init_scale=1.0)
+    model = build_model(cfg)
+    plain = build_model(cfg.replace(use_fused_block=False,
+                                    use_fused_layers=False,
+                                    use_pallas_attention=False))
+    images = torch.as_tensor(b["images"], device="cuda")
+    pad = torch.as_tensor(b["pad_mask"], device="cuda")
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for r, head in enumerate(model.bbox_embed):
+            w = 0.02 * torch.randn(head.layers[-1].weight.shape, generator=gen)
+            head.layers[-1].weight.copy_(w)
+            plain.bbox_embed[r].layers[-1].weight.copy_(w)
+    probs_got, probs_want = {}, {}
+    hooks = [_first_ca_probs(model, probs_got),
+             _first_ca_probs(plain, probs_want)]
+    with torch.no_grad():
+        got = model(images, pad_mask=pad)
+        want = plain(images, pad_mask=pad)
+    for h in hooks:
+        h.remove()
+    torch.cuda.synchronize()
+    pairs = pick(got, want, probs_got["probs"], probs_want["probs"])
+    bad = []
+    for k, (g, w) in pairs.items():
+        if not bool(torch.isfinite(g).all()):
+            bad.append(f"{k} not finite")
+            continue
+        err = max_err(g, w)
+        tol = model_tol(k, w)
+        print(f"[{tag}] {k} {tuple(g.shape)}: max_abs_err {err:.3e} vs plain "
+              f"model, tol {tol:.3e} (0.05 x "
+              f"{'range' if k in MAP_KEYS else 'max|plain|'})", flush=True)
+        if err > tol:
+            bad.append(f"{k} err {err:.3e} > {tol:.3e}")
+    return model, plain, pairs, bad
+
+
 def phase_slice(kernel_results, n_images=8, batch=8):
     import torch
 
     from spe_tpu_torch.cli.main import main as cli_main
     from spe_tpu_torch.cli.main import parse_config
     from spe_tpu_torch.data import eval_data, write_mini_voc
-    from spe_tpu_torch.models.build import build_model
-    from spe_tpu_torch.ops.kernel_checks import MAP_KEYS, max_err, model_tol
+    from spe_tpu_torch.ops.kernel_checks import max_err, model_tol
     from spe_tpu_torch.train.engine import infer_voc
 
     tmp = tempfile.TemporaryDirectory()
@@ -1821,64 +1916,32 @@ def phase_slice(kernel_results, n_images=8, batch=8):
     if not (stats["mAP"] == stats["mAP"] and stats["CorLoc"] == stats["CorLoc"]):
         fail("mAP/CorLoc is NaN")
 
-    # One batch through the same weights, kernels vs plain versions. The
-    # stock LayerScale (1e-5) would let every block's branches round away in
-    # bf16 on both sides, so this pair is built with LayerScale 1.
-    cfg = parse_config(argv).replace(init_scale=1.0)
-    model = build_model(cfg)
-    plain = build_model(cfg.replace(use_fused_block=False,
-                                    use_fused_layers=False,
-                                    use_pallas_attention=False))
+    cfg = parse_config(argv)
     _, loader = eval_data(cfg)
     b = next(iter(loader.epoch(0)))
+
+    def pick(got, want, probs_got, probs_want):
+        pairs = {"pred_logits": (got["stages"][0]["pred_logits"],
+                                 want["stages"][0]["pred_logits"]),
+                 "pred_boxes": (got["stages"][0]["pred_boxes"],
+                                want["stages"][0]["pred_boxes"]),
+                 "ca0_probs": (probs_got, probs_want),
+                 "cams_cls": (got["backbone"]["cams_cls"],
+                              want["backbone"]["cams_cls"]),
+                 "x_logits": (got["backbone"]["x_logits"],
+                              want["backbone"]["x_logits"])}
+        for k, v in got["stages"][1].items():
+            pairs[f"stage1.{k}"] = (v, want["stages"][1][k])
+        return pairs
+
+    model, plain, pairs, bad = kernel_vs_plain(cfg, b, "slice", pick)
     images = torch.as_tensor(b["images"], device="cuda")
     pad = torch.as_tensor(b["pad_mask"], device="cuda")
     sizes = torch.as_tensor(b["orig_size"], device="cuda")
-    # the last bbox layer is zero at init (conditional_detr.py:63-66), which
-    # leaves the boxes blind to the decoder; give both models the same
-    # random one so pred_boxes checks the decoder output too
-    gen = torch.Generator().manual_seed(1)
-    with torch.no_grad():
-        for r, head in enumerate(model.bbox_embed):
-            w = 0.02 * torch.randn(head.layers[-1].weight.shape, generator=gen)
-            head.layers[-1].weight.copy_(w)
-            plain.bbox_embed[r].layers[-1].weight.copy_(w)
-    probs_got, probs_want = {}, {}
-    hooks = [_first_ca_probs(model, probs_got),
-             _first_ca_probs(plain, probs_want)]
-    with torch.no_grad():
-        got = model(images, pad_mask=pad)
-        want = plain(images, pad_mask=pad)
-    for h in hooks:
-        h.remove()
-    torch.cuda.synchronize()
-    pairs = {"pred_logits": (got["stages"][0]["pred_logits"],
-                             want["stages"][0]["pred_logits"]),
-             "pred_boxes": (got["stages"][0]["pred_boxes"],
-                            want["stages"][0]["pred_boxes"]),
-             "ca0_probs": (probs_got["probs"], probs_want["probs"]),
-             "cams_cls": (got["backbone"]["cams_cls"],
-                          want["backbone"]["cams_cls"]),
-             "x_logits": (got["backbone"]["x_logits"],
-                          want["backbone"]["x_logits"])}
-    for k, v in got["stages"][1].items():
-        pairs[f"stage1.{k}"] = (v, want["stages"][1][k])
-    bad = []
-    for k, (g, w) in pairs.items():
-        if not bool(torch.isfinite(g).all()):
-            bad.append(f"{k} not finite")
-            continue
-        err = max_err(g, w)
-        tol = model_tol(k, w)
-        print(f"[slice] {k} {tuple(g.shape)}: max_abs_err {err:.3e} vs plain "
-              f"model, tol {tol:.3e} (0.05 x "
-              f"{'range' if k in MAP_KEYS else 'max|plain|'})", flush=True)
-        if err > tol:
-            bad.append(f"{k} err {err:.3e} > {tol:.3e}")
     # what the same limits read on broken maps: the kernels' CAMs mirrored
     # left-right, and their probabilities with the heads rolled by one
-    for k, broken in (("cams_cls", got["backbone"]["cams_cls"].flip(-1)),
-                      ("ca0_probs", probs_got["probs"].roll(1, dims=1))):
+    for k, broken in (("cams_cls", pairs["cams_cls"][0].flip(-1)),
+                      ("ca0_probs", pairs["ca0_probs"][0].roll(1, dims=1))):
         print(f"[slice] broken {k}: max_abs_err "
               f"{max_err(broken, pairs[k][1]):.3e}, tol "
               f"{model_tol(k, pairs[k][1]):.3e}", flush=True)
@@ -1921,6 +1984,25 @@ FUSED_TRAIN_ARGV = STOCK_TRAIN_ARGV + OFF_FLAGS
 # attention but the decoder self-attention through the standalone kernels
 ATTN_TRAIN_ARGV = STOCK_TRAIN_ARGV + ["--no_use_fused_block",
                                       "--no_use_fused_layers"]
+
+
+# the coco17 preset (90 classes, 48 boxes x 5 a problem, 16 CAM classes
+# an image), every fused flag on; every loss gate open from the first step
+COCO_TRAIN_ARGV = ["--preset", "coco17", "--batch_size", "8", "--epochs", "1",
+                   "--warmup_cls_epochs", "0", "--refine_start_epoch", "0"]
+
+
+def write_data(cfg, root, n_train, n_test, seed):
+    """A generated dataset of cfg.dataset_file's kind under root, a
+    mini-COCO of 90 classes or a VOCdevkit of 20 -> {its cfg field: its
+    path}."""
+    from spe_tpu_torch.data import write_mini_coco, write_mini_voc
+
+    if cfg.dataset_file == "coco":
+        return {"coco_path": str(write_mini_coco(
+            root, n_train=n_train, n_val=n_test, seed=seed))}
+    return {"test_path": str(write_mini_voc(
+        root, n_test=n_test, n_trainval=n_train, seed=seed))}
 
 
 def _supervision_counters():
@@ -1990,7 +2072,8 @@ def _all_counts(reset=False):
     return {k: getattr(fn, attr) for k, (fn, attr) in names.items()}
 
 
-def phase_train(kernel_results, mode, n_train=24, n_test=8, batch=8):
+def phase_train(kernel_results, mode, n_train=24, n_test=8, batch=8,
+                inspect=None):
     """The CLI trains the recipe at full width for 3 steps and evaluates:
     with the fused flags off (mode "off"), with the fused backbone
     ("backbone": 48 patch blocks and 2 class-attention blocks through their
@@ -1998,12 +2081,16 @@ def phase_train(kernel_results, mode, n_train=24, n_test=8, batch=8):
     through its training kernels) or with the fused flags off and
     use_pallas_attention on ("attention": the 48 patch blocks' attention
     through the talking-heads kernels, the class attention, the encoder
-    and the decoder cross-attention through fused_mha)."""
+    and the decoder cross-attention through fused_mha); or the coco17
+    preset as the stock one ("coco17", on a generated mini-COCO of 90
+    classes, evaluated on both refinement stages with the eval losses: one
+    auction launch an eval forward). inspect(CLI result, cfg, output
+    directory, CLI argv) checks more of the run before its directory
+    goes. -> (cfg, the launch counts of the run)."""
     import torch
 
+    from spe_tpu_torch.cli.main import EVALS, parse_config
     from spe_tpu_torch.cli.main import main as cli_main
-    from spe_tpu_torch.cli.main import parse_config
-    from spe_tpu_torch.data import write_mini_voc
     from spe_tpu_torch.models.build import build_model
     from spe_tpu_torch.ops import kernels as K
     from spe_tpu_torch.train.checkpoint import restore_checkpoint
@@ -2013,16 +2100,19 @@ def phase_train(kernel_results, mode, n_train=24, n_test=8, batch=8):
     tag, argv = {"off": ("train", TRAIN_ARGV),
                  "backbone": ("train-fused", FUSED_TRAIN_ARGV),
                  "stock": ("train-stock", STOCK_TRAIN_ARGV),
-                 "attention": ("train-attention", ATTN_TRAIN_ARGV)}[mode]
+                 "attention": ("train-attention", ATTN_TRAIN_ARGV),
+                 "coco17": ("train-coco17", COCO_TRAIN_ARGV)}[mode]
     # the kernels each mode's model runs (each a number of times per
     # forward that _per_forward reads off the built model)
     runs = {"off": (), "backbone": ("pallas_block", "pallas_ca_block"),
             "stock": tuple(_counters()),
-            "attention": tuple(_attention_counters())}[mode]
+            "attention": tuple(_attention_counters()),
+            "coco17": tuple(_counters())}[mode]
     tmp = tempfile.TemporaryDirectory()
-    devkit = write_mini_voc(tmp.name, n_test=n_test, n_trainval=n_train)
+    data = write_data(parse_config(argv), tmp.name, n_train, n_test, seed=0)
     out = f"{tmp.name}/out"
-    argv = argv + ["--test_path", str(devkit), "--output_dir", out]
+    argv = argv + [a for k, v in data.items() for a in (f"--{k}", v)] + [
+        "--output_dir", out]
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     _all_counts(reset=True)
@@ -2055,6 +2145,8 @@ def phase_train(kernel_results, mode, n_train=24, n_test=8, batch=8):
         bad.append(f"the model runs {per} per forward, expected only {runs}")
     # the epoch's eval forwards launch the eval kernels
     forwards = epoch["eval"]["forwards"]
+    if cfg.dataset_eval == "coco":   # the eval losses: an auction a forward
+        want["pallas_auction"] += forwards
     for k, n in per.items():
         want[f"{k}.train_launches"] = want[f"{k}.bwd_launches"] = n * steps
         want[f"{k}.launches"] = n * forwards
@@ -2081,9 +2173,10 @@ def phase_train(kernel_results, mode, n_train=24, n_test=8, batch=8):
     ep = restore_checkpoint(f"{out}/checkpoint.pth", reload)
     same = all(torch.equal(reload.model.state_dict()[k], v)
                for k, v in trained.items())
+    key = EVALS[cfg.dataset_eval]
     print(f"[{tag}] weights moved by up to {moved:.3e}; checkpoint reloads "
           f"(epoch {ep}, optimizer count {reload.optimizer.count}, weights "
-          f"equal {same}); eval mAP {epoch['eval']['mAP']:.4f} (random "
+          f"equal {same}); eval {key} {epoch['eval'][key]:.4f} (random "
           "weights: no accuracy meaning)", flush=True)
     if moved <= 0 or not same or ep != 0 \
             or reload.optimizer.count != state.optimizer.count:
@@ -2124,27 +2217,33 @@ def phase_train(kernel_results, mode, n_train=24, n_test=8, batch=8):
             kernel_results[k]["train_launches"] = counts[f"{k}.train_launches"]
             kernel_results[k]["eval_launches"] = counts[f"{k}.launches"]
             kernel_results[f"{k}_bwd"]["launches"] = counts[f"{k}.bwd_launches"]
+    if inspect is not None:
+        inspect(res, cfg, out, argv)
     tmp.cleanup()
-    return cfg
+    return cfg, counts
 
 
-def phase_same_step(cfg, batch=8):
+def phase_same_step(cfg, label="fused flags off", batch=8):
     """One batch of supervision on the same model outputs through the
-    kernels and through their plain versions; then one step's device-time
-    split."""
+    kernels and through their plain versions (pseudo-boxes, assignments
+    and iterations identical, losses within 1e-6 relative), each CC and
+    auction launch of the kernel run replayed against its plain version
+    (labels and sweep counts; assignments, iteration and bid counts;
+    exactly); then one step's device-time split -> its profile's
+    {kernel name: (ms, launches)}."""
     import torch
 
-    from spe_tpu_torch.data import train_data, write_mini_voc
+    from spe_tpu_torch.data import train_data
     from spe_tpu_torch.models.build import build_model
     from spe_tpu_torch.ops import auction as auc
     from spe_tpu_torch.ops import cam_boxes
     from spe_tpu_torch.ops import connected_components as cc
+    from spe_tpu_torch.ops import kernels as K
     from spe_tpu_torch.train import train_step as ts
     from spe_tpu_torch.train.engine import train_batch
 
     tmp = tempfile.TemporaryDirectory()
-    devkit = write_mini_voc(tmp.name, n_test=1, n_trainval=batch, seed=1)
-    cfg = cfg.replace(test_path=str(devkit))
+    cfg = cfg.replace(**write_data(cfg, tmp.name, batch, 1, seed=1))
     model = build_model(cfg).train()
     _, loader = train_data(cfg)
     b = train_batch(next(iter(loader.epoch(0))), torch.device("cuda"))
@@ -2171,7 +2270,9 @@ def phase_same_step(cfg, batch=8):
             cam_boxes.connected_components, auc.auction_phase = orig
 
     launches = (cc.connected_components.launches, auc.auction_phase.launches)
-    k_total, k_losses, k_seen = tail(plain=False)
+    classes = {}
+    with record_toolkit(classes, "same step"):
+        k_total, k_losses, k_seen = tail(plain=False)
     p_total, p_losses, p_seen = tail(plain=True)
     if (cc.connected_components.launches - launches[0],
             auc.auction_phase.launches - launches[1]) != (1, 1):
@@ -2182,25 +2283,37 @@ def phase_same_step(cfg, batch=8):
                                             p_seen["matching"])
     same["rows"] = bool(torch.equal(k_rows, p_rows))
     same["iters"] = bool(torch.equal(k_stats["iters"], p_stats["iters"]))
+    for (kernel, shape), rec in sorted(classes.items()):
+        spec = _recorded_kernel(kernel)
+        x = rec["inputs"]["same step"]
+        want = spec["plain"](x)
+        same[kernel], err = _exact(spec["call"](K, x), want)
+        print(f"[same-step] {label}: {kernel} {shape}: {spec['note'](x, want)}"
+              f"; outputs equal to the plain version's {same[kernel]} "
+              f"(max_abs_err {err})", flush=True)
+    if {k for k, _ in classes} != set(RECORDED_INPUTS):
+        fail(f"same step: recorded {sorted(classes)}")
     rel = max(abs(float(k_losses[k]) - float(p_losses[k]))
               / max(abs(float(p_losses[k])), 1e-30) for k in p_losses)
-    print(f"[same-step] one batch, same model outputs: kernels vs plain on "
-          f"the card: identical {same}; losses max relative difference "
-          f"{rel:.3e} (limit 1e-6); totals {float(k_total):.6f} / "
+    print(f"[same-step] {label}: one batch, same model outputs: kernels vs "
+          f"plain on the card: identical {same}; losses max relative "
+          f"difference {rel:.3e} (limit 1e-6); totals {float(k_total):.6f} / "
           f"{float(p_total):.6f}; {int(k_seen['cam']['mask'].sum())} "
           f"pseudo-boxes, match_iters {float(k_losses['match_iters']):.0f}",
           flush=True)
     if not all(same.values()) or rel > 1e-6:
         fail("same step: the kernels and their plain versions disagree")
 
-    step_split(model, cfg, b, gates, "fused flags off")
+    rows = step_split(model, cfg, b, gates, label)
     tmp.cleanup()
+    return rows
 
 
 def step_split(model, cfg, b, gates, label, batch=8):
     """One train step's device-time split (CUDA events at the phase
     boundaries: model forward, supervision tail, backward, optimizer) and
-    a profiled step's kernel sums with the device's idle share."""
+    a profiled step's kernel sums with the device's idle share -> the
+    profiled step's {kernel name: (ms, launches)}."""
     import torch
 
     from spe_tpu_torch.train import train_step as ts
@@ -2256,10 +2369,11 @@ def step_split(model, cfg, b, gates, label, batch=8):
               for k, v in split.items())
           + f"; host wall {wall:.1f} ms", flush=True)
     torch.cuda.reset_peak_memory_stats()
-    profile_forward(lambda: ts.train_step(state, b, cfg, gates, gen), batch,
-                    reps=1, what=f"train steps ({label})")
+    rows = profile_forward(lambda: ts.train_step(state, b, cfg, gates, gen),
+                           batch, reps=1, what=f"train steps ({label})")
     print(f"[split] {label}: peak device memory of a step "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB", flush=True)
+    return rows
 
 
 def _same_tree(a, b):
@@ -2539,9 +2653,154 @@ def phase_same_grads(cfg, label, noisy=None, batch=8):
     tmp.cleanup()
 
 
+# the stats of one COCO evaluation (engine.evaluate_coco) and its losses
+COCO_STATS = ("AP", "AP50", "AP75", "APs", "APm", "APl", "AR1", "AR10",
+              "AR100", "ARs", "ARm", "ARl")
+COCO_LOSSES = ("eval_loss_ce", "eval_loss_bbox", "eval_loss_giou",
+               "eval_cardinality_error")
+
+
+def coco_eval(res, cfg, out, argv, batch=8, n_large=64):
+    """The coco17 CLI run's epoch eval: every stage's stats (AP/AR in
+    [0, 1] or -1; the eval losses finite) and eval/stage{s}_000.npz; each
+    stage's eval time (forward, top-100, NMS, eval losses, the host's
+    COCO accumulation; the loader's decode included) on the run's val
+    images and on n_large others, split into a cost an image and a fixed
+    cost an eval; one profiled stage-0 eval of the n_large images (the
+    eval losses' auction at 48 persons a problem, one a batch); then
+    `--eval --resume` of the run's checkpoint reproduces the stats within
+    1e-9."""
+    import torch
+
+    from spe_tpu_torch.cli.main import main as cli_main
+    from spe_tpu_torch.data import eval_data, write_mini_coco
+    from spe_tpu_torch.train import engine
+
+    stats = res["epochs"][0]["eval"]
+    stages = range(cfg.num_refines + 1)
+    bad = []
+    for st in stages:
+        got = {k: stats[f"stage{st}_{k}"] for k in COCO_STATS + COCO_LOSSES}
+        print(f"[coco] stage {st}: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in got.items()) + " (random weights: no "
+            "accuracy meaning)", flush=True)
+        bad += [f"stage {st} {k} {got[k]}" for k in COCO_STATS
+                if not (got[k] == -1.0 or 0.0 <= got[k] <= 1.0)]
+        bad += [f"stage {st} {k} {got[k]}" for k in COCO_LOSSES
+                if not math.isfinite(got[k])]
+        npz = f"{out}/eval/stage{st}_000.npz"
+        if not os.path.exists(npz):
+            bad.append(f"no {npz}")
+    tmp = tempfile.TemporaryDirectory()
+    large = cfg.replace(coco_path=str(write_mini_coco(tmp.name, n_val=n_large,
+                                                      seed=5)))
+    model, dev = res["state"].model, torch.device("cuda")
+    sets = [eval_data(cfg), eval_data(large)]
+    for st in stages:
+        secs = {}
+        for ds, loader in sets:
+            runs = []
+            for _ in range(3):   # the first warms up
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                engine.evaluate_coco(model, loader, ds.raw, cfg, dev,
+                                     refine_stage=st)
+                torch.cuda.synchronize()
+                runs.append(time.perf_counter() - t0)
+            secs[len(ds)] = statistics.mean(runs[1:])
+            print(f"[coco] stage {st}: eval of {len(ds)} images at batch "
+                  f"{batch} (forward, top-100, NMS, eval losses, host COCO "
+                  f"accumulation, JPEG decode): seconds {runs} (first warms "
+                  f"up) = {len(ds) / secs[len(ds)]} images/s", flush=True)
+        (n0, s0), (n1, s1) = sorted(secs.items())
+        per = (s1 - s0) / (n1 - n0)
+        print(f"[coco] stage {st}: {per * 1e3} ms an image and "
+              f"{(s0 - n0 * per) * 1e3} ms an eval (the line through "
+              f"{n0} and {n1} images) = {1 / per} images/s past the fixed "
+              "cost", flush=True)
+    ds, loader = sets[1]
+    rows = profile_forward(
+        lambda: engine.evaluate_coco(model, loader, ds.raw, cfg, dev),
+        batch, reps=1, what=f"COCO evals of {len(ds)} images (stage 0, "
+                            "eval losses included)")
+    auction = {k: v for k, v in rows.items() if "auction_kernel" in k}
+    print(f"[coco] the eval losses' auction (48 persons x 300 queries a "
+          f"problem) in the profiled eval (ms, launches): {auction}",
+          flush=True)
+    if sum(n for _, n in auction.values()) != -(-len(ds) // batch):
+        bad.append(f"the profiled eval launched the auction {auction}")
+    tmp.cleanup()
+
+    again = cli_main(argv + ["--eval", "--resume", f"{out}/checkpoint.pth",
+                             "--output_dir", ""])
+    diff = {k: abs(again[k] - v) for k, v in stats.items()
+            if isinstance(v, float)}
+    worst = max(diff, key=diff.get)
+    print(f"[coco] --eval --resume checkpoint.pth: {len(diff)} stats, "
+          f"largest difference {diff[worst]:.3e} ({worst}; limit 1e-9)",
+          flush=True)
+    if diff[worst] > 1e-9:
+        bad.append(f"the resumed eval's {worst} differs by {diff[worst]:.3e}")
+    if bad:
+        fail("coco eval: " + "; ".join(bad))
+
+
+def phase_coco(kernel_results, batch=8):
+    """The coco17 preset on the card (phase 9): the CLI trains 3 steps at
+    full width through every fused layer and evaluates both stages
+    (phase_train's checks and coco_eval's); one coco17 batch's supervision
+    through the kernels and their plain versions, and its step's split,
+    whose auction must take the device-memory path (240 x 300 rows pass
+    shared memory: auction_kernel<0>); then one batch of 8 through a
+    kernel model and a plain-version model (phase 4's rule) on the aux
+    layer's logits and boxes of both stages (the evaluated layer), the 90
+    CAMs and the first class-attention block's probabilities (91 rows)."""
+    from spe_tpu_torch.data import eval_data, write_mini_coco
+
+    cfg, counts = phase_train(kernel_results, "coco17", inspect=coco_eval)
+    for k in _counters():   # the coco17 run's counts beside the main path's
+        kernel_results[k]["coco17_train_launches"] = counts[
+            f"{k}.train_launches"]
+        kernel_results[f"{k}_bwd"]["coco17_launches"] = counts[
+            f"{k}.bwd_launches"]
+    for k in _supervision_counters():
+        kernel_results[k]["coco17_launches"] = counts[k]
+    rows = phase_same_step(cfg, "coco17 stock preset")
+    auction = {k: v for k, v in rows.items() if "auction_kernel" in k}
+    print(f"[coco] the step's auction (ms, launches): {auction}", flush=True)
+    if [n for k, (_, n) in auction.items()] != [1] or \
+            "auction_kernel<0>" not in next(iter(auction)):
+        fail(f"coco17: the step's auction did not run once on the "
+             f"device-memory path: {auction}")
+
+    tmp = tempfile.TemporaryDirectory()
+    cfg = cfg.replace(coco_path=str(write_mini_coco(tmp.name, n_val=batch,
+                                                    seed=4)))
+    _, loader = eval_data(cfg)
+
+    def pick(got, want, probs_got, probs_want):
+        pairs = {"ca0_probs": (probs_got, probs_want),
+                 "cams_cls": (got["backbone"]["cams_cls"],
+                              want["backbone"]["cams_cls"])}
+        for st in range(cfg.num_refines + 1):
+            g, w = got["stages"][st], want["stages"][st]
+            for k in ("aux_pred_logits", "aux_pred_boxes"):
+                pairs[f"stage{st}.{k}[-1]"] = (g[k][-1], w[k][-1])
+        return pairs
+
+    _, _, pairs, bad = kernel_vs_plain(cfg, next(iter(loader.epoch(0))),
+                                       "coco", pick)
+    if tuple(pairs["cams_cls"][0].shape[:2]) != (batch, 90):
+        bad.append(f"CAMs {tuple(pairs['cams_cls'][0].shape)}")
+    if bad:
+        fail("coco17 vs plain model: " + "; ".join(bad))
+    tmp.cleanup()
+
+
 def profile_forward(fn, batch, reps=2, what="eval forwards (flip)"):
     """Device time by kernel over `reps` eval forwards (torch.profiler),
-    and the device's idle share of the wall time."""
+    and the device's idle share of the wall time -> {kernel name: (ms,
+    launches)} of the device rows."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2581,6 +2840,7 @@ def profile_forward(fn, batch, reps=2, what="eval forwards (flip)"):
           "__global__ (ms/launches): " + ", ".join(
               f"{n} {ms:.3f}/{c}" for n, (ms, c) in
               sorted(mine.items(), key=lambda kv: -kv[1][0])), flush=True)
+    return {e.key: (e.self_device_time_total / 1e3, e.count) for e in rows}
 
 
 # kernels summed over their instantiations in each profile
@@ -2612,14 +2872,15 @@ def main():
     phase_train_kernels(results)
     phase_supervision_kernels(results)
     phase_slice(results)
-    cfg = phase_train(results, "off")
+    cfg, _ = phase_train(results, "off")
     phase_same_step(cfg)
-    fused_cfg = phase_train(results, "backbone")
+    fused_cfg, _ = phase_train(results, "backbone")
     phase_same_grads(fused_cfg, "fused backbone")
-    stock_cfg = phase_train(results, "stock")
+    stock_cfg, _ = phase_train(results, "stock")
     phase_same_grads(stock_cfg, "stock preset", NOISY)
-    attn_cfg = phase_train(results, "attention")
+    attn_cfg, _ = phase_train(results, "attention")
     phase_same_grads(attn_cfg, "standalone attention", NOISY)
+    phase_coco(results)
     jax_mods = sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "jaxlib", "flax", "spe_tpu"))
     if jax_mods:

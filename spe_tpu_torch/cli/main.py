@@ -5,13 +5,23 @@
       --test_path <VOCdevkit> --output_dir <dir>                # train
   python -m spe_tpu_torch.cli.main --preset voc0712 --eval \\
       --dataset_eval voc_voc --test_path <VOCdevkit> [--resume model.pth]
+  python -m spe_tpu_torch.cli.main --preset coco17 --coco_path <COCO2017> \\
+      --output_dir <dir>                                        # train
+  python -m spe_tpu_torch.cli.main --preset coco17 --eval \\
+      --coco_path <COCO2017> [--resume model.pth] [--output_dir <dir>]
 
 Flags are the JAX package's (spe_tpu_torch.config, its copy). The model
 runs on the CUDA card; `--device cpu` runs it on the CPU (the fused layers
 then take their plain PyTorch versions). Without `--resume` the weights are
 initialised from `--seed`. Training runs the epoch loop with its loss
-gates, evaluates on the VOC test split after each epoch and, with
-`--output_dir`, writes checkpoints and log.txt there. On the card the
+gates, evaluates after each epoch and, with `--output_dir`, writes
+checkpoints (checkpoint_best.pth by VOC mAP or COCO AP50) and log.txt
+there. `--dataset_eval voc_voc` evaluates VOC mAP and CorLoc on the VOC
+test split; `--dataset_eval coco` (the coco17 preset) evaluates COCO AP/AR
+of every refinement stage 0..num_refines on val2017 through
+engine.evaluate_coco, with the eval-time losses, and with `--output_dir`
+writes each stage's precision/recall arrays to
+eval/stage{s}_{epoch:03d}.npz. On the card the
 preset trains through every fused layer's kernels, forward and backward:
 the patch and class-attention blocks (`use_fused_block`,
 `use_fused_ca_block`) and the encoder and decoder layers
@@ -20,7 +30,8 @@ layers, whose attentions then run through the standalone attention kernels
 (`use_pallas_attention`, as the preset sets it); `--no_use_pallas_attention`
 makes those plain PyTorch too.
 Not ported (they raise): distributed runs, --frozen_weights, --masks,
---backbone_weights, --log_match_cost, COCO evaluation.
+--backbone_weights, --log_match_cost, --dataset_eval other than voc_voc
+and coco.
 """
 
 from __future__ import annotations
@@ -42,12 +53,17 @@ from spe_tpu_torch.train.optim import AdamW3
 from spe_tpu_torch.train.train_step import Gates, TrainState
 
 
+# the eval datasets ported and the stat each chooses checkpoint_best by
+EVALS = {"voc_voc": "mAP", "coco": "AP50"}
+
+
 def parse_config(argv=None):
     """The JAX package's flags -> SPEConfig; refuses what is not ported."""
     cfg = config_from_args(argv)
-    if cfg.dataset_eval != "voc_voc":
+    if cfg.dataset_eval not in EVALS:
         raise NotImplementedError(
-            f"only --dataset_eval voc_voc is ported, got {cfg.dataset_eval}")
+            f"--dataset_eval {cfg.dataset_eval} is not ported to "
+            f"spe_tpu_torch (it takes {' and '.join(EVALS)})")
     if cfg.eval:
         return cfg
     for flag, on in (("--world_size > 1 (distributed training)",
@@ -61,13 +77,36 @@ def parse_config(argv=None):
     return cfg
 
 
-def _eval(model, loader, ds, cfg, device, output_dir=None):
-    res_dir = (output_dir / "voc_results"
-               if cfg.write_voc_results and output_dir else None)
-    stats = engine.evaluate_voc(model, loader, ds, cfg, device,
-                                with_flip=cfg.eval, results_dir=res_dir)
-    print(f"VOC mAP: {stats['mAP']:.4f}  CorLoc: {stats['CorLoc']:.4f}",
-          flush=True)
+def _eval(model, loader, ds, cfg, device, output_dir=None, epoch=0):
+    """The eval of cfg.dataset_eval. VOC: mAP and CorLoc (flip-TTA under
+    --eval). COCO: every refinement stage's AP/AR and eval losses, stage 0's
+    unprefixed and every stage's as stage{s}_* (spe_tpu/cli/main.py
+    :182-200); `forwards` sums the stages'."""
+    if cfg.dataset_eval == "voc_voc":
+        res_dir = (output_dir / "voc_results"
+                   if cfg.write_voc_results and output_dir else None)
+        stats = engine.evaluate_voc(model, loader, ds, cfg, device,
+                                    with_flip=cfg.eval, results_dir=res_dir)
+        print(f"VOC mAP: {stats['mAP']:.4f}  CorLoc: {stats['CorLoc']:.4f}",
+              flush=True)
+        return stats
+    gt = ds.coco_gt() if hasattr(ds, "coco_gt") else ds.raw
+    eval_dir = None
+    if output_dir:
+        eval_dir = output_dir / "eval"
+        eval_dir.mkdir(parents=True, exist_ok=True)
+    stats, forwards = {}, 0
+    for stage in range(cfg.num_refines + 1):
+        save = eval_dir / f"stage{stage}_{epoch:03d}.npz" if eval_dir else None
+        s = engine.evaluate_coco(model, loader, gt, cfg, device,
+                                 refine_stage=stage, eval_save_path=save)
+        forwards += s.pop("forwards")
+        print(f"COCO eval (stage {stage}):",
+              {k: round(v, 4) for k, v in s.items()}, flush=True)
+        if stage == 0:
+            stats.update(s)
+        stats.update({f"stage{stage}_{k}": v for k, v in s.items()})
+    stats["forwards"] = forwards
     return stats
 
 
@@ -83,11 +122,14 @@ def main(argv=None):
     n_params = sum(p.numel() for p in model.parameters())
     print(f"number of params: {n_params}", flush=True)
     ds_val, loader_val = eval_data(cfg)
+    output_dir = Path(cfg.output_dir) if cfg.output_dir else None
+    if output_dir:
+        output_dir.mkdir(parents=True, exist_ok=True)
     if cfg.eval:
         if cfg.resume:
             model.load_state_dict(load_reference_checkpoint(cfg.resume))
             print(f"loaded {cfg.resume}")
-        return _eval(model, loader_val, ds_val, cfg, device)
+        return _eval(model, loader_val, ds_val, cfg, device, output_dir)
 
     ds_train, loader_train = train_data(cfg)
     state = TrainState(model, AdamW3(model.named_parameters(), cfg,
@@ -97,25 +139,23 @@ def main(argv=None):
         last = restore_checkpoint(cfg.resume, state)
         start_epoch = last + 1 if last >= 0 else start_epoch
         print(f"resumed from {cfg.resume} (epoch {last})", flush=True)
-    output_dir = Path(cfg.output_dir) if cfg.output_dir else None
-    if output_dir:
-        output_dir.mkdir(parents=True, exist_ok=True)
     gen = torch.Generator(device=device).manual_seed(cfg.seed)
 
     print("Start training", flush=True)
-    epochs, best = [], -1.0
+    epochs, best, best_key = [], -1.0, EVALS[cfg.dataset_eval]
     for epoch in range(start_epoch, cfg.epochs):
         gates = Gates.for_epoch(cfg, epoch)
         train_stats = engine.train_one_epoch(state, loader_train, epoch, cfg,
                                              gates, gen, device)
-        eval_stats = _eval(model, loader_val, ds_val, cfg, device, output_dir)
+        eval_stats = _eval(model, loader_val, ds_val, cfg, device, output_dir,
+                           epoch)
         epochs.append({"train": train_stats, "eval": eval_stats})
         if output_dir:
             save_checkpoint(output_dir / "checkpoint.pth", state, epoch, cfg)
             save_checkpoint(output_dir / f"checkpoint{epoch:04d}.pth", state,
                             epoch, cfg)
-            if eval_stats["mAP"] > best:
-                best = eval_stats["mAP"]
+            if eval_stats[best_key] > best:
+                best = eval_stats[best_key]
                 save_checkpoint(output_dir / "checkpoint_best.pth", state,
                                 epoch, cfg)
             log = {**{f"train_{k}": v for k, v in train_stats.items()

@@ -2,9 +2,12 @@
 code (spe_tpu/data: build, transforms, loader, voc, coco, voc_eval,
 mini_data, synthetic), on the PIL decode path, set up for the entry points.
 
-  train_data(cfg)      -> (train dataset, shuffled loader) for training
-  eval_data(cfg)       -> (eval dataset, loader in order) for evaluation
-  write_mini_voc(root) -> a small generated VOCdevkit for `--test_path`
+  train_data(cfg)       -> (train dataset, shuffled loader) for training
+  eval_data(cfg)        -> (eval dataset, loader in order, with padded GT
+                           arrays of cfg.max_gt_boxes) for evaluation
+  write_mini_voc(root)  -> a small generated VOCdevkit for `--test_path`
+  write_mini_coco(root) -> a small generated COCO2017 layout for
+                           `--coco_path`
 """
 
 from __future__ import annotations
@@ -12,7 +15,7 @@ from __future__ import annotations
 from spe_tpu_torch.config import SPEConfig
 from spe_tpu_torch.data.build import build_dataset
 from spe_tpu_torch.data.loader import DataLoader
-from spe_tpu_torch.data.mini_data import make_mini_voc
+from spe_tpu_torch.data.mini_data import make_mini_coco, make_mini_voc
 
 
 def _loader(cfg: SPEConfig, dataset, train: bool):
@@ -21,6 +24,7 @@ def _loader(cfg: SPEConfig, dataset, train: bool):
                       shuffle=train, drop_last=train, seed=cfg.seed,
                       use_native=False, train=train,
                       num_threads=cfg.num_workers,
+                      max_gt=0 if train else cfg.max_gt_boxes,
                       bucket_quantum=0 if cfg.fixed_size else cfg.bucket_quantum)
 
 
@@ -32,7 +36,10 @@ def train_data(cfg: SPEConfig):
 
 
 def eval_data(cfg: SPEConfig):
-    """The eval split of cfg.dataset_eval and its loader, in order."""
+    """The eval split of cfg.dataset_eval and its loader, in order; its
+    batches carry the GT arrays (gt_boxes, gt_labels, gt_mask) of up to
+    cfg.max_gt_boxes boxes an image for the eval-time losses, as
+    spe_tpu/cli/main.py:87-94 builds its eval loader."""
     dataset = build_dataset("val", cfg.dataset_eval, cfg)
     return dataset, _loader(cfg, dataset, train=False)
 
@@ -45,3 +52,13 @@ def write_mini_voc(root, n_test: int = 8, img_size: int = 128, seed: int = 0,
     devkit, _ = make_mini_voc(root, n_trainval=n_trainval, n_test=n_test,
                               img_size=img_size, seed=seed)
     return devkit
+
+
+def write_mini_coco(root, n_train: int = 0, n_val: int = 8,
+                    img_size: int = 128, num_classes: int = 90, seed: int = 1):
+    """Write a COCO2017 layout of generated images (random shapes on noise,
+    category ids drawn from 1..num_classes, COCO's 90 by default) under
+    root: train2017/ and val2017/ with their instances jsons -> its path."""
+    return make_mini_coco(root, n_train=n_train, n_val=n_val,
+                          img_size=img_size, num_classes=num_classes,
+                          seed=seed)

@@ -25,6 +25,15 @@ from spe_tpu_torch.data.synthetic import _PALETTE
 from spe_tpu_torch.data.voc import VOC_CLASSES
 
 
+def _class_color(c: int) -> np.ndarray:
+    """The rectangle colour of class index c: the synthetic palette's for
+    the first 20 classes, one drawn from a generator seeded by c past it
+    (COCO's 90)."""
+    if c < len(_PALETTE):
+        return _PALETTE[c]
+    return np.random.default_rng(c).integers(0, 256, 3).astype(np.uint8)
+
+
 def _make_scene(rng, img_size: int, num_classes: int, max_objects: int = 3,
                 min_frac: float = 0.25, max_frac: float = 0.5,
                 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -44,7 +53,7 @@ def _make_scene(rng, img_size: int, num_classes: int, max_objects: int = 3,
         x0 = int(rng.integers(0, s - w))
         y0 = int(rng.integers(0, s - h))
         c = int(rng.integers(0, num_classes))
-        img[y0:y0 + h, x0:x0 + w] = _PALETTE[c]
+        img[y0:y0 + h, x0:x0 + w] = _class_color(c)
         boxes.append([x0, y0, x0 + w, y0 + h])
         labels.append(c + 1)
     return img, np.array(boxes, np.float32), np.array(labels, np.int64)
@@ -145,7 +154,8 @@ def make_mini_coco(root, n_train: int = 32, n_val: int = 16,
                    img_size: int = 128, num_classes: int = 20,
                    seed: int = 1) -> Path:
     """Write a mini COCO2017 layout (train2017/val2017 + instances jsons).
-    Category ids run 1..num_classes (a subset of the real 90)."""
+    Category ids run 1..num_classes (a subset of the real 90, or all of
+    them)."""
     root = Path(root) / "coco"
     rng = np.random.default_rng(seed)
     for split, n in (("train2017", n_train), ("val2017", n_val)):

@@ -1,9 +1,18 @@
-"""Train and VOC evaluation loops (port of spe_tpu/train/engine.py:
-`train_one_epoch` :36-76, `_eval_outputs`, `_flip_merge`, `evaluate_voc`;
-reference engine.py:93-174 and engine_loc.py `evaluate_det_voc` :126-201).
+"""Train and evaluation loops (port of spe_tpu/train/engine.py:
+`train_one_epoch` :36-76, `_eval_outputs`, `evaluate_coco` :97-151,
+`_flip_merge`, `evaluate_voc`; reference engine.py:93-174, engine.py
+`evaluate_refinements` :616-724 and engine_loc.py `evaluate_det_voc`
+:126-201).
 
 train_one_epoch: every batch through train_step, the losses logged, the
 run stopped on a non-finite loss or a skipped step.
+
+evaluate_coco: one refinement stage's second-to-last decoder layer (the
+aux layer; the reference's eval head), top-100, class-wise NMS, then the
+numpy COCO evaluator (spe_tpu_torch.data.coco_eval) on the host; where the
+batches carry GT arrays, the eval-time losses of that layer against them
+(one auction launch a batch on the card). The JAX package's merge of
+detections across processes comes with distributed runs, not ported yet.
 
 evaluate_voc: stage-0 final decoder layer, optional horizontal-flip TTA
 batched into one forward and merged by `_flip_merge`, top-k, class-wise
@@ -20,9 +29,11 @@ import numpy as np
 import torch
 
 from spe_tpu_torch.config import SPEConfig
+from spe_tpu_torch.data.coco_eval import CocoEvaluator
 from spe_tpu_torch.data.voc_eval import corloc, voc_eval_all
 from spe_tpu_torch.ops.nms import batched_nms
 from spe_tpu_torch.ops.postprocess import postprocess_topk
+from spe_tpu_torch.train.criterion import _layer_losses, match
 from spe_tpu_torch.train.train_step import train_step
 
 # the terms train_one_epoch logs besides the loss (JAX engine.py:60-72)
@@ -84,6 +95,71 @@ def _eval_outputs(model, batch, *, refine_stage: int, use_aux_layer: bool,
                 "pred_boxes": st["aux_pred_boxes"][layer]}, out
     return {"pred_logits": st["pred_logits"],
             "pred_boxes": st["pred_boxes"]}, out
+
+
+def eval_losses(outs, batch, cfg: SPEConfig, device):
+    """The eval-time criterion of the evaluated layer against the batch's
+    GT arrays (reference engine.py:644-660, losses labels/boxes/
+    cardinality): the assignment, then the layer's losses without
+    refinement weights -> {loss_ce, loss_bbox, loss_giou,
+    cardinality_error}."""
+    targets = {"boxes": torch.as_tensor(batch["gt_boxes"], device=device),
+               "labels": torch.as_tensor(batch["gt_labels"], device=device),
+               "mask": torch.as_tensor(batch["gt_mask"], device=device)}
+    rows, _ = match(outs["pred_logits"], outs["pred_boxes"], targets,
+                    method=cfg.assignment, cost_class=cfg.set_cost_class,
+                    cost_bbox=cfg.set_cost_bbox, cost_giou=cfg.set_cost_giou)
+    nb = targets["mask"].float().sum().clamp(min=1.0)
+    return _layer_losses(outs["pred_logits"], outs["pred_boxes"], targets,
+                         rows, nb, focal_alpha=cfg.focal_alpha,
+                         focal_gamma=cfg.focal_gamma, refine_weights=False)
+
+
+@torch.no_grad()
+def evaluate_coco(model, loader, gt_coco: Dict, cfg: SPEConfig, device,
+                  refine_stage: int = 0, keep: int = 100,
+                  nms_iou: float = 0.5, use_aux_layer: bool = True,
+                  eval_save_path=None) -> Dict[str, float]:
+    """COCO AP/AR of one refinement stage over the loader's images against
+    gt_coco (a COCO-format dict). use_aux_layer=True evaluates the
+    second-to-last decoder layer, as the reference's evaluate_refinements
+    (engine.py:642); False the final layer (its plain `evaluate`,
+    engine.py:447). One forward a batch serves the detections and, where
+    the batch carries gt_boxes/gt_labels/gt_mask, the eval-time losses,
+    averaged over the batches as `eval_*`. With eval_save_path the
+    accumulated precision/recall arrays go there (.npz). Also returns the
+    number of model forwards run (`forwards`)."""
+    model.eval()
+    evaluator = CocoEvaluator(gt_coco)
+    sums, n_loss, forwards = {}, 0, 0
+    for batch in loader.epoch(0):
+        images = torch.as_tensor(batch["images"], device=device)
+        pad = torch.as_tensor(batch["pad_mask"], device=device)
+        outs, _ = _eval_outputs(model, {"images": images, "pad_mask": pad},
+                                refine_stage=refine_stage,
+                                use_aux_layer=use_aux_layer)
+        forwards += 1
+        res = postprocess_topk(
+            outs["pred_logits"], outs["pred_boxes"],
+            torch.as_tensor(batch["orig_size"], device=device).float(),
+            keep_queries=keep)
+        keep_mask = batched_nms(res["boxes"], res["scores"], res["labels"],
+                                torch.ones_like(res["scores"],
+                                                dtype=torch.bool), nms_iou)
+        if "gt_boxes" in batch:
+            for k, v in eval_losses(outs, batch, cfg, device).items():
+                sums[k] = sums.get(k, 0.0) + float(v)
+            n_loss += 1
+        evaluator.update_from_arrays(
+            batch["image_id"], res["boxes"].cpu().numpy(),
+            res["scores"].cpu().numpy(), res["labels"].cpu().numpy(),
+            keep_mask.cpu().numpy())
+    stats = evaluator.summarize()
+    stats.update({f"eval_{k}": v / n_loss for k, v in sums.items()})
+    if eval_save_path is not None:
+        evaluator.save_eval(eval_save_path)
+    stats["forwards"] = forwards
+    return stats
 
 
 def _flip_merge(out_n, out_f, bb_n=None, bb_f=None):

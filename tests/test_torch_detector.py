@@ -145,6 +145,7 @@ def test_port_never_imports_jax():
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('spe_tpu', 'jax', 'jaxlib', 'flax'))\n"
             "assert len(mods) >= 30, mods\n"
+            "assert 'spe_tpu_torch.data.coco_eval' in mods, mods\n"
             "assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, timeout=300)

@@ -9,7 +9,7 @@ builds what the card refuses."""
 
 import pytest
 
-from spe_tpu_torch.config import voc0712_preset
+from spe_tpu_torch.config import coco17_preset, voc0712_preset
 from spe_tpu_torch.models.build import (build_model, kernel_domain_errors,
                                         training_patches)
 from spe_tpu_torch.models.cait import BACKBONE_REGISTRY
@@ -42,6 +42,12 @@ def test_preset_flags_against_kernel_domains(name):
     else:
         assert errors and all(("attention" in e or "ln_backward" in e or
                                "talking heads" in e) for e in errors), name
+
+
+def test_coco17_preset_within_kernel_domains():
+    """The coco17 preset (XXS36 at a fixed 512^2, 90 classes) lies inside
+    every kernel's shapes: build_model takes it on the card."""
+    assert kernel_domain_errors(coco17_preset()) == []
 
 
 @pytest.mark.parametrize("flag", ["use_fused_block", "use_fused_layers",
