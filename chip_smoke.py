@@ -230,7 +230,9 @@ def phase_build():
     t0 = time.perf_counter()
     kernels.lib()
     print(f"[build] {kernels.library_path()} built and loaded in "
-          f"{time.perf_counter() - t0:.1f}s", flush=True)
+          f"{time.perf_counter() - t0:.1f}s; nvcc a source (s): "
+          f"{ {n: round(t, 1) for n, t in kernels.build.seconds.items()} }",
+          flush=True)
     tensor_core_check(kernels)
 
 
@@ -402,7 +404,8 @@ def _ms(t):
 
 def phase_kernels():
     """Each kernel against its plain version at the recipe shapes (B=2);
-    returns {name: JSON entry}. The decoder runs both of its parameter sets
+    returns ({name: JSON entry}, the toolkit's recorded classes). The
+    decoder runs both of its parameter sets
     (layer 0 with ca_qpos_proj, later layers without); its entry carries the
     larger error and the later layers' time (5 of the 6 layers)."""
     from spe_tpu_torch.ops.kernel_checks import (SOURCE, ULPS, compare,
@@ -431,8 +434,7 @@ def phase_kernels():
     ok &= attention_kernels(results)
     if not ok:
         fail("a kernel disagrees with its plain version")
-    phase_toolkit(results)
-    return results
+    return results, phase_toolkit(results)
 
 
 # the standalone attention kernels' entry in the kernels line carries the
@@ -1111,7 +1113,8 @@ def ln_panel_equal(x, weight, bias, eps):
                                              ln=(weight, bias, eps))))
 
 
-def small_kernels(classes, results):
+def small_kernels(classes, results, per_class=None, runs=RECORDED_RUNS,
+                  reps=20):
     """The SMALL wrappers' recorded classes (record_toolkit): each first
     call replayed on copies of its inputs, the kernel twice and its plain
     version (kernels.<name>_reference) once, every output within
@@ -1122,8 +1125,10 @@ def small_kernels(classes, results):
     the sums over each recorded run (launches x time), and the reduce_*
     launches beside those of the two-pass design (two_pass_reduces of each
     SMALL_ENTRIES call). The SMALL_ENTRIES wrappers' plain versions
-    are timed too, and their stock-step sums go into `results`. Fails on
-    a mismatch."""
+    are timed too, and their stock-step sums go into `results`; with
+    per_class (a list), every class's plain version is timed and its
+    numbers appended there. The reduce_* lines cover `runs`; every timer
+    takes `reps` calls. Fails on a mismatch."""
     import torch
 
     from spe_tpu_torch.ops import kernels as K
@@ -1149,15 +1154,18 @@ def small_kernels(classes, results):
             panel = ln_panel_equal(*args)
             passed &= panel
             panel_note = f", bf16 out == ln_linear's panel {panel}"
-        ms = graph_ms(lambda: fn(*args, **kw))
+        ms = graph_ms(lambda: fn(*args, **kw), reps)
         plain_ms = None
-        if name in SMALL_ENTRIES:
+        if name in SMALL_ENTRIES or per_class is not None:
             timer = cuda_ms if name in PLAIN_HOST else graph_ms
-            plain_ms = timer(lambda: plain(*args, **kw))
-        cold = cold_ms(lambda: fn(*args, **kw)) if name in COLD else None
+            plain_ms = timer(lambda: plain(*args, **kw), reps=min(reps, 10)
+                             if name in PLAIN_HOST else reps)
+        cold = cold_ms(lambda: fn(*args, **kw), reps) if name in COLD \
+            else None
         lib = _small_library(name, args, kw)
-        lib_ms = graph_ms(lib) if lib is not None else None
-        lib_cold = cold_ms(lib) if lib is not None and name in COLD else None
+        lib_ms = graph_ms(lib, reps) if lib is not None else None
+        lib_cold = cold_ms(lib, reps) if lib is not None and name in COLD \
+            else None
         bound = rec["bytes"] / HBM_BYTES_PER_MS
         if ms is None:
             fail(f"{name} {cls}: not captured in a CUDA graph")
@@ -1175,6 +1183,12 @@ def small_kernels(classes, results):
         if not passed:
             bad.append(f"{name} {shapes}")
         err = max((e for e, _ in errs), default=0.0)
+        if per_class is not None:
+            per_class.append({"name": name, "shapes": shapes,
+                              "class": repr(cls), "launches": rec["launches"],
+                              "ms": ms, "plain_ms": plain_ms,
+                              "bound_ms": bound, "library_ms": lib_ms,
+                              "max_abs_err": err})
         for run, n in rec["launches"].items():
             if name == "reduce_sum":
                 tot = split.setdefault((reduce_kernel(args[0]), run),
@@ -1218,7 +1232,7 @@ def small_kernels(classes, results):
     for (kernel, run), (n, ms, bound) in sorted(split.items()):
         print(f"[small] {kernel}: one {run}: {n} launches, kernel {ms:.3f} "
               f"ms, bound {bound:.4f} ms", flush=True)
-    for run in RECORDED_RUNS:
+    for run in runs:
         n = sums.get(("reduce_sum", run), [0])[0]
         rows = sum(e["launches"].get(run, 0) for (k, _), e in classes.items()
                    if k == "th_bwd_rows_kernel")
@@ -1236,6 +1250,46 @@ def small_kernels(classes, results):
              f"attention step launched reduce_*: {bad}")
 
 
+def replay_class(K, kc, kernel, cls, rec, gen, reps=20):
+    """One recorded WRAPPER class replayed on fresh inputs of its layout
+    against its plain version, twice, with its CUDA-graph time (`reps`
+    calls a graph) and, at the full 20, its time from the host, plain
+    time (3 calls, else 1), bound and library time; printed -> (its
+    numbers, passed)."""
+    import torch
+
+    case = _replay(kernel, rec["call"], gen)
+    errs, same, finite, fn, plain, bound, lib, extra_note = \
+        _toolkit_case(K, kc, kernel, case)
+    passed = finite and same and all(e <= t for e, t in errs.values())
+    host_ms = cuda_ms(fn) if reps >= 20 else None
+    ms = graph_ms(fn, reps)
+    # the plain versions make their dropout keys on the host: timed from
+    # the host
+    plain_ms = cuda_ms(plain, reps=3, warmup=1) if reps >= 20 else \
+        cuda_ms(plain, reps=1, warmup=0)
+    lib_ms = graph_ms(lib, reps) if lib is not None else None
+    if ms is None:
+        fail(f"{kernel} {cls}: not captured in a CUDA graph")
+    lib_note = (f"library {lib_ms:.4f} ms (kernel / library "
+                f"{ms / lib_ms:.2f})" if lib_ms is not None else
+                "no single PyTorch call computes it")
+    print(f"[toolkit] {kernel} {cls}: launches {rec['launches']}; "
+          f"max_abs_err/tol "
+          f"{ {n: f'{v[0]:.3e}/{v[1]:.3e}' for n, v in errs.items()} } "
+          f"identical {same} finite {finite} -> "
+          f"{'ok' if passed else 'MISMATCH'}; on the device (CUDA graph): "
+          f"kernel {ms:.4f} ms, bound {bound[0]:.5f} ms ({bound[1]}), "
+          f"{lib_note}; one call from the host: kernel {_ms(host_ms)}, "
+          f"plain {plain_ms:.4f} ms{extra_note}", flush=True)
+    del case, fn, plain, lib
+    torch.cuda.empty_cache()
+    return ({"class": repr(cls), "launches": rec["launches"], "ms": ms,
+             "host_ms": host_ms, "plain_ms": plain_ms, "bound_ms": bound[0],
+             "bound_by": bound[1], "library_ms": lib_ms,
+             "max_abs_err": {n: v[0] for n, v in errs.items()}}, passed)
+
+
 def phase_toolkit(results, extra=()):
     """The WRAPPER kernels (gemm_kernel, attn_kernel, linear_kernel and the
     three row kernels) at every class the main path gives them
@@ -1249,7 +1303,8 @@ def phase_toolkit(results, extra=()):
     where it computes the same function; torch.addmm for ln_linear). Adds
     the kernels' entries to `results`, the per-class numbers under
     "classes" and the per-run sums (SUM_RUNS) at the top (the main run's)
-    and under "per_run". Then the SMALL wrappers' classes (small_kernels)."""
+    and under "per_run". Then the SMALL wrappers' classes (small_kernels).
+    -> the recorded classes."""
     import torch
 
     from spe_tpu_torch.ops import kernels as K
@@ -1271,42 +1326,13 @@ def phase_toolkit(results, extra=()):
             kv[0][0], -sum(kv[1]["launches"].values()))):
         if kernel in SMALL or kernel in RECORDED_INPUTS:
             continue
-        case = _replay(kernel, rec["call"], gen)
-        errs, same, finite, fn, plain, bound, lib, extra_note = \
-            _toolkit_case(K, kc, kernel, case)
-        passed = finite and same and all(e <= t for e, t in errs.values())
-        host_ms = cuda_ms(fn)
-        ms = graph_ms(fn)
-        # the plain versions make their dropout keys on the host: timed
-        # from the host
-        plain_ms = cuda_ms(plain, reps=3, warmup=1)
-        lib_ms = graph_ms(lib) if lib is not None else None
-        if ms is None:
-            fail(f"{kernel} {cls}: not captured in a CUDA graph")
-        if lib_ms and kernel in ratios:
-            ratios[kernel].append(ms / lib_ms)
+        c, passed = replay_class(K, kc, kernel, cls, rec, gen)
+        if c["library_ms"] and kernel in ratios:
+            ratios[kernel].append(c["ms"] / c["library_ms"])
         ok &= passed
         e = entries[kernel]
-        e["max_abs_err"] = max(e["max_abs_err"], *(v[0] for v in errs.values()))
-        e["classes"].append({
-            "class": repr(cls), "launches": rec["launches"], "ms": ms,
-            "host_ms": host_ms,
-            "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
-            "library_ms": lib_ms, "max_abs_err": {n: v[0] for n, v in
-                                                  errs.items()}})
-        lib_note = (f"library {lib_ms:.4f} ms (kernel / library "
-                    f"{ms / lib_ms:.2f})" if lib_ms is not None else
-                    "no single PyTorch call computes it")
-        print(f"[toolkit] {kernel} {cls}: launches {rec['launches']}; "
-              f"max_abs_err/tol "
-              f"{ {n: f'{v[0]:.3e}/{v[1]:.3e}' for n, v in errs.items()} } "
-              f"identical {same} finite {finite} -> "
-              f"{'ok' if passed else 'MISMATCH'}; on the device (CUDA graph): "
-              f"kernel {ms:.4f} ms, bound {bound[0]:.5f} ms ({bound[1]}), "
-              f"{lib_note}; one call from the host: kernel {host_ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms{extra_note}", flush=True)
-        del case, fn, plain, lib
-        torch.cuda.empty_cache()
+        e["max_abs_err"] = max(e["max_abs_err"], *c["max_abs_err"].values())
+        e["classes"].append(c)
     for name, e in entries.items():
         # per-run sums over the classes, launches x time
         e["per_run"] = {}
@@ -1347,15 +1373,16 @@ def phase_toolkit(results, extra=()):
         fail("a toolkit kernel disagrees with its plain version")
     small_kernels(classes, results)
     recorded_inputs(classes, results)
+    return classes
 
 
-def recorded_inputs(classes, results):
+def recorded_inputs(classes, results, require=True):
     """The inputs each recorded run gave each RECORDED_INPUTS kernel
     (record_toolkit): its outputs against its plain version, exactly (CC:
     labels and sweep counts; the auction: assignments, iteration and bid
     counts); the kernel's device time (CUDA graph) and its bound; under the
-    "recorded" key of the kernel's entry. Fails on a mismatch or on a
-    kernel with no launch recorded."""
+    "recorded" key of the kernel's entry. Fails on a mismatch or (with
+    require) on a kernel with no launch recorded."""
     from spe_tpu_torch.ops import kernels as K
 
     for kernel in RECORDED_INPUTS:
@@ -1379,9 +1406,10 @@ def recorded_inputs(classes, results):
                          "from the plain version")
                 out[run] = {"shape": list(shape), "ms": ms, "bound_ms": bound,
                             f"max_{spec['count']}": int(want[1].max())}
-        if not out:
+        if not out and require:
             fail(f"no {kernel} launch recorded")
-        results.setdefault(spec["entry"], {})["recorded"] = out
+        if out:
+            results.setdefault(spec["entry"], {})["recorded"] = out
 
 
 def phase_against(parent_root):
@@ -1825,9 +1853,11 @@ def _first_ca_probs(model, store):
         lambda mod, args, out: store.__setitem__("probs", out[1]))
 
 
-def kernel_vs_plain(cfg, b, tag, pick):
+def kernel_vs_plain(cfg, b, tag, pick, weights=None):
     """One batch b through a kernel model and a plain-version model of cfg
-    with the same weights -> (model, plain, pairs, failures). The stock
+    with the same weights -> (model, plain, pairs, failures); weights(m)
+    loads more into each model after its init (a pretrained backbone;
+    LayerScale then set to 1 over it, as below). The stock
     LayerScale (1e-5) would let every block's branches round away in bf16
     on both sides, so this pair is built with LayerScale 1; the last bbox
     layer is zero at init (conditional_detr.py:63-66), which leaves the
@@ -1846,6 +1876,13 @@ def kernel_vs_plain(cfg, b, tag, pick):
     plain = build_model(cfg.replace(use_fused_block=False,
                                     use_fused_layers=False,
                                     use_pallas_attention=False))
+    if weights is not None:   # then LayerScale 1 again, over the loaded one
+        with torch.no_grad():
+            for m in (model, plain):
+                weights(m)
+                for n, p in m.named_parameters():
+                    if n.endswith(("gamma_1", "gamma_2")):
+                        p.fill_(1.0)
     images = torch.as_tensor(b["images"], device="cuda")
     pad = torch.as_tensor(b["pad_mask"], device="cuda")
     gen = torch.Generator().manual_seed(1)
@@ -2480,8 +2517,13 @@ def _hold(gf, gp, g32, noisy):
                 worst = (n, err / top)
             continue
         if noisy is None or not noisy.match(n):
+            # with an f32 run, where each bf16 side lies from it (a reading,
+            # not a rule)
+            f32 = "" if g32 is None or g32.get(n) is None else (
+                f"; against f32: fused {float((g - g32[n]).abs().max()):.3e}"
+                f", plain {float((w - g32[n]).abs().max()):.3e}")
             bad.append(f"{n}: err {err:.3e} > {tol:.3e} (max|plain| "
-                       f"{top:.3e})")
+                       f"{top:.3e}){f32}")
             continue
         r = g32[n]
         plain_f32 = float((w - r).abs().max())
@@ -2540,7 +2582,7 @@ def _report(label, pair, lf, lp, n_grads, held, noisy):
     return bad
 
 
-def phase_same_grads(cfg, label, noisy=None, batch=8):
+def phase_same_grads(cfg, label, noisy=None, batch=8, weights=None):
     """One batch at dropout 0 through the same weights with the fused
     layers of `cfg` on and every fused flag off (bf16 both). The fused run
     replays the plain run's supervision (its pseudo-boxes, refinement
@@ -2557,7 +2599,9 @@ def phase_same_grads(cfg, label, noisy=None, batch=8):
     attention kernels, one more run takes their plain versions in their
     place (_plain_attention); the kernels are held to it, and it to the
     plain model, by the same rule: whether a miss comes from the kernels
-    or from their math. Then the fused configuration's step split."""
+    or from their math. weights(m) loads more into every model after its
+    init (a pretrained backbone). Then the fused configuration's step
+    split."""
     import torch
 
     from spe_tpu_torch.data import train_data, write_mini_voc
@@ -2568,7 +2612,7 @@ def phase_same_grads(cfg, label, noisy=None, batch=8):
 
     tmp = tempfile.TemporaryDirectory()
     devkit = write_mini_voc(tmp.name, n_test=1, n_trainval=batch, seed=2)
-    cfg = cfg.replace(test_path=str(devkit), dropout=0.0,
+    cfg = cfg.replace(test_path=str(devkit), batch_size=batch, dropout=0.0,
                       backbone_drop_rate=0.0, drop_attn_rate=0.0,
                       drop_path_rate=0.0)
     plain_cfg = cfg.replace(use_fused_block=False, use_fused_layers=False,
@@ -2580,17 +2624,25 @@ def phase_same_grads(cfg, label, noisy=None, batch=8):
     def gen():
         return torch.Generator("cuda").manual_seed(3)
 
+    def build(run_cfg):
+        model = build_model(run_cfg).train()
+        if weights is not None:
+            weights(model)
+        return model
+
     runs, sup = {}, None
+    # the fused run's model, built first: what it launches decides the runs
+    fused_model = build(cfg)
     order = [("plain", plain_cfg)]
     if noisy is not None:
         order.append(("f32", plain_cfg.replace(compute_dtype="float32")))
-    attention = any(_per_forward(build_model(cfg))[k]
+    attention = any(_per_forward(fused_model)[k]
                     for k in _attention_counters())
     if attention:
         order.append(("kernel math", cfg))
     order.append(("fused", cfg))
     for run, run_cfg in order:
-        model = build_model(run_cfg).train()
+        model = fused_model if run == "fused" else build(run_cfg)
         if run == "fused":   # what the fused run would have used on its own
             own = ts.compute_losses(model, b, run_cfg, gates, gen())[2]
             own = {"cam": _same_tree(own["cam"], sup["cam"]),
@@ -2610,9 +2662,7 @@ def phase_same_grads(cfg, label, noisy=None, batch=8):
                                  if p.grad is not None else None
                                  for n, p in model.named_parameters()}),
                      _all_counts())
-        if run == "fused":
-            fused_model = model
-        else:
+        if run != "fused":
             del model, total, losses
             torch.cuda.empty_cache()
     (lf, gf, cf), (lp, gp, _) = runs["fused"], runs["plain"]
@@ -2649,7 +2699,7 @@ def phase_same_grads(cfg, label, noisy=None, batch=8):
              "plain ones")
     del runs, gf, gp, g32
     fused_model.zero_grad(set_to_none=True)
-    step_split(fused_model, cfg, b, gates, label)
+    step_split(fused_model, cfg, b, gates, label, batch)
     tmp.cleanup()
 
 
@@ -2797,6 +2847,379 @@ def phase_coco(kernel_results, batch=8):
     tmp.cleanup()
 
 
+# phase 10: the wider registered two-branch backbones through the kernels
+# at full width and depth under the voc0712 preset at 512^2 (1024
+# patches): XS24 (6 heads, dt = 36), S24 (8 heads, dt = 48; S36 has its
+# shapes) started from a checkpoint in timm's layout, and M48 (16 heads,
+# dt = 96, a 448 source grid; M36 has its shapes but for its 384 grid)
+BACKBONES = (("XS24", "TSCAM_cait_XS24_Two_Branch", False),
+             ("S24", "TSCAM_cait_S24_Two_Branch", True),
+             ("M48", "TSCAM_cait_M48_Two_Branch", False))
+# the timed steps' batch: the recipe's 8, else the largest of these that fits
+BACKBONE_BATCHES = (8, 4, 2)
+# multi-scale buckets of max_size 640 at the 128 quantum: the JAX bench's
+# 512 x 640 (1280 patches) and 640 x 640 (1600)
+MULTISCALE_BUCKETS = ((512, 640), (640, 640))
+# calls a CUDA graph of phase 10's replays (phase 3's: 20)
+REPLAY_REPS = 5
+# the source and the TPU code of each SMALL wrapper's kernel
+SMALL_SOURCES = {
+    "layernorm": ("rowops.cu", "spe_tpu/ops/pallas_block.py:63"),
+    "colsum": ("rowops.cu", "spe_tpu/ops/pallas_block.py:143-148"),
+    "th_mix": ("rowops.cu", "spe_tpu/ops/pallas_block.py:143-148"),
+    "reduce_sum": ("grad.cu", "spe_tpu/ops/pallas_block.py:513"),
+    "colsum_f32": ("grad.cu", "spe_tpu/ops/pallas_block.py:336"),
+    "ln_backward": ("grad.cu", "spe_tpu/ops/pallas_block.py:74"),
+    "branch_backward": ("grad.cu", "spe_tpu/ops/pallas_block.py:332"),
+    "th_fold": ("th_train.cu", "spe_tpu/ops/pallas_block.py:136"),
+    "th_dq": ("th_train.cu", "spe_tpu/ops/pallas_block.py:432"),
+    "softmax_backward": ("th_train.cu", "spe_tpu/ops/pallas_ca_block.py:166")}
+
+
+def write_timm_checkpoint(cfg, path, seed):
+    """A pretrained CaiT checkpoint of cfg.backbone in timm's layout, from
+    seeded random weights (the port's init of the backbone, its
+    LayerScale included): {'model': {'module.' + name: tensor}} with the blocks,
+    the class-attention blocks, the patch embedding, pos_embed on the
+    backbone's source grid, cls_token, norm and a 1000-class `head`; no
+    det branch, norm_det, extra_cls_token or detector heads (the loader
+    clones the det branch from the tail blocks)."""
+    import torch
+
+    from spe_tpu_torch.models.build import build_model
+
+    body = build_model(cfg.replace(seed=seed), device="cpu").backbone[0].body
+    own = ("blocks_det.", "norm_det.", "extra_cls_token", "cls_head")
+    sd = {k: v for k, v in body.state_dict().items() if not k.startswith(own)}
+    gen = torch.Generator().manual_seed(seed)
+    sd["head.weight"] = 0.02 * torch.randn((1000, body.cfg.embed_dim),
+                                           generator=gen)
+    sd["head.bias"] = torch.zeros(1000)
+    torch.save({"model": {f"module.{k}": v for k, v in sd.items()}}, path)
+    print(f"[backbones] wrote {path}: {len(sd)} entries in timm's layout "
+          f"({sum(v.numel() for v in sd.values())} values)", flush=True)
+
+
+def _flipped(b):
+    """An eval batch and its left-right flip, as infer_voc's flip-TTA runs
+    them: one forward of 2 x batch images."""
+    import numpy as np
+
+    return {k: np.concatenate([b[k], b[k][:, :, ::-1]])
+            for k in ("images", "pad_mask")}
+
+
+def _stage_pairs(got, want, probs_got, probs_want):
+    """phase 4's outputs: stage 0's logits and boxes, the first class-
+    attention block's probabilities, the CAMs, the image logits and every
+    output of stage 1."""
+    pairs = {"pred_logits": (got["stages"][0]["pred_logits"],
+                             want["stages"][0]["pred_logits"]),
+             "pred_boxes": (got["stages"][0]["pred_boxes"],
+                            want["stages"][0]["pred_boxes"]),
+             "ca0_probs": (probs_got, probs_want),
+             "cams_cls": (got["backbone"]["cams_cls"],
+                          want["backbone"]["cams_cls"]),
+             "x_logits": (got["backbone"]["x_logits"],
+                          want["backbone"]["x_logits"])}
+    for k, v in got["stages"][1].items():
+        pairs[f"stage1.{k}"] = (v, want["stages"][1][k])
+    return pairs
+
+
+def backbone_steps(cfg, tag, weights, classes, n_timed=3):
+    """The stock preset's training step with cfg's backbone through every
+    kernel: at BACKBONE_BATCHES' first batch size that fits, a warm-up
+    step, a step recorded into classes (run "<tag> step"), then n_timed
+    timed steps (host clock to the loss read back), with every launch
+    counter set to 0 before them and checked after (the fused layers'
+    training forwards and backwards per _per_forward, every toolkit
+    wrapper launched); the losses finite, no skipped step; peak memory;
+    a profiled step's device busy time and idle share -> the summary."""
+    import itertools
+
+    import torch
+
+    from spe_tpu_torch.data import train_data
+    from spe_tpu_torch.models.build import build_model
+    from spe_tpu_torch.ops import kernels as K
+    from spe_tpu_torch.train import train_step as ts
+    from spe_tpu_torch.train.engine import LOGGED, train_batch
+    from spe_tpu_torch.train.optim import AdamW3
+
+    for batch in BACKBONE_BATCHES:
+        bcfg = cfg.replace(batch_size=batch)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model = state = None
+        try:
+            model = build_model(bcfg).train()
+            if weights is not None:
+                weights(model)
+            _, loader = train_data(bcfg)
+            batches = [train_batch(x, torch.device("cuda")) for x in
+                       itertools.islice(loader.epoch(0), 2)]
+            state = ts.TrainState(model, AdamW3(model.named_parameters(),
+                                                bcfg, 2 + n_timed))
+            gates = ts.Gates.for_epoch(bcfg, 0)
+            gen = torch.Generator("cuda").manual_seed(4)
+            ts.train_step(state, batches[0], bcfg, gates, gen)
+            torch.cuda.synchronize()
+        except torch.cuda.OutOfMemoryError:
+            del model, state
+            torch.cuda.empty_cache()
+            print(f"[backbones] {tag}: batch {batch} does not fit the card",
+                  flush=True)
+            continue
+        break
+    else:
+        fail(f"{tag}: no batch of {BACKBONE_BATCHES} fits the card")
+    with record_toolkit(classes, f"{tag} step"):
+        ts.train_step(state, batches[1], bcfg, gates, gen)
+        torch.cuda.synchronize()
+    _all_counts(reset=True)
+    for name in WRAPPER.values():
+        getattr(K, name).launches = 0
+    history, step_ms = [], []
+    for i in range(n_timed):
+        t0 = time.perf_counter()
+        m = ts.train_step(state, batches[i % 2], bcfg, gates, gen)
+        history.append({k: float(m[k]) for k in ("loss", *LOGGED) if k in m})
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    counts = _all_counts()
+    toolkit = {k: getattr(K, name).launches for k, name in WRAPPER.items()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    per = _per_forward(model)
+    bad = [f"{k}.{a}: {counts[f'{k}.{a}']} launches, expected "
+           f"{n * n_timed}" for k, n in per.items()
+           for a in ("train_launches", "bwd_launches")
+           if counts[f"{k}.{a}"] != n * n_timed]
+    bad += [f"{k}: no launch" for k, n in toolkit.items() if not n]
+    bad += [f"step {i}: a non-finite value" for i, h in enumerate(history)
+            if not all(math.isfinite(v) for v in h.values())]
+    if state.bad_steps:
+        bad.append(f"bad_steps {state.bad_steps}")
+    for i, h in enumerate(history):
+        print(f"[backbones] {tag} step {i} (batch {batch}): " + " ".join(
+            f"{k} {v:.4f}" for k, v in h.items()), flush=True)
+    print(f"[backbones] {tag}: batch {batch}; ms a step {step_ms} (host "
+          f"clock to the loss read back) = "
+          f"{batch / (statistics.mean(step_ms) / 1e3):.2f} train images/s; "
+          f"peak device memory {peak:.2f} GiB; launches {counts}; toolkit "
+          f"launches {toolkit}", flush=True)
+    if bad:
+        fail(f"{tag} steps: " + "; ".join(bad))
+    profile_forward(lambda: ts.train_step(state, batches[0], bcfg, gates,
+                                          gen), batch, reps=1,
+                    what=f"train steps ({tag})")
+    summary = {"batch": batch, "step_ms": step_ms, "peak_gib": peak,
+               "losses": [h["loss"] for h in history],
+               "busy_ms": profile_forward.last["busy_ms"],
+               "idle": profile_forward.last["idle"], "launches": toolkit}
+    del model, state, batches
+    torch.cuda.empty_cache()
+    return summary
+
+
+def multiscale_step(classes, batch=8):
+    """The stock XXS36 preset multi-scale (fixed_size off, max_size 640,
+    buckets of 128): one step on each MULTISCALE_BUCKETS shape (a
+    generated batch resized to it), recorded into classes; the talking-
+    heads row passes must run at the bucket's patches (1280, 1600), the
+    losses finite."""
+    import torch
+    import torch.nn.functional as F
+
+    from spe_tpu_torch.cli.main import parse_config
+    from spe_tpu_torch.data import train_data, write_mini_voc
+    from spe_tpu_torch.models.build import (build_model, kernel_domain_errors,
+                                            training_patches)
+    from spe_tpu_torch.train import train_step as ts
+    from spe_tpu_torch.train.engine import train_batch
+    from spe_tpu_torch.train.optim import AdamW3
+
+    tmp = tempfile.TemporaryDirectory()
+    devkit = write_mini_voc(tmp.name, n_test=1, n_trainval=batch, seed=7)
+    fixed = parse_config(STOCK_TRAIN_ARGV + ["--test_path", str(devkit)])
+    cfg = fixed.replace(fixed_size=False, max_size=640)
+    n = training_patches(cfg, 16)
+    errors = kernel_domain_errors(cfg)
+    print(f"[multi-scale] max_size 640, buckets of {cfg.bucket_quantum}: at "
+          f"most {n} training patches; kernel_domain_errors {errors}",
+          flush=True)
+    if n != 1600 or errors:
+        fail(f"multi-scale: {n} patches, {errors}")
+    model = build_model(cfg).train()
+    state = ts.TrainState(model, AdamW3(model.named_parameters(), cfg, 2))
+    gates = ts.Gates.for_epoch(cfg, 0)
+    gen = torch.Generator("cuda").manual_seed(5)
+    _, loader = train_data(fixed)
+    b = train_batch(next(iter(loader.epoch(0))), torch.device("cuda"))
+    for h, w in MULTISCALE_BUCKETS:
+        run = f"multi-scale {h}x{w} step"
+        images = F.interpolate(b["images"].permute(0, 3, 1, 2), size=(h, w),
+                               mode="bilinear", align_corners=False)
+        hb = {"images": images.permute(0, 2, 3, 1).contiguous(),
+              "pad_mask": torch.zeros((batch, h, w), dtype=torch.bool,
+                                      device="cuda"),
+              "img_label": b["img_label"]}
+        t0 = time.perf_counter()
+        with record_toolkit(classes, run):
+            m = ts.train_step(state, hb, cfg, gates, gen)
+            loss = float(m["loss"])
+        ms = (time.perf_counter() - t0) * 1e3
+        rows = {cls[2] for (k, cls), e in classes.items() if run in
+                e["launches"] and k in ("th_fwd_rows_kernel",
+                                        "th_bwd_rows_kernel")}
+        print(f"[multi-scale] {run} (batch {batch}): loss {loss:.4f}, "
+              f"{ms:.1f} ms with the recorder; the row passes' patches "
+              f"{sorted(rows)}", flush=True)
+        if not math.isfinite(loss) or rows != {h * w // 256}:
+            fail(f"multi-scale {h}x{w}: loss {loss}, row passes at {rows}")
+    del model, state
+    torch.cuda.empty_cache()
+    tmp.cleanup()
+
+
+def instantiation(kernel, cls, shapes=None):
+    """The entry of the kernels line a phase 10 class goes into: its
+    template instantiation where the class picks a new one, else its
+    kernel at the backbones' shapes."""
+    if kernel == "attn_kernel":
+        return f"attn_kernel<{cls[0]}, {cls[1]}>"
+    if kernel in ("th_fwd_rows_kernel", "th_bwd_rows_kernel"):
+        _, H, N, _, wl = cls
+        return (f"{kernel}<{H}, {str(wl == 'wl').lower()}, "
+                f"{1 if N <= 1024 else 2}>")
+    if kernel == "ln_backward":
+        return f"ln_bwd_kernel<{shapes[1][1]}>"
+    if kernel == "layernorm":
+        return f"layernorm_kernel (D = {shapes[0][1]})"
+    if kernel == "th_fold":
+        return f"th_fold_kernel (H = {shapes[1][0]})"
+    if kernel == "th_dq":
+        return f"th_dq_kernel (H = {shapes[2][0]})"
+    name = SMALL[kernel][0] if kernel in SMALL else kernel
+    return f"{name} at the backbones' shapes"
+
+
+def replay_backbone_classes(classes, seen, results):
+    """Every class phase 10's runs recorded that phase 3 did not (`seen`; a new
+    instantiation or a new shape of an old one) replayed as phase 3
+    replays its own (replay_class, small_kernels with every plain version
+    timed, recorded_inputs for CC and the auction); the classes summed
+    into one entry of the kernels line per instantiation: launches, kernel,
+    plain, bound and library ms summed over the phase 10 runs (launches x
+    time), the largest error."""
+    import torch
+
+    from spe_tpu_torch.ops import kernel_checks as kc
+    from spe_tpu_torch.ops import kernels as K
+
+    new = {k: v for k, v in classes.items() if k not in seen}
+    runs = sorted({r for e in new.values() for r in e["launches"]})
+    print(f"[backbones] {len(new)} classes new to phase 3 over {runs}",
+          flush=True)
+    gen = torch.Generator().manual_seed(6)
+    groups, ok = {}, True
+    for (kernel, cls), rec in sorted(new.items(), key=lambda kv: (
+            kv[0][0], -sum(kv[1]["launches"].values()))):
+        if kernel in SMALL or kernel in RECORDED_INPUTS:
+            continue
+        c, passed = replay_class(K, kc, kernel, cls, rec, gen, REPLAY_REPS)
+        ok &= passed
+        c["max_abs_err"] = max(c["max_abs_err"].values())
+        src, rep = TOOLKIT[kernel]
+        groups.setdefault(instantiation(kernel, cls), (src, rep, []))[2] \
+            .append(c)
+    if not ok:
+        fail("a backbone class disagrees with its plain version")
+    small = []
+    small_kernels({k: v for k, v in new.items() if k[0] in SMALL}, {}, small,
+                  runs, REPLAY_REPS)
+    for c in small:
+        src, rep = SMALL_SOURCES[c["name"]]
+        groups.setdefault(instantiation(c["name"], None, c["shapes"]),
+                          (f"spe_tpu_torch/csrc/{src}", rep, []))[2].append(c)
+    recorded_inputs({k: v for k, v in new.items()
+                     if k[0] in RECORDED_INPUTS}, {}, require=False)
+    for label, (src, rep, cl) in sorted(groups.items()):
+        n = {r: sum(c["launches"].get(r, 0) for c in cl) for r in runs}
+        tot = {k: sum(sum(c["launches"].values()) * c[k] for c in cl)
+               for k in ("ms", "bound_ms")}
+        plains = [c["plain_ms"] for c in cl]
+        libs = [c["library_ms"] for c in cl]
+        entry = {"name": label, "route": "cuda", "source": src,
+                 "replaces": rep, "launches": sum(n.values()),
+                 "max_abs_err": max(c["max_abs_err"] for c in cl),
+                 "ms": tot["ms"],
+                 "plain_ms": None if None in plains else sum(
+                     sum(c["launches"].values()) * c["plain_ms"] for c in cl),
+                 "bound_ms": tot["bound_ms"],
+                 "bound_by": max(cl, key=lambda c: c["bound_ms"] * sum(
+                     c["launches"].values())).get("bound_by", "bytes"),
+                 "library_ms": None if None in libs else sum(
+                     sum(c["launches"].values()) * c["library_ms"]
+                     for c in cl),
+                 "per": "sums of launches x time over phase 10's recorded "
+                        "runs, each class replayed in a CUDA graph",
+                 "runs": {r: v for r, v in n.items() if v}}
+        results[label] = entry
+        print(f"[backbones] {label}: {len(cl)} classes, launches "
+              f"{entry['runs']}; kernel {entry['ms']:.3f} ms, plain "
+              f"{entry['plain_ms']} ms, bound {entry['bound_ms']:.4f} ms "
+              f"({entry['bound_by']}), library {entry['library_ms']}; "
+              f"max_abs_err {entry['max_abs_err']:.3e}", flush=True)
+
+
+def phase_backbones(results, seen):
+    """Phase 10: each of BACKBONES at full width and depth, voc0712 preset,
+    512^2, every fused flag on (S24's weights from a checkpoint this phase
+    writes in timm's layout, through models/convert.py's loader of
+    --backbone_weights): (a) one eval batch with flip against the
+    plain-version model on the same weights at phase 4's tolerances
+    (kernel_vs_plain); (b) one train
+    step under phase 8's same-grads rule at B=2 (phase_same_grads, the
+    decoder self-attention's q/k gradients held to an f32 plain run); (c)
+    three timed train steps (backbone_steps), one more step recorded. Then
+    the multi-scale XXS36 steps (multiscale_step), recorded too, and every
+    recorded class not among phase 3's (`seen`) replayed against its plain
+    version (replay_backbone_classes)."""
+    from spe_tpu_torch.cli.main import parse_config
+    from spe_tpu_torch.data import eval_data, write_mini_voc
+    from spe_tpu_torch.models.convert import load_backbone_weights
+
+    classes, summary = {}, {}
+    for tag, name, from_pth in BACKBONES:
+        t0 = time.perf_counter()
+        tmp = tempfile.TemporaryDirectory()
+        devkit = write_mini_voc(tmp.name, n_test=8, n_trainval=16, seed=6)
+        cfg = parse_config(STOCK_TRAIN_ARGV + [
+            "--backbone", name, "--test_path", str(devkit), "--output_dir",
+            f"{tmp.name}/out"])
+        weights = None
+        if from_pth:
+            path = f"{tmp.name}/{tag}_timm.pth"
+            write_timm_checkpoint(cfg, path, seed=11)
+
+            def weights(m, path=path):   # prints what it copied and skipped
+                load_backbone_weights(m, path)
+        _, loader = eval_data(cfg)
+        b = _flipped(next(iter(loader.epoch(0))))
+        _, _, _, bad = kernel_vs_plain(cfg, b, f"{tag} eval", _stage_pairs,
+                                       weights)
+        if bad:
+            fail(f"{tag} eval vs plain model: " + "; ".join(bad))
+        phase_same_grads(cfg, f"{tag} backbone", NOISY, batch=2,
+                         weights=weights)
+        summary[tag] = backbone_steps(cfg, tag, weights, classes)
+        summary[tag]["seconds"] = time.perf_counter() - t0
+        tmp.cleanup()
+    multiscale_step(classes)
+    print(f"[backbones] {json.dumps(summary)}", flush=True)
+    replay_backbone_classes(classes, seen, results)
+
+
 def profile_forward(fn, batch, reps=2, what="eval forwards (flip)"):
     """Device time by kernel over `reps` eval forwards (torch.profiler),
     and the device's idle share of the wall time -> {kernel name: (ms,
@@ -2815,6 +3238,8 @@ def profile_forward(fn, batch, reps=2, what="eval forwards (flip)"):
     rows = [e for e in prof.key_averages()
             if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
     total = sum(e.self_device_time_total for e in rows)
+    profile_forward.last = {"wall_ms": wall_us / 1e3, "busy_ms": total / 1e3,
+                            "idle": max(0.0, 1 - total / wall_us)}
     print(f"[profile] {reps} {what} of batch {batch}: wall "
           f"{wall_us / 1e3:.1f} ms, device busy {total / 1e3:.1f} ms, idle "
           f"share {max(0.0, 1 - total / wall_us):.3f}", flush=True)
@@ -2843,6 +3268,10 @@ def profile_forward(fn, batch, reps=2, what="eval forwards (flip)"):
     return {e.key: (e.self_device_time_total / 1e3, e.count) for e in rows}
 
 
+# the last profile's wall and device-busy ms and idle share
+profile_forward.last = {}
+
+
 # kernels summed over their instantiations in each profile
 PROFILE_FAMILIES = ("attn_kernel<192, 192", "attn_kernel", "gemm_kernel",
                     "th_bwd_rows_kernel", "th_fwd_rows_kernel",
@@ -2850,11 +3279,12 @@ PROFILE_FAMILIES = ("attn_kernel<192, 192", "attn_kernel", "gemm_kernel",
 
 
 def csrc_kernels():
-    """The names of the __global__ functions in spe_tpu_torch/csrc/*.cu."""
+    """The names of the __global__ functions in spe_tpu_torch/csrc/*.cu
+    and *.cuh."""
     from spe_tpu_torch.ops import kernels
 
     names = []
-    for src in sorted(kernels.CSRC.glob("*.cu")):
+    for src in kernels._sources():
         # past the attributes: __launch_bounds__(...), __cluster_dims__(...)
         names += re.findall(r"__global__\s+void\s+(?:__\w+__\("
                             r"(?:[^()]|\([^()]*\))*\)\s*)*(\w+)\s*\(",
@@ -2867,7 +3297,7 @@ def main():
 
     phase_device()
     phase_build()
-    results = phase_kernels()
+    results, recorded = phase_kernels()
     phase_masks()
     phase_train_kernels(results)
     phase_supervision_kernels(results)
@@ -2881,6 +3311,7 @@ def main():
     attn_cfg, _ = phase_train(results, "attention")
     phase_same_grads(attn_cfg, "standalone attention", NOISY)
     phase_coco(results)
+    phase_backbones(results, recorded)
     jax_mods = sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "jaxlib", "flax", "spe_tpu"))
     if jax_mods:

@@ -29,9 +29,13 @@ the patch and class-attention blocks (`use_fused_block`,
 layers, whose attentions then run through the standalone attention kernels
 (`use_pallas_attention`, as the preset sets it); `--no_use_pallas_attention`
 makes those plain PyTorch too.
+`--backbone_weights PATH` starts the backbone from a local pretrained CaiT
+checkpoint (timm's layout, {'model': sd} or bare, as spe_tpu/cli/main.py
+:104-127 loads it: models/convert.py load_backbone_weights, the det branch
+cloned from the tail blocks, pos_embed interpolated to the model's grid).
 Not ported (they raise): distributed runs, --frozen_weights, --masks,
---backbone_weights, --log_match_cost, --dataset_eval other than voc_voc
-and coco.
+`--backbone_weights auto` (it resolves to a download URL; pass a local
+file), --log_match_cost, --dataset_eval other than voc_voc and coco.
 """
 
 from __future__ import annotations
@@ -46,7 +50,8 @@ import torch
 from spe_tpu_torch.config import config_from_args
 from spe_tpu_torch.data import eval_data, train_data
 from spe_tpu_torch.models.build import build_model, resolve_device
-from spe_tpu_torch.models.convert import load_reference_checkpoint
+from spe_tpu_torch.models.convert import (load_backbone_weights,
+                                          load_reference_checkpoint)
 from spe_tpu_torch.train import engine
 from spe_tpu_torch.train.checkpoint import restore_checkpoint, save_checkpoint
 from spe_tpu_torch.train.optim import AdamW3
@@ -64,13 +69,19 @@ def parse_config(argv=None):
         raise NotImplementedError(
             f"--dataset_eval {cfg.dataset_eval} is not ported to "
             f"spe_tpu_torch (it takes {' and '.join(EVALS)})")
+    weights = cfg.backbone_weights or ""
+    if weights == "auto" or "://" in weights:
+        raise NotImplementedError(
+            f"--backbone_weights {weights}: the JAX package resolves 'auto' "
+            "to a download URL (PRETRAINED_URLS in spe_tpu/models/convert.py); "
+            "spe_tpu_torch reads a local file: download the checkpoint and "
+            "pass its path")
     if cfg.eval:
         return cfg
     for flag, on in (("--world_size > 1 (distributed training)",
                       cfg.world_size > 1),
                      ("--frozen_weights", bool(cfg.frozen_weights)),
                      ("--masks", cfg.masks),
-                     ("--backbone_weights", bool(cfg.backbone_weights)),
                      ("--log_match_cost", cfg.log_match_cost)):
         if on:
             raise NotImplementedError(f"{flag} is not ported to spe_tpu_torch")
@@ -121,6 +132,9 @@ def main(argv=None):
     model = build_model(cfg, device)
     n_params = sum(p.numel() for p in model.parameters())
     print(f"number of params: {n_params}", flush=True)
+    if cfg.backbone_weights:
+        load_backbone_weights(model, cfg.backbone_weights)
+        print(f"initialized backbone from {cfg.backbone_weights}", flush=True)
     ds_val, loader_val = eval_data(cfg)
     output_dir = Path(cfg.output_dir) if cfg.output_dir else None
     if output_dir:

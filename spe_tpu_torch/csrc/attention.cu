@@ -52,6 +52,11 @@
 //   memory, as chip_smoke.py's build phase reads them), so no two warps
 //   compute the same logits.
 // - The probabilities' second pass recomputes S on the tensor cores.
+// - Head widths that are not a multiple of 8 (XS24's 36) pad V to the
+//   next multiple of 8 in shared memory (the pad columns zero, their
+//   products never stored), as K pads to the QK^T depth; the caller's
+//   tensors keep their own strides. A row of 36 bf16 is 72 bytes, so K/V
+//   copies of such a form are at most 8 bytes wide (copy_cap).
 #include "common.cuh"
 
 struct AttnParams {
@@ -91,16 +96,21 @@ template <int DQ, int DV>
 struct AttnCfg {
   static constexpr int DQP = (DQ + 15) / 16 * 16;   // the QK^T depth, zero-padded
   static constexpr int KS = DQP / 16;               // k16 steps of QK^T
-  static constexpr int NV = DV / 8;                 // n8 tiles of PV
+  static constexpr int DVP = (DV + 7) / 8 * 8;      // V's columns, zero-padded
+  static constexpr int NV = DVP / 8;                // n8 tiles of PV
   static constexpr int NTH = 4 * 32;                // 4 warps of 16 rows
-  static constexpr int LDK = pad_ld(DQP), LDV = pad_ld(DV);
+  static constexpr int LDK = pad_ld(DQP), LDV = pad_ld(DVP);
   static constexpr int STAGE = ABK * (LDK + LDV);   // bf16 elements of one K|V stage
   // the K|V ring: two stages keep two 102 KB blocks of the 192-wide heads
   // on a SM
   static constexpr int STAGES = 2;
   static constexpr size_t SMEM = STAGES * STAGE * sizeof(bf16);
-  static_assert(DQ % 8 == 0 && DV % 8 == 0, "head widths");
+  static_assert(DQ % 4 == 0 && DV % 4 == 0, "head widths of whole 8-byte copies");
 };
+
+// the widest K/V copy (bytes) that whole rows of the form take: 16 where
+// both widths are multiples of 8 columns, else 8
+constexpr int copy_cap(int dq, int dv) { return dq % 8 == 0 && dv % 8 == 0 ? 16 : 8; }
 
 // rows [0, ABK) x cols [0, D) of a K or V tile from keys k0.. into a
 // shared tile of row length LD, CW bytes per copy (16, 8 or 4 by cp.async;
@@ -199,12 +209,20 @@ __global__ void __launch_bounds__(AttnCfg<DQ, DV>::NTH)
   // the first K|V tiles in flight while Q is read
 #pragma unroll
   for (int t = 0; t < C::STAGES - 1; ++t) issue(t);
-  // K's padded depth columns [DQ, DQP) are never loaded: zero in every stage
+  // K's padded depth columns [DQ, DQP) and V's [DV, DVP) are never
+  // loaded: zero in every stage
   if constexpr (C::DQP > DQ) {
     constexpr int PADC = C::DQP - DQ;
     for (int e = threadIdx.x; e < C::STAGES * ABK * PADC; e += C::NTH) {
       const int st = e / (ABK * PADC), rem = e % (ABK * PADC);
       smem[st * C::STAGE + (rem / PADC) * C::LDK + DQ + rem % PADC] = f2bf(0.f);
+    }
+  }
+  if constexpr (C::DVP > DV) {
+    constexpr int PADC = C::DVP - DV;
+    for (int e = threadIdx.x; e < C::STAGES * ABK * PADC; e += C::NTH) {
+      const int st = e / (ABK * PADC), rem = e % (ABK * PADC);
+      smem[st * C::STAGE + ABK * C::LDK + (rem / PADC) * C::LDV + DV + rem % PADC] = f2bf(0.f);
     }
   }
 
@@ -328,6 +346,7 @@ __global__ void __launch_bounds__(AttnCfg<DQ, DV>::NTH)
                            t2;
 #pragma unroll
     for (int j = 0; j < C::NV; ++j) {
+      if (C::DVP > DV && 8 * j + t2 >= DV) continue;   // V's pad columns
       const float v0 = o[j][2 * hr] * inv, v1 = o[j][2 * hr + 1] * inv;
       if (p.out_f32) {
         float* out = static_cast<float*>(p.out) + base + 8 * j;
@@ -373,6 +392,7 @@ __global__ void __launch_bounds__(AttnCfg<DQ, DV>::NTH)
 template <int DQ, int DV>
 int launch(const AttnParams* p, int cw, cudaStream_t stream) {
   using C = AttnCfg<DQ, DV>;
+  cw = cw < copy_cap(DQ, DV) ? cw : copy_cap(DQ, DV);
   cudaError_t err = cudaFuncSetAttribute(attn_kernel<DQ, DV>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(C::SMEM));
@@ -384,33 +404,40 @@ int launch(const AttnParams* p, int cw, cudaStream_t stream) {
 
 }  // namespace
 
-// The bytes of each K and V copy into shared memory: the widest of 16, 8
-// and 4 that divides both pointers and every batch, head and row stride
-// (in bytes), else 2 (plain loads).
-extern "C" int spe_attention_copy_bytes(const AttnParams* p) {
+// The bytes of each K and V copy into shared memory for the dq x dv form:
+// the widest of 16, 8 and 4 that divides both pointers and every batch,
+// head and row stride (in bytes), and whole rows of the form (copy_cap),
+// else 2 (plain loads).
+extern "C" int spe_attention_copy_bytes(const AttnParams* p, int dq, int dv) {
   const unsigned long long g =
       reinterpret_cast<unsigned long long>(p->k) | reinterpret_cast<unsigned long long>(p->v) |
       static_cast<unsigned long long>(2 * (p->k_sb | p->k_sh | p->k_sn | p->v_sb | p->v_sh |
                                            p->v_sn));
-  for (int w = 16; w >= 4; w /= 2) {
+  for (int w = copy_cap(dq, dv); w >= 4; w /= 2) {
     if (g % w == 0) return w;
   }
   return 2;
 }
 
-// dq x dv combinations of the slice: 192x192 talking heads (wl-fold over all
-// of D), 48x48 class attention, 24x24 encoder and decoder self-attention,
-// 48x24 conditional cross-attention.
+// dq x dv combinations: 192x192 talking heads (XXS's wl-fold over all of
+// D), 48x48 class attention (every backbone), the encoder and decoder
+// self-attention dt x dt and the conditional cross-attention 2dt x dt at
+// dt = D / 8 of each backbone: 24 (XXS), 36 (XS), 48 (S), 96 (M).
 extern "C" int spe_attention(const AttnParams* p, int dq, int dv, void* stream) {
   if (p->B <= 0 || p->H <= 0 || p->Nq <= 0 || p->Nk <= 0 || p->B * p->H > 65535 ||
       (p->drop_site && (!p->seed || p->mask_heads <= 0))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int cw = spe_attention_copy_bytes(p);
+  const int cw = spe_attention_copy_bytes(p, dq, dv);
   if (dq == 192 && dv == 192) return launch<192, 192>(p, cw, s);
   if (dq == 48 && dv == 48) return launch<48, 48>(p, cw, s);
   if (dq == 24 && dv == 24) return launch<24, 24>(p, cw, s);
   if (dq == 48 && dv == 24) return launch<48, 24>(p, cw, s);
+  if (dq == 36 && dv == 36) return launch<36, 36>(p, cw, s);
+  if (dq == 72 && dv == 36) return launch<72, 36>(p, cw, s);
+  if (dq == 96 && dv == 48) return launch<96, 48>(p, cw, s);
+  if (dq == 96 && dv == 96) return launch<96, 96>(p, cw, s);
+  if (dq == 192 && dv == 96) return launch<192, 96>(p, cw, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

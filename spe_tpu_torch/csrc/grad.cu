@@ -692,24 +692,29 @@ __global__ void __launch_bounds__(CF_NT) branch_bwd_kernel(BranchBwdParams p) {
   }
 }
 
-// ln_bwd_kernel: LayerNorm backward of (M, D) rows, D = 192 or 256 (the
-// `_ln_bwd` of the four backward TPU kernels above): dx (+ a residual)
-// and dgamma/dbeta summed over every row. What bounds it: bytes, each row
-// of dy (f32), x (bf16 or f32), the residual (f32) read once and dx
-// written once: 19 MB at the patch blocks' (8192, 192) with a residual
-// and bf16 x and dx, 5.6 us at 3.35 TB/s. The design:
+// ln_bwd_kernel: LayerNorm backward of (M, D) rows, D = 192, 256, 288, 384
+// or 768 (the `_ln_bwd` of the four backward TPU kernels above, at every
+// backbone's width): dx (+ a residual) and dgamma/dbeta summed over every
+// row. What bounds it: bytes, each row of dy (f32), x (bf16 or f32), the
+// residual (f32) read once and dx written once: 19 MB at the patch blocks'
+// (8192, 192) with a residual and bf16 x and dx, 5.6 us at 3.35 TB/s. The
+// design:
 // - A warp holds a row in registers, read once with 16-byte loads (8-byte
-//   for bf16 x): lane l owns columns [4l, 4l + 4) and NB = (D - 128) / 32
-//   columns at 128 + NB*l. Mean, variance and the two dx sums come from
-//   those registers; the next row's loads go out before this row's
-//   reductions; dx leaves in vector stores.
+//   for bf16 x): lane l owns 4 columns at 128k + 4l of each whole chunk of
+//   128 and T = (D % 128) / 32 columns at 128K + T*l of the tail (LnCols).
+//   Mean, variance and the two dx sums come from those registers; the next
+//   row's loads go out before this row's reductions (up to D = 384: at 768
+//   a row's 24 columns a lane, three times over, would not fit the
+//   registers); dx leaves in vector stores.
 // - A one-wave grid of LNB_NT-thread blocks (kernels.ln_backward_plan,
 //   sized by the card's occupancy query: 3 blocks a SM at D = 192, 2 at
 //   D = 256, less what clusters of 8 leave unused); warp w walks the fixed
 //   run of rows [w*run, (w+1)*run), its lanes keeping their columns'
 //   dgamma/dbeta in registers across the run.
 // - The same launch finishes the sums in a fixed order: the block's warps
-//   in order through shared memory; the cluster's blocks in rank order,
+//   in order through shared memory (at D = 768 dgamma, then dbeta: both at
+//   once would pass the 48 KB of static shared memory); the cluster's
+//   blocks in rank order,
 //   block r owning a slice of 2D / cluster columns: every block stores its
 //   sums of each slice into the owner's shared memory (distributed shared
 //   memory, one cluster barrier), and the owner writes the cluster's row
@@ -725,70 +730,84 @@ constexpr int LNB_NT = 256;
 constexpr int LNB_WARPS = LNB_NT / 32;
 constexpr int LNB_BATCH = 16;   // cluster rows a thread of the last cluster loads at once
 
-// a lane's E = D / 32 columns of a row: 4 at 4*lane, NB at 128 + NB*lane
+// a lane's E = D / 32 columns of a row: 4 at 128k + 4*lane of each of the K
+// whole chunks of 128, T at 128K + T*lane of the tail
 template <int D>
 struct LnCols {
-  static_assert(D == 192 || D == 256, "ln_bwd_kernel takes D = 192 or 256");
-  static constexpr int NB = (D - 128) / 32;
-  static constexpr int E = 4 + NB;
+  static_assert(D == 192 || D == 256 || D == 288 || D == 384 || D == 768,
+                "ln_bwd_kernel takes D = 192, 256, 288, 384 or 768");
+  static constexpr int K = D / 128;
+  static constexpr int T = D % 128 / 32;
+  static constexpr int E = 4 * K + T;
   static __device__ __forceinline__ int col(int lane, int i) {
-    return i < 4 ? 4 * lane + i : 128 + NB * lane + (i - 4);
+    return i < 4 * K ? 128 * (i / 4) + 4 * lane + i % 4 : 128 * K + T * lane + (i - 4 * K);
   }
   static __device__ __forceinline__ void load_f32(const float* row, int lane, float (&v)[E]) {
-    const float4 a = __ldg(reinterpret_cast<const float4*>(row + 4 * lane));
-    v[0] = a.x;
-    v[1] = a.y;
-    v[2] = a.z;
-    v[3] = a.w;
-    if constexpr (NB == 4) {
-      const float4 b = __ldg(reinterpret_cast<const float4*>(row + 128 + 4 * lane));
-      v[4] = b.x;
-      v[5] = b.y;
-      v[6] = b.z;
-      v[7] = b.w;
-    } else {
-      const float2 b = __ldg(reinterpret_cast<const float2*>(row + 128 + 2 * lane));
-      v[4] = b.x;
-      v[5] = b.y;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const float4 a = __ldg(reinterpret_cast<const float4*>(row + 128 * k + 4 * lane));
+      v[4 * k] = a.x;
+      v[4 * k + 1] = a.y;
+      v[4 * k + 2] = a.z;
+      v[4 * k + 3] = a.w;
+    }
+    if constexpr (T == 2) {
+      const float2 b = __ldg(reinterpret_cast<const float2*>(row + 128 * K + 2 * lane));
+      v[4 * K] = b.x;
+      v[4 * K + 1] = b.y;
+    } else if constexpr (T == 1) {
+      v[4 * K] = __ldg(row + 128 * K + lane);
     }
   }
   static __device__ __forceinline__ void load_bf16(const bf16* row, int lane, float (&v)[E]) {
-    const uint2 a = __ldg(reinterpret_cast<const uint2*>(row + 4 * lane));
-    unpack2(a.x, v[0], v[1]);
-    unpack2(a.y, v[2], v[3]);
-    if constexpr (NB == 4) {
-      const uint2 b = __ldg(reinterpret_cast<const uint2*>(row + 128 + 4 * lane));
-      unpack2(b.x, v[4], v[5]);
-      unpack2(b.y, v[6], v[7]);
-    } else {
-      unpack2(__ldg(reinterpret_cast<const unsigned*>(row + 128 + 2 * lane)), v[4], v[5]);
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const uint2 a = __ldg(reinterpret_cast<const uint2*>(row + 128 * k + 4 * lane));
+      unpack2(a.x, v[4 * k], v[4 * k + 1]);
+      unpack2(a.y, v[4 * k + 2], v[4 * k + 3]);
+    }
+    if constexpr (T == 2) {
+      unpack2(__ldg(reinterpret_cast<const unsigned*>(row + 128 * K + 2 * lane)), v[4 * K],
+              v[4 * K + 1]);
+    } else if constexpr (T == 1) {
+      v[4 * K] = bf2f(row[128 * K + lane]);
     }
   }
   static __device__ __forceinline__ void store_f32(float* row, int lane, const float (&v)[E]) {
-    *reinterpret_cast<float4*>(row + 4 * lane) = make_float4(v[0], v[1], v[2], v[3]);
-    if constexpr (NB == 4) {
-      *reinterpret_cast<float4*>(row + 128 + 4 * lane) = make_float4(v[4], v[5], v[6], v[7]);
-    } else {
-      *reinterpret_cast<float2*>(row + 128 + 2 * lane) = make_float2(v[4], v[5]);
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      *reinterpret_cast<float4*>(row + 128 * k + 4 * lane) =
+          make_float4(v[4 * k], v[4 * k + 1], v[4 * k + 2], v[4 * k + 3]);
+    }
+    if constexpr (T == 2) {
+      *reinterpret_cast<float2*>(row + 128 * K + 2 * lane) = make_float2(v[4 * K], v[4 * K + 1]);
+    } else if constexpr (T == 1) {
+      row[128 * K + lane] = v[4 * K];
     }
   }
   static __device__ __forceinline__ void store_bf16(bf16* row, int lane, const float (&v)[E]) {
-    *reinterpret_cast<uint2*>(row + 4 * lane) =
-        make_uint2(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]));
-    if constexpr (NB == 4) {
-      *reinterpret_cast<uint2*>(row + 128 + 4 * lane) =
-          make_uint2(pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7]));
-    } else {
-      *reinterpret_cast<unsigned*>(row + 128 + 2 * lane) = pack_bf16(v[4], v[5]);
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      *reinterpret_cast<uint2*>(row + 128 * k + 4 * lane) =
+          make_uint2(pack_bf16(v[4 * k], v[4 * k + 1]), pack_bf16(v[4 * k + 2], v[4 * k + 3]));
+    }
+    if constexpr (T == 2) {
+      *reinterpret_cast<unsigned*>(row + 128 * K + 2 * lane) = pack_bf16(v[4 * K], v[4 * K + 1]);
+    } else if constexpr (T == 1) {
+      row[128 * K + lane] = f2bf(v[4 * K]);
     }
   }
 };
 
+// two blocks a SM up to D = 256 (no spill), one past it
 template <int D>
-__global__ void __launch_bounds__(LNB_NT, 2) ln_bwd_kernel(LNBwdParams p) {
+__global__ void __launch_bounds__(LNB_NT, D <= 256 ? 2 : 1) ln_bwd_kernel(LNBwdParams p) {
   using L = LnCols<D>;
   constexpr int E = L::E;
-  __shared__ float red[LNB_WARPS * 2 * D];  // the warps' dgamma | dbeta, then the last sums
+  constexpr bool PREFETCH = D <= 384;       // the next row's loads in flight
+  constexpr int PASSES = D > 384 ? 2 : 1;   // the block's dgamma | dbeta through red
+  constexpr int RW = 2 * D / PASSES;        // red's columns a pass
+  __shared__ float red[LNB_WARPS * RW];     // the warps' dgamma | dbeta, then the last sums
   __shared__ float gather[2 * D];           // the cluster's blocks' rows of this block's slice
   __shared__ int last;
   cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
@@ -813,10 +832,14 @@ __global__ void __launch_bounds__(LNB_NT, 2) ln_bwd_kernel(LNBwdParams p) {
     L::load_f32(p.dy + m * p.ld_dy, lane, dyv);
     if (p.res) L::load_f32(p.res + m * p.ld_res, lane, rv);
   };
-  if (m0 < m1) load(m0, x, dy, rs);
+  if (PREFETCH && m0 < m1) load(m0, x, dy, rs);
   for (long long m = m0; m < m1; ++m) {
-    float nx[E], ndy[E], nrs[E];
-    if (m + 1 < m1) load(m + 1, nx, ndy, nrs);
+    float nx[PREFETCH ? E : 1], ndy[PREFETCH ? E : 1], nrs[PREFETCH ? E : 1];
+    if constexpr (PREFETCH) {
+      if (m + 1 < m1) load(m + 1, nx, ndy, nrs);
+    } else {
+      load(m, x, dy, rs);
+    }
     float s = 0.f;
 #pragma unroll
     for (int i = 0; i < E; ++i) s += x[i];
@@ -852,35 +875,46 @@ __global__ void __launch_bounds__(LNB_NT, 2) ln_bwd_kernel(LNBwdParams p) {
     } else {
       L::store_bf16(static_cast<bf16*>(p.dx) + m * D, lane, out);
     }
+    if constexpr (PREFETCH) {
 #pragma unroll
-    for (int i = 0; i < E; ++i) {
-      x[i] = nx[i];
-      dy[i] = ndy[i];
-      rs[i] = nrs[i];
+      for (int i = 0; i < E; ++i) {
+        x[i] = nx[i];
+        dy[i] = ndy[i];
+        rs[i] = nrs[i];
+      }
     }
   }
 
-  // 1. the block: its warps in order
-#pragma unroll
-  for (int i = 0; i < E; ++i) {
-    red[warp * 2 * D + L::col(lane, i)] = dg[i];
-    red[warp * 2 * D + D + L::col(lane, i)] = db[i];
-  }
-  __syncthreads();
-  // 2. the cluster: block r owns the columns [r*per, (r+1)*per) of 2D; each
-  // block stores its sums of every slice into the owner's shared memory,
-  // then one barrier, and the owner sums them in rank order into the
-  // cluster's row of ws
+  // 1. the block: its warps in order (dgamma | dbeta at once, or in two
+  // passes). 2. the cluster: block r owns the columns [r*per, (r+1)*per)
+  // of 2D; each block stores its sums of every slice into the owner's
+  // shared memory, then one barrier, and the owner sums them in rank order
+  // into the cluster's row of ws
   const int cl = p.cluster;
   const int per = 2 * D / cl;
   const long long cid = blockIdx.x / cl;
   const long long nclusters = gridDim.x / cl;
-  cluster_wait();
-  for (int c = threadIdx.x; c < 2 * D; c += LNB_NT) {
-    float s = 0.f;
 #pragma unroll
-    for (int r = 0; r < LNB_WARPS; ++r) s += red[r * 2 * D + c];
-    cluster.map_shared_rank(gather, c / per)[rank * per + c % per] = s;
+  for (int pass = 0; pass < PASSES; ++pass) {
+#pragma unroll
+    for (int i = 0; i < E; ++i) {
+      if constexpr (PASSES == 1) {
+        red[warp * RW + L::col(lane, i)] = dg[i];
+        red[warp * RW + D + L::col(lane, i)] = db[i];
+      } else {
+        red[warp * RW + L::col(lane, i)] = pass ? db[i] : dg[i];
+      }
+    }
+    __syncthreads();
+    if (pass == 0) cluster_wait();
+    for (int c = threadIdx.x; c < RW; c += LNB_NT) {
+      float s = 0.f;
+#pragma unroll
+      for (int r = 0; r < LNB_WARPS; ++r) s += red[r * RW + c];
+      const int cc = pass * RW + c;
+      cluster.map_shared_rank(gather, cc / per)[rank * per + cc % per] = s;
+    }
+    if constexpr (PASSES > 1) __syncthreads();   // red is rewritten next pass
   }
   cluster.sync();  // every slice has landed; none is read remotely after it
   for (int j = threadIdx.x; j < per; j += LNB_NT) {
@@ -1058,6 +1092,9 @@ long long strips_of(int strip, int C) {
   return pow2 && C > 0 ? (C + strip - 1) / strip : 0;
 }
 
+// the widths ln_bwd_kernel is built for (kernels.LN_BWD_WIDTHS)
+bool ln_width(int D) { return D == 192 || D == 256 || D == 288 || D == 384 || D == 768; }
+
 bool aligned(const void* ptr, long long ld, int bytes, int elem) {
   return reinterpret_cast<uintptr_t>(ptr) % bytes == 0 && (ld * elem) % bytes == 0;
 }
@@ -1083,7 +1120,7 @@ extern "C" int spe_colsum_f32(const ColsumF32Params* p, void* stream) {
 extern "C" int spe_ln_backward(const LNBwdParams* p, void* stream) {
   const int cl = p->cluster;
   const int xb = p->x_f32 ? 16 : 8, xe = p->x_f32 ? 4 : 2;
-  if (p->M <= 0 || (p->D != 192 && p->D != 256) || p->run <= 0 ||
+  if (p->M <= 0 || !ln_width(p->D) || p->run <= 0 ||
       (cl != 1 && cl != 2 && cl != 4 && cl != 8) || p->blocks <= 0 || p->blocks % cl ||
       p->blocks / cl > p->ws_rows ||
       static_cast<long long>(p->blocks) * LNB_WARPS * p->run < p->M || !p->ws || !p->ticket ||
@@ -1093,15 +1130,20 @@ extern "C" int spe_ln_backward(const LNBwdParams* p, void* stream) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (p->D == 192) return launch_clustered(ln_bwd_kernel<192>, *p, p->blocks, LNB_NT, cl, s);
-  return launch_clustered(ln_bwd_kernel<256>, *p, p->blocks, LNB_NT, cl, s);
+  switch (p->D) {
+    case 192: return launch_clustered(ln_bwd_kernel<192>, *p, p->blocks, LNB_NT, cl, s);
+    case 256: return launch_clustered(ln_bwd_kernel<256>, *p, p->blocks, LNB_NT, cl, s);
+    case 288: return launch_clustered(ln_bwd_kernel<288>, *p, p->blocks, LNB_NT, cl, s);
+    case 384: return launch_clustered(ln_bwd_kernel<384>, *p, p->blocks, LNB_NT, cl, s);
+    default: return launch_clustered(ln_bwd_kernel<768>, *p, p->blocks, LNB_NT, cl, s);
+  }
 }
 
 // the blocks of one wave of ln_bwd_kernel<D> in clusters of `cluster`:
 // the clusters of that size the card can run at once (the occupancy
 // query), times the size
 extern "C" int spe_ln_backward_wave(int D, int cluster, int* blocks) {
-  if ((D != 192 && D != 256) || cluster < 1 || cluster > 8 || !blocks) {
+  if (!ln_width(D) || cluster < 1 || cluster > 8 || !blocks) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaLaunchConfig_t cfg = {};
@@ -1115,9 +1157,14 @@ extern "C" int spe_ln_backward_wave(int D, int cluster, int* blocks) {
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   int n = 0;
-  const cudaError_t err =
-      D == 192 ? cudaOccupancyMaxActiveClusters(&n, ln_bwd_kernel<192>, &cfg)
-               : cudaOccupancyMaxActiveClusters(&n, ln_bwd_kernel<256>, &cfg);
+  cudaError_t err;
+  switch (D) {
+    case 192: err = cudaOccupancyMaxActiveClusters(&n, ln_bwd_kernel<192>, &cfg); break;
+    case 256: err = cudaOccupancyMaxActiveClusters(&n, ln_bwd_kernel<256>, &cfg); break;
+    case 288: err = cudaOccupancyMaxActiveClusters(&n, ln_bwd_kernel<288>, &cfg); break;
+    case 384: err = cudaOccupancyMaxActiveClusters(&n, ln_bwd_kernel<384>, &cfg); break;
+    default: err = cudaOccupancyMaxActiveClusters(&n, ln_bwd_kernel<768>, &cfg); break;
+  }
   *blocks = n * cluster;
   return static_cast<int>(err);
 }

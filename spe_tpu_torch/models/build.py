@@ -86,13 +86,14 @@ def kernel_domain_errors(cfg: SPEConfig) -> list:
     take, when a fused flag or use_pallas_attention routes it through them
     (nothing with all of them off: plain PyTorch takes any shape). The
     kernels' declared domains: spe_attention's dq x dv forms
-    (kernels.ATTENTION_FORMS) for the patch blocks' wl-fold (D x D), the
-    class attention (dh x dh), the encoder self-attention (dt x dt, dt =
-    D / nheads) and the decoder cross-attention (2 dt x dt); ln_backward's
-    widths (kernels.LN_BWD_WIDTHS); the talking-heads row passes' heads
-    (kernels.TH_ROWS_MAX_H) and keys (kernels.TH_ROWS_MAX_N, against the
-    most patches of a training image); th_mix's heads of a multiple of 8
-    columns."""
+    (kernels.ATTENTION_FORMS) for the class attention (dh x dh), the
+    encoder self-attention (dt x dt, dt = D / nheads) and the decoder
+    cross-attention (2 dt x dt), and for the XXS patch blocks' eval wl-fold
+    (D x D; a wider block evaluates through its training kernels at rate
+    0); ln_backward's widths (kernels.LN_BWD_WIDTHS); the talking-heads row
+    passes' heads (kernels.TH_ROWS_HEADS) and keys (kernels.TH_ROWS_MAX_N,
+    against the most patches of a training image); head widths dh of a
+    multiple of 8 (the talking-heads mix and the gemm tiles' rows)."""
     if not (cfg.use_fused_block or cfg.use_fused_layers or
             cfg.use_pallas_attention or cfg.use_fused_ca_block == "on"):
         return []
@@ -101,12 +102,12 @@ def kernel_domain_errors(cfg: SPEConfig) -> list:
     D, H = bb.embed_dim, bb.num_heads
     dh, dt = D // H, D // cfg.nheads
     errors = [f"attention {name} {dq} x {dv}" for name, dq, dv in (
-        ("wl-fold", D, D), ("class", dh, dh), ("encoder", dt, dt),
-        ("cross", 2 * dt, dt)) if (dq, dv) not in kernels.ATTENTION_FORMS]
+        ("class", dh, dh), ("encoder", dt, dt), ("cross", 2 * dt, dt))
+        if (dq, dv) not in kernels.ATTENTION_FORMS]
     if D not in kernels.LN_BWD_WIDTHS:
         errors.append(f"ln_backward D={D} (takes {kernels.LN_BWD_WIDTHS})")
-    if H > kernels.TH_ROWS_MAX_H:
-        errors.append(f"talking heads H={H} (at most {kernels.TH_ROWS_MAX_H})")
+    if H not in kernels.TH_ROWS_HEADS:
+        errors.append(f"talking heads H={H} (takes {kernels.TH_ROWS_HEADS})")
     if dh % 8:
         errors.append(f"talking heads mix dh={dh} (a multiple of 8)")
     n = training_patches(cfg, bb.patch_size)

@@ -1,5 +1,7 @@
-"""Weights from the JAX package into the port: the inverse of
-spe_tpu.models.convert.convert_detector.
+"""Weights into the port: from the JAX package (the inverse of
+spe_tpu.models.convert.convert_detector) and from a pretrained CaiT
+checkpoint (`--backbone_weights PATH`, the port's copy of the JAX
+package's convert_backbone and merge_pretrained_backbone).
 
 `state_dict_from_jax(params)` takes the JAX detector's `params['params']`
 tree (arrays or numpy) and returns the port's state dict under the
@@ -10,6 +12,11 @@ same weights:
     weights (transposed back);
   * encoder q/k/v Dense -> nn.MultiheadAttention's packed in_proj;
   * the reshaped-matmul patch-embed kernel (p*p*C, D) -> Conv2d (D, C, p, p).
+A pretrained backbone (`convert_backbone`, `merge_pretrained_backbone`):
+a timm CaiT state dict (or a reference TSCAM one) becomes the backbone
+body's state dict as the reference's timm `pretrained=True` and
+finetune_det build it (reference models/cait.py:724-742, 1676-1700), with
+spe_tpu/models/convert.py:96-143, 235-288's semantics.
 Numpy only: this module does not import jax (the tests hand it numpy).
 """
 
@@ -19,6 +26,8 @@ from collections import OrderedDict
 
 import numpy as np
 import torch
+
+from spe_tpu_torch.models.layers import interpolate_pos_embed
 
 
 def _arr(a):
@@ -193,3 +202,129 @@ def load_reference_checkpoint(path):
     sd = ckpt.get("model", ckpt) if isinstance(ckpt, dict) else ckpt
     return OrderedDict((k[len("module."):] if k.startswith("module.") else k,
                         torch.as_tensor(v)) for k, v in sd.items())
+
+
+# the parameters of a LayerScale block and of a class-attention block, as
+# the JAX package's converter reads them (spe_tpu/models/convert.py:57-82);
+# a missing bias of a Linear is the only key it allows to be absent
+_BLOCK_KEYS = ("norm1.weight", "norm1.bias", "attn.qkv.weight",
+               "attn.qkv.bias", "attn.proj.weight", "attn.proj.bias",
+               "attn.proj_l.weight", "attn.proj_l.bias", "attn.proj_w.weight",
+               "attn.proj_w.bias", "gamma_1", "norm2.weight", "norm2.bias",
+               "mlp.fc1.weight", "mlp.fc1.bias", "mlp.fc2.weight",
+               "mlp.fc2.bias", "gamma_2")
+_CA_BLOCK_KEYS = ("norm1.weight", "norm1.bias",
+                  *(f"attn.{n}.{w}" for n in ("q", "k", "v", "proj")
+                    for w in ("weight", "bias")),
+                  "gamma_1", "norm2.weight", "norm2.bias", "mlp.fc1.weight",
+                  "mlp.fc1.bias", "mlp.fc2.weight", "mlp.fc2.bias", "gamma_2")
+_LINEAR_BIASES = ("attn.qkv.bias", "attn.proj.bias", "mlp.fc1.bias",
+                  "mlp.fc2.bias", "attn.q.bias", "attn.k.bias", "attn.v.bias",
+                  "attn.proj.bias")
+
+
+def _copy_block(sd, out, src, dst, keys):
+    for k in keys:
+        if f"{src}.{k}" in sd or k not in _LINEAR_BIASES:
+            out[f"{dst}.{k}"] = sd[f"{src}.{k}"]
+
+
+def _copy_present(sd, out, names):
+    for n in names:
+        if n in sd:
+            out[n] = sd[n]
+
+
+def convert_backbone(sd, depth, layer_to_det, depth_token_only=2,
+                     two_branch=True):
+    """A timm CaiT (or reference TSCAM) state dict -> the backbone body's
+    state dict (relative names), as spe_tpu.models.convert.convert_backbone
+    builds its tree: `module.` prefixes stripped; the patch embedding,
+    pos_embed, cls_token, norm and `depth` blocks copied; the det branch's
+    depth - layer_to_det blocks copied from `blocks_det.i`, or cloned from
+    `blocks.{layer_to_det + i}` where the checkpoint has no det branch
+    (reference init_blocks_det_weight, cait.py:724-726); norm_det copied
+    where present (else it keeps its init); a single-branch model's
+    norm_to_det copied, else seeded from norm; the class-attention blocks,
+    extra_cls_token and the two heads where present (a classification
+    checkpoint's 1000-class `head` has no place in the port)."""
+    sd = {k[len("module."):] if k.startswith("module.") else k:
+          torch.as_tensor(np.asarray(v)) for k, v in sd.items()}
+    out = OrderedDict()
+    for n in ("patch_embed.proj.weight", "pos_embed", "cls_token",
+              "norm.weight", "norm.bias"):
+        out[n] = sd[n]
+    _copy_present(sd, out, ("patch_embed.proj.bias",))
+    for i in range(depth):
+        _copy_block(sd, out, f"blocks.{i}", f"blocks.{i}", _BLOCK_KEYS)
+    for i in range(depth - layer_to_det if two_branch else 0):
+        src = (f"blocks_det.{i}" if f"blocks_det.{i}.norm1.weight" in sd
+               else f"blocks.{layer_to_det + i}")
+        _copy_block(sd, out, src, f"blocks_det.{i}", _BLOCK_KEYS)
+    if two_branch:
+        _copy_present(sd, out, ("norm_det.weight", "norm_det.bias"))
+    elif "norm_to_det.weight" in sd:
+        _copy_present(sd, out, ("norm_to_det.weight", "norm_to_det.bias"))
+    else:
+        out["norm_to_det.weight"], out["norm_to_det.bias"] = (
+            sd["norm.weight"], sd["norm.bias"])
+    for i in range(depth_token_only):
+        if f"blocks_token_only.{i}.norm1.weight" in sd:
+            _copy_block(sd, out, f"blocks_token_only.{i}",
+                        f"blocks_token_only.{i}", _CA_BLOCK_KEYS)
+    _copy_present(sd, out, ("extra_cls_token", "cls_head.weight",
+                            "cls_head.bias", "cls_head_multi_cls.weight",
+                            "cls_head_multi_cls.bias"))
+    return out
+
+
+def merge_pretrained_backbone(init, converted, verbose=True):
+    """A converted backbone (convert_backbone) merged into the body's
+    initial state dict, as spe_tpu.models.convert.merge_pretrained_backbone
+    merges its trees: every entry both have is copied (in the init's
+    dtype); pos_embed on another grid is interpolated bicubically
+    (models/layers.py interpolate_pos_embed, square grids); every other
+    shape mismatch keeps the init and is listed; what the checkpoint lacks
+    keeps the init. -> (merged state dict, [(name, checkpoint shape, init
+    shape)] skipped)."""
+    merged, copied, skipped = OrderedDict(), 0, []
+    for name, v in init.items():
+        if name not in converted:
+            merged[name] = v
+            continue
+        cand = converted[name]
+        if tuple(cand.shape) == tuple(v.shape):
+            merged[name] = cand.to(v.dtype)
+            copied += 1
+        elif name == "pos_embed":
+            n_src = int(round(cand.shape[1] ** 0.5))
+            n_dst = int(round(v.shape[1] ** 0.5))
+            merged[name] = interpolate_pos_embed(
+                cand.float(), (n_src, n_src), (n_dst, n_dst)).to(
+                v.dtype).reshape(v.shape)
+            copied += 1
+        else:
+            merged[name] = v
+            skipped.append((name, tuple(cand.shape), tuple(v.shape)))
+    if verbose:
+        print(f"pretrained backbone: copied {copied}/{len(init)} entries"
+              + (f", skipped shape-mismatched {skipped}" if skipped else ""),
+              flush=True)
+    return merged, skipped
+
+
+def load_backbone_weights(model, path, verbose=True):
+    """`--backbone_weights PATH`: the local checkpoint at path
+    (load_reference_checkpoint: {'model': sd} or bare, `module.` stripped)
+    converted and merged into model's backbone body in place -> the
+    skipped shape mismatches."""
+    body = model.backbone[0].body
+    c = body.cfg
+    converted = convert_backbone(load_reference_checkpoint(path), c.depth,
+                                 c.layer_to_det, c.depth_token_only,
+                                 c.two_branch)
+    init = OrderedDict((k, v.detach().cpu()) for k, v in
+                       body.state_dict().items())
+    merged, skipped = merge_pretrained_backbone(init, converted, verbose)
+    body.load_state_dict(merged)
+    return skipped

@@ -20,6 +20,13 @@ online-softmax passes plus an H x H epilogue:
 Launches: ln_linear (LN1 + qkv), attention (4 mixed heads of width 192, k
 and v shared), colsum, th_mix, ln_linear (proj + gamma1 residual, f32
 stream), ln_linear (LN2 + fc1 + GELU), ln_linear (fc2 + gamma2 residual).
+A D x D form exists for the XXS backbones' D = 192 only: at D = 288, 384
+or 768 (XS, S, M) a warp's accumulators and Q fragments (3D / 4 registers
+a thread) pass the 255 a thread may hold, and at 768 a K|V stage pair
+takes ~400 KB of shared memory against a block's 227 KB. Those blocks
+evaluate through the training forward's launches at rate 0 (below:
+th_fold, the logits product, th_fwd_rows, zd . V), which compute
+`fold_attention`'s numerics with no D x D template.
 
 **Training.** Attention dropout sits after the post-softmax mix, so the
 mix cannot move past PV. The training forward computes the logits s_g of
@@ -263,6 +270,8 @@ def _forward_cuda(x, p, num_heads):
     if x.dtype != torch.bfloat16:
         raise TypeError(f"the fused block kernels take bf16, got {x.dtype}")
     B, N, D = x.shape
+    if (D, D) not in K.ATTENTION_FORMS:   # XS, S, M: no D x D form
+        return _train_cuda(x, p, num_heads, no_dropout(x.device))[0]
     H = num_heads
     dh = D // H
     x2 = x.reshape(B * N, D)

@@ -558,15 +558,15 @@ def _makers(gen, device, D):
     return param, linear, norm
 
 
-def _backbone_params(gen, device, D=192):
-    """The patch block's and the class-attention block's parameters (4
+def _backbone_params(gen, device, D=192, H=4):
+    """The patch block's and the class-attention block's parameters (H
     heads, MLP 4D), LayerScale gammas near 1."""
     param, linear, norm = _makers(gen, device, D)
     blk = {}
     norm(blk, "norm1")
     linear(blk, "attn.qkv", D, 3 * D)
-    linear(blk, "attn.proj_l", 4, 4)
-    linear(blk, "attn.proj_w", 4, 4)
+    linear(blk, "attn.proj_l", H, H)
+    linear(blk, "attn.proj_w", H, H)
     linear(blk, "attn.proj", D, D)
     norm(blk, "norm2")
     linear(blk, "mlp.fc1", D, 4 * D)
@@ -622,17 +622,17 @@ def _key_mask(B, N, device):
 
 
 def train_cases(B=2, N=1024, t=21, S=2, Q=300, device="cuda", seed=0,
-                rates=RECIPE_RATES, rate=TRANSFORMER_RATE):
+                rates=RECIPE_RATES, rate=TRANSFORMER_RATE, D=192, H=4):
     """[(name, module, args, cotangents)] of the fused layers in training
-    at the voc0712 widths: the patch block with the recipe's dropout rates
+    at the voc0712 widths (or a wider backbone's D and heads H; the
+    transformer's 8 heads of D / 8): the patch block with the recipe's dropout rates
     and a seed tensor on `device`; the class-attention block; the encoder
     layer and the decoder layer (layer 0 and a later layer) at the recipe's
     `dropout` on every site, with a padded-key mask. bf16 activations and
     cotangents, plus a nonzero f32 cotangent on the class-attention
     probabilities."""
-    D = 192
     gen = torch.Generator().manual_seed(seed + 1)
-    blk, ca = _backbone_params(gen, device, D)
+    blk, ca = _backbone_params(gen, device, D, H)
 
     def act(*shape, dtype=torch.bfloat16):
         return torch.randn(shape, generator=gen).to(dtype).to(device)
@@ -642,9 +642,9 @@ def train_cases(B=2, N=1024, t=21, S=2, Q=300, device="cuda", seed=0,
 
     x, cls = act(B, N, D), act(B, t, D)
     drop = CounterDropout(seed_of(20240611), *rates)
-    dattn = 0.1 * act(B, 4, t, t + N, dtype=torch.float32)
-    cases = [("pallas_block", fused_block, (x, blk, 4, drop), (act(B, N, D),)),
-             ("pallas_ca_block", fused_ca_block, (cls, x, ca, 4),
+    dattn = 0.1 * act(B, H, t, t + N, dtype=torch.float32)
+    cases = [("pallas_block", fused_block, (x, blk, H, drop), (act(B, N, D),)),
+             ("pallas_ca_block", fused_ca_block, (cls, x, ca, H),
               (act(B, t, D), dattn))]
     enc, dec, dec_later = _transformer_params(gen, device, D)
     pos, mask = act(B, N, D), _key_mask(B, N, device)
@@ -777,17 +777,18 @@ def flat_grads(name, result):
     return {**dict(zip(TRAIN_API[name][2], dins)), **grad_views(g)}
 
 
-def kernel_cases(B=2, N=1024, t=21, S=2, Q=300, device="cuda", seed=0):
+def kernel_cases(B=2, N=1024, t=21, S=2, Q=300, device="cuda", seed=0,
+                 D=192, H=4):
     """[(name, replaces, fused fn, plain fn, args)] for the four fused
-    layers; the decoder twice, with the layer-0 (ca_qpos_proj) and the
-    later-layer parameter sets."""
-    D = 192
+    layers (at the voc0712 widths, or a wider backbone's D and heads H;
+    the transformer's 8 heads of D / 8); the decoder twice, with the
+    layer-0 (ca_qpos_proj) and the later-layer parameter sets."""
     gen = torch.Generator().manual_seed(seed)
 
     def act(*shape):
         return torch.randn(shape, generator=gen).to(torch.bfloat16).to(device)
 
-    blk, ca = _backbone_params(gen, device, D)
+    blk, ca = _backbone_params(gen, device, D, H)
     enc, dec, dec_later = _transformer_params(gen, device, D)
     mask = _key_mask(B, N, device)
     x, pos, cls = act(B, N, D), act(B, N, D), act(B, t, D)
@@ -795,10 +796,10 @@ def kernel_cases(B=2, N=1024, t=21, S=2, Q=300, device="cuda", seed=0):
     return [
         ("pallas_block", "spe_tpu/ops/pallas_block.py:548",
          fused_block.fused_layer_scale_block,
-         fused_block.layer_scale_block_reference, (x, blk, 4)),
+         fused_block.layer_scale_block_reference, (x, blk, H)),
         ("pallas_ca_block", "spe_tpu/ops/pallas_ca_block.py:268",
          fused_ca_block.fused_class_attn_block,
-         fused_ca_block.class_attn_block_reference, (cls, x, ca, 4)),
+         fused_ca_block.class_attn_block_reference, (cls, x, ca, H)),
         ("pallas_encoder", "spe_tpu/ops/pallas_encoder.py:375",
          fused_encoder.fused_encoder_layer,
          fused_encoder.encoder_layer_reference, (x, pos, mask, enc, 8)),
@@ -906,6 +907,13 @@ GEMM_SHAPES = [
     ("large tile, ragged: A f32 without unit stride, B bf16 k-contiguous at "
      "a 4-byte offset", 257, 129, 33, (8, 4), ("g", "f32", 0, True),
      ("c", "bf16", 2, False), "f32", dict(alpha=-1.5)),
+    ("XS24's per-head logits: K = dt = 36 padded, alpha", 100, 77, 36,
+     (2, 3), ("r", "bf16", 0, True), ("c", "bf16", 0, True), "f32",
+     dict(alpha=36 ** -0.5)),
+    ("XS24's dQ: N = 36, A bf16 k-contiguous, B bf16 n-contiguous", 65, 36,
+     200, (2, 2), ("r", "bf16", 0, True), ("r", "bf16", 0, True), "f32", {}),
+    ("M's dV: N = dt = 96, A bf16 m-contiguous plane, B f32", 77, 96, 130,
+     (2, 2), ("c", "bf16", 0, True), ("r", "f32", 0, True), "f32", {}),
 ]
 
 
@@ -1115,7 +1123,26 @@ def attention_kernel_cases(device="cuda", seed=0):
         24, 24, koff=2, kld=50, cw=4)
     add("48 x 24, K/V at an odd offset and row stride (plain loads)", 2, 2,
         33, 90, 48, 24, koff=1, kld=99, cw=2)
+    # the wider backbones' forms (dt = 36, 48, 96): V padded to 40 in
+    # shared memory at dv = 36, whose 72-byte rows take 8-byte copies
+    add("36 x 36 (XS24 encoder): dropout, log-sum-exps", 2, 3, 100, 130, 36,
+        36, drop=(10, 0.1), lse=True, cw=8)
+    add("72 x 36 (XS24 cross-attention): dropout keyed by mask_heads", 2, 2,
+        70, 129, 72, 36, drop=(7, 0.1), mask_heads=1, lse=True, cw=8)
+    add("96 x 48 (S cross-attention): dropout keyed by mask_heads", 2, 2, 70,
+        129, 96, 48, drop=(7, 0.1), mask_heads=1, lse=True)
+    add("96 x 96 (M encoder): dropout, log-sum-exps", 2, 2, 100, 130, 96, 96,
+        drop=(10, 0.1), lse=True)
+    add("192 x 96 (M cross-attention): f32 output, one-key last tile", 2, 2,
+        70, 65, 192, 96, out_f32=True)
+    add("36 x 36, K/V at a 2-element offset (4-byte copies)", 2, 2, 65, 100,
+        36, 36, koff=2, kld=74, cw=4)
+    assert len(cases) == ATTENTION_KERNEL_CASES
     return cases
+
+
+# the cases attention_kernel_cases makes (the card test's parametrisation)
+ATTENTION_KERNEL_CASES = 14
 
 
 def attention_args(case):
@@ -1439,6 +1466,23 @@ TH_BWD_SHAPES = [
     ("H=8, B*N=128 (fewer blocks than threads), wl", 2, 8, 64, 0.0, True),
     ("H=8, B*N=1154 (577 blocks of 2 rows), wl, dropout", 2, 8, 577, 0.1,
      True),
+    # the wider backbones' heads (XS24 6, M36/M48 16: the mixes in shared
+    # memory, the pair sums scattered over the warp) and the multi-scale
+    # buckets' rows (two units of 4 columns a thread past 1024 keys)
+    ("H=6 (XS24), N=1024, dropout", 1, 6, 1024, 0.1, False),
+    ("H=6, N=1024, wl, dropout", 1, 6, 1024, 0.1, True),
+    ("H=16 (M36/M48), B=2, N=1024, dropout", 2, 16, 1024, 0.1, False),
+    ("H=16, N=1024, wl, dropout", 1, 16, 1024, 0.1, True),
+    ("H=16, N=130 (scalar rows, lanes past the row), wl", 2, 16, 130, 0.0,
+     True),
+    ("H=4, N=1280 (the 512 x 640 bucket), dropout", 2, 4, 1280, 0.1, False),
+    ("H=4, N=1600 (the 640 x 640 bucket), wl, dropout", 1, 4, 1600, 0.1,
+     True),
+    ("H=4, N=2048, dropout", 1, 4, 2048, 0.1, False),
+    ("H=8, N=1600, wl", 1, 8, 1600, 0.0, True),
+    ("H=3, N=1025 (one key past a unit), dropout", 2, 3, 1025, 0.1, False),
+    ("H=16, N=1281 (not a multiple of 4), dropout", 1, 16, 1281, 0.1, False),
+    ("H=16, N=2048, wl, dropout", 1, 16, 2048, 0.1, True),
 ]
 # th_bwd_rows' classes on the main path, (B, H, N, with wl): the stock step
 # (the patch blocks' wl-folded logits) and the standalone-attention step
@@ -1451,10 +1495,12 @@ def th_bwd_case(B, H, N, rate, wl, device="cuda", seed=0, site=1):
     th_fwd_rows_reference) -> (args, kw)."""
     from spe_tpu_torch.ops.kernels import th_fwd_rows_reference
 
-    gen = torch.Generator().manual_seed(seed + 7 + H * 1000 + N)
+    # drawn where they are used: the 16-head planes at B = 8 hold 134M
+    # values each
+    gen = torch.Generator(device).manual_seed(seed + 7 + H * 1000 + N)
 
     def f32(*shape, scale=1.0):
-        return (scale * torch.randn(shape, generator=gen)).to(device)
+        return scale * torch.randn(shape, generator=gen, device=device)
 
     eye = torch.eye(H, device=device)
     s = f32(B, H, N, N, scale=2.0)
@@ -1519,6 +1565,15 @@ TH_FWD_SHAPES = [
     ("H=4, N=1024 (a thread's 4 columns x 256), dropout, wl", 1, 4, 1024,
      0.05, True),
     ("H=2, N=64, no dropout", 3, 2, 64, 0.0, False),
+    ("H=6 (XS24), N=1024, dropout", 2, 6, 1024, 0.1, False),
+    ("H=16 (M36/M48), N=1024, dropout", 2, 16, 1024, 0.1, False),
+    ("H=16, N=1024, wl, dropout", 1, 16, 1024, 0.1, True),
+    ("H=16, N=130 (scalar rows), wl", 2, 16, 130, 0.0, True),
+    ("H=4, N=1280 (the 512 x 640 bucket), dropout", 2, 4, 1280, 0.1, False),
+    ("H=4, N=1600 (the 640 x 640 bucket), wl", 1, 4, 1600, 0.0, True),
+    ("H=6, N=1601 (not a multiple of 4), wl, dropout", 1, 6, 1601, 0.1,
+     True),
+    ("H=16, N=2048, dropout", 1, 16, 2048, 0.1, False),
 ]
 
 
@@ -1670,6 +1725,9 @@ TH_FOLD_SHAPES = [
     ("D=2056 (257 units of 8: more than a block's threads), H=2", 1, 2, 5,
      2056, 2056, 0),
     ("D=260 (scalar: 260 columns a row), H=4", 2, 4, 33, 260, 261, 0),
+    ("XS24: qkv3[..., :D] of (2, 1024, 864), H=6", 2, 6, 1024, 288, 864, 0),
+    ("M36/M48: qkv3[..., :D] of (2, 1024, 2304), H=16 (48 KB of rows)", 2,
+     16, 1024, 768, 2304, 0),
 ]
 
 
@@ -1712,8 +1770,11 @@ def colsum_f32_case(M, C, ld, offset=0, device="cuda", seed=0):
 
 
 # ln_backward: the (M, D) classes one stock step gives it (the same record;
-# every LayerNorm of the stock model is 192 wide)
-LN_BWD_MAIN = [(8192, 192), (4800, 192), (168, 192), (8360, 192)]
+# every LayerNorm of the stock model is 192 wide), then those of the wider
+# backbones' steps (the patch blocks, the decoder, the class attention)
+LN_BWD_MAIN = [(8192, 192), (4800, 192), (168, 192), (8360, 192),
+               (8192, 288), (8192, 384), (8192, 768), (4800, 768),
+               (8360, 768)]
 # (label, M, D, x bf16, with a residual, dx bf16): every main class with its
 # types, then D = 256 and ragged ones
 LN_BWD_SHAPES = [
@@ -1731,6 +1792,16 @@ LN_BWD_SHAPES = [
     ("M = 1001 (not a multiple of the warps' runs), D = 256: bf16 x and dx, "
      "residual", 1001, 256, True, True, True),
     ("M = 9, D = 192: bf16 x, f32 dx", 9, 192, True, False, False),
+    ("XS24 patch block norm1 (8192, 288): bf16 x and dx, residual", 8192,
+     288, True, True, True),
+    ("S24 patch block norm2 (8192, 384): f32 x, residual", 8192, 384, False,
+     True, False),
+    ("M48 patch block norm2 (8192, 768): f32 x, residual", 8192, 768, False,
+     True, False),
+    ("M48 patch block norm1 (8192, 768): bf16 x and dx, residual", 8192, 768,
+     True, True, True),
+    ("M = 1001, D = 288: f32 x", 1001, 288, False, False, False),
+    ("M = 77, D = 768: bf16 x, f32 dx", 77, 768, True, False, False),
 ]
 
 

@@ -35,6 +35,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
 from pathlib import Path
 
 import torch
@@ -76,19 +77,29 @@ def library_path() -> Path:
 
 
 def _run(procs):
-    """Wait for every (cmd, Popen) and raise with the output of a failure."""
-    failed = []
-    for cmd, proc in procs:
-        out, err = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"{' '.join(cmd)}\n{out}\n{err}")
+    """Wait for every (cmd, Popen) and raise with the output of a failure
+    -> the seconds each took, from the first's start to its end."""
+    t0, seconds, failed = time.perf_counter(), [], []
+    pending = list(procs)
+    while pending:
+        for cmd, proc in list(pending):
+            if proc.poll() is None:
+                continue
+            out, err = proc.communicate()
+            seconds.append((cmd, time.perf_counter() - t0))
+            pending.remove((cmd, proc))
+            if proc.returncode != 0:
+                failed.append(f"{' '.join(cmd)}\n{out}\n{err}")
+        time.sleep(0.05)
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return seconds
 
 
 def build() -> Path:
     """Compile csrc/*.cu into the shared library unless it is built already:
-    every source compiles in its own nvcc process, all at once."""
+    every source compiles in its own nvcc process, all at once (the seconds
+    each took in `build.seconds`)."""
     so = library_path()
     if so.exists():
         return so
@@ -103,13 +114,16 @@ def build() -> Path:
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                 text=True)))
             objs.append(obj)
-        _run(procs)
+        build.seconds = {Path(cmd[-1]).name: t for cmd, t in _run(procs)}
         out = os.path.join(tmp, "lib.so")
         cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", out, *objs]
         _run([(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                      stderr=subprocess.PIPE, text=True))])
         os.replace(out, so)  # atomic: a concurrent build never reads half a file
     return so
+
+
+build.seconds = {}
 
 
 class _LinearParams(ctypes.Structure):
@@ -294,7 +308,8 @@ def lib():
         so.spe_th_mix_wave.argtypes = [ctypes.c_int,
                                        ctypes.POINTER(ctypes.c_int)]
         so.spe_th_mix_wave.restype = ctypes.c_int
-        so.spe_attention_copy_bytes.argtypes = [ctypes.POINTER(_AttnParams)]
+        so.spe_attention_copy_bytes.argtypes = [ctypes.POINTER(_AttnParams),
+                                                ctypes.c_int, ctypes.c_int]
         so.spe_attention_copy_bytes.restype = ctypes.c_int
         for name, struct in (("spe_attention", _AttnParams),
                              ("spe_th_rows", _THRowParams)):
@@ -504,10 +519,12 @@ def ln_linear_reference(a, w, bias=None, *, ln=None, a2=None, act="none",
     return out
 
 
-# the dq x dv forms spe_attention is built for (csrc/attention.cu): the patch
-# blocks' wl-fold over all of D, the class attention, the encoder and
-# decoder self-attention, the conditional cross-attention
-ATTENTION_FORMS = ((192, 192), (48, 48), (24, 24), (48, 24))
+# the dq x dv forms spe_attention is built for (csrc/attention.cu): the XXS
+# patch blocks' wl-fold over all of D, the class attention, and at dt = D /
+# 8 of each backbone (24 XXS, 36 XS, 48 S, 96 M) the encoder and decoder
+# self-attention (dt x dt) and the conditional cross-attention (2dt x dt)
+ATTENTION_FORMS = ((192, 192), (48, 48), (24, 24), (48, 24), (36, 36),
+                   (72, 36), (96, 48), (96, 96), (192, 96))
 
 
 def attention(q, k, v, out, *, num_heads, dq, dv, q_hs, k_hs, v_hs, o_hs,
@@ -540,9 +557,9 @@ def attention_copy_bytes(*args, **kw):
     """The bytes of each K/V copy into shared memory that the kernel picks
     for `attention(*args, **kw)`: 16 where every K and V row start is
     16-byte aligned, else 8 or 4 (narrower cp.async), else 2 (plain
-    loads)."""
-    return lib().spe_attention_copy_bytes(ctypes.byref(_attn_params(*args,
-                                                                    **kw)))
+    loads); at most 8 for a head width that is not a multiple of 8."""
+    return lib().spe_attention_copy_bytes(
+        ctypes.byref(_attn_params(*args, **kw)), kw["dq"], kw["dv"])
 
 
 def _attn_params(q, k, v, out, *, num_heads, dq, dv, q_hs, k_hs, v_hs, o_hs,
@@ -1139,9 +1156,10 @@ def colsum_f32_reference(x):
     return x.sum(0)
 
 
-# ln_bwd_kernel: the widths it is built for (template instantiations), the
-# warps of a block, the largest cluster
-LN_BWD_WIDTHS = (192, 256)
+# ln_bwd_kernel: the widths it is built for (template instantiations: the
+# backbones' 192, 288, 384 and 768, and 256), the warps of a block, the
+# largest cluster
+LN_BWD_WIDTHS = (192, 256, 288, 384, 768)
 LN_BWD_WARPS = 8
 LN_BWD_CLUSTER = 8
 
@@ -1181,8 +1199,8 @@ def ln_backward_ws_rows(n_sm):
 def ln_backward_scratch(device):
     """ln_bwd_kernel's per-device scratch, allocated once: the tickets (one
     int32 counter per column slice of a cluster, 0 between launches: the
-    slice's last block resets it) and one (2, 256) f32 row per cluster
-    (ln_backward_ws_rows)."""
+    slice's last block resets it) and one (2, max(LN_BWD_WIDTHS)) f32 row
+    per cluster (ln_backward_ws_rows)."""
     index = _index(device)
     if index not in _LN_SCRATCH:
         rows = ln_backward_ws_rows(sm_count(device))
@@ -1338,9 +1356,9 @@ def dropout_mask(seed, site, rate, shape):
     return out.bool()
 
 
-# th_fold_kernel: at most 8 heads (th_train.cu MAXH), rows (H, D) f32 in one
-# block's shared memory, B * N rows counted in 32 bits
-TH_FOLD_MAX_H = 8
+# th_fold_kernel: at most 16 heads (th_train.cu FOLD_MAX_H), rows (H, D) f32
+# in one block's shared memory, B * N rows counted in 32 bits
+TH_FOLD_MAX_H = 16
 TH_FOLD_MAX_SMEM = 232448
 TH_FOLD_MAX_ROWS = 2 ** 31 - 1 - 256
 
@@ -1393,21 +1411,23 @@ def _th_row_params(s, bl, ww, bw, seed, rate, wl, site, **kw):
                 site=dsite, **kw)
 
 
-TH_NT = 256        # csrc/th_train.cu: threads of th_fwd_rows_kernel and
-TH_BLOCKS = 1024   # th_bwd_rows_kernel, 4 columns each; at most TH_BLOCKS
-                   # blocks
+TH_NT = 256        # csrc/th_rows.cuh: threads of th_fwd_rows_kernel and
+TH_BLOCKS = 1024   # th_bwd_rows_kernel, units of 4 columns each; at most
+                   # TH_BLOCKS blocks
 
 
-TH_ROWS_MAX_N = 4 * TH_NT   # 4 columns a thread
-TH_ROWS_MAX_H = 8           # csrc/th_train.cu MAXH
+TH_ROWS_MAX_N = 4 * TH_NT * 2   # two units of 4 columns a thread
+                                # (csrc/th_rows.cuh TH_MAXU)
+# the heads the row passes are built for (th_train.cu, th_wide.cu, th_h16.cu)
+TH_ROWS_HEADS = (1, 2, 3, 4, 5, 6, 7, 8, 16)
 # th_bwd_rows' sums a row: dww, dbw, dbl and dwl at the most heads
-TH_BWD_MAX_WIDTH = 2 * TH_ROWS_MAX_H ** 2 + 2 * TH_ROWS_MAX_H
+TH_BWD_MAX_WIDTH = 2 * max(TH_ROWS_HEADS) ** 2 + 2 * max(TH_ROWS_HEADS)
 
 
-def _th_rows_domain(name, N):
-    if N > TH_ROWS_MAX_N:
-        raise ValueError(f"{name} takes rows of at most {TH_ROWS_MAX_N} keys, "
-                         f"got {N}")
+def _th_rows_domain(name, H, N):
+    if N > TH_ROWS_MAX_N or H not in TH_ROWS_HEADS:
+        raise ValueError(f"{name} takes rows of at most {TH_ROWS_MAX_N} keys "
+                         f"and H in {TH_ROWS_HEADS}, got N={N}, H={H}")
 
 
 def th_fwd_rows(s, bl, ww, bw, seed, rate, *, wl=None, site=SITE_ATTN):
@@ -1415,10 +1435,11 @@ def th_fwd_rows(s, bl, ww, bw, seed, rate, *, wl=None, site=SITE_ATTN):
     N) f32 (without bl; with wl (H, H) each head's own logits, mixed as
     m_g = sum_h wl[g, h] s_h): -> (lse (B, H, N) f32 of the mixed logits +
     bl, zd (B, H, N, N) bf16 = drop(sum_h ww[g, h] softmax_h + bw_g)), the
-    mask keyed (seed, site, b, g, row, key). Takes N <= 4 * TH_NT."""
+    mask keyed (seed, site, b, g, row, key). Takes N <= TH_ROWS_MAX_N and H
+    in TH_ROWS_HEADS."""
     B, H, N, _ = s.shape
     params = _th_row_params(s, bl, ww, bw, seed, rate, wl, site)
-    _th_rows_domain("th_fwd_rows", N)
+    _th_rows_domain("th_fwd_rows", H, N)
     lse = torch.empty((B, H, N), device=s.device, dtype=_F32)
     zd = torch.empty(s.shape, device=s.device, dtype=_BF16)
     p = _THRowParams(**params, lse=lse.data_ptr(), zd=zd.data_ptr())
@@ -1463,16 +1484,16 @@ def th_bwd_rows(s, lse, dzd, bl, ww, bw, seed, rate, *, wl=None,
     """Talking-heads backward row pass: -> (zd bf16, ds bf16 (B, H, N, N),
     dww (H, H), dbw (H,), dbl (H,) f32). With wl (see th_fwd_rows) ds holds
     dL_h = sum_g wl[g, h] dm_g, and dwl (H, H) f32 is returned last.
-    Takes N <= 4 * TH_NT. One launch; the parameter sums in a fixed order
-    (two calls give the same bits). Launches on one stream at a time: the
-    launches share the ticket."""
+    Takes N <= TH_ROWS_MAX_N and H in TH_ROWS_HEADS. One launch; the
+    parameter sums in a fixed order (two calls give the same bits).
+    Launches on one stream at a time: the launches share the ticket."""
     B, H, N, _ = s.shape
     _need(lse, _F32, "lse", 3)
     _need(dzd, _F32, "dzd", 4)
     if tuple(lse.shape) != (B, H, N) or dzd.shape != s.shape or \
             not (lse.is_contiguous() and dzd.is_contiguous()):
         raise ValueError("lse (B, H, N) and dzd (B, H, N, N) must be contiguous")
-    _th_rows_domain("th_bwd_rows", N)
+    _th_rows_domain("th_bwd_rows", H, N)
     zd = torch.empty(s.shape, device=s.device, dtype=_BF16)
     ds = torch.empty(s.shape, device=s.device, dtype=_BF16)
     width = (2 if wl is not None else 1) * H * H + 2 * H

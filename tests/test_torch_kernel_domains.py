@@ -1,9 +1,10 @@
 """`models/build.py`'s refusal of configurations outside the CUDA kernels'
 shapes, on the CPU: `kernel_domain_errors` walks every registered backbone
-under the voc0712 preset's flags (the D = 192, 4-head XXS24/XXS36 forms
-pass at 512^2; the XS24, S24, S36, M36 and M48 forms are refused), under
-the all-off flags (every backbone passes), and against the training
-patches multi-scale buckets can give; `build_model` on a CUDA device
+under the voc0712 and coco17 presets' flags (every form, XXS24/XXS36,
+XS24, S24, S36, M36 and M48, passes at 512^2; the test backbones' narrow
+heads are refused), under the all-off flags (every backbone passes), and
+against the training patches multi-scale buckets can give (up to 2048:
+max_size 640 passes, 768 is refused); `build_model` on a CUDA device
 raises by the backbone's name before it builds anything, and on the CPU
 builds what the card refuses."""
 
@@ -16,9 +17,9 @@ from spe_tpu_torch.models.cait import BACKBONE_REGISTRY
 
 OFF = dict(use_fused_block=False, use_fused_layers=False,
            use_pallas_attention=False)
-# the forms the card's kernels take at the presets' widths and 512^2
-ACCEPTED = ("XXS24", "XXS36")
-REFUSED = ("XS24", "S24", "S36", "M36", "M48")
+# the forms the card's kernels take at the presets' widths and 512^2: every
+# registered one
+ACCEPTED = ("XXS24", "XXS36", "XS24", "S24", "S36", "M36", "M48")
 TEST_BACKBONES = ("TSCAM_cait_tiny", "TSCAM_cait_mini")
 
 
@@ -28,20 +29,18 @@ def _form(name):
 
 @pytest.mark.parametrize("name", sorted(BACKBONE_REGISTRY))
 def test_preset_flags_against_kernel_domains(name):
-    """Under the preset's flags the XXS forms fit every kernel and the
-    wider ones are refused, each for a named kernel; with every flag off
-    nothing is refused."""
-    cfg = voc0712_preset(backbone=name)
-    errors = kernel_domain_errors(cfg)
-    assert kernel_domain_errors(cfg.replace(**OFF)) == []
-    if name in TEST_BACKBONES:
-        return
-    assert _form(name) in ACCEPTED + REFUSED
-    if _form(name) in ACCEPTED:
+    """Under the voc0712 and coco17 presets' flags every registered form
+    fits every kernel (the test backbones' narrow heads are refused, each
+    for a named kernel); with every flag off nothing is refused."""
+    for cfg in (voc0712_preset(backbone=name), coco17_preset(backbone=name)):
+        errors = kernel_domain_errors(cfg)
+        assert kernel_domain_errors(cfg.replace(**OFF)) == []
+        if name in TEST_BACKBONES:
+            assert errors and all(("attention" in e or "ln_backward" in e or
+                                   "talking heads" in e) for e in errors)
+            continue
+        assert _form(name) in ACCEPTED
         assert errors == [], (name, errors)
-    else:
-        assert errors and all(("attention" in e or "ln_backward" in e or
-                               "talking heads" in e) for e in errors), name
 
 
 def test_coco17_preset_within_kernel_domains():
@@ -54,30 +53,41 @@ def test_coco17_preset_within_kernel_domains():
                                   "use_pallas_attention"])
 def test_any_flag_routes_through_the_kernels(flag):
     """Any one fused flag or use_pallas_attention on is enough for the
-    check to apply."""
-    cfg = voc0712_preset(backbone="TSCAM_cait_S24_Two_Branch").replace(**OFF)
-    assert kernel_domain_errors(cfg.replace(**{flag: True}))
+    check to apply (here to 2304 training patches, past the row passes)."""
+    cfg = voc0712_preset(backbone="TSCAM_cait_S24_Two_Branch", max_size=768,
+                         fixed_size=False).replace(**OFF)
+    assert kernel_domain_errors(cfg) == []
+    assert kernel_domain_errors(cfg.replace(**{flag: True})) == [
+        "2304 training patches (at most 2048)"]
 
 
 def test_training_patches_against_row_passes():
-    """The presets' fixed 512^2 gives 1024 patches (the row passes' limit);
-    multi-scale buckets of 128 at max_size 512 too, at 640 (the JAX bench's
-    512 x 640 buckets) 1600, which is refused."""
+    """The presets' fixed 512^2 gives 1024 patches; multi-scale buckets of
+    128 at max_size 512 too, at 640 (the JAX bench's 512 x 640 buckets)
+    1600, which the row passes take (two units of 4 columns a thread, up
+    to 2048), at 768 2304, which is refused by name."""
     cfg = voc0712_preset()
     assert training_patches(cfg, 16) == 1024
     assert training_patches(cfg.replace(fixed_size=False), 16) == 1024
     wide = cfg.replace(fixed_size=False, max_size=640)
     assert training_patches(wide, 16) == 1600
-    assert any("training patches" in e for e in kernel_domain_errors(wide))
-    assert kernel_domain_errors(wide.replace(**OFF)) == []
+    assert kernel_domain_errors(wide) == []
+    wider = cfg.replace(fixed_size=False, max_size=768)
+    assert training_patches(wider, 16) == 2304
+    assert kernel_domain_errors(wider) == [
+        "2304 training patches (at most 2048)"]
+    assert kernel_domain_errors(wider.replace(**OFF)) == []
 
 
 def test_build_model_refuses_on_the_card_only():
-    """build_model raises on a CUDA device, naming the backbone, before
-    any model is built; on the CPU it builds the same configuration (here
-    at a tiny size)."""
-    cfg = voc0712_preset(backbone="TSCAM_cait_M48_Two_Branch")
-    with pytest.raises(NotImplementedError, match="TSCAM_cait_M48_Two_Branch"):
+    """build_model raises on a CUDA device, naming the backbone and the
+    kernel's limit, before any model is built (2304 training patches at
+    max_size 768); on the CPU it builds the same configuration (here at a
+    tiny size)."""
+    cfg = voc0712_preset(backbone="TSCAM_cait_M48_Two_Branch", max_size=768,
+                         fixed_size=False)
+    with pytest.raises(NotImplementedError,
+                       match="TSCAM_cait_M48_Two_Branch.*2304 training"):
         build_model(cfg, device="cuda")
     tiny = voc0712_preset(backbone="TSCAM_cait_tiny", max_size=64,
                           layer_to_det=2, enc_layers=1, dec_layers=1,
