@@ -1,6 +1,8 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
     python3 chip_smoke.py            # all phases; needs one CUDA device
+    python3 chip_smoke.py --nccl     # phase 11 over NCCL, a process on
+                                     # each card of the machine
     python3 chip_smoke.py --against DIR   # the toolkit classes, CC and the
                                      # auction on DIR's kernels and on
                                      # these, in turns (the other
@@ -175,10 +177,28 @@ Phases, each printing its own lines; any failure exits non-zero:
                on the aux layer's logits and boxes of both stages, the 90
                CAMs and the first class-attention block's 91 x 1115
                probabilities.
+ 10. backbones — the XS24, S24 and M48 two-branch backbones and the
+               multi-scale XXS36 buckets (see phase_backbones).
+ 11. distributed — two processes on the one card over gloo
+               (`--dist-worker`), one step of the stock voc0712 preset at
+               full width (dropout 0, hung_match_ratio 1) on 2 of 4
+               generated images each: their parameters bit for bit equal,
+               each process's launches those of a stock step; against one
+               process on the 4 as two micro-batches with the processes'
+               normalisers (the loss and every parameter after the update
+               within 1e-6, grad_norm and every averaged gradient within
+               1e-5) and in one forward with the normaliser max(N, 2)
+               given the micro-batches' supervision (phase 8's same-grads
+               rule; the normalisers twice the processes');
+               the coco17 COCO eval of 8 generated images, 4 a process and
+               merged, against one process's (the detections bit for bit,
+               AP/AR within 1e-3, eval losses 1e-4); then `python -m
+               spe_tpu_torch.cli.accuracy rehearse --epochs 2` on the card.
+               Host ms of the step on each side, the gradient all-reduce's
+               bytes and CUDA-event ms, the evals' seconds.
 Each profile also sums the device time of the product kernels by family
 (attn_kernel<192, 192, ...> apart) and of every __global__ function in
-spe_tpu_torch/csrc. About 5 minutes of command time on an
-H100.
+spe_tpu_torch/csrc. About 11 minutes of command time on an H100.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
 
@@ -205,17 +225,21 @@ def fail(msg):
     sys.exit(1)
 
 
+def card():
+    """`nvidia-smi --query-gpu=name,power.limit` of the first card."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True)
+    return smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else \
+        f"nvidia-smi failed: {smi.stderr.strip()}"
+
+
 def phase_device():
     import torch
 
     if not torch.cuda.is_available():
         fail("no CUDA device")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True)
-    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else \
-        f"nvidia-smi failed: {smi.stderr.strip()}"
-    print(f"[device] {card}", flush=True)
+    print(f"[device] {card()}", flush=True)
     print(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
           f"devices {torch.cuda.device_count()} "
           f"name {torch.cuda.get_device_name(0)}", flush=True)
@@ -3292,6 +3316,576 @@ def csrc_kernels():
     return names
 
 
+# phase 11: two processes on the one card over gloo (NCCL refuses two
+# ranks on one device; gloo carries the card's tensors through the host)
+DIST_TRAIN_ARGV = STOCK_TRAIN_ARGV + [
+    "--dropout", "0", "--backbone_drop_rate", "0", "--drop_path_rate", "0",
+    "--drop_attn_rate", "0", "--hung_match_ratio", "1"]
+DIST_TIMEOUT = 300   # seconds the two processes may take
+
+
+def _dist_models(spec, device):
+    """The models of phase 11 on `device`, the same in every process (built
+    from the seed) -> (voc0712 cfg, the stock voc0712 model, coco17 cfg,
+    the coco17 eval model with its heads drawn so that detections land on
+    the data's first classes)."""
+    import torch
+
+    from spe_tpu_torch.config import SPEConfig
+    from spe_tpu_torch.models.build import build_model
+
+    voc, coco = SPEConfig(**spec["voc"]), SPEConfig(**spec["coco"])
+    eval_model = build_model(coco, device).eval()
+    gen = torch.Generator().manual_seed(3)
+    with torch.no_grad():
+        for r in range(coco.num_refines + 1):
+            w = eval_model.bbox_embed[r].layers[-1].weight
+            w.copy_(torch.randn(w.shape, generator=gen) * 0.3)
+            eval_model.class_embed[r].bias[:4] += 3.0
+    return voc, build_model(voc, device), coco, eval_model
+
+
+def _digest(model):
+    import hashlib
+
+    h = hashlib.sha256()
+    for n, p in model.named_parameters():
+        h.update(n.encode())
+        h.update(p.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def _coco_stages(model, loader, ds, cfg, device):
+    """Both refinement stages' COCO eval -> ({stage{s}_stat: value}, s,
+    each stage's detections after the merge: the packed rows
+    [valid, image_id, category_id, x, y, w, h, score], sorted)."""
+    import numpy as np
+    import torch
+
+    from spe_tpu_torch.train import engine
+
+    gt = ds.coco_gt() if hasattr(ds, "coco_gt") else ds.raw
+    merge, planes = engine.merge_across_processes, []
+
+    def merged(evaluator, *args, **kw):
+        merge(evaluator, *args, **kw)
+        rows = engine.pack_detections(evaluator)
+        rows = rows[rows[:, 0] > 0.5]
+        planes.append(rows[np.lexsort(rows.T[::-1])])
+
+    engine.merge_across_processes = merged
+    stats, t0 = {}, time.perf_counter()
+    try:
+        for st in range(cfg.num_refines + 1):
+            s = engine.evaluate_coco(model, loader, gt, cfg, device,
+                                     refine_stage=st)
+            s.pop("forwards")
+            stats.update({f"stage{st}_{k}": v for k, v in s.items()})
+        torch.cuda.synchronize()
+    finally:
+        engine.merge_across_processes = merge
+    return stats, time.perf_counter() - t0, planes
+
+
+def dist_worker(rank, world, backend, port, tmp):
+    """One of phase 11's processes (`python3 chip_smoke.py --dist-worker
+    RANK WORLD BACKEND PORT DIR`): over gloo on cuda:0, or over NCCL on
+    cuda:RANK, one step of the stock voc0712 model on its 2 images, with
+    its kernel launches and its all-reduce's bytes and CUDA-event ms; then
+    the coco17 eval of its share of the 8 images, merged; results to
+    DIR/rank{RANK}.pt (rank 0: the parameters after the step and the
+    averaged gradients too)."""
+    import torch
+
+    from spe_tpu_torch.data import eval_data
+    from spe_tpu_torch.ops import kernels as K
+    from spe_tpu_torch.parallel import dist
+    from spe_tpu_torch.train import train_step as ts
+    from spe_tpu_torch.train.optim import AdamW3
+
+    os.environ.update(RANK=str(rank),
+                      LOCAL_RANK="0" if backend == "gloo" else str(rank))
+    dev = dist.init_distributed(world, f"tcp://127.0.0.1:{port}", "cuda",
+                                backend=backend)
+    spec = torch.load(f"{tmp}/spec.pt")
+    voc, model, coco, eval_model = _dist_models(spec, dev)
+    out = {"init": (_digest(model), _digest(eval_model)), "device": str(dev)}
+    state = ts.TrainState(model, AdamW3(model.named_parameters(), voc, 1))
+    half = {k: v[2 * rank:2 * rank + 2].to(dev)
+            for k, v in spec["batch"].items()}
+    reduce, timed = dist.all_reduce_mean_, []
+    normalisers, nb = ts.num_boxes_per_stage, []
+
+    def num_boxes_per_stage(*args, **kw):
+        got = normalisers(*args, **kw)
+        nb.append([float(v) for v in got])
+        return got
+
+    def all_reduce_mean_(flat):
+        a, b = torch.cuda.Event(enable_timing=True), \
+            torch.cuda.Event(enable_timing=True)
+        a.record()
+        reduce(flat)
+        b.record()
+        torch.cuda.synchronize()
+        timed.append((flat.numel() * flat.element_size(), a.elapsed_time(b)))
+        return flat
+
+    dist.all_reduce_mean_ = all_reduce_mean_
+    ts.num_boxes_per_stage = num_boxes_per_stage
+    toolkit = {k: getattr(K, name) for k, name in WRAPPER.items()}
+    for fn in toolkit.values():
+        fn.launches = 0
+    _all_counts(reset=True)
+    dist.barrier("step")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m = ts.train_step(state, half, voc, ts.Gates.for_epoch(voc, 0),
+                      torch.Generator(dev).manual_seed(rank))
+    loss = float(m["loss"])
+    out.update(step_ms=(time.perf_counter() - t0) * 1e3, counts=_all_counts(),
+               toolkit={k: fn.launches for k, fn in toolkit.items()},
+               per=_per_forward(model), all_reduce=timed, nb=nb[0],
+               loss=loss, grad_norm=float(m["grad_norm"]),
+               after=_digest(model))
+    dist.all_reduce_mean_, ts.num_boxes_per_stage = reduce, normalisers
+    if rank == 0:
+        out["params"] = {n: p.detach().cpu() for n, p in
+                         model.named_parameters()}
+        out["grads"] = {n: p.grad.detach().cpu() for n, p in
+                        model.named_parameters() if p.grad is not None}
+    del state, model
+    ds, loader = eval_data(coco)
+    out["images"] = len(loader._indices(0))
+    out["coco"], out["eval_s"], out["dets"] = _coco_stages(
+        eval_model, loader, ds, coco, dev)
+    torch.save(out, f"{tmp}/rank{rank}.pt")
+    dist.shutdown()
+
+
+def _launch(world, backend, tmp):
+    """The processes of phase 11 -> their rank{r}.pt results and the wall
+    seconds; a failure or DIST_TIMEOUT fails the smoke."""
+    import socket
+
+    import torch
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK")}
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--dist-worker", str(r),
+         str(world), backend, str(port), tmp], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, env=env) for r in range(world)]
+    try:
+        outs = [p.communicate(timeout=DIST_TIMEOUT)[0] for p in procs]
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+        fail(f"distributed: the processes outlasted {DIST_TIMEOUT}s")
+    for r, (p, o) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            print(o[-4000:], flush=True)
+            fail(f"distributed: process {r} exited {p.returncode}")
+    return ([torch.load(f"{tmp}/rank{r}.pt", weights_only=False)
+             for r in range(world)], time.perf_counter() - t0)
+
+
+# (a): the processes against one process on the same images in the same
+# micro-batches, so the same kernels at the same shapes: the loss within
+# phase_same_step's 1e-6 relative, and every parameter after the update
+# within 1e-6 of its tensor's largest magnitude (a last-bit change of a
+# gradient moves an updated parameter by an ulp, ~6e-8 of it); grad_norm
+# and every averaged gradient within DIST_GRAD_TOL of its tensor's largest
+# (the sums' order is all that differs)
+DIST_SAME_TOL, DIST_GRAD_TOL = 1e-6, 1e-5
+
+
+def _cat_supervision(sups):
+    """The micro-batches' supervisions (compute_losses's third value) as
+    that of their images in one batch: every target concatenated over the
+    images, the matching's (stage x layer, image) problems likewise."""
+    import torch
+
+    def cat(ds):
+        return {k: torch.cat([d[k] for d in ds]) for k in ds[0]}
+
+    B = sups[0]["cam"]["labels"].shape[0]
+
+    def problems(ts):  # each (S*L*B, ...) -> (S*L*B*len(ts), ...)
+        return torch.cat([t.reshape(-1, B, *t.shape[1:]) for t in ts],
+                         1).flatten(0, 1)
+
+    rows, stats = zip(*[s["matching"] for s in sups])
+    return {"cam": cat([s["cam"] for s in sups]),
+            "refine": {k: cat([s["refine"][k] for s in sups])
+                       for k in sups[0]["refine"]},
+            "matching": (problems(rows),
+                         {k: problems([st[k] for st in stats])
+                          for k in stats[0]})}
+
+
+def _supervision_diff(a, b):
+    """Where two supervisions of one batch differ -> {part: (differing,
+    of)}: images for the CAM pseudo-boxes ("cam") and each refinement
+    stage's targets ("refine{k}"), (stage x layer, image) problems for the
+    matching's rows."""
+    def images(x, y):
+        n = x["labels"].shape[0]
+        d = sum((x[k] != y[k]).reshape(n, -1).any(1).int() for k in x)
+        return int((d > 0).sum()), n
+
+    out = {"cam": images(a["cam"], b["cam"])}
+    out.update({f"refine{k}": images(a["refine"][k], b["refine"][k])
+                for k in a["refine"]})
+    ra, rb = a["matching"][0], b["matching"][0]
+    out["matching"] = (int((ra != rb).any(1).sum()), ra.shape[0])
+    return out
+
+
+def _dense_grads(model):
+    """{name: its gradient in f32, zeros where it is None}."""
+    import torch
+
+    return {n: (p.grad if p.grad is not None else
+                torch.zeros_like(p)).detach().float().clone()
+            for n, p in model.named_parameters()}
+
+
+def _grad_gaps(got, want):
+    """{name: max |got - want| over the largest |want| of the tensor, or of
+    the weight a zero-by-construction bias is held against}."""
+    from spe_tpu_torch.ops.kernel_checks import zero_grad_ref
+
+    gaps = {}
+    for n, w in want.items():
+        top = float(want[zero_grad_ref(n) or n].abs().max())
+        err = float((got[n] - w).abs().max())
+        gaps[n] = err / top if top else (math.inf if err else 0.0)
+    return gaps
+
+
+def _same_update(spec, ranks, world, bad):
+    """(a)'s references on cuda:0 -> (the printed findings, ms of the one
+    forward and backward, ms of the micro-batches' step).
+    1. One process on the 2 x world images as world micro-batches of 2 with
+       the processes' normalisers, gradients accumulated, one update: held
+       at DIST_SAME_TOL and DIST_GRAD_TOL (see above).
+    2. One process on the images in one forward with the normaliser
+       max(N, world): its pseudo-boxes, refinement targets and matching
+       against the micro-batches', its loss and gradients against the
+       processes' (reported: the kernels round otherwise at batch
+       2 x world, near-tied stage-0 detections pick other refinement
+       targets and matches, and a changed target changes its loss's
+       gradients whole). Then the same forward given the micro-batches'
+       supervision, and the plain model in f32 given it too: the processes'
+       loss and averaged gradients held to the one forward's by phase 8's
+       same-grads rule (_hold with NOISY: the decoder self-attention's q/k
+       gradients are rounding noise at init and are held to the f32 ones
+       instead), the normalisers world times the processes'."""
+    import torch
+
+    from spe_tpu_torch.models.build import build_model
+    from spe_tpu_torch.ops.kernel_checks import grad_views
+    from spe_tpu_torch.train import train_step as ts
+    from spe_tpu_torch.train.optim import AdamW3
+
+    dev = torch.device("cuda", 0)
+    batch, r0 = spec["batch"], ranks[0]
+    ours = {n: g.to(dev).float() for n, g in r0["grads"].items()}
+    voc, model, _, eval_model = _dist_models(spec, dev)
+    if any(rk["init"] != (_digest(model), _digest(eval_model))
+           for rk in ranks):
+        bad.append("the processes' initial weights differ from this one's")
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    gates = ts.Gates.for_epoch(voc, 0)
+    state = ts.TrainState(model, AdamW3(model.named_parameters(), voc, 1))
+    normalisers, totals, sups = ts.num_boxes_per_stage, [], []
+    model.train()
+    state.optimizer.zero_grad()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for r, rk in enumerate(ranks):
+        def processes_nb(*args, nb=rk["nb"], **kw):
+            return [torch.tensor(v, device=dev) for v in nb]
+
+        ts.num_boxes_per_stage = processes_nb
+        try:
+            total, _, sup = ts.compute_losses(
+                model, {k: v[2 * r:2 * r + 2].to(dev)
+                        for k, v in batch.items()},
+                voc, gates, torch.Generator(dev).manual_seed(r))
+        finally:
+            ts.num_boxes_per_stage = normalisers
+        (total / world).backward()
+        totals.append(total.detach())
+        sups.append(sup)
+    acc_loss = sum(totals) / world
+    acc_norm, _ = state.optimizer.step(acc_loss)
+    torch.cuda.synchronize()
+    acc_ms = (time.perf_counter() - t1) * 1e3
+    acc_loss, acc_norm = float(acc_loss), float(acc_norm)
+    loss_rel = abs(r0["loss"] - acc_loss) / abs(acc_loss)
+    norm_rel = abs(r0["grad_norm"] - acc_norm) / acc_norm
+    if len({rk["loss"] for rk in ranks}) != 1 or loss_rel > DIST_SAME_TOL \
+            or norm_rel > DIST_GRAD_TOL:
+        bad.append(f"losses {sorted({rk['loss'] for rk in ranks})} vs "
+                   f"{acc_loss}, grad_norm {r0['grad_norm']} vs {acc_norm} "
+                   f"(micro-batches)")
+    gaps = _grad_gaps(ours, _dense_grads(model))
+    g_worst = max(gaps, key=gaps.get)
+    bad += [f"{n}: the averaged gradient {v:.3e} of its largest apart from "
+            f"the micro-batches'" for n, v in gaps.items()
+            if v > DIST_GRAD_TOL]
+    differ, worst = [], ("", 0.0, 0.0, 0.0)
+    for n, p in model.named_parameters():
+        delta = (r0["params"][n].to(dev) - p.detach()).abs()
+        top = float(p.detach().abs().max())
+        err = float(delta.max())
+        if err:
+            differ.append(n)
+        if err > DIST_SAME_TOL * top:
+            bad.append(f"{n}: after the update {err:.3e} apart, its largest "
+                       f"magnitude {top:.3e}")
+        if top and err / top > worst[1]:
+            x = p.detach().flatten()[int(delta.argmax())]
+            ulp = float(torch.nextafter(x, x.new_tensor(math.inf)) - x)
+            move = float((p.detach() - before[n]).abs().max())
+            worst = (n, err / top, err / ulp, err / move)
+    if len({rk["after"] for rk in ranks}) != 1:
+        bad.append("the processes' parameters differ after the step")
+    del state, model, before
+
+    seen, runs, given = [], {}, _cat_supervision(sups)
+
+    def one_nb(*args, **kw):
+        seen.append([v.clamp(min=float(world))
+                     for v in normalisers(*args, **kw)])
+        return seen[-1]
+
+    ts.num_boxes_per_stage = one_nb
+    whole = {k: v.to(dev) for k, v in batch.items()}
+    model = _dist_models(spec, dev)[1].train()
+    try:
+        for how, sup_in in (("own", None), ("given", given), ("f32", given)):
+            if how == "f32":
+                del model
+                model = build_model(voc.replace(
+                    use_fused_block=False, use_fused_layers=False,
+                    use_pallas_attention=False, compute_dtype="float32"),
+                    dev).train()
+            model.zero_grad(set_to_none=True)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            total, _, sup = ts.compute_losses(
+                model, whole, voc, gates, torch.Generator(dev).manual_seed(0),
+                supervision=sup_in)
+            total.backward()
+            torch.cuda.synchronize()
+            runs[how] = (float(total.detach()), sup, _dense_grads(model),
+                         (time.perf_counter() - t2) * 1e3)
+    finally:
+        ts.num_boxes_per_stage = normalisers
+    del model
+    one_nb = [[float(v) for v in nb] for nb in seen]
+    diff = _supervision_diff(runs["own"][1], given)
+    own_gaps = _grad_gaps(ours, runs["own"][2])
+    own_worst = max(own_gaps, key=own_gaps.get)
+    views = grad_views(ours)
+    held = _hold(views, grad_views(runs["given"][2]),
+                 grad_views(runs["f32"][2]), NOISY)
+    bad += _report("distributed", "the processes' averaged gradients vs one "
+                   f"forward on the {2 * world} images given their "
+                   "supervision", {"loss": r0["loss"]},
+                   {"loss": runs["given"][0]}, len(views), held, NOISY)
+    if one_nb[1] != [world * v for v in r0["nb"]]:
+        bad.append(f"one forward given the micro-batches' supervision: "
+                   f"normalisers {one_nb[1]} vs {world} x {r0['nb']}")
+    rel = [abs(r0["loss"] - runs[h][0]) / abs(runs[h][0])
+           for h in ("own", "given")]
+    text = (
+        f"loss {r0['loss']:.6f} (every process), grad_norm "
+        f"{r0['grad_norm']:.6f}, normalisers {r0['nb']}; one process on the "
+        f"{2 * world} as {world} micro-batches with them: loss relative "
+        f"{loss_rel:.3e} (limit {DIST_SAME_TOL}), grad_norm relative "
+        f"{norm_rel:.3e} (limit {DIST_GRAD_TOL}), averaged gradients apart "
+        f"by at most {gaps[g_worst]:.3e} of the tensor's largest ({g_worst}; "
+        f"limit {DIST_GRAD_TOL}; {sum(v > 0 for v in gaps.values())} of "
+        f"{len(gaps)} tensors not bit for bit equal), parameters after the "
+        f"update: {len(differ)} tensors not bit for bit equal {differ[:4]} "
+        f"(largest difference {worst[1]:.3e} of the tensor's largest "
+        f"magnitude, {worst[0]}: {worst[2]:.1f} ulp of the parameter there, "
+        f"{worst[3]:.3e} of the tensor's largest update; limit "
+        f"{DIST_SAME_TOL}); the processes' parameters bit for bit equal "
+        f"{len({rk['after'] for rk in ranks}) == 1}; one process in one "
+        f"forward with max(N, {world}) = {one_nb[0]}: its supervision "
+        f"against the micro-batches' (differing / all) {diff}, loss "
+        f"{runs['own'][0]:.6f} (relative {rel[0]:.3e}), the averaged "
+        f"gradients apart by at most {own_gaps[own_worst]:.3e} of the "
+        f"tensor's largest ({own_worst}; not held: other targets); given "
+        f"the micro-batches' supervision: loss {runs['given'][0]:.6f} "
+        f"(relative {rel[1]:.3e}), the gradients held by the same-grads "
+        f"rule (above)")
+    return text, runs["own"][3], acc_ms
+
+
+def phase_distributed(world=2, backend="gloo"):
+    """Phase 11: `world` processes, over gloo on cuda:0 (one card: NCCL
+    refuses two ranks on one device) or over NCCL on a card each (`python3
+    chip_smoke.py --nccl`). (a) One step of the stock voc0712 preset at
+    full width (dropout 0, hung_match_ratio 1), 2 generated images a
+    process, against one process's step on all of them (_same_update):
+    as world micro-batches of 2 with the processes' normalisers, so every
+    kernel at the processes' shapes, the loss, grad_norm, every gradient
+    and every parameter after the update held tight; in one forward with
+    the normaliser max(N, world), given the micro-batches' supervision,
+    the loss and the gradients by phase 8's same-grads rule; every
+    process's parameters bit for bit equal and its launches those of a
+    stock step. (b) The coco17 COCO eval of 8 generated images, one a
+    batch, shared and merged, against one process's eval of the 8: the
+    merged detections equal bit for bit, every stage's AP/AR within 1e-3
+    and eval losses within 1e-4 relative. (c) On one card `python -m
+    spe_tpu_torch.cli.accuracy rehearse --epochs 2`; over NCCL the CLI
+    under torchrun (env://) for one epoch of the stock preset at full
+    width, process 0 alone writing."""
+    import dataclasses
+
+    import torch
+
+    from spe_tpu_torch.cli.main import parse_config
+    from spe_tpu_torch.data import eval_data, train_data
+
+    line = card()
+    where = "cuda:0" if backend == "gloo" else f"cuda:0-{world - 1}"
+    tag = f"{world} processes on {where} over {backend}"
+    tmp = tempfile.TemporaryDirectory()
+    voc = parse_config(DIST_TRAIN_ARGV)
+    voc = voc.replace(batch_size=2 * world, **write_data(
+        voc, f"{tmp.name}/voc", 2 * world, 1, seed=4))
+    coco = parse_config(COCO_TRAIN_ARGV)
+    coco = coco.replace(batch_size=1, **write_data(coco, f"{tmp.name}/coco",
+                                                   0, 8, seed=6))
+    _, loader = train_data(voc)
+    batch = {k: torch.as_tensor(v) for k, v in next(iter(loader.epoch(0))).items()
+             if k in ("images", "pad_mask", "img_label")}
+    spec = {"voc": dataclasses.asdict(voc.replace(batch_size=2)),
+            "coco": dataclasses.asdict(coco), "batch": batch}
+    torch.save(spec, f"{tmp.name}/spec.pt")
+    ranks, wall = _launch(world, backend, tmp.name)
+    bad = []
+
+    # (a) the step
+    found, one_ms, acc_ms = _same_update(spec, ranks, world, bad)
+    for r, rk in enumerate(ranks):
+        want = {"pallas_cc": 1, "pallas_auction": 1}
+        for k, n in rk["per"].items():
+            want[f"{k}.train_launches"] = want[f"{k}.bwd_launches"] = n
+        bad += [f"rank {r} {k}: {rk['counts'][k]} launches, expected {n}"
+                for k, n in want.items() if rk["counts"][k] != n]
+        bad += [f"rank {r} {k}: no launch" for k, n in rk["toolkit"].items()
+                if not n]
+    (nbytes, ar_ms), = ranks[0]["all_reduce"]
+    print(f"[distributed] {line}: (a) {tag} (devices "
+          f"{[rk['device'] for rk in ranks]}), the stock voc0712 step at "
+          f"full width, 2 of {2 * world} images each: {found}", flush=True)
+    print(f"[distributed] {line}: {tag}: step host ms "
+          f"{[round(rk['step_ms'], 1) for rk in ranks]} (first step: "
+          f"warm-up included), one process on {2 * world} images "
+          f"{one_ms:.1f} (forward and backward; {world} micro-batches and "
+          f"the update {acc_ms:.1f}); the gradient "
+          f"all-reduce {nbytes} bytes in "
+          f"{[round(rk['all_reduce'][0][1], 2) for rk in ranks]} ms (CUDA "
+          f"events{': to the host, gloo, back' if backend == 'gloo' else ''}"
+          f"); launches per process "
+          f"{ {k: v for k, v in ranks[0]['counts'].items() if v} }; the "
+          f"processes' wall {wall:.1f}s", flush=True)
+
+    # (b) the merged COCO eval
+    dev = torch.device("cuda", 0)
+    _, _, spec_coco, eval_model = _dist_models(spec, dev)
+    ds, loader = eval_data(spec_coco)
+    want, one_s, one_dets = _coco_stages(eval_model, loader, ds, spec_coco,
+                                         dev)
+    coco_err, loss_err, same_dets = 0.0, 0.0, True
+    for r, rk in enumerate(ranks):
+        if sorted(rk["coco"]) != sorted(want):
+            bad.append(f"rank {r}: COCO stats {sorted(rk['coco'])}")
+            continue
+        for k, v in want.items():
+            if "eval_" in k:
+                loss_err = max(loss_err, abs(rk["coco"][k] - v) / abs(v))
+            else:
+                coco_err = max(coco_err, abs(rk["coco"][k] - v))
+        same_dets &= len(rk["dets"]) == len(one_dets) and all(
+            a.shape == b.shape and bool((a == b).all())
+            for a, b in zip(rk["dets"], one_dets))
+    shares = [rk["images"] for rk in ranks]
+    if coco_err > 1e-3 or loss_err > 1e-4 or not same_dets or \
+            shares != [8 // world] * world:
+        bad.append(f"COCO eval: merged vs one process: AP/AR {coco_err:.3e} "
+                   f"(limit 1e-3), eval losses {loss_err:.3e} relative "
+                   f"(limit 1e-4), the same detections {same_dets}, images "
+                   f"a process {shares}")
+    print(f"[distributed] {line}: (b) {tag}: coco17 COCO eval, both stages, "
+          f"of 8 generated images, one a batch, {shares} a process, merged, "
+          f"against one process's eval of the 8: the merged detections "
+          f"(each stage {[len(d) for d in one_dets]}) equal bit for bit "
+          f"{same_dets}; AP/AR largest difference {coco_err:.3e} (limit "
+          f"1e-3; stage0 AP {ranks[0]['coco']['stage0_AP']:.4f} / "
+          f"{want['stage0_AP']:.4f}, AR100 "
+          f"{ranks[0]['coco']['stage0_AR100']:.4f} / "
+          f"{want['stage0_AR100']:.4f}: random weights); eval losses "
+          f"{loss_err:.3e} relative (limit 1e-4); eval seconds "
+          f"{[round(rk['eval_s'], 2) for rk in ranks]}, one process "
+          f"{one_s:.2f}", flush=True)
+
+    # (c) the rehearsal on the card, or the CLI under torchrun
+    root = os.path.dirname(os.path.abspath(__file__))
+    t2 = time.perf_counter()
+    if backend == "gloo":
+        what = "accuracy rehearse --epochs 2 on the card"
+        cmd = [sys.executable, "-m", "spe_tpu_torch.cli.accuracy",
+               "rehearse", "--epochs", "2", "--workdir",
+               f"{tmp.name}/rehearsal"]
+    else:
+        what = f"torchrun of the CLI on {world} cards, one epoch"
+        cli = parse_config(STOCK_TRAIN_ARGV)
+        data = write_data(cli, f"{tmp.name}/cli", 4 * world, 4, seed=7)
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc_per_node", str(world), "-m", "spe_tpu_torch.cli.main",
+               "--world_size", str(world), *STOCK_TRAIN_ARGV,
+               "--batch_size", "2", "--output_dir", f"{tmp.name}/cli/out",
+               *[a for k, v in data.items() for a in (f"--{k}", v)]]
+    proc = subprocess.run(cmd, capture_output=True, text=True,
+                          timeout=DIST_TIMEOUT, cwd=root)
+    ok = proc.returncode == 0
+    if backend == "gloo":
+        ok &= "REHEARSAL OK" in proc.stdout
+        tail = proc.stdout.strip().splitlines()[-1:]
+    else:
+        out = f"{tmp.name}/cli/out"
+        files = sorted(os.listdir(out)) if os.path.isdir(out) else []
+        ok &= files == ["checkpoint.pth", "checkpoint0000.pth",
+                        "checkpoint_best.pth", "log.txt"]
+        log = json.loads(open(f"{out}/log.txt").readline()) if ok else {}
+        ok &= log.get("train_steps") == 2 and math.isfinite(
+            log.get("train_loss", math.nan))
+        tail = (f"{files}; train_steps {log.get('train_steps')}, "
+                f"train_loss {log.get('train_loss')}, test_mAP "
+                f"{log.get('test_mAP')}, train_step_ms "
+                f"{log.get('train_step_ms')}")
+    print(f"[distributed] {line}: (c) {what}: exit {proc.returncode} in "
+          f"{time.perf_counter() - t2:.1f}s: {tail}", flush=True)
+    if not ok:
+        bad.append(f"(c): {proc.stdout[-1500:]} {proc.stderr[-1500:]}")
+    tmp.cleanup()
+    if bad:
+        fail("distributed: " + "; ".join(bad[:20]))
+
+
 def main():
     import torch
 
@@ -3312,6 +3906,7 @@ def main():
     phase_same_grads(attn_cfg, "standalone attention", NOISY)
     phase_coco(results)
     phase_backbones(results, recorded)
+    phase_distributed()
     jax_mods = sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "jaxlib", "flax", "spe_tpu"))
     if jax_mods:
@@ -3323,7 +3918,20 @@ def main():
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--against"]:
+    if sys.argv[1:2] == ["--dist-worker"]:
+        # one process of phase 11: RANK WORLD BACKEND PORT DIR
+        dist_worker(int(sys.argv[2]), int(sys.argv[3]), *sys.argv[4:7])
+    elif sys.argv[1:2] == ["--nccl"]:
+        # phase 11 over NCCL, a process on each card of the machine
+        import torch
+
+        phase_device()
+        phase_build()
+        phase_distributed(torch.cuda.device_count(), "nccl")
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+    elif sys.argv[1:2] == ["--against"]:
         # python3 chip_smoke.py --against <root of another checkout>
         phase_device()
         phase_build()

@@ -1,5 +1,5 @@
 """Training and evaluation entry point of the port (spe_tpu/cli/main.py
-:129-276 on one process and one device).
+:22-276 without tensor parallelism).
 
   python -m spe_tpu_torch.cli.main --preset voc0712 --dataset_file voc_voc \\
       --test_path <VOCdevkit> --output_dir <dir>                # train
@@ -33,9 +33,25 @@ makes those plain PyTorch too.
 checkpoint (timm's layout, {'model': sd} or bare, as spe_tpu/cli/main.py
 :104-127 loads it: models/convert.py load_backbone_weights, the det branch
 cloned from the tail blocks, pos_embed interpolated to the model's grid).
-Not ported (they raise): distributed runs, --frozen_weights, --masks,
+`--log_match_cost` also solves every step's cost matrices with the exact
+host solver and logs the auction's realized-cost gap
+(train_match_subopt_mean/max in log.txt).
+
+Data parallelism, one process a card (parallel/dist.py):
+  torchrun --nproc_per_node 4 -m spe_tpu_torch.cli.main --world_size 4 ...
+  RANK=r python -m spe_tpu_torch.cli.main --world_size 2 \
+      --dist_url tcp://127.0.0.1:29500 ...                # each rank r
+NCCL between the cards, gloo with `--device cpu`. `--batch_size` is per
+process. The train loader is sharded over the processes, the gradients and
+loss averaged in one all-reduce a step, the epoch means averaged. COCO eval
+runs on every process over its share of the images and merges the
+detections; VOC eval runs whole on process 0 and the others return {}.
+Process 0 alone prints, writes log.txt, the checkpoints and the eval
+arrays, and decides checkpoint_best (its value broadcast).
+Not ported (they raise): tensor parallelism (--model_axis > 1,
+--tp_attention: models/build.py), --frozen_weights, --masks,
 `--backbone_weights auto` (it resolves to a download URL; pass a local
-file), --log_match_cost, --dataset_eval other than voc_voc and coco.
+file), --dataset_eval other than voc_voc and coco.
 """
 
 from __future__ import annotations
@@ -52,6 +68,7 @@ from spe_tpu_torch.data import eval_data, train_data
 from spe_tpu_torch.models.build import build_model, resolve_device
 from spe_tpu_torch.models.convert import (load_backbone_weights,
                                           load_reference_checkpoint)
+from spe_tpu_torch.parallel import dist
 from spe_tpu_torch.train import engine
 from spe_tpu_torch.train.checkpoint import restore_checkpoint, save_checkpoint
 from spe_tpu_torch.train.optim import AdamW3
@@ -78,11 +95,8 @@ def parse_config(argv=None):
             "pass its path")
     if cfg.eval:
         return cfg
-    for flag, on in (("--world_size > 1 (distributed training)",
-                      cfg.world_size > 1),
-                     ("--frozen_weights", bool(cfg.frozen_weights)),
-                     ("--masks", cfg.masks),
-                     ("--log_match_cost", cfg.log_match_cost)):
+    for flag, on in (("--frozen_weights", bool(cfg.frozen_weights)),
+                     ("--masks", cfg.masks)):
         if on:
             raise NotImplementedError(f"{flag} is not ported to spe_tpu_torch")
     return cfg
@@ -92,8 +106,11 @@ def _eval(model, loader, ds, cfg, device, output_dir=None, epoch=0):
     """The eval of cfg.dataset_eval. VOC: mAP and CorLoc (flip-TTA under
     --eval). COCO: every refinement stage's AP/AR and eval losses, stage 0's
     unprefixed and every stage's as stage{s}_* (spe_tpu/cli/main.py
-    :182-200); `forwards` sums the stages'."""
+    :182-200); `forwards` sums the stages'. Distributed: VOC on process 0
+    alone (the others return {}), COCO on every process (collective)."""
     if cfg.dataset_eval == "voc_voc":
+        if dist.process_index() != 0:
+            return {}
         res_dir = (output_dir / "voc_results"
                    if cfg.write_voc_results and output_dir else None)
         stats = engine.evaluate_voc(model, loader, ds, cfg, device,
@@ -105,7 +122,8 @@ def _eval(model, loader, ds, cfg, device, output_dir=None, epoch=0):
     eval_dir = None
     if output_dir:
         eval_dir = output_dir / "eval"
-        eval_dir.mkdir(parents=True, exist_ok=True)
+        if dist.process_index() == 0:
+            eval_dir.mkdir(parents=True, exist_ok=True)
     stats, forwards = {}, 0
     for stage in range(cfg.num_refines + 1):
         save = eval_dir / f"stage{stage}_{epoch:03d}.npz" if eval_dir else None
@@ -125,10 +143,15 @@ def main(argv=None):
     """--eval -> the eval stats. Training -> {"epochs": [{"train": epoch
     stats, "eval": eval stats}], "state": the TrainState}."""
     cfg = parse_config(argv)
-    device = resolve_device(cfg)
-    random.seed(cfg.seed)
-    np.random.seed(cfg.seed)
-    torch.manual_seed(cfg.seed)
+    # the process group before the model: each process's card
+    device = dist.init_distributed(cfg.world_size, cfg.dist_url,
+                                   resolve_device(cfg))
+    rank = dist.process_index()
+    if dist.process_count() > 1:
+        dist.setup_for_distributed(rank == 0)
+    random.seed(cfg.seed + rank)
+    np.random.seed(cfg.seed + rank)
+    torch.manual_seed(cfg.seed + rank)
     model = build_model(cfg, device)
     n_params = sum(p.numel() for p in model.parameters())
     print(f"number of params: {n_params}", flush=True)
@@ -137,13 +160,16 @@ def main(argv=None):
         print(f"initialized backbone from {cfg.backbone_weights}", flush=True)
     ds_val, loader_val = eval_data(cfg)
     output_dir = Path(cfg.output_dir) if cfg.output_dir else None
-    if output_dir:
+    if output_dir and rank == 0:
         output_dir.mkdir(parents=True, exist_ok=True)
     if cfg.eval:
         if cfg.resume:
             model.load_state_dict(load_reference_checkpoint(cfg.resume))
             print(f"loaded {cfg.resume}")
-        return _eval(model, loader_val, ds_val, cfg, device, output_dir)
+        dist.broadcast_(list(model.parameters()))
+        stats = _eval(model, loader_val, ds_val, cfg, device, output_dir)
+        dist.shutdown()
+        return stats
 
     ds_train, loader_train = train_data(cfg)
     state = TrainState(model, AdamW3(model.named_parameters(), cfg,
@@ -153,7 +179,8 @@ def main(argv=None):
         last = restore_checkpoint(cfg.resume, state)
         start_epoch = last + 1 if last >= 0 else start_epoch
         print(f"resumed from {cfg.resume} (epoch {last})", flush=True)
-    gen = torch.Generator(device=device).manual_seed(cfg.seed)
+    dist.broadcast_(list(model.parameters()))   # every process rank 0's
+    gen = torch.Generator(device=device).manual_seed(cfg.seed + rank)
 
     print("Start training", flush=True)
     epochs, best, best_key = [], -1.0, EVALS[cfg.dataset_eval]
@@ -164,12 +191,14 @@ def main(argv=None):
         eval_stats = _eval(model, loader_val, ds_val, cfg, device, output_dir,
                            epoch)
         epochs.append({"train": train_stats, "eval": eval_stats})
-        if output_dir:
+        # process 0's value decides (only it has VOC's)
+        val = dist.broadcast_scalar(eval_stats.get(best_key, -1.0))
+        if output_dir and rank == 0:
             save_checkpoint(output_dir / "checkpoint.pth", state, epoch, cfg)
             save_checkpoint(output_dir / f"checkpoint{epoch:04d}.pth", state,
                             epoch, cfg)
-            if eval_stats[best_key] > best:
-                best = eval_stats[best_key]
+            if val > best:
+                best = val
                 save_checkpoint(output_dir / "checkpoint_best.pth", state,
                                 epoch, cfg)
             log = {**{f"train_{k}": v for k, v in train_stats.items()
@@ -179,6 +208,7 @@ def main(argv=None):
                    "epoch": epoch, "n_parameters": int(n_params)}
             with (output_dir / "log.txt").open("a") as f:
                 f.write(json.dumps(log) + "\n")
+    dist.shutdown()
     return {"epochs": epochs, "state": state}
 
 

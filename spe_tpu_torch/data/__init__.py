@@ -2,9 +2,12 @@
 code (spe_tpu/data: build, transforms, loader, voc, coco, voc_eval,
 mini_data, synthetic), on the PIL decode path, set up for the entry points.
 
-  train_data(cfg)       -> (train dataset, shuffled loader) for training
+  train_data(cfg)       -> (train dataset, shuffled loader of this
+                           process's share) for training
   eval_data(cfg)        -> (eval dataset, loader in order, with padded GT
-                           arrays of cfg.max_gt_boxes) for evaluation
+                           arrays of cfg.max_gt_boxes) for evaluation: this
+                           process's share for COCO, the whole split on
+                           every process for VOC (only process 0 evaluates)
   write_mini_voc(root)  -> a small generated VOCdevkit for `--test_path`
   write_mini_coco(root) -> a small generated COCO2017 layout for
                            `--coco_path`
@@ -16,12 +19,18 @@ from spe_tpu_torch.config import SPEConfig
 from spe_tpu_torch.data.build import build_dataset
 from spe_tpu_torch.data.loader import DataLoader
 from spe_tpu_torch.data.mini_data import make_mini_coco, make_mini_voc
+from spe_tpu_torch.parallel import dist
 
 
-def _loader(cfg: SPEConfig, dataset, train: bool):
+def _loader(cfg: SPEConfig, dataset, train: bool, sharded: bool = True):
+    """cfg.batch_size images a batch on each process (the reference's
+    per-device --batch_size); sharded, each process takes its share of the
+    split (the DistributedSampler replacement)."""
     return DataLoader(dataset, cfg.batch_size, cfg.num_classes,
                       fixed_size=cfg.max_size if cfg.fixed_size else None,
                       shuffle=train, drop_last=train, seed=cfg.seed,
+                      process_index=dist.process_index() if sharded else 0,
+                      process_count=dist.process_count() if sharded else 1,
                       use_native=False, train=train,
                       num_threads=cfg.num_workers,
                       max_gt=0 if train else cfg.max_gt_boxes,
@@ -39,9 +48,12 @@ def eval_data(cfg: SPEConfig):
     """The eval split of cfg.dataset_eval and its loader, in order; its
     batches carry the GT arrays (gt_boxes, gt_labels, gt_mask) of up to
     cfg.max_gt_boxes boxes an image for the eval-time losses, as
-    spe_tpu/cli/main.py:87-94 builds its eval loader."""
+    spe_tpu/cli/main.py:82-94 builds its eval loader: COCO eval runs on
+    every process over its share and merges the detections; VOC eval runs
+    whole on process 0, so its loader is not sharded."""
     dataset = build_dataset("val", cfg.dataset_eval, cfg)
-    return dataset, _loader(cfg, dataset, train=False)
+    return dataset, _loader(cfg, dataset, train=False,
+                            sharded=cfg.dataset_eval != "voc_voc")
 
 
 def write_mini_voc(root, n_test: int = 8, img_size: int = 128, seed: int = 0,

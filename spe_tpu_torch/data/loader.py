@@ -118,6 +118,10 @@ class DataLoader:
         if self.shuffle:
             rng = np.random.default_rng(self.seed + epoch)  # set_epoch equivalent
             rng.shuffle(idx)
+        if self.drop_last and self.process_count > 1:
+            # every process the same number of samples, hence of steps: a
+            # step all-reduces (DistributedSampler's drop_last=True)
+            idx = idx[:len(idx) // self.process_count * self.process_count]
         return list(idx[self.process_index::self.process_count])
 
     def steps_per_epoch(self) -> int:

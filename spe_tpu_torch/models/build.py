@@ -18,15 +18,18 @@ from spe_tpu_torch.models.cait import build_cait_config
 from spe_tpu_torch.models.detector import SPEDetector
 from spe_tpu_torch.models.layers import lecun_normal_, trunc_normal_
 from spe_tpu_torch.ops import kernels
+from spe_tpu_torch.parallel import dist
 
 
 def resolve_device(cfg: SPEConfig) -> torch.device:
     """`--device cpu` runs on the CPU; anything else (SPEConfig's default
-    "tpu", "cuda", "gpu") means the CUDA card."""
+    "tpu", "cuda", "gpu") means the CUDA card: in a distributed run the
+    process's own, cuda:LOCAL_RANK (parallel.dist.init_distributed)."""
     if cfg.device == "cpu":
         return torch.device("cpu")
     if cfg.device in ("tpu", "gpu", "cuda"):
-        return torch.device("cuda")
+        own = dist.process_device()
+        return own if own is not None else torch.device("cuda")
     return torch.device(cfg.device)
 
 

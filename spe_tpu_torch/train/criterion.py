@@ -10,8 +10,9 @@ As in the JAX package: the box-repeat draws a fixed pool of candidates per
 box (here from a torch.Generator), matching runs the auction
 (ops/auction.py; `assignment='hungarian_cpu'` takes the exact host solver),
 and every (stage, decoder layer, image) problem of a step goes to ONE
-auction launch. The instance-mask losses and the matching-cost audit
-(`log_match_cost`) are not ported.
+auction launch. With `cost_trace` (`--log_match_cost`) the same cost
+matrices are also solved exactly on the host and the realized costs
+compared (match_subopt_mean/max). The instance-mask losses are not ported.
 """
 
 from __future__ import annotations
@@ -82,10 +83,10 @@ def matcher_cost(pred_logits, pred_boxes, tgt_labels, tgt_boxes, tgt_mask,
 @torch.no_grad()
 def match(pred_logits, pred_boxes, targets, *, method: str = "auction",
           cost_class: float = 2.0, cost_bbox: float = 5.0,
-          cost_giou: float = 2.0):
+          cost_giou: float = 2.0, with_cost: bool = False):
     """Batched assignment, not differentiated (matcher.py:42) -> (row_for_col
     (P, T) query per target, {"iters": (P,), "cleanup": (P,)}; zeros for the
-    exact host solver)."""
+    exact host solver), and with_cost the cost matrices (P, Q, T) solved."""
     cost = matcher_cost(pred_logits.detach(), pred_boxes.detach().float(),
                         targets["labels"], targets["boxes"].float(),
                         targets["mask"], cost_class, cost_bbox, cost_giou)
@@ -93,11 +94,40 @@ def match(pred_logits, pred_boxes, targets, *, method: str = "auction",
         rows = hungarian_batched(cost, targets["mask"])
         zeros = torch.zeros(rows.shape[0], dtype=torch.int32,
                             device=rows.device)
-        return rows, {"iters": zeros, "cleanup": zeros}
-    if method != "auction":
+        stats = {"iters": zeros, "cleanup": zeros}
+    elif method == "auction":
+        rows, _, stats = auction_assignment_stats_batched(cost,
+                                                          targets["mask"])
+    else:
         raise ValueError(f"unknown assignment {method!r}")
-    rows, _, stats = auction_assignment_stats_batched(cost, targets["mask"])
-    return rows, stats
+    return (rows, stats, cost) if with_cost else (rows, stats)
+
+
+def realized_assignment_cost(cost, rows, col_mask):
+    """The matched cost of each problem: the sum over its valid target
+    columns t with a query (rows[t] >= 0) of cost[rows[t], t]. cost (P, Q,
+    T), rows (P, T), col_mask (P, T) -> (P,) (spe_tpu/train/criterion.py
+    :138-150)."""
+    Q = cost.shape[1]
+    picked = cost.gather(1, rows.long().clamp(0, Q - 1)[:, None, :])[:, 0]
+    return (picked * (col_mask & (rows >= 0)).to(cost.dtype)).sum(-1)
+
+
+def assignment_gap(cost, rows, col_mask):
+    """How far the assignment `rows` is from the optimum of the same cost:
+    (its matched cost - the exact host solver's) / (valid targets x the
+    spread of the valid costs), the auction's eps guarantee unit, a problem
+    at a time (P,): 0 is optimal (spe_tpu/train/criterion.py:392-418). A
+    problem without a valid target counts 0 (the JAX package's NaN)."""
+    exact = hungarian_batched(cost, col_mask)
+    gap = (realized_assignment_cost(cost, rows, col_mask)
+           - realized_assignment_cost(cost, exact, col_mask))
+    nvalid = col_mask.sum(-1).float().clamp(min=1.0)
+    m = col_mask[:, None, :]
+    hi = torch.where(m, cost, -torch.inf).amax((1, 2))
+    lo = torch.where(m, cost, torch.inf).amin((1, 2))
+    spread = torch.where(col_mask.any(-1), hi - lo, 0.0)
+    return gap / (nvalid * spread).clamp(min=1e-9)
 
 
 def _layer_losses(pred_logits, pred_boxes, targets, row_for_col, num_boxes,
@@ -159,7 +189,8 @@ def set_criterion_multi(stage_outs, targets_per_stage, gens, num_boxes_per_stage
                         focal_gamma: float = 2.0, cost_class: float = 2.0,
                         cost_bbox: float = 5.0, cost_giou: float = 2.0,
                         assignment: str = "auction", training: bool = True,
-                        aux_loss: bool = True, matching=None):
+                        aux_loss: bool = True, matching=None,
+                        cost_trace: bool = False):
     """Every stage's criterion with ONE batched assignment over all S*L*B
     (stage, decoder layer, image) problems; each layer is matched on its
     own, as the reference re-matches per layer (conditional_detr.py
@@ -169,7 +200,10 @@ def set_criterion_multi(stage_outs, targets_per_stage, gens, num_boxes_per_stage
     {loss_ce, loss_bbox, loss_giou, cardinality_error, and `_{i}` for the
     aux layers}, the matching used: (row_for_col, stats) of `match`);
     stage 0 also carries match_iters (the most auction iterations of any
-    problem) and match_cleanup (the cleanup activations summed)."""
+    problem) and match_cleanup (the cleanup activations summed), and with
+    cost_trace match_subopt_mean and match_subopt_max, the assignment_gap
+    of every problem against the exact host solver on the same costs (on
+    the card one copy of the costs to the host a step)."""
     reps, logits_s, boxes_s = [], [], []
     for so, tgt, gen in zip(stage_outs, targets_per_stage, gens):
         if training and gen is not None:
@@ -192,12 +226,18 @@ def set_criterion_multi(stage_outs, targets_per_stage, gens, num_boxes_per_stage
     flat = {k: torch.cat([t[k][None].expand(L, *t[k].shape) for t in reps],
                          0).reshape(SL * B, *reps[0][k].shape[1:])
             for k in ("boxes", "labels", "mask")}
+    if cost_trace and matching is not None:
+        raise ValueError("cost_trace audits the step's own matching")
     if matching is None:
-        matching = match(LG.reshape(SL * B, *LG.shape[2:]),
-                         BX.reshape(SL * B, *BX.shape[2:]), flat,
-                         method=assignment, cost_class=cost_class,
-                         cost_bbox=cost_bbox, cost_giou=cost_giou)
+        res = match(LG.reshape(SL * B, *LG.shape[2:]),
+                    BX.reshape(SL * B, *BX.shape[2:]), flat,
+                    method=assignment, cost_class=cost_class,
+                    cost_bbox=cost_bbox, cost_giou=cost_giou,
+                    with_cost=cost_trace)
+        matching = res[:2]
     rows, mstats = matching
+    if cost_trace:
+        gap = assignment_gap(res[2], rows, flat["mask"])
     rows = rows.reshape(SL, B, -1)
 
     outs = []
@@ -216,4 +256,7 @@ def set_criterion_multi(stage_outs, targets_per_stage, gens, num_boxes_per_stage
         outs.append(out)
     outs[0]["match_iters"] = mstats["iters"].max().float()
     outs[0]["match_cleanup"] = mstats["cleanup"].sum().float()
+    if cost_trace:
+        outs[0]["match_subopt_mean"] = gap.mean()
+        outs[0]["match_subopt_max"] = gap.max()
     return outs, matching

@@ -5,18 +5,23 @@
 :126-201).
 
 train_one_epoch: every batch through train_step, the losses logged, the
-run stopped on a non-finite loss or a skipped step.
+run stopped on a non-finite loss or a skipped step; in a distributed run
+the epoch's means are averaged over the processes.
 
 evaluate_coco: one refinement stage's second-to-last decoder layer (the
 aux layer; the reference's eval head), top-100, class-wise NMS, then the
 numpy COCO evaluator (spe_tpu_torch.data.coco_eval) on the host; where the
 batches carry GT arrays, the eval-time losses of that layer against them
-(one auction launch a batch on the card). The JAX package's merge of
-detections across processes comes with distributed runs, not ported yet.
+(one auction launch a batch on the card). In a distributed run each
+process evaluates its share of the images; their detections are merged
+across the processes (pack_detections -> all_gather_array ->
+unpack_detections, JAX engine.py:162-209) and the eval losses averaged
+before the summary, and process 0 alone writes the eval arrays.
 
 evaluate_voc: stage-0 final decoder layer, optional horizontal-flip TTA
 batched into one forward and merged by `_flip_merge`, top-k, class-wise
 NMS, then VOC mAP and CorLoc on the host (spe_tpu_torch.data.voc_eval).
+It holds no collective: a distributed run calls it on process 0 alone.
 """
 
 from __future__ import annotations
@@ -33,16 +38,32 @@ from spe_tpu_torch.data.coco_eval import CocoEvaluator
 from spe_tpu_torch.data.voc_eval import corloc, voc_eval_all
 from spe_tpu_torch.ops.nms import batched_nms
 from spe_tpu_torch.ops.postprocess import postprocess_topk
+from spe_tpu_torch.parallel import dist
 from spe_tpu_torch.train.criterion import _layer_losses, match
 from spe_tpu_torch.train.train_step import train_step
 
-# the terms train_one_epoch logs besides the loss (JAX engine.py:60-72)
+# the terms train_one_epoch logs besides the loss (JAX engine.py:60-72);
+# the last two only where the step traces the matching cost
 LOGGED = ("loss_ce", "loss_bbox", "loss_giou", "grad_norm", "match_iters",
-          "match_cleanup")
+          "match_cleanup", "match_subopt_mean", "match_subopt_max")
+# the eval-time criterion's terms (eval_losses)
+EVAL_TERMS = ("cardinality_error", "loss_bbox", "loss_ce", "loss_giou")
 
 
 class NonFiniteLoss(RuntimeError):
     """A step's loss or gradients were not finite: training stops."""
+
+
+def sum_over_processes(count, sums, keys):
+    """(count, {k: sums[k]}) summed over the processes in one all-reduce, the
+    keys in the order given (every process the same); one process: as
+    given."""
+    if dist.process_count() == 1:
+        return count, {k: sums[k] for k in keys if k in sums}
+    v = torch.tensor([count] + [sums.get(k, 0.0) for k in keys],
+                     dtype=torch.float64)
+    dist.all_reduce_sum_(v)
+    return v[0].item(), dict(zip(keys, v[1:].tolist()))
 
 
 def train_batch(batch, device):
@@ -57,7 +78,10 @@ def train_one_epoch(state, loader, epoch: int, cfg: SPEConfig, gates, gen,
     values and its step_ms, host clock from the batch on the host to the
     loss read back, which synchronises). Raises
     NonFiniteLoss on a non-finite loss or a skipped step, as the JAX engine
-    stops the run (engine.py:56-60)."""
+    stops the run (engine.py:56-60): the loss and the skip are the
+    processes' own in a distributed run, so every process stops at once.
+    There the means are over every process's steps, in sorted key order
+    (JAX engine.py:74); `history` stays this process's."""
     sums, history = {}, []
     total = loader.steps_per_epoch()
     t0 = time.perf_counter()
@@ -79,7 +103,8 @@ def train_one_epoch(state, loader, epoch: int, cfg: SPEConfig, gates, gen,
                 f"{k}: {v:.4f}" for k, v in logged.items()), flush=True)
     if device.type == "cuda":
         torch.cuda.synchronize()
-    stats = {k: v / max(len(history), 1) for k, v in sums.items()}
+    steps, sums = sum_over_processes(len(history), sums, sorted(sums))
+    stats = {k: v / max(steps, 1) for k, v in sums.items()}
     stats.update(steps=len(history), seconds=time.perf_counter() - t0,
                  history=history)
     return stats
@@ -127,8 +152,11 @@ def evaluate_coco(model, loader, gt_coco: Dict, cfg: SPEConfig, device,
     engine.py:447). One forward a batch serves the detections and, where
     the batch carries gt_boxes/gt_labels/gt_mask, the eval-time losses,
     averaged over the batches as `eval_*`. With eval_save_path the
-    accumulated precision/recall arrays go there (.npz). Also returns the
-    number of model forwards run (`forwards`)."""
+    accumulated precision/recall arrays go there (.npz; process 0 only).
+    Also returns the number of model forwards run (`forwards`, this
+    process's). Collective in a distributed run: every process calls it on
+    its share of the images, and every process returns the stats of
+    all."""
     model.eval()
     evaluator = CocoEvaluator(gt_coco)
     sums, n_loss, forwards = {}, 0, 0
@@ -154,12 +182,59 @@ def evaluate_coco(model, loader, gt_coco: Dict, cfg: SPEConfig, device,
             batch["image_id"], res["boxes"].cpu().numpy(),
             res["scores"].cpu().numpy(), res["labels"].cpu().numpy(),
             keep_mask.cpu().numpy())
+    merge_across_processes(evaluator)
+    n_loss, sums = sum_over_processes(n_loss, sums, EVAL_TERMS)
     stats = evaluator.summarize()
-    stats.update({f"eval_{k}": v / n_loss for k, v in sums.items()})
-    if eval_save_path is not None:
+    if n_loss:
+        stats.update({f"eval_{k}": v / n_loss for k, v in sums.items()})
+    if eval_save_path is not None and dist.process_index() == 0:
         evaluator.save_eval(eval_save_path)
     stats["forwards"] = forwards
     return stats
+
+
+def pack_detections(evaluator, max_dets: int = 200_000) -> np.ndarray:
+    """One process's detections as a fixed-shape float plane (max_dets, 8)
+    of rows [valid, image_id, category_id, x, y, w, h, score] (JAX
+    engine.py:162-178)."""
+    rows = []
+    for (img, cat), ds in evaluator._dt.items():
+        for d in ds:
+            b = d["bbox"]
+            rows.append([1.0, img, cat, b[0], b[1], b[2], b[3], d["score"]])
+    if len(rows) > max_dets:
+        print(f"merge_across_processes: truncating {len(rows)} local "
+              f"detections to the {max_dets} fixed-gather cap; AP may be "
+              "affected", flush=True)
+    arr = np.zeros((max_dets, 8), np.float32)
+    if rows:
+        packed = np.asarray(rows[:max_dets], np.float32)
+        arr[:len(packed)] = packed
+    return arr
+
+
+def unpack_detections(evaluator, gathered: np.ndarray) -> None:
+    """The evaluator's detections <- the union of every process's packed
+    plane, gathered (P, max_dets, 8) (JAX engine.py:181-194)."""
+    for k in evaluator._dt:
+        evaluator._dt[k] = []
+    for plane in gathered:
+        for row in plane[plane[:, 0] > 0.5]:
+            evaluator.update([{
+                "image_id": int(row[1]), "category_id": int(row[2]),
+                "bbox": [float(row[3]), float(row[4]), float(row[5]),
+                         float(row[6])],
+                "score": float(row[7])}])
+
+
+def merge_across_processes(evaluator, max_dets: int = 200_000) -> None:
+    """Every process's evaluator <- the detections of all (a fixed-shape
+    all-gather in place of the reference's pickled one, coco_eval.py
+    :178-207). A no-op with one process."""
+    if dist.process_count() == 1:
+        return
+    unpack_detections(evaluator, dist.all_gather_array(
+        pack_detections(evaluator, max_dets)))
 
 
 def _flip_merge(out_n, out_f, bb_n=None, bb_f=None):

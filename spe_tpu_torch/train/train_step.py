@@ -7,8 +7,17 @@ engine.py:93-174 `train_one_epoch_refine`):
   the epoch-gated weighted total -> backward -> finiteness check ->
   AdamW3 update, or a skipped step counted in bad_steps.
 
-The num_boxes normaliser of each stage is max(valid targets x repeat
-ratio, 1): the JAX package's max(total, num_devices) on one device.
+Each stage's num_boxes normaliser is max(N, W) / W, N the valid targets x
+the repeat ratio summed over the W processes (one all-reduce of every
+stage's count): the reference's max(all_reduce(N) / W, 1)
+(conditional_detr.py:435-440). With the gradients averaged over the
+processes that is the JAX package's max(N, num_devices) on the global batch
+(spe_tpu/train/train_step.py:12-16).
+
+In a distributed run the step's gradients and loss are averaged over the
+processes in one flat bucket, one all-reduce after the whole backward, so
+that the optimizer clips the global gradient and every process takes the
+same update, or the same skip.
 """
 
 from __future__ import annotations
@@ -21,6 +30,7 @@ import torch
 from spe_tpu_torch.config import SPEConfig
 from spe_tpu_torch.ops.cam_boxes import cam_pseudo_boxes
 from spe_tpu_torch.ops.postprocess import postprocess_refine
+from spe_tpu_torch.parallel import dist
 from spe_tpu_torch.train.criterion import (image_label_losses,
                                            repeated_num_boxes,
                                            set_criterion_multi)
@@ -63,6 +73,14 @@ def loss_weights(cfg: SPEConfig) -> Dict[str, float]:
     return weight
 
 
+def num_boxes_per_stage(targets_per_stage, ratio: int):
+    """Each stage's normaliser, max(N, W) / W (see above)."""
+    n = torch.stack([repeated_num_boxes(t, ratio) for t in targets_per_stage])
+    W = dist.process_count()
+    dist.all_reduce_sum_(n)
+    return list((n.clamp(min=float(W)) / W).unbind())
+
+
 def compute_losses(model, batch, cfg: SPEConfig, gates: Gates, gen=None,
                    supervision=None):
     """Forward + pseudo-labels + every criterion -> (total, {name: loss},
@@ -100,14 +118,14 @@ def compute_losses(model, batch, cfg: SPEConfig, gates: Gates, gen=None,
     stage_losses, matching = set_criterion_multi(
         [stages[0]] + [stages[k] for k in refine_targets], tgt_list,
         [gen if training else None] * len(tgt_list),
-        [repeated_num_boxes(t, cfg.hung_match_ratio).clamp(min=1.0)
-         for t in tgt_list],
+        num_boxes_per_stage(tgt_list, cfg.hung_match_ratio),
         [False] + [True] * len(refine_targets),
         hung_match_ratio=cfg.hung_match_ratio, box_jitter=cfg.box_jitter,
         focal_alpha=cfg.focal_alpha, focal_gamma=cfg.focal_gamma,
         cost_class=cfg.set_cost_class, cost_bbox=cfg.set_cost_bbox,
         cost_giou=cfg.set_cost_giou, assignment=cfg.assignment,
-        training=training, aux_loss=cfg.aux_loss, matching=matching)
+        training=training, aux_loss=cfg.aux_loss, matching=matching,
+        cost_trace=cfg.log_match_cost)
     losses = dict(stage_losses[0])
     losses.update(image_label_losses(out["backbone"], batch["img_label"]))
     for k, sl in zip(refine_targets, stage_losses[1:]):
@@ -130,17 +148,34 @@ def compute_losses(model, batch, cfg: SPEConfig, gates: Gates, gen=None,
                            "matching": matching}
 
 
+def average_gradients(params, loss):
+    """Every parameter's gradient and the loss <- their means over the
+    processes, in one flat f32 bucket (one all-reduce) -> the mean loss."""
+    grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+             for p in params]
+    flat = torch.cat([g.reshape(-1).float() for g in grads]
+                     + [loss.reshape(1).float()])
+    dist.all_reduce_mean_(flat)
+    for p, part in zip(params, flat[:-1].split([p.numel() for p in params])):
+        p.grad = part.view_as(p).to(p.dtype)
+    return flat[-1]
+
+
 def train_step(state: TrainState, batch, cfg: SPEConfig, gates: Gates, gen):
     """One update of state.model in training mode -> metrics {loss,
     grad_norm, bad_steps, every loss term, match_iters, match_cleanup} as
-    detached tensors (bad_steps an int)."""
+    detached tensors (bad_steps an int). In a distributed run `loss` and
+    the update are the processes' mean, the other terms this process's."""
     state.model.train()
     state.optimizer.zero_grad()
     total, losses, _ = compute_losses(state.model, batch, cfg, gates, gen)
     total.backward()
-    grad_norm, finite = state.optimizer.step(total.detach())
+    total = total.detach()
+    if dist.process_count() > 1:
+        total = average_gradients(state.optimizer.params, total)
+    grad_norm, finite = state.optimizer.step(total)
     if not finite:
         state.bad_steps += 1
-    return {"loss": total.detach(), "grad_norm": grad_norm,
+    return {"loss": total, "grad_norm": grad_norm,
             "bad_steps": state.bad_steps,
             **{k: v.detach() for k, v in losses.items()}}

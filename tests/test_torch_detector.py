@@ -146,6 +146,8 @@ def test_port_never_imports_jax():
             "('spe_tpu', 'jax', 'jaxlib', 'flax'))\n"
             "assert len(mods) >= 30, mods\n"
             "assert 'spe_tpu_torch.data.coco_eval' in mods, mods\n"
+            "assert 'spe_tpu_torch.parallel.dist' in mods, mods\n"
+            "assert 'spe_tpu_torch.cli.accuracy' in mods, mods\n"
             "assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, timeout=300)

@@ -139,7 +139,7 @@ def test_flip_merge_semantics():
 
 
 def test_cli_eval_runs_and_training_refused(mini_voc):
-    from spe_tpu_torch.cli.main import main
+    from spe_tpu_torch.cli.main import main, parse_config
 
     devkit = mini_voc[0]
     args = ["--preset", "voc0712", "--device", "cpu", "--test_path",
@@ -151,10 +151,13 @@ def test_cli_eval_runs_and_training_refused(mini_voc):
     assert stats["forwards"] == 2 and 0.0 <= stats["mAP"] <= 1.0
     # training runs (test_cli_trains_checkpoints_and_resumes); what it has
     # not ported is refused
-    for extra in (["--frozen_weights", "x.pth"], ["--world_size", "2"],
-                  ["--log_match_cost"]):
+    for extra in (["--frozen_weights", "x.pth"], ["--masks"]):
         with pytest.raises(NotImplementedError, match="not ported"):
             main(args + extra)
+    # distributed training and the matching-cost audit are ported
+    # (test_torch_distributed.py, test_torch_match_cost.py)
+    cfg = parse_config(args + ["--world_size", "2", "--log_match_cost"])
+    assert cfg.world_size == 2 and cfg.log_match_cost
 
 
 def test_cli_trains_checkpoints_and_resumes(tmp_path):

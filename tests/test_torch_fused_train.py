@@ -373,5 +373,6 @@ def test_cli_refuses_fused_encoder_training_on_the_card():
     assert cfg.device != "cpu" and cfg.use_pallas_attention
     assert cfg.use_fused_block and cfg.use_fused_layers
     assert cfg.use_fused_ca_block == "auto"
-    with pytest.raises(NotImplementedError, match="world_size"):
-        parse_config(args + ["--world_size", "2"])
+    with pytest.raises(NotImplementedError, match="frozen_weights"):
+        parse_config(args + ["--frozen_weights", "x.pth"])
+    assert parse_config(args + ["--world_size", "2"]).world_size == 2
