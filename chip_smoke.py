@@ -196,6 +196,23 @@ Phases, each printing its own lines; any failure exits non-zero:
                spe_tpu_torch.cli.accuracy rehearse --epochs 2` on the card.
                Host ms of the step on each side, the gradient all-reduce's
                bytes and CUDA-event ms, the evals' seconds.
+ 12. segmentation — the stock preset at full width with --masks (the
+               segmentation head, the mask losses on the synthetic dataset
+               with masks) from a detector checkpoint the phase writes,
+               with --frozen_weights: timed steps at the largest batch of
+               8, 4, 2 that fits (a CC and two auction launches a step:
+               the mask matching is the second; every parameter outside
+               the head bit for bit its checkpoint's, the head moved; peak
+               memory; the mask matching's auction against its plain
+               version exactly; the step's split); one step at B=4 without
+               frozen weights under phase 8's same-grads rule (the plain
+               run's supervision and mask matching replayed). Then
+               --pre_norm --position_embedding learned: its launches a
+               forward (no fused encoder layer; fused_mha in each encoder
+               layer), one eval batch with flip against the plain model
+               (phase 4) and one step's same-grads (phase 8). Then one CLI
+               epoch of 2 steps with --masks on a generated coco_panoptic
+               tree, evaluated with COCO AP.
 Each profile also sums the device time of the product kernels by family
 (attn_kernel<192, 192, ...> apart) and of every __global__ function in
 spe_tpu_torch/csrc. About 11 minutes of command time on an H100.
@@ -2372,7 +2389,8 @@ def phase_same_step(cfg, label="fused flags off", batch=8):
 
 def step_split(model, cfg, b, gates, label, batch=8):
     """One train step's device-time split (CUDA events at the phase
-    boundaries: model forward, supervision tail, backward, optimizer) and
+    boundaries: model forward, supervision tail, with --masks the mask
+    branch's matching and losses, backward, optimizer) and
     a profiled step's kernel sums with the device's idle share -> the
     profiled step's {kernel name: (ms, launches)}."""
     import torch
@@ -2389,8 +2407,8 @@ def step_split(model, cfg, b, gates, label, batch=8):
         marks[name] = torch.cuda.Event(enable_timing=True)
         marks[name].record()
 
-    fwd, crit, opt_step = (model.forward, ts.set_criterion_multi,
-                           state.optimizer.step)
+    fwd, crit, masks, opt_step = (model.forward, ts.set_criterion_multi,
+                                  ts.mask_branch, state.optimizer.step)
 
     def forward(*a, **kw):
         mark("model")
@@ -2403,14 +2421,21 @@ def step_split(model, cfg, b, gates, label, batch=8):
         mark("backward")
         return r
 
+    def mask_branch(*a, **kw):   # the mask matching and losses
+        mark("masks")
+        r = masks(*a, **kw)
+        mark("backward")
+        return r
+
     def step(*a, **kw):
         mark("optimizer")
         r = opt_step(*a, **kw)
         mark("end")
         return r
 
-    model.forward, ts.set_criterion_multi, state.optimizer.step = \
-        forward, set_crit, step
+    model.forward, ts.set_criterion_multi, ts.mask_branch = \
+        forward, set_crit, mask_branch
+    state.optimizer.step = step
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2419,8 +2444,10 @@ def step_split(model, cfg, b, gates, label, batch=8):
         wall = (time.perf_counter() - t0) * 1e3
     finally:
         del model.forward, state.optimizer.step
-        ts.set_criterion_multi = crit
-    names = ["model", "supervision", "backward", "optimizer", "end"]
+        ts.set_criterion_multi, ts.mask_branch = crit, masks
+    names = ["model", "supervision", *(["masks"] if "masks" in marks
+                                       else []),
+             "backward", "optimizer", "end"]
     split = {a: marks[a].elapsed_time(marks[c]) for a, c in
              zip(names, names[1:])}
     total = sum(split.values())
@@ -2428,12 +2455,13 @@ def step_split(model, cfg, b, gates, label, batch=8):
           f"timeline between CUDA events: " + ", ".join(
               f"{k} {v:.1f} ms ({100 * v / total:.1f}%)"
               for k, v in split.items())
-          + f"; host wall {wall:.1f} ms", flush=True)
+          + f"; host wall {wall:.1f} ms ({card()})", flush=True)
     torch.cuda.reset_peak_memory_stats()
     rows = profile_forward(lambda: ts.train_step(state, b, cfg, gates, gen),
                            batch, reps=1, what=f"train steps ({label})")
     print(f"[split] {label}: peak device memory of a step "
-          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB", flush=True)
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB "
+          f"({card()})", flush=True)
     return rows
 
 
@@ -2625,7 +2653,8 @@ def phase_same_grads(cfg, label, noisy=None, batch=8, weights=None):
     plain model, by the same rule: whether a miss comes from the kernels
     or from their math. weights(m) loads more into every model after its
     init (a pretrained backbone). Then the fused configuration's step
-    split."""
+    split. With --masks the plain run's mask matching is replayed too, and
+    the segmentation head's gradients held by the same rule."""
     import torch
 
     from spe_tpu_torch.data import train_data, write_mini_voc
@@ -2635,8 +2664,12 @@ def phase_same_grads(cfg, label, noisy=None, batch=8, weights=None):
     from spe_tpu_torch.train.engine import train_batch
 
     tmp = tempfile.TemporaryDirectory()
-    devkit = write_mini_voc(tmp.name, n_test=1, n_trainval=batch, seed=2)
-    cfg = cfg.replace(test_path=str(devkit), batch_size=batch, dropout=0.0,
+    # a generated VOCdevkit, or the synthetic dataset (with its masks
+    # under --masks) where cfg trains on it
+    data = {} if cfg.dataset_file == "synthetic" else {
+        "test_path": str(write_mini_voc(tmp.name, n_test=1,
+                                        n_trainval=batch, seed=2))}
+    cfg = cfg.replace(**data, batch_size=batch, dropout=0.0,
                       backbone_drop_rate=0.0, drop_attn_rate=0.0,
                       drop_path_rate=0.0)
     plain_cfg = cfg.replace(use_fused_block=False, use_fused_layers=False,
@@ -2704,8 +2737,13 @@ def phase_same_grads(cfg, label, noisy=None, batch=8, weights=None):
                    len(gp), held, noisy)
     if attention:
         lm, gm, cm = runs["kernel math"]
-        if any(cm.values()):
-            bad.append(f"the kernel-math run launched kernels: {cm}")
+        # (the fused layers of a mixed configuration, e.g. the stock
+        # preset with --pre_norm, launch their kernels in every run)
+        launched = {k: v for k, v in cm.items() if v and k.split(".")[0]
+                    in _attention_counters()}
+        if launched:
+            bad.append(f"the kernel-math run launched the attention "
+                       f"kernels: {launched}")
         bad += _report(label, "kernels vs their plain versions", lf, lm,
                        len(gp), _hold(gf, gm, g32, noisy), noisy)
         math = _hold(gm, gp, g32, noisy)
@@ -3886,6 +3924,277 @@ def phase_distributed(world=2, backend="gloo"):
         fail("distributed: " + "; ".join(bad[:20]))
 
 
+# phase 12: the segmentation path (--masks, --frozen_weights, the mask
+# losses on the port's synthetic dataset with masks) and the pre-norm /
+# learned-position detector, stock preset at full width and depth
+MASKS_ARGV = STOCK_TRAIN_ARGV + ["--masks", "--dataset_file", "synthetic"]
+PRENORM_ARGV = STOCK_TRAIN_ARGV + ["--pre_norm", "--position_embedding",
+                                   "learned"]
+# the timed --masks steps: the first batch size that fits the card (the
+# head's activations at B=8, 2400 masks of 128^2, are tens of GB)
+MASKS_BATCHES = (8, 4, 2)
+# the CLI epoch on coco_panoptic: 2 steps of batch 2, 4 COCO val images
+PANOPTIC_BATCH = 2
+
+
+def _write_detector(cfg, path):
+    """A detector checkpoint of cfg without the head (the port's format,
+    {"model": state dict}) from seed 7: what --frozen_weights starts from."""
+    import torch
+
+    from spe_tpu_torch.models.build import build_model
+
+    det = build_model(cfg.replace(masks=False, seed=7))
+    torch.save({"model": det.state_dict()}, path)
+    del det
+
+
+def mask_auction_check(model, b, cfg):
+    """The mask branch's auction on one batch's stage-0 outputs against
+    its plain version on the same benefits: assignments, iteration and bid
+    counts exactly (phase 5's rule); each timed (CUDA events)."""
+    import torch
+
+    from spe_tpu_torch.ops import auction as auc
+    from spe_tpu_torch.train.criterion import matcher_cost
+
+    with torch.no_grad():
+        s0 = model(b["images"], pad_mask=b["pad_mask"],
+                   generator=torch.Generator("cuda").manual_seed(6))[
+                       "stages"][0]
+        cost = matcher_cost(s0["pred_logits"], s0["pred_boxes"].float(),
+                            b["gt_labels"], b["gt_boxes"].float(),
+                            b["gt_mask"], cfg.set_cost_class,
+                            cfg.set_cost_bbox, cfg.set_cost_giou)
+        benefit = auc._normalize_benefit(cost, b["gt_mask"])
+        got = auc.auction_phase(benefit, b["gt_mask"])
+        want = auc.auction_phase_reference(benefit, b["gt_mask"])
+        torch.cuda.synchronize()
+        same = all(torch.equal(g, w) for g, w in zip(got, want))
+        ms = cuda_ms(lambda: auc.auction_phase(benefit, b["gt_mask"]))
+        plain = cuda_ms(lambda: auc.auction_phase_reference(
+            benefit, b["gt_mask"]), reps=3, warmup=1)
+    print(f"[segm] mask matching: {tuple(cost.shape)} (problems, queries, "
+          f"GT), {int(b['gt_mask'].sum())} GT: the auction kernel's "
+          f"assignments, iterations ({int(got[1].max())} at most) and bids "
+          f"equal to the plain version's {same}; {ms:.4f} ms vs plain "
+          f"{plain:.2f} ms (CUDA events)", flush=True)
+    if not same:
+        fail("mask matching: the auction kernel disagrees with its plain "
+             "version")
+
+
+def masks_steps(cfg, ckpt, n_timed=3):
+    """(a) --masks --frozen_weights ckpt, the stock preset's every kernel,
+    on the synthetic dataset with masks: at MASKS_BATCHES' first batch
+    size that fits, a warm-up step and n_timed timed steps with every
+    counter set to 0 before them: the fused layers' launches per
+    _per_forward, one CC and two auction launches (the box matching, the
+    mask matching) a step; loss_mask and loss_dice finite; every
+    parameter outside the head bit for bit its checkpoint value, every
+    weight of the head moved; the mask matching's auction against its
+    plain version; peak memory; then the step's split -> the summary."""
+    import itertools
+
+    import torch
+
+    from spe_tpu_torch.data import train_data
+    from spe_tpu_torch.models.build import build_model
+    from spe_tpu_torch.models.segmentation import SEGM_PREFIXES
+    from spe_tpu_torch.train import train_step as ts
+    from spe_tpu_torch.train.checkpoint import load_params_lenient
+    from spe_tpu_torch.train.engine import LOGGED, train_batch
+    from spe_tpu_torch.train.optim import AdamW3
+
+    for batch in MASKS_BATCHES:
+        # a batch fits if its warm-up and its timed steps all do: the
+        # allocator's cache fragments between steps
+        bcfg = cfg.replace(batch_size=batch, frozen_weights=ckpt)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model = state = batches = None
+        try:
+            model = build_model(bcfg).train()
+            kept = load_params_lenient(ckpt, model)
+            start = {n: p.detach().clone()
+                     for n, p in model.named_parameters()}
+            _, loader = train_data(bcfg)
+            batches = [train_batch(x, torch.device("cuda")) for x in
+                       itertools.islice(loader.epoch(0), 2)]
+            state = ts.TrainState(model, AdamW3(model.named_parameters(),
+                                                bcfg, 1 + n_timed))
+            gates = ts.Gates.for_epoch(bcfg, 0)
+            gen = torch.Generator("cuda").manual_seed(5)
+            ts.train_step(state, batches[0], bcfg, gates, gen)
+            torch.cuda.synchronize()
+            _all_counts(reset=True)
+            history, step_ms = [], []
+            for i in range(n_timed):
+                t0 = time.perf_counter()
+                m = ts.train_step(state, batches[i % 2], bcfg, gates, gen)
+                history.append({k: float(m[k]) for k in ("loss", *LOGGED)
+                                if k in m})
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+        except torch.cuda.OutOfMemoryError:
+            del model, state, batches
+            torch.cuda.empty_cache()
+            print(f"[segm] masks: batch {batch} does not fit the card",
+                  flush=True)
+            continue
+        break
+    else:
+        fail(f"masks: no batch of {MASKS_BATCHES} fits the card")
+    counts = _all_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = {f"{k}.{a}": n * n_timed for k, n in _per_forward(model).items()
+            for a in ("train_launches", "bwd_launches")}
+    want.update(pallas_cc=n_timed, pallas_auction=2 * n_timed)
+    bad = [f"{k}: {counts[k]} launches, expected {n}"
+           for k, n in want.items() if counts[k] != n]
+    bad += [f"step {i}: a non-finite value or no mask loss" for i, h in
+            enumerate(history) if not all(math.isfinite(v) for v in
+                                          h.values())
+            or not {"loss_mask", "loss_dice"} <= set(h)]
+    if state.bad_steps:
+        bad.append(f"bad_steps {state.bad_steps}")
+    params = dict(model.named_parameters())
+    head = [n for n in params if n.startswith(SEGM_PREFIXES)]
+    changed = [n for n in params if n not in head
+               and not torch.equal(params[n].detach(), start[n])]
+    still = [n for n in head if n.endswith(".weight")
+             and torch.equal(params[n].detach(), start[n])]
+    if changed or still or sorted(kept) != sorted(head):
+        bad.append(f"frozen parameters changed {changed[:5]}, head weights "
+                   f"unmoved {still}, kept at init {kept[:5]}")
+    for i, h in enumerate(history):
+        print(f"[segm] masks step {i} (batch {batch}): " + " ".join(
+            f"{k} {v:.4f}" for k, v in h.items()), flush=True)
+    print(f"[segm] masks --frozen_weights: batch {batch}; ms a step "
+          f"{[round(t, 1) for t in step_ms]} (host clock to the loss read "
+          f"back) = {batch / (statistics.mean(step_ms) / 1e3):.2f} train "
+          f"images/s; peak device memory {peak:.2f} GiB; launches {counts}; "
+          f"{len(params) - len(head)} frozen parameters bit for bit their "
+          f"checkpoint's, {len(head) - len(still)} of the head's {len(head)}"
+          f" moved ({card()})", flush=True)
+    if bad:
+        fail("masks steps: " + "; ".join(bad))
+    mask_auction_check(model, batches[0], bcfg)
+    model.zero_grad(set_to_none=True)
+    torch.cuda.empty_cache()
+    step_split(model, bcfg, batches[0], gates, f"masks batch {batch}",
+               batch)
+    summary = {"batch": batch, "step_ms": step_ms, "peak_gib": peak,
+               "step_peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+               "busy_ms": profile_forward.last["busy_ms"],
+               "idle": profile_forward.last["idle"]}
+    del model, state, batches, start
+    torch.cuda.empty_cache()
+    return summary
+
+
+def panoptic_cli(batch=PANOPTIC_BATCH):
+    """(c) one CLI epoch of 2 steps with --masks --dataset_file
+    coco_panoptic --dataset_eval coco on a generated mini-COCO of 20
+    classes and its panoptic PNGs: mask losses finite, the checkpoints
+    written, the COCO AP line, a CC and two auction launches a step and
+    one auction an eval forward."""
+    import torch
+
+    from spe_tpu_torch.cli.main import main as cli_main
+    from spe_tpu_torch.data import write_mini_coco, write_mini_coco_panoptic
+
+    tmp = tempfile.TemporaryDirectory()
+    coco = write_mini_coco(tmp.name, n_train=2 * batch, n_val=4,
+                           num_classes=20, seed=8)
+    pan = write_mini_coco_panoptic(coco)
+    out = f"{tmp.name}/out"
+    _all_counts(reset=True)
+    t0 = time.perf_counter()
+    res = cli_main(STOCK_TRAIN_ARGV + [
+        "--masks", "--dataset_file", "coco_panoptic", "--dataset_eval",
+        "coco", "--coco_path", str(coco), "--coco_panoptic_path", str(pan),
+        "--batch_size", str(batch), "--output_dir", out])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _all_counts()
+    (epoch,) = res["epochs"]
+    hist, ev = epoch["train"]["history"], epoch["eval"]
+    files = sorted(os.listdir(out))
+    print(f"[segm] coco_panoptic CLI: {len(hist)} steps of batch {batch}, "
+          f"{wall:.1f}s wall; losses " + "; ".join(
+              f"loss {h['loss']:.4f} loss_mask {h['loss_mask']:.4f} "
+              f"loss_dice {h['loss_dice']:.4f}" for h in hist)
+          + f"; COCO AP {ev['AP']:.4f} AP50 {ev['AP50']:.4f} (random "
+          f"weights); launches CC {counts['pallas_cc']}, auction "
+          f"{counts['pallas_auction']} ({ev['forwards']} eval forwards); "
+          f"wrote {files}", flush=True)
+    bad = [] if len(hist) == 2 else [f"{len(hist)} steps"]
+    bad += [f"step {i}: {h}" for i, h in enumerate(hist)
+            if not all(math.isfinite(h[k]) for k in
+                       ("loss", "loss_mask", "loss_dice"))]
+    if not {"checkpoint.pth", "checkpoint0000.pth", "log.txt"} <= set(files):
+        bad.append(f"output {files}")
+    if not (0 <= ev["AP"] <= 1 or ev["AP"] == -1):
+        bad.append(f"AP {ev['AP']}")
+    if (counts["pallas_cc"], counts["pallas_auction"]) != (
+            len(hist), 2 * len(hist) + ev["forwards"]):
+        bad.append(f"launches {counts}")
+    tmp.cleanup()
+    if bad:
+        fail("coco_panoptic CLI: " + "; ".join(bad))
+    return {"seconds": wall, "AP": ev["AP"]}
+
+
+def phase_segmentation():
+    """Phase 12: (a) --masks from a detector checkpoint the phase writes,
+    with --frozen_weights (masks_steps), then one step without frozen
+    weights at B=4 under phase 8's same-grads rule (the plain run's
+    supervision and mask matching replayed; the head's gradients held
+    too); (b) --pre_norm --position_embedding learned: one eval batch
+    with flip against the plain model (phase 4's 5%), one step's
+    same-grads (phase 8's rule), and the launches: no fused-encoder
+    launch, fused_mha (B4) 3 + 3 a step in the encoder; (c) the
+    coco_panoptic CLI epoch (panoptic_cli)."""
+    from spe_tpu_torch.cli.main import parse_config
+    from spe_tpu_torch.data import eval_data, write_mini_voc
+    from spe_tpu_torch.models.build import build_model
+
+    t0 = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    cfg = parse_config(MASKS_ARGV + ["--output_dir", f"{tmp.name}/out"])
+    ckpt = f"{tmp.name}/detector.pth"
+    _write_detector(cfg, ckpt)
+    summary = {"masks": masks_steps(cfg, ckpt)}
+    # B=4: at B=2 on this data the decoder's linear1 gradients are bf16
+    # noise on both paths, mask losses or not (PERF.md §6)
+    phase_same_grads(cfg, "masks", NOISY, batch=4)
+    summary["masks"]["seconds"] = time.perf_counter() - t0
+
+    t1 = time.perf_counter()
+    devkit = write_mini_voc(tmp.name, n_test=8, n_trainval=8, seed=9)
+    cfg = parse_config(PRENORM_ARGV + ["--test_path", str(devkit),
+                                       "--output_dir", f"{tmp.name}/pre"])
+    per = _per_forward(build_model(cfg))
+    print(f"[segm] pre-norm learned: launches a forward {per} (a training "
+          f"step launches each as often in its backward)", flush=True)
+    if per["pallas_encoder"] or per["pallas_mha"] != cfg.enc_layers:
+        fail(f"pre-norm: the encoder runs {per}, expected no fused encoder "
+             f"layer and fused_mha in each of its {cfg.enc_layers} layers")
+    _, loader = eval_data(cfg)
+    b = _flipped(next(iter(loader.epoch(0))))
+    _, _, _, bad = kernel_vs_plain(cfg, b, "pre-norm eval", _stage_pairs)
+    if bad:
+        fail("pre-norm eval vs plain model: " + "; ".join(bad))
+    phase_same_grads(cfg, "pre-norm learned", NOISY)
+    summary["prenorm"] = {"seconds": time.perf_counter() - t1,
+                          "busy_ms": profile_forward.last["busy_ms"],
+                          "idle": profile_forward.last["idle"]}
+    tmp.cleanup()
+    summary["panoptic_cli"] = panoptic_cli()
+    summary["seconds"] = time.perf_counter() - t0
+    print(f"[segm] {json.dumps(summary)} ({card()})", flush=True)
+
+
 def main():
     import torch
 
@@ -3907,6 +4216,7 @@ def main():
     phase_coco(results)
     phase_backbones(results, recorded)
     phase_distributed()
+    phase_segmentation()
     jax_mods = sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "jaxlib", "flax", "spe_tpu"))
     if jax_mods:

@@ -36,6 +36,17 @@ cloned from the tail blocks, pos_embed interpolated to the model's grid).
 `--log_match_cost` also solves every step's cost matrices with the exact
 host solver and logs the auction's realized-cost gap
 (train_match_subopt_mean/max in log.txt).
+`--masks` adds the segmentation head (models/segmentation.py) and, on a
+dataset with instance masks (coco with its polygons or RLE, coco_panoptic
+with its PNG segment maps, synthetic), trains it with the mask losses
+(loss_mask, loss_dice): the train loader then carries the GT arrays, which
+the JAX CLI's train loader leaves out (so its --masks training never
+reaches its mask losses). `--frozen_weights PATH` (with --masks, as
+spe_tpu/cli/main.py:133-145 asserts) starts every parameter found by name
+in PATH (a port checkpoint or a reference .pth of the detector) from it
+and trains the segmentation head alone: the others take a zero update.
+`--pre_norm` and `--position_embedding learned` build the pre-norm
+encoder and the learned position tables.
 
 Data parallelism, one process a card (parallel/dist.py):
   torchrun --nproc_per_node 4 -m spe_tpu_torch.cli.main --world_size 4 ...
@@ -49,9 +60,9 @@ detections; VOC eval runs whole on process 0 and the others return {}.
 Process 0 alone prints, writes log.txt, the checkpoints and the eval
 arrays, and decides checkpoint_best (its value broadcast).
 Not ported (they raise): tensor parallelism (--model_axis > 1,
---tp_attention: models/build.py), --frozen_weights, --masks,
-`--backbone_weights auto` (it resolves to a download URL; pass a local
-file), --dataset_eval other than voc_voc and coco.
+--tp_attention: models/build.py), `--backbone_weights auto` (it resolves
+to a download URL; pass a local file), --dataset_eval other than voc_voc
+and coco (the JAX CLI has no panoptic eval loop either).
 """
 
 from __future__ import annotations
@@ -70,7 +81,9 @@ from spe_tpu_torch.models.convert import (load_backbone_weights,
                                           load_reference_checkpoint)
 from spe_tpu_torch.parallel import dist
 from spe_tpu_torch.train import engine
-from spe_tpu_torch.train.checkpoint import restore_checkpoint, save_checkpoint
+from spe_tpu_torch.train.checkpoint import (load_params_lenient,
+                                            restore_checkpoint,
+                                            save_checkpoint)
 from spe_tpu_torch.train.optim import AdamW3
 from spe_tpu_torch.train.train_step import Gates, TrainState
 
@@ -93,12 +106,9 @@ def parse_config(argv=None):
             "to a download URL (PRETRAINED_URLS in spe_tpu/models/convert.py); "
             "spe_tpu_torch reads a local file: download the checkpoint and "
             "pass its path")
-    if cfg.eval:
-        return cfg
-    for flag, on in (("--frozen_weights", bool(cfg.frozen_weights)),
-                     ("--masks", cfg.masks)):
-        if on:
-            raise NotImplementedError(f"{flag} is not ported to spe_tpu_torch")
+    if cfg.frozen_weights and not cfg.masks:
+        raise ValueError("--frozen_weights: frozen training is meant for "
+                         "segmentation only (--masks)")
     return cfg
 
 
@@ -172,6 +182,10 @@ def main(argv=None):
         return stats
 
     ds_train, loader_train = train_data(cfg)
+    if cfg.frozen_weights:
+        kept = load_params_lenient(cfg.frozen_weights, model)
+        print(f"loaded frozen detector weights from {cfg.frozen_weights} "
+              f"({len(kept)} tensors kept at init)", flush=True)
     state = TrainState(model, AdamW3(model.named_parameters(), cfg,
                                      loader_train.steps_per_epoch()))
     start_epoch = cfg.start_epoch

@@ -11,6 +11,9 @@ mini_data, synthetic), on the PIL decode path, set up for the entry points.
   write_mini_voc(root)  -> a small generated VOCdevkit for `--test_path`
   write_mini_coco(root) -> a small generated COCO2017 layout for
                            `--coco_path`
+  write_mini_coco_panoptic(coco_root)
+                        -> its COCO-panoptic annotations for
+                           `--coco_panoptic_path`
 """
 
 from __future__ import annotations
@@ -18,7 +21,9 @@ from __future__ import annotations
 from spe_tpu_torch.config import SPEConfig
 from spe_tpu_torch.data.build import build_dataset
 from spe_tpu_torch.data.loader import DataLoader
-from spe_tpu_torch.data.mini_data import make_mini_coco, make_mini_voc
+from spe_tpu_torch.data.mini_data import (make_mini_coco,
+                                          make_mini_coco_panoptic,
+                                          make_mini_voc)
 from spe_tpu_torch.parallel import dist
 
 
@@ -33,13 +38,17 @@ def _loader(cfg: SPEConfig, dataset, train: bool, sharded: bool = True):
                       process_count=dist.process_count() if sharded else 1,
                       use_native=False, train=train,
                       num_threads=cfg.num_workers,
-                      max_gt=0 if train else cfg.max_gt_boxes,
+                      max_gt=cfg.max_gt_boxes if cfg.masks or not train
+                      else 0,
                       bucket_quantum=0 if cfg.fixed_size else cfg.bucket_quantum)
 
 
 def train_data(cfg: SPEConfig):
     """The train split of cfg.dataset_file with the train transform
-    (random flip), shuffled per epoch from cfg.seed, full batches only."""
+    (random flip), shuffled per epoch from cfg.seed, full batches only;
+    with --masks its batches carry the GT arrays and GT masks of up to
+    cfg.max_gt_boxes objects an image (the mask losses' targets; the JAX
+    CLI's train loader leaves them out)."""
     dataset = build_dataset("train", cfg.dataset_file, cfg)
     return dataset, _loader(cfg, dataset, train=True)
 
@@ -74,3 +83,10 @@ def write_mini_coco(root, n_train: int = 0, n_val: int = 8,
     return make_mini_coco(root, n_train=n_train, n_val=n_val,
                           img_size=img_size, num_classes=num_classes,
                           seed=seed)
+
+
+def write_mini_coco_panoptic(coco_root, root=None):
+    """Write the COCO-panoptic annotations (PNG segment maps and jsons) of
+    a generated COCO2017 layout, its boxes as thing segments -> the
+    directory for `--coco_panoptic_path`."""
+    return make_mini_coco_panoptic(coco_root, root)

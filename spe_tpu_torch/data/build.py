@@ -2,8 +2,10 @@
 datasets/__init__.py:27-56).
 
 dataset_file: 'coco' (90 classes), 'voc'/'voc12' (COCO-format VOC jsons,
-20 classes), 'voc_voc' (raw VOCdevkit), 'synthetic' (no-data smoke runs).
-Instance masks (`--masks`) and 'coco_panoptic' are not ported: they raise.
+20 classes), 'voc_voc' (raw VOCdevkit), 'coco_panoptic' (COCO images with
+the panoptic PNG segment maps of `coco_panoptic_path`), 'synthetic'
+(no-data smoke runs). With `--masks` the datasets that have instance masks
+(coco, voc, coco_panoptic, synthetic) put them in the targets.
 """
 
 from __future__ import annotations
@@ -21,9 +23,6 @@ def _transform(cfg: SPEConfig, train: bool):
 
 
 def build_dataset(image_set: str, dataset_file: str, cfg: SPEConfig):
-    if cfg.masks or dataset_file == "coco_panoptic":
-        raise NotImplementedError(
-            "instance masks and coco_panoptic are not ported to spe_tpu_torch")
     train = image_set == "train"
     tf = _transform(cfg, train)
     if dataset_file == "coco":
@@ -33,7 +32,8 @@ def build_dataset(image_set: str, dataset_file: str, cfg: SPEConfig):
         split = "train2017" if train else "val2017"
         return CocoFormatDataset(
             root / split, root / "annotations" / f"instances_{split}.json",
-            transform=tf, num_classes=90, remove_empty=train)
+            transform=tf, num_classes=90, remove_empty=train,
+            return_masks=cfg.masks)
     if dataset_file in ("voc", "voc12"):
         from spe_tpu_torch.data.coco import CocoFormatDataset
 
@@ -42,7 +42,7 @@ def build_dataset(image_set: str, dataset_file: str, cfg: SPEConfig):
         img_dir = root / ("trainval" if train else "test")
         return CocoFormatDataset(img_dir, root / "annotations" / ann,
                                  transform=tf, num_classes=20,
-                                 remove_empty=train)
+                                 remove_empty=train, return_masks=cfg.masks)
     if dataset_file == "voc_voc":
         from spe_tpu_torch.data.voc import VOCDevkitDataset
 
@@ -50,10 +50,21 @@ def build_dataset(image_set: str, dataset_file: str, cfg: SPEConfig):
                   if train else [("VOC2007", "test")])
         return VOCDevkitDataset(cfg.test_path, splits, transform=tf,
                                 keep_difficult=not cfg.remove_difficult)
+    if dataset_file == "coco_panoptic":
+        from spe_tpu_torch.data.coco_panoptic import CocoPanopticDataset
+
+        root = Path(cfg.coco_path)
+        proot = Path(cfg.coco_panoptic_path)
+        split = "train2017" if train else "val2017"
+        return CocoPanopticDataset(
+            root / split, proot / f"panoptic_{split}",
+            proot / f"panoptic_{split}.json", transform=tf,
+            return_masks=cfg.masks)
     if dataset_file == "synthetic":
         from spe_tpu_torch.data.synthetic import SyntheticDetection
 
         return SyntheticDetection(
             num_images=256 if train else 64, num_classes=cfg.num_classes,
-            img_size=cfg.max_size, seed=0 if train else 1, transform=tf)
+            img_size=cfg.max_size, seed=0 if train else 1, transform=tf,
+            return_masks=cfg.masks)
     raise ValueError(f"unknown dataset_file {dataset_file}")

@@ -1,5 +1,6 @@
 """COCO-format detection dataset, dependency-free (json + PIL); the port's
-copy of spe_tpu/data/coco.py without instance masks (not ported).
+copy of spe_tpu/data/coco.py. With return_masks each kept annotation's
+instance mask (data/masks.py: its polygons or RLE) rides in the target.
 
 Rebuild of reference datasets/coco.py `CocoDetection` +
 `ConvertCocoPolysToMask` (coco.py:164-268) without torchvision/pycocotools:
@@ -25,12 +26,12 @@ from PIL import Image
 class CocoFormatDataset:
     def __init__(self, img_folder, ann_file, transform=None, num_classes: int = 90,
                  remove_empty: bool = True, return_masks: bool = False):
-        if return_masks:
-            raise NotImplementedError(
-                "instance masks are not ported to spe_tpu_torch")
         self.img_folder = Path(img_folder)
         self.transform = transform
         self.num_classes = num_classes
+        # decode instance masks (reference ConvertCocoPolysToMask
+        # return_masks, coco.py:199-210): --masks training
+        self.return_masks = return_masks
         with open(ann_file) as f:
             coco = json.load(f)
         self.images = {im["id"]: im for im in coco["images"]}
@@ -90,6 +91,14 @@ class CocoFormatDataset:
             "area": np.array([a.get("area", 0.0) for a in anno], np.float32)[keep],
             "iscrowd": np.zeros(int(keep.sum()), np.int64),
         }
+        if self.return_masks:
+            from spe_tpu_torch.data.masks import ann_to_mask
+
+            masks = [ann_to_mask(a.get("segmentation", []), h, w)
+                     for a in anno]
+            masks = (np.stack(masks) if masks
+                     else np.zeros((0, h, w), np.uint8))
+            target["masks"] = masks[keep]
         return target
 
     def __getitem__(self, idx: int):

@@ -7,8 +7,8 @@ same SxS so the mask is empty), plus the weak labels and eval metadata.
 
 Background prefetching uses a thread pool (decode/augment on host while the
 device computes). The port's copy of spe_tpu/data/loader.py keeps the PIL
-decode path only: the JAX package's C++ decoder (`use_native`) and
-instance-mask batches are not ported.
+decode path only: the JAX package's C++ decoder (`use_native`) is not
+ported.
 """
 
 from __future__ import annotations
@@ -80,6 +80,17 @@ def collate(samples: Sequence, num_classes: int, fixed_size: Optional[int] = Non
                 gt_labels[b, :n] = np.asarray(t["labels"][:n], np.int32)
                 gt_mask[b, :n] = True
         batch.update(gt_boxes=gt_boxes, gt_labels=gt_labels, gt_mask=gt_mask)
+        if any("masks" in t for t in targets):
+            # instance masks padded into the image canvas (masks training,
+            # reference loss_masks targets)
+            gt_masks = np.zeros((B, max_gt, H, W), np.uint8)
+            for b, t in enumerate(targets):
+                m = np.asarray(t.get("masks", np.zeros((0, 1, 1), np.uint8)))
+                n = min(len(m), max_gt)
+                if n:
+                    h, w = m.shape[1:3]
+                    gt_masks[b, :n, :h, :w] = m[:n]
+            batch["gt_masks"] = gt_masks
     return batch
 
 

@@ -173,3 +173,44 @@ def make_mini_coco(root, n_train: int = 32, n_val: int = 16,
         (ann / f"instances_{split}.json").write_text(
             json.dumps(_coco_json(entries, num_classes)))
     return root
+
+
+def make_mini_coco_panoptic(coco_root, root=None) -> Path:
+    """Write the COCO-panoptic annotations of a mini COCO2017 layout (one
+    from make_mini_coco) beside it: panoptic_{split}/ PNG segment maps (id
+    = R + 256 G + 65536 B) and panoptic_{split}.json, every box a thing
+    segment painted in the annotation order, as the images paint their
+    rectangles (a later one covers an earlier). Returns the directory for
+    `--coco_panoptic_path` (default: coco_root's parent / panoptic)."""
+    coco_root = Path(coco_root)
+    root = Path(root) if root else coco_root.parent / "panoptic"
+    for split in ("train2017", "val2017"):
+        inst = json.loads((coco_root / "annotations"
+                           / f"instances_{split}.json").read_text())
+        seg_dir = root / f"panoptic_{split}"
+        seg_dir.mkdir(parents=True, exist_ok=True)
+        by_img = {im["id"]: [] for im in inst["images"]}
+        for a in inst["annotations"]:
+            by_img[a["image_id"]].append(a)
+        annotations = []
+        for im in inst["images"]:
+            ids = np.zeros((im["height"], im["width"]), np.int64)
+            anns = by_img[im["id"]]
+            for k, a in enumerate(anns, start=1):
+                x, y, w, h = (int(round(v)) for v in a["bbox"])
+                ids[y:y + h, x:x + w] = k
+            rgb = np.stack([ids % 256, ids // 256 % 256, ids // 65536],
+                           -1).astype(np.uint8)
+            fn = Path(im["file_name"]).with_suffix(".png").name
+            Image.fromarray(rgb).save(seg_dir / fn)
+            annotations.append({"image_id": im["id"], "file_name": fn,
+                                "segments_info": [
+                                    {"id": k, "category_id": a["category_id"],
+                                     "bbox": a["bbox"], "iscrowd": 0,
+                                     "area": int((ids == k).sum())}
+                                    for k, a in enumerate(anns, start=1)]})
+        cats = [{**c, "isthing": 1} for c in inst["categories"]]
+        (root / f"panoptic_{split}.json").write_text(json.dumps(
+            {"images": inst["images"], "annotations": annotations,
+             "categories": cats}))
+    return root

@@ -1,5 +1,6 @@
 """Synthetic detection dataset for tests/smoke runs (no real data on disk);
-the port's copy of spe_tpu/data/synthetic.py without instance masks.
+the port's copy of spe_tpu/data/synthetic.py; with return_masks each
+rectangle's mask rides in the target (--masks training).
 
 Generates images with solid colored rectangles on noise; the rectangle color
 index is the class. Provides the same item contract as CocoFormatDataset and
@@ -25,8 +26,10 @@ _PALETTE = np.array([
 class SyntheticDetection:
     def __init__(self, num_images: int = 64, num_classes: int = 5,
                  img_size: int = 128, max_objects: int = 3, seed: int = 0,
-                 transform=None, min_frac: float = 1 / 6, max_frac: float = 1 / 2):
+                 transform=None, min_frac: float = 1 / 6, max_frac: float = 1 / 2,
+                 return_masks: bool = False):
         assert num_classes <= len(_PALETTE)
+        self.return_masks = return_masks
         self.n = num_images
         self.num_classes = num_classes
         self.img_size = img_size
@@ -72,7 +75,14 @@ class SyntheticDetection:
             "size": np.array([h, w], np.int64),
             "area": (boxes[:, 2] - boxes[:, 0]) * (boxes[:, 3] - boxes[:, 1]),
             "iscrowd": np.zeros(len(labels), np.int64),
+            **({"masks": self._masks(boxes, h, w)} if self.return_masks else {}),
         }
+
+    def _masks(self, boxes, h, w):
+        m = np.zeros((len(boxes), h, w), np.uint8)
+        for i, (x0, y0, x1, y1) in enumerate(boxes.astype(int)):
+            m[i, y0:y1, x0:x1] = 1
+        return m
 
     def target_at(self, idx: int):
         return self.get_target(idx)

@@ -1,8 +1,9 @@
 """Model factory (port of spe_tpu/models/build.py): SPEConfig -> SPEDetector
 on a device, initialised from a seed the way the JAX package's flax
 initialisers draw (truncated normal 0.02 in the backbone, LeCun normal in
-the transformer, the focal prior on the class bias, a zero last bbox layer,
-LayerScale at the backbone's init_scale).
+the transformer and the segmentation head's dense and conv kernels, the
+focal prior on the class bias, a zero last bbox layer, LayerScale at the
+backbone's init_scale, the learned position tables uniform in [0, 1)).
 """
 
 from __future__ import annotations
@@ -45,8 +46,13 @@ def init_weights(model: SPEDetector, seed: int) -> SPEDetector:
                     lecun_normal_(mod.weight, generator=gen)
                 if mod.bias is not None:
                     mod.bias.zero_()
-            elif isinstance(mod, nn.LayerNorm):
+            elif isinstance(mod, (nn.LayerNorm, nn.GroupNorm)):
                 mod.weight.fill_(1.0)
+                mod.bias.zero_()
+            elif isinstance(mod, nn.Conv2d) and not name.startswith(
+                    "backbone."):   # flax Conv: LeCun normal over kh kw cin
+                lecun_normal_(mod.weight.view(mod.weight.shape[0], -1),
+                              generator=gen)
                 mod.bias.zero_()
         lecun_normal_(body.patch_embed.proj.weight.view(
             body.patch_embed.proj.weight.shape[0], -1), generator=gen)
@@ -64,6 +70,9 @@ def init_weights(model: SPEDetector, seed: int) -> SPEDetector:
             layer.self_attn.in_proj_bias.zero_()
         for emb in [model.query_embed, *model.queries_embed_refine]:
             emb.weight.normal_(0.0, 1.0, generator=gen)
+        for emb in model.backbone[1:]:   # PositionEmbeddingLearned
+            emb.col_embed.weight.uniform_(0.0, 1.0, generator=gen)
+            emb.row_embed.weight.uniform_(0.0, 1.0, generator=gen)
         prior = -math.log((1 - 0.01) / 0.01)
         for head in model.class_embed:
             head.bias.fill_(prior)
@@ -122,19 +131,16 @@ def kernel_domain_errors(cfg: SPEConfig) -> list:
 
 def build_model(cfg: SPEConfig, device=None) -> SPEDetector:
     """The detector of `cfg` on `device` (default: resolve_device(cfg)),
-    initialised from cfg.seed, in eval mode. Post-norm encoder and sine
-    position embedding only: pre-norm, learned position embeddings,
-    segmentation heads and tensor parallelism are not ported yet. With
+    initialised from cfg.seed, in eval mode: the post-norm or pre-norm
+    (`pre_norm`) encoder, the sine or learned (`position_embedding`)
+    position embedding, with `masks` the segmentation head; tensor
+    parallelism is not ported. With
     `use_pallas_attention`, a layer whose fused flag is off runs its
     attention through the standalone kernels (talking_heads B5 in the
     patch blocks, fused_mha B4 in the class attention, the encoder and the
     decoder cross-attention), as spe_tpu/models/build.py:38,60 routes
     them. On a CUDA device a configuration outside the kernels' shapes
     (kernel_domain_errors) is refused by name."""
-    if cfg.pre_norm or cfg.masks or cfg.position_embedding not in ("sine", "v2"):
-        raise NotImplementedError(
-            "spe_tpu_torch ports the post-norm, sine-embedding detector "
-            "without segmentation heads")
     if cfg.tp_attention or cfg.model_axis > 1:
         raise NotImplementedError("tensor parallelism is not ported to "
                                   "spe_tpu_torch")
@@ -166,5 +172,8 @@ def build_model(cfg: SPEConfig, device=None) -> SPEDetector:
                         nheads=cfg.nheads,
                         use_fused_layers=cfg.use_fused_layers,
                         dropout=cfg.dropout, dtype=dtype,
-                        use_pallas=cfg.use_pallas_attention)
+                        use_pallas=cfg.use_pallas_attention,
+                        pre_norm=cfg.pre_norm,
+                        position_embedding=cfg.position_embedding,
+                        masks=cfg.masks)
     return init_weights(model, cfg.seed).to(device).eval()

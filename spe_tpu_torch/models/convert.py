@@ -11,7 +11,15 @@ same weights:
   * talking-heads proj_l/proj_w mixing matrices -> their (H, H) Linear
     weights (transposed back);
   * encoder q/k/v Dense -> nn.MultiheadAttention's packed in_proj;
-  * the reshaped-matmul patch-embed kernel (p*p*C, D) -> Conv2d (D, C, p, p).
+  * the reshaped-matmul patch-embed kernel (p*p*C, D) -> Conv2d (D, C, p, p);
+  * the segmentation head `segm_head/{bbox_attention, mask_head}` ->
+    `bbox_attention.{q,k}_linear` (DETR's names) and `mask_head.{feat_proj,
+    conv_i, gn_i, out}` (the JAX package's: its mask head is not DETR's),
+    flax Conv kernels HWIO -> OIHW, GroupNorm scale -> weight;
+  * the learned position tables `pos_embed_learned/{col,row}_embed` ->
+    `backbone.1.{col,row}_embed.weight` (DETR's Joiner, nn.Embedding(50,
+    D/2)), and the pre-norm encoder's `transformer/encoder_norm` ->
+    `transformer.encoder.norm` (DETR's name).
 A pretrained backbone (`convert_backbone`, `merge_pretrained_backbone`):
 a timm CaiT state dict (or a reference TSCAM one) becomes the backbone
 body's state dict as the reference's timm `pretrained=True` and
@@ -121,6 +129,27 @@ def decoder_layer_state_dict(tree):
     return sd
 
 
+def _conv(sd, prefix, tree):
+    sd[f"{prefix}.weight"] = _arr(np.asarray(tree["kernel"], np.float32)
+                                  .transpose(3, 2, 0, 1))
+    sd[f"{prefix}.bias"] = _arr(tree["bias"])
+
+
+def segm_head_state_dict(tree):
+    """flax SegmentationHead params -> {'bbox_attention.q_linear.weight':
+    ..., 'mask_head.conv_0.weight': ...}."""
+    sd = OrderedDict()
+    for n in ("q_linear", "k_linear"):
+        _dense(sd, f"bbox_attention.{n}", tree["bbox_attention"][n])
+    mh = tree["mask_head"]
+    _dense(sd, "mask_head.feat_proj", mh["feat_proj"])
+    for i in range(_count(mh, "conv_")):
+        _conv(sd, f"mask_head.conv_{i}", mh[f"conv_{i}"])
+        _ln(sd, f"mask_head.gn_{i}", mh[f"gn_{i}"])
+    _conv(sd, "mask_head.out", mh["out"])
+    return sd
+
+
 def _count(tree, prefix):
     n = 0
     while f"{prefix}{n}" in tree:
@@ -182,6 +211,8 @@ def state_dict_from_jax(params, cfg=None):
     for i in range(n_dec):
         sd.update(_prefixed(f"transformer.decoder.layers.{i}.",
                             decoder_layer_state_dict(dec[f"layers_{i}"])))
+    if "encoder_norm" in tr:
+        _ln(sd, "transformer.encoder.norm", tr["encoder_norm"])
     _ln(sd, "transformer.decoder.norm", dec["norm"])
     _mlp_layers(sd, "transformer.decoder.query_scale", dec["query_scale"])
     _mlp_layers(sd, "transformer.decoder.ref_point_head", dec["ref_point_head"])
@@ -191,6 +222,11 @@ def state_dict_from_jax(params, cfg=None):
     for r in range(n_ref + 1):
         _dense(sd, f"class_embed.{r}", params[f"class_embed_{r}"])
         _mlp_layers(sd, f"bbox_embed.{r}", params[f"bbox_embed_{r}"])
+    if "pos_embed_learned" in params:
+        for n in ("col_embed", "row_embed"):
+            sd[f"backbone.1.{n}.weight"] = _arr(params["pos_embed_learned"][n])
+    if "segm_head" in params:
+        sd.update(segm_head_state_dict(params["segm_head"]))
     return sd
 
 

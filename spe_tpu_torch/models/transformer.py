@@ -2,7 +2,7 @@
 reference models/transformer.py encoder :253-310, conditional decoder layer
 :313-466, decoder :192-250, forward_refine :122-160).
 
-One post-norm encoder pass over the patch sequence, then the decoder over
+One encoder pass over the patch sequence, then the decoder over
 all query sets (base + refinements) stacked along the query axis: they
 share the encoder memory, and self-attention keeps each set to itself.
 Each encoder and decoder layer runs as its fused layer
@@ -34,11 +34,12 @@ from spe_tpu_torch.models.layers import LayerNorm, Linear, dropout_for
 from spe_tpu_torch.ops.embeds import gen_sineembed_for_position
 from spe_tpu_torch.ops.fused_decoder import (decoder_layer_reference,
                                              fused_decoder_layer)
-from spe_tpu_torch.ops.fused_encoder import (encoder_layer_reference,
+from spe_tpu_torch.ops.fused_encoder import (EPS, encoder_layer_reference,
                                              fused_encoder_layer,
                                              softmax_attention)
 from spe_tpu_torch.ops.fused_mha import layer_attention
-from spe_tpu_torch.ops.refmath import CounterDropout, draw_seed
+from spe_tpu_torch.ops.refmath import (CounterDropout, draw_seed, drop_site,
+                                       layer_norm, mm)
 
 
 def _dropout(module, gen, device):
@@ -68,14 +69,51 @@ class MLP(nn.Module):
         return x
 
 
+def encoder_layer_prenorm(x, pos, key_padding_mask, p, num_heads, drop=None,
+                          attention=softmax_attention):
+    """The pre-norm encoder layer (JAX transformer.py:117-135):
+
+        s   = x + drop(out_proj(MHA(q=k=LN1(x)+pos, v=LN1(x))))
+        out = s + drop(linear2(drop(relu(linear1(LN2(s))))))
+
+    in plain PyTorch, rounding where the flax layer in the working dtype
+    rounds, with the post-norm layer's parameter names and dropout sites
+    (encoder_layer_reference: `attn` on the probabilities, `proj` on the
+    attention output, the ReLU and the second linear's output, drawn in
+    that order). attention(q, k, v, num_heads, key_padding_mask, drop):
+    softmax_attention, or fused_mha.layer_attention (B4) with
+    use_pallas_attention. Training differentiates it with autograd, through
+    B4's autograd Function where the attention is B4's."""
+    dt = x.dtype
+    D = x.shape[-1]
+    w, b = p["self_attn.in_proj_weight"], p["self_attn.in_proj_bias"]
+    s2 = layer_norm(x, p["norm1.weight"], p["norm1.bias"], EPS).to(dt)
+    qk_in = (s2.float() + pos.float()).to(dt)
+    q = mm(qk_in, w[:D], b[:D]).to(dt)
+    k = mm(qk_in, w[D:2 * D], b[D:2 * D]).to(dt)
+    v = mm(s2, w[2 * D:], b[2 * D:]).to(dt)
+    o = attention(q, k, v, num_heads, key_padding_mask, drop).to(dt)
+    h = drop_site(drop, mm(o, p["self_attn.out_proj.weight"],
+                           p["self_attn.out_proj.bias"]).to(dt), "proj")
+    x = x + h.to(dt)
+    s2 = layer_norm(x, p["norm2.weight"], p["norm2.bias"], EPS).to(dt)
+    u = torch.relu(mm(s2, p["linear1.weight"], p["linear1.bias"]).to(dt))
+    u = drop_site(drop, u, "proj")
+    h2 = drop_site(drop, mm(u.to(dt), p["linear2.weight"],
+                            p["linear2.bias"]).to(dt), "proj")
+    return x + h2.to(dt)
+
+
 class TransformerEncoderLayer(nn.Module):
-    """Post-norm encoder layer with additive positional q/k."""
+    """Encoder layer with additive positional q/k: post-norm, or pre-norm
+    with normalize_before (never fused then, as in the JAX package)."""
 
     def __init__(self, d_model, nhead, dim_feedforward, use_fused=False,
-                 dropout=0.0, use_pallas=False):
+                 dropout=0.0, use_pallas=False, normalize_before=False):
         super().__init__()
         self.nhead = nhead
-        self.use_fused = use_fused
+        self.normalize_before = normalize_before
+        self.use_fused = use_fused and not normalize_before
         self.dropout = dropout
         self.attention = layer_attention if use_pallas else softmax_attention
         self.self_attn = MultiheadAttention(d_model)
@@ -89,19 +127,28 @@ class TransformerEncoderLayer(nn.Module):
                 self.nhead, _dropout(self, gen, src.device))
         if self.use_fused:
             return fused_encoder_layer(*args)
+        if self.normalize_before:
+            return encoder_layer_prenorm(*args, self.attention)
         return encoder_layer_reference(*args, self.attention)
 
 
 class TransformerEncoder(nn.Module):
-    def __init__(self, num_layers, *args, **kw):
+    """The encoder layers, and after them the final LayerNorm `norm` of a
+    pre-norm encoder (DETR's name; JAX `encoder_norm`)."""
+
+    def __init__(self, num_layers, d_model, *args, normalize_before=False,
+                 **kw):
         super().__init__()
-        self.layers = nn.ModuleList(TransformerEncoderLayer(*args, **kw)
-                                    for _ in range(num_layers))
+        self.layers = nn.ModuleList(
+            TransformerEncoderLayer(d_model, *args,
+                                    normalize_before=normalize_before, **kw)
+            for _ in range(num_layers))
+        self.norm = LayerNorm(d_model) if normalize_before else None
 
     def forward(self, src, pos, key_padding_mask=None, gen=None):
         for layer in self.layers:
             src = layer(src, pos, key_padding_mask, gen)
-        return src
+        return src if self.norm is None else self.norm(src)
 
 
 class ConditionalDecoderLayer(nn.Module):
@@ -182,14 +229,16 @@ class ConditionalTransformer(nn.Module):
 
     def __init__(self, d_model, nhead=8, num_encoder_layers=6,
                  num_decoder_layers=6, dim_feedforward=2048, num_sets=2,
-                 use_fused_layers=False, dropout=0.0, use_pallas=False):
+                 use_fused_layers=False, dropout=0.0, use_pallas=False,
+                 normalize_before=False):
         super().__init__()
         self.num_sets = num_sets
         self.encoder = TransformerEncoder(num_encoder_layers, d_model, nhead,
                                           dim_feedforward,
                                           use_fused=use_fused_layers,
                                           dropout=dropout,
-                                          use_pallas=use_pallas)
+                                          use_pallas=use_pallas,
+                                          normalize_before=normalize_before)
         self.decoder = ConditionalDecoder(num_decoder_layers, d_model, nhead,
                                           dim_feedforward, num_sets,
                                           use_fused_layers, dropout,

@@ -69,3 +69,20 @@ def generalized_box_iou_aligned(boxes1, boxes2):
     inter = inter_wh[..., 0] * inter_wh[..., 1]
     union = box_area(boxes1) + box_area(boxes2) - inter
     return iou - (area - union) / area.clamp(min=_EPS)
+
+
+def masks_to_boxes(masks):
+    """Boxes (N, 4) xyxy around the nonzero pixels of masks (N, H, W), in
+    pixel indices; zeros for an empty mask (reference util/box_ops.py
+    :77-101, spe_tpu/ops/boxes.py:90-106)."""
+    n, h, w = masks.shape
+    m = masks.bool()
+    ys = torch.arange(h, dtype=torch.float32, device=masks.device)[None, :, None]
+    xs = torch.arange(w, dtype=torch.float32, device=masks.device)[None, None, :]
+    big = 1e8
+    out = torch.stack([
+        torch.where(m, xs, big).amin((1, 2)),
+        torch.where(m, ys, big).amin((1, 2)),
+        torch.where(m, xs, -big).amax((1, 2)),
+        torch.where(m, ys, -big).amax((1, 2))], dim=1)
+    return torch.where(m.any((1, 2))[:, None], out, 0.0)

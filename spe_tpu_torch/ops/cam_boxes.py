@@ -4,9 +4,9 @@ cams_deit.py:9-96).
 
 Per image, for the `max_pos` positive classes with the strongest CAM
 evidence:
-  1. bilinear resize of the CAM to a `size x size` grid (half-pixel
-     centres, as jax.image.resize; it only enlarges on the recipe, 32 -> 64;
-     shrinking would antialias in JAX and raises here),
+  1. bilinear resize of the CAM to a `size x size` grid (ops/resize.py,
+     as jax.image.resize: half-pixel centres, antialiased when it shrinks;
+     it enlarges on the recipe, 32 -> 64),
   2. min-max normalise and threshold at `cam*255 > floor(cam_thr*255)`,
   3. 8-connected components (kernel 5: ops/connected_components.py, ONE
      launch for all B * max_pos masks of the step on the card),
@@ -25,22 +25,7 @@ import torch.nn.functional as F
 
 from spe_tpu_torch.ops.boxes import box_xyxy_to_cxcywh
 from spe_tpu_torch.ops.connected_components import BIG, connected_components
-
-
-def _resize(cams, size: int):
-    """(B, P, h, w) f32 -> (B, P, size, size), jax.image.resize 'bilinear'
-    for an upscale (or the identity)."""
-    h, w = cams.shape[-2:]
-    if (h, w) == (size, size):
-        return cams
-    if h > size or w > size:
-        raise NotImplementedError(
-            f"CAM {h}x{w} -> {size}x{size} shrinks; jax.image.resize "
-            "antialiases a shrink and the port does not")
-    B, P = cams.shape[:2]
-    out = F.interpolate(cams.reshape(B * P, 1, h, w), size=(size, size),
-                        mode="bilinear", align_corners=False)
-    return out.reshape(B, P, size, size)
+from spe_tpu_torch.ops.resize import resize_bilinear
 
 
 def _cam_threshold_mask(cam, cam_thr):
@@ -124,7 +109,8 @@ def cam_pseudo_boxes(cams, img_label, cam_thr, area_ratio: float = 0.5,
         pos_idx = torch.arange(C, device=dev)[None].expand(B, C)
         sel_cams, sel_label = cams, img_label
 
-    masks = _cam_threshold_mask(_resize(sel_cams.float(), size), cam_thr)
+    masks = _cam_threshold_mask(
+        resize_bilinear(sel_cams.float(), (size, size)), cam_thr)
     labels = connected_components(masks.reshape(B * P, size, size))
     boxes, valid = _labels_to_class_boxes(labels, area_ratio, k)
     boxes = boxes.reshape(B, P, k, 4)

@@ -100,7 +100,14 @@ ZERO_GRADS = {"attn.proj_l.bias": "attn.proj_l.weight",
               "sa_kcontent_proj.bias": "sa_kcontent_proj.weight",
               "sa_kpos_proj.bias": "sa_kpos_proj.weight",
               "ca_kcontent_proj.bias": "ca_kcontent_proj.weight",
-              "ca_kpos_proj.bias": "ca_kpos_proj.weight"}
+              "ca_kpos_proj.bias": "ca_kpos_proj.weight",
+              # the segmentation head: MHAttentionMap's softmax over
+              # positions ignores a per-query constant, and a GroupNorm
+              # subtracts its group's mean after each conv
+              "k_linear.bias": "k_linear.weight",
+              "conv_0.bias": "conv_0.weight",
+              "conv_1.bias": "conv_1.weight",
+              "conv_2.bias": "conv_2.weight"}
 QKV_FUSED = ("attn.qkv.weight", "attn.qkv.bias", "self_attn.in_proj_weight",
              "self_attn.in_proj_bias")
 

@@ -1,8 +1,7 @@
 """Loss primitives (port of spe_tpu/ops/losses.py; reference
-conditional_detr.py:225-235, 300-319, 468-494): fixed shapes with masks,
-every reduction over an explicit `num_boxes` normalizer.
-
-The dice and mask-focal losses of the segmentation head are not ported."""
+conditional_detr.py:225-235, 300-319, 468-494; the segmentation head's
+dice and mask focal losses, segmentation.py): fixed shapes with masks,
+every reduction over an explicit `num_boxes` normalizer."""
 
 from __future__ import annotations
 
@@ -55,3 +54,31 @@ def masked_giou_loss(src_xyxy, tgt_xyxy, pair_mask, num_boxes,
     if pair_weight is not None:
         loss = loss * pair_weight
     return (loss * pair_mask).sum() / num_boxes
+
+
+def dice_loss(logits, targets, num_boxes, row_mask=None):
+    """Dice loss of flattened masks (N, P): 1 - (2 |p t| + 1) / (|p| + |t|
+    + 1) a row, padded rows zeroed by row_mask (N,), summed / num_boxes."""
+    probs = torch.sigmoid(logits)
+    numerator = 2 * (probs * targets).sum(-1)
+    denominator = probs.sum(-1) + targets.sum(-1)
+    loss = 1 - (numerator + 1) / (denominator + 1)
+    if row_mask is not None:
+        loss = loss * row_mask
+    return loss.sum() / num_boxes
+
+
+def sigmoid_focal_loss_masks(logits, targets, num_boxes, alpha: float = 0.25,
+                             gamma: float = 2.0, row_mask=None):
+    """Focal loss of flattened mask logits (N, P), without the box focal
+    loss's p_t clamp: mean over P, padded rows zeroed, summed / num_boxes."""
+    prob = torch.sigmoid(logits)
+    ce = sigmoid_binary_cross_entropy(logits, targets)
+    p_t = prob * targets + (1 - prob) * (1 - targets)
+    loss = ce * (1 - p_t) ** gamma
+    if alpha >= 0:
+        loss = (alpha * targets + (1 - alpha) * (1 - targets)) * loss
+    loss = loss.mean(dim=1)
+    if row_mask is not None:
+        loss = loss * row_mask
+    return loss.sum() / num_boxes

@@ -6,6 +6,8 @@ A checkpoint is one torch.save file: {"model": state dict, "optimizer":
 AdamW3 state, "epoch", "bad_steps", "config"}. `--resume` takes either that
 file (training continues after its epoch) or a reference-layout .pth state
 dict (weights only: models/convert.py `load_reference_checkpoint`).
+`--frozen_weights` takes either too through `load_params_lenient`: the
+detector it was trained as, without the segmentation head.
 """
 
 from __future__ import annotations
@@ -40,3 +42,19 @@ def restore_checkpoint(path, state) -> int:
         return int(ckpt["epoch"])
     state.model.load_state_dict(load_reference_checkpoint(path))
     return -1
+
+
+def load_params_lenient(path, model) -> list:
+    """Load into `model` the parameters and buffers of the checkpoint at
+    `path` (the port's, or a reference-layout .pth) that it holds under the
+    same names; the model's others, absent from the checkpoint (a new
+    segmentation head), keep their init (spe_tpu/train/checkpoint.py
+    :59-70, reference main.py:218-220). -> the names kept at init."""
+    saved = load_reference_checkpoint(path)
+    ours = model.state_dict()
+    for k, v in saved.items():
+        if k in ours and tuple(v.shape) != tuple(ours[k].shape):
+            raise ValueError(f"{path}: {k} is {tuple(v.shape)}, the model's "
+                             f"{tuple(ours[k].shape)}")
+    model.load_state_dict({k: saved.get(k, v) for k, v in ours.items()})
+    return [k for k in ours if k not in saved]

@@ -12,7 +12,8 @@ box (here from a torch.Generator), matching runs the auction
 and every (stage, decoder layer, image) problem of a step goes to ONE
 auction launch. With `cost_trace` (`--log_match_cost`) the same cost
 matrices are also solved exactly on the host and the realized costs
-compared (match_subopt_mean/max). The instance-mask losses are not ported.
+compared (match_subopt_mean/max). `mask_losses` are the instance-mask
+losses of `--masks` (focal and dice), stage 0's last layer only.
 """
 
 from __future__ import annotations
@@ -25,9 +26,11 @@ import torch.nn.functional as F
 from spe_tpu_torch.ops import boxes as box_ops
 from spe_tpu_torch.ops.auction import (auction_assignment_stats_batched,
                                        hungarian_batched)
-from spe_tpu_torch.ops.losses import (image_label_bce, masked_giou_loss,
-                                      masked_l1_loss,
+from spe_tpu_torch.ops.losses import (dice_loss, image_label_bce,
+                                      masked_giou_loss, masked_l1_loss,
+                                      sigmoid_focal_loss_masks,
                                       weighted_sigmoid_focal_loss)
+from spe_tpu_torch.ops.resize import resize_bilinear
 
 
 @torch.no_grad()
@@ -181,6 +184,32 @@ def image_label_losses(backbone_out, img_label) -> Dict[str, torch.Tensor]:
                 backbone_out["x_logits"].float(), img_label),
             "img_label_logits_tokens": image_label_bce(
                 backbone_out["x_cls_logits"].float(), img_label)}
+
+
+def mask_losses(pred_masks, gt_masks, row_for_col, tgt_mask, num_boxes, *,
+                focal_alpha: float = 0.25, focal_gamma: float = 2.0):
+    """Instance-mask losses of the matched queries (reference
+    conditional_detr.py:321-350 loss_masks, final decoder layer only as
+    there, :451-452; spe_tpu/train/criterion.py:298-333): focal and dice
+    between each valid target's matched query's mask logits and its GT
+    mask. As in the JAX package they compare at the predicted resolution,
+    the GT masks shrunk to it bilinearly (ops/resize.py, antialiased like
+    jax.image.resize), where the reference enlarges the predictions to the
+    GT canvas. pred_masks (B, Q, h, w) logits; gt_masks (B, T, H, W) {0,
+    1}; row_for_col (B, T) the query of each target; tgt_mask (B, T)."""
+    B, Q, h, w = pred_masks.shape
+    T = row_for_col.shape[1]
+    maskf = tgt_mask.float()
+    row = row_for_col.long().clamp(0, Q - 1)
+    src = pred_masks.float().gather(1, row[:, :, None, None].expand(
+        B, T, h, w)) * maskf[:, :, None, None]
+    tg = resize_bilinear(gt_masks.float(), (h, w))
+    src, tg, rm = src.reshape(B * T, h * w), tg.reshape(B * T, h * w), \
+        maskf.reshape(B * T)
+    return {"loss_mask": sigmoid_focal_loss_masks(
+                src, tg, num_boxes, alpha=focal_alpha, gamma=focal_gamma,
+                row_mask=rm),
+            "loss_dice": dice_loss(src, tg, num_boxes, row_mask=rm)}
 
 
 def set_criterion_multi(stage_outs, targets_per_stage, gens, num_boxes_per_stage,

@@ -45,7 +45,8 @@ from spe_tpu_torch.train.train_step import train_step
 # the terms train_one_epoch logs besides the loss (JAX engine.py:60-72);
 # the last two only where the step traces the matching cost
 LOGGED = ("loss_ce", "loss_bbox", "loss_giou", "grad_norm", "match_iters",
-          "match_cleanup", "match_subopt_mean", "match_subopt_max")
+          "match_cleanup", "match_subopt_mean", "match_subopt_max",
+          "loss_mask", "loss_dice")
 # the eval-time criterion's terms (eval_losses)
 EVAL_TERMS = ("cardinality_error", "loss_bbox", "loss_ce", "loss_giou")
 
@@ -66,9 +67,15 @@ def sum_over_processes(count, sums, keys):
     return v[0].item(), dict(zip(keys, v[1:].tolist()))
 
 
+# what a training step reads of a batch: the GT arrays come with --masks
+# (the mask losses' targets)
+TRAIN_KEYS = ("images", "pad_mask", "img_label", "gt_boxes", "gt_labels",
+              "gt_mask", "gt_masks")
+
+
 def train_batch(batch, device):
     return {k: torch.as_tensor(batch[k], device=device)
-            for k in ("images", "pad_mask", "img_label")}
+            for k in TRAIN_KEYS if k in batch}
 
 
 def train_one_epoch(state, loader, epoch: int, cfg: SPEConfig, gates, gen,

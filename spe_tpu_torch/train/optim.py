@@ -3,9 +3,15 @@ StepLR and the non-finite skip (port of the update math of
 spe_tpu/train/optim.py `flat_update` :128-166; reference main.py:177-191,
 engine.py:163-165).
 
-  groups  body at lr; `backbone.*` at lr_backbone; the backbone's
-          class-attention blocks (`blocks_token_only`) at lr_cls_head
+  groups  body at lr; the backbone body (`backbone.0.*`) at lr_backbone;
+          its class-attention blocks (`blocks_token_only`) at lr_cls_head;
+          with `--frozen_weights` every parameter outside the segmentation
+          head in a frozen group at lr 0 (JAX optim.py:49-58, 195-201:
+          optax.set_to_zero), which takes an exactly zero update, weight
+          decay included
   clip    g <- g * (1 if |g| < clip else clip / |g|), |g| the global norm
+          of every gradient, the frozen group's too (optax.chain(
+          clip_by_global_norm, multi_transform))
   Adam    bias-corrected moments (b1 0.9, b2 0.999, eps 1e-8), then
           decoupled weight decay: d = m^ / (sqrt(v^) + eps) + wd * p
   StepLR  lr x 0.1 once the pre-increment update count reaches
@@ -21,13 +27,19 @@ from __future__ import annotations
 import torch
 
 from spe_tpu_torch.config import SPEConfig
+from spe_tpu_torch.models.segmentation import SEGM_PREFIXES
 
 B1, B2, ADAM_EPS = 0.9, 0.999, 1e-8
 
 
-def param_group(name: str) -> str:
-    """The reference's group of a parameter by its state-dict name."""
-    if name.startswith("backbone."):
+def param_group(name: str, frozen: bool = False) -> str:
+    """The reference's group of a parameter by its state-dict name; with
+    `frozen` (--frozen_weights) "frozen" outside the segmentation head.
+    The learned position tables (`backbone.1.*`) are in the body group, as
+    the JAX package holds them outside its backbone."""
+    if frozen and not name.startswith(SEGM_PREFIXES):
+        return "frozen"
+    if name.startswith("backbone.0."):
         return "cls_head" if ".blocks_token_only." in name else "backbone"
     return "body"
 
@@ -38,13 +50,12 @@ class AdamW3:
     (grad_norm as a 0-dim tensor, finite)."""
 
     def __init__(self, named_parameters, cfg: SPEConfig, steps_per_epoch: int):
-        if cfg.frozen_weights:
-            raise NotImplementedError("--frozen_weights is not ported")
         lrs = {"body": cfg.lr, "backbone": cfg.lr_backbone,
-               "cls_head": cfg.lr_cls_head}
+               "cls_head": cfg.lr_cls_head, "frozen": 0.0}
         self.groups = {}
         for name, p in named_parameters:
-            self.groups.setdefault(param_group(name), []).append(p)
+            self.groups.setdefault(param_group(name, bool(cfg.frozen_weights)),
+                                   []).append(p)
         self.lrs = {g: lrs[g] for g in self.groups}
         self.params = [p for ps in self.groups.values() for p in ps]
         self.exp_avg = {g: [torch.zeros_like(p) for p in ps]
@@ -81,6 +92,8 @@ class AdamW3:
         factor = 0.1 if self.count // self.steps_per_epoch >= self.lr_drop \
             else 1.0
         for g, ps in self.groups.items():
+            if g == "frozen":
+                continue
             gs = torch._foreach_mul(grads[g], scale)
             m, v = self.exp_avg[g], self.exp_avg_sq[g]
             torch._foreach_mul_(m, B1)

@@ -4,8 +4,16 @@ engine.py:93-174 `train_one_epoch_refine`):
   forward in training mode -> CAM pseudo-boxes (no grad; kernel 5 on the
   card) -> refinement pseudo-labels from the detached stage outputs ->
   set_criterion_multi over every stage (one auction launch, kernel 6) ->
-  the epoch-gated weighted total -> backward -> finiteness check ->
-  AdamW3 update, or a skipped step counted in bad_steps.
+  with `--masks` and GT masks in the batch, the mask branch -> the
+  epoch-gated weighted total -> backward -> finiteness check -> AdamW3
+  update, or a skipped step counted in bad_steps.
+
+The mask branch (JAX train_step.py:118-142): the segmentation head's
+masks (the model's forward with_masks), stage 0's last layer matched on
+its own against the raw GT set (one more auction launch a step; as in the
+JAX package, not the box losses' matching, whose targets are the CAM
+pseudo-boxes, which have no masks), and loss_mask / loss_dice normalised
+by max(GT count, W) / W over the W processes.
 
 Each stage's num_boxes normaliser is max(N, W) / W, N the valid targets x
 the repeat ratio summed over the W processes (one all-reduce of every
@@ -31,8 +39,8 @@ from spe_tpu_torch.config import SPEConfig
 from spe_tpu_torch.ops.cam_boxes import cam_pseudo_boxes
 from spe_tpu_torch.ops.postprocess import postprocess_refine
 from spe_tpu_torch.parallel import dist
-from spe_tpu_torch.train.criterion import (image_label_losses,
-                                           repeated_num_boxes,
+from spe_tpu_torch.train.criterion import (image_label_losses, mask_losses,
+                                           match, repeated_num_boxes,
                                            set_criterion_multi)
 from spe_tpu_torch.train.optim import AdamW3
 
@@ -70,6 +78,8 @@ def loss_weights(cfg: SPEConfig) -> Dict[str, float]:
                 weight[f"{name}_{i}"] = coef
     weight["img_label_logits"] = cfg.img_label_loss_coef
     weight["img_label_logits_tokens"] = cfg.img_label_tokens_loss_coef
+    weight["loss_mask"] = cfg.mask_loss_coef
+    weight["loss_dice"] = cfg.dice_loss_coef
     return weight
 
 
@@ -81,19 +91,50 @@ def num_boxes_per_stage(targets_per_stage, ratio: int):
     return list((n.clamp(min=float(W)) / W).unbind())
 
 
+def mask_num_boxes(gt_mask):
+    """The mask losses' normaliser, max(N, W) / W of the GT count N summed
+    over the W processes (JAX's max(N, num_devices), train_step.py:136)."""
+    n = gt_mask.float().sum()
+    W = dist.process_count()
+    dist.all_reduce_sum_(n)
+    return n.clamp(min=float(W)) / W
+
+
+def mask_branch(out, batch, cfg: SPEConfig, rows=None):
+    """The mask losses of out["pred_masks"] against batch's GT masks ->
+    ({loss_mask, loss_dice}, the rows matched: stage 0's last layer
+    against the raw GT set, or `rows` given, another run's)."""
+    s0 = out["stages"][0]
+    if rows is None:
+        gt = {"boxes": batch["gt_boxes"], "labels": batch["gt_labels"],
+              "mask": batch["gt_mask"]}
+        rows, _ = match(s0["pred_logits"], s0["pred_boxes"], gt,
+                        method=cfg.assignment, cost_class=cfg.set_cost_class,
+                        cost_bbox=cfg.set_cost_bbox,
+                        cost_giou=cfg.set_cost_giou)
+    losses = mask_losses(out["pred_masks"], batch["gt_masks"], rows,
+                         batch["gt_mask"], mask_num_boxes(batch["gt_mask"]),
+                         focal_alpha=cfg.focal_alpha,
+                         focal_gamma=cfg.focal_gamma)
+    return losses, rows
+
+
 def compute_losses(model, batch, cfg: SPEConfig, gates: Gates, gen=None,
                    supervision=None):
     """Forward + pseudo-labels + every criterion -> (total, {name: loss},
     supervision). The supervision is the step's discrete, undifferentiated
     part: {"cam": the CAM pseudo-boxes, "refine": the refinement
-    pseudo-labels, "matching": the assignment}. Given one (another run's),
-    the step uses it in place of its own, so that both runs differentiate
-    one loss. In training mode (`model.training`) the dropout masks and the
-    box repeat draw from `gen` (a torch.Generator on the model's device);
-    in eval mode there is neither."""
+    pseudo-labels, "matching": the assignment, and with the mask branch
+    "mask_matching": its rows}. Given one (another run's), the step uses it
+    in place of its own, so that both runs differentiate one loss. In
+    training mode (`model.training`) the dropout masks and the box repeat
+    draw from `gen` (a torch.Generator on the model's device); in eval mode
+    there is neither. The segmentation head runs only where the mask
+    losses read it: a model with `masks` and a batch with `gt_masks`."""
     training = model.training
+    with_masks = getattr(model, "masks", False) and "gt_masks" in batch
     out = model(batch["images"], pad_mask=batch.get("pad_mask"),
-                generator=gen if training else None)
+                generator=gen if training else None, with_masks=with_masks)
     stages = out["stages"]
     if supervision is None:
         cam_targets = cam_pseudo_boxes(
@@ -130,6 +171,13 @@ def compute_losses(model, batch, cfg: SPEConfig, gates: Gates, gen=None,
     losses.update(image_label_losses(out["backbone"], batch["img_label"]))
     for k, sl in zip(refine_targets, stage_losses[1:]):
         losses.update({f"ref_{k}_{name}": v for name, v in sl.items()})
+    used = {"cam": cam_targets, "refine": refine_targets,
+            "matching": matching}
+    if with_masks:
+        ml, used["mask_matching"] = mask_branch(
+            out, batch, cfg,
+            None if supervision is None else supervision["mask_matching"])
+        losses.update(ml)
 
     # the gated weighted total (engine.py:134-144): refinement losses gate on
     # refine_weight AND det_weight, the warmup keeps only the image labels
@@ -144,8 +192,7 @@ def compute_losses(model, batch, cfg: SPEConfig, gates: Gates, gen=None,
         elif name in weight:
             gate = 1.0 if name.startswith("img_label") else gates.det_weight
             total = total + (gate * weight[name]) * v
-    return total, losses, {"cam": cam_targets, "refine": refine_targets,
-                           "matching": matching}
+    return total, losses, used
 
 
 def average_gradients(params, loss):

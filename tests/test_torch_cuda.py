@@ -28,7 +28,9 @@ misaligned ones (one launch a call, no reduce_* kernel, the tickets back
 at 0); layernorm_kernel and th_mix_kernel against layernorm_reference and
 th_mix_reference likewise (every class of the three recorded runs, the
 other widths, ragged and misaligned views), layernorm's bf16 output
-against ln_linear's LayerNorm panel bit for bit.
+against ln_linear's LayerNorm panel bit for bit; the pre-norm encoder
+layer's attention through fused_mha (B4), and the mask branch's matching
+through the auction kernel.
 The
 kernels have no CPU mode, so without a card these tests skip.
 
@@ -465,6 +467,82 @@ def test_attention_functions_count_launches(card):
         (b[0] + 1, b[1] + 1) for b in before]
     for t in (*ins, *lp.values()):
         assert torch.isfinite(t.grad.float()).all()
+
+
+def test_prenorm_encoder_layer_through_b4(card):
+    """The pre-norm encoder layer with use_pallas_attention (the stock
+    preset with --pre_norm) at the recipe's width, 8 heads of 24, bf16,
+    in training at the recipe's dropout: its self-attention is one MHAFn
+    training-forward and one backward launch, the fused encoder layer
+    none; gradients finite; at rate 0 its output within 5% of the same
+    layer's with the plain attention."""
+    from spe_tpu_torch.models.transformer import TransformerEncoderLayer
+    from spe_tpu_torch.ops import fused_encoder, fused_mha
+    from spe_tpu_torch.ops.kernel_checks import MODEL_REL_TOL, max_err
+
+    torch.manual_seed(0)
+    B, N, D = 2, 256, 192
+    layers = [TransformerEncoderLayer(D, 8, 512, use_fused=True,
+                                      dropout=rate, use_pallas=pallas,
+                                      normalize_before=True).to(card)
+              for rate, pallas in ((0.1, True), (0.0, True), (0.0, False))]
+    torch.nn.init.normal_(layers[0].self_attn.in_proj_weight, std=D ** -0.5)
+    for layer in layers[1:]:
+        layer.load_state_dict(layers[0].state_dict())
+    x = torch.randn(B, N, D, device=card).to(torch.bfloat16)
+    pos = torch.randn(B, N, D, device=card).to(torch.bfloat16)
+    mask = torch.zeros(B, N, dtype=torch.bool, device=card)
+    mask[1, -40:] = True
+    fm, fe = fused_mha.fused_mha, fused_encoder.fused_encoder_layer
+    before = (fm.train_launches, fm.bwd_launches, fe.train_launches,
+              fe.launches)
+    xt = x.clone().requires_grad_()
+    out = layers[0].train()(xt, pos, mask,
+                            torch.Generator(card).manual_seed(1))
+    out.float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert (fm.train_launches, fm.bwd_launches, fe.train_launches,
+            fe.launches) == (before[0] + 1, before[1] + 1, *before[2:])
+    assert torch.isfinite(xt.grad.float()).all()
+    for p in layers[0].parameters():
+        assert torch.isfinite(p.grad).all()
+    with torch.no_grad():
+        got = layers[1].eval()(x, pos, mask)
+        want = layers[2].eval()(x, pos, mask)
+    assert fm.launches >= 1
+    assert max_err(got, want) <= MODEL_REL_TOL * float(
+        want.float().abs().max())
+
+
+def test_mask_matching_auction_equals_plain(card):
+    """The mask branch's matching (stage 0 against the raw GT set, one
+    more auction launch a step) at the recipe's shapes: 8 problems of at
+    most 24 GT x 300 queries; assignments and iteration counts equal to
+    the plain auction's on the same costs; one launch."""
+    from spe_tpu_torch.ops import auction
+    from spe_tpu_torch.train.criterion import match
+
+    g = torch.Generator().manual_seed(0)
+    B, Q, T, K = 8, 300, 24, 21
+    logits = torch.randn(B, Q, K, generator=g).to(card)
+    boxes = (0.2 + 0.6 * torch.rand(B, Q, 4, generator=g)).to(card)
+    gt = {"boxes": (0.2 + 0.6 * torch.rand(B, T, 4, generator=g)).to(card),
+          "labels": torch.randint(1, 21, (B, T), generator=g).to(card),
+          "mask": (torch.arange(T)[None] < torch.randint(
+              1, T + 1, (B, 1), generator=g)).to(card)}
+    before = auction.auction_phase.launches
+    rows, stats = match(logits, boxes, gt)
+    torch.cuda.synchronize()
+    assert auction.auction_phase.launches == before + 1
+    kernel = auction.auction_phase
+    auction.auction_phase = auction.auction_phase_reference
+    try:
+        want_rows, want_stats = match(logits, boxes, gt)
+    finally:
+        auction.auction_phase = kernel
+    assert torch.equal(rows, want_rows)
+    assert torch.equal(stats["iters"], want_stats["iters"])
+    assert int(stats["cleanup"].sum()) == 0
 
 
 @pytest.mark.parametrize("case", range(len(GEMM_SHAPES)))

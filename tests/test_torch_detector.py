@@ -148,6 +148,10 @@ def test_port_never_imports_jax():
             "assert 'spe_tpu_torch.data.coco_eval' in mods, mods\n"
             "assert 'spe_tpu_torch.parallel.dist' in mods, mods\n"
             "assert 'spe_tpu_torch.cli.accuracy' in mods, mods\n"
+            "for m in ('models.segmentation', 'models.position_encoding', "
+            "'data.masks', 'data.coco_panoptic', 'data.panoptic_eval', "
+            "'ops.resize'):\n"
+            "    assert 'spe_tpu_torch.' + m in mods, (m, mods)\n"
             "assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, timeout=300)

@@ -149,9 +149,10 @@ def test_cli_eval_runs_and_training_refused(mini_voc):
             "--batch_size", "2", "--compute_dtype", "float32"]
     stats = main(args + ["--eval"])
     assert stats["forwards"] == 2 and 0.0 <= stats["mAP"] <= 1.0
-    # training runs (test_cli_trains_checkpoints_and_resumes); what it has
-    # not ported is refused
-    for extra in (["--frozen_weights", "x.pth"], ["--masks"]):
+    # training runs (test_cli_trains_checkpoints_and_resumes), --masks and
+    # --frozen_weights too (test_torch_mask_training.py); what it has not
+    # ported, tensor parallelism, is refused
+    for extra in (["--model_axis", "2"], ["--tp_attention"]):
         with pytest.raises(NotImplementedError, match="not ported"):
             main(args + extra)
     # distributed training and the matching-cost audit are ported

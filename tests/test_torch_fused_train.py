@@ -373,6 +373,9 @@ def test_cli_refuses_fused_encoder_training_on_the_card():
     assert cfg.device != "cpu" and cfg.use_pallas_attention
     assert cfg.use_fused_block and cfg.use_fused_layers
     assert cfg.use_fused_ca_block == "auto"
-    with pytest.raises(NotImplementedError, match="frozen_weights"):
+    with pytest.raises(NotImplementedError, match="--backbone_weights auto"):
+        parse_config(args + ["--backbone_weights", "auto"])
+    with pytest.raises(ValueError, match="segmentation only"):
         parse_config(args + ["--frozen_weights", "x.pth"])
+    assert parse_config(args + ["--frozen_weights", "x.pth", "--masks"]).masks
     assert parse_config(args + ["--world_size", "2"]).world_size == 2

@@ -254,12 +254,17 @@ def test_cam_pseudo_boxes_match_jax_with_a_class_budget(rng):
 
 
 def test_cam_resize_matches_jax(rng):
-    """The recipe's CAM upscale (32 -> 64 there; 8 -> 16 here)."""
+    """The recipe's CAM upscale (32 -> 64 there; 8 -> 16 here), and a
+    shrink (8 -> 4), antialiased as jax.image.resize does: the CAM resize
+    is ops/resize.py's."""
+    from spe_tpu_torch.ops.resize import resize_bilinear
+
     cams = rng.normal(size=(2, 3, 8, 8)).astype(np.float32)
-    want = jax.image.resize(jnp.asarray(cams), (2, 3, 16, 16), "bilinear")
-    _close(tcam._resize(torch.from_numpy(cams), 16), want, 1e-6, 1e-6)
-    with pytest.raises(NotImplementedError, match="shrinks"):
-        tcam._resize(torch.from_numpy(cams), 4)
+    for size in (16, 4):
+        want = jax.image.resize(jnp.asarray(cams), (2, 3, size, size),
+                                "bilinear")
+        _close(resize_bilinear(torch.from_numpy(cams), (size, size)), want,
+               1e-6, 1e-6)
 
 
 # ------------------------------------------------------------- criterion
