@@ -213,9 +213,26 @@ Phases, each printing its own lines; any failure exits non-zero:
                (phase 4) and one step's same-grads (phase 8). Then one CLI
                epoch of 2 steps with --masks on a generated coco_panoptic
                tree, evaluated with COCO AP.
+ 13. tensor parallel — `--model_axis 2 --tp_attention --no_use_fused_block
+               --no_use_fused_layers` on the stock voc0712 model at full
+               width, two processes on the one card over gloo
+               (`--tp-worker`), through build_model, train_step,
+               save_checkpoint and the eval forward: one TP step at B=4
+               against one process given its supervision (phase 8's
+               same-grads rule), the ranks' replicated parameters, CC
+               labels and auction assignments equal, the gathered
+               checkpoint in one process, the flipped eval at B=8 against
+               one process (phase 4's 5%), B4 on each rank's heads against
+               the full-head call and the plain version and its masks
+               keyed by global head (bit for bit), kv_sharded_attention
+               and ring_kv_attention against unsharded attention (1e-5,
+               f32), each rank's launches, model-group collectives, ms a
+               step and peak memory; scaled_dot_product_attention's
+               forward and backward beside B4's (row 7b's library time).
 Each profile also sums the device time of the product kernels by family
 (attn_kernel<192, 192, ...> apart) and of every __global__ function in
-spe_tpu_torch/csrc. About 11 minutes of command time on an H100.
+spe_tpu_torch/csrc. About 13 minutes of command time on an H100, the
+kernels' build included.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
 
@@ -2167,7 +2184,7 @@ def phase_train(kernel_results, mode, n_train=24, n_test=8, batch=8,
     goes. -> (cfg, the launch counts of the run)."""
     import torch
 
-    from spe_tpu_torch.cli.main import EVALS, parse_config
+    from spe_tpu_torch.cli.main import best_key, parse_config
     from spe_tpu_torch.cli.main import main as cli_main
     from spe_tpu_torch.models.build import build_model
     from spe_tpu_torch.ops import kernels as K
@@ -2251,7 +2268,7 @@ def phase_train(kernel_results, mode, n_train=24, n_test=8, batch=8,
     ep = restore_checkpoint(f"{out}/checkpoint.pth", reload)
     same = all(torch.equal(reload.model.state_dict()[k], v)
                for k, v in trained.items())
-    key = EVALS[cfg.dataset_eval]
+    key = best_key(cfg)
     print(f"[{tag}] weights moved by up to {moved:.3e}; checkpoint reloads "
           f"(epoch {ep}, optimizer count {reload.optimizer.count}, weights "
           f"equal {same}); eval {key} {epoch['eval'][key]:.4f} (random "
@@ -3384,13 +3401,7 @@ def _dist_models(spec, device):
 
 
 def _digest(model):
-    import hashlib
-
-    h = hashlib.sha256()
-    for n, p in model.named_parameters():
-        h.update(n.encode())
-        h.update(p.detach().float().cpu().numpy().tobytes())
-    return h.hexdigest()[:16]
+    return _digest_state(dict(model.named_parameters()))
 
 
 def _coco_stages(model, loader, ds, cfg, device):
@@ -3459,11 +3470,11 @@ def dist_worker(rank, world, backend, port, tmp):
         nb.append([float(v) for v in got])
         return got
 
-    def all_reduce_mean_(flat):
+    def all_reduce_mean_(flat, group=None):
         a, b = torch.cuda.Event(enable_timing=True), \
             torch.cuda.Event(enable_timing=True)
         a.record()
-        reduce(flat)
+        reduce(flat, group)
         b.record()
         torch.cuda.synchronize()
         timed.append((flat.numel() * flat.element_size(), a.elapsed_time(b)))
@@ -4195,6 +4206,662 @@ def phase_segmentation():
     print(f"[segm] {json.dumps(summary)} ({card()})", flush=True)
 
 
+# phase 13: tensor and sequence parallelism, two processes on cuda:0 over
+# gloo (one card: NCCL refuses two ranks on one device; gloo carries the
+# card's tensors through the host), one model group of two
+TP_ARGV = STOCK_TRAIN_ARGV + [
+    "--no_use_fused_block", "--no_use_fused_layers", "--tp_attention",
+    "--dropout", "0", "--backbone_drop_rate", "0", "--drop_path_rate", "0",
+    "--drop_attn_rate", "0"]
+TP_WORLD = 2
+TP_BATCH, TP_EVAL_BATCH = 4, 8
+TP_TIMEOUT = 300      # seconds the two processes may take
+SP_TOL = 1e-5         # (e): of the unsharded f32 attention's largest
+
+
+def _tp_cfgs(root):
+    """The one-process and the model-group configurations of phase 13 on
+    a generated VOCdevkit under root."""
+    from spe_tpu_torch.cli.main import parse_config
+
+    one = parse_config(TP_ARGV)
+    one = one.replace(batch_size=TP_BATCH, **write_data(
+        one, root, TP_EVAL_BATCH, 1, seed=13))
+    return one, one.replace(model_axis=TP_WORLD, world_size=TP_WORLD)
+
+
+def _eval_model(cfg, device, tp=None):
+    """Phase 4's model pair's side for cfg: LayerScale 1 and the last bbox
+    layers drawn (kernel_vs_plain), the same on every rank: the bbox heads
+    are replicated."""
+    import torch
+
+    from spe_tpu_torch.models.build import build_model
+
+    model = build_model(cfg.replace(init_scale=1.0), device, tp=tp)
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for head in model.bbox_embed:
+            head.layers[-1].weight.copy_(
+                0.02 * torch.randn(head.layers[-1].weight.shape,
+                                   generator=gen))
+    return model
+
+
+def _eval_pairs(out):
+    """The flipped eval forward's outputs phase 13 (c) compares."""
+    pairs = {"cams_cls": out["backbone"]["cams_cls"],
+             "x_logits": out["backbone"]["x_logits"]}
+    for r, st in out["stages"].items():
+        pairs.update({f"stage{r}_{k}": st[k]
+                      for k in ("pred_logits", "pred_boxes")})
+    return {k: v.detach().float().cpu() for k, v in pairs.items()}
+
+
+def _head_cases():
+    """(d)'s fused_mha cases: attention_cases' encoder self-attention and
+    decoder cross-attention at rate 0 -> {label: (q, k, v, H, mask, cot)}."""
+    from spe_tpu_torch.ops.kernel_checks import attention_cases
+
+    return {label: (*args[:5], cot[0]) for name, _, _, args, cot, label in
+            attention_cases(train=True, device="cuda")
+            if name == "pallas_mha" and args[5]}
+
+
+def tp_heads(rank, H_full=8):
+    """(d) on this rank of the model group: B4 on its H/2 heads (head0 =
+    rank * H/2) against the full-head kernel call's heads and the plain
+    version, forward and backward at rate 0; then its in-kernel dropout
+    masks (forward and attn_bwd_rows) at the recipe's rate against the
+    torch formula keyed by global head, bit for bit. -> (lines, bad)."""
+    import torch
+
+    from spe_tpu_torch.ops import fused_mha as F
+    from spe_tpu_torch.ops import kernels as K
+    from spe_tpu_torch.ops.kernel_checks import (TRANSFORMER_RATE, bf16_tol,
+                                                 grad_tol, max_err)
+    from spe_tpu_torch.ops.refmath import (SITE_MHA_ATTN, CounterDropout,
+                                           no_dropout)
+
+    lines, bad = [], []
+    for label, (q, k, v, H, mask, cot) in _head_cases().items():
+        h = H // TP_WORLD
+
+        def mine(t, n=H):
+            w = t.shape[-1] // n
+            return t[..., rank * h * w:(rank + 1) * h * w]
+
+        drop = CounterDropout(no_dropout("cuda").seed, head0=rank * h)
+        with torch.no_grad():
+            full, lse_f = F._train_cuda(q, k, v, H, mask)
+            out, lse = F._train_cuda(mine(q), mine(k), mine(v), h, mask, drop)
+            ref, lse_r = F.fused_mha_train_reference(mine(q), mine(k),
+                                                     mine(v), h, mask, drop)
+            gf = F._backward_cuda(cot, q, k, v, lse_f, H, mask)
+            args = (mine(cot), mine(q), mine(k), mine(v), lse, h, mask, drop)
+            g = F._backward_cuda(*args)
+            gr = F.fused_mha_backward_reference(*args)
+            torch.cuda.synchronize()
+        same = torch.equal(out, mine(full)) and torch.equal(
+            lse, lse_f[:, rank * h:(rank + 1) * h]) and all(
+            torch.equal(a, mine(b)) for a, b in zip(g, gf))
+        errs = [max_err(out, ref), max_err(lse, lse_r)]
+        tols = [bf16_tol(ref), 1e-4]
+        gerr = [max_err(a, b) for a, b in zip(g, gr)]
+        gtol = [grad_tol(b) for b in gr]
+        ok = same and all(e <= t for e, t in zip(errs + gerr, tols + gtol))
+        lines.append(f"rank {rank}, {label}, heads {rank * h}-"
+                     f"{(rank + 1) * h - 1} of {H}: forward and backward "
+                     f"equal to the full-head call's heads bit for bit "
+                     f"{same}; against the plain version: out, lse "
+                     f"{[f'{e:.3e}' for e in errs]} (tol "
+                     f"{[f'{t:.3e}' for t in tols]}), dq dk dv "
+                     f"{[f'{e:.3e}' for e in gerr]} (tol "
+                     f"{[f'{t:.3e}' for t in gtol]}) -> "
+                     f"{'ok' if ok else 'BAD'}")
+        if not ok:
+            bad.append(f"rank {rank} {label} head-sharded B4")
+    # the masks: Nk = dv = 24 keys and V the identity, so the output is
+    # the dropped probabilities rounded to bf16, zero exactly where dropped
+    gen = torch.Generator().manual_seed(rank + 31)
+    rate = TRANSFORMER_RATE
+    seed = torch.tensor([20240619], dtype=torch.int32, device="cuda")
+    B, Nq, Nk, dv, h = 2, 256, 24, 24, H_full // TP_WORLD
+    for dq in (24, 48):
+        q = torch.randn((B, Nq, h * dq), generator=gen).to(
+            torch.bfloat16).cuda()
+        kk = torch.randn((B, Nk, h * dq), generator=gen).to(
+            torch.bfloat16).cuda()
+        v = torch.eye(Nk).repeat(1, h)[None].expand(B, -1, -1).to(
+            torch.bfloat16).cuda().contiguous()
+        drop = CounterDropout(seed, attn=rate, head0=rank * h)
+        with torch.no_grad():
+            out, lse = F._train_cuda(q, kk, v, h, None, drop)
+            got = (out.float().reshape(B, Nq, h, dv).transpose(1, 2) != 0)
+            want = K.attention_keep(seed, (SITE_MHA_ATTN, rate),
+                                    (B, h, Nq, Nk), h, rank * h)
+            s = torch.randn((B, h, Nq, Nk), generator=gen).cuda()
+            zd, _ = K.attention_bwd_rows(
+                s, torch.randn_like(s), torch.logsumexp(s, -1), None, seed,
+                (SITE_MHA_ATTN, rate), num_heads=h, head0=rank * h)
+        same = bool(torch.equal(got, want)) and bool(torch.equal(zd != 0,
+                                                                 want))
+        share = float(want.float().mean())
+        sigma = (rate * (1 - rate) / want.numel()) ** 0.5
+        ok = same and abs(share - (1 - rate)) <= 4 * sigma
+        lines.append(f"rank {rank}, masks at rate {rate}, {dq} x {dv} "
+                     f"heads {rank * h}-{(rank + 1) * h - 1}: attn_kernel "
+                     f"and attn_bwd_rows_kernel == the torch formula keyed "
+                     f"by global head {same}; kept {share:.5f} (4 sigma "
+                     f"{4 * sigma:.5f}) -> {'ok' if ok else 'BAD'}")
+        if not ok:
+            bad.append(f"rank {rank} B4 masks with head0 ({dq} x {dv})")
+    return lines, bad
+
+
+def tp_sequence(rank, B=2, H=8, N=1024, dh=24):
+    """(e): kv_sharded_attention and ring_kv_attention over the two ranks
+    at the encoder's recipe shape (f32, each rank 512 of the 1024 keys and
+    their padding mask) against the unsharded attention: the output and
+    dq, dk, dv (this rank's keys) within SP_TOL of the largest of each.
+    -> (lines, bad)."""
+    import torch
+
+    from spe_tpu_torch.ops.kernel_checks import max_err
+    from spe_tpu_torch.ops.seq_parallel import (kv_sharded_attention,
+                                                ring_kv_attention)
+
+    gen = torch.Generator().manual_seed(29)
+    q, k, v = (torch.randn((B, H, n, dh), generator=gen).cuda()
+               for n in (N, N, N))
+    mask = torch.zeros((B, N), dtype=torch.bool)
+    mask[1, -200:] = True
+    mask = mask.cuda()
+    cot = torch.randn((B, H, N, dh), generator=gen).cuda()
+    n = N // TP_WORLD
+    keys = slice(rank * n, (rank + 1) * n)
+
+    def ref(q, k, v):
+        s = (q @ k.transpose(-1, -2)) * dh ** -0.5
+        s = s.masked_fill(mask[:, None, None, :], -1e9)
+        return torch.softmax(s, -1) @ v
+
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = ref(*leaves)
+    want_g = torch.autograd.grad((want * cot).sum(), leaves)
+    lines, bad = [], []
+    for name, fn in (("kv_sharded_attention", kv_sharded_attention),
+                     ("ring_kv_attention", ring_kv_attention)):
+        ql = q.clone().requires_grad_()
+        kl, vl = (t[:, :, keys].clone().requires_grad_() for t in (k, v))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = fn(ql, kl, vl, key_padding_mask_local=mask[:, keys])
+        g = torch.autograd.grad((got * cot).sum(), (ql, kl, vl))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        rel = [max_err(a, b) / float(b.abs().max()) for a, b in
+               zip((got.detach(), *g), (want.detach(), want_g[0],
+                                        want_g[1][:, :, keys],
+                                        want_g[2][:, :, keys]))]
+        ok = all(r <= SP_TOL for r in rel)
+        lines.append(f"rank {rank}, {name} at ({B}, {H}, {N}, {dh}) f32, "
+                     f"{n} keys a rank: out, dq, dk, dv against the "
+                     f"unsharded attention {[f'{r:.2e}' for r in rel]} of "
+                     f"the largest (limit {SP_TOL}) -> "
+                     f"{'ok' if ok else 'BAD'}; forward and backward "
+                     f"{ms:.1f} ms (host clock, gloo through the host)")
+        if not ok:
+            bad.append(f"rank {rank} {name}")
+    return lines, bad
+
+
+def tp_worker(rank, port, tmp):
+    """One of phase 13's processes (`python3 chip_smoke.py --tp-worker
+    RANK PORT DIR`), rank RANK of a model group of two on cuda:0 over
+    gloo: (a) the TP step's gradients on the one-process run's
+    supervision, (f) a warm-up step, the counted, timed train_step and a
+    profiled one, (b) the replicated parameters' digests, the CC labels
+    and auction assignments, the gathered checkpoint, (c) the flipped eval
+    forward at B=8, (d) tp_heads, (e) tp_sequence; results to
+    DIR/rank{RANK}.pt."""
+    import torch
+
+    from spe_tpu_torch.config import SPEConfig
+    from spe_tpu_torch.models.build import build_model
+    from spe_tpu_torch.ops import cam_boxes
+    from spe_tpu_torch.parallel import dist
+    from spe_tpu_torch.parallel.mesh import make_mesh
+    from spe_tpu_torch.parallel.sharding_rules import (gather_model_state,
+                                                       gather_tensors)
+    from spe_tpu_torch.train import train_step as ts
+    from spe_tpu_torch.train.checkpoint import save_checkpoint
+    from spe_tpu_torch.train.optim import AdamW3
+
+    os.environ.update(RANK=str(rank), LOCAL_RANK="0")
+    dev = dist.init_distributed(TP_WORLD, f"tcp://127.0.0.1:{port}", "cuda",
+                                backend="gloo")
+    mesh = make_mesh(TP_WORLD, TP_WORLD)
+    tp = mesh.tp
+    spec = torch.load(f"{tmp}/spec.pt", weights_only=False)
+    cfg = SPEConfig(**spec["tp"])
+    batch = {k: v.to(dev) for k, v in spec["batch"].items()}
+    gates = ts.Gates.for_epoch(cfg, 0)
+    model = build_model(cfg, dev, tp=tp)
+    out = {"init": _digest_state(gather_model_state(model))}
+
+    def grads():
+        return gather_tensors(
+            [(n, p.grad if p.grad is not None else torch.zeros_like(p))
+             for n, p in model.named_parameters()], tp)
+
+    # (a) the one-process run's supervision replayed
+    model.train()
+    model.zero_grad(set_to_none=True)
+    total, _, _ = ts.compute_losses(
+        model, batch, cfg, gates, torch.Generator(dev).manual_seed(0),
+        supervision=_to(spec["sup"], dev))
+    total.backward()
+    ts.reduce_model_group_grads(list(model.parameters()))
+    out["replay_loss"] = float(total.detach())
+    replay = {n: g.float().cpu() for n, g in grads().items()}
+    if rank == 0:
+        out["replay"] = replay
+    del replay
+
+    # (f) a warm-up step (its own supervision: the gap without replay),
+    # then the counted, timed step; (b) what the ranks must share
+    state = ts.TrainState(model, AdamW3(model.named_parameters(), cfg, 10))
+    labels, used = [], []
+    cc, losses = cam_boxes.connected_components, ts.compute_losses
+
+    def connected_components(*a, **kw):
+        res = cc(*a, **kw)
+        labels.append(res[0] if isinstance(res, tuple) else res)
+        return res
+
+    def compute_losses(*a, **kw):
+        res = losses(*a, **kw)
+        used.append(res[2])
+        return res
+
+    cam_boxes.connected_components = connected_components
+    ts.compute_losses = compute_losses
+    try:
+        m = ts.train_step(state, batch, cfg, gates,
+                          torch.Generator(dev).manual_seed(0))
+        own = {n: g.float().cpu() for n, g in grads().items()}
+        if rank == 0:
+            out["own"] = own
+        del own
+        out.update(own_loss=float(m["loss"]),
+                   cc_labels=[t.cpu() for t in labels],
+                   matching=[u["matching"][0].cpu() for u in used])
+        torch.cuda.synchronize()
+        _all_counts(reset=True)
+        tp.calls = tp.bytes = 0
+        tp.seconds = 0.0
+        torch.cuda.reset_peak_memory_stats()
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0 = time.perf_counter()
+        a.record()
+        m = ts.train_step(state, batch, cfg, gates,
+                          torch.Generator(dev).manual_seed(1))
+        b.record()
+        torch.cuda.synchronize()
+        out.update(step_ms=(time.perf_counter() - t0) * 1e3,
+                   step_cuda_ms=a.elapsed_time(b), counts=_all_counts(),
+                   collectives=(tp.calls, tp.bytes, tp.seconds * 1e3),
+                   peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                   loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+                   per=_per_forward(model))
+        # a third step under torch.profiler: the device's busy time
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            ts.train_step(state, batch, cfg, gates,
+                          torch.Generator(dev).manual_seed(2))
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        busy = sum(e.self_device_time_total for e in prof.key_averages()
+                   if getattr(e, "device_type", None) ==
+                   torch.autograd.DeviceType.CUDA) / 1e3
+        out["profiled"] = (wall, busy)
+    finally:
+        cam_boxes.connected_components, ts.compute_losses = cc, losses
+    out["replicated"] = {n: _digest_state({n: p}) for n, p in
+                         model.named_parameters()
+                         if not hasattr(p, "tp_shard")}
+    after = gather_model_state(model)   # collective: every rank
+    if rank == 0:
+        out["after"] = {n: t.float().cpu() for n, t in after.items()}
+    del after
+    save_checkpoint(f"{tmp}/tp.pth", state, 0, cfg)   # collective
+    del state, model
+    torch.cuda.empty_cache()
+
+    # (c) the flipped eval forward at B=8
+    model = _eval_model(cfg, dev, tp).eval()
+    images = spec["eval"]["images"].to(dev)
+    pad = spec["eval"]["pad_mask"].to(dev)
+    calls = tp.calls
+    with torch.no_grad():
+        model(images, pad_mask=pad)     # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eo = model(images, pad_mask=pad)
+        torch.cuda.synchronize()
+    out.update(eval_ms=(time.perf_counter() - t0) * 1e3,
+               eval_collectives=(tp.calls - calls) // 2,
+               eval_out=_eval_pairs(eo))
+    del model, eo
+    torch.cuda.empty_cache()
+
+    out["heads"] = tp_heads(rank)
+    out["sequence"] = tp_sequence(rank)
+    torch.save(out, f"{tmp}/rank{rank}.pt")
+    dist.shutdown()
+
+
+def _to(tree, device):
+    """A nest of dicts, lists and tuples of tensors on `device`."""
+    import torch
+
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to(v, device) for v in tree)
+    return tree
+
+
+def _digest_state(named):
+    import hashlib
+
+    h = hashlib.sha256()
+    for n, t in named.items():
+        h.update(n.encode())
+        h.update(t.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def _tp_reference(cfg, batch, dev):
+    """The one-process side of (a) on cuda:0: the model of cfg (model_axis
+    1, the same kernels) on its own supervision -> (loss, gradients, the
+    supervision, the gradients of the plain f32 model given it)."""
+    import torch
+
+    from spe_tpu_torch.models.build import build_model
+    from spe_tpu_torch.train import train_step as ts
+
+    gates = ts.Gates.for_epoch(cfg, 0)
+    runs = {}
+    for how, c in (("one", cfg), ("f32", cfg.replace(
+            use_pallas_attention=False, tp_attention=False,
+            compute_dtype="float32"))):
+        model = build_model(c, dev).train()
+        total, _, sup = ts.compute_losses(
+            model, batch, c, gates, torch.Generator(dev).manual_seed(0),
+            supervision=runs["one"][2] if how == "f32" else None)
+        total.backward()
+        runs[how] = (float(total.detach()), _dense_grads(model), sup,
+                     _digest_state(model.state_dict()))
+        del model, total
+        torch.cuda.empty_cache()
+    return runs
+
+
+def _tp_launch(tmp):
+    import socket
+
+    import torch
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK")}
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--tp-worker", str(r),
+         str(port), tmp], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, env=env) for r in range(TP_WORLD)]
+    try:
+        outs = [p.communicate(timeout=TP_TIMEOUT)[0] for p in procs]
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+        fail(f"tensor parallel: the processes outlasted {TP_TIMEOUT}s")
+    for r, (p, o) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            print(o[-4000:], flush=True)
+            fail(f"tensor parallel: process {r} exited {p.returncode}")
+    return ([torch.load(f"{tmp}/rank{r}.pt", weights_only=False)
+             for r in range(TP_WORLD)], time.perf_counter() - t0)
+
+
+def sdpa_backward_times(results):
+    """Row 7b's library yardstick: scaled_dot_product_attention forward and
+    backward (timed apart) at rate 0 on attention_cases' encoder and
+    cross-attention shapes (B=2), beside fused_mha's training forward and
+    backward kernels on the same inputs. The port never calls SDPA."""
+    import torch
+    import torch.nn.functional as Fn
+
+    from spe_tpu_torch.ops import fused_mha as F
+    from spe_tpu_torch.ops.refmath import key_bias, split_heads
+
+    found = {}
+    for label, (q, k, v, H, mask, cot) in _head_cases().items():
+        with torch.no_grad():
+            out, lse = F._train_cuda(q, k, v, H, mask)
+        kf = cuda_ms(lambda: F._train_cuda(q, k, v, H, mask))
+        kb = cuda_ms(lambda: F._backward_cuda(cot, q, k, v, lse, H, mask))
+        bias = key_bias(mask, k.shape[0], k.shape[1], q.device)
+        bias = None if bias is None else bias[:, None, None, :].to(q.dtype)
+        leaves = [split_heads(t, H).detach().requires_grad_()
+                  for t in (q, k, v)]
+        dy = split_heads(cot, H).contiguous()
+
+        def fwd():
+            return Fn.scaled_dot_product_attention(*leaves, attn_mask=bias)
+
+        y = fwd()
+        lf = cuda_ms(lambda: fwd().detach())
+        lb = cuda_ms(lambda: torch.autograd.grad(y, leaves, dy,
+                                                 retain_graph=True))
+        found[label] = {"kernel_fwd_ms": kf, "kernel_bwd_ms": kb,
+                        "sdpa_fwd_ms": lf, "sdpa_bwd_ms": lb}
+        print(f"[tensor-parallel] {card()}: {label} at rate 0, q "
+              f"{tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}: "
+              f"fused_mha training forward {kf:.3f} ms, backward "
+              f"{kb:.3f} ms; scaled_dot_product_attention forward "
+              f"{lf:.3f} ms, backward {lb:.3f} ms (CUDA events)", flush=True)
+        del y, leaves
+    entry = results.get("pallas_mha_bwd")
+    if entry is not None:
+        entry["library_ms"] = found[MAIN_SHAPE["pallas_mha"]]["sdpa_bwd_ms"]
+        entry["library_shapes"] = found
+
+
+def phase_tensor_parallel(results):
+    """Phase 13: `--model_axis 2 --tp_attention --no_use_fused_block
+    --no_use_fused_layers` on the stock voc0712 model at full width, two
+    processes on cuda:0 over gloo (`--tp-worker`), through build_model,
+    train_step, save_checkpoint and the model's eval forward as the CLI
+    calls them. (a) One TP step at B=4, dropout 0, against one process
+    (the same kernels, model_axis 1): given the one-process supervision,
+    the gathered gradients by phase 8's same-grads rule (NOISY held to the
+    plain f32 model); the gap on the TP run's own supervision reported.
+    (b) The ranks' replicated parameters bit for bit equal after three
+    steps, their CC labels and auction assignments equal; the gathered
+    checkpoint loads into the one-process model. (c) The flipped eval forward at
+    B=8 against one process (phase 4's 5%). (d) B4 head-sharded
+    (tp_heads), (e) sequence parallelism (tp_sequence). (f) Each rank's
+    launches of the counted step (B4 3 + 3 encoder and 6 + 6 cross, no
+    class-attention B4, one CC and one auction), its model-group
+    collectives, their bytes and host ms, ms a step (host clock and CUDA
+    events), a profiled step's device busy time and peak GiB; SDPA's
+    forward and backward beside B4's (row 7b)."""
+    import dataclasses
+
+    import torch
+
+    from spe_tpu_torch.data import train_data
+    from spe_tpu_torch.models.build import build_model
+    from spe_tpu_torch.ops.kernel_checks import (MAP_KEYS, grad_views,
+                                                 max_err, model_tol)
+    from spe_tpu_torch.train import train_step as ts
+    from spe_tpu_torch.train.checkpoint import restore_checkpoint
+    from spe_tpu_torch.train.optim import AdamW3
+
+    t_phase = time.perf_counter()
+    line = card()
+    dev = torch.device("cuda", 0)
+    sdpa_backward_times(results)
+    tmp = tempfile.TemporaryDirectory()
+    one_cfg, tp_cfg = _tp_cfgs(f"{tmp.name}/voc")
+    _, loader = train_data(one_cfg.replace(batch_size=TP_EVAL_BATCH))
+    full = next(iter(loader.epoch(0)))
+    batch = {k: torch.as_tensor(full[k][:TP_BATCH])
+             for k in ("images", "pad_mask", "img_label")}
+    flip = _flipped(full)
+    runs = _tp_reference(one_cfg, {k: v.to(dev) for k, v in batch.items()},
+                         dev)
+    eval_one = _eval_pairs(_eval_model(one_cfg, dev).eval()(
+        torch.as_tensor(flip["images"], device=dev),
+        pad_mask=torch.as_tensor(flip["pad_mask"], device=dev)))
+    torch.cuda.empty_cache()
+    torch.save({"tp": dataclasses.asdict(tp_cfg), "batch": batch,
+                "sup": _to(runs["one"][2], "cpu"),
+                "eval": {k: torch.as_tensor(flip[k])
+                         for k in ("images", "pad_mask")}},
+               f"{tmp.name}/spec.pt")
+    ranks, wall = _tp_launch(tmp.name)
+    r0 = ranks[0]
+    bad = []
+
+    # (a) the step against one process
+    if any(rk["init"] != runs["one"][3] for rk in ranks):
+        bad.append("the gathered initial weights differ from one process's")
+    views = grad_views(r0["replay"])
+    gp = {n: g.cpu() for n, g in runs["one"][1].items()}
+    g32 = {n: g.cpu() for n, g in runs["f32"][1].items()}
+    held = _hold(views, grad_views(gp), grad_views(g32), NOISY)
+    bad += _report("tensor parallel", "the model group's gathered gradients "
+                   "vs one process, given its supervision",
+                   {"loss": r0["replay_loss"]}, {"loss": runs["one"][0]},
+                   len(views), held, NOISY)
+    own = _grad_gaps(r0["own"], gp)
+    own_worst = max(own, key=own.get)
+    # (b) what the ranks share; the checkpoint in one process
+    differ = sorted(n for n, d in r0["replicated"].items()
+                    if any(rk["replicated"][n] != d for rk in ranks))
+    same_rep = not differ
+    same_cc = all(len(rk["cc_labels"]) == len(r0["cc_labels"]) and all(
+        torch.equal(a, b) for a, b in zip(rk["cc_labels"], r0["cc_labels"]))
+        for rk in ranks)
+    same_match = all(all(torch.equal(a, b) for a, b in
+                         zip(rk["matching"], r0["matching"])) for rk in ranks)
+    if not (same_rep and same_cc and same_match and r0["cc_labels"]):
+        bad.append(f"the ranks' replicated parameters equal {same_rep} "
+                   f"({len(differ)} differ: {differ[:6]}), CC labels "
+                   f"{same_cc}, auction assignments {same_match}")
+    model = build_model(one_cfg, dev)
+    state = ts.TrainState(model, AdamW3(model.named_parameters(), one_cfg, 10))
+    epoch = restore_checkpoint(f"{tmp.name}/tp.pth", state)
+    ck = all(torch.equal(p.detach().float().cpu(), r0["after"][n])
+             for n, p in model.named_parameters())
+    if not (ck and epoch == 0 and state.optimizer.count == 3):
+        bad.append(f"the gathered checkpoint in one process: parameters "
+                   f"equal {ck}, epoch {epoch}, optimizer count "
+                   f"{state.optimizer.count}")
+    del model, state
+    torch.cuda.empty_cache()
+    # (c) eval
+    eval_bad, errs = [], {}
+    for k, w in eval_one.items():
+        g = r0["eval_out"][k]
+        errs[k] = (max_err(g, w), model_tol(k, w))
+        if not (bool(torch.isfinite(g).all()) and errs[k][0] <= errs[k][1]):
+            eval_bad.append(k)
+        if not torch.equal(g, ranks[1]["eval_out"][k]):
+            eval_bad.append(f"{k} (the ranks differ)")
+    if eval_bad:
+        bad.append(f"eval with flip vs one process: {eval_bad}")
+    # (f) launches
+    per = r0["per"]
+    for r, rk in enumerate(ranks):
+        want = {"pallas_cc": 1, "pallas_auction": 1,
+                "pallas_mha.train_launches": per["pallas_mha"],
+                "pallas_mha.bwd_launches": per["pallas_mha"]}
+        want.update({k: 0 for k in rk["counts"] if k not in want})
+        bad += [f"rank {r} {k}: {rk['counts'][k]} launches, expected {n}"
+                for k, n in want.items() if rk["counts"][k] != n]
+    if per["pallas_mha"] != one_cfg.enc_layers + one_cfg.dec_layers:
+        bad.append(f"B4 in {per['pallas_mha']} layers a forward, expected "
+                   f"the {one_cfg.enc_layers} encoder and "
+                   f"{one_cfg.dec_layers} decoder layers (no class "
+                   f"attention)")
+    for rk in ranks:
+        for text in rk["heads"][0] + rk["sequence"][0]:
+            print(f"[tensor-parallel] {line}: {text}", flush=True)
+        bad += rk["heads"][1] + rk["sequence"][1]
+    results.setdefault("pallas_mha", {})["tp"] = {
+        "launches_per_step": {k: v for k, v in r0["counts"].items() if v},
+        "collectives_per_step": r0["collectives"][0],
+        "collective_bytes_per_step": r0["collectives"][1],
+        "collective_host_ms_per_step": r0["collectives"][2],
+        "profiled_step_ms": r0["profiled"][0],
+        "device_busy_ms": r0["profiled"][1],
+        "step_ms": r0["step_ms"], "step_cuda_ms": r0["step_cuda_ms"],
+        "peak_gib": r0["peak_gib"], "eval_ms": r0["eval_ms"]}
+    print(f"[tensor-parallel] {line}: (a) {TP_WORLD} processes on cuda:0 "
+          f"over gloo, a model group of {TP_WORLD}, the stock voc0712 model "
+          f"at full width with --tp_attention, B={TP_BATCH}: loss "
+          f"{r0['replay_loss']:.6f} vs one process {runs['one'][0]:.6f} "
+          f"given its supervision (gradients by the same-grads rule, "
+          f"above); on its own supervision the TP loss {r0['own_loss']:.6f} "
+          f"and the gradients apart by at most {own[own_worst]:.3e} of the "
+          f"tensor's largest ({own_worst}; reported, not held)", flush=True)
+    print(f"[tensor-parallel] {line}: (b) the {len(r0['replicated'])} "
+          f"replicated parameters bit for bit equal on both ranks after 3 "
+          f"steps {same_rep}; CC labels ({len(r0['cc_labels'])} calls) "
+          f"equal {same_cc}; auction assignments equal {same_match}; the "
+          f"gathered checkpoint in one process: parameters equal {ck}",
+          flush=True)
+    print(f"[tensor-parallel] {line}: (c) eval with flip at "
+          f"B={TP_EVAL_BATCH} against one process: " + ", ".join(
+              f"{k} {e:.3e} (tol {t:.3e}, 0.05 x "
+              f"{'range' if k in MAP_KEYS else 'max|one|'})"
+              for k, (e, t) in errs.items()) + f"; TP eval forward "
+          f"{r0['eval_ms']:.1f} ms (host clock), {r0['eval_collectives']} "
+          f"model-group collectives", flush=True)
+    print(f"[tensor-parallel] {line}: (f) per rank a step: launches "
+          f"{ {k: v for k, v in r0['counts'].items() if v} }; model-group "
+          f"collectives {[rk['collectives'][0] for rk in ranks]}, "
+          f"{r0['collectives'][1] / 2 ** 20:.1f} MiB (gloo, through the "
+          f"host), {[round(rk['collectives'][2], 1) for rk in ranks]} ms "
+          f"inside them (host clock, the device-to-host copy's wait for "
+          f"the queued kernels included); step "
+          f"{[round(rk['step_ms'], 1) for rk in ranks]} ms host clock, "
+          f"{[round(rk['step_cuda_ms'], 1) for rk in ranks]} ms CUDA "
+          f"events; a profiled step: wall "
+          f"{[round(rk['profiled'][0], 1) for rk in ranks]} ms, device busy "
+          f"{[round(rk['profiled'][1], 1) for rk in ranks]} ms (idle share "
+          f"{[round(1 - rk['profiled'][1] / rk['profiled'][0], 3) for rk in ranks]}"
+          f"); peak {[round(rk['peak_gib'], 2) for rk in ranks]} GiB; loss "
+          f"{r0['loss']:.6f}, grad_norm {r0['grad_norm']:.4f}; the "
+          f"processes' wall {wall:.1f} s, the phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    tmp.cleanup()
+    if bad:
+        fail("tensor parallel: " + "; ".join(bad[:20]))
+
+
 def main():
     import torch
 
@@ -4217,6 +4884,7 @@ def main():
     phase_backbones(results, recorded)
     phase_distributed()
     phase_segmentation()
+    phase_tensor_parallel(results)
     jax_mods = sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "jaxlib", "flax", "spe_tpu"))
     if jax_mods:
@@ -4231,6 +4899,9 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--dist-worker"]:
         # one process of phase 11: RANK WORLD BACKEND PORT DIR
         dist_worker(int(sys.argv[2]), int(sys.argv[3]), *sys.argv[4:7])
+    elif sys.argv[1:2] == ["--tp-worker"]:
+        # one process of phase 13: RANK PORT DIR
+        tp_worker(int(sys.argv[2]), *sys.argv[3:5])
     elif sys.argv[1:2] == ["--nccl"]:
         # phase 11 over NCCL, a process on each card of the machine
         import torch

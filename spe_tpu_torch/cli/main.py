@@ -59,10 +59,28 @@ runs on every process over its share of the images and merges the
 detections; VOC eval runs whole on process 0 and the others return {}.
 Process 0 alone prints, writes log.txt, the checkpoints and the eval
 arrays, and decides checkpoint_best (its value broadcast).
-Not ported (they raise): tensor parallelism (--model_axis > 1,
---tp_attention: models/build.py), `--backbone_weights auto` (it resolves
-to a download URL; pass a local file), --dataset_eval other than voc_voc
-and coco (the JAX CLI has no panoptic eval loop either).
+
+Tensor parallelism, `--model_axis M` (parallel/mesh.py, parallel/tp.py,
+parallel/sharding_rules.py): the W processes form W / M data-parallel
+ranks of M model ranks each; a model group splits the weights by the JAX
+package's Megatron rules and each of its ranks sees the same images.
+`--batch_size` is per data rank; the losses normalise over the data width
+W / M (spe_tpu/cli/main.py:64,162). `--tp_attention` (with
+`use_pallas_attention`) runs B4 head-sharded in the encoder and the
+decoder cross-attention, the backbone on its plain attention:
+  RANK=r python -m spe_tpu_torch.cli.main --world_size 2 --model_axis 2 \
+      --tp_attention --no_use_fused_block --no_use_fused_layers \
+      --dist_url tcp://127.0.0.1:29500 ...                # each rank r
+VOC eval runs on data rank 0's model group, COCO eval on every process,
+merged over the data group; the checkpoints hold whole tensors (one
+process can `--eval --resume` them).
+
+`--dataset_eval`: voc_voc evaluates VOC mAP and CorLoc; every other value
+(coco, synthetic, voc, voc12, coco_panoptic) COCO AP/AR against the eval
+dataset's COCO ground truth, as spe_tpu/cli/main.py:86,184 routes them.
+Not ported (they raise): `--masks` under tensor parallelism,
+`--backbone_weights auto` (it resolves to a download URL; pass a local
+file).
 """
 
 from __future__ import annotations
@@ -80,6 +98,9 @@ from spe_tpu_torch.models.build import build_model, resolve_device
 from spe_tpu_torch.models.convert import (load_backbone_weights,
                                           load_reference_checkpoint)
 from spe_tpu_torch.parallel import dist
+from spe_tpu_torch.parallel.mesh import make_mesh
+from spe_tpu_torch.parallel.sharding_rules import (check_tp_fused_compat,
+                                                   load_full_state_dict)
 from spe_tpu_torch.train import engine
 from spe_tpu_torch.train.checkpoint import (load_params_lenient,
                                             restore_checkpoint,
@@ -88,17 +109,22 @@ from spe_tpu_torch.train.optim import AdamW3
 from spe_tpu_torch.train.train_step import Gates, TrainState
 
 
-# the eval datasets ported and the stat each chooses checkpoint_best by
-EVALS = {"voc_voc": "mAP", "coco": "AP50"}
+def best_key(cfg) -> str:
+    """The stat that chooses checkpoint_best: VOC mAP, else COCO AP50."""
+    return "mAP" if cfg.dataset_eval == "voc_voc" else "AP50"
 
 
 def parse_config(argv=None):
     """The JAX package's flags -> SPEConfig; refuses what is not ported."""
     cfg = config_from_args(argv)
-    if cfg.dataset_eval not in EVALS:
+    if cfg.model_axis < 1 or cfg.world_size % cfg.model_axis:
+        raise ValueError(f"--model_axis {cfg.model_axis} must divide "
+                         f"--world_size {cfg.world_size}")
+    if cfg.masks and cfg.model_axis > 1:
         raise NotImplementedError(
-            f"--dataset_eval {cfg.dataset_eval} is not ported to "
-            f"spe_tpu_torch (it takes {' and '.join(EVALS)})")
+            "--masks under tensor parallelism (--model_axis > 1) is not "
+            "ported to spe_tpu_torch")
+    check_tp_fused_compat(cfg, cfg.model_axis)   # before any process group
     weights = cfg.backbone_weights or ""
     if weights == "auto" or "://" in weights:
         raise NotImplementedError(
@@ -114,20 +140,27 @@ def parse_config(argv=None):
 
 def _eval(model, loader, ds, cfg, device, output_dir=None, epoch=0):
     """The eval of cfg.dataset_eval. VOC: mAP and CorLoc (flip-TTA under
-    --eval). COCO: every refinement stage's AP/AR and eval losses, stage 0's
-    unprefixed and every stage's as stage{s}_* (spe_tpu/cli/main.py
-    :182-200); `forwards` sums the stages'. Distributed: VOC on process 0
-    alone (the others return {}), COCO on every process (collective)."""
+    --eval). COCO (every other dataset_eval): every refinement stage's AP/AR
+    and eval losses, stage 0's unprefixed and every stage's as stage{s}_*
+    (spe_tpu/cli/main.py:182-200); `forwards` sums the stages'.
+    Distributed: VOC on data rank 0 alone (its model group under tensor
+    parallelism; the others return {}), COCO on every process
+    (collective)."""
     if cfg.dataset_eval == "voc_voc":
-        if dist.process_index() != 0:
+        if model.tp.data_index != 0:
             return {}
-        res_dir = (output_dir / "voc_results"
-                   if cfg.write_voc_results and output_dir else None)
+        res_dir = (output_dir / "voc_results" if cfg.write_voc_results and
+                   output_dir and dist.process_index() == 0 else None)
         stats = engine.evaluate_voc(model, loader, ds, cfg, device,
                                     with_flip=cfg.eval, results_dir=res_dir)
         print(f"VOC mAP: {stats['mAP']:.4f}  CorLoc: {stats['CorLoc']:.4f}",
               flush=True)
         return stats
+    if not hasattr(ds, "coco_gt") and not hasattr(ds, "raw"):
+        # the JAX CLI reads the same two attributes (spe_tpu/cli/main.py:184)
+        raise NotImplementedError(
+            f"--dataset_eval {cfg.dataset_eval}: its dataset has no COCO "
+            "ground truth (coco_gt() or raw) to evaluate against")
     gt = ds.coco_gt() if hasattr(ds, "coco_gt") else ds.raw
     eval_dir = None
     if output_dir:
@@ -156,32 +189,39 @@ def main(argv=None):
     # the process group before the model: each process's card
     device = dist.init_distributed(cfg.world_size, cfg.dist_url,
                                    resolve_device(cfg))
+    mesh = make_mesh(dist.process_count(), cfg.model_axis)
     rank = dist.process_index()
     if dist.process_count() > 1:
         dist.setup_for_distributed(rank == 0)
-    random.seed(cfg.seed + rank)
-    np.random.seed(cfg.seed + rank)
-    torch.manual_seed(cfg.seed + rank)
-    model = build_model(cfg, device)
-    n_params = sum(p.numel() for p in model.parameters())
+    # seeded by the data rank: a model group's ranks draw the same images,
+    # box repeats and dropout masks
+    seed = cfg.seed + mesh.data_index
+    random.seed(seed)
+    np.random.seed(seed)
+    torch.manual_seed(seed)
+    model = build_model(cfg, device, tp=mesh.tp)
+    n_params = sum(p.numel() * (mesh.model_size if hasattr(p, "tp_shard")
+                                else 1) for p in model.parameters())
     print(f"number of params: {n_params}", flush=True)
     if cfg.backbone_weights:
         load_backbone_weights(model, cfg.backbone_weights)
         print(f"initialized backbone from {cfg.backbone_weights}", flush=True)
-    ds_val, loader_val = eval_data(cfg)
+    ds_val, loader_val = eval_data(cfg, mesh.tp)
     output_dir = Path(cfg.output_dir) if cfg.output_dir else None
     if output_dir and rank == 0:
         output_dir.mkdir(parents=True, exist_ok=True)
     if cfg.eval:
         if cfg.resume:
-            model.load_state_dict(load_reference_checkpoint(cfg.resume))
+            load_full_state_dict(model, load_reference_checkpoint(cfg.resume))
             print(f"loaded {cfg.resume}")
-        dist.broadcast_(list(model.parameters()))
+        # every rank its data group's first rank's (its model index's)
+        dist.broadcast_(list(model.parameters()), mesh.model_index,
+                        mesh.data_group)
         stats = _eval(model, loader_val, ds_val, cfg, device, output_dir)
         dist.shutdown()
         return stats
 
-    ds_train, loader_train = train_data(cfg)
+    ds_train, loader_train = train_data(cfg, mesh.tp)
     if cfg.frozen_weights:
         kept = load_params_lenient(cfg.frozen_weights, model)
         print(f"loaded frozen detector weights from {cfg.frozen_weights} "
@@ -193,11 +233,12 @@ def main(argv=None):
         last = restore_checkpoint(cfg.resume, state)
         start_epoch = last + 1 if last >= 0 else start_epoch
         print(f"resumed from {cfg.resume} (epoch {last})", flush=True)
-    dist.broadcast_(list(model.parameters()))   # every process rank 0's
-    gen = torch.Generator(device=device).manual_seed(cfg.seed + rank)
+    dist.broadcast_(list(model.parameters()), mesh.model_index,
+                    mesh.data_group)
+    gen = torch.Generator(device=device).manual_seed(seed)
 
     print("Start training", flush=True)
-    epochs, best, best_key = [], -1.0, EVALS[cfg.dataset_eval]
+    epochs, best, key = [], -1.0, best_key(cfg)
     for epoch in range(start_epoch, cfg.epochs):
         gates = Gates.for_epoch(cfg, epoch)
         train_stats = engine.train_one_epoch(state, loader_train, epoch, cfg,
@@ -206,8 +247,8 @@ def main(argv=None):
                            epoch)
         epochs.append({"train": train_stats, "eval": eval_stats})
         # process 0's value decides (only it has VOC's)
-        val = dist.broadcast_scalar(eval_stats.get(best_key, -1.0))
-        if output_dir and rank == 0:
+        val = dist.broadcast_scalar(eval_stats.get(key, -1.0))
+        if output_dir:   # every process: collective under tensor parallelism
             save_checkpoint(output_dir / "checkpoint.pth", state, epoch, cfg)
             save_checkpoint(output_dir / f"checkpoint{epoch:04d}.pth", state,
                             epoch, cfg)
@@ -215,6 +256,7 @@ def main(argv=None):
                 best = val
                 save_checkpoint(output_dir / "checkpoint_best.pth", state,
                                 epoch, cfg)
+        if output_dir and rank == 0:
             log = {**{f"train_{k}": v for k, v in train_stats.items()
                       if isinstance(v, (int, float))},
                    **{f"test_{k}": v for k, v in eval_stats.items()

@@ -77,13 +77,14 @@ struct AttnParams {
   float logit_scale;    // applied to q.k in f32, before the biases
   int out_f32;
   // training form: keep bits keyed (seed, drop_site, z / mask_heads,
-  // z % mask_heads, query row, key) for the block's z = b * H + h
+  // head0 + z % mask_heads, query row, key) for the block's z = b * H + h
   const unsigned* seed;
   float* lse;           // optional (B, H, Nq) f32 row log-sum-exp of the logits
   int drop_site;        // 0 = no dropout
   unsigned drop_thr;
   float drop_scale;
   int mask_heads;
+  int head0;            // the first head's index in the mask keys (a shard's)
 };
 
 namespace {
@@ -193,7 +194,9 @@ __global__ void __launch_bounds__(AttnCfg<DQ, DV>::NTH)
   const float hb = p.hbias ? p.hbias[h] : 0.f;
   const unsigned z = blockIdx.y;
   const unsigned dkey =
-      p.drop_site ? head_key(*p.seed, p.drop_site, z / p.mask_heads, z % p.mask_heads) : 0u;
+      p.drop_site
+          ? head_key(*p.seed, p.drop_site, z / p.mask_heads, p.head0 + z % p.mask_heads)
+          : 0u;
   const int nkt = (p.Nk + ABK - 1) / ABK;
 
   // K|V tile t into its stage of the ring, as one cp.async group (empty

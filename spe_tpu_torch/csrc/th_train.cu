@@ -126,10 +126,12 @@ struct AttnRowParams {
   bf16* dl;            // (Z, Nq, Nk)
   long long kb_sb;
   int Z, H, Nq, Nk;
-  int drop_site;       // keep bits keyed (seed, site, z / mask_heads, z % mask_heads, q, k)
+  int drop_site;       // keep bits keyed (seed, site, z / mask_heads,
+                       // head0 + z % mask_heads, q, k)
   unsigned drop_thr;
   float drop_scale;
   int mask_heads;
+  int head0;
 };
 
 namespace {
@@ -458,7 +460,8 @@ __global__ void __launch_bounds__(AB_NT) attn_bwd_rows_kernel(AttnRowParams p) {
   if (live) {
     const float lse = p.lse[row];
     const unsigned rk =
-        drop ? row_key(head_key(*p.seed, p.drop_site, z / p.mask_heads, z % p.mask_heads), i)
+        drop ? row_key(head_key(*p.seed, p.drop_site, z / p.mask_heads,
+                          p.head0 + z % p.mask_heads), i)
              : 0u;
     float sv[U][4], dv[U][4];
 #pragma unroll

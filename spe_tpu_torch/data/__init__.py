@@ -24,18 +24,21 @@ from spe_tpu_torch.data.loader import DataLoader
 from spe_tpu_torch.data.mini_data import (make_mini_coco,
                                           make_mini_coco_panoptic,
                                           make_mini_voc)
-from spe_tpu_torch.parallel import dist
+from spe_tpu_torch.parallel.tp import NO_TP
 
 
-def _loader(cfg: SPEConfig, dataset, train: bool, sharded: bool = True):
+def _loader(cfg: SPEConfig, dataset, train: bool, tp=NO_TP,
+            sharded: bool = True):
     """cfg.batch_size images a batch on each process (the reference's
-    per-device --batch_size); sharded, each process takes its share of the
-    split (the DistributedSampler replacement)."""
+    per-device --batch_size); sharded, each data-parallel rank of the
+    model's layout `tp` (parallel/tp.py) takes its share of the split (the
+    DistributedSampler replacement): under tensor parallelism the ranks of
+    a model group see the same images."""
     return DataLoader(dataset, cfg.batch_size, cfg.num_classes,
                       fixed_size=cfg.max_size if cfg.fixed_size else None,
                       shuffle=train, drop_last=train, seed=cfg.seed,
-                      process_index=dist.process_index() if sharded else 0,
-                      process_count=dist.process_count() if sharded else 1,
+                      process_index=tp.data_index if sharded else 0,
+                      process_count=tp.data_size if sharded else 1,
                       use_native=False, train=train,
                       num_threads=cfg.num_workers,
                       max_gt=cfg.max_gt_boxes if cfg.masks or not train
@@ -43,17 +46,17 @@ def _loader(cfg: SPEConfig, dataset, train: bool, sharded: bool = True):
                       bucket_quantum=0 if cfg.fixed_size else cfg.bucket_quantum)
 
 
-def train_data(cfg: SPEConfig):
+def train_data(cfg: SPEConfig, tp=NO_TP):
     """The train split of cfg.dataset_file with the train transform
     (random flip), shuffled per epoch from cfg.seed, full batches only;
     with --masks its batches carry the GT arrays and GT masks of up to
     cfg.max_gt_boxes objects an image (the mask losses' targets; the JAX
     CLI's train loader leaves them out)."""
     dataset = build_dataset("train", cfg.dataset_file, cfg)
-    return dataset, _loader(cfg, dataset, train=True)
+    return dataset, _loader(cfg, dataset, train=True, tp=tp)
 
 
-def eval_data(cfg: SPEConfig):
+def eval_data(cfg: SPEConfig, tp=NO_TP):
     """The eval split of cfg.dataset_eval and its loader, in order; its
     batches carry the GT arrays (gt_boxes, gt_labels, gt_mask) of up to
     cfg.max_gt_boxes boxes an image for the eval-time losses, as
@@ -61,7 +64,7 @@ def eval_data(cfg: SPEConfig):
     every process over its share and merges the detections; VOC eval runs
     whole on process 0, so its loader is not sharded."""
     dataset = build_dataset("val", cfg.dataset_eval, cfg)
-    return dataset, _loader(cfg, dataset, train=False,
+    return dataset, _loader(cfg, dataset, train=False, tp=tp,
                             sharded=cfg.dataset_eval != "voc_voc")
 
 

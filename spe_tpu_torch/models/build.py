@@ -20,6 +20,9 @@ from spe_tpu_torch.models.detector import SPEDetector
 from spe_tpu_torch.models.layers import lecun_normal_, trunc_normal_
 from spe_tpu_torch.ops import kernels
 from spe_tpu_torch.parallel import dist
+from spe_tpu_torch.parallel.sharding_rules import (check_tp_fused_compat,
+                                                   shard_model)
+from spe_tpu_torch.parallel.tp import NO_TP
 
 
 def resolve_device(cfg: SPEConfig) -> torch.device:
@@ -105,7 +108,11 @@ def kernel_domain_errors(cfg: SPEConfig) -> list:
     0); ln_backward's widths (kernels.LN_BWD_WIDTHS); the talking-heads row
     passes' heads (kernels.TH_ROWS_HEADS) and keys (kernels.TH_ROWS_MAX_N,
     against the most patches of a training image); head widths dh of a
-    multiple of 8 (the talking-heads mix and the gemm tiles' rows)."""
+    multiple of 8 (the talking-heads mix and the gemm tiles' rows). Under
+    tensor parallelism (model_axis > 1) the backbone runs plain
+    (build_model) and only the encoder and cross attention reach the
+    kernel (with `tp_attention`), on nheads / model_axis heads of the same
+    widths."""
     if not (cfg.use_fused_block or cfg.use_fused_layers or
             cfg.use_pallas_attention or cfg.use_fused_ca_block == "on"):
         return []
@@ -113,9 +120,12 @@ def kernel_domain_errors(cfg: SPEConfig) -> list:
                            layer_to_det=cfg.layer_to_det)
     D, H = bb.embed_dim, bb.num_heads
     dh, dt = D // H, D // cfg.nheads
-    errors = [f"attention {name} {dq} x {dv}" for name, dq, dv in (
-        ("class", dh, dh), ("encoder", dt, dt), ("cross", 2 * dt, dt))
-        if (dq, dv) not in kernels.ATTENTION_FORMS]
+    forms = (("class", dh, dh), ("encoder", dt, dt), ("cross", 2 * dt, dt))
+    errors = [f"attention {name} {dq} x {dv}" for name, dq, dv in forms
+              if (dq, dv) not in kernels.ATTENTION_FORMS and
+              not (cfg.model_axis > 1 and name == "class")]
+    if cfg.model_axis > 1:
+        return errors
     if D not in kernels.LN_BWD_WIDTHS:
         errors.append(f"ln_backward D={D} (takes {kernels.LN_BWD_WIDTHS})")
     if H not in kernels.TH_ROWS_HEADS:
@@ -129,21 +139,43 @@ def kernel_domain_errors(cfg: SPEConfig) -> list:
     return errors
 
 
-def build_model(cfg: SPEConfig, device=None) -> SPEDetector:
+def build_model(cfg: SPEConfig, device=None, tp=None) -> SPEDetector:
     """The detector of `cfg` on `device` (default: resolve_device(cfg)),
     initialised from cfg.seed, in eval mode: the post-norm or pre-norm
     (`pre_norm`) encoder, the sine or learned (`position_embedding`)
-    position embedding, with `masks` the segmentation head; tensor
-    parallelism is not ported. With
+    position embedding, with `masks` the segmentation head. With
     `use_pallas_attention`, a layer whose fused flag is off runs its
     attention through the standalone kernels (talking_heads B5 in the
     patch blocks, fused_mha B4 in the class attention, the encoder and the
     decoder cross-attention), as spe_tpu/models/build.py:38,60 routes
     them. On a CUDA device a configuration outside the kernels' shapes
-    (kernel_domain_errors) is refused by name."""
-    if cfg.tp_attention or cfg.model_axis > 1:
-        raise NotImplementedError("tensor parallelism is not ported to "
-                                  "spe_tpu_torch")
+    (kernel_domain_errors) is refused by name.
+
+    Tensor parallelism (`--model_axis M`): tp is this process's model
+    group (parallel/mesh.make_mesh(...).tp, of size M); every rank draws
+    the whole model from the seed and keeps its shards
+    (parallel/sharding_rules.shard_model). check_tp_fused_compat refuses
+    what the JAX package refuses, and `--masks` is refused (not ported
+    under TP). Under TP the fused class attention is off: its kernel
+    takes whole heads, so the block runs its plain version on this rank's
+    heads with the Megatron collectives (the JAX package computes it
+    through GSPMD). With `tp_attention` the backbone also leaves its
+    kernels for its plain attention, as the JAX package builds it
+    (spe_tpu/models/build.py:15-42): the talking heads mix every head; B4
+    runs head-sharded in the encoder and the decoder cross-attention."""
+    tp = NO_TP if tp is None else tp
+    if cfg.model_axis != tp.size:
+        raise ValueError(
+            f"--model_axis {cfg.model_axis}: build the model with its model "
+            f"group of {cfg.model_axis} processes (build_model(cfg, device, "
+            f"tp=parallel.mesh.make_mesh(world_size, {cfg.model_axis}).tp)),"
+            f" not one of {tp.size}")
+    check_tp_fused_compat(cfg, tp.size)
+    if cfg.masks and tp.size > 1:
+        raise NotImplementedError(
+            "--masks under tensor parallelism (--model_axis > 1: the "
+            "segmentation head's MHAttentionMap q_linear/k_linear) is not "
+            "ported to spe_tpu_torch")
     device = resolve_device(cfg) if device is None else torch.device(device)
     errors = kernel_domain_errors(cfg) if device.type == "cuda" else []
     if errors:
@@ -155,11 +187,12 @@ def build_model(cfg: SPEConfig, device=None) -> SPEDetector:
     backbone_cfg = build_cait_config(
         cfg.backbone, num_classes=cfg.num_classes,
         layer_to_det=cfg.layer_to_det, use_fused_block=cfg.use_fused_block,
-        use_fused_ca={"auto": None, "on": True, "off": False}[
-            cfg.use_fused_ca_block],
+        use_fused_ca=(False if tp.size > 1 else
+                      {"auto": None, "on": True, "off": False}[
+                          cfg.use_fused_ca_block]),
         drop_rate=cfg.backbone_drop_rate, attn_drop_rate=cfg.drop_attn_rate,
         drop_path_rate=cfg.drop_path_rate,
-        use_pallas=cfg.use_pallas_attention)
+        use_pallas=cfg.use_pallas_attention and not cfg.tp_attention)
     if cfg.init_scale:
         backbone_cfg = dataclasses.replace(backbone_cfg,
                                            init_scale=cfg.init_scale)
@@ -176,4 +209,5 @@ def build_model(cfg: SPEConfig, device=None) -> SPEDetector:
                         pre_norm=cfg.pre_norm,
                         position_embedding=cfg.position_embedding,
                         masks=cfg.masks)
-    return init_weights(model, cfg.seed).to(device).eval()
+    model = init_weights(model, cfg.seed).to(device)
+    return shard_model(model, tp).eval()

@@ -46,11 +46,14 @@ from spe_tpu_torch.ops.fused_ca_block import (class_attention,
 from spe_tpu_torch.ops.fused_mha import layer_attention
 from spe_tpu_torch.ops.refmath import CounterDropout, draw_seed
 from spe_tpu_torch.ops.talking_heads import block_attention
+from spe_tpu_torch.parallel.tp import NO_TP
 
 
 class LayerScaleBlock(nn.Module):
     """x += gamma_1 * attn(norm1(x)); x += gamma_2 * mlp(norm2(x))
     (reference LayerScale_Block, cait.py:396-416)."""
+
+    tp = NO_TP   # tensor parallelism (parallel/sharding_rules.shard_model)
 
     def __init__(self, dim, num_heads, mlp_ratio=4.0, init_scale=1e-4,
                  use_fused=False, drop=0.0, attn_drop=0.0, drop_path=0.0,
@@ -72,7 +75,7 @@ class LayerScaleBlock(nn.Module):
         drop = dropout_for(self, gen, **self.rates)
         if not self.use_fused:
             return layer_scale_block_reference(x, params, self.num_heads, drop,
-                                               self.attention)
+                                               self.attention, self.tp)
         # the fused layer's counter masks: one seed per block call, drawn on
         # the generator's device, as JAX draws one per block (cait.py:176-180)
         if drop is not None:
@@ -85,6 +88,8 @@ class LayerScaleBlockClassAttn(nn.Module):
     """Class-attention block over [cls ++ x] updating the class tokens only
     (reference LayerScale_Block_CA_MultiClass, cait.py:311-328).
     forward(x, cls) -> (new cls, attn (B, H, t, t+P))."""
+
+    tp = NO_TP
 
     def __init__(self, dim, num_heads, mlp_ratio=4.0, init_scale=1e-4,
                  use_fused=False, use_pallas=False):
@@ -104,7 +109,7 @@ class LayerScaleBlockClassAttn(nn.Module):
         if self.use_fused:
             return fused_class_attn_block(cls, x, params, self.num_heads)
         return class_attn_block_reference(cls, x, params, self.num_heads,
-                                          self.attention)
+                                          self.attention, self.tp)
 
 
 def std_reweighting(cam):

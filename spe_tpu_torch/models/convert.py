@@ -36,6 +36,9 @@ import numpy as np
 import torch
 
 from spe_tpu_torch.models.layers import interpolate_pos_embed
+from spe_tpu_torch.parallel.sharding_rules import (gather_tensors,
+                                                   shard_state_dict)
+from spe_tpu_torch.parallel.tp import NO_TP
 
 
 def _arr(a):
@@ -353,14 +356,19 @@ def load_backbone_weights(model, path, verbose=True):
     """`--backbone_weights PATH`: the local checkpoint at path
     (load_reference_checkpoint: {'model': sd} or bare, `module.` stripped)
     converted and merged into model's backbone body in place -> the
-    skipped shape mismatches."""
+    skipped shape mismatches. A model split for tensor parallelism is
+    merged whole (its shards gathered over the model group, collective)
+    and keeps its shards of the merge."""
     body = model.backbone[0].body
     c = body.cfg
     converted = convert_backbone(load_reference_checkpoint(path), c.depth,
                                  c.layer_to_det, c.depth_token_only,
                                  c.two_branch)
+    tp = getattr(model, "tp", NO_TP)
     init = OrderedDict((k, v.detach().cpu()) for k, v in
-                       body.state_dict().items())
+                       gather_tensors(body.state_dict().items(), tp).items())
     merged, skipped = merge_pretrained_backbone(init, converted, verbose)
+    if tp.size > 1:   # tensor parallelism: this rank's shards of the merge
+        merged = shard_state_dict(merged, tp.index, tp.size)
     body.load_state_dict(merged)
     return skipped

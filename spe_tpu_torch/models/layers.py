@@ -15,6 +15,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from spe_tpu_torch.ops.refmath import Dropout
+from spe_tpu_torch.parallel.tp import NO_TP
 
 
 class Linear(nn.Linear):
@@ -74,7 +75,12 @@ class PatchEmbed(nn.Module):
 
     The weight keeps the reference Conv2d layout (D, C, p, p); a stride-p
     conv is computed as the reshaped matmul the JAX package uses, with
-    (py, px, c) patch flattening."""
+    (py, px, c) patch flattening. Under tensor parallelism that matmul is
+    row-parallel, as the JAX rules shard its Dense kernel: the weight holds
+    this rank's rows py (parallel/sharding_rules.py), its columns of the
+    flattened patches, and the products are summed over the model group."""
+
+    tp = NO_TP   # tensor parallelism (parallel/sharding_rules.shard_model)
 
     def __init__(self, patch_size: int, embed_dim: int, in_chans: int = 3):
         super().__init__()
@@ -87,7 +93,11 @@ class PatchEmbed(nn.Module):
         gh, gw = H // p, W // p
         x = x.reshape(B, gh, p, gw, p, C).permute(0, 1, 3, 2, 4, 5)
         x = x.reshape(B, gh * gw, p * p * C)
-        w = self.proj.weight.permute(0, 2, 3, 1).reshape(-1, p * p * C)
+        w = self.proj.weight.permute(0, 2, 3, 1).reshape(
+            self.proj.weight.shape[0], -1)
+        if self.tp.size > 1:
+            return self.tp.row(self.tp.scatter(x), w,
+                               self.proj.bias).to(x.dtype)
         return F.linear(x, w.to(x.dtype), self.proj.bias.to(x.dtype))
 
 

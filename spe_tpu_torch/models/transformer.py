@@ -40,6 +40,8 @@ from spe_tpu_torch.ops.fused_encoder import (EPS, encoder_layer_reference,
 from spe_tpu_torch.ops.fused_mha import layer_attention
 from spe_tpu_torch.ops.refmath import (CounterDropout, draw_seed, drop_site,
                                        layer_norm, mm)
+from spe_tpu_torch.ops.seq_parallel import kv_shard_attention
+from spe_tpu_torch.parallel.tp import NO_TP
 
 
 def _dropout(module, gen, device):
@@ -70,7 +72,7 @@ class MLP(nn.Module):
 
 
 def encoder_layer_prenorm(x, pos, key_padding_mask, p, num_heads, drop=None,
-                          attention=softmax_attention):
+                          attention=softmax_attention, tp=NO_TP):
     """The pre-norm encoder layer (JAX transformer.py:117-135):
 
         s   = x + drop(out_proj(MHA(q=k=LN1(x)+pos, v=LN1(x))))
@@ -83,39 +85,55 @@ def encoder_layer_prenorm(x, pos, key_padding_mask, p, num_heads, drop=None,
     that order). attention(q, k, v, num_heads, key_padding_mask, drop):
     softmax_attention, or fused_mha.layer_attention (B4) with
     use_pallas_attention. Training differentiates it with autograd, through
-    B4's autograd Function where the attention is B4's."""
+    B4's autograd Function where the attention is B4's. Under tensor
+    parallelism p holds this rank's shards, as encoder_layer_reference
+    takes them."""
     dt = x.dtype
-    D = x.shape[-1]
     w, b = p["self_attn.in_proj_weight"], p["self_attn.in_proj_bias"]
+    D = w.shape[0] // 3
+    b = tp.cols(b, 3)
     s2 = layer_norm(x, p["norm1.weight"], p["norm1.bias"], EPS).to(dt)
-    qk_in = (s2.float() + pos.float()).to(dt)
+    qk_in = tp.copy((s2.float() + pos.float()).to(dt))
     q = mm(qk_in, w[:D], b[:D]).to(dt)
     k = mm(qk_in, w[D:2 * D], b[D:2 * D]).to(dt)
-    v = mm(s2, w[2 * D:], b[2 * D:]).to(dt)
-    o = attention(q, k, v, num_heads, key_padding_mask, drop).to(dt)
-    h = drop_site(drop, mm(o, p["self_attn.out_proj.weight"],
-                           p["self_attn.out_proj.bias"]).to(dt), "proj")
+    v = mm(tp.copy(s2), w[2 * D:], b[2 * D:]).to(dt)
+    o = attention(q, k, v, num_heads // tp.size, key_padding_mask,
+                  tp.shard(drop, 1)).to(dt)
+    h = drop_site(drop, tp.row(o, p["self_attn.out_proj.weight"],
+                               p["self_attn.out_proj.bias"]).to(dt), "proj")
     x = x + h.to(dt)
     s2 = layer_norm(x, p["norm2.weight"], p["norm2.bias"], EPS).to(dt)
-    u = torch.relu(mm(s2, p["linear1.weight"], p["linear1.bias"]).to(dt))
-    u = drop_site(drop, u, "proj")
-    h2 = drop_site(drop, mm(u.to(dt), p["linear2.weight"],
-                            p["linear2.bias"]).to(dt), "proj")
+    u = torch.relu(tp.col(tp.copy(s2), p["linear1.weight"],
+                          p["linear1.bias"]).to(dt))
+    u = drop_site(tp.shard(drop, -1), u, "proj")
+    h2 = drop_site(drop, tp.row(u.to(dt), p["linear2.weight"],
+                                p["linear2.bias"]).to(dt), "proj")
     return x + h2.to(dt)
 
 
 class TransformerEncoderLayer(nn.Module):
     """Encoder layer with additive positional q/k: post-norm, or pre-norm
-    with normalize_before (never fused then, as in the JAX package)."""
+    with normalize_before (never fused then, as in the JAX package).
+    kv_shard_group: a process group the self-attention's keys and values
+    are sharded over along the sequence (ops/seq_parallel.
+    kv_shard_attention; the JAX MultiheadAttention's kv_shard_axis, which
+    takes precedence over use_pallas): the layer runs plain then."""
+
+    tp = NO_TP   # tensor parallelism (parallel/sharding_rules.shard_model)
 
     def __init__(self, d_model, nhead, dim_feedforward, use_fused=False,
-                 dropout=0.0, use_pallas=False, normalize_before=False):
+                 dropout=0.0, use_pallas=False, normalize_before=False,
+                 kv_shard_group=None):
         super().__init__()
         self.nhead = nhead
         self.normalize_before = normalize_before
-        self.use_fused = use_fused and not normalize_before
+        self.use_fused = (use_fused and not normalize_before
+                          and kv_shard_group is None)
         self.dropout = dropout
-        self.attention = layer_attention if use_pallas else softmax_attention
+        self.attention = (kv_shard_attention(kv_shard_group)
+                          if kv_shard_group is not None else
+                          layer_attention if use_pallas else
+                          softmax_attention)
         self.self_attn = MultiheadAttention(d_model)
         self.linear1 = Linear(d_model, dim_feedforward)
         self.linear2 = Linear(dim_feedforward, d_model)
@@ -128,8 +146,8 @@ class TransformerEncoderLayer(nn.Module):
         if self.use_fused:
             return fused_encoder_layer(*args)
         if self.normalize_before:
-            return encoder_layer_prenorm(*args, self.attention)
-        return encoder_layer_reference(*args, self.attention)
+            return encoder_layer_prenorm(*args, self.attention, self.tp)
+        return encoder_layer_reference(*args, self.attention, self.tp)
 
 
 class TransformerEncoder(nn.Module):
@@ -155,6 +173,8 @@ class ConditionalDecoderLayer(nn.Module):
     """Content/pos-projected self-attention + conditional cross-attention at
     2*d_model + FFN. `ca_qpos_proj` exists on the first layer only
     (reference transformer.py:203-204)."""
+
+    tp = NO_TP
 
     def __init__(self, d_model, nhead, dim_feedforward, is_first,
                  num_sets=1, use_fused=False, dropout=0.0, use_pallas=False):
@@ -187,7 +207,7 @@ class ConditionalDecoderLayer(nn.Module):
                 self.num_sets, _dropout(self, gen, tgt.device))
         if self.use_fused:
             return fused_decoder_layer(*args)
-        return decoder_layer_reference(*args, self.attention)
+        return decoder_layer_reference(*args, self.attention, self.tp)
 
 
 class ConditionalDecoder(nn.Module):

@@ -68,6 +68,7 @@ from spe_tpu_torch.ops.refmath import (SITE_ATTN, SITE_HIDDEN, SITE_OUT,
                                        ln_backward_reference, merge_heads, mm,
                                        needs_grad, no_dropout, split_heads,
                                        weight_grad)
+from spe_tpu_torch.parallel.tp import NO_TP
 
 EPS = 1e-6
 PARAM_NAMES = (
@@ -109,7 +110,7 @@ def fold_attention(q, k, v, p, num_heads, drop=None):
 
 
 def layer_scale_block_reference(x, p, num_heads, drop=None,
-                                attention=fold_attention):
+                                attention=fold_attention, tp=NO_TP):
     """Plain PyTorch version. x: (B, N, D); p: {PARAM_NAMES: tensor} in the
     reference state-dict layout (proj_l/proj_w are (H, H) Linear weights,
     out x in). Rounds where the TPU kernel rounds. drop: a refmath.Dropout
@@ -118,20 +119,27 @@ def layer_scale_block_reference(x, p, num_heads, drop=None,
     probabilities, `proj` on the projection and both MLP outputs, DropPath
     on each gamma-scaled branch. attention(q, k, v, p, num_heads, drop):
     the talking-heads attention, by default `fold_attention`
-    (`talking_heads.block_attention` with use_pallas_attention)."""
+    (`talking_heads.block_attention` with use_pallas_attention). Under
+    tensor parallelism (`tp`) p holds this rank's shards: qkv's and fc1's
+    rows (column-parallel), proj's and fc2's columns (row-parallel). The
+    talking heads mix every head, so the qkv columns are gathered, the
+    attention runs whole on every rank, and proj takes this rank's
+    columns of its output."""
     dt = x.dtype
     D = x.shape[-1]
     h1 = layer_norm(x, p["norm1.weight"], p["norm1.bias"], EPS).to(dt)
-    qkv = mm(h1, p["attn.qkv.weight"], p["attn.qkv.bias"]).to(dt)
+    qkv = tp.gather(tp.col(tp.copy(h1), p["attn.qkv.weight"],
+                           p["attn.qkv.bias"]).to(dt))
     q, k, v = qkv.split(D, dim=-1)
-    o = attention(q, k, v, p, num_heads, drop)
-    h = drop_site(drop, mm(o, p["attn.proj.weight"], p["attn.proj.bias"]),
+    o = tp.scatter(attention(q, k, v, p, num_heads, drop))
+    h = drop_site(drop, tp.row(o, p["attn.proj.weight"], p["attn.proj.bias"]),
                   "proj")
     x1 = x.float() + drop_path(drop, p["gamma_1"].float() * h)
     h2 = layer_norm(x1, p["norm2.weight"], p["norm2.bias"], EPS).to(dt)
-    u = gelu_tanh(mm(h2, p["mlp.fc1.weight"], p["mlp.fc1.bias"]))
-    u = drop_site(drop, u, "proj").to(dt)
-    m = drop_site(drop, mm(u, p["mlp.fc2.weight"], p["mlp.fc2.bias"]), "proj")
+    u = gelu_tanh(tp.col(tp.copy(h2), p["mlp.fc1.weight"], p["mlp.fc1.bias"]))
+    u = drop_site(tp.shard(drop, -1), u, "proj").to(dt)
+    m = drop_site(drop, tp.row(u, p["mlp.fc2.weight"], p["mlp.fc2.bias"]),
+                  "proj")
     return (x1 + drop_path(drop, p["gamma_2"].float() * m)).to(dt)
 
 

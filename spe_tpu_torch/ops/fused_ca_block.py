@@ -45,6 +45,7 @@ from spe_tpu_torch.ops.refmath import (gelu_tanh, gelu_tanh_grad, layer_norm,
                                        ln_backward_reference, merge_heads, mm,
                                        needs_grad, scale_in, split_heads,
                                        weight_grad)
+from spe_tpu_torch.parallel.tp import NO_TP
 
 EPS = 1e-6
 PARAM_NAMES = (
@@ -74,35 +75,41 @@ def class_attention(q, k, v, num_heads, key_padding_mask=None, drop=None,
 
 
 def class_attn_block_train_reference(cls, x, p, num_heads,
-                                     attention=class_attention):
+                                     attention=class_attention, tp=NO_TP):
     """Plain PyTorch version of the training forward. cls: (B, t, D) class
     tokens; x: (B, P, D) patches. Returns (new cls (B, t, D), attn (B, H,
     t, t+P) f32, o (B, t, D) in cls's dtype, mm (B, t, D) f32: the MLP
     output before gamma2). attention(q, k, v, num_heads, return_attn=True)
     -> (o, probabilities): by default `class_attention`
-    (`fused_mha.layer_attention` with use_pallas_attention)."""
+    (`fused_mha.layer_attention` with use_pallas_attention). Under tensor
+    parallelism (`tp`) p holds this rank's shards: q's, k's, v's and fc1's
+    rows (column-parallel), proj's and fc2's columns (row-parallel); the
+    attention runs on its num_heads / tp.size heads and its probabilities
+    are gathered over every head (the CAM reweights them across heads); o
+    is this rank's columns."""
     dt = cls.dtype
     t = cls.shape[1]
-    un = layer_norm(torch.cat([cls, x], dim=1), p["norm1.weight"],
-                    p["norm1.bias"], EPS).to(dt)
-    q = mm(un[:, :t], p["attn.q.weight"], p["attn.q.bias"]).to(dt)
-    k = mm(un, p["attn.k.weight"], p["attn.k.bias"]).to(dt)
-    v = mm(un, p["attn.v.weight"], p["attn.v.bias"]).to(dt)
-    o, attn = attention(q, k, v, num_heads, return_attn=True)
+    un = tp.copy(layer_norm(torch.cat([cls, x], dim=1), p["norm1.weight"],
+                            p["norm1.bias"], EPS).to(dt))
+    q = tp.col(un[:, :t], p["attn.q.weight"], p["attn.q.bias"]).to(dt)
+    k = tp.col(un, p["attn.k.weight"], p["attn.k.bias"]).to(dt)
+    v = tp.col(un, p["attn.v.weight"], p["attn.v.bias"]).to(dt)
+    o, attn = attention(q, k, v, num_heads // tp.size, return_attn=True)
     o = o.to(dt)
-    c1 = cls.float() + p["gamma_1"].float() * mm(o, p["attn.proj.weight"],
-                                                  p["attn.proj.bias"])
+    c1 = cls.float() + p["gamma_1"].float() * tp.row(
+        o, p["attn.proj.weight"], p["attn.proj.bias"])
     h2 = layer_norm(c1, p["norm2.weight"], p["norm2.bias"], EPS).to(dt)
-    u = gelu_tanh(mm(h2, p["mlp.fc1.weight"], p["mlp.fc1.bias"])).to(dt)
-    m = mm(u, p["mlp.fc2.weight"], p["mlp.fc2.bias"])
-    return (c1 + p["gamma_2"].float() * m).to(dt), attn, o, m
+    u = gelu_tanh(tp.col(tp.copy(h2), p["mlp.fc1.weight"],
+                         p["mlp.fc1.bias"])).to(dt)
+    m = tp.row(u, p["mlp.fc2.weight"], p["mlp.fc2.bias"])
+    return (c1 + p["gamma_2"].float() * m).to(dt), tp.gather(attn, 1), o, m
 
 
 def class_attn_block_reference(cls, x, p, num_heads,
-                               attention=class_attention):
+                               attention=class_attention, tp=NO_TP):
     """Plain PyTorch version -> (new cls (B, t, D), attn (B, H, t, t+P) f32)."""
     return class_attn_block_train_reference(cls, x, p, num_heads,
-                                            attention)[:2]
+                                            attention, tp)[:2]
 
 
 def class_attn_block_backward_reference(dy, dattn, cls, x, attn, o, m, p,

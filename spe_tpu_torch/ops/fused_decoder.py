@@ -70,6 +70,7 @@ from spe_tpu_torch.ops.refmath import (SITE_ATTN, SITE_CROSS_ATTN,
                                        key_bias, layer_norm,
                                        ln_backward_reference, mm, needs_grad,
                                        no_dropout, weight_grad)
+from spe_tpu_torch.parallel.tp import NO_TP
 
 EPS = 1e-5
 PARAM_NAMES = (
@@ -105,7 +106,7 @@ def _interleave(a, b, H):
 
 def decoder_layer_reference(tgt, memory, pos, query_pos, sine,
                             key_padding_mask, p, num_heads, num_sets,
-                            drop=None, attention=softmax_attention):
+                            drop=None, attention=softmax_attention, tp=NO_TP):
     """Plain PyTorch version. tgt/query_pos/sine: (B, S*Q, D) with S query
     sets stacked along the query axis; memory/pos: (B, N, D);
     key_padding_mask: (B, N) bool or None. Layer 0 is recognised by
@@ -117,43 +118,52 @@ def decoder_layer_reference(tgt, memory, pos, query_pos, sine,
     `softmax_attention` (`fused_mha.layer_attention` with
     use_pallas_attention); the self-attention is always
     `softmax_attention`, as the JAX package keeps it on its einsum path
-    (transformer.py:183-185)."""
+    (transformer.py:183-185). Under tensor parallelism (`tp`) p holds this
+    rank's shards: every sa_*/ca_* projection's and linear1's rows of its
+    num_heads / tp.size heads (column-parallel), both out_projs' and
+    linear2's columns (row-parallel); both attentions run on its heads."""
     dt = tgt.dtype
-    B, SQ, D = tgt.shape
-    H, S = num_heads, num_sets
-    q = (mm(tgt, p["sa_qcontent_proj.weight"], p["sa_qcontent_proj.bias"])
-         + mm(query_pos, p["sa_qpos_proj.weight"], p["sa_qpos_proj.bias"]))
-    k = (mm(tgt, p["sa_kcontent_proj.weight"], p["sa_kcontent_proj.bias"])
-         + mm(query_pos, p["sa_kpos_proj.weight"], p["sa_kpos_proj.bias"]))
-    v = mm(tgt, p["sa_v_proj.weight"], p["sa_v_proj.bias"])
+    B, SQ, _ = tgt.shape
+    H, S = num_heads // tp.size, num_sets
+    D = p["sa_v_proj.weight"].shape[0]
+    tgt_c, qpos_c = tp.copy(tgt), tp.copy(query_pos)
+    q = (tp.col(tgt_c, p["sa_qcontent_proj.weight"], p["sa_qcontent_proj.bias"])
+         + tp.col(qpos_c, p["sa_qpos_proj.weight"], p["sa_qpos_proj.bias"]))
+    k = (tp.col(tgt_c, p["sa_kcontent_proj.weight"], p["sa_kcontent_proj.bias"])
+         + tp.col(qpos_c, p["sa_kpos_proj.weight"], p["sa_kpos_proj.bias"]))
+    v = tp.col(tgt_c, p["sa_v_proj.weight"], p["sa_v_proj.bias"])
 
     def fold(a):  # each query set attends alone
         return a.to(dt).reshape(B * S, SQ // S, D)
 
     o = softmax_attention(fold(q), fold(k), fold(v), H,
-                          drop=drop).reshape(B, SQ, D)
-    h = drop_site(drop, mm(o.to(dt), p["self_attn.out_proj.weight"],
-                           p["self_attn.out_proj.bias"]), "proj")
+                          drop=tp.shard(drop, 1)).reshape(B, SQ, D)
+    h = drop_site(drop, tp.row(o.to(dt), p["self_attn.out_proj.weight"],
+                               p["self_attn.out_proj.bias"]), "proj")
     t1 = layer_norm(tgt.float() + h, p["norm1.weight"], p["norm1.bias"], EPS)
-    qc = mm(t1.to(dt), p["ca_qcontent_proj.weight"], p["ca_qcontent_proj.bias"])
-    kc = mm(memory, p["ca_kcontent_proj.weight"], p["ca_kcontent_proj.bias"])
-    vv = mm(memory, p["ca_v_proj.weight"], p["ca_v_proj.bias"]).to(dt)
-    kpos = mm(pos, p["ca_kpos_proj.weight"], p["ca_kpos_proj.bias"])
+    mem_c, pos_c = tp.copy(memory), tp.copy(pos)
+    qc = tp.col(tp.copy(t1.to(dt)), p["ca_qcontent_proj.weight"],
+                p["ca_qcontent_proj.bias"])
+    kc = tp.col(mem_c, p["ca_kcontent_proj.weight"], p["ca_kcontent_proj.bias"])
+    vv = tp.col(mem_c, p["ca_v_proj.weight"], p["ca_v_proj.bias"]).to(dt)
+    kpos = tp.col(pos_c, p["ca_kpos_proj.weight"], p["ca_kpos_proj.bias"])
     if "ca_qpos_proj.weight" in p:
-        qc = qc + mm(query_pos, p["ca_qpos_proj.weight"],
-                     p["ca_qpos_proj.bias"])
+        qc = qc + tp.col(qpos_c, p["ca_qpos_proj.weight"],
+                         p["ca_qpos_proj.bias"])
         kc = kc + kpos
-    sp = mm(sine, p["ca_qpos_sine_proj.weight"], p["ca_qpos_sine_proj.bias"])
+    sp = tp.col(tp.copy(sine), p["ca_qpos_sine_proj.weight"],
+                p["ca_qpos_sine_proj.bias"])
     qq = _interleave(qc.to(dt), sp.to(dt), H)
     kk = _interleave(kc.to(dt), kpos.to(dt), H)
-    o = attention(qq, kk, vv, H, key_padding_mask, drop)
-    h = drop_site(drop, mm(o.to(dt), p["cross_attn.out_proj.weight"],
-                           p["cross_attn.out_proj.bias"]), "proj")
+    o = attention(qq, kk, vv, H, key_padding_mask, tp.shard(drop, 1))
+    h = drop_site(drop, tp.row(o.to(dt), p["cross_attn.out_proj.weight"],
+                               p["cross_attn.out_proj.bias"]), "proj")
     t2 = layer_norm(t1 + h, p["norm2.weight"], p["norm2.bias"], EPS)
-    u = torch.relu(mm(t2.to(dt), p["linear1.weight"], p["linear1.bias"]))
-    u = drop_site(drop, u, "proj")
-    h2 = drop_site(drop, mm(u.to(dt), p["linear2.weight"], p["linear2.bias"]),
-                   "proj")
+    u = torch.relu(tp.col(tp.copy(t2.to(dt)), p["linear1.weight"],
+                          p["linear1.bias"]))
+    u = drop_site(tp.shard(drop, -1), u, "proj")
+    h2 = drop_site(drop, tp.row(u.to(dt), p["linear2.weight"],
+                                p["linear2.bias"]), "proj")
     return layer_norm(t2 + h2, p["norm3.weight"], p["norm3.bias"],
                       EPS).to(dt)
 

@@ -57,6 +57,7 @@ from spe_tpu_torch.ops.refmath import (SITE_ATTN, SITE_HIDDEN, SITE_OUT,
                                        ln_backward_reference, merge_heads, mm,
                                        needs_grad, no_dropout, split_heads,
                                        weight_grad)
+from spe_tpu_torch.parallel.tp import NO_TP
 
 EPS = 1e-5
 PARAM_NAMES = (
@@ -93,7 +94,7 @@ def softmax_attention(q, k, v, num_heads, key_padding_mask=None, drop=None,
 
 
 def encoder_layer_reference(x, pos, key_padding_mask, p, num_heads,
-                            drop=None, attention=softmax_attention):
+                            drop=None, attention=softmax_attention, tp=NO_TP):
     """Plain PyTorch version. x/pos: (B, N, D); key_padding_mask: (B, N)
     bool, True = padded key, or None. drop: a refmath.Dropout for the
     training forward at the JAX flax layer's four sites (transformer.py
@@ -101,22 +102,30 @@ def encoder_layer_reference(x, pos, key_padding_mask, p, num_heads,
     attention output, the ReLU and the second linear's output.
     attention(q, k, v, num_heads, key_padding_mask, drop): the
     self-attention, by default `softmax_attention`
-    (`fused_mha.layer_attention` with use_pallas_attention)."""
+    (`fused_mha.layer_attention` with use_pallas_attention). Under tensor
+    parallelism (`tp`, parallel/tp.py) p holds this rank's shards: the
+    packed in-projection's rows of its num_heads / tp.size heads in each
+    third and linear1's rows (column-parallel), out_proj's and linear2's
+    columns (row-parallel); the attention runs on its heads."""
     dt = x.dtype
-    D = x.shape[-1]
     w, b = p["self_attn.in_proj_weight"], p["self_attn.in_proj_bias"]
-    qk_in = (x.float() + pos.float()).to(dt)
+    D = w.shape[0] // 3
+    H = num_heads // tp.size
+    b = tp.cols(b, 3)
+    qk_in = tp.copy((x.float() + pos.float()).to(dt))
+    xc = tp.copy(x)
     q = mm(qk_in, w[:D], b[:D]).to(dt)
     k = mm(qk_in, w[D:2 * D], b[D:2 * D]).to(dt)
-    v = mm(x, w[2 * D:], b[2 * D:]).to(dt)
-    o = attention(q, k, v, num_heads, key_padding_mask, drop).to(dt)
-    h = drop_site(drop, mm(o, p["self_attn.out_proj.weight"],
-                           p["self_attn.out_proj.bias"]), "proj")
+    v = mm(xc, w[2 * D:], b[2 * D:]).to(dt)
+    o = attention(q, k, v, H, key_padding_mask, tp.shard(drop, 1)).to(dt)
+    h = drop_site(drop, tp.row(o, p["self_attn.out_proj.weight"],
+                               p["self_attn.out_proj.bias"]), "proj")
     s1 = layer_norm(x.float() + h, p["norm1.weight"], p["norm1.bias"], EPS)
-    u = torch.relu(mm(s1.to(dt), p["linear1.weight"], p["linear1.bias"]))
-    u = drop_site(drop, u, "proj")
-    h2 = drop_site(drop, mm(u.to(dt), p["linear2.weight"], p["linear2.bias"]),
-                   "proj")
+    u = torch.relu(tp.col(tp.copy(s1.to(dt)), p["linear1.weight"],
+                          p["linear1.bias"]))
+    u = drop_site(tp.shard(drop, -1), u, "proj")
+    h2 = drop_site(drop, tp.row(u.to(dt), p["linear2.weight"],
+                                p["linear2.bias"]), "proj")
     return layer_norm(s1 + h2, p["norm2.weight"], p["norm2.bias"],
                       EPS).to(dt)
 

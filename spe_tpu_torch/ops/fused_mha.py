@@ -20,7 +20,12 @@ transpose is copied. The scale dq^-0.5 multiplies the f32 logits, as
 `_fwd_kernel` does; the einsum path instead pre-scales q in the input
 dtype. Masked keys get -1e9. Dropout (counter masks keyed (seed, MHA_ATTN,
 b, h, q, k), one seed per call) falls on the normalised probabilities; the
-optional probabilities output is taken before it. The TPU wrapper pads Nq
+optional probabilities output is taken before it. Under tensor parallelism
+(`--tp_attention`) each rank calls it on its H/M heads, as the JAX
+package's shard_map runs the kernel on its head shard (pallas_mha.py
+:317-361): the arithmetic is the same, and the mask keys take the rank's
+first global head (the dropout's `head0`), so the shards draw the bits of
+the unsharded call. The TPU wrapper pads Nq
 to a multiple of 8 and Nk to one of 128 (padded keys at -1e9); here the
 kernels mask their ragged edge tiles instead.
 
@@ -143,7 +148,7 @@ def _train_cuda(q, k, v, num_heads, key_padding_mask=None, drop=None,
     K.attention(q, k, v, out, num_heads=H, dq=dq, dv=dv, q_hs=dq, k_hs=dq,
                 v_hs=dv, o_hs=dv, kbias=_bias(q, k, key_padding_mask),
                 logit_scale=dq ** -0.5, probs=probs, seed=drop.seed,
-                drop=(SITE_MHA_ATTN, drop.attn), lse=lse)
+                drop=(SITE_MHA_ATTN, drop.attn), lse=lse, head0=drop.head0)
     return (out, probs, lse) if return_attn else (out, lse)
 
 
@@ -168,7 +173,7 @@ def _backward_cuda(dy, q, k, v, lse, num_heads, key_padding_mask=None,
         q_hs=dq, k_hs=dq, v_hs=dv, do_hs=dv, dq_out=grads[0],
         dk_out=grads[1], dv_out=grads[2], dq_hs=dq, dk_hs=dq, dv_hs=dv,
         kbias=_bias(q, k, key_padding_mask), logit_scale=dq ** -0.5,
-        seed=drop.seed, drop=(SITE_MHA_ATTN, drop.attn))
+        seed=drop.seed, drop=(SITE_MHA_ATTN, drop.attn), head0=drop.head0)
     return tuple(g.to(t.dtype) for g, t in zip(grads, (q, k, v)))
 
 
@@ -185,8 +190,8 @@ class MHAFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, key_padding_mask, seed, rate, num_heads,
-                return_attn):
-        drop = CounterDropout(seed, attn=rate)
+                return_attn, head0=0):
+        drop = CounterDropout(seed, attn=rate, head0=head0)
         args = (q, k, v, num_heads, key_padding_mask, drop, return_attn)
         if _plain(q):
             res = fused_mha_train_reference(*args)
@@ -194,7 +199,7 @@ class MHAFn(torch.autograd.Function):
             res = _train_cuda(*args)
             fused_mha.train_launches += 1
         ctx.save_for_backward(q, k, v, key_padding_mask, seed, res[-1])
-        ctx.rate, ctx.num_heads = rate, num_heads
+        ctx.rate, ctx.num_heads, ctx.head0 = rate, num_heads, head0
         if not return_attn:
             return res[0]
         ctx.mark_non_differentiable(res[1])
@@ -204,7 +209,7 @@ class MHAFn(torch.autograd.Function):
     def backward(ctx, dy, *_):
         q, k, v, mask, seed, lse = ctx.saved_tensors
         args = (dy, q, k, v, lse, ctx.num_heads, mask,
-                CounterDropout(seed, attn=ctx.rate))
+                CounterDropout(seed, attn=ctx.rate, head0=ctx.head0))
         if _plain(q):
             grads = fused_mha_backward_reference(*args)
         else:
@@ -212,7 +217,7 @@ class MHAFn(torch.autograd.Function):
             fused_mha.bwd_launches += 1
         need = ctx.needs_input_grad
         return (*(g if n else None for g, n in zip(grads, need)), None, None,
-                None, None, None)
+                None, None, None, None)
 
 
 def fused_mha(q, k, v, num_heads, key_padding_mask=None, drop=None,
@@ -226,7 +231,7 @@ def fused_mha(q, k, v, num_heads, key_padding_mask=None, drop=None,
     if needs_grad([q, k, v]) or (drop is not None and drop.attn):
         drop = drop or no_dropout(q.device)
         return MHAFn.apply(q, k, v, key_padding_mask, drop.seed, drop.attn,
-                           num_heads, return_attn)
+                           num_heads, return_attn, drop.head0)
     if _plain(q):
         return fused_mha_reference(q, k, v, num_heads, key_padding_mask,
                                    return_attn=return_attn)
@@ -246,8 +251,12 @@ def layer_attention(q, k, v, num_heads, key_padding_mask=None, drop=None,
     attention, the encoder self-attention, the decoder cross-attention):
     drop is the plain layer's refmath.Dropout or None; one seed per call is
     drawn from its generator when the attention rate is on, as JAX draws
-    one per fused_mha call (attention.py:206-211, 284-288)."""
+    one per fused_mha call (attention.py:206-211, 284-288). Under tensor
+    parallelism q, k and v hold the rank's heads and drop is the layer's
+    refmath.ShardDropout over them: its seed is every rank's, and the mask
+    keys start at the rank's first global head."""
     cd = None
     if drop is not None and drop.attn > 0.0:
-        cd = CounterDropout(draw_seed(drop.gen, q.device), attn=drop.attn)
+        cd = CounterDropout(draw_seed(drop.gen, q.device), attn=drop.attn,
+                            head0=drop.offset(num_heads))
     return fused_mha(q, k, v, num_heads, key_padding_mask, cd, return_attn)

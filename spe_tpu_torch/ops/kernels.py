@@ -158,7 +158,7 @@ class _AttnParams(ctypes.Structure):
                    ("seed", ctypes.c_void_p), ("lse", ctypes.c_void_p),
                    ("drop_site", ctypes.c_int), ("drop_thr", ctypes.c_uint),
                    ("drop_scale", ctypes.c_float),
-                   ("mask_heads", ctypes.c_int)])
+                   ("mask_heads", ctypes.c_int), ("head0", ctypes.c_int)])
 
 
 class _LNParams(ctypes.Structure):
@@ -272,7 +272,7 @@ class _SoftmaxBwdParams(ctypes.Structure):
 class _AttnRowParams(ctypes.Structure):
     _fields_ = _struct((_P, "s dzd lse kbias seed zd dl"), (_LL, "kb_sb"),
                        (_I, "Z H Nq Nk drop_site"), (_U, "drop_thr"),
-                       (_FL, "drop_scale"), (_I, "mask_heads"))
+                       (_FL, "drop_scale"), (_I, "mask_heads head0"))
 
 
 def lib():
@@ -529,7 +529,8 @@ ATTENTION_FORMS = ((192, 192), (48, 48), (24, 24), (48, 24), (36, 36),
 
 def attention(q, k, v, out, *, num_heads, dq, dv, q_hs, k_hs, v_hs, o_hs,
               qscale=None, kbias=None, hbias=None, logit_scale=1.0,
-              probs=None, seed=None, drop=None, mask_heads=None, lse=None):
+              probs=None, seed=None, drop=None, mask_heads=None, lse=None,
+              head0=0):
     """Online-softmax attention. q/k/v/out are (B, rows, cols) views, last dim
     contiguous; head h of each starts at column h * <x>_hs (0 = shared by
     every head) and is dq (q, k) or dv (v, out) wide. qscale: (H, dq) f32,
@@ -537,13 +538,16 @@ def attention(q, k, v, out, *, num_heads, dq, dv, q_hs, k_hs, v_hs, o_hs,
     probs: optional (B, H, Nq, Nk) f32 output of the normalised
     probabilities. The training form: drop = (site, rate) masks the
     probabilities with keep bits keyed (seed, site, z // mask_heads,
-    z % mask_heads, row, key) for z = b * H + h (mask_heads defaults to
-    H); lse: optional (B, H, Nq) f32 output of each row's log-sum-exp."""
+    head0 + z % mask_heads, row, key) for z = b * H + h (mask_heads
+    defaults to H; head0, 0 by default, is the first head's index in the
+    keys: a shard of heads under tensor parallelism keys them as the
+    unsharded call does); lse: optional (B, H, Nq) f32 output of each
+    row's log-sum-exp."""
     p = _attn_params(q, k, v, out, num_heads=num_heads, dq=dq, dv=dv,
                      q_hs=q_hs, k_hs=k_hs, v_hs=v_hs, o_hs=o_hs,
                      qscale=qscale, kbias=kbias, hbias=hbias,
                      logit_scale=logit_scale, probs=probs, seed=seed,
-                     drop=drop, mask_heads=mask_heads, lse=lse)
+                     drop=drop, mask_heads=mask_heads, lse=lse, head0=head0)
     err = lib().spe_attention(ctypes.byref(p), dq, dv, _stream())
     _check(err, f"spe_attention(dq={dq}, dv={dv})")
     attention.launches += 1
@@ -564,7 +568,8 @@ def attention_copy_bytes(*args, **kw):
 
 def _attn_params(q, k, v, out, *, num_heads, dq, dv, q_hs, k_hs, v_hs, o_hs,
                  qscale=None, kbias=None, hbias=None, logit_scale=1.0,
-                 probs=None, seed=None, drop=None, mask_heads=None, lse=None):
+                 probs=None, seed=None, drop=None, mask_heads=None, lse=None,
+                 head0=0):
     """`attention`'s checks -> its _AttnParams."""
     for t, n in ((q, "q"), (k, "k"), (v, "v")):
         _need(t, _BF16, n, 3)
@@ -618,22 +623,24 @@ def _attn_params(q, k, v, out, *, num_heads, dq, dv, q_hs, k_hs, v_hs, o_hs,
         B=B, H=H, Nq=Nq, Nk=Nk, logit_scale=float(logit_scale),
         out_f32=int(out.dtype == _F32), seed=_ptr(seed), lse=_ptr(lse),
         drop_site=dsite, drop_thr=dthr, drop_scale=dscale,
-        mask_heads=mask_heads)
+        mask_heads=mask_heads, head0=int(head0))
     return p
 
 
-def attention_keep(seed, drop, shape, mask_heads):
+def attention_keep(seed, drop, shape, mask_heads, head0=0):
     """The keep bits (B, H, Nq, Nk) of `attention`'s dropout: keyed (seed,
-    site, z // mask_heads, z % mask_heads, row, key) for z = b * H + h."""
+    site, z // mask_heads, head0 + z % mask_heads, row, key) for z = b * H
+    + h."""
     Z = shape[0] * shape[1]
     return counter_keep(seed, drop[0], drop[1],
-                        (Z // mask_heads, mask_heads, *shape[2:])).reshape(shape)
+                        (Z // mask_heads, mask_heads, *shape[2:]),
+                        head0).reshape(shape)
 
 
 def attention_reference(q, k, v, out, *, num_heads, dq, dv, q_hs, k_hs, v_hs,
                         o_hs, qscale=None, kbias=None, hbias=None,
                         logit_scale=1.0, probs=None, seed=None, drop=None,
-                        mask_heads=None, lse=None):
+                        mask_heads=None, lse=None, head0=0):
     """Plain PyTorch version of `attention` (same arguments, same outputs
     written): f32 logits logit_scale * bf16(q [* qscale]) . k^T plus the
     key and head biases, the softmax (probs and lse taken from it), the
@@ -660,7 +667,8 @@ def attention_reference(q, k, v, out, *, num_heads, dq, dv, q_hs, k_hs, v_hs,
     if lse is not None:
         lse.copy_(torch.logsumexp(s, dim=-1))
     if drop is not None and drop[1] > 0:
-        p = torch.where(attention_keep(seed, drop, p.shape, mask_heads or H),
+        p = torch.where(attention_keep(seed, drop, p.shape, mask_heads or H,
+                                       head0),
                         p * keep_scale(drop[1]), 0.0)
     o = p.to(_BF16).float() @ heads(v, v_hs, dv).float()
     heads(out, o_hs, dv).copy_(o.to(out.dtype))
@@ -1672,7 +1680,7 @@ ATTN_ROWS_MAX_NK = 8192   # csrc/th_train.cu spe_attn_bwd_rows
 
 
 def attention_bwd_rows(s, dzd, lse, kbias, seed, drop, *, num_heads,
-                       mask_heads=None):
+                       mask_heads=None, head0=0):
     """The row pass of the standard attention backward. s: (B, H, Nq, Nk)
     f32 scaled logits without the key bias; dzd: do . V^T of that shape;
     lse: (B, H, Nq) f32 of s + kbias (the forward's); kbias: (B, Nk) f32 or
@@ -1707,7 +1715,8 @@ def attention_bwd_rows(s, dzd, lse, kbias, seed, drop, *, num_heads,
                        kb_sb=kbias.stride(0) if kbias is not None else 0,
                        Z=B * H, H=H, Nq=Nq, Nk=Nk, drop_site=dsite,
                        drop_thr=dthr, drop_scale=dscale,
-                       mask_heads=H if mask_heads is None else mask_heads)
+                       mask_heads=H if mask_heads is None else mask_heads,
+                       head0=int(head0))
     _check(lib().spe_attn_bwd_rows(ctypes.byref(p), _stream()),
            "spe_attn_bwd_rows")
     attention_bwd_rows.launches += 1
@@ -1718,7 +1727,7 @@ attention_bwd_rows.launches = 0
 
 
 def attention_bwd_rows_reference(s, dzd, lse, kbias, seed, drop, *,
-                                 num_heads, mask_heads=None):
+                                 num_heads, mask_heads=None, head0=0):
     """Plain PyTorch version of `attention_bwd_rows` (same arguments, same
     outputs)."""
     if kbias is not None:
@@ -1727,7 +1736,8 @@ def attention_bwd_rows_reference(s, dzd, lse, kbias, seed, drop, *,
     keep = torch.ones(s.shape, dtype=torch.bool, device=s.device)
     sc = 1.0
     if drop is not None and drop[1] > 0:
-        keep = attention_keep(seed, drop, s.shape, mask_heads or num_heads)
+        keep = attention_keep(seed, drop, s.shape, mask_heads or num_heads,
+                              head0)
         sc = keep_scale(drop[1])
     dp = torch.where(keep, dzd * sc, 0.0)
     return (torch.where(keep, p * sc, 0.0).to(_BF16),
@@ -1743,7 +1753,7 @@ def _heads(t, hs):
 def attention_backward(q, k, v, do, lse, *, num_heads, dq, dv, q_hs, k_hs,
                        v_hs, do_hs, dq_out, dk_out, dv_out, dq_hs, dk_hs,
                        dv_hs, kbias=None, logit_scale=1.0, seed=None,
-                       drop=None, mask_heads=None, split=None):
+                       drop=None, mask_heads=None, split=None, head0=0):
     """The backward of `attention` in its training form, per (sample, head)
     by strides: the logits s = scale q . k^T and dzd = do . V^T (spe_gemm,
     f32 planes (B, H, Nq, Nk)), the row pass (zd, dl), then dV = zd^T do,
@@ -1770,7 +1780,7 @@ def attention_backward(q, k, v, do, lse, *, num_heads, dq, dv, q_hs, k_hs,
          a_str=(ds[0], ds[2], ds[1], 1), b_str=(vs[0], vs[2], 1, vs[1]),
          c_str=(*plane, Nk, 1))
     zd, dl = attention_bwd_rows(s, dzd, lse, kbias, seed, drop, num_heads=H,
-                                mask_heads=mask_heads)
+                                mask_heads=mask_heads, head0=head0)
     del s, dzd
     grp, q_plane, k_plane = split or (None, 0, 0)
     o = _heads(dv_out, dv_hs)

@@ -109,11 +109,45 @@ class Dropout:
     def drop_path(self, x):
         return self._drop(x, self.path, (x.shape[0],) + (1,) * (x.dim() - 1))
 
+    def offset(self, n: int) -> int:
+        """The index of the first of n heads or columns in the tensor the
+        masks are keyed on: 0, this tensor is whole (see ShardDropout)."""
+        return 0
+
     def _drop(self, x, rate, shape):
         if rate == 0.0:
             return x
         keep = 1.0 - rate
         mask = torch.rand(shape, generator=self.gen, device=x.device) < keep
+        return torch.where(mask, x / keep, 0.0)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardDropout(Dropout):
+    """A Dropout on one rank's shard of a tensor split `count` ways along
+    `dim` (tensor parallelism): its masks are the whole tensor's, drawn
+    from the generator as one process draws them, and this rank's part,
+    `index`, cut out. With the same generator on every rank of the model
+    group a sharded activation gets the bits it would get unsharded, and
+    the generator streams stay in step. DropPath is per sample and stays
+    whole."""
+    index: int = 0
+    count: int = 1
+    dim: int = -1
+
+    def offset(self, n: int) -> int:
+        return self.index * n
+
+    def __call__(self, x, rate: float):
+        if rate == 0.0:
+            return x
+        dim = self.dim % x.dim()
+        n = x.shape[dim]
+        full = list(x.shape)
+        full[dim] = n * self.count
+        keep = 1.0 - rate
+        mask = (torch.rand(full, generator=self.gen, device=x.device)
+                < keep).narrow(dim, self.offset(n), n)
         return torch.where(mask, x / keep, 0.0)
 
 
@@ -199,15 +233,17 @@ def _ar(n, device, dim, ndim):
     return torch.arange(n, device=device, dtype=torch.int64).reshape(shape)
 
 
-def counter_keep(seed, site: int, rate: float, shape):
+def counter_keep(seed, site: int, rate: float, shape, head0: int = 0):
     """Keep mask of shape (B, H, R, C) (bool) for `site` at `rate`; seed is
-    a (1,) int32 tensor and the mask lies on its device."""
+    a (1,) int32 tensor and the mask lies on its device. The heads are
+    keyed head0, head0 + 1, ...: a shard of heads (tensor parallelism)
+    draws the unsharded tensor's bits for them."""
     B, H, R, C = shape
     dev = seed.device
     h = _step(seed.to(torch.int64).reshape(1, 1, 1, 1),
               torch.tensor(site, device=dev, dtype=torch.int64))
     for dim, n in enumerate(shape):
-        h = _step(h, _ar(n, dev, dim, 4))
+        h = _step(h, _ar(n, dev, dim, 4) + (head0 if dim == 1 else 0))
     return (h >> 8) < keep_threshold(rate)
 
 
@@ -236,11 +272,14 @@ def no_dropout(device):
 @dataclasses.dataclass(frozen=True)
 class CounterDropout:
     """The fused layers' training-mode dropout: the rates of the sites and
-    the block's seed tensor; masks from `counter_keep`."""
+    the block's seed tensor; masks from `counter_keep`. head0 keys the
+    heads of a head-dim site from head0 on (a shard's first head under
+    tensor parallelism)."""
     seed: torch.Tensor
     attn: float = 0.0
     proj: float = 0.0
     path: float = 0.0
+    head0: int = 0
 
     @property
     def rates(self):
@@ -258,7 +297,8 @@ class CounterDropout:
             return self.site(x.reshape(shape), site, rate,
                              head_dim=True).reshape(x.shape)
         shape = x.shape if head_dim else (x.shape[0], 1) + tuple(x.shape[1:])
-        keep = counter_keep(self.seed, site, rate, shape).reshape(x.shape)
+        keep = counter_keep(self.seed, site, rate, shape,
+                            self.head0 if head_dim else 0).reshape(x.shape)
         return torch.where(keep, x * keep_scale(rate), 0.0)
 
     def path_factor(self, site: int, B: int):

@@ -3,7 +3,8 @@
 :93-121; reference util/misc.py:370-436).
 
 One process a card, each with its share of the batch (the loaders shard by
-process_index/process_count). There is no DistributedDataParallel wrapper:
+the data axis, parallel/tp.py: process_index/process_count without tensor
+parallelism). There is no DistributedDataParallel wrapper:
 the train step all-reduces its gradients and its loss in one flat bucket
 after the whole backward (train/train_step.py), as the JAX step psums once,
 so a step of W processes equals one process's step on the global batch up
@@ -12,8 +13,10 @@ to the f32 summation order.
   init_distributed(world_size, dist_url, device)  the process group -> the
                                  process's device (cuda:LOCAL_RANK)
   process_index(), process_count()
-  barrier(name), all_reduce_sum_(t), all_reduce_mean_(flat),
-  broadcast_(tensors, src), broadcast_scalar(x, src), all_gather_array(a)
+  barrier(name), all_reduce_sum_(t, group), all_reduce_max_(t, group),
+  all_reduce_mean_(flat, group), all_gather(t, group), ring_shift(ts, group),
+  broadcast_(tensors, src, group),
+  broadcast_scalar(x, src), all_gather_array(a, group)
   setup_for_distributed(is_master)  print() on the master process only
   shutdown()                     align the ends, then destroy the group
 
@@ -22,7 +25,8 @@ The backend follows the device: NCCL for a CUDA device, gloo for the CPU.
 processes that share one card, which NCCL refuses). Every collective runs
 on the backend's own tensor device, the card under NCCL and the CPU under
 gloo: a tensor elsewhere is copied there and back. With one process every
-function here is a no-op that returns its input.
+function here is a no-op that returns its input. `group` None is every
+process; a collective over a group of one process is a no-op too.
 """
 
 from __future__ import annotations
@@ -45,6 +49,13 @@ def process_index() -> int:
 
 def process_count() -> int:
     return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def group_size(group=None) -> int:
+    """The processes of `group` (None: every process)."""
+    if not dist.is_initialized():
+        return 1
+    return dist.get_world_size(group)
 
 
 def process_device() -> Optional[torch.device]:
@@ -122,31 +133,76 @@ def barrier(name: str = "") -> None:
         dist.all_reduce(torch.zeros(1, device=_STATE["comm"]))
 
 
-def all_reduce_sum_(t: torch.Tensor) -> torch.Tensor:
-    """t <- the sum of every process's t, in place."""
-    if process_count() > 1:
-        _on_comm(t, dist.all_reduce)
+def all_reduce_sum_(t: torch.Tensor, group=None) -> torch.Tensor:
+    """t <- the sum of the group's t, in place."""
+    if group_size(group) > 1:
+        _on_comm(t, lambda c: dist.all_reduce(c, group=group))
     return t
 
 
-def all_reduce_mean_(flat: torch.Tensor) -> torch.Tensor:
-    """flat <- the mean of every process's flat, in place (one all-reduce)."""
-    if process_count() > 1:
-        all_reduce_sum_(flat).div_(process_count())
+def all_reduce_max_(t: torch.Tensor, group=None) -> torch.Tensor:
+    """t <- the elementwise max of the group's t, in place."""
+    if group_size(group) > 1:
+        _on_comm(t, lambda c: dist.all_reduce(c, op=dist.ReduceOp.MAX,
+                                              group=group))
+    return t
+
+
+def ring_shift(tensors, group=None) -> list:
+    """Each tensor sent to the group's next rank and the previous rank's
+    received in its place (one batch_isend_irecv; on the backend's device,
+    through the host under gloo) -> the received tensors, on the inputs'
+    devices."""
+    n = group_size(group)
+    if n <= 1:
+        return list(tensors)
+    me = dist.get_rank(group)
+
+    def rank(i):
+        return i if group is None else dist.get_global_rank(group, i)
+
+    to, frm = rank((me + 1) % n), rank((me - 1) % n)
+    sent = [t.contiguous().to(_STATE["comm"]) for t in tensors]
+    got = [torch.empty_like(t) for t in sent]
+    ops = [op for s, g in zip(sent, got) for op in (
+        dist.P2POp(dist.isend, s, to, group), dist.P2POp(dist.irecv, g, frm,
+                                                         group))]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return [g.to(t.device) for g, t in zip(got, tensors)]
+
+
+def all_reduce_mean_(flat: torch.Tensor, group=None) -> torch.Tensor:
+    """flat <- the mean of the group's flat, in place (one all-reduce)."""
+    n = group_size(group)
+    if n > 1:
+        all_reduce_sum_(flat, group).div_(n)
     return flat
 
 
-def broadcast_(tensors: Sequence[torch.Tensor], src: int = 0) -> None:
-    """Every tensor <- process src's, in place: one broadcast a dtype, of
-    the tensors flattened into one bucket."""
-    if process_count() <= 1:
+def all_gather(t: torch.Tensor, group=None) -> list:
+    """The group's t (one shape and dtype) in rank order, on t's device."""
+    n = group_size(group)
+    if n <= 1:
+        return [t]
+    c = t.contiguous().to(_STATE["comm"])
+    parts = [torch.empty_like(c) for _ in range(n)]
+    dist.all_gather(parts, c, group=group)
+    return [p.to(t.device) for p in parts]
+
+
+def broadcast_(tensors: Sequence[torch.Tensor], src: int = 0,
+               group=None) -> None:
+    """Every tensor <- process src's (a global rank in `group`), in place:
+    one broadcast a dtype, of the tensors flattened into one bucket."""
+    if group_size(group) <= 1:
         return
     by_dtype = {}
     for t in tensors:
         by_dtype.setdefault(t.dtype, []).append(t)
     for ts in by_dtype.values():
         flat = torch.cat([t.detach().reshape(-1) for t in ts])
-        _on_comm(flat, lambda c: dist.broadcast(c, src))
+        _on_comm(flat, lambda c: dist.broadcast(c, src, group=group))
         with torch.no_grad():
             for t, part in zip(ts, flat.split([t.numel() for t in ts])):
                 t.copy_(part.view_as(t))
@@ -161,16 +217,11 @@ def broadcast_scalar(x: float, src: int = 0) -> float:
     return float(t.item())
 
 
-def all_gather_array(a: np.ndarray) -> np.ndarray:
-    """Every process's array of one shape and dtype -> (P, *a.shape), in
-    process order, on every process."""
+def all_gather_array(a: np.ndarray, group=None) -> np.ndarray:
+    """The group's arrays of one shape and dtype -> (P, *a.shape), in
+    rank order, on every process of the group."""
     a = np.ascontiguousarray(a)
-    if process_count() <= 1:
-        return a[None]
-    t = torch.from_numpy(a).to(_STATE["comm"])
-    parts = [torch.empty_like(t) for _ in range(process_count())]
-    dist.all_gather(parts, t)
-    return torch.stack(parts).cpu().numpy()
+    return torch.stack(all_gather(torch.from_numpy(a), group)).numpy()
 
 
 def setup_for_distributed(is_master: bool) -> None:

@@ -39,6 +39,7 @@ from spe_tpu_torch.data.voc_eval import corloc, voc_eval_all
 from spe_tpu_torch.ops.nms import batched_nms
 from spe_tpu_torch.ops.postprocess import postprocess_topk
 from spe_tpu_torch.parallel import dist
+from spe_tpu_torch.parallel.tp import NO_TP
 from spe_tpu_torch.train.criterion import _layer_losses, match
 from spe_tpu_torch.train.train_step import train_step
 
@@ -55,15 +56,16 @@ class NonFiniteLoss(RuntimeError):
     """A step's loss or gradients were not finite: training stops."""
 
 
-def sum_over_processes(count, sums, keys):
-    """(count, {k: sums[k]}) summed over the processes in one all-reduce, the
-    keys in the order given (every process the same); one process: as
-    given."""
-    if dist.process_count() == 1:
+def sum_over_processes(count, sums, keys, tp=NO_TP):
+    """(count, {k: sums[k]}) summed over the data-parallel processes of the
+    model's layout `tp` (parallel/tp.py) in one all-reduce, the keys in the
+    order given (every process the same); one process: as given. (A model
+    group's ranks hold the same values.)"""
+    if tp.data_size == 1:
         return count, {k: sums[k] for k in keys if k in sums}
     v = torch.tensor([count] + [sums.get(k, 0.0) for k in keys],
                      dtype=torch.float64)
-    dist.all_reduce_sum_(v)
+    dist.all_reduce_sum_(v, tp.data_group)
     return v[0].item(), dict(zip(keys, v[1:].tolist()))
 
 
@@ -110,7 +112,8 @@ def train_one_epoch(state, loader, epoch: int, cfg: SPEConfig, gates, gen,
                 f"{k}: {v:.4f}" for k, v in logged.items()), flush=True)
     if device.type == "cuda":
         torch.cuda.synchronize()
-    steps, sums = sum_over_processes(len(history), sums, sorted(sums))
+    steps, sums = sum_over_processes(len(history), sums, sorted(sums),
+                                     getattr(state.model, "tp", NO_TP))
     stats = {k: v / max(steps, 1) for k, v in sums.items()}
     stats.update(steps=len(history), seconds=time.perf_counter() - t0,
                  history=history)
@@ -189,8 +192,9 @@ def evaluate_coco(model, loader, gt_coco: Dict, cfg: SPEConfig, device,
             batch["image_id"], res["boxes"].cpu().numpy(),
             res["scores"].cpu().numpy(), res["labels"].cpu().numpy(),
             keep_mask.cpu().numpy())
-    merge_across_processes(evaluator)
-    n_loss, sums = sum_over_processes(n_loss, sums, EVAL_TERMS)
+    tp = getattr(model, "tp", NO_TP)
+    merge_across_processes(evaluator, tp=tp)
+    n_loss, sums = sum_over_processes(n_loss, sums, EVAL_TERMS, tp)
     stats = evaluator.summarize()
     if n_loss:
         stats.update({f"eval_{k}": v / n_loss for k, v in sums.items()})
@@ -234,14 +238,17 @@ def unpack_detections(evaluator, gathered: np.ndarray) -> None:
                 "score": float(row[7])}])
 
 
-def merge_across_processes(evaluator, max_dets: int = 200_000) -> None:
-    """Every process's evaluator <- the detections of all (a fixed-shape
-    all-gather in place of the reference's pickled one, coco_eval.py
-    :178-207). A no-op with one process."""
-    if dist.process_count() == 1:
+def merge_across_processes(evaluator, max_dets: int = 200_000,
+                           tp=NO_TP) -> None:
+    """Every process's evaluator <- the detections of its data group, the
+    data axis of the model's layout `tp` (a fixed-shape all-gather in
+    place of the reference's pickled one, coco_eval.py:178-207; under
+    tensor parallelism a model group's ranks hold the same detections, so
+    the data group's are all). A no-op with one data-parallel process."""
+    if tp.data_size == 1:
         return
     unpack_detections(evaluator, dist.all_gather_array(
-        pack_detections(evaluator, max_dets)))
+        pack_detections(evaluator, max_dets), tp.data_group))
 
 
 def _flip_merge(out_n, out_f, bb_n=None, bb_f=None):

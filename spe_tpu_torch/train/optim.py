@@ -18,6 +18,12 @@ engine.py:163-165).
           lr_drop epochs
   skip    a step whose loss or gradient norm is not finite leaves the
           parameters, both moments and the count untouched
+Under tensor parallelism (parameters split by
+parallel/sharding_rules.shard_model, marked `tp_shard`) the global norm
+counts each replicated gradient once and sums the sharded ones' squares
+over the model group, in one all-reduce that also carries whether any rank
+saw a non-finite loss or replicated norm: every rank clips by the same
+norm and takes the same skip.
 The JAX package's flat-vector form is TPU plumbing; here the update runs
 over the parameter lists with torch._foreach ops, one list per group.
 """
@@ -52,10 +58,11 @@ class AdamW3:
     def __init__(self, named_parameters, cfg: SPEConfig, steps_per_epoch: int):
         lrs = {"body": cfg.lr, "backbone": cfg.lr_backbone,
                "cls_head": cfg.lr_cls_head, "frozen": 0.0}
-        self.groups = {}
+        self.groups, self.names = {}, {}
         for name, p in named_parameters:
-            self.groups.setdefault(param_group(name, bool(cfg.frozen_weights)),
-                                   []).append(p)
+            g = param_group(name, bool(cfg.frozen_weights))
+            self.groups.setdefault(g, []).append(p)
+            self.names.setdefault(g, []).append(name)
         self.lrs = {g: lrs[g] for g in self.groups}
         self.params = [p for ps in self.groups.values() for p in ps]
         self.exp_avg = {g: [torch.zeros_like(p) for p in ps]
@@ -67,6 +74,8 @@ class AdamW3:
         self.lr_drop = cfg.lr_drop
         self.weight_decay = float(cfg.weight_decay)
         self.clip = float(cfg.clip_max_norm)
+        self.tp = next((p.tp_shard for p in self.params
+                        if getattr(p, "tp_shard", None) is not None), None)
 
     def zero_grad(self):
         for p in self.params:
@@ -81,8 +90,11 @@ class AdamW3:
     def step(self, loss):
         grads = {g: self._grads(ps) for g, ps in self.groups.items()}
         norms = [n for gs in grads.values() for n in torch._foreach_norm(gs)]
-        grad_norm = torch.linalg.vector_norm(torch.stack(norms))
-        finite = bool(torch.isfinite(loss) & torch.isfinite(grad_norm))
+        if self.tp is None:
+            grad_norm = torch.linalg.vector_norm(torch.stack(norms))
+            finite = bool(torch.isfinite(loss) & torch.isfinite(grad_norm))
+        else:
+            grad_norm, finite = self._tp_norm(norms, loss)
         if not finite:
             return grad_norm, False
         scale = (torch.where(grad_norm < self.clip, 1.0, self.clip / grad_norm)
@@ -107,6 +119,18 @@ class AdamW3:
             torch._foreach_add_(ps, d, alpha=-factor * self.lrs[g])
         self.count = c1
         return grad_norm, True
+
+    def _tp_norm(self, norms, loss):
+        """(the global norm, finite) over the model group (see above)."""
+        sq = torch.stack(norms).float() ** 2
+        sharded = torch.tensor([getattr(p, "tp_shard", None) is not None
+                                for p in self.params], device=sq.device)
+        rep = sq[~sharded].sum()
+        buf = torch.stack([sq[sharded].sum(), (~(
+            torch.isfinite(loss) & torch.isfinite(rep))).float()])
+        self.tp.all_reduce_(buf)
+        grad_norm = torch.sqrt(rep + buf[0])
+        return grad_norm, bool(buf[1] == 0) and bool(torch.isfinite(grad_norm))
 
     def state_dict(self):
         return {"count": self.count, "exp_avg": self.exp_avg,

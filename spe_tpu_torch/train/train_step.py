@@ -16,16 +16,22 @@ pseudo-boxes, which have no masks), and loss_mask / loss_dice normalised
 by max(GT count, W) / W over the W processes.
 
 Each stage's num_boxes normaliser is max(N, W) / W, N the valid targets x
-the repeat ratio summed over the W processes (one all-reduce of every
-stage's count): the reference's max(all_reduce(N) / W, 1)
+the repeat ratio summed over the W data-parallel processes (one all-reduce
+of every stage's count): the reference's max(all_reduce(N) / W, 1)
 (conditional_detr.py:435-440). With the gradients averaged over the
 processes that is the JAX package's max(N, num_devices) on the global batch
 (spe_tpu/train/train_step.py:12-16).
 
 In a distributed run the step's gradients and loss are averaged over the
-processes in one flat bucket, one all-reduce after the whole backward, so
-that the optimizer clips the global gradient and every process takes the
-same update, or the same skip.
+data-parallel processes in one flat bucket, one all-reduce after the whole
+backward, so that the optimizer clips the global gradient and every
+process takes the same update, or the same skip. Under tensor parallelism
+(`--model_axis M`, parallel/mesh.py) W is the data width, world / M, as the
+JAX CLI divides by it (spe_tpu/cli/main.py:64,162), and the data group
+holds the processes of this one's model index; first, in one more flat
+all-reduce over the model group (reduce_model_group_grads), the
+column-parallel biases' gradients, each rank's part, are summed and the
+replicated parameters' averaged.
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ from spe_tpu_torch.config import SPEConfig
 from spe_tpu_torch.ops.cam_boxes import cam_pseudo_boxes
 from spe_tpu_torch.ops.postprocess import postprocess_refine
 from spe_tpu_torch.parallel import dist
+from spe_tpu_torch.parallel.tp import NO_TP
 from spe_tpu_torch.train.criterion import (image_label_losses, mask_losses,
                                            match, repeated_num_boxes,
                                            set_criterion_multi)
@@ -83,24 +90,26 @@ def loss_weights(cfg: SPEConfig) -> Dict[str, float]:
     return weight
 
 
-def num_boxes_per_stage(targets_per_stage, ratio: int):
-    """Each stage's normaliser, max(N, W) / W (see above)."""
+def num_boxes_per_stage(targets_per_stage, ratio: int, tp=NO_TP):
+    """Each stage's normaliser, max(N, W) / W (see above), W the data axis
+    of the model's layout `tp` (parallel/tp.py)."""
     n = torch.stack([repeated_num_boxes(t, ratio) for t in targets_per_stage])
-    W = dist.process_count()
-    dist.all_reduce_sum_(n)
+    W = tp.data_size
+    dist.all_reduce_sum_(n, tp.data_group)
     return list((n.clamp(min=float(W)) / W).unbind())
 
 
-def mask_num_boxes(gt_mask):
+def mask_num_boxes(gt_mask, tp=NO_TP):
     """The mask losses' normaliser, max(N, W) / W of the GT count N summed
-    over the W processes (JAX's max(N, num_devices), train_step.py:136)."""
+    over the W data-parallel processes of `tp` (JAX's max(N, num_devices),
+    train_step.py:136)."""
     n = gt_mask.float().sum()
-    W = dist.process_count()
-    dist.all_reduce_sum_(n)
+    W = tp.data_size
+    dist.all_reduce_sum_(n, tp.data_group)
     return n.clamp(min=float(W)) / W
 
 
-def mask_branch(out, batch, cfg: SPEConfig, rows=None):
+def mask_branch(out, batch, cfg: SPEConfig, rows=None, tp=NO_TP):
     """The mask losses of out["pred_masks"] against batch's GT masks ->
     ({loss_mask, loss_dice}, the rows matched: stage 0's last layer
     against the raw GT set, or `rows` given, another run's)."""
@@ -113,7 +122,8 @@ def mask_branch(out, batch, cfg: SPEConfig, rows=None):
                         cost_bbox=cfg.set_cost_bbox,
                         cost_giou=cfg.set_cost_giou)
     losses = mask_losses(out["pred_masks"], batch["gt_masks"], rows,
-                         batch["gt_mask"], mask_num_boxes(batch["gt_mask"]),
+                         batch["gt_mask"],
+                         mask_num_boxes(batch["gt_mask"], tp),
                          focal_alpha=cfg.focal_alpha,
                          focal_gamma=cfg.focal_gamma)
     return losses, rows
@@ -132,6 +142,7 @@ def compute_losses(model, batch, cfg: SPEConfig, gates: Gates, gen=None,
     there is neither. The segmentation head runs only where the mask
     losses read it: a model with `masks` and a batch with `gt_masks`."""
     training = model.training
+    tp = getattr(model, "tp", NO_TP)   # its data axis: the normalisers'
     with_masks = getattr(model, "masks", False) and "gt_masks" in batch
     out = model(batch["images"], pad_mask=batch.get("pad_mask"),
                 generator=gen if training else None, with_masks=with_masks)
@@ -159,7 +170,7 @@ def compute_losses(model, batch, cfg: SPEConfig, gates: Gates, gen=None,
     stage_losses, matching = set_criterion_multi(
         [stages[0]] + [stages[k] for k in refine_targets], tgt_list,
         [gen if training else None] * len(tgt_list),
-        num_boxes_per_stage(tgt_list, cfg.hung_match_ratio),
+        num_boxes_per_stage(tgt_list, cfg.hung_match_ratio, tp),
         [False] + [True] * len(refine_targets),
         hung_match_ratio=cfg.hung_match_ratio, box_jitter=cfg.box_jitter,
         focal_alpha=cfg.focal_alpha, focal_gamma=cfg.focal_gamma,
@@ -176,7 +187,8 @@ def compute_losses(model, batch, cfg: SPEConfig, gates: Gates, gen=None,
     if with_masks:
         ml, used["mask_matching"] = mask_branch(
             out, batch, cfg,
-            None if supervision is None else supervision["mask_matching"])
+            None if supervision is None else supervision["mask_matching"],
+            tp)
         losses.update(ml)
 
     # the gated weighted total (engine.py:134-144): refinement losses gate on
@@ -195,14 +207,38 @@ def compute_losses(model, batch, cfg: SPEConfig, gates: Gates, gen=None,
     return total, losses, used
 
 
-def average_gradients(params, loss):
+def reduce_model_group_grads(params):
+    """Under tensor parallelism (parameters marked by
+    sharding_rules.shard_model), in one flat f32 all-reduce over the model
+    group: the column-parallel biases' gradients (`tp_partial`: each rank's
+    holds its columns' part, zero elsewhere) <- their sums, the replicated
+    parameters' (`tp_replica`) <- their means. Each rank computes the
+    replicated ones alike, but CUDA kernels that sum with atomics (the
+    bicubic pos_embed interpolation's backward) may round them apart: the
+    mean keeps every rank's update bit for bit the same. A no-op without
+    tensor parallelism."""
+    parts = [p for p in params if p.grad is not None and (
+        hasattr(p, "tp_partial") or hasattr(p, "tp_replica"))]
+    if not parts:
+        return
+    tp = getattr(parts[0], "tp_partial", None) or parts[0].tp_replica
+    flat = torch.cat([p.grad.reshape(-1).float() for p in parts])
+    tp.all_reduce_(flat)
+    for p, part in zip(parts, flat.split([p.numel() for p in parts])):
+        if hasattr(p, "tp_replica"):
+            part = part / tp.size
+        p.grad = part.view_as(p).to(p.grad.dtype)
+
+
+def average_gradients(params, loss, group=None):
     """Every parameter's gradient and the loss <- their means over the
-    processes, in one flat f32 bucket (one all-reduce) -> the mean loss."""
+    data-parallel processes (`group`, None for every process), in one flat
+    f32 bucket (one all-reduce) -> the mean loss."""
     grads = [p.grad if p.grad is not None else torch.zeros_like(p)
              for p in params]
     flat = torch.cat([g.reshape(-1).float() for g in grads]
                      + [loss.reshape(1).float()])
-    dist.all_reduce_mean_(flat)
+    dist.all_reduce_mean_(flat, group)
     for p, part in zip(params, flat[:-1].split([p.numel() for p in params])):
         p.grad = part.view_as(p).to(p.dtype)
     return flat[-1]
@@ -212,14 +248,18 @@ def train_step(state: TrainState, batch, cfg: SPEConfig, gates: Gates, gen):
     """One update of state.model in training mode -> metrics {loss,
     grad_norm, bad_steps, every loss term, match_iters, match_cleanup} as
     detached tensors (bad_steps an int). In a distributed run `loss` and
-    the update are the processes' mean, the other terms this process's."""
+    the update are the data-parallel processes' mean, the other terms this
+    process's (a model group's ranks compute the same ones)."""
     state.model.train()
     state.optimizer.zero_grad()
     total, losses, _ = compute_losses(state.model, batch, cfg, gates, gen)
     total.backward()
     total = total.detach()
-    if dist.process_count() > 1:
-        total = average_gradients(state.optimizer.params, total)
+    reduce_model_group_grads(state.optimizer.params)
+    tp = getattr(state.model, "tp", NO_TP)
+    if tp.data_size > 1:
+        total = average_gradients(state.optimizer.params, total,
+                                  tp.data_group)
     grad_norm, finite = state.optimizer.step(total)
     if not finite:
         state.bad_steps += 1

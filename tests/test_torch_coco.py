@@ -29,7 +29,7 @@ from spe_tpu.models.detector import SPEDetector
 from spe_tpu.train import engine as jengine
 from spe_tpu_torch.data import coco_eval as tcoco_eval
 from spe_tpu_torch.data import loader as tloader
-from spe_tpu_torch.data import write_mini_coco
+from spe_tpu_torch.data import write_mini_coco, write_mini_coco_panoptic
 from spe_tpu_torch.data.coco import CocoFormatDataset as TCocoDataset
 from spe_tpu_torch.data.transforms import FixedSizeTransform as TFixedSize
 from spe_tpu_torch.models import cait as tcait
@@ -237,7 +237,8 @@ def test_cli_coco17_trains_evaluates_and_resumes(tmp_path):
     preset sets it, the gates open): two epochs, each evaluated on both
     stages into log.txt and eval/stage{s}_{epoch}.npz; checkpoint_best is
     the epoch of the best AP50; `--eval --resume` of it reproduces that
-    epoch's stats; --dataset_eval coco_panoptic is refused by name."""
+    epoch's stats; --dataset_eval coco_panoptic, without a COCO ground
+    truth, is refused by name."""
     from spe_tpu_torch.cli.main import main
 
     coco = write_mini_coco(tmp_path / "data", n_train=4, n_val=4,
@@ -275,5 +276,9 @@ def test_cli_coco17_trains_evaluates_and_resumes(tmp_path):
         if k != "forwards":
             assert v == pytest.approx(want[f"test_{k}"], abs=1e-9), k
     assert (tmp_path / "eval_out" / "eval" / "stage1_000.npz").exists()
+    # the JAX CLI routes coco_panoptic to its COCO eval too, which reads a
+    # COCO ground truth the panoptic dataset does not have
+    pan = write_mini_coco_panoptic(coco)
     with pytest.raises(NotImplementedError, match="coco_panoptic"):
-        main(args + ["--eval", "--dataset_eval", "coco_panoptic"])
+        main(args + ["--eval", "--dataset_eval", "coco_panoptic",
+                     "--coco_panoptic_path", str(pan)])

@@ -148,6 +148,9 @@ def test_port_never_imports_jax():
             "assert 'spe_tpu_torch.data.coco_eval' in mods, mods\n"
             "assert 'spe_tpu_torch.parallel.dist' in mods, mods\n"
             "assert 'spe_tpu_torch.cli.accuracy' in mods, mods\n"
+            "for m in ('parallel.mesh', 'parallel.tp', "
+            "'parallel.sharding_rules', 'ops.seq_parallel'):\n"
+            "    assert 'spe_tpu_torch.' + m in mods, (m, mods)\n"
             "for m in ('models.segmentation', 'models.position_encoding', "
             "'data.masks', 'data.coco_panoptic', 'data.panoptic_eval', "
             "'ops.resize'):\n"
@@ -167,7 +170,9 @@ def test_build_model_refuses_unported_attention_kernels(off):
     standalone kernel: the patch blocks to talking_heads (B5), the
     class-attention blocks, the encoder and the decoder cross-attention to
     fused_mha (B4); without use_pallas_attention they keep their plain
-    attention. Tensor parallelism is still refused."""
+    attention. Under tensor parallelism's tp_attention the backbone keeps
+    its plain attention and B4 the encoder and cross-attention; a model
+    axis > 1 needs its model group (test_torch_tp.py runs them)."""
     from spe_tpu_torch.config import SPEConfig
     from spe_tpu_torch.models.build import build_model
     from spe_tpu_torch.ops.fused_block import fold_attention
@@ -204,9 +209,13 @@ def test_build_model_refuses_unported_attention_kernels(off):
     assert got == {k: kernel[k] for k in off_layers}
     got = routes(build_model(cfg.replace(use_pallas_attention=False)))
     assert got == {k: plain[k] for k in off_layers}
-    for tp in ({"tp_attention": True}, {"model_axis": 2}):
-        with pytest.raises(NotImplementedError, match="tensor parallelism"):
-            build_model(cfg.replace(**tp))
+    tp_cfg = cfg.replace(use_fused_block=False, use_fused_layers=False,
+                         use_fused_ca_block="auto", tp_attention=True)
+    assert routes(build_model(tp_cfg)) == {
+        "block": fold_attention, "ca": class_attention,
+        "encoder": layer_attention, "decoder": layer_attention}
+    with pytest.raises(ValueError, match="model group"):
+        build_model(tp_cfg.replace(model_axis=2))
 
 
 def test_fused_layers_refuse_training_on_the_card():

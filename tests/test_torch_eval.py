@@ -150,11 +150,19 @@ def test_cli_eval_runs_and_training_refused(mini_voc):
     stats = main(args + ["--eval"])
     assert stats["forwards"] == 2 and 0.0 <= stats["mAP"] <= 1.0
     # training runs (test_cli_trains_checkpoints_and_resumes), --masks and
-    # --frozen_weights too (test_torch_mask_training.py); what it has not
-    # ported, tensor parallelism, is refused
-    for extra in (["--model_axis", "2"], ["--tp_attention"]):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            main(args + extra)
+    # --frozen_weights too (test_torch_mask_training.py), tensor parallelism
+    # too (test_torch_tp.py); what it has not ported, --masks under tensor
+    # parallelism, is refused, and a model axis must divide the processes
+    tp = ["--world_size", "2", "--model_axis", "2"]
+    with pytest.raises(NotImplementedError, match="not ported"):
+        main(args + tp + ["--masks"])
+    with pytest.raises(ValueError, match="must divide"):
+        main(args + ["--world_size", "3", "--model_axis", "2"])
+    with pytest.raises(ValueError, match="use_fused_block"):
+        parse_config(args + tp + ["--tp_attention"])
+    cfg = parse_config(args + tp + ["--tp_attention", "--no_use_fused_block",
+                                    "--no_use_fused_layers"])
+    assert cfg.model_axis == 2 and cfg.tp_attention
     # distributed training and the matching-cost audit are ported
     # (test_torch_distributed.py, test_torch_match_cost.py)
     cfg = parse_config(args + ["--world_size", "2", "--log_match_cost"])

@@ -159,7 +159,7 @@ def test_three_train_steps_prenorm_learned_stock_flags_match_jax(rng):
 def test_build_model_takes_the_variants():
     """build_model builds the stock preset's detector with pre_norm, with
     the learned embedding, with masks; an unknown embedding raises by
-    name, tensor parallelism stays refused."""
+    name; under tensor parallelism --masks stays refused."""
     from spe_tpu_torch.cli.main import parse_config
     from spe_tpu_torch.models.build import build_model
 
@@ -182,8 +182,15 @@ def test_build_model_takes_the_variants():
             assert float(table.min()) >= 0 and float(table.max()) < 1
     with pytest.raises(ValueError, match="not supported"):
         build_model(parse_config(tiny + ["--position_embedding", "cosine"]))
+    # under tensor parallelism the segmentation head stays refused
+    # (test_torch_tp.py runs the rest in model groups)
+    from spe_tpu_torch.parallel.tp import TensorParallel
+
+    cfg = parse_config(tiny + ["--no_use_fused_block", "--no_use_fused_layers",
+                               "--tp_attention"]).replace(masks=True,
+                                                          model_axis=2)
     with pytest.raises(NotImplementedError, match="tensor parallelism"):
-        build_model(parse_config(tiny + ["--model_axis", "2"]))
+        build_model(cfg, tp=TensorParallel(None, 0, 2))
 
 
 def test_learned_tables_in_the_body_group():
