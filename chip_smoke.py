@@ -3059,9 +3059,17 @@ def phase_coco(kernel_results, batch=8):
 # patches): XS24 (6 heads, dt = 36), S24 (8 heads, dt = 48; S36 has its
 # shapes) started from a checkpoint in timm's layout, and M48 (16 heads,
 # dt = 96, a 448 source grid; M36 has its shapes but for its 384 grid)
-BACKBONES = (("XS24", "TSCAM_cait_XS24_Two_Branch", False),
-             ("S24", "TSCAM_cait_S24_Two_Branch", True),
-             ("M48", "TSCAM_cait_M48_Two_Branch", False))
+# (tag, backbone, weights from a timm checkpoint, timed steps, the names
+# the B=2 same-grads check holds to f32): the single-branch XXS36 (no
+# det-branch stack, det features at block index layer_to_det, the heads'
+# mean CAM) takes the eval and same-grads checks; at B=2 its decoder
+# linear1 gradients are bf16 noise on both paths, as NOISY_B2 says, and
+# are held to the f32 run as phase 13's (g) holds them
+BACKBONES = (("XS24", "TSCAM_cait_XS24_Two_Branch", False, True, NOISY),
+             ("S24", "TSCAM_cait_S24_Two_Branch", True, True, NOISY),
+             ("M48", "TSCAM_cait_M48_Two_Branch", False, True, NOISY),
+             ("XXS36 single-branch", "TSCAM_cait_XXS36", False, False,
+              NOISY_B2))
 # the timed steps' batch: the recipe's 8, else the largest of these that fits
 BACKBONE_BATCHES = (8, 4, 2)
 # multi-scale buckets of max_size 640 at the 128 quantum: the JAX bench's
@@ -3388,7 +3396,8 @@ def phase_backbones(results, seen):
     (kernel_vs_plain); (b) one train
     step under phase 8's same-grads rule at B=2 (phase_same_grads, the
     decoder self-attention's q/k gradients held to an f32 plain run); (c)
-    three timed train steps (backbone_steps), one more step recorded. Then
+    three timed train steps (backbone_steps), one more step recorded
+    (the two-branch ones; the single-branch XXS36 takes (a) and (b)). Then
     the multi-scale XXS36 steps (multiscale_step), recorded too, and every
     recorded class not among phase 3's (`seen`) replayed against its plain
     version (replay_backbone_classes)."""
@@ -3397,7 +3406,7 @@ def phase_backbones(results, seen):
     from spe_tpu_torch.models.convert import load_backbone_weights
 
     classes, summary = {}, {}
-    for tag, name, from_pth in BACKBONES:
+    for tag, name, from_pth, timed_steps, noisy in BACKBONES:
         t0 = time.perf_counter()
         tmp = tempfile.TemporaryDirectory()
         devkit = write_mini_voc(tmp.name, n_test=8, n_trainval=16, seed=6)
@@ -3417,9 +3426,10 @@ def phase_backbones(results, seen):
                                        weights)
         if bad:
             fail(f"{tag} eval vs plain model: " + "; ".join(bad))
-        phase_same_grads(cfg, f"{tag} backbone", NOISY, batch=2,
+        phase_same_grads(cfg, f"{tag} backbone", noisy, batch=2,
                          weights=weights)
-        summary[tag] = backbone_steps(cfg, tag, weights, classes)
+        summary[tag] = (backbone_steps(cfg, tag, weights, classes)
+                        if timed_steps else {})
         summary[tag]["seconds"] = time.perf_counter() - t0
         tmp.cleanup()
     multiscale_step(classes)
@@ -5193,6 +5203,190 @@ def tp_masks_checks(ranks, runs, batch, card_gib, line):
     return bad
 
 
+# phase 14: the fused-off step's memory rise with --remat (its peak less
+# what was allocated before it: earlier phases leave their own) must stay
+# below this share of the rise without (the plain blocks' saved
+# activations dominate it)
+REMAT_PEAK_SHARE = 0.5
+REMAT_GRAD_TOL = 1e-3   # of each gradient's largest magnitude
+
+
+def _checkpointed(model):
+    """{kernel: launches per forward} of the patch and det-branch blocks
+    that run under checkpoint (`remat`): each launches its training
+    forward once more, in the backward's recompute."""
+    from spe_tpu_torch.models.cait import LayerScaleBlock
+    from spe_tpu_torch.ops.talking_heads import block_attention
+
+    per = {"pallas_block": 0, "pallas_attention": 0}
+    for m in model.modules():
+        if isinstance(m, LayerScaleBlock) and m.remat:
+            if m.use_fused:
+                per["pallas_block"] += 1
+            elif m.attention is block_attention:
+                per["pallas_attention"] += 1
+    return per
+
+
+def _busy(fn):
+    """fn() under torch.profiler with device activity only (no host op
+    events: a few seconds less a step than profile_forward) -> {busy_ms:
+    the device's kernel time, idle: its idle share of the wall time}."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if getattr(e, "device_type", None)
+               == torch.autograd.DeviceType.CUDA)
+    return {"busy_ms": busy / 1e3, "idle": max(0.0, 1 - busy / wall_us)}
+
+
+def phase_remat(results, flag_sets, batch=8):
+    """Phase 14: `--remat` at full width (voc0712 preset, 512^2, B=8, the
+    preset's dropout rates) in each of flag_sets ((label, cfg): the stock
+    preset, the standalone attention, the fused flags off): one training
+    step with --remat and one without, from the same weights, batch and
+    generator seed. The metrics (losses, grad norm) equal bit for bit,
+    every gradient within REMAT_GRAD_TOL of its tensor's largest
+    magnitude (the largest difference printed), the launch counts read off
+    the model (_per_forward; the checkpointed blocks' training forwards
+    twice, _checkpointed), the peak device memory both ways and its rise
+    above what was allocated before the step; the fused-off rise with
+    --remat below REMAT_PEAK_SHARE of the one without; a later step's
+    device busy time both ways (torch.profiler). The
+    --remat launch counts of 1f, 1b and B5 go into their JSON entries."""
+    import torch
+
+    from spe_tpu_torch.data import train_data, write_mini_voc
+    from spe_tpu_torch.models.build import build_model
+    from spe_tpu_torch.train import train_step as ts
+    from spe_tpu_torch.train.engine import train_batch
+    from spe_tpu_torch.train.optim import AdamW3
+
+    tmp = tempfile.TemporaryDirectory()
+    devkit = str(write_mini_voc(tmp.name, n_test=1, n_trainval=batch,
+                                seed=14))
+    line, b, bad, peaks = card(), None, [], {}
+    for label, cfg in flag_sets:
+        t0 = time.perf_counter()
+        cfg = cfg.replace(test_path=devkit, batch_size=batch)
+        if b is None:
+            _, loader = train_data(cfg)
+            b = train_batch(next(iter(loader.epoch(0))), torch.device("cuda"))
+        models = {False: build_model(cfg).train(),
+                  True: build_model(cfg.replace(remat=True)).train()}
+        models[True].load_state_dict(models[False].state_dict())
+        per, twice = _per_forward(models[True]), _checkpointed(models[True])
+        runs = {}
+        for remat, model in models.items():
+            state = ts.TrainState(model, AdamW3(model.named_parameters(),
+                                                cfg, 1))
+            gates = ts.Gates.for_epoch(cfg, 0)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            _all_counts(reset=True)
+            t1 = time.perf_counter()
+            m = ts.train_step(state, b, cfg, gates,
+                              torch.Generator("cuda").manual_seed(7))
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t1) * 1e3
+            runs[remat] = dict(
+                metrics={k: v.clone() for k, v in m.items()
+                         if isinstance(v, torch.Tensor)},
+                grads={n: p.grad.clone() for n, p in model.named_parameters()
+                       if p.grad is not None},
+                counts=_all_counts(), ms=ms,
+                peak=torch.cuda.max_memory_allocated() / 2 ** 30,
+                step=(torch.cuda.max_memory_allocated() - base) / 2 ** 30)
+            # the device time of a later step (the weights have moved)
+            pgen = torch.Generator("cuda").manual_seed(8)
+            runs[remat].update(_busy(
+                lambda: ts.train_step(state, b, cfg, gates, pgen)))
+            del state
+        off, on = runs[False], runs[True]
+        peaks[label] = {"peak": (off["peak"], on["peak"]),
+                        "step": (off["step"], on["step"])}
+        unequal = [k for k in off["metrics"]
+                   if not torch.equal(off["metrics"][k], on["metrics"][k])]
+        worst, worst_rel = "", -1.0
+        if off["grads"].keys() != on["grads"].keys():
+            bad.append(f"{label}: the gradients' names differ")
+        for n, g in off["grads"].items():
+            if n not in on["grads"]:
+                continue
+            top = float(g.abs().max())
+            rel = float((on["grads"][n] - g).abs().max()) / max(top, 1e-30)
+            if rel > worst_rel:
+                worst, worst_rel = n, rel
+        counted = ("train_launches", "bwd_launches")
+        want = {remat: {f"{k}.{a}": n + (twice.get(k, 0) if remat and
+                                         a == "train_launches" else 0)
+                        for k, n in per.items() for a in counted}
+                for remat in runs}
+        wrong = {(remat, k): (runs[remat]["counts"][k], n)
+                 for remat, w in want.items() for k, n in w.items()
+                 if runs[remat]["counts"][k] != n}
+        launched = [{k: v for k, v in runs[remat]["counts"].items()
+                     if v and k.endswith(counted)} for remat in (False, True)]
+        slower = on["busy_ms"] / max(off["busy_ms"], 1e-9) - 1
+        print(f"[remat] {label}: batch {batch}, dropout "
+              f"{cfg.backbone_drop_rate}/{cfg.drop_attn_rate}/"
+              f"{cfg.drop_path_rate}/{cfg.dropout}: loss "
+              f"{float(off['metrics']['loss']):.9f} without, "
+              f"{float(on['metrics']['loss']):.9f} with --remat; metrics "
+              f"equal bit for bit: {not unequal} "
+              f"{unequal if unequal else ''}; gradients: "
+              f"{len(off['grads'])}, largest difference / max|g| "
+              f"{worst_rel:.3e} ({worst or 'none'}; limit {REMAT_GRAD_TOL}); "
+              f"peak device memory {off['peak']:.2f} GiB without, "
+              f"{on['peak']:.2f} GiB with --remat ({off['step']:.2f} / "
+              f"{on['step']:.2f} GiB above what was allocated before the "
+              f"step); the first step {off['ms']:.1f} / {on['ms']:.1f} ms "
+              f"(host clock); a later step's device busy time "
+              f"{off['busy_ms']:.1f} / {on['busy_ms']:.1f} ms "
+              f"({100 * slower:+.1f}%), idle share {off['idle']:.3f} / "
+              f"{on['idle']:.3f} (profiled); {line}", flush=True)
+        print(f"[remat] {label}: training launches a step without / with "
+              f"--remat {launched[0]} / {launched[1]}; mismatches (got, "
+              f"expected) {wrong}", flush=True)
+        if unequal:
+            bad.append(f"{label}: metrics differ: {unequal}")
+        if worst_rel > REMAT_GRAD_TOL:
+            bad.append(f"{label}: gradient {worst} off by {worst_rel:.3e} "
+                       "of its largest magnitude")
+        if wrong:
+            bad.append(f"{label}: launches (got, expected) {wrong}")
+        kernel = {"stock preset": "pallas_block",
+                  "standalone attention": "pallas_attention"}.get(label)
+        if kernel is not None:
+            results[kernel]["remat_train_launches"] = on["counts"][
+                f"{kernel}.train_launches"]
+            results[f"{kernel}_bwd"]["remat_launches"] = on["counts"][
+                f"{kernel}.bwd_launches"]
+        del models, runs, off, on
+        torch.cuda.empty_cache()
+        print(f"[remat] {label}: {time.perf_counter() - t0:.1f} s", flush=True)
+    off_peak, on_peak = peaks["fused flags off"]["step"]
+    print(f"[remat] GiB without / with --remat (peak; the step's rise above "
+          f"what was allocated before it): {json.dumps(peaks)}; fused off: "
+          f"the step's rise {on_peak / off_peak:.3f} of the one without "
+          f"(limit {REMAT_PEAK_SHARE}); {line}", flush=True)
+    if on_peak >= REMAT_PEAK_SHARE * off_peak:
+        bad.append(f"fused off: the --remat step's rise {on_peak:.2f} GiB "
+                   f"not below {REMAT_PEAK_SHARE} x {off_peak:.2f} GiB")
+    tmp.cleanup()
+    if bad:
+        fail("remat: " + "; ".join(bad))
+
+
 T_START = time.perf_counter()
 
 
@@ -5231,6 +5425,9 @@ def main():
     timed("11 distributed", phase_distributed)
     timed("12 segmentation", phase_segmentation)
     timed("13 tensor parallel", phase_tensor_parallel, results)
+    timed("14 remat", phase_remat, results,
+          [("stock preset", stock_cfg), ("standalone attention", attn_cfg),
+           ("fused flags off", cfg)])
     jax_mods = sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "jaxlib", "flax", "spe_tpu"))
     if jax_mods:

@@ -149,7 +149,9 @@ def build_model(cfg: SPEConfig, device=None, tp=None) -> SPEDetector:
     patch blocks, fused_mha B4 in the class attention, the encoder and the
     decoder cross-attention), as spe_tpu/models/build.py:38,60 routes
     them. On a CUDA device a configuration outside the kernels' shapes
-    (kernel_domain_errors) is refused by name.
+    (kernel_domain_errors) is refused by name. With `remat` the patch and
+    det-branch blocks run under torch.utils.checkpoint in training
+    (models/cait.LayerScaleBlock), as spe_tpu/models/build.py:42 sets it.
 
     Tensor parallelism (`--model_axis M`): tp is this process's model
     group (parallel/mesh.make_mesh(...).tp, of size M); every rank draws
@@ -192,7 +194,8 @@ def build_model(cfg: SPEConfig, device=None, tp=None) -> SPEDetector:
                           cfg.use_fused_ca_block]),
         drop_rate=cfg.backbone_drop_rate, attn_drop_rate=cfg.drop_attn_rate,
         drop_path_rate=cfg.drop_path_rate,
-        use_pallas=cfg.use_pallas_attention and not cfg.tp_attention)
+        use_pallas=cfg.use_pallas_attention and not cfg.tp_attention,
+        remat=cfg.remat)
     if cfg.init_scale:
         backbone_cfg = dataclasses.replace(backbone_cfg,
                                            init_scale=cfg.init_scale)

@@ -24,14 +24,25 @@ at one uniform `drop_path_rate` (cait.py:150-154, 395-415). The
 class-attention blocks have none. The plain blocks draw their masks with
 torch.rand from the generator; the fused blocks draw one seed per call
 from it and use counter masks (refmath.counter_keep).
+
+With `remat` (`--remat`) every patch block and det-branch block runs under
+torch.utils.checkpoint in training, as the JAX package wraps them in
+nn.remat (cait.py:391-415): its activations are recomputed in the backward.
+A block draws its randomness before the checkpointed region (the fused
+layer's and the talking-heads kernel's seeds, a snapshot of the
+generator's state for the plain masks, which each run of the block
+replays), so the recompute sees the forward's masks and the generator
+ends where one forward leaves it: remat on and off give the same bits.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from spe_tpu_torch.models.attention import (MultiClassAttention,
                                             TalkingHeadsAttention)
@@ -44,7 +55,7 @@ from spe_tpu_torch.ops.fused_ca_block import (class_attention,
                                               class_attn_block_reference,
                                               fused_class_attn_block)
 from spe_tpu_torch.ops.fused_mha import layer_attention
-from spe_tpu_torch.ops.refmath import CounterDropout, draw_seed
+from spe_tpu_torch.ops.refmath import CounterDropout, draw_seed, needs_grad
 from spe_tpu_torch.ops.talking_heads import block_attention
 from spe_tpu_torch.parallel.tp import NO_TP
 
@@ -57,10 +68,11 @@ class LayerScaleBlock(nn.Module):
 
     def __init__(self, dim, num_heads, mlp_ratio=4.0, init_scale=1e-4,
                  use_fused=False, drop=0.0, attn_drop=0.0, drop_path=0.0,
-                 use_pallas=False):
+                 use_pallas=False, remat=False):
         super().__init__()
         self.num_heads = num_heads
         self.use_fused = use_fused
+        self.remat = remat
         self.attention = block_attention if use_pallas else fold_attention
         self.rates = dict(attn=attn_drop, proj=drop, path=drop_path)
         self.norm1 = LayerNorm(dim, eps=1e-6)
@@ -71,17 +83,55 @@ class LayerScaleBlock(nn.Module):
         self.gamma_2 = nn.Parameter(torch.full((dim,), float(init_scale)))
 
     def forward(self, x, gen=None):
-        params = dict(self.named_parameters())
+        """The block; its randomness is drawn first, then the block runs
+        (under checkpoint with `remat` while autograd records): the fused
+        layer's counter-mask seed, one per block call as JAX draws one per
+        block (cait.py:176-180), and the talking-heads kernel's seed are
+        drawn here and handed in; the plain masks (torch.rand) come from a
+        generator at this call's snapshot of `gen`'s state, so a recompute
+        draws them again, and `gen` takes the state the first run left."""
         drop = dropout_for(self, gen, **self.rates)
-        if not self.use_fused:
-            return layer_scale_block_reference(x, params, self.num_heads, drop,
-                                               self.attention, self.tp)
-        # the fused layer's counter masks: one seed per block call, drawn on
-        # the generator's device, as JAX draws one per block (cait.py:176-180)
+        seed = state = None
         if drop is not None:
-            drop = CounterDropout(draw_seed(gen, x.device), drop.attn,
-                                  drop.proj, drop.path)
-        return fused_layer_scale_block(x, params, self.num_heads, drop)
+            if self.use_fused or (self.attention is block_attention
+                                  and drop.attn > 0.0):
+                seed = draw_seed(gen, x.device)
+            if not self.use_fused:
+                state = gen.get_state()
+        after = []
+
+        def run(x):
+            d = drop
+            if state is not None:
+                replay = torch.Generator(gen.device)
+                replay.set_state(state)
+                d = dataclasses.replace(drop, gen=replay)
+            out = self.compute(x, d, seed)
+            if state is not None and not after:
+                after.append(replay.get_state())
+            return out
+
+        if self.remat and needs_grad([x, *self.parameters()]):
+            out = checkpoint(run, x, use_reentrant=False)
+        else:
+            out = run(x)
+        if after:
+            gen.set_state(after[0])
+        return out
+
+    def compute(self, x, drop=None, seed=None):
+        """The block on its drawn randomness: drop the plain block's
+        refmath.Dropout (or None), seed the fused layer's or the
+        talking-heads kernel's (1,) int32 seed (or None)."""
+        params = dict(self.named_parameters())
+        if self.use_fused:
+            cd = None if seed is None else CounterDropout(
+                seed, drop.attn, drop.proj, drop.path)
+            return fused_layer_scale_block(x, params, self.num_heads, cd)
+        attention = self.attention if seed is None else functools.partial(
+            block_attention, seed=seed)
+        return layer_scale_block_reference(x, params, self.num_heads, drop,
+                                           attention, self.tp)
 
 
 class LayerScaleBlockClassAttn(nn.Module):
@@ -141,6 +191,7 @@ class CaiTConfig:
     use_fused_ca: "bool | None" = None  # None: follow use_fused_block
     two_branch: bool = True
     use_pallas: bool = False  # the standalone attention kernels (B4, B5)
+    remat: bool = False   # checkpoint the patch and det-branch blocks
 
 
 class CaiTTwoBranch(nn.Module):
@@ -162,7 +213,8 @@ class CaiTTwoBranch(nn.Module):
             return LayerScaleBlock(D, cfg.num_heads, cfg.mlp_ratio,
                                    cfg.init_scale, cfg.use_fused_block,
                                    cfg.drop_rate, cfg.attn_drop_rate,
-                                   cfg.drop_path_rate, cfg.use_pallas)
+                                   cfg.drop_path_rate, cfg.use_pallas,
+                                   cfg.remat)
 
         self.blocks = nn.ModuleList([block() for _ in range(cfg.depth)])
         if cfg.two_branch:
@@ -270,11 +322,12 @@ def build_cait_config(name: str, num_classes: int, layer_to_det: int,
                       use_fused_block: bool = False, use_fused_ca=None,
                       drop_rate: float = 0.0, attn_drop_rate: float = 0.0,
                       drop_path_rate: float = 0.0,
-                      use_pallas: bool = False) -> CaiTConfig:
+                      use_pallas: bool = False,
+                      remat: bool = False) -> CaiTConfig:
     if name not in BACKBONE_REGISTRY:
         raise KeyError(f"unknown backbone '{name}'; have {sorted(BACKBONE_REGISTRY)}")
     return BACKBONE_REGISTRY[name](
         num_classes=num_classes, layer_to_det=layer_to_det,
         use_fused_block=use_fused_block, use_fused_ca=use_fused_ca,
         drop_rate=drop_rate, attn_drop_rate=attn_drop_rate,
-        drop_path_rate=drop_path_rate, use_pallas=use_pallas)
+        drop_path_rate=drop_path_rate, use_pallas=use_pallas, remat=remat)

@@ -49,8 +49,8 @@ import torch
 from spe_tpu_torch.ops import kernels as K
 from spe_tpu_torch.ops.kernels import as_f32 as _f
 from spe_tpu_torch.ops.refmath import (SITE_TH_ATTN, CounterDropout,
-                                       draw_seed, merge_heads, needs_grad,
-                                       no_dropout, split_heads)
+                                       merge_heads, needs_grad, no_dropout,
+                                       split_heads)
 
 PARAM_NAMES = ("proj_l.weight", "proj_l.bias", "proj_w.weight",
                "proj_w.bias")
@@ -271,16 +271,17 @@ talking_heads_attention.train_launches = 0
 talking_heads_attention.bwd_launches = 0
 
 
-def block_attention(q, k, v, p, num_heads, drop=None):
+def block_attention(q, k, v, p, num_heads, drop=None, seed=None):
     """The patch block's attention through this kernel, as the plain block
     (fused_block.layer_scale_block_reference) calls it: q/k/v (B, N, D),
     p the block's parameters (`attn.proj_l.weight`, ...), drop the plain
-    block's refmath.Dropout or None. One seed per call, drawn from its
-    generator when the attention rate is on, as JAX draws one per
-    fused_talking_heads call (attention.py:98-101)."""
+    block's refmath.Dropout or None. With drop's attention rate on, `seed`
+    is the call's (1,) int32 seed, which the block draws from its
+    generator before it runs (models/cait.LayerScaleBlock), one per call as
+    JAX draws one per fused_talking_heads call (attention.py:98-101)."""
     cd = None
     if drop is not None and drop.attn > 0.0:
-        cd = CounterDropout(draw_seed(drop.gen, q.device), attn=drop.attn)
+        cd = CounterDropout(seed, attn=drop.attn)
     return talking_heads_attention(q, k, v,
                                    {n: p[f"attn.{n}"] for n in PARAM_NAMES},
                                    num_heads, cd)

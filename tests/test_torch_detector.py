@@ -3,7 +3,8 @@ SPEDetector with the fused flags on (the JAX side runs its Pallas kernels
 in interpret mode, SPE_FUSED_INTERPRET=1), with them off, and with them off
 and use_pallas_attention on (the JAX side runs fused_talking_heads and
 fused_mha in interpret mode; the port its talking_heads and fused_mha), the
-port on the same weights carried over by state_dict_from_jax; plus the
+port on the same weights carried over by state_dict_from_jax, each with
+the two-branch and the single-branch backbone; plus the
 weight bridge round trip and the import rule (the port never imports
 jax).
 
@@ -55,32 +56,48 @@ def _near_one(params, rng):
 
 # True: every fused flag on; False: every one off; "attention": the fused
 # flags off and use_pallas_attention on (the standalone kernels B4, B5)
-def jax_detector(fused):
+def jax_detector(fused, two_branch=True):
     pallas = fused == "attention"
     fused = fused is True
-    bb = CaiTConfig(**BB, use_fused_block=fused, use_pallas=pallas)
+    bb = CaiTConfig(**BB, use_fused_block=fused, use_pallas=pallas,
+                    two_branch=two_branch)
     return SPEDetector(backbone_cfg=bb, dropout=0.1, use_fused_layers=fused,
                        use_pallas=pallas, **KW)
 
 
-def port_detector(fused):
+def port_detector(fused, two_branch=True):
     pallas = fused == "attention"
     fused = fused is True
-    bb = tcait.CaiTConfig(**BB, use_fused_block=fused, use_pallas=pallas)
+    bb = tcait.CaiTConfig(**BB, use_fused_block=fused, use_pallas=pallas,
+                          two_branch=two_branch)
     return tdet.SPEDetector(bb, use_fused_layers=fused, use_pallas=pallas,
                             **KW).eval()
 
 
-@pytest.fixture
-def weights(rng):
+def _weights(rng, two_branch=True):
     x = jnp.zeros((1, 64, 64, 3), jnp.float32)
-    params = jax_detector(False).init(jax.random.PRNGKey(0), x)
+    params = jax_detector(False, two_branch).init(jax.random.PRNGKey(0), x)
     return {"params": _near_one(params["params"], rng)}
 
 
-@pytest.mark.parametrize("fused", [True, False, "attention"])
-def test_detector_matches_jax(weights, rng, monkeypatch, fused):
+@pytest.fixture
+def weights(rng):
+    return _weights(rng)
+
+
+# each route with the two-branch backbone and with the single-branch one
+# (no det-branch stack: the det features are norm_to_det of the patch
+# tokens at block index layer_to_det, the CAM the heads' mean)
+@pytest.mark.parametrize("fused,two_branch", [
+    pytest.param(True, True, id="True"),
+    pytest.param(False, True, id="False"),
+    pytest.param("attention", True, id="attention"),
+    pytest.param(True, False, id="single-branch-True"),
+    pytest.param(False, False, id="single-branch-False"),
+    pytest.param("attention", False, id="single-branch-attention")])
+def test_detector_matches_jax(rng, monkeypatch, fused, two_branch):
     monkeypatch.setenv("SPE_FUSED_INTERPRET", "1")
+    weights = _weights(rng, two_branch)
     x = rng.normal(size=(2, 64, 64, 3)).astype(np.float32)
     pad = np.zeros((2, 64, 64), bool)
     pad[1, :, 48:] = True
@@ -89,10 +106,10 @@ def test_detector_matches_jax(weights, rng, monkeypatch, fused):
     # eager dispatch from this thread while one runs can deadlock (a JAX
     # issue, ROADMAP §C)
     want = jax.block_until_ready(jax.jit(
-        lambda w, x, pad: jax_detector(fused).apply(
+        lambda w, x, pad: jax_detector(fused, two_branch).apply(
             w, x, pad_mask=pad, deterministic=True))(
         weights, jnp.asarray(x), jnp.asarray(pad)))
-    model = port_detector(fused)
+    model = port_detector(fused, two_branch)
     model.load_state_dict(state_dict_from_jax(
         jax.tree_util.tree_map(np.asarray, weights["params"])))
     with torch.no_grad():

@@ -4,7 +4,8 @@ under the voc0712 and coco17 presets' flags (every form, XXS24/XXS36,
 XS24, S24, S36, M36 and M48, passes at 512^2; the test backbones' narrow
 heads are refused), under the all-off flags (every backbone passes), and
 against the training patches multi-scale buckets can give (up to 2048:
-max_size 640 passes, 768 is refused); `build_model` on a CUDA device
+max_size 640 passes, 768 is refused), the single-branch XXS36 under both
+presets with and without --remat; `build_model` on a CUDA device
 raises by the backbone's name before it builds anything, and on the CPU
 builds what the card refuses."""
 
@@ -47,6 +48,22 @@ def test_coco17_preset_within_kernel_domains():
     """The coco17 preset (XXS36 at a fixed 512^2, 90 classes) lies inside
     every kernel's shapes: build_model takes it on the card."""
     assert kernel_domain_errors(coco17_preset()) == []
+
+
+@pytest.mark.parametrize("preset", [voc0712_preset, coco17_preset])
+def test_single_branch_xxs36_within_kernel_domains(preset):
+    """The single-branch TSCAM_cait_XXS36 (the card's single-branch check
+    runs it at the voc0712 preset with every fused flag on) lies inside
+    every kernel's shapes under the presets' flags, with and without
+    --remat: its 36 patch blocks and two class-attention blocks are the
+    two-branch XXS36's, without the det-branch stack."""
+    cfg = preset(backbone="TSCAM_cait_XXS36")
+    assert not BACKBONE_REGISTRY["TSCAM_cait_XXS36"](
+        num_classes=cfg.num_classes, layer_to_det=cfg.layer_to_det).two_branch
+    assert cfg.use_fused_block and cfg.use_fused_layers
+    assert training_patches(cfg, 16) == 1024
+    assert kernel_domain_errors(cfg) == []
+    assert kernel_domain_errors(cfg.replace(remat=True)) == []
 
 
 @pytest.mark.parametrize("flag", ["use_fused_block", "use_fused_layers",

@@ -131,6 +131,27 @@ def test_three_train_steps_coco17_match_jax(rng):
                  base={**CFG, **COCO17})
 
 
+def test_three_train_steps_single_branch_fused_backbone_match_jax(
+        rng, monkeypatch):
+    """A single-branch backbone (no det-branch stack: the det features are
+    norm_to_det of the patch tokens at block index layer_to_det, the CAM
+    the heads' mean) with the port's fused backbone, against the same JAX
+    fused-off step: a tiny single-branch entry put in both registries for
+    this test."""
+    from spe_tpu.models import cait as jcait
+    from spe_tpu_torch.models import cait as tcait
+
+    name = "TSCAM_cait_tiny_single"
+    monkeypatch.setitem(jcait.BACKBONE_REGISTRY, name,
+                        lambda **kw: jcait._cait(64, 32, 4, 2,
+                                                 two_branch=False, **kw))
+    monkeypatch.setitem(tcait.BACKBONE_REGISTRY, name,
+                        lambda **kw: tcait._cait(64, 32, 4, 2,
+                                                 two_branch=False, **kw))
+    _three_steps(rng, {"use_fused_block": True},
+                 base={**CFG, "backbone": name})
+
+
 def test_compute_losses_replays_supervision(rng):
     """compute_losses returns the supervision it used (CAM pseudo-boxes,
     refinement targets, matching) and takes one in place of its own: the
