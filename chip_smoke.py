@@ -15,15 +15,18 @@ Phases, each printing its own lines; any failure exits non-zero:
   2. build   — nvcc builds spe_tpu_torch/csrc/*.cu into build/spe_tpu_torch/
                (one nvcc per source, all at once); cuobjdump counts the
                tensor-core instructions (HMMA/HGMMA) in every
-               instantiation of attn_kernel, gemm_kernel and linear_kernel,
-               with their registers and local memory, and fails on none;
-               it prints the registers and local memory of every
-               instantiation of th_bwd_rows_kernel, th_fwd_rows_kernel,
-               attn_bwd_rows_kernel, colsum_kernel, th_fold_kernel,
-               colsum_f32_kernel, ln_bwd_kernel, branch_bwd_kernel,
-               th_dq_kernel, layernorm_kernel, th_mix_kernel, cc_kernel and
-               auction_kernel and fails if an H=4 one of the first two or
-               any of the others uses local memory. Then the native host
+               instantiation of attn_kernel, gemm_kernel, linear_kernel and
+               the 16-head row passes th16_bwd_rows_kernel and
+               th16_fwd_rows_kernel, with their registers and local memory,
+               and fails on none; it prints the registers and local memory
+               of every instantiation of th_bwd_rows_kernel,
+               th_fwd_rows_kernel, th16_bwd_rows_kernel,
+               th16_fwd_rows_kernel, attn_bwd_rows_kernel, colsum_kernel,
+               th_fold_kernel, colsum_f32_kernel, ln_bwd_kernel,
+               branch_bwd_kernel, th_dq_kernel, layernorm_kernel,
+               th_mix_kernel, cc_kernel and auction_kernel and fails if an
+               H=4 one of the first two or any of the others uses local
+               memory (LOCAL + STACK). Then the native host
                libraries (phase_native): LAPJV built with g++ and held to
                scipy's optimal totals on tie-heavy costs; the C++ JPEG
                decoder built and loaded, its host time beside PIL's on a
@@ -415,12 +418,18 @@ def decode_times(batch=8, size=512, reps=5):
     return ms
 
 
-# the product kernels that must run on the tensor cores
-TENSOR_CORE_KERNELS = ("attn_kernel", "gemm_kernel", "linear_kernel")
+# the kernels that must run on the tensor cores: the product kernels and
+# the 16-head talking-heads row passes (their mixes and partials)
+TENSOR_CORE_KERNELS = ("attn_kernel", "gemm_kernel", "linear_kernel",
+                       "th16_bwd_rows_kernel", "th16_fwd_rows_kernel")
 # the row kernels whose per-row arrays must stay in registers: by the
 # template arguments of an instantiation, must it use no local memory?
+# (th_*_rows_kernel at H = 6-8 spills; every 16-head instantiation, on the
+# tensor cores, must not)
 ROW_KERNELS = {"th_bwd_rows_kernel": lambda a: a[0] == "4",
                "th_fwd_rows_kernel": lambda a: a[0] == "4",
+               "th16_bwd_rows_kernel": lambda a: True,
+               "th16_fwd_rows_kernel": lambda a: True,
                "attn_bwd_rows_kernel": lambda a: True,
                "colsum_kernel": lambda a: True,
                "th_fold_kernel": lambda a: True,
@@ -3304,6 +3313,8 @@ def instantiation(kernel, cls, shapes=None):
         return f"attn_kernel<{cls[0]}, {cls[1]}>"
     if kernel in ("th_fwd_rows_kernel", "th_bwd_rows_kernel"):
         _, H, N, _, wl = cls
+        if H == 16:   # the 16-head design's own kernels (csrc/th_h16.cu)
+            return f"th16_{kernel[3:]}<{str(wl == 'wl').lower()}>"
         return (f"{kernel}<{H}, {str(wl == 'wl').lower()}, "
                 f"{1 if N <= 1024 else 2}>")
     if kernel == "ln_backward":
@@ -3318,6 +3329,26 @@ def instantiation(kernel, cls, shapes=None):
     return f"{name} at the backbones' shapes"
 
 
+# the 16-head row passes' forms no phase's run gives (the U = 2 rows of
+# 1025-2048 keys, with and without wl): replayed beside phase 10's classes
+# at the 640 x 640 bucket's 1600 patches and the preset's attention
+# dropout, (kernel, class) -> the recorded call
+H16_REPLAYED = {
+    (k, (2, 16, 1600, "drop", "wl" if wl else "no wl")):
+        ((2, 16, 1600, 1600), 0.05, 1, wl)
+    for k in ("th_fwd_rows_kernel", "th_bwd_rows_kernel")
+    for wl in (False, True)}
+
+
+def _source(kernel, cls):
+    """The source file and TPU kernel of a WRAPPER class's kernel (the
+    16-head row passes' own file)."""
+    src, rep = TOOLKIT[kernel]
+    if kernel in ("th_fwd_rows_kernel", "th_bwd_rows_kernel") and cls[1] == 16:
+        src = "spe_tpu_torch/csrc/th_h16.cu"
+    return src, rep
+
+
 def replay_backbone_classes(classes, seen, results):
     """Every class phase 10's runs recorded that phase 3 did not (`seen`; a new
     instantiation or a new shape of an old one) replayed as phase 3
@@ -3325,7 +3356,9 @@ def replay_backbone_classes(classes, seen, results):
     timed, recorded_inputs for CC and the auction); the classes summed
     into one entry of the kernels line per instantiation: launches, kernel,
     plain, bound and library ms summed over the phase 10 runs (launches x
-    time), the largest error."""
+    time), the largest error. Then the H16_REPLAYED classes, held to their
+    plain versions the same way and listed under the 16-head entries
+    ("replayed_only": no run launches them)."""
     import torch
 
     from spe_tpu_torch.ops import kernel_checks as kc
@@ -3344,9 +3377,17 @@ def replay_backbone_classes(classes, seen, results):
         c, passed = replay_class(K, kc, kernel, cls, rec, gen, REPLAY_REPS)
         ok &= passed
         c["max_abs_err"] = max(c["max_abs_err"].values())
-        src, rep = TOOLKIT[kernel]
+        src, rep = _source(kernel, cls)
         groups.setdefault(instantiation(kernel, cls), (src, rep, []))[2] \
             .append(c)
+    extra = {}
+    for (kernel, cls), call in sorted(H16_REPLAYED.items()):
+        c, passed = replay_class(K, kc, kernel, cls,
+                                 {"launches": {}, "call": call}, gen,
+                                 REPLAY_REPS)
+        ok &= passed
+        c["instantiation"] = instantiation(kernel, cls)
+        extra.setdefault(kernel, []).append(c)
     if not ok:
         fail("a backbone class disagrees with its plain version")
     small = []
@@ -3379,12 +3420,19 @@ def replay_backbone_classes(classes, seen, results):
                  "per": "sums of launches x time over phase 10's recorded "
                         "runs, each class replayed in a CUDA graph",
                  "runs": {r: v for r, v in n.items() if v}}
+        kernel = {"th16_fwd": "th_fwd_rows_kernel",
+                  "th16_bwd": "th_bwd_rows_kernel"}.get(label[:8])
+        if kernel and kernel in extra:
+            entry["replayed_only"] = extra.pop(kernel)
         results[label] = entry
         print(f"[backbones] {label}: {len(cl)} classes, launches "
               f"{entry['runs']}; kernel {entry['ms']:.3f} ms, plain "
               f"{entry['plain_ms']} ms, bound {entry['bound_ms']:.4f} ms "
               f"({entry['bound_by']}), library {entry['library_ms']}; "
               f"max_abs_err {entry['max_abs_err']:.3e}", flush=True)
+    if extra:
+        fail(f"no 16-head entry in the kernels line to list {sorted(extra)} "
+             "under")
 
 
 def phase_backbones(results, seen):
@@ -3400,7 +3448,8 @@ def phase_backbones(results, seen):
     (the two-branch ones; the single-branch XXS36 takes (a) and (b)). Then
     the multi-scale XXS36 steps (multiscale_step), recorded too, and every
     recorded class not among phase 3's (`seen`) replayed against its plain
-    version (replay_backbone_classes)."""
+    version (replay_backbone_classes), with the 16-head row passes' forms
+    that no run gives (H16_REPLAYED)."""
     from spe_tpu_torch.cli.main import parse_config
     from spe_tpu_torch.data import eval_data, write_mini_voc
     from spe_tpu_torch.models.convert import load_backbone_weights
@@ -3492,6 +3541,7 @@ profile_forward.last = {}
 # kernels summed over their instantiations in each profile
 PROFILE_FAMILIES = ("attn_kernel<192, 192", "attn_kernel", "gemm_kernel",
                     "th_bwd_rows_kernel", "th_fwd_rows_kernel",
+                    "th16_bwd_rows_kernel", "th16_fwd_rows_kernel",
                     "attn_bwd_rows_kernel", "linear_kernel")
 
 

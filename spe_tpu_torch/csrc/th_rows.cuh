@@ -1,12 +1,13 @@
 // The talking-heads training row passes, th_fwd_rows_kernel and
 // th_bwd_rows_kernel (th_train.cu's header comment says what they compute
-// and which TPU code they replace). Templates on the heads H, the
-// standalone form's pre-softmax mix WL and the units U of 4 columns a
-// thread holds (rows of at most 4 * TH_NT * U keys). th_train.cu builds
-// the stock instantiations (H <= 8, U = 1: rows of at most 1024 keys);
-// th_wide.cu U = 2 (up to 2048 keys) and th_h16.cu H = 16 (the M
-// backbones), compilation units of their own so that nvcc builds them at
-// once.
+// and which TPU code they replace) at H <= 8 heads. Templates on the
+// heads H, the standalone form's pre-softmax mix WL and the units U of 4
+// columns a thread holds (rows of at most 4 * TH_NT * U keys). th_train.cu
+// builds the stock instantiations (U = 1: rows of at most 1024 keys),
+// th_wide.cu U = 2 (up to 2048 keys), compilation units of their own so
+// that nvcc builds them at once. The M backbones' 16 heads have a design
+// of their own on the tensor cores (th_h16.cu), which shares this file's
+// parameters, ticket and finish.
 #pragma once
 
 #include <stdint.h>
@@ -72,20 +73,12 @@ struct THBwdParams {
 // block's stores to one per SM slot (with 1024 blocks, ~4 waves, it cost
 // ~6 us). The sums' order is fixed by the shape and the card (two runs
 // give the same bits; no float atomics).
-// At 16 heads (WIDE) the H x H mixes would take 256 registers each and
-// their partials as many again: the mixes sit in shared memory (every
-// thread reads the same word: a broadcast), and a row's H x H partials,
-// each a sum over a thread's columns, are summed over the warp at once by
-// warp_scatter32, 32 at a time (five exchange steps, lane j left with
-// entry j of the 32), so a lane accumulates H * H / 32 of them across the
-// block's rows. The row is loaded at the top of its iteration there (no
-// prefetch), to keep its H x 4U arrays in registers.
 constexpr int TH_NT = 256;
 constexpr int TH_BLOCKS = 1024;
 constexpr int TH_MAXU = 2;   // rows of at most 4 * TH_NT * TH_MAXU = 2048 keys
 
-// the wide instantiations: H <= 8 at U = 2 (th_wide.cu), H = 16 at U = 1, 2
-// (th_h16.cu)
+// the wide instantiations: H <= 8 at U = 2 (th_wide.cu); 16 heads
+// (th_h16.cu, th16_fwd_rows_kernel and th16_bwd_rows_kernel)
 int th_rows_wide(const THBwdParams* p, int backward, cudaStream_t s);
 int th_rows_h16(const THBwdParams* p, int backward, cudaStream_t s);
 
@@ -246,46 +239,6 @@ __device__ __forceinline__ int unit_col(int c0, int e) {
   return c0 + 4 * TH_NT * (e / 4) + e % 4;
 }
 
-// The warp's sums of 32 values: lane j is left with the sum over the
-// warp's lanes of v[j]. Five exchange steps: at step o a lane keeps the
-// half of its entries whose index has bit o set as its lane has, sends the
-// other half to lane ^ o and adds what it receives; a fixed order, so two
-// runs give the same bits. v is overwritten.
-__device__ __forceinline__ float warp_scatter32(float (&v)[32], int lane) {
-#pragma unroll
-  for (int o = 16; o >= 1; o /= 2) {
-    const bool up = lane & o;
-#pragma unroll
-    for (int i = 0; i < o; ++i) {
-      const float send = up ? v[i] : v[i + o];
-      const float keep = up ? v[i + o] : v[i];
-      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, o);
-    }
-  }
-  return v[0];
-}
-
-// The warp's H x H sums of a[h][e] * b[g][e] over its lanes' E elements,
-// entry g * H + h, 32 at a time: lane j adds entry 32 c + j to acc[c].
-template <int H, int E>
-__device__ __forceinline__ void warp_pair_sums(const float (&a)[H][E], const float (&b)[H][E],
-                                               int lane, float (&acc)[H * H / 32]) {
-  static_assert(H * H % 32 == 0, "whole chunks of 32 pairs");
-#pragma unroll
-  for (int c = 0; c < H * H / 32; ++c) {
-    float v[32];
-#pragma unroll
-    for (int k = 0; k < 32; ++k) {
-      const int g = (32 * c + k) / H, h = (32 * c + k) % H;
-      float s = 0.f;
-#pragma unroll
-      for (int e = 0; e < E; ++e) s += a[h][e] * b[g][e];
-      v[k] = s;
-    }
-    acc[c] += warp_scatter32(v, lane);
-  }
-}
-
 // row r's loads for th_bwd_rows_kernel: each head's logits and dzd (a
 // thread's U units) and log-sum-exp
 template <int H, int U>
@@ -303,47 +256,20 @@ __device__ __forceinline__ void th_bwd_fetch(const THRowParams& p, int r, int c0
   }
 }
 
-// The H x H mixes: in registers, or (SMEM) in shared memory with
-// broadcast reads
-template <int H, bool WL, bool SMEM>
+// The H x H mixes in registers (H <= 8)
+template <int H, bool WL>
 struct THMix {
-  float ww[SMEM ? 1 : H * H], wl[(WL && !SMEM) ? H * H : 1];
-  const float* sww;
-  const float* swl;
-  __device__ __forceinline__ float w(int e) const {
-    if constexpr (SMEM) {
-      return sww[e];
-    } else {
-      return ww[e];
-    }
-  }
-  __device__ __forceinline__ float l(int e) const {
-    if constexpr (SMEM) {
-      return swl[e];
-    } else {
-      return wl[e];
-    }
-  }
+  float ww[H * H], wl[WL ? H * H : 1];
+  __device__ __forceinline__ float w(int e) const { return ww[e]; }
+  __device__ __forceinline__ float l(int e) const { return wl[e]; }
 };
 
-// the mixes of p into registers, or (SMEM) into the block's shared memory
-// sm (H*H ww, then H*H wl); the caller's barrier publishes them
-template <int H, bool WL, bool SMEM>
-__device__ __forceinline__ void th_load_mix(const THRowParams& p, float* sm,
-                                            THMix<H, WL, SMEM>& mx) {
-  if constexpr (SMEM) {
-    for (int e = threadIdx.x; e < H * H; e += TH_NT) {
-      sm[e] = p.ww[e];
-      if constexpr (WL) sm[H * H + e] = p.wl[e];
-    }
-    mx.sww = sm;
-    mx.swl = sm + H * H;
-  } else {
+template <int H, bool WL>
+__device__ __forceinline__ void th_load_mix(const THRowParams& p, THMix<H, WL>& mx) {
 #pragma unroll
-    for (int e = 0; e < H * H; ++e) {
-      mx.ww[e] = p.ww[e];
-      if constexpr (WL) mx.wl[e] = p.wl[e];
-    }
+  for (int e = 0; e < H * H; ++e) {
+    mx.ww[e] = p.ww[e];
+    if constexpr (WL) mx.wl[e] = p.wl[e];
   }
 }
 
@@ -353,23 +279,21 @@ __device__ __forceinline__ void th_load_mix(const THRowParams& p, float* sm,
 template <int H, bool WL, int U>
 __global__ void __launch_bounds__(TH_NT, (!WL && H <= 4 && U == 1) ? 2 : 1)
     th_bwd_rows_kernel(THBwdParams pb, int rows_per_block) {
+  static_assert(H <= 8, "16 heads: th16_bwd_rows_kernel (th_h16.cu)");
   const THRowParams& p = pb.row;
   constexpr int NW = TH_NT / 32;
   constexpr int E = 4 * U;                    // a thread's columns of a row
-  constexpr bool WIDE = H > 8;
   // the stock instantiations prefetch; at two units a thread only where
   // both rows' arrays fit the registers (H = 4 with wl spilled with it)
-  constexpr bool PREFETCH = U == 1 ? H <= 8 : H * U <= (WL ? 4 : 8);
+  constexpr bool PREFETCH = U == 1 || H * U <= (WL ? 4 : 8);
   // with wl, dwl takes the row's own logits after the mixes: kept in a
   // copy where the next row's prefetch overwrites them, else read in place
   // (at H = 4, two units a thread, the copy spilled)
   constexpr bool LG = WL && PREFETCH;
   constexpr int HH = H * H;
   constexpr int WIDTH = (WL ? 2 * HH : HH) + 2 * H;
-  constexpr int NC = WIDE ? HH / 32 : 1;     // a lane's chunks of scattered pair sums
   __shared__ float red[2][NW][H];
   __shared__ float fin[NW][WIDTH];
-  __shared__ float smix[WIDE ? (WL ? 2 : 1) * HH : 1];
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int N = p.N;
   const int r0 = blockIdx.x * rows_per_block;
@@ -379,26 +303,22 @@ __global__ void __launch_bounds__(TH_NT, (!WL && H <= 4 && U == 1) ? 2 : 1)
   const bool vec = N % 4 == 0;                // 16-byte rows
   const float sc = p.drop ? p.scale : 1.f;
 
-  THMix<H, WL, WIDE> mx;
-  th_load_mix<H, WL, WIDE>(p, smix, mx);
+  THMix<H, WL> mx;
+  th_load_mix<H, WL>(p, mx);
   float bl[H], bw[H];
 #pragma unroll
   for (int h = 0; h < H; ++h) {
     bl[h] = p.bl[h];
     bw[h] = p.bw[h];
   }
-  float a_ww[WIDE ? 1 : HH], a_wl[(WL && !WIDE) ? HH : 1], a_bw[H], a_bl[H];
-  float s_ww[NC], s_wl[NC];                   // WIDE: this lane's scattered sums
+  float a_ww[HH], a_wl[WL ? HH : 1], a_bw[H], a_bl[H];
 #pragma unroll
-  for (int e = 0; e < (WIDE ? 1 : HH); ++e) {
+  for (int e = 0; e < HH; ++e) {
     a_ww[e] = 0.f;
-    if constexpr (WL && !WIDE) a_wl[e] = 0.f;
+    if constexpr (WL) a_wl[e] = 0.f;
   }
 #pragma unroll
-  for (int c = 0; c < NC; ++c) s_ww[c] = s_wl[c] = 0.f;
-#pragma unroll
   for (int h = 0; h < H; ++h) a_bw[h] = a_bl[h] = 0.f;
-  if constexpr (WIDE) __syncthreads();       // the mixes in shared memory
 
   // the row's loads, issued a row ahead (PREFETCH): row r + 1's are in
   // flight while row r's reduction and stores run
@@ -418,15 +338,6 @@ __global__ void __launch_bounds__(TH_NT, (!WL && H <= 4 && U == 1) ? 2 : 1)
     float dz[H][E];
 #pragma unroll
     for (int h = 0; h < H; ++h) dot[h] = 0.f;
-    if constexpr (WIDE) {   // every lane takes part in the warp's pair sums
-#pragma unroll
-      for (int h = 0; h < H; ++h)
-#pragma unroll
-        for (int e = 0; e < E; ++e) {
-          pr[h][e] = dz[h][e] = 0.f;
-          if (!on) l[h][e] = 0.f;
-        }
-    }
     if (on) {
 #pragma unroll
       for (int g = 0; g < H; ++g) {
@@ -472,49 +383,24 @@ __global__ void __launch_bounds__(TH_NT, (!WL && H <= 4 && U == 1) ? 2 : 1)
           zo[e] = __uint_as_float(__float_as_uint(z * sc) & km[e]);
           dz[g][e] = __uint_as_float(__float_as_uint(dd[g][e] * sc) & km[e]);
           a_bw[g] += dz[g][e];
-          if constexpr (!WIDE) {
 #pragma unroll
-            for (int h = 0; h < H; ++h) a_ww[g * H + h] += pr[h][e] * dz[g][e];
-          }
+          for (int h = 0; h < H; ++h) a_ww[g * H + h] += pr[h][e] * dz[g][e];
         }
         store_units<U>(p.zd + row0 + g * hstride, c0, N, vec, zo);
       }
       if constexpr (PREFETCH) {
         if (r + 1 < r1) th_bwd_fetch<H, U>(p, r + 1, c0, vec, l, dd, ls);
       }
-      if constexpr (!WIDE) {
 #pragma unroll
-        for (int h = 0; h < H; ++h)
+      for (int h = 0; h < H; ++h)
 #pragma unroll
-          for (int e = 0; e < E; ++e) {
-            float d = 0.f;
+        for (int e = 0; e < E; ++e) {
+          float d = 0.f;
 #pragma unroll
-            for (int g = 0; g < H; ++g) d += mx.w(g * H + h) * dz[g][e];
-            dpv[h][e] = d;
-            dot[h] += d * pr[h][e];
-          }
-      }
-    }
-    if constexpr (WIDE) {
-      // every lane: the pair sums while dz is whole, then dp = ww^T dz a
-      // column at a time into dz's registers (each column of dz dies with
-      // it), so p, dz and dp are never all live
-      warp_pair_sums<H, E>(pr, dz, lane, s_ww);
-#pragma unroll
-      for (int e = 0; e < E; ++e) {
-        float d[H];
-#pragma unroll
-        for (int h = 0; h < H; ++h) {
-          d[h] = 0.f;
-#pragma unroll
-          for (int g = 0; g < H; ++g) d[h] += mx.w(g * H + h) * dz[g][e];
+          for (int g = 0; g < H; ++g) d += mx.w(g * H + h) * dz[g][e];
+          dpv[h][e] = d;
+          dot[h] += d * pr[h][e];
         }
-#pragma unroll
-        for (int h = 0; h < H; ++h) {
-          dz[h][e] = d[h];
-          dot[h] += d[h] * pr[h][e];
-        }
-      }
     }
     // rowsum(dp_h p_h): a fixed shuffle tree, then the warps in order
     const int par = (r - r0) & 1;
@@ -524,18 +410,14 @@ __global__ void __launch_bounds__(TH_NT, (!WL && H <= 4 && U == 1) ? 2 : 1)
       if (lane == 0) red[par][warp][h] = t;
     }
     __syncthreads();
-    if constexpr (!WIDE) {
-      if (!on) continue;
-    }
+    if (!on) continue;
     float S[H];
 #pragma unroll
     for (int h = 0; h < H; ++h) {
       S[h] = 0.f;
       for (int w = 0; w < NW; ++w) S[h] += red[par][w][h];
     }
-    // (WIDE: dp in dz's registers; 0 on the lanes past the row, whose p
-    // and dp are 0)
-    const float(&dp)[H][E] = WIDE ? dz : dpv;
+    const float(&dp)[H][E] = dpv;
     float dm[H][E];
 #pragma unroll
     for (int g = 0; g < H; ++g)
@@ -545,10 +427,8 @@ __global__ void __launch_bounds__(TH_NT, (!WL && H <= 4 && U == 1) ? 2 : 1)
         a_bl[g] += dm[g][e];
       }
     if constexpr (!WL) {
-      if (!WIDE || on) {
 #pragma unroll
-        for (int g = 0; g < H; ++g) store_units<U>(p.ds + row0 + g * hstride, c0, N, vec, dm[g]);
-      }
+      for (int g = 0; g < H; ++g) store_units<U>(p.ds + row0 + g * hstride, c0, N, vec, dm[g]);
     } else {
 #pragma unroll
       for (int h = 0; h < H; ++h) {
@@ -561,48 +441,30 @@ __global__ void __launch_bounds__(TH_NT, (!WL && H <= 4 && U == 1) ? 2 : 1)
             dl[e] += mx.l(g * H + h) * dm[g][e];
             if constexpr (LG) {
               a_wl[g * H + h] += lg[h][e] * dm[g][e];
-            } else if constexpr (!WIDE) {
+            } else {
               a_wl[g * H + h] += l[h][e] * dm[g][e];
             }
           }
         }
-        if (!WIDE || on) store_units<U>(p.ds + row0 + h * hstride, c0, N, vec, dl);
+        store_units<U>(p.ds + row0 + h * hstride, c0, N, vec, dl);
       }
-      if constexpr (WIDE) warp_pair_sums<H, E>(l, dm, lane, s_wl);
     }
   }
   // the block's partials: [dww (H*H) | dbw (H) | dbl (H) | dwl (H*H)]
-  if constexpr (WIDE) {
-    // the pair sums are the warp's already: lane j holds entry 32 c + j
 #pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      fin[warp][32 * c + lane] = s_ww[c];
-      if constexpr (WL) fin[warp][HH + 2 * H + 32 * c + lane] = s_wl[c];
+  for (int e = 0; e < WIDTH; ++e) {
+    float v = 0.f;
+    if (e < HH) {
+      v = a_ww[e];
+    } else if (e < HH + H) {
+      v = a_bw[e - HH];
+    } else if (e < HH + 2 * H) {
+      v = a_bl[e - HH - H];
+    } else if constexpr (WL) {
+      v = a_wl[e - HH - 2 * H];
     }
-#pragma unroll
-    for (int h = 0; h < H; ++h) {
-      const float tb = warp_sum(a_bw[h]), tl = warp_sum(a_bl[h]);
-      if (lane == 0) {
-        fin[warp][HH + h] = tb;
-        fin[warp][HH + H + h] = tl;
-      }
-    }
-  } else {
-#pragma unroll
-    for (int e = 0; e < WIDTH; ++e) {
-      float v = 0.f;
-      if (e < HH) {
-        v = a_ww[e];
-      } else if (e < HH + H) {
-        v = a_bw[e - HH];
-      } else if (e < HH + 2 * H) {
-        v = a_bl[e - HH - H];
-      } else if constexpr (WL) {
-        v = a_wl[e - HH - 2 * H];
-      }
-      v = warp_sum(v);
-      if (lane == 0) fin[warp][e] = v;
-    }
+    v = warp_sum(v);
+    if (lane == 0) fin[warp][e] = v;
   }
   __syncthreads();
   for (int e = threadIdx.x; e < WIDTH; e += TH_NT) {
@@ -630,16 +492,15 @@ __global__ void __launch_bounds__(TH_NT, (!WL && H <= 4 && U == 1) ? 2 : 1)
 // reductions of H values (the row maxima, then the sums of exp(m - max)),
 // lse = max + log(sum), p_h = exp(m_h - lse_h) as th_bwd_rows_kernel
 // recomputes it, z_g = sum_h ww[g, h] p_h + bw_g, the counter mask (the
-// head keys made once per sample) and 8-byte stores of zd. The mixes as
-// in th_bwd_rows_kernel (shared memory at 16 heads).
+// head keys made once per sample) and 8-byte stores of zd. The mixes in
+// registers, as in th_bwd_rows_kernel.
 template <int H, bool WL, int U>
 __global__ void __launch_bounds__(TH_NT) th_fwd_rows_kernel(THRowParams p, int rows_per_block) {
+  static_assert(H <= 8, "16 heads: th16_fwd_rows_kernel (th_h16.cu)");
   constexpr int NW = TH_NT / 32;
   constexpr int E = 4 * U;
-  constexpr bool WIDE = H > 8;
   constexpr bool PREFETCH = H * U <= 16;
   __shared__ float red_max[NW][H], red_sum[NW][H];
-  __shared__ float smix[WIDE ? (WL ? 2 : 1) * H * H : 1];
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int N = p.N;
   const int r0 = blockIdx.x * rows_per_block;
@@ -650,8 +511,8 @@ __global__ void __launch_bounds__(TH_NT) th_fwd_rows_kernel(THRowParams p, int r
   const float sc = p.drop ? p.scale : 1.f;
   const long long hstride = static_cast<long long>(N) * N;
 
-  THMix<H, WL, WIDE> mx;
-  th_load_mix<H, WL, WIDE>(p, smix, mx);
+  THMix<H, WL> mx;
+  th_load_mix<H, WL>(p, mx);
   float bl[H], bw[H];
 #pragma unroll
   for (int h = 0; h < H; ++h) {
@@ -662,7 +523,6 @@ __global__ void __launch_bounds__(TH_NT) th_fwd_rows_kernel(THRowParams p, int r
   int key_b = -1;                             // the sample of key[]
 #pragma unroll
   for (int h = 0; h < H; ++h) key[h] = 0u;
-  if constexpr (WIDE) __syncthreads();       // the mixes in shared memory
 
   // row (b, h, i) of a (B, H, N, N) plane starts at ((b * H + h) * N + i) * N
   float nx[H][E];                             // the logits of the (next) row

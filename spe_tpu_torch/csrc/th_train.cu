@@ -61,10 +61,14 @@
 // registers, reduced once per block, then across blocks by the launch's
 // last block in a fixed order (a ticket, no float atomics), so two runs
 // give the same bits.
-// Both take H <= 8 or H = 16 heads (the M36/M48 backbones' 16 keep the
-// H x H mixes in shared memory) and N <= 4 * TH_NT * U keys: U = 1 here,
-// U = 2 (N <= 2048, the multi-scale buckets of max_size 640) in th_wide.cu
-// and th_h16.cu.
+// Both take H <= 8 heads and N <= 4 * TH_NT * U keys: U = 1 here, U = 2
+// (N <= 2048, the multi-scale buckets of max_size 640) in th_wide.cu. At
+// the M36/M48 backbones' 16 heads (th_h16.cu) a thread keeps 4 heads x 4
+// columns of a 32-column stripe staged in shared memory by cp.async, the
+// 16 x 16 mixes and the parameter partials run as TF32 mma.sync (3xTF32
+// for the pre-softmax mix), each row in two passes (the second reloads its
+// chunks from L2), with the same fixed-order sums and ticket: 1.61 GB a
+// backward at M48's B = 8 (0.481 ms at 3.35 TB/s), 0.805 GB a forward.
 // attn_bwd_rows (12 bytes per element: 0.24 ms for the encoder's 64 x
 // 1024 x 1024 at B=8) has no parameter partials: a row's s and dzd are
 // read once into registers by a group of W warps (U units of 4 columns a
@@ -580,7 +584,8 @@ extern "C" int spe_th_fold(const THFoldParams* p, void* stream) {
 // the forward (backward == 0) or the backward (backward == 1) row pass,
 // for H <= 8 or H = 16 heads and N <= 4 * TH_NT * TH_MAXU keys, each on a
 // one-wave grid: the stock instantiations (H <= 8, rows of at most
-// 4 * TH_NT = 1024 keys, U = 1) here, the others in th_wide.cu and th_h16.cu. The
+// 4 * TH_NT = 1024 keys, U = 1) here, the others in th_wide.cu and
+// th_h16.cu (16 heads: th16_fwd_rows_kernel, th16_bwd_rows_kernel). The
 // backward writes its blocks' sums into ws as (blocks, width) rows, blocks
 // = ceil(B*N / ceil(B*N / wave)), a function of the shape and the card,
 // and their sum into sums in the same launch; launches on one stream at a

@@ -2,8 +2,8 @@
 // step's instantiations at rows of 1025-2048 keys (two units of 4 columns a
 // thread: the multi-scale buckets up to max_size 640, 1600 patches) at
 // every H <= 8. A compilation unit of its own, so nvcc builds it beside
-// th_train.cu and th_h16.cu (the 16 heads); spe_th_rows (th_train.cu)
-// dispatches here.
+// th_train.cu and th_h16.cu (the 16 heads' own kernels, passed on from
+// here); spe_th_rows (th_train.cu) dispatches here.
 #include "th_rows.cuh"
 
 int th_rows_wide(const THBwdParams* p, int backward, cudaStream_t s) {

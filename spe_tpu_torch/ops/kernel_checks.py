@@ -1473,9 +1473,10 @@ TH_BWD_SHAPES = [
     ("H=8, B*N=128 (fewer blocks than threads), wl", 2, 8, 64, 0.0, True),
     ("H=8, B*N=1154 (577 blocks of 2 rows), wl, dropout", 2, 8, 577, 0.1,
      True),
-    # the wider backbones' heads (XS24 6, M36/M48 16: the mixes in shared
-    # memory, the pair sums scattered over the warp) and the multi-scale
-    # buckets' rows (two units of 4 columns a thread past 1024 keys)
+    # the wider backbones' heads (XS24 6; M36/M48 16: csrc/th_h16.cu's
+    # tensor-core kernels, 256-column chunks, a row's chunks twice) and
+    # the multi-scale buckets' rows (two units of 4 columns a thread past
+    # 1024 keys at H <= 8)
     ("H=6 (XS24), N=1024, dropout", 1, 6, 1024, 0.1, False),
     ("H=6, N=1024, wl, dropout", 1, 6, 1024, 0.1, True),
     ("H=16 (M36/M48), B=2, N=1024, dropout", 2, 16, 1024, 0.1, False),
@@ -1490,6 +1491,10 @@ TH_BWD_SHAPES = [
     ("H=3, N=1025 (one key past a unit), dropout", 2, 3, 1025, 0.1, False),
     ("H=16, N=1281 (not a multiple of 4), dropout", 1, 16, 1281, 0.1, False),
     ("H=16, N=2048, wl, dropout", 1, 16, 2048, 0.1, True),
+    ("H=16, B=2, N=1600 (the 640 x 640 bucket), wl, dropout", 2, 16, 1600,
+     0.05, True),
+    ("H=16, B*N=3 (fewer rows than blocks), N=3 (one chunk's edge)", 1, 16,
+     3, 0.1, False),
 ]
 # th_bwd_rows' classes on the main path, (B, H, N, with wl): the stock step
 # (the patch blocks' wl-folded logits) and the standalone-attention step
@@ -1581,6 +1586,9 @@ TH_FWD_SHAPES = [
     ("H=6, N=1601 (not a multiple of 4), wl, dropout", 1, 6, 1601, 0.1,
      True),
     ("H=16, N=2048, dropout", 1, 16, 2048, 0.1, False),
+    ("H=16, B=2, N=1600 (the 640 x 640 bucket), wl, dropout", 2, 16, 1600,
+     0.05, True),
+    ("H=16, N=3 (one chunk's edge), dropout", 1, 16, 3, 0.1, False),
 ]
 
 

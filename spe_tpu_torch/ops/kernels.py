@@ -1486,6 +1486,66 @@ def th_bwd_scratch(device):
 
 _TH_BWD_SCRATCH = {}
 
+# csrc/th_h16.cu, the 16-head row passes (th16_fwd_rows_kernel,
+# th16_bwd_rows_kernel): one wave of blocks of TH_NT threads, each over a
+# run of rows; a row walked in chunks of TH16_CHUNK columns, a warp's stripe
+# of 32 each, staged through the warp's own ring of shared-memory slots (16
+# head rows of TH16_LD floats an array: s, and for the backward dzd), each
+# row twice
+TH16_CHUNK = TH_NT                    # 8 warps x 32 columns
+TH16_LD = 36                          # a stripe's head row, 32 columns padded
+TH16_SLOTS = {True: 3, False: 4}      # a warp's ring: backward, forward
+# the blocks a SM each kernel is built for (its __launch_bounds__), by
+# (backward, wl): the forward without wl at two (at most 128 registers a
+# thread), the others at one
+TH16_BLOCKS_PER_SM = {(False, False): 2, (False, True): 1, (True, False): 1,
+                      (True, True): 1}
+SMEM_PER_BLOCK = 232448               # the H100's shared memory a block
+SMEM_PER_SM = 233472                  # ... and a SM's, 1 KB of it per block
+                                      # reserved
+
+
+def th_finish_smem(width):
+    """The static shared memory of th_bwd_finish<width> (csrc/th_rows.cuh):
+    TH_NT rows of its padded pass of entries, and TH_FIN_G rows of the
+    pass."""
+    fe = 24 if width > 4 * 40 else 40
+    passes = -(-width // fe)
+    eq = -(-width // passes)
+    ec = -(-eq // 4) * 4 if width % 4 == 0 else eq
+    return 4 * (TH_NT * (ec + 1) + 8 * ec)
+
+
+def th16_plan(B, N, n_sm, *, backward, wl=False):
+    """th16_fwd_rows_kernel's or th16_bwd_rows_kernel's launch for B * N
+    rows of N keys on a card of n_sm SMs -> dict: the blocks a SM holds
+    (`per_sm`: TH16_BLOCKS_PER_SM, where the shared memory a block takes
+    allows it, `smem`: the rings (`ring`), the backward's keep bits, the
+    row sums and th_bwd_finish's arrays), the grid (`blocks`, each over
+    `rows_per_block` rows: a wave of per_sm x n_sm blocks at most
+    TH_BLOCKS, as th_bwd_blocks), the
+    chunks a row (`chunks`) and the visits a block makes of its rows'
+    chunks (`visits`: two passes a row), and the backward's sums a block
+    (`width`, one row of th_bwd_scratch's ws each)."""
+    warps, heads = TH_NT // 32, 16
+    arrays = 2 if backward else 1
+    ring = warps * TH16_SLOTS[backward] * arrays * heads * TH16_LD * 4
+    chunks = -(-N // TH16_CHUNK)
+    width = (2 if wl else 1) * heads * heads + 2 * heads if backward else 0
+    if backward:   # the keep bits, the rowsum slots, the flag (padded to
+        # 16 bytes) and th_bwd_finish's arrays
+        smem = (ring + warps * (TH_ROWS_MAX_N // TH16_CHUNK) * 32 * 2
+                + 2 * warps * heads * 4 + 16 + th_finish_smem(width))
+    else:          # the running maxima and sums' slots
+        smem = ring + 2 * 2 * warps * heads * 4
+    per_sm = min(TH16_BLOCKS_PER_SM[(backward, wl)],
+                 SMEM_PER_SM // (smem + 1024))
+    wave = min(per_sm * n_sm, TH_BLOCKS)
+    blocks, per = th_bwd_blocks(B, N, wave), -(-(B * N) // wave)
+    return dict(smem=smem, ring=ring, per_sm=per_sm, blocks=blocks,
+                rows_per_block=per, chunks=chunks, visits=2 * chunks * per,
+                width=width)
+
 
 def th_bwd_rows(s, lse, dzd, bl, ww, bw, seed, rate, *, wl=None,
                 site=SITE_ATTN):

@@ -615,7 +615,7 @@ def test_linear_kernel_matches_plain(card, case):
 @pytest.mark.parametrize("case", range(len(TH_BWD_SHAPES)))
 def test_th_bwd_rows_kernel_matches_plain(card, case):
     """th_bwd_rows_kernel against th_bwd_rows_reference at H = 1, 2, 3, 4,
-    6, 8 and 16 (the mixes in shared memory), N up to 2048 (two units of 4
+    6, 8 and 16 (th16_bwd_rows_kernel), N up to 2048 (two units of 4
     columns a thread past 1024: the multi-scale buckets' 1280 and 1600),
     N not a multiple of 4, dropout on and off, with and without wl,
     the two main-path classes, B*N not a multiple of 1024 and B*N under
@@ -636,6 +636,39 @@ def test_th_bwd_rows_kernel_matches_plain(card, case):
         assert e <= tol, (label, name, e, tol)
     assert K.th_bwd_rows.launches == before + 2
     assert K.reduce_sum.launches == reduces
+    assert int(K.th_bwd_scratch(card)[0].item()) == 0
+
+
+def test_th16_rows_one_launch_back_to_back(card):
+    """At 16 heads th_bwd_rows launches th16_bwd_rows_kernel alone and
+    th_fwd_rows th16_fwd_rows_kernel alone (torch.profiler's names): M48's
+    class, the 1600-key bucket with wl and a ragged row back to back and
+    the first again, each call equal to its shape's first call bit for bit
+    (each backward starts from a ticket at 0), the ticket at 0 after
+    them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from spe_tpu_torch.ops import kernels as K
+    from spe_tpu_torch.ops.kernel_checks import th_bwd_case, th_fwd_case
+
+    shapes = [(8, 1024, 0.05, False), (2, 1600, 0.05, True),
+              (1, 1281, 0.1, False)]
+    for kind, make, fn in (("bwd", th_bwd_case, K.th_bwd_rows),
+                           ("fwd", th_fwd_case, K.th_fwd_rows)):
+        cases = [make(B, 16, N, rate, wl) for B, N, rate, wl in shapes]
+        cases.append(cases[0])
+        first = [fn(*a, **k) for a, k in cases[:3]]
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            again = [fn(*a, **k) for a, k in cases]
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert len(names) == 4 and all(f"th16_{kind}_rows_kernel" in n
+                                       for n in names), names
+        for got, want in zip(again, first + first[:1]):
+            assert all(torch.equal(g, w) for g, w in zip(got, want))
+        del cases, first, again
     assert int(K.th_bwd_scratch(card)[0].item()) == 0
 
 
