@@ -14,13 +14,14 @@ Phases, each printing its own lines; any failure exits non-zero:
   1. device  — the card's name and power limit (nvidia-smi); no card fails.
   2. build   — nvcc builds spe_tpu_torch/csrc/*.cu into build/spe_tpu_torch/
                (one nvcc per source, all at once); cuobjdump counts the
-               tensor-core instructions (HMMA/HGMMA) in every
+               tensor-core instructions (HMMA and HGMMA apart) in every
                instantiation of attn_kernel, gemm_kernel, linear_kernel and
                the 16-head row passes th16_bwd_rows_kernel and
                th16_fwd_rows_kernel, with their registers and local memory,
-               and fails on none; it prints the registers and local memory
-               of every instantiation of th_bwd_rows_kernel,
-               th_fwd_rows_kernel, th16_bwd_rows_kernel,
+               and fails on none, and on a gemm_kernel or linear_kernel
+               without HGMMA or with LOCAL or STACK bytes; it prints the
+               registers and local memory of every instantiation of
+               th_bwd_rows_kernel, th_fwd_rows_kernel, th16_bwd_rows_kernel,
                th16_fwd_rows_kernel, attn_bwd_rows_kernel, colsum_kernel,
                th_fold_kernel, colsum_f32_kernel, ln_bwd_kernel,
                branch_bwd_kernel, th_dq_kernel, layernorm_kernel,
@@ -422,6 +423,10 @@ def decode_times(batch=8, size=512, reps=5):
 # the 16-head talking-heads row passes (their mixes and partials)
 TENSOR_CORE_KERNELS = ("attn_kernel", "gemm_kernel", "linear_kernel",
                        "th16_bwd_rows_kernel", "th16_fwd_rows_kernel")
+# the product kernels built on Hopper's warpgroup products (csrc/wgmma.cuh):
+# every instantiation must issue HGMMA and keep everything in registers
+# (no LOCAL or STACK bytes); no shape route of theirs stays on mma.sync
+WGMMA_KERNELS = ("gemm_kernel", "linear_kernel")
 # the row kernels whose per-row arrays must stay in registers: by the
 # template arguments of an instantiation, must it use no local memory?
 # (th_*_rows_kernel at H = 6-8 spills; every 16-head instantiation, on the
@@ -444,13 +449,14 @@ ROW_KERNELS = {"th_bwd_rows_kernel": lambda a: a[0] == "4",
 
 
 def tensor_core_check(kernels):
-    """Count the tensor-core instructions (HMMA, HGMMA) in the SASS of every
-    instantiation of attn_kernel, gemm_kernel and linear_kernel in the
-    built library (cuobjdump of the nvcc's toolkit) and print their
-    registers and local memory (spills); fail if one has no tensor-core
-    instruction. Print the registers and local memory of every
-    instantiation of the row kernels (ROW_KERNELS); fail if one that must
-    keep its arrays in registers uses local memory."""
+    """Count the tensor-core instructions in the SASS of every
+    instantiation of TENSOR_CORE_KERNELS in the built library (cuobjdump of
+    the nvcc's toolkit), HMMA (mma.sync) and HGMMA (wgmma) apart, and print
+    their registers, shared memory and local memory (spills); fail if one
+    has no tensor-core instruction, or if a WGMMA_KERNELS one has no HGMMA
+    or any LOCAL or STACK bytes. Print the registers and local memory of
+    every instantiation of the row kernels (ROW_KERNELS); fail if one that
+    must keep its arrays in registers uses local memory."""
     import os
 
     tool = os.path.join(os.path.dirname(kernels._nvcc()), "cuobjdump")
@@ -465,9 +471,9 @@ def tensor_core_check(kernels):
         m = re.search(r"Function : (\S+)", line)
         if m:
             name = m.group(1)
-            counts[name] = 0
-        elif name and re.search(r"\bH(G)?MMA\b", line):
-            counts[name] += 1
+            counts[name] = [0, 0]
+        elif name and (m := re.search(r"\bH(G)?MMA\b", line)):
+            counts[name][1 if m.group(1) else 0] += 1
     usage = dict(re.findall(r"Function (\S+):\s*\n\s*(REG:\d+ STACK:\d+ "
                             r"SHARED:\d+ LOCAL:\d+)", res.stdout))
     bad = []
@@ -475,13 +481,21 @@ def tensor_core_check(kernels):
         mine = {n: c for n, c in counts.items() if fam in n}
         if not mine:
             bad.append(f"no {fam} in the library")
-        for n, c in sorted(mine.items()):
-            print(f"[build] {fam} {n}: {c} HMMA/HGMMA instructions; "
-                  f"{usage.get(n, 'no resource line')}", flush=True)
-            if c == 0:
+        for n, (hmma, hgmma) in sorted(mine.items()):
+            u = usage.get(n, "no resource line")
+            print(f"[build] {fam} {n}: {hmma} HMMA, {hgmma} HGMMA "
+                  f"instructions; {u}", flush=True)
+            if hmma + hgmma == 0:
                 bad.append(f"{n} has no tensor-core instruction")
+            if fam in WGMMA_KERNELS:
+                spill = sum(int(x) for x in re.findall(
+                    r"(?:LOCAL|STACK):(\d+)", u))
+                if hgmma == 0 or spill or u == "no resource line":
+                    bad.append(f"{n}: {hgmma} HGMMA, {spill} bytes of "
+                               "local memory (LOCAL + STACK)")
         print(f"[build] {fam}: {len(mine)} instantiations, "
-              f"{sum(mine.values())} tensor-core instructions in all",
+              f"{sum(h for h, _ in mine.values())} HMMA and "
+              f"{sum(g for _, g in mine.values())} HGMMA instructions in all",
               flush=True)
     for fam, no_local in ROW_KERNELS.items():
         rows = {n: u for n, u in usage.items() if fam in n}
@@ -1692,6 +1706,50 @@ def phase_against(parent_root):
     for (kernel, run), (o, t) in sorted(sums.items()):
         print(f"[against] {kernel}: one {run}, launches x time (mean of the "
               f"two turns): other {o:.3f} ms, this {t:.3f} ms", flush=True)
+    host_us_a_call(other)
+
+
+HOST_CALLS = 500
+
+
+def host_us_a_call(other):
+    """The host's microseconds a call of the product wrappers (their
+    checks, plans and launch), this checkout's against the other's in
+    turns: HOST_CALLS back-to-back calls of `kernels.gemm` (matmul_dx, an
+    f32 dY of 1024 x 192 against a 192 x 192 weight) and of
+    `kernels.ln_linear` (1024 x 192 rows, LayerNorm) by the host clock,
+    the card kept ahead (each call's kernel is shorter than its host
+    work), median of three repeats."""
+    import torch
+
+    from spe_tpu_torch.ops import kernels as K
+
+    g = torch.Generator().manual_seed(9)
+    dy = torch.randn(1024, 192, generator=g).cuda()
+    w = torch.randn(192, 192, generator=g).to(torch.bfloat16).cuda()
+    a = torch.randn(1024, 192, generator=g).to(torch.bfloat16).cuda()
+    ln = (torch.ones(192, device="cuda"), torch.zeros(192, device="cuda"),
+          1e-6)
+    for name, call in (("gemm", lambda m: m.matmul_dx(dy, w)),
+                       ("ln_linear", lambda m: m.ln_linear(a, w, ln=ln))):
+        us = {}
+        for label, m in (("other", other), ("this", K), ("this", K),
+                         ("other", other)):
+            for _ in range(50):
+                call(m)
+            torch.cuda.synchronize()
+            reps = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                for _ in range(HOST_CALLS):
+                    call(m)
+                reps.append((time.perf_counter() - t0) / HOST_CALLS * 1e6)
+                torch.cuda.synchronize()
+            us.setdefault(label, []).append(statistics.median(reps))
+        print(f"[against] host us a call of kernels.{name} (other then this "
+              f"then this then other): {us['other'][0]:.1f} {us['this'][0]:.1f} "
+              f"{us['this'][1]:.1f} {us['other'][1]:.1f} ({card()})",
+              flush=True)
 
 
 def against_inputs(other, classes, sums):
@@ -5510,6 +5568,7 @@ if __name__ == "__main__":
         # python3 chip_smoke.py --against <root of another checkout>
         phase_device()
         phase_build()
+        phase_native()   # the recorded runs' loaders: PIL where no libjpeg
         phase_against(sys.argv[2])
     else:
         main()

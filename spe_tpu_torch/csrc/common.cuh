@@ -23,8 +23,9 @@ __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16(x));
 }
 
-// Tensor-core building blocks of the product kernels (attention.cu,
-// grad.cu): mma.sync m16n8k16 on bf16 operands with f32 accumulators,
+// Tensor-core building blocks of the attention and row kernels
+// (attention.cu, th_h16.cu; the product kernels' wgmma ones are in
+// wgmma.cuh): mma.sync m16n8k16 on bf16 operands with f32 accumulators,
 // ldmatrix fragment loads from shared memory (.trans for an operand stored
 // with the other index contiguous) and cp.async copies into shared memory.
 // Fragment layouts are PTX's (the "mma.m16n8k16" section of the PTX ISA):
@@ -101,18 +102,18 @@ __device__ __forceinline__ void cp_async_wait() {
 // ldmatrix then reads without bank conflicts
 __host__ __device__ constexpr int pad_ld(int x) { return (x / 8) % 2 ? x : x + 8; }
 
-// The operand loaders of the tensor-core product kernels (grad.cu
-// gemm_kernel, linear.cu linear_kernel).
-// One operand of a block as the loaders see it: element (r, c) of the
-// operand's shared tile is at ptr[r * rs + c * cs] for r < rows, c < cols
-// (absolute indices; outside them it reads as 0). c runs along the tile's
-// contiguous shared-memory rows.
+// One operand of a product kernel (grad.cu gemm_kernel, linear.cu
+// linear_kernel) as the producer warpgroup's register loads see it
+// (wgmma.cuh reg_fill): element (r, c) of the operand's shared tile is at
+// ptr[r * rs + c * cs] for r < rows, c < cols (absolute indices; outside
+// them it reads as 0). c runs along the tile's contiguous shared-memory
+// rows.
 struct Src {
   const void* ptr;      // at this block's batch offset
   long long rs, cs, rows, cols;
   int f32;
-  int mode;             // 0 cp.async (bf16, cs == 1, 16-byte rows), 1 vector
-                        // loads of 4 (cs == 1, aligned), 2 scalar loads
+  int mode;             // 0 16-byte rows (bf16, cs == 1), 1 vector loads of 4
+                        // (cs == 1, aligned), 2 scalar loads
 };
 
 __device__ __forceinline__ Src make_src(const void* base, int f32, long long zoff,
@@ -137,94 +138,6 @@ __device__ __forceinline__ Src make_src(const void* base, int f32, long long zof
   }
   return s;
 }
-
-// A ROWS x COLS bf16 tile in shared memory, rows padded to LD, filled by NTH
-// threads: by cp.async (16-byte chunks of 8, zero-filled past the edges) or
-// through registers (units of 4 values, rounded to bf16 at the store; the
-// fetch for the next k tile is issued before this one's products).
-template <int ROWS, int COLS, int NTH>
-struct TileIO {
-  static constexpr int LD = pad_ld(COLS);
-  static constexpr int ELEMS = ROWS * LD;
-  static constexpr int UNITS = ROWS * COLS / (4 * NTH);
-  static constexpr int CHUNKS = ROWS * COLS / (8 * NTH);
-  static_assert(UNITS * 4 * NTH == ROWS * COLS && CHUNKS * 8 * NTH == ROWS * COLS,
-                "tile does not divide among the threads");
-
-  static __device__ __forceinline__ void async(const Src& s, long long r0, long long c0,
-                                               bf16* dst) {
-#pragma unroll
-    for (int i = 0; i < CHUNKS; ++i) {
-      const int e = threadIdx.x + i * NTH;
-      const int r = e / (COLS / 8), c = (e % (COLS / 8)) * 8;
-      const long long gr = r0 + r, gc = c0 + c;
-      long long valid = 0;
-      if (gr < s.rows) valid = max(0LL, min(8LL, s.cols - gc));
-      const bf16* src = static_cast<const bf16*>(s.ptr);
-      if (valid) src += gr * s.rs + gc;
-      cp_async<16>(smem_u32(dst + r * LD + c), src, static_cast<int>(valid) * 2);
-    }
-  }
-
-  static __device__ __forceinline__ void fetch(const Src& s, long long r0, long long c0,
-                                               unsigned (&raw)[UNITS][4]) {
-#pragma unroll
-    for (int i = 0; i < UNITS; ++i) {
-      const int e = threadIdx.x + i * NTH;
-      const int r = e / (COLS / 4), c = (e % (COLS / 4)) * 4;
-      const long long gr = r0 + r, gc = c0 + c;
-      raw[i][0] = raw[i][1] = raw[i][2] = raw[i][3] = 0u;
-      if (gr >= s.rows) continue;
-      const long long base = gr * s.rs;
-      if (s.mode == 1 && gc + 4 <= s.cols) {
-        if (s.f32) {
-          const float4 v = *reinterpret_cast<const float4*>(
-              static_cast<const float*>(s.ptr) + base + gc);
-          raw[i][0] = __float_as_uint(v.x);
-          raw[i][1] = __float_as_uint(v.y);
-          raw[i][2] = __float_as_uint(v.z);
-          raw[i][3] = __float_as_uint(v.w);
-        } else {
-          const uint2 v = *reinterpret_cast<const uint2*>(
-              static_cast<const bf16*>(s.ptr) + base + gc);
-          raw[i][0] = v.x;
-          raw[i][1] = v.y;
-        }
-      } else {
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          if (gc + q < s.cols) {
-            const long long off = base + (gc + q) * s.cs;
-            if (s.f32) {
-              raw[i][q] = __float_as_uint(static_cast<const float*>(s.ptr)[off]);
-            } else {
-              const unsigned u = static_cast<const unsigned short*>(s.ptr)[off];
-              raw[i][q / 2] |= u << (16 * (q % 2));
-            }
-          }
-        }
-      }
-    }
-  }
-
-  static __device__ __forceinline__ void store(int f32, const unsigned (&raw)[UNITS][4],
-                                               bf16* dst) {
-#pragma unroll
-    for (int i = 0; i < UNITS; ++i) {
-      const int e = threadIdx.x + i * NTH;
-      const int r = e / (COLS / 4), c = (e % (COLS / 4)) * 4;
-      uint2 w;
-      if (f32) {
-        w.x = pack_bf16(__uint_as_float(raw[i][0]), __uint_as_float(raw[i][1]));
-        w.y = pack_bf16(__uint_as_float(raw[i][2]), __uint_as_float(raw[i][3]));
-      } else {
-        w.x = raw[i][0];
-        w.y = raw[i][1];
-      }
-      *reinterpret_cast<uint2*>(dst + r * LD + c) = w;
-    }
-  }
-};
 
 // the card's SM count (132 on an H100 SXM if the query fails)
 inline int sm_count() {

@@ -40,27 +40,49 @@
 // (rows 1b-4b, 7b and 9 of PERF.md, and B5's logit planes). Its largest
 // calls are write- or read-bound (f32 (B, H, N, N) planes of the logits and
 // of dY . V^T written, bf16 planes of zd and dl read, f32 dY read); the
-// rest are products of 10^8-10^10 multiply-adds. The design:
-// - mma.sync.m16n8k16 on bf16 operands with f32 accumulators; operands
-//   rounded to bf16 at the load, as the TPU kernels round them
-//   (`.astype(in_dt)` before each dot).
-// - bf16 shared tiles 32 deep in a 2-stage ring. Each operand's tile keeps
-//   its global unit-stride index contiguous: a bf16 operand with 16-byte
-//   rows goes in by cp.async; an f32 operand, a misaligned one or one
-//   without a unit stride by vector (or scalar) loads to registers,
-//   rounded at the shared store, fetched one k tile ahead. A transposed
-//   operand is read by ldmatrix.trans.
-// - Two tiles, chosen in spe_gemm from M, N and the batch: 128 x 128 (8
-//   warps of 64 x 32) where its grid fills every SM, 64 x 64 (4 warps of 32
-//   x 32) for the per-head products 24 or 48 wide or deep and for small
-//   grids; K is zero-padded to the tile's depth.
+// rest are products of 10^8-10^10 multiply-adds. The design (wgmma.cuh,
+// shared with linear_kernel):
+// - wgmma.mma_async m64nNk16 on bf16 operands with f32 accumulators in
+//   registers, fed from a ring of 64-deep, 128-byte-swizzled bf16 k tiles
+//   in shared memory (up to 6 stages); operands rounded to bf16 at the
+//   load, as the TPU kernels round them (`.astype(in_dt)` before each dot).
+//   A transposed (MN-major) operand is read through wgmma's major-ness bit.
+// - A producer warpgroup fills the ring, each operand by its route, chosen
+//   from the shapes and strides before the launch (kernels.gemm_plan):
+//   TMA for a bf16 operand with a unit stride, a 16-byte aligned base and
+//   16-byte multiple strides (the batch strides too, but a stride of 0,
+//   the operand shared across that batch dim, which the map leaves out; a
+//   split product's chunks adjacent along k and a multiple of 64 deep);
+//   F32 for such an f32 operand (dY): TMA into an f32 staging tile of the
+//   stage, which the consumer warpgroups round into the bf16 tile while
+//   the previous k tile's products run; REG for every other operand
+//   (misaligned or strided views, a split whose chunk is not a multiple of
+//   64 deep): vector or scalar loads through the warpgroup's registers
+//   into the same swizzled ring.
+// - Two tiles, chosen from M, N and the batch: 128 x 128 (two consumer
+//   warpgroups of m64n128) where its grid fills every SM, 64 x 64 (one of
+//   m64n64) for the per-head products 24 or 48 wide or deep and for small
+//   grids; k tiles past the depth are zero (TMA's bounds, the REG masks),
+//   so every k tile takes its four k16 steps: wgmma is issued on no
+//   divergent path, where ptxas would serialize it.
+// - Products deeper than 256 take one block a tile, the C tile over the
+//   ring; shallower ones (the per-head logits, write-bound) a persistent
+//   grid whose ring runs on into the next tile during a tile's epilogue.
 // - The epilogue (alpha, dropout, GELU'/ReLU, column groups, accumulate)
-//   per accumulator element with the (m, n) semantics of before; no float
-//   atomics, so two backwards give the same bits.
+//   per element with the (m, n) semantics of before, through a shared f32
+//   C tile; no float atomics, so two backwards give the same bits.
+// What bounds it now (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md section
+// 6): the weight gradients' split-K partials (written in f32, then summed
+// by spe_reduce) move ~3x their inputs' bytes; the write-bound per-head
+// products wait on their epilogue's stores; those 24 deep issue four k16
+// steps for two.
 #include <cooperative_groups.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 #include "common.cuh"
+#include "wgmma.cuh"
 
 struct GemmParams {
   const void* a;          // A(m, k) at z1*a_s1 + z2*a_s2 + m*a_sm + k*a_sk
@@ -83,6 +105,8 @@ struct GemmParams {
   int cgrp;               // column n stored at (n / cgrp) * cgstride + (n % cgrp) * c_sn
   long long cgstride;
   int accumulate;         // C += the result (C read in its own dtype)
+  int tile;               // 0: 128 x 128, 1: 64 x 64 (kernels.gemm_plan)
+  int route_a, route_b;   // wg::Route of each operand
 };
 
 struct ReduceParams {
@@ -156,25 +180,20 @@ namespace {
 constexpr int NT = 256;
 
 // ---- gemm_kernel: the tensor-core batched product ----
-constexpr int GBK = 32;        // depth of a k tile
-// resident warps per SM the register budget is cut for (8 warps of 64 x 32
-// or 4 of 32 x 32 per block: 2 or 4 blocks; a few spilled registers cost
-// less than the occupancy they buy)
-constexpr int GEMM_MIN_WARPS = 16;
-
-constexpr int GSTAGES = 4;     // the shared ring: cp.async runs 3 k tiles ahead
-
-// the dynamic shared memory of a gemm_kernel instantiation: the ring of
-// k tiles, then (reusing it) the f32 C tile of the epilogue, rows padded
-// by 8 against bank conflicts
-template <int BM, int BN, bool A_KM, bool B_KM, int NTH>
-constexpr size_t gemm_smem_bytes() {
-  const size_t ring = sizeof(bf16) * GSTAGES *
-                      (static_cast<size_t>(TileIO<A_KM ? BM : GBK, A_KM ? GBK : BM, NTH>::ELEMS) +
-                       TileIO<B_KM ? BN : GBK, B_KM ? GBK : BN, NTH>::ELEMS);
-  const size_t ctile = sizeof(float) * BM * (BN + 8);
-  return ring > ctile ? ring : ctile;
-}
+// A launch: the parameters, the tensor maps of the TMA/F32 operands and
+// the shared memory's layout (bytes from its 1024-aligned start): the f32
+// C tile (persistent blocks) or none, the ring (a stage: the bf16 A tile,
+// the bf16 B tile, the f32 staging tiles; a block of one tile puts its C
+// tile over it), the barriers
+struct GemmLaunch {
+  CUtensorMap ma, mb;
+  GemmParams p;
+  long long tiles;      // output tiles: N tiles x row blocks x batch
+  int zmask;            // bit i: the map of operand i / 2 (A, B) has batch dim 1 + i % 2 (z2,
+                        // z1); a batch dim of stride 0 (the operand shared) is not in it
+  int stages;
+  unsigned ring_off, stage_bytes, off_b, soff_a, soff_b, bar_off;
+};
 
 // the epilogue of one element (alpha applied): the dropout mask keyed
 // (sample, 0, row, n), then the activation derivative (act 1: GELU' of u,
@@ -188,147 +207,14 @@ __device__ __forceinline__ float epilogue_value(float y, int drop_site, unsigned
   return y;
 }
 
-// C tile BM x BN per block of WM x WN warps; each warp a (BM/WM) x (BN/WN)
-// tile of m16n8k16 products. A_KM: A's shared tile is [m][k] (k
-// contiguous), else [k][m] (read through ldmatrix.trans); B_KM: B's is
-// [n][k], else [k][n] (ldmatrix.trans).
-template <int BM, int BN, int WM, int WN, bool A_KM, bool B_KM>
-__global__ void __launch_bounds__(WM * WN * 32, GEMM_MIN_WARPS / (WM * WN))
-    gemm_kernel(GemmParams p) {
-  constexpr int NTH = WM * WN * 32;
-  constexpr int MT = BM / WM / 16, NT8 = BN / WN / 8;
-  static_assert(MT >= 1 && NT8 % 2 == 0, "warp tile");
-  using IOA = TileIO<A_KM ? BM : GBK, A_KM ? GBK : BM, NTH>;
-  using IOB = TileIO<B_KM ? BN : GBK, B_KM ? GBK : BN, NTH>;
-  extern __shared__ __align__(16) unsigned char gsmem[];
-  bf16* As = reinterpret_cast<bf16*>(gsmem);          // GSTAGES x IOA::ELEMS
-  bf16* Bs = As + GSTAGES * IOA::ELEMS;                // GSTAGES x IOB::ELEMS
-
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int wm0 = (warp / WN) * (BM / WM), wn0 = (warp % WN) * (BN / WN);
-  const int z = blockIdx.z;
-  const int z1 = z / p.nb2, z2 = z % p.nb2;
-  const long long m0 = static_cast<long long>(blockIdx.x) * BM;
-  const long long n0 = static_cast<long long>(blockIdx.y) * BN;
-  long long K = p.K;
-  if (p.split) K = min(static_cast<long long>(p.K), p.kmax - static_cast<long long>(z1) * p.K);
-  const long long aoff = z1 * p.a_s1 + z2 * p.a_s2;
-  const long long boff = z1 * p.b_s1 + z2 * p.b_s2;
-  const Src a = A_KM ? make_src(p.a, p.a_f32, aoff, p.a_sm, p.a_sk, p.M, K)
-                     : make_src(p.a, p.a_f32, aoff, p.a_sk, p.a_sm, K, p.M);
-  const Src b = B_KM ? make_src(p.b, p.b_f32, boff, p.b_sn, p.b_sk, p.N, K)
-                     : make_src(p.b, p.b_f32, boff, p.b_sk, p.b_sn, K, p.N);
-
-  float acc[MT][NT8][4];
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NT8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-  unsigned ra[IOA::UNITS][4], rb[IOB::UNITS][4];
-  // the origins of a k tile in each operand's (row, contiguous) indices
-  auto a_r0 = [&](long long k0) { return A_KM ? m0 : k0; };
-  auto a_c0 = [&](long long k0) { return A_KM ? k0 : m0; };
-  auto b_r0 = [&](long long k0) { return B_KM ? n0 : k0; };
-  auto b_c0 = [&](long long k0) { return B_KM ? k0 : n0; };
-  // the cp.async operands of k tile kt into its stage, as one group (empty
-  // past the last tile)
-  auto issue = [&](int kt, int nk) {
-    if (kt < nk) {
-      const long long k0 = static_cast<long long>(kt) * GBK;
-      const int st = kt % GSTAGES;
-      if (a.mode == 0) IOA::async(a, a_r0(k0), a_c0(k0), As + st * IOA::ELEMS);
-      if (b.mode == 0) IOB::async(b, b_r0(k0), b_c0(k0), Bs + st * IOB::ELEMS);
-    }
-    cp_async_commit();
-  };
-
-  const int nk = static_cast<int>((K + GBK - 1) / GBK);
-#pragma unroll
-  for (int kt = 0; kt < GSTAGES - 1; ++kt) issue(kt, nk);
-  if (a.mode != 0) {
-    IOA::fetch(a, a_r0(0), a_c0(0), ra);
-    IOA::store(a.f32, ra, As);
-  }
-  if (b.mode != 0) {
-    IOB::fetch(b, b_r0(0), b_c0(0), rb);
-    IOB::store(b.f32, rb, Bs);
-  }
-
-  for (int kt = 0; kt < nk; ++kt) {
-    const bool more = kt + 1 < nk;
-    issue(kt + GSTAGES - 1, nk);
-    // the register operands of the next tile, stored after this one's products
-    if (more) {
-      const long long k1 = static_cast<long long>(kt + 1) * GBK;
-      if (a.mode != 0) IOA::fetch(a, a_r0(k1), a_c0(k1), ra);
-      if (b.mode != 0) IOB::fetch(b, b_r0(k1), b_c0(k1), rb);
-    }
-    cp_async_wait<GSTAGES - 1>();   // this tile's group has landed
-    __syncthreads();
-    const bf16* at = As + (kt % GSTAGES) * IOA::ELEMS;
-    const bf16* bt = Bs + (kt % GSTAGES) * IOB::ELEMS;
-#pragma unroll
-    for (int kk = 0; kk < GBK; kk += 16) {
-      unsigned af[MT][4], bfr[NT8][2];
-#pragma unroll
-      for (int i = 0; i < MT; ++i) {
-        const int mrow = wm0 + 16 * i;
-        if (A_KM) {
-          ldsm_x4(af[i], smem_u32(at + (mrow + lane % 16) * IOA::LD + kk + (lane / 16) * 8));
-        } else {
-          ldsm_x4_t(af[i], smem_u32(at + (kk + lane % 8 + (lane / 16) * 8) * IOA::LD +
-                                    mrow + ((lane / 8) % 2) * 8));
-        }
-      }
-#pragma unroll
-      for (int jp = 0; jp < NT8 / 2; ++jp) {
-        const int ncol = wn0 + 16 * jp;
-        unsigned r[4];
-        if (B_KM) {
-          ldsm_x4(r, smem_u32(bt + (ncol + lane % 8 + (lane / 16) * 8) * IOB::LD + kk +
-                              ((lane / 8) % 2) * 8));
-        } else {
-          ldsm_x4_t(r, smem_u32(bt + (kk + lane % 8 + ((lane / 8) % 2) * 8) * IOB::LD +
-                                ncol + (lane / 16) * 8));
-        }
-        bfr[2 * jp][0] = r[0];
-        bfr[2 * jp][1] = r[1];
-        bfr[2 * jp + 1][0] = r[2];
-        bfr[2 * jp + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int i = 0; i < MT; ++i)
-#pragma unroll
-        for (int j = 0; j < NT8; ++j) mma_bf16(acc[i][j], af[i], bfr[j][0], bfr[j][1]);
-    }
-    if (more) {
-      const int st = (kt + 1) % GSTAGES;
-      if (a.mode != 0) IOA::store(a.f32, ra, As + st * IOA::ELEMS);
-      if (b.mode != 0) IOB::store(b.f32, rb, Bs + st * IOB::ELEMS);
-    }
-    __syncthreads();
-  }
-  cp_async_wait<0>();
-
-  // epilogue: the accumulators (times alpha) through a shared f32 C tile,
-  // then rows of 4 columns per thread, coalesced along n: the dropout mask,
-  // the activation derivative, the column-group store, accumulate
+// The epilogue of one C tile (rows m0.., columns n0.. of batch entry (z1,
+// z2)) from the shared f32 C tile (alpha applied), by thread `tid` of NT:
+// rows of 4 columns per thread, coalesced along n: the dropout mask, the
+// activation derivative, the column-group store, accumulate.
+template <int BM, int BN>
+__device__ __forceinline__ void gemm_epilogue(const GemmParams& p, const float* Cs, long long m0,
+                                              long long n0, int z1, int z2, int tid, int NT) {
   constexpr int LDC = BN + 8;
-  float* Cs = reinterpret_cast<float*>(gsmem);
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NT8; ++j)
-#pragma unroll
-      for (int hr = 0; hr < 2; ++hr) {
-        float2 v = make_float2(p.alpha * acc[i][j][2 * hr], p.alpha * acc[i][j][2 * hr + 1]);
-        *reinterpret_cast<float2*>(Cs + (wm0 + 16 * i + lane / 4 + 8 * hr) * LDC + wn0 + 8 * j +
-                                   (lane % 4) * 2) = v;
-      }
-  __syncthreads();
   const long long coff = z1 * p.c_s1 + z2 * p.c_s2;
   const int act = p.act_aux ? p.act_grad : 0;
   const int rps = static_cast<int>(p.rps);
@@ -342,7 +228,7 @@ __global__ void __launch_bounds__(WM * WN * 32, GEMM_MIN_WARPS / (WM * WN))
                     reinterpret_cast<unsigned long long>(p.act_aux) % 16 == 0;
   // unrolled so that the loads of several iterations are in flight together
 #pragma unroll 4
-  for (int idx = threadIdx.x; idx < BM * BN / 4; idx += NTH) {
+  for (int idx = tid; idx < BM * BN / 4; idx += NT) {
     const int r = idx / (BN / 4), c4 = (idx % (BN / 4)) * 4;
     const long long m = m0 + r;
     const int n = static_cast<int>(n0) + c4;
@@ -419,6 +305,164 @@ __global__ void __launch_bounds__(WM * WN * 32, GEMM_MIN_WARPS / (WM * WN))
         c[o] = f2bf(p.accumulate ? bf2f(c[o]) + y[e] : y[e]);
       }
     }
+  }
+}
+
+// One output tile of a persistent gemm_kernel block: tile index t -> its
+// N tile (fastest: the N tiles of a row block run side by side and share
+// A's rows), row block and batch entry, and its depth (a split product's
+// chunk: min(K, kmax - z1 K)).
+struct GemmTile {
+  long long m0, n0;
+  int z1, z2, nk;
+  long long K;
+};
+
+__device__ __forceinline__ GemmTile gemm_tile(const GemmParams& p, long long t, int BM, int BN) {
+  const long long gn = (p.N + BN - 1) / BN, gm = (p.M + BM - 1) / BM;
+  GemmTile u;
+  u.n0 = (t % gn) * BN;
+  u.m0 = (t / gn % gm) * BM;
+  const int z = static_cast<int>(t / (gn * gm));
+  u.z1 = z / p.nb2;
+  u.z2 = z % p.nb2;
+  u.K = p.K;
+  if (p.split) u.K = min(static_cast<long long>(p.K), p.kmax - static_cast<long long>(u.z1) * p.K);
+  u.nk = static_cast<int>((u.K + wg::BK - 1) / wg::BK);
+  return u;
+}
+
+// C tiles BM x BN: BM / 64 consumer warpgroups of m64nBN products and one
+// producer warpgroup (wgmma.cuh). Block b takes tiles b, b + gridDim.x,
+// ...: a grid of one block a tile for products deeper than four k tiles
+// (its C tile over the ring, which then holds more stages), else a
+// persistent grid whose ring runs on across a block's tiles, so that the
+// next tile's loads are in flight during a tile's epilogue (its C tile
+// apart). A_KM: A's shared tile is [m][k] (k contiguous), else [k][m]
+// (MN-major); B_KM: B's is [n][k], else [k][n].
+template <int BM, int BN, bool A_KM, bool B_KM>
+__global__ void __launch_bounds__((BM / 64 + 1) * 128, BM == 128 ? 1 : 2)
+    gemm_kernel(const __grid_constant__ GemmLaunch L) {
+  constexpr int NWG = BM / 64, NTHC = NWG * 128;
+  constexpr int LDC = BN + 8;
+  const GemmParams& p = L.p;
+  extern __shared__ unsigned char gsmem_raw[];
+  unsigned char* sm = wg::align1024(gsmem_raw);
+  const uint32_t base = smem_u32(sm);
+  const wg::Ring g = {base + L.ring_off, L.stage_bytes, base + L.bar_off, L.stages};
+  if (threadIdx.x == 0) {
+    wg::ring_init(g, p.route_a == wg::REG || p.route_b == wg::REG, 4 * NWG);
+    wg::fence_barrier_init();
+  }
+  __syncthreads();
+  const long long tiles = L.tiles;
+  float* Cs = reinterpret_cast<float*>(sm);
+  // the epilogue's threads (named barrier 2; 1 is the consumers' own): the
+  // consumers and, in a block of one tile, the producer warpgroup once it
+  // has issued every load
+  const bool single = tiles <= gridDim.x;
+  const int P = NTHC + (single ? 128 : 0);
+
+  if (wg::warpgroup() == NWG) {
+    wg::RingOperand a, b;
+    a.map = &L.ma;
+    a.route = p.route_a;
+    a.km = A_KM;
+    a.R = A_KM ? BM : wg::BK;
+    a.C = A_KM ? wg::BK : BM;
+    a.off = 0;
+    a.soff = L.soff_a;
+    b.map = &L.mb;
+    b.route = p.route_b;
+    b.km = B_KM;
+    b.R = B_KM ? BN : wg::BK;
+    b.C = B_KM ? wg::BK : BN;
+    b.off = L.off_b;
+    b.soff = L.soff_b;
+    // walk the block's tiles and their k tiles; at each tile's first, point
+    // the operands at it (the maps' batch coordinates; a split product's
+    // chunk is a k offset)
+    long long t = static_cast<long long>(blockIdx.x) - gridDim.x;
+    int kt = 0, nk = 0;
+    auto next = [&](int, wg::RingOperand& ao, wg::RingOperand& bo, int& k) {
+      if (++kt >= nk) {
+        t += gridDim.x;
+        if (t >= tiles) return false;
+        const GemmTile u = gemm_tile(p, t, BM, BN);
+        kt = 0;
+        nk = u.nk;
+        const long long aoff = u.z1 * p.a_s1 + u.z2 * p.a_s2;
+        const long long boff = u.z1 * p.b_s1 + u.z2 * p.b_s2;
+        ao.src = A_KM ? make_src(p.a, p.a_f32, aoff, p.a_sm, p.a_sk, p.M, u.K)
+                      : make_src(p.a, p.a_f32, aoff, p.a_sk, p.a_sm, u.K, p.M);
+        ao.sr0 = A_KM ? u.m0 : 0;
+        ao.sc0 = A_KM ? 0 : u.m0;
+        bo.src = B_KM ? make_src(p.b, p.b_f32, boff, p.b_sn, p.b_sk, p.N, u.K)
+                      : make_src(p.b, p.b_f32, boff, p.b_sk, p.b_sn, u.K, p.N);
+        bo.sr0 = B_KM ? u.n0 : 0;
+        bo.sc0 = B_KM ? 0 : u.n0;
+        ao.mn0 = static_cast<int>(u.m0);
+        bo.mn0 = static_cast<int>(u.n0);
+        ao.z2 = L.zmask & 1 ? u.z2 : 0;
+        ao.z1 = L.zmask & 2 ? u.z1 : 0;
+        bo.z2 = L.zmask & 4 ? u.z2 : 0;
+        bo.z1 = L.zmask & 8 ? u.z1 : 0;
+        ao.kbase = bo.kbase = p.split ? u.z1 * p.K : 0;
+      }
+      k = kt;
+      return true;
+    };
+    const int pt = threadIdx.x - NTHC;
+    wg::produce<BM * wg::BK, BN * wg::BK>(g, a, b, true, pt, sm + L.ring_off, next);
+    if (!single) return;
+    // a block of one tile: then the warpgroup takes its share of the epilogue
+    const GemmTile u = gemm_tile(p, blockIdx.x, BM, BN);
+    wg::named_sync(2, P);   // the C tile is written
+    gemm_epilogue<BM, BN>(p, Cs, u.m0, u.n0, u.z1, u.z2, threadIdx.x, P);
+    return;
+  }
+
+  float acc[BN / 2];   // set by each tile's first k tile's products (nk >= 1)
+  const uint32_t arow = wg::warpgroup() * wg::BK * 128;   // the warpgroup's 64 rows of A
+  const bool f32a = p.route_a == wg::F32, f32b = p.route_b == wg::F32;
+  int f = 0;   // the ring's k tiles so far
+  for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const GemmTile u = gemm_tile(p, t, BM, BN);
+    for (int kt = 0; kt < u.nk; ++kt, ++f) {
+      wg::mbar_wait(g.full(f), g.parity(f));
+      if (f32a || f32b) {   // the f32 staging tiles into the stage's bf16 tiles
+        unsigned char* st = sm + (g.stage(f) - base);
+        if (f32a) {
+          wg::convert_f32<BM * wg::BK, NTHC>(reinterpret_cast<const float*>(st + L.soff_a),
+                                            A_KM ? BM : wg::BK, A_KM ? wg::BK : BM, st,
+                                            threadIdx.x);
+        }
+        if (f32b) {
+          wg::convert_f32<BN * wg::BK, NTHC>(reinterpret_cast<const float*>(st + L.soff_b),
+                                            B_KM ? BN : wg::BK, B_KM ? wg::BK : BN,
+                                            st + L.off_b, threadIdx.x);
+        }
+        wg::fence_proxy_async();
+        wg::named_sync(1, NTHC);
+      }
+      wg::mma_tile<BN, A_KM, B_KM>(acc, g.stage(f) + arow, g.stage(f) + L.off_b, kt == 0);
+      wg::wgmma_wait<1>();
+      if (kt > 0 && threadIdx.x % 32 == 0) wg::mbar_arrive(g.empty(f - 1));
+    }
+    wg::wgmma_wait<0>();
+    wg::fence_acc(acc);
+    if (threadIdx.x % 32 == 0) wg::mbar_arrive(g.empty(f - 1));
+    // the accumulators (times alpha) into the C tile: once both consumer
+    // warpgroups are done with the ring it lies over (one tile a block),
+    // or once the previous tile's epilogue has read it
+    if (single) {
+      wg::named_sync(1, NTHC);
+    } else {
+      wg::named_sync(2, P);
+    }
+    wg::acc_to_tile<BN>(acc, Cs, LDC, p.alpha);
+    wg::named_sync(2, P);
+    gemm_epilogue<BM, BN>(p, Cs, u.m0, u.n0, u.z1, u.z2, threadIdx.x, P);
   }
 }
 
@@ -983,58 +1027,114 @@ __global__ void mask_kernel(MaskParams p) {
 
 namespace {
 
-template <int BM, int BN, int WM, int WN, bool A_KM, bool B_KM>
-int launch_layout(const GemmParams* p, dim3 grid, cudaStream_t s) {
-  constexpr int nth = WM * WN * 32;
-  constexpr size_t smem = gemm_smem_bytes<BM, BN, A_KM, B_KM, nth>();
-  static bool sized = false;   // the shared-memory limit, raised once
-  if (!sized) {
+template <int BM, int BN, bool A_KM, bool B_KM>
+int launch_layout(const GemmLaunch& L, dim3 grid, size_t smem, cudaStream_t s) {
+  static size_t sized = 0;   // the shared-memory limit, raised as needed
+  if (smem > sized) {
     const cudaError_t err = cudaFuncSetAttribute(
-        gemm_kernel<BM, BN, WM, WN, A_KM, B_KM>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+        gemm_kernel<BM, BN, A_KM, B_KM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
-    sized = true;
+    sized = smem;
   }
-  gemm_kernel<BM, BN, WM, WN, A_KM, B_KM><<<grid, nth, smem, s>>>(*p);
+  gemm_kernel<BM, BN, A_KM, B_KM><<<grid, (BM / 64 + 1) * 128, smem, s>>>(L);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int BM, int BN, int WM, int WN>
+// The tensor map of one operand of route TMA or F32: its contiguous index
+// (k if km, else m or n) by unit stride, its other index by s_row, the
+// batch by s2 and s1 (a batch dim of stride 0, the operand shared across
+// it, left out; a split product: one 2-d map over the whole depth);
+// `zdims` gets bit 0 / 1 where the map holds z2 / z1. False where the
+// route does not hold: a stride that is not 1 along the contiguous index,
+// a split whose chunks are not adjacent along k or not a multiple of 64
+// deep, or TMA's alignment rule.
+bool operand_map(CUtensorMap* map, const GemmParams& p, const void* base, int f32, int route,
+                 bool km, int tile_mn, long long mn, long long s_cont, long long s_row,
+                 long long s_k, long long s2, long long s1, int* zdims) {
+  *zdims = 0;
+  if (route == wg::REG) return true;
+  if ((route == wg::F32) != (f32 != 0) || s_cont != 1) return false;
+  const long long depth = p.split ? p.kmax : p.K;
+  if (p.split && (p.nb2 != 1 || p.K % wg::BK || s1 != p.K * s_k)) return false;
+  const bool z2 = !p.split && p.nb2 > 1 && s2 != 0, z1 = !p.split && p.nb1 > 1 && s1 != 0;
+  *zdims = (z2 ? 1 : 0) | (z1 ? 2 : 0);
+  const int es = f32 ? 4 : 2;
+  const long long dims[4] = {km ? depth : mn, km ? mn : depth, z2 ? p.nb2 : 1, z1 ? p.nb1 : 1};
+  long long strides[3] = {s_row * es, s2 * es, s1 * es};
+  int b0 = wg::BK, b1 = km ? tile_mn : wg::BK;
+  if (f32 && !km) {
+    b0 = tile_mn;
+    b1 = wg::BK;
+  }
+  return wg_host::encode(map, base, es, dims, strides, b0, b1);
+}
+
+template <int BM, int BN>
 int launch_gemm(const GemmParams* p, bool a_km, bool b_km, cudaStream_t s) {
   const long long gm = (p->M + BM - 1) / BM, gn = (p->N + BN - 1) / BN;
   const long long gz = static_cast<long long>(p->nb1) * p->nb2;
-  if (gn > 65535 || gz > 65535 || gm > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
-  dim3 grid(static_cast<unsigned>(gm), static_cast<unsigned>(gn), static_cast<unsigned>(gz));
-  if (a_km && b_km) return launch_layout<BM, BN, WM, WN, true, true>(p, grid, s);
-  if (a_km) return launch_layout<BM, BN, WM, WN, true, false>(p, grid, s);
-  if (b_km) return launch_layout<BM, BN, WM, WN, false, true>(p, grid, s);
-  return launch_layout<BM, BN, WM, WN, false, false>(p, grid, s);
+  GemmLaunch L;
+  L.p = *p;
+  int za = 0, zb = 0;
+  if (!operand_map(&L.ma, *p, p->a, p->a_f32, p->route_a, a_km, BM, p->M, a_km ? p->a_sk : p->a_sm,
+                   a_km ? p->a_sm : p->a_sk, p->a_sk, p->a_s2, p->a_s1, &za) ||
+      !operand_map(&L.mb, *p, p->b, p->b_f32, p->route_b, b_km, BN, p->N, b_km ? p->b_sk : p->b_sn,
+                   b_km ? p->b_sn : p->b_sk, p->b_sk, p->b_s2, p->b_s1, &zb)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  L.zmask = za | (zb << 2);
+  // a stage: the bf16 tiles of A and B, then the f32 staging of each F32
+  // operand
+  const unsigned ta = BM * wg::BK * 2, tb = BN * wg::BK * 2;
+  L.off_b = ta;
+  L.soff_a = ta + tb;
+  L.soff_b = L.soff_a + (p->route_a == wg::F32 ? 2 * ta : 0);
+  L.stage_bytes = L.soff_b + (p->route_b == wg::F32 ? 2 * tb : 0);
+  // one block a tile, its C tile over the ring, for products deeper than
+  // four k tiles; persistent blocks, their C tile apart, for shallower ones
+  // (as many as the card holds at once: two a SM for the 64-row tile where
+  // shared memory allows)
+  const long long depth = p->split ? std::min<long long>(p->K, p->kmax) : p->K;
+  const bool persistent = depth <= 4 * wg::BK;
+  const unsigned ctile = (BM * (BN + 8) * 4 + 1023) / 1024 * 1024;
+  L.ring_off = persistent ? ctile : 0;
+  L.stages = wg::ring_stages(L.stage_bytes, persistent ? 0 : ctile, L.ring_off,
+                             persistent ? wg::MAX_STAGES : (depth + wg::BK - 1) / wg::BK, BM == 64);
+  L.bar_off = std::max(L.ring_off + L.stages * L.stage_bytes, ctile);
+  const size_t smem = 1024 + L.bar_off + 16 * L.stages;
+  if (smem > static_cast<size_t>(wg::SMEM_MAX)) return static_cast<int>(cudaErrorInvalidValue);
+  L.tiles = gm * gn * gz;
+  const long long per_sm = BM == 64 && 2 * (smem + 1024) <= static_cast<size_t>(wg::SMEM_PER_SM) ? 2 : 1;
+  const long long blocks = persistent ? std::min(L.tiles, per_sm * sm_count()) : L.tiles;
+  if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(blocks));
+  if (a_km && b_km) return launch_layout<BM, BN, true, true>(L, grid, smem, s);
+  if (a_km) return launch_layout<BM, BN, true, false>(L, grid, smem, s);
+  if (b_km) return launch_layout<BM, BN, false, true>(L, grid, smem, s);
+  return launch_layout<BM, BN, false, false>(L, grid, smem, s);
 }
 
 }  // namespace
 
-// The tile: large (128 x 128, 8 warps of 64 x 32) where both output
-// dimensions exceed 64 and its grid fills every SM at least once; narrow
-// (64 x 64, 4 warps of 32 x 32) otherwise: the per-head products whose
-// width or depth is a head (24 or 48) and the products too small to fill
-// the card with large tiles. Each operand's shared tile keeps its global
-// contiguous index contiguous (k for A = [m][k] unless A is m-contiguous;
-// k for B = [n][k] unless B is n-contiguous).
+// The tile and each operand's route come from the caller's plan
+// (kernels.gemm_plan): 128 x 128 or 64 x 64; TMA, F32 or REG. Each
+// operand's shared tile keeps its global contiguous index contiguous (k
+// for A = [m][k] unless A is m-contiguous; k for B = [n][k] unless B is
+// n-contiguous).
 extern "C" int spe_gemm(const GemmParams* p, void* stream) {
   if (p->M <= 0 || p->N <= 0 || p->K <= 0 || p->nb1 <= 0 || p->nb2 <= 0 || p->cgrp <= 0 ||
       (p->drop_site && (!p->seed || p->rps <= 0)) ||
-      (p->act_aux && p->act_grad != 1 && p->act_grad != 2)) {
+      (p->act_aux && p->act_grad != 1 && p->act_grad != 2) || (p->tile != 0 && p->tile != 1) ||
+      p->route_a < 0 || p->route_a > 2 || p->route_b < 0 || p->route_b > 2 ||
+      (p->split && static_cast<long long>(p->nb1 - 1) * p->K >= p->kmax)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const bool a_km = !(p->a_sm == 1 && p->a_sk != 1);
   const bool b_km = p->b_sn != 1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long large = ((p->M + 127) / 128) * ((p->N + 127) / 128) *
-                          static_cast<long long>(p->nb1) * p->nb2;
-  if (p->M > 64 && p->N > 64 && large >= sm_count()) {
-    return launch_gemm<128, 128, 2, 4>(p, a_km, b_km, s);
-  }
-  return launch_gemm<64, 64, 2, 2>(p, a_km, b_km, s);
+  if (p->tile == 0) return launch_gemm<128, 128>(p, a_km, b_km, s);
+  return launch_gemm<64, 64>(p, a_km, b_km, s);
 }
 
 extern "C" int spe_reduce(const ReduceParams* p, void* stream) {

@@ -13,31 +13,44 @@
 // `res + gamma * y`, a head-interleaved column store).
 //
 // What bounds it on the H100: at the recipe's shapes (M = B*1024 or
-// B*600 rows, N from 192 to 2048) the K = 192 products move more bytes
+// B*600 rows, N from 192 to 3072) the K = 192 products move more bytes
 // than the tensor cores need time for (A in f32 or bf16, the output and
 // the residual stream: ~100 flops per byte, under the card's ~295), the
-// K = 768/2048 ones (fc2, linear2) are compute bound. The design, three
-// ways through K, all on mma.sync.m16n8k16 (bf16 operands, f32
-// accumulators, ldmatrix fragments; wgmma/TMA not tried yet):
-// - WHOLE (K <= 256: every LayerNorm, a2 and f32-A class, and the bf16
-//   K = 192 ones): the block's bf16 A panel (BM = 128 rows x K) is built
-//   once in shared memory, by cp.async or, for LayerNorm/a2/f32 rows,
-//   through registers (16-byte loads, the row statistics from the same
-//   loads, four rows of a warp in flight); W's whole-K tile of 64 columns
-//   is double-buffered, so the next one loads while this one's products
-//   (no barrier inside K) and epilogue run. One wave of blocks (two per
-//   SM) walks several N tiles each, so the LayerNorm is computed once per
-//   row and block, not per N tile.
-// - STREAM (a bf16 A with K > 256): A and W k tiles through a 4-stage
-//   cp.async ring (gemm_kernel's tile, grad.cu; the loaders of common.cuh).
-// - PANEL (a transformed A with 256 < K <= PANEL_KMAX; no recipe class):
-//   the 64-row panel, W through the ring.
-// The epilogue goes through a shared f32 C tile (WHOLE: the consumed W
-// buffer, in two halves), then rows of 4 columns per thread: 16-byte (f32)
-// or 8-byte (bf16) coalesced stores where the column-group store and the
-// alignment allow, 32-bit column indices. It takes about a third of a
-// K = 192 product's time; an epilogue straight from the registers (4-byte
-// stores) measured slower.
+// K = 768/2048/3072 ones (fc2, linear2, M48's layers) are compute bound.
+// The design: wgmma.mma_async m64nNk16 (bf16 operands, f32 accumulators in
+// registers) fed by the ring of wgmma.cuh (64-deep 128-byte-swizzled k
+// tiles, a producer warpgroup's TMA loads completing on mbarriers, one or
+// two consumer warpgroups), two ways through K:
+// - PANEL (every LayerNorm, a2 and f32-A class, and any A with K <= 256):
+//   the block's bf16 A panel (BM rows x K, zero to a multiple of 64) is
+//   built once in shared memory, straight into the swizzled layout wgmma
+//   reads: by TMA for a plain aligned bf16 A, else by the consumer
+//   warpgroups through registers (16-byte loads, the row statistics from
+//   the same loads, four rows of a warp in flight, the LayerNorm's weights
+//   staged in shared memory), while the producer streams W's K-major k
+//   tiles through the ring. A block walks several N tiles, the W ring
+//   running on across them, so the LayerNorm is computed once per row
+//   block; the N tiles are split over the blocks for the least makespan.
+//   Tiles: for K <= 256, 64 x 64 (one consumer warpgroup, two blocks a SM)
+//   for N <= 384 or M <= 1024, else 128 x 128 (two); deeper panels 64
+//   rows, 128 columns up to K = 1024 (M48's qkv and fc1 at K = 768), 64
+//   past it (up to PANEL_KMAX, the panel ~184 KB).
+// - STREAM (a plain bf16 A with K > 256): the shared mainloop with A and W
+//   k tiles both through the ring; 128 x 128 where the grid fills every
+//   SM, else 64 x 64.
+// Operands TMA cannot read (a misaligned A, W rows that are not 16-byte
+// multiples) go through the producer warpgroup's registers into the same
+// ring (route REG); the route and tile are chosen from the shapes and
+// strides before the launch (kernels.linear_plan). The epilogue goes
+// through a shared f32 C tile of its own (PANEL: the next tile's W loads
+// run during it; STREAM: the producer warpgroup joins it), then rows of 4
+// columns per thread: 16-byte (f32) or 8-byte (bf16) coalesced stores
+// where the column-group store and the alignment allow. What bounds it
+// now (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md section 6): the K = 192
+// classes stay ~10x over their byte bound: one or two blocks a SM wait
+// out the panel's loads and each tile's epilogue in turn (an epilogue
+// giving each thread fixed columns with batched loads, and one shared
+// with the producer's idle warps, both measured slower).
 
 // Numerics follow the TPU kernels: A is rounded to bf16 after the optional
 // LayerNorm (or after the f32 sum with the second input), W is bf16, the
@@ -52,6 +65,7 @@
 #include <algorithm>
 
 #include "common.cuh"
+#include "wgmma.cuh"
 
 struct LinearParams {
   const void* a;       // (M, K) rows with stride lda; bf16 or f32 (a_f32)
@@ -78,22 +92,16 @@ struct LinearParams {
   unsigned path_thr;
   float path_scale;
   int aux_pre;           // aux before the activation (1) or after dropout (0)
+  int tile;              // LinearTile (kernels.linear_plan)
+  int route_a, route_w;  // wg::Route: TMA or REG (PANEL: TMA loads the panel)
 };
 
 namespace {
 
-constexpr int LBK = 32;          // depth of a k tile
-constexpr int LSTAGES = 4;       // the shared ring: cp.async runs 3 k tiles ahead
-constexpr int PANEL_KMAX = 1472; // the deepest A panel (BM = 64, ~190 KB)
-constexpr int WHOLE_KMAX = 256;   // the deepest whole-K W tiles (BM = 128)
-// the kernel's three ways through K: A and W k tiles through the ring
-// (STREAM, K > WHOLE_KMAX), A built once as a panel and W k tiles through
-// the ring (PANEL, a transformed A with K > WHOLE_KMAX), A's panel and
-// W's whole-K tiles (WHOLE, K <= WHOLE_KMAX)
-enum LinearMode { STREAM = 0, PANEL = 1, WHOLE = 2 };
-constexpr int SMEM_MAX = 232448;
-// resident warps per SM the register budget is cut for (as gemm_kernel)
-constexpr int LIN_MIN_WARPS = 16;
+constexpr int PANEL_KMAX = 1472;  // the deepest A panel (64 rows, 184 KB)
+constexpr int WHOLE_KMAX = 256;   // the deepest 128-row panel
+// the tiles: (BM, BN, PANEL)
+enum LinearTile { STREAM_128 = 0, STREAM_64 = 1, PANEL_128 = 2, PANEL_64_128 = 3, PANEL_64 = 4 };
 
 __device__ __forceinline__ float load_a(const LinearParams& p, long long i) {
   float v = p.a_f32 ? static_cast<const float*>(p.a)[i]
@@ -132,31 +140,41 @@ __device__ __forceinline__ void load_a4(const LinearParams& p, long long base, i
 }
 
 // The block's A panel: rows m0..m0+BM of LN?(A [+ a2]) rounded to bf16,
-// columns 0..KP (zero past K and past M), row stride LDP. One warp per row,
-// 4-column chunks, 16-byte loads where aligned; the LayerNorm's statistics
-// and normalisation are common.cuh's (ln_row_stats, ln_apply4), which
-// layernorm_kernel calls too. For K <= 256 a lane holds its 8 values of
-// PANEL_RG rows in registers, so the loads of those rows are in flight
-// together and each is read once; deeper rows are read once per pass.
+// columns 0..KP (zero past K and past M), in the swizzled K-major layout
+// wgmma reads (KP / 64 blocks of BM rows x 128 bytes, wg::swz), built by
+// the NTH consumer threads. One warp per row, 4-column chunks, 16-byte
+// loads where aligned; the LayerNorm's statistics and normalisation are
+// common.cuh's (ln_row_stats, ln_apply4), which layernorm_kernel calls
+// too. For K <= 256 a lane holds its 8 values of PANEL_RG rows in
+// registers, so the loads of those rows are in flight together and each is
+// read once; deeper rows are read once per pass.
 constexpr int PANEL_RG = 4;
 
-__device__ __forceinline__ void panel_row_store(const LinearParams& p, bf16* dst, int c, int K,
-                                                float mean, float rstd, float (&v)[4]) {
+__device__ __forceinline__ void panel_store(unsigned char* Ap, int r, int c, int BM, uint2 v) {
+  *reinterpret_cast<uint2*>(Ap + wg::swz(r, c, BM)) = v;
+}
+
+// the LayerNorm's weight and bias, staged in shared memory (lns: K
+// weights, then K biases): read per row from device memory, their
+// latency tripled the panel's build
+__device__ __forceinline__ uint2 panel_row_values(const LinearParams& p, const float* lns, int c,
+                                                  int K, float mean, float rstd, float (&v)[4]) {
   if (p.ln_g) {
     float g[4], b[4];
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      g[e] = c + e < K ? p.ln_g[c + e] : 0.f;
-      b[e] = c + e < K ? p.ln_b[c + e] : 0.f;
+      g[e] = c + e < K ? lns[c + e] : 0.f;
+      b[e] = c + e < K ? lns[K + c + e] : 0.f;
     }
     ln_apply4(v, c, K, mean, rstd, g, b);
   }
-  *reinterpret_cast<uint2*>(dst + c) = make_uint2(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]));
+  return make_uint2(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]));
 }
 
-template <int BM, int NTH>
-__device__ void build_panel(const LinearParams& p, int m0, int KP, int LDP, bf16* Ap) {
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+template <int BM>
+__device__ void build_panel(const LinearParams& p, int m0, int KP, unsigned char* Ap,
+                            const float* lns, int tid, int nthreads) {
+  const int lane = tid % 32, warp = tid / 32, warps = nthreads / 32;
   const int es = p.a_f32 ? 4 : 2;
   const unsigned long long al = reinterpret_cast<unsigned long long>(p.a) |
                                 static_cast<unsigned long long>(p.lda * es) |
@@ -165,7 +183,7 @@ __device__ void build_panel(const LinearParams& p, int m0, int KP, int LDP, bf16
   const int K = static_cast<int>(p.K);
   const float invK = ln_inv(K);
   if (KP <= 256) {
-    for (int r0 = warp * PANEL_RG; r0 < BM; r0 += (NTH / 32) * PANEL_RG) {
+    for (int r0 = warp * PANEL_RG; r0 < BM; r0 += warps * PANEL_RG) {
       float v[PANEL_RG][2][4];
 #pragma unroll
       for (int g = 0; g < PANEL_RG; ++g)
@@ -184,26 +202,21 @@ __device__ void build_panel(const LinearParams& p, int m0, int KP, int LDP, bf16
         float mean = 0.f, rstd = 1.f;
         if (p.ln_g) ln_row_stats<2>(v[g], lane, K, invK, p.ln_eps, mean, rstd);
         const bool live = m0 + r0 + g < p.M;
-        bf16* dst = Ap + (r0 + g) * LDP;
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int c = 4 * lane + 128 * h;
           if (c >= KP) continue;
-          if (live) {
-            panel_row_store(p, dst, c, K, mean, rstd, v[g][h]);
-          } else {
-            *reinterpret_cast<uint2*>(dst + c) = make_uint2(0u, 0u);
-          }
+          panel_store(Ap, r0 + g, c, BM,
+                      live ? panel_row_values(p, lns, c, K, mean, rstd, v[g][h]) : make_uint2(0u, 0u));
         }
       }
     }
     return;
   }
-  for (int r = warp; r < BM; r += NTH / 32) {
+  for (int r = warp; r < BM; r += warps) {
     const int m = m0 + r;
-    bf16* dst = Ap + r * LDP;
     if (m >= p.M) {
-      for (int c = 4 * lane; c < KP; c += 128) *reinterpret_cast<uint2*>(dst + c) = make_uint2(0u, 0u);
+      for (int c = 4 * lane; c < KP; c += 128) panel_store(Ap, r, c, BM, make_uint2(0u, 0u));
       continue;
     }
     const long long base = static_cast<long long>(m) * p.lda;
@@ -227,19 +240,47 @@ __device__ void build_panel(const LinearParams& p, int m0, int KP, int LDP, bf16
     for (int c = 4 * lane; c < KP; c += 128) {
       float v[4];
       load_a4(p, base, c, vec, v);
-      panel_row_store(p, dst, c, K, mean, rstd, v);
+      panel_store(Ap, r, c, BM, panel_row_values(p, lns, c, K, mean, rstd, v));
     }
   }
 }
 
-// The epilogue of 4 columns n..n+3 of row m (cnt of them inside N): bias,
-// aux before the activation, GELU/ReLU, the dropout mask, aux after it,
-// `res + dp * gamma * y`, the (column-group) store. vec_*: the 4-wide
-// accesses are aligned (decided once per launch).
+// the epilogue's 4-wide accesses are aligned and the store has no column
+// groups (decided once per launch)
 struct EpiVec {
-  bool out, res, aux;
+  bool out, res, aux, flat;
 };
 
+// The residual's 4 columns n..n+3 of row m (cnt of them inside N)
+__device__ __forceinline__ void load_res4(const LinearParams& p, int m, int n, int cnt,
+                                          const EpiVec& vec, float (&r)[4]) {
+  r[0] = r[1] = r[2] = r[3] = 0.f;
+  if (!p.res) return;
+  const long long ro = static_cast<long long>(m) * p.ldr + n;
+  if (vec.res && cnt == 4) {
+    if (p.res_f32) {
+      const float4 x = *reinterpret_cast<const float4*>(static_cast<const float*>(p.res) + ro);
+      r[0] = x.x;
+      r[1] = x.y;
+      r[2] = x.z;
+      r[3] = x.w;
+    } else {
+      const uint2 x = *reinterpret_cast<const uint2*>(static_cast<const bf16*>(p.res) + ro);
+      unpack2(x.x, r[0], r[1]);
+      unpack2(x.y, r[2], r[3]);
+    }
+    return;
+  }
+  for (int e = 0; e < cnt; ++e) {
+    r[e] = p.res_f32 ? static_cast<const float*>(p.res)[ro + e]
+                     : bf2f(static_cast<const bf16*>(p.res)[ro + e]);
+  }
+}
+
+
+// The epilogue of 4 columns n..n+3 of row m (cnt of them inside N): bias,
+// aux before the activation, GELU/ReLU, the dropout mask, aux after it,
+// `res + dp * gamma * y`, the (column-group) store.
 __device__ __forceinline__ void epilogue4(const LinearParams& p, int m, int n, int cnt,
                                           float (&y)[4], const EpiVec& vec) {
   const bool full = cnt == 4;
@@ -274,26 +315,8 @@ __device__ __forceinline__ void epilogue4(const LinearParams& p, int m, int n, i
   }
   if (p.aux && !p.aux_pre) store_aux();
   if (p.res) {
-    float r[4] = {0.f, 0.f, 0.f, 0.f};
-    const long long ro = static_cast<long long>(m) * p.ldr + n;
-    if (vec.res && full) {
-      if (p.res_f32) {
-        const float4 x = *reinterpret_cast<const float4*>(static_cast<const float*>(p.res) + ro);
-        r[0] = x.x;
-        r[1] = x.y;
-        r[2] = x.z;
-        r[3] = x.w;
-      } else {
-        const uint2 x = *reinterpret_cast<const uint2*>(static_cast<const bf16*>(p.res) + ro);
-        unpack2(x.x, r[0], r[1]);
-        unpack2(x.y, r[2], r[3]);
-      }
-    } else {
-      for (int e = 0; e < cnt; ++e) {
-        r[e] = p.res_f32 ? static_cast<const float*>(p.res)[ro + e]
-                         : bf2f(static_cast<const bf16*>(p.res)[ro + e]);
-      }
-    }
+    float r[4];
+    load_res4(p, m, n, cnt, vec, r);
     float dp = 1.f;
     if (p.path_site) {
       dp = path_bit(*p.seed, p.path_site, static_cast<unsigned>(m / rps), p.path_thr)
@@ -306,7 +329,7 @@ __device__ __forceinline__ void epilogue4(const LinearParams& p, int m, int n, i
   }
   const long long orow = static_cast<long long>(m) * p.ldo;
   if (vec.out && full) {
-    const long long oc = orow + (n / p.ogrp) * p.ogstride + n % p.ogrp;
+    const long long oc = orow + (vec.flat ? n : (n / p.ogrp) * p.ogstride + n % p.ogrp);
     if (p.out_f32) {
       *reinterpret_cast<float4*>(static_cast<float*>(p.out) + oc) = make_float4(y[0], y[1], y[2], y[3]);
     } else {
@@ -326,302 +349,16 @@ __device__ __forceinline__ void epilogue4(const LinearParams& p, int m, int n, i
   }
 }
 
-// the shared memory of an instantiation at panel row stride ldp: WHOLE:
-// the A panel and two whole-K W tiles (the C half tiles reuse one); else
-// the A panel (PANEL), then the ring of k tiles (A's too without a panel)
-// and, reusing the ring, the f32 C tile of the epilogue
-// W's whole-K tile buffer (bf16 elements): BN rows of ldp, or the f32 C
-// half tile of the epilogue that reuses it, whichever is larger
+// The epilogue of one C tile (rows m0.., columns n0..) from the shared f32
+// C tile, by thread tid of NT: rows of 4 columns per thread, coalesced
+// along n.
 template <int BM, int BN>
-__host__ __device__ constexpr int whole_wbuf(int ldp) {
-  return BN * ldp > BM / 2 * (BN + 8) * 2 ? BN * ldp : BM / 2 * (BN + 8) * 2;
-}
-
-template <int BM, int BN, int NTH, int MODE>
-size_t linear_smem_bytes(int ldp) {
-  if (MODE == WHOLE) return sizeof(bf16) * (BM * ldp + 2 * whole_wbuf<BM, BN>(ldp));
-  constexpr bool PANEL = MODE == LinearMode::PANEL;
-  const size_t ring = sizeof(bf16) * LSTAGES *
-                      ((PANEL ? 0 : static_cast<size_t>(TileIO<BM, LBK, NTH>::ELEMS)) +
-                       TileIO<BN, LBK, NTH>::ELEMS);
-  const size_t ctile = sizeof(float) * BM * (BN + 8);
-  return (PANEL ? sizeof(bf16) * BM * ldp : 0) + (ring > ctile ? ring : ctile);
-}
-
-// WHOLE: the block's A panel (bf16 by cp.async, or built through
-// registers when transformed or misaligned) and, for each of its N tiles,
-// W's BN x K tile in one of two buffers: the next tile's W is in flight
-// while this one's products (all of K between two barriers) and epilogue
-// run. The f32 C tile goes through the consumed W buffer in two halves.
-template <int BM, int BN, int WM, int WN>
-__device__ __forceinline__ void whole_k_body(const LinearParams& p, unsigned char* lsmem) {
-  constexpr int NTH = WM * WN * 32;
-  constexpr int MT = BM / WM / 16, NT8 = BN / WN / 8;
+__device__ __forceinline__ void linear_epilogue(const LinearParams& p, const float* Cs, int m0,
+                                                int n0, const EpiVec& vec, int tid, int NT) {
   constexpr int LDC = BN + 8;
-  static_assert((BM / 2) % (BM / WM) == 0, "a warp's rows lie in one half");
-  const int K = static_cast<int>(p.K), N = static_cast<int>(p.N);
-  const int KP = (K + LBK - 1) / LBK * LBK;
-  const int LDP = pad_ld(KP);
-  const int WBUF = whole_wbuf<BM, BN>(LDP);
-  bf16* Ap = reinterpret_cast<bf16*>(lsmem);
-  bf16* Wb = Ap + BM * LDP;
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int wm0 = (warp / WN) * (BM / WM), wn0 = (warp % WN) * (BN / WN);
-  const int m0 = blockIdx.x * BM;
-  const int ntiles = (N + BN - 1) / BN;
-  const int T = (ntiles - static_cast<int>(blockIdx.y) + gridDim.y - 1) / gridDim.y;
-  const int chunks = KP / 8;   // 16-byte chunks of a row
-  const bool w_async = (reinterpret_cast<unsigned long long>(p.w) | (2ULL * K)) % 16 == 0;
-  auto tile_n0 = [&](int j) { return (static_cast<int>(blockIdx.y) + j * gridDim.y) * BN; };
-  // W's tile j (all of K, zero past N and K) into buffer j % 2, as one
-  // cp.async group (empty past the last tile)
-  auto load_w = [&](int j) {
-    if (j < T) {
-      const int n0 = tile_n0(j);
-      bf16* dst = Wb + (j % 2) * WBUF;
-      if (w_async) {
-        for (int e = threadIdx.x; e < BN * chunks; e += NTH) {
-          const int r = e / chunks, c = (e % chunks) * 8;
-          const int valid = n0 + r < N ? max(0, min(8, K - c)) : 0;
-          const bf16* src = valid ? p.w + static_cast<long long>(n0 + r) * K + c : p.w;
-          cp_async<16>(smem_u32(dst + r * LDP + c), src, valid * 2);
-        }
-      } else {
-        for (int e = threadIdx.x; e < BN * KP / 4; e += NTH) {
-          const int r = e / (KP / 4), c = (e % (KP / 4)) * 4;
-          float v[4];
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            v[q] = n0 + r < N && c + q < K ? bf2f(p.w[static_cast<long long>(n0 + r) * K + c + q])
-                                           : 0.f;
-          }
-          *reinterpret_cast<uint2*>(dst + r * LDP + c) =
-              make_uint2(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]));
-        }
-      }
-    }
-    cp_async_commit();
-  };
-  const bool a_async = !p.ln_g && !p.a2 && !p.a_f32 &&
-                       (reinterpret_cast<unsigned long long>(p.a) | (2ULL * p.lda)) % 16 == 0;
-  if (a_async) {   // in W's first group
-    for (int e = threadIdx.x; e < BM * chunks; e += NTH) {
-      const int r = e / chunks, c = (e % chunks) * 8;
-      const int valid = m0 + r < p.M ? max(0, min(8, K - c)) : 0;
-      const bf16* src = static_cast<const bf16*>(p.a);
-      if (valid) src += static_cast<long long>(m0 + r) * p.lda + c;
-      cp_async<16>(smem_u32(Ap + r * LDP + c), src, valid * 2);
-    }
-  }
-  load_w(0);
-  if (!a_async) build_panel<BM, NTH>(p, m0, KP, LDP, Ap);   // W's first tile in flight
-  load_w(1);
-  const EpiVec vec = {
-      (p.ogrp >= N || (p.ogrp % 4 == 0 && p.ogstride % 4 == 0)) && p.ldo % 4 == 0 &&
-          reinterpret_cast<unsigned long long>(p.out) % (p.out_f32 ? 16 : 8) == 0,
-      p.res && p.ldr % 4 == 0 &&
-          reinterpret_cast<unsigned long long>(p.res) % (p.res_f32 ? 16 : 8) == 0,
-      p.aux && p.ldaux % 4 == 0 && reinterpret_cast<unsigned long long>(p.aux) % 16 == 0};
-
-  for (int j = 0; j < T; ++j) {
-    cp_async_wait<1>();   // W's tile j (and the panel) landed; j + 1 in flight
-    __syncthreads();
-    const bf16* wt = Wb + (j % 2) * WBUF;
-    float acc[MT][NT8][4];
-#pragma unroll
-    for (int i = 0; i < MT; ++i)
-#pragma unroll
-      for (int jn = 0; jn < NT8; ++jn)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][jn][e] = 0.f;
+  const int N = static_cast<int>(p.N);
 #pragma unroll 2
-    for (int kk = 0; kk < KP; kk += 16) {
-      unsigned af[MT][4], bfr[NT8][2];
-#pragma unroll
-      for (int i = 0; i < MT; ++i) {
-        ldsm_x4(af[i], smem_u32(Ap + (wm0 + 16 * i + lane % 16) * LDP + kk + (lane / 16) * 8));
-      }
-#pragma unroll
-      for (int jp = 0; jp < NT8 / 2; ++jp) {
-        unsigned r[4];
-        ldsm_x4(r, smem_u32(wt + (wn0 + 16 * jp + lane % 8 + (lane / 16) * 8) * LDP + kk +
-                            ((lane / 8) % 2) * 8));
-        bfr[2 * jp][0] = r[0];
-        bfr[2 * jp][1] = r[1];
-        bfr[2 * jp + 1][0] = r[2];
-        bfr[2 * jp + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int i = 0; i < MT; ++i)
-#pragma unroll
-        for (int jn = 0; jn < NT8; ++jn) mma_bf16(acc[i][jn], af[i], bfr[jn][0], bfr[jn][1]);
-    }
-    __syncthreads();   // W's buffer j % 2 is consumed: the C half tiles go there
-    float* Cs = reinterpret_cast<float*>(Wb + (j % 2) * WBUF);
-    const int n0 = tile_n0(j);
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      if (wm0 / (BM / 2) == half) {
-#pragma unroll
-        for (int i = 0; i < MT; ++i)
-#pragma unroll
-          for (int jn = 0; jn < NT8; ++jn)
-#pragma unroll
-            for (int hr = 0; hr < 2; ++hr) {
-              *reinterpret_cast<float2*>(Cs + (wm0 - half * (BM / 2) + 16 * i + lane / 4 + 8 * hr) *
-                                                  LDC + wn0 + 8 * jn + (lane % 4) * 2) =
-                  make_float2(acc[i][jn][2 * hr], acc[i][jn][2 * hr + 1]);
-            }
-      }
-      __syncthreads();
-#pragma unroll 2
-      for (int idx = threadIdx.x; idx < BM / 2 * BN / 4; idx += NTH) {
-        const int r = idx / (BN / 4), c4 = (idx % (BN / 4)) * 4;
-        const int m = m0 + half * (BM / 2) + r, n = n0 + c4;
-        if (m >= p.M || n >= N) continue;
-        const float4 v4 = *reinterpret_cast<const float4*>(Cs + r * LDC + c4);
-        float y[4] = {v4.x, v4.y, v4.z, v4.w};
-        epilogue4(p, m, n, min(4, N - n), y, vec);
-      }
-      __syncthreads();
-    }
-    load_w(j + 2);   // into the buffer just freed
-  }
-  cp_async_wait<0>();
-}
-
-// C tile BM x BN, WM x WN warps of (BM/WM) x (BN/WN) m16n8k16 products;
-// block (x, y) owns rows x*BM.. and columns y*BN.. (WHOLE: the N tiles y,
-// y + gridDim.y, ...). A's shared tile is [m][k] (the panel, or the ring),
-// W's [n][k].
-template <int BM, int BN, int WM, int WN, int MODE>
-__global__ void __launch_bounds__(WM * WN * 32, LIN_MIN_WARPS / (WM * WN))
-    linear_kernel(LinearParams p) {
-  extern __shared__ __align__(16) unsigned char lsmem[];
-  if constexpr (MODE == WHOLE) {
-    whole_k_body<BM, BN, WM, WN>(p, lsmem);
-    return;
-  }
-  constexpr bool PANEL = MODE == LinearMode::PANEL;
-  constexpr int NTH = WM * WN * 32;
-  constexpr int MT = BM / WM / 16, NT8 = BN / WN / 8;
-  static_assert(MT >= 1 && NT8 % 2 == 0, "warp tile");
-  using IOA = TileIO<BM, LBK, NTH>;
-  using IOW = TileIO<BN, LBK, NTH>;
-  const int K = static_cast<int>(p.K), N = static_cast<int>(p.N);
-  const int KP = (K + LBK - 1) / LBK * LBK;
-  const int LDP = pad_ld(KP);
-  bf16* Ap = reinterpret_cast<bf16*>(lsmem);
-  bf16* As = Ap + (PANEL ? BM * LDP : 0);                    // LSTAGES x IOA::ELEMS
-  bf16* Ws = As + (PANEL ? 0 : LSTAGES * IOA::ELEMS);        // LSTAGES x IOW::ELEMS
-  float* Cs = reinterpret_cast<float*>(As);
-
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int wm0 = (warp / WN) * (BM / WM), wn0 = (warp % WN) * (BN / WN);
-  const int m0 = blockIdx.x * BM;
-  const Src a = make_src(p.a, 0, 0, p.lda, 1, p.M, K);   // without a panel: bf16
-  const Src w = make_src(p.w, 0, 0, K, 1, N, K);
-  const int nk = KP / LBK, n0 = blockIdx.y * BN;
-  const int lda_s = PANEL ? LDP : IOA::LD;
-  const bool a_reg = !PANEL && a.mode != 0;
-  // the cp.async operands of k tile kt into its stage, as one group (empty
-  // past the last tile)
-  auto issue = [&](int kt) {
-    if (kt < nk) {
-      const int st = kt % LSTAGES;
-      if (!PANEL && a.mode == 0) IOA::async(a, m0, kt * LBK, As + st * IOA::ELEMS);
-      if (w.mode == 0) IOW::async(w, n0, kt * LBK, Ws + st * IOW::ELEMS);
-    }
-    cp_async_commit();
-  };
-#pragma unroll
-  for (int s = 0; s < LSTAGES - 1; ++s) issue(s);
-  if (PANEL) build_panel<BM, NTH>(p, m0, KP, LDP, Ap);   // W's first tiles in flight
-  unsigned ra[IOA::UNITS][4], rw[IOW::UNITS][4];
-  if (a_reg) {
-    IOA::fetch(a, m0, 0, ra);
-    IOA::store(0, ra, As);
-  }
-  if (w.mode != 0) {
-    IOW::fetch(w, n0, 0, rw);
-    IOW::store(0, rw, Ws);
-  }
-  const EpiVec vec = {
-      (p.ogrp >= N || (p.ogrp % 4 == 0 && p.ogstride % 4 == 0)) && p.ldo % 4 == 0 &&
-          reinterpret_cast<unsigned long long>(p.out) % (p.out_f32 ? 16 : 8) == 0,
-      p.res && p.ldr % 4 == 0 &&
-          reinterpret_cast<unsigned long long>(p.res) % (p.res_f32 ? 16 : 8) == 0,
-      p.aux && p.ldaux % 4 == 0 && reinterpret_cast<unsigned long long>(p.aux) % 16 == 0};
-
-  float acc[MT][NT8][4];
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NT8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-  for (int kt = 0; kt < nk; ++kt) {
-    const bool more = kt + 1 < nk;
-    issue(kt + LSTAGES - 1);
-    // the register operands of the next tile, stored after this one's products
-    if (more) {
-      if (a_reg) IOA::fetch(a, m0, (kt + 1) * LBK, ra);
-      if (w.mode != 0) IOW::fetch(w, n0, (kt + 1) * LBK, rw);
-    }
-    cp_async_wait<LSTAGES - 1>();   // this tile's group has landed
-    __syncthreads();                // (and, at kt = 0, the panel is built)
-    const bf16* at = PANEL ? Ap + kt * LBK : As + (kt % LSTAGES) * IOA::ELEMS;
-    const bf16* wt = Ws + (kt % LSTAGES) * IOW::ELEMS;
-#pragma unroll
-    for (int kk = 0; kk < LBK; kk += 16) {
-      unsigned af[MT][4], bfr[NT8][2];
-#pragma unroll
-      for (int i = 0; i < MT; ++i) {
-        ldsm_x4(af[i], smem_u32(at + (wm0 + 16 * i + lane % 16) * lda_s + kk + (lane / 16) * 8));
-      }
-#pragma unroll
-      for (int jp = 0; jp < NT8 / 2; ++jp) {
-        unsigned r[4];
-        ldsm_x4(r, smem_u32(wt + (wn0 + 16 * jp + lane % 8 + (lane / 16) * 8) * IOW::LD + kk +
-                            ((lane / 8) % 2) * 8));
-        bfr[2 * jp][0] = r[0];
-        bfr[2 * jp][1] = r[1];
-        bfr[2 * jp + 1][0] = r[2];
-        bfr[2 * jp + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int i = 0; i < MT; ++i)
-#pragma unroll
-        for (int j = 0; j < NT8; ++j) mma_bf16(acc[i][j], af[i], bfr[j][0], bfr[j][1]);
-    }
-    if (more) {
-      const int st = (kt + 1) % LSTAGES;
-      if (a_reg) IOA::store(0, ra, As + st * IOA::ELEMS);
-      if (w.mode != 0) IOW::store(0, rw, Ws + st * IOW::ELEMS);
-    }
-    __syncthreads();
-  }
-
-  cp_async_wait<0>();
-
-  // the accumulators through the shared f32 C tile (over the ring, whose
-  // last group has landed), then rows of 4 columns per thread, coalesced
-  // along n
-  constexpr int LDC = BN + 8;
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NT8; ++j)
-#pragma unroll
-      for (int hr = 0; hr < 2; ++hr) {
-        *reinterpret_cast<float2*>(Cs + (wm0 + 16 * i + lane / 4 + 8 * hr) * LDC + wn0 + 8 * j +
-                                   (lane % 4) * 2) =
-            make_float2(acc[i][j][2 * hr], acc[i][j][2 * hr + 1]);
-      }
-  __syncthreads();
-#pragma unroll 2
-  for (int idx = threadIdx.x; idx < BM * BN / 4; idx += NTH) {
+  for (int idx = tid; idx < BM * BN / 4; idx += NT) {
     const int r = idx / (BN / 4), c4 = (idx % (BN / 4)) * 4;
     const int m = m0 + r, n = n0 + c4;
     if (m >= p.M || n >= N) continue;
@@ -631,54 +368,253 @@ __global__ void __launch_bounds__(WM * WN * 32, LIN_MIN_WARPS / (WM * WN))
   }
 }
 
-template <int BM, int BN, int WM, int WN, int MODE>
+// the LayerNorm's weight and bias into shared memory (the C tile, free
+// until the first tile's products), by thread tid of nthreads
+__device__ __forceinline__ void stage_ln(const LinearParams& p, float* lns, int tid, int nthreads) {
+  if (!p.ln_g) return;
+  const int K = static_cast<int>(p.K);
+  for (int i = tid; i < K; i += nthreads) {
+    lns[i] = __ldg(p.ln_g + i);
+    lns[K + i] = __ldg(p.ln_b + i);
+  }
+}
+
+// A launch: the parameters, the tensor maps of A (PANEL: the panel's
+// boxes; STREAM: the ring's) and W, and the shared memory's layout (bytes
+// from its 1024-aligned start): the panel, the f32 C tile, the ring (a
+// stage: A's k tile (STREAM), then W's), the barriers.
+struct LinearLaunch {
+  CUtensorMap ma, mw;
+  LinearParams p;
+  int stages;
+  unsigned ctile_off, ring_off, stage_bytes, off_w, bar_off;
+};
+
+// C tile BM x BN: BM / 64 consumer warpgroups of m64nBN products and one
+// producer warpgroup. PANEL: block (x, y) owns rows x*BM.. and the N tiles
+// y, y + gridDim.y, ...; STREAM: columns x*BN.., rows y*BM...
+template <int BM, int BN, bool PANEL>
+__global__ void __launch_bounds__((BM / 64 + 1) * 128, BM == 128 ? 1 : 2)
+    linear_kernel(const __grid_constant__ LinearLaunch L) {
+  constexpr int NWG = BM / 64, NTHC = NWG * 128;
+  constexpr int LDC = BN + 8;
+  const LinearParams& p = L.p;
+  extern __shared__ unsigned char lsmem_raw[];
+  unsigned char* sm = wg::align1024(lsmem_raw);
+  const uint32_t base = smem_u32(sm);
+  const wg::Ring g = {base + L.ring_off, L.stage_bytes, base + L.bar_off, L.stages};
+  const uint32_t pbar = base + L.bar_off + 16 * L.stages;   // the panel's TMA loads
+  const int K = static_cast<int>(p.K), N = static_cast<int>(p.N);
+  const int nk = (K + wg::BK - 1) / wg::BK;
+  // PANEL: x the row block, y the first N tile; STREAM: x the N tile, y
+  // the row block (the N tiles of a row block run side by side)
+  const int m0 = (PANEL ? blockIdx.x : blockIdx.y) * BM;
+  const int nb = PANEL ? blockIdx.y : blockIdx.x, ng = PANEL ? gridDim.y : 1;
+  const int ntiles = (N + BN - 1) / BN;
+  const int T = PANEL ? (ntiles - nb + ng - 1) / ng : 1;
+  auto tile_n0 = [&](int i) { return (nb + i * ng) * BN; };
+  if (threadIdx.x == 0) {
+    wg::ring_init(g, p.route_w != wg::TMA || (!PANEL && p.route_a != wg::TMA), 4 * NWG);
+    if (PANEL) wg::mbar_init(pbar, 1);
+    wg::fence_barrier_init();
+  }
+  __syncthreads();
+
+  const EpiVec vec = {
+      (p.ogrp >= N || (p.ogrp % 4 == 0 && p.ogstride % 4 == 0)) && p.ldo % 4 == 0 &&
+          reinterpret_cast<unsigned long long>(p.out) % (p.out_f32 ? 16 : 8) == 0,
+      p.res && p.ldr % 4 == 0 &&
+          reinterpret_cast<unsigned long long>(p.res) % (p.res_f32 ? 16 : 8) == 0,
+      p.aux && p.ldaux % 4 == 0 && reinterpret_cast<unsigned long long>(p.aux) % 16 == 0,
+      p.ogrp >= N};
+  float* Cs = reinterpret_cast<float*>(sm + L.ctile_off);
+  // the threads of the panel's build and of the epilogue (named barrier
+  // 2): the consumers and, for STREAM's one tile, the producer warpgroup
+  // once it has issued every load
+  const int P = NTHC + (PANEL ? 0 : 128);
+  const bool build = PANEL && p.route_a != wg::TMA;
+
+  if (wg::warpgroup() == NWG) {
+    const int t = threadIdx.x - NTHC;
+    if (PANEL && p.route_a == wg::TMA && t == 0) {
+      wg::mbar_expect_tx(pbar, nk * BM * 128);
+      for (int q = 0; q < nk; ++q) wg::tma_load(base + q * BM * 128, &L.ma, pbar, q * wg::BK, m0, 0, 0);
+    }
+    wg::RingOperand a, w;
+    a.map = &L.ma;
+    a.route = p.route_a;
+    a.km = true;
+    a.R = BM;
+    a.C = wg::BK;
+    a.off = 0;
+    a.soff = 0;
+    a.src = make_src(p.a, 0, 0, p.lda, 1, p.M, K);   // STREAM: a plain bf16 A
+    a.sr0 = m0;
+    a.sc0 = 0;
+    a.mn0 = m0;
+    w.map = &L.mw;
+    w.route = p.route_w;
+    w.km = true;
+    w.R = BN;
+    w.C = wg::BK;
+    w.off = L.off_w;
+    w.soff = 0;
+    w.src = make_src(p.w, 0, 0, K, 1, N, K);
+    w.sc0 = 0;
+    a.z2 = a.z1 = w.z2 = w.z1 = 0;
+    a.kbase = w.kbase = 0;
+    wg::produce<BM * wg::BK, BN * wg::BK>(
+        g, a, w, !PANEL, t, sm + L.ring_off,
+        [&](int i, wg::RingOperand&, wg::RingOperand& wo, int& kt) {
+          wo.mn0 = tile_n0(i / nk);
+          wo.sr0 = wo.mn0;
+          kt = i % nk;
+          return i < T * nk;
+        });
+    if (!PANEL) {   // STREAM: the producer warpgroup joins the tile's epilogue
+      wg::named_sync(2, P);
+      linear_epilogue<BM, BN>(p, Cs, m0, tile_n0(0), vec, threadIdx.x, P);
+      wg::named_sync(2, P);
+    }
+    return;
+  }
+  if (PANEL) {
+    if (build) {
+      stage_ln(p, Cs, threadIdx.x, P);
+      wg::named_sync(2, P);
+      build_panel<BM>(p, m0, nk * wg::BK, sm, Cs, threadIdx.x, P);
+      wg::fence_proxy_async();
+      wg::named_sync(2, P);
+    } else {
+      wg::mbar_wait(pbar, 0);
+    }
+  }
+  const uint32_t arow = wg::warpgroup() * wg::BK * 128;   // the warpgroup's 64 rows
+  float acc[BN / 2];   // set by each tile's first k tile (nk >= 1)
+  for (int i = 0; i < T; ++i) {
+    for (int kt = 0; kt < nk; ++kt) {
+      const int t = i * nk + kt;
+      wg::mbar_wait(g.full(t), g.parity(t));
+      const uint32_t ta = (PANEL ? base + kt * BM * 128 : g.stage(t)) + arow;
+      wg::mma_tile<BN, true, true>(acc, ta, g.stage(t) + L.off_w, kt == 0);
+      wg::wgmma_wait<1>();
+      if (kt > 0 && threadIdx.x % 32 == 0) wg::mbar_arrive(g.empty(t - 1));
+    }
+    wg::wgmma_wait<0>();
+    wg::fence_acc(acc);
+    if (threadIdx.x % 32 == 0) wg::mbar_arrive(g.empty(i * nk + nk - 1));
+    wg::acc_to_tile<BN>(acc, Cs, LDC, 1.f);
+    wg::named_sync(2, P);   // the C tile is written
+    linear_epilogue<BM, BN>(p, Cs, m0, tile_n0(i), vec, threadIdx.x, P);
+    wg::named_sync(2, P);   // and read: the next tile's may go there
+  }
+}
+
+template <int BM, int BN, bool PANEL>
 int launch_linear(const LinearParams* p, cudaStream_t s) {
-  constexpr int NTH = WM * WN * 32;
-  const int KP = static_cast<int>((p->K + LBK - 1) / LBK * LBK);
-  const size_t smem = linear_smem_bytes<BM, BN, NTH, MODE>(pad_ld(KP));
-  if (smem > SMEM_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  LinearLaunch L;
+  L.p = *p;
+  const long long K = p->K;
+  const long long nk = (K + wg::BK - 1) / wg::BK;
+  const bool plain = !p->ln_g && !p->a2 && !p->a_f32;
+  // the routes: TMA for A only where it is read as it is (a plain bf16 A),
+  // and wherever TMA's alignment rule holds
+  if (p->route_a == wg::TMA) {
+    const long long dims[4] = {K, p->M, 1, 1};
+    long long strides[3] = {p->lda * 2, 0, 0};
+    if (!plain || !wg_host::encode(&L.ma, p->a, 2, dims, strides, wg::BK, BM)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+  } else if (p->route_a != wg::REG || (!PANEL && !plain)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (p->route_w == wg::TMA) {
+    const long long dims[4] = {K, p->N, 1, 1};
+    long long strides[3] = {K * 2, 0, 0};
+    if (!wg_host::encode(&L.mw, p->w, 2, dims, strides, wg::BK, BN)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+  } else if (p->route_w != wg::REG) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  // the panel, the C tile, then as many stages of the ring as fit
+  const unsigned panel = PANEL ? static_cast<unsigned>(nk) * BM * 128 : 0;
+  const unsigned ctile = (BM * (BN + 8) * 4 + 1023) / 1024 * 1024;
+  L.ctile_off = panel;
+  L.ring_off = panel + ctile;
+  L.off_w = PANEL ? 0 : BM * 128;
+  L.stage_bytes = L.off_w + BN * 128;
+  L.stages = wg::ring_stages(L.stage_bytes, 0, L.ring_off, PANEL ? wg::MAX_STAGES : nk, BM == 64);
+  L.bar_off = L.ring_off + L.stages * L.stage_bytes;
+  const size_t smem = 1024 + L.bar_off + 16 * L.stages + 8;
+  if (smem > static_cast<size_t>(wg::SMEM_MAX)) return static_cast<int>(cudaErrorInvalidValue);
   static size_t sized = 0;   // the shared-memory limit, raised as needed
   if (smem > sized) {
     const cudaError_t err =
-        cudaFuncSetAttribute(linear_kernel<BM, BN, WM, WN, MODE>,
+        cudaFuncSetAttribute(linear_kernel<BM, BN, PANEL>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
     sized = smem;
   }
   const long long gm = (p->M + BM - 1) / BM, nt = (p->N + BN - 1) / BN;
-  // WHOLE: a block takes several N tiles, so the panel (and its LayerNorm)
-  // is built once per block: as many blocks as fit on the card at two per
-  // SM (one wave), or one per row block
-  long long gy = nt;
-  if (MODE == WHOLE) gy = std::min(nt, std::max(1LL, 2LL * sm_count() / gm));
-  if (gy > 65535 || gm > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
-  dim3 grid(static_cast<unsigned>(gm), static_cast<unsigned>(gy));
-  linear_kernel<BM, BN, WM, WN, MODE><<<grid, NTH, smem, s>>>(*p);
+  // PANEL: a block takes several N tiles, so the panel (and its LayerNorm)
+  // is built once per block
+  dim3 grid;
+  if (PANEL) {
+    // the N tiles split gy ways: the gy with the least makespan, waves of
+    // blocks times the tiles a block takes (plus about one and a half tiles
+    // for its panel), over the blocks the card holds at once
+    const long long slots =
+        (smem * 2 + 2048 <= static_cast<size_t>(wg::SMEM_PER_SM) && BM == 64 ? 2 : 1) * sm_count();
+    long long gy = 1, best = -1;
+    for (long long y = 1; y <= std::min(nt, 65535LL); ++y) {
+      const long long cost = (gm * y + slots - 1) / slots * (2 * ((nt + y - 1) / y) + 3);
+      if (best < 0 || cost < best) {
+        best = cost;
+        gy = y;
+      }
+    }
+    if (gm > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
+    grid = dim3(static_cast<unsigned>(gm), static_cast<unsigned>(gy));
+  } else {
+    if (gm > 65535 || nt > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
+    grid = dim3(static_cast<unsigned>(nt), static_cast<unsigned>(gm));
+  }
+  linear_kernel<BM, BN, PANEL><<<grid, (BM / 64 + 1) * 128, smem, s>>>(L);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// The tile: a transformed A (LayerNorm, a2, f32 rows) goes through the
-// panel: 128 x 64 (8 warps of 32 x 32) for K <= 256, 64 x 64 (4 warps)
-// up to PANEL_KMAX. A plain bf16 A streams: 128 x 128 (8 warps of 64 x
-// 32) where both dimensions exceed 64 and the grid fills every SM, else
-// 64 x 64.
+// The tile and the routes come from the caller's plan (kernels.linear_plan):
+// a transformed A (LayerNorm, a2, f32 rows) or any K <= 256 through the
+// panel (128 x 128 for K <= 256, 64 x 128 up to K = 1024, 64 x 64 up to
+// PANEL_KMAX), a plain bf16 A past K = 256 through the stream (128 x 128
+// where the grid fills every SM, else 64 x 64).
 extern "C" int spe_linear(const LinearParams* p, void* stream) {
   if (p->M <= 0 || p->N <= 0 || p->K <= 0 || p->ogrp <= 0 || p->M > 2147483647LL ||
       p->N > 2147483647LL || p->K > 2147483647LL ||
       ((p->drop_site || p->path_site) && (!p->seed || p->rps <= 0))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const bool plain = !p->ln_g && !p->a2 && !p->a_f32;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (p->K <= WHOLE_KMAX) return launch_linear<128, 64, 4, 2, WHOLE>(p, s);
-  if (p->ln_g || p->a2 || p->a_f32) {
-    if (p->K <= PANEL_KMAX) return launch_linear<64, 64, 2, 2, PANEL>(p, s);
-    return static_cast<int>(cudaErrorInvalidValue);
+  switch (p->tile) {
+    case STREAM_128:
+      if (plain) return launch_linear<128, 128, false>(p, s);
+      break;
+    case STREAM_64:
+      if (plain) return launch_linear<64, 64, false>(p, s);
+      break;
+    case PANEL_128:
+      if (p->K <= WHOLE_KMAX) return launch_linear<128, 128, true>(p, s);
+      break;
+    case PANEL_64_128:
+      if (p->K <= PANEL_KMAX) return launch_linear<64, 128, true>(p, s);
+      break;
+    case PANEL_64:
+      if (p->K <= PANEL_KMAX) return launch_linear<64, 64, true>(p, s);
+      break;
   }
-  const long long large = ((p->M + 127) / 128) * ((p->N + 127) / 128);
-  if (p->M > 64 && p->N > 64 && large >= sm_count()) {
-    return launch_linear<128, 128, 2, 4, STREAM>(p, s);
-  }
-  return launch_linear<64, 64, 2, 2, STREAM>(p, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -40,7 +40,7 @@ then dV, dQ and dK), which follows `_bwd_kernel` step by step; dK and dV
 sum in f32 and come back in the inputs' dtypes. The probabilities'
 cotangent is dropped (:261-264): the CAM is read without a gradient. What
 bounds it on the H100: the QK^T and PV products (compute) at N = 1024, run
-on the tensor cores (mma.sync, csrc/attention.cu and csrc/grad.cu).
+on the tensor cores (mma.sync in csrc/attention.cu, wgmma in csrc/grad.cu).
 
 Dispatch is by tensor device only: CPU tensors take the plain versions
 (`fused_mha_reference`, `fused_mha_train_reference`,

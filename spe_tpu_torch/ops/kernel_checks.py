@@ -921,16 +921,42 @@ GEMM_SHAPES = [
      200, (2, 2), ("r", "bf16", 0, True), ("r", "bf16", 0, True), "f32", {}),
     ("M's dV: N = dt = 96, A bf16 m-contiguous plane, B f32", 77, 96, 130,
      (2, 2), ("c", "bf16", 0, True), ("r", "f32", 0, True), "f32", {}),
+    ("split by TMA: A f32 m-contiguous (staged, rounded in shared memory), "
+     "B bf16 rows, chunks of 128 (the last short)", 130, 72, 128, (3, 1),
+     ("c", "f32", 0, True), ("r", "bf16", 0, True), "f32", dict(split=300)),
+    ("split by TMA, both operands f32, chunks of 64", 96, 80, 64, (4, 1),
+     ("c", "f32", 0, True), ("r", "f32", 0, True), "f32", dict(split=250)),
+    ("K = 48 logits, the persistent grid (more large tiles than SMs), "
+     "alpha", 300, 260, 48, (4, 4), ("r", "bf16", 0, True),
+     ("c", "bf16", 0, True), "f32", dict(alpha=0.2)),
+    ("B 8-byte but not 16-byte aligned (registers), A by TMA, persistent "
+     "64 x 64 tiles", 70, 90, 40, (8, 16), ("r", "bf16", 0, True),
+     ("r", "bf16", 4, True), "f32", {}),
+    ("M48's dX widths: A f32 rows, B bf16 n-contiguous, K = 3072", 130, 768,
+     3072, (1, 1), ("r", "f32", 0, True), ("r", "bf16", 0, True), "f32",
+     dict(gelu=True)),
+    ("the talking heads' folded logits: B shared across the heads (a z2 "
+     "stride of 0), K = 192", 130, 100, 192, (2, 4), ("r", "bf16", 0, True),
+     ("c", "bf16", 0, True), "f32", dict(b_shared=True)),
+    ("their dQ: B shared across the heads, N = 192", 130, 192, 100, (2, 4),
+     ("r", "bf16", 0, True), ("r", "bf16", 0, True), "f32",
+     dict(b_shared=True)),
+    ("M48's dW widths: M = 768, A f32 m-contiguous, B bf16 rows, a split "
+     "over chunks of 192", 768, 64, 192, (2, 1), ("c", "f32", 0, True),
+     ("r", "bf16", 0, True), "f32", dict(split=300)),
 ]
 
 
 def gemm_kernel_cases(device="cuda", seed=0):
     """[(label, case)] of `kernels.gemm` over what the port asks of it:
     every operand layout (A k- or m-contiguous, B n- or k-contiguous, no
-    unit stride), bf16 and f32 operands and outputs, ragged M, N and K
-    (none a multiple of a tile), both tile shapes, misaligned operands,
-    the row-chunked split, column groups, accumulate and every epilogue
-    (alpha, dropout, GELU', ReLU). A case is what gemm_run takes."""
+    unit stride, B shared across a batch dim), bf16 and f32 operands and
+    outputs, ragged M, N and K (none a multiple of a tile), both tile
+    shapes and both grids (one block a tile, persistent), every operand
+    route (TMA, F32, REG: misaligned and strided views), the row-chunked
+    split (by TMA and through registers), column groups, accumulate and
+    every epilogue (alpha, dropout, GELU', ReLU). A case is what gemm_run
+    takes."""
     gen = torch.Generator().manual_seed(seed + 3)
     dt = {"bf16": torch.bfloat16, "f32": torch.float32}
     cases = []
@@ -940,7 +966,10 @@ def gemm_kernel_cases(device="cuda", seed=0):
         kw = dict(M=M, N=N, K=K, nb=nb)
         if split is None:
             a_meta, kw["a_str"] = _mat(dt[al[1]], nb, M, K, al[0], al[2], al[3])
-            b_meta, kw["b_str"] = _mat(dt[bl[1]], nb, K, N, bl[0], bl[2], bl[3])
+            # B shared across the z2 entries (stride 0), or one for each
+            b_nb = (nb[0], 1) if ex.pop("b_shared", False) else nb
+            b_meta, kw["b_str"] = _mat(dt[bl[1]], b_nb, K, N, bl[0], bl[2],
+                                       bl[3])
         else:   # the chunks of one (M, split) x (split, N) product
             a_meta, (_, _, sm, sk) = _mat(dt[al[1]], (1, 1), M, split, al[0],
                                           al[2], al[3])
@@ -1293,6 +1322,15 @@ LINEAR_SHAPES = [
      dict(res="f32", out="f32")),
     ("odd N, misaligned out and residual rows (scalar epilogue)", 70, 37, 64,
      ("bf16", 0, 0), dict(res="f32", out="f32", pad=1)),
+    ("K = 48, the panel by TMA", 300, 200, 48, ("bf16", 0, 0), dict()),
+    ("M48's qkv: LayerNorm over K = 768, f32 A (the 64 x 128 panel)", 200,
+     2304, 768, ("f32", 4, 0), dict(ln=True)),
+    ("M48's fc1: LayerNorm, bf16 A, GELU, K = 768, N = 3072", 130, 3072,
+     768, ("bf16", 8, 0), dict(ln=True, act="gelu")),
+    ("M48's fc2: the stream at K = 3072, f32 residual and out", 130, 768,
+     3072, ("bf16", 8, 0), dict(res="f32", out="f32")),
+    ("a panel past K = 1024 (64 x 64 tiles): LayerNorm over K = 1400", 96,
+     100, 1400, ("bf16", 8, 0), dict(ln=True)),
 ]
 
 

@@ -144,7 +144,8 @@ class _LinearParams(ctypes.Structure):
                 ("drop_site", ctypes.c_int), ("drop_thr", ctypes.c_uint),
                 ("drop_scale", ctypes.c_float), ("path_site", ctypes.c_int),
                 ("path_thr", ctypes.c_uint), ("path_scale", ctypes.c_float),
-                ("aux_pre", ctypes.c_int)]
+                ("aux_pre", ctypes.c_int), ("tile", ctypes.c_int),
+                ("route_a", ctypes.c_int), ("route_w", ctypes.c_int)]
 
 
 class _AttnParams(ctypes.Structure):
@@ -215,7 +216,8 @@ class _GemmParams(ctypes.Structure):
               "ld_aux rps kmax"),
         (_I, "M N K nb1 nb2 a_f32 b_f32 c_f32 split"), (_FL, "alpha"),
         (_I, "drop_site"), (_U, "drop_thr"), (_FL, "drop_scale"),
-        (_I, "act_grad cgrp"), (_LL, "cgstride"), (_I, "accumulate"))
+        (_I, "act_grad cgrp"), (_LL, "cgstride"),
+        (_I, "accumulate tile route_a route_b"))
 
 
 class _ReduceParams(ctypes.Structure):
@@ -382,6 +384,96 @@ def as_f32(t):
     return t.to(_F32).contiguous()
 
 
+# ---- the product kernels' plans (csrc/wgmma.cuh, grad.cu, linear.cu) ----
+# How each operand reaches the shared ring, chosen from shapes and strides
+# before the launch (the C entry points refuse a TMA route that TMA's rule
+# does not allow): TMA (a bf16 operand), F32 (an f32 operand by TMA into a
+# staging tile, rounded to bf16 in shared memory), REG (anything else:
+# through the producer warpgroup's registers).
+ROUTE_TMA, ROUTE_F32, ROUTE_REG = 0, 1, 2
+TMA_MAX_STRIDE = 1 << 40
+# gemm_kernel's tiles; linear_kernel's (csrc/linear.cu LinearTile)
+GEMM_LARGE, GEMM_SMALL = 0, 1
+STREAM_128, STREAM_64, PANEL_128, PANEL_64_128, PANEL_64 = range(5)
+WHOLE_KMAX = 256          # the deepest 128-row panel
+PANEL_WIDE_KMAX = 1024    # the deepest 64 x 128 panel tile
+
+
+def tma_ok(addr, es, strides):
+    """TMA's rule for a tensor map of `es`-byte elements: a 16-byte
+    aligned base address and, for each listed stride (in elements),
+    a positive multiple of 16 bytes below 2^40."""
+    if addr % 16:
+        return False
+    for st in strides:
+        b = st * es
+        if b <= 0 or b % 16 or b >= TMA_MAX_STRIDE:
+            return False
+    return True
+
+
+def _operand_route(addr, f32, cont, row, k_stride, s1, s2, nb, K, split):
+    """One gemm operand's route: unit stride along its contiguous index,
+    TMA's rule over its row stride and the strides of its batch dims of
+    more than one entry (one of stride 0, the operand shared across it, is
+    left out of the map; a split product: chunks adjacent along k and a
+    multiple of 64 deep, one map over the whole depth). Plain arithmetic:
+    it runs on every call of `gemm`."""
+    es = 4 if f32 else 2
+    if cont != 1 or addr % 16 or not 0 < row * es < TMA_MAX_STRIDE \
+            or row * es % 16:
+        return ROUTE_REG
+    if split:
+        if nb[1] != 1 or K % 64 or s1 != K * k_stride:
+            return ROUTE_REG
+    else:
+        for st, n in ((s2, nb[1]), (s1, nb[0])):
+            if n > 1 and st and (st < 0 or st * es % 16
+                                 or st * es >= TMA_MAX_STRIDE):
+                return ROUTE_REG
+    return ROUTE_F32 if f32 else ROUTE_TMA
+
+
+def gemm_plan(M, N, K, nb, a_addr, a_f32, a_str, b_addr, b_f32, b_str,
+              split, n_sm):
+    """gemm_kernel's (tile, route of A, route of B): the 128 x 128 tile
+    where M and N exceed 64 and its grid fills every SM, else 64 x 64; A
+    is K-major unless m-contiguous, B K-major unless n-contiguous."""
+    large = -(-M // 128) * -(-N // 128) * nb[0] * nb[1]
+    tile = GEMM_LARGE if M > 64 and N > 64 and large >= n_sm else GEMM_SMALL
+    s1, s2, sm, sk = a_str
+    a_km = not (sm == 1 and sk != 1)
+    ra = _operand_route(a_addr, a_f32, sk if a_km else sm, sm if a_km else sk,
+                        sk, s1, s2, nb, K, split)
+    s1, s2, sk, sn = b_str
+    b_km = sn != 1
+    rb = _operand_route(b_addr, b_f32, sk if b_km else sn, sn if b_km else sk,
+                        sk, s1, s2, nb, K, split)
+    return tile, ra, rb
+
+
+def linear_plan(M, N, K, plain, a_addr, lda, w_addr, n_sm):
+    """linear_kernel's (tile, route of A, route of W). K <= WHOLE_KMAX or a
+    transformed A (plain False: a LayerNorm, a2 or f32 rows): the panel,
+    to WHOLE_KMAX 128 x 128 (64 x 64 for N <= 384 or M <= 1024), then
+    64 x 128 to PANEL_WIDE_KMAX, 64 x 64 to PANEL_KMAX; a plain bf16 A
+    deeper: the stream, 128 x 128 where M and N exceed 64 and the grid
+    fills every SM, else 64 x 64. A by TMA where it is plain and TMA's
+    rule holds (the panel's boxes, or the ring's), W (N, K) contiguous
+    likewise."""
+    if K <= WHOLE_KMAX:   # 64 x 64 for the narrow and the short products
+        tile = PANEL_64 if N <= 384 or M <= 1024 else PANEL_128
+    elif not plain:
+        tile = PANEL_64_128 if K <= PANEL_WIDE_KMAX else PANEL_64
+    elif M > 64 and N > 64 and -(-M // 128) * -(-N // 128) >= n_sm:
+        tile = STREAM_128
+    else:
+        tile = STREAM_64
+    ra = ROUTE_TMA if plain and tma_ok(a_addr, 2, (lda,)) else ROUTE_REG
+    rw = ROUTE_TMA if tma_ok(w_addr, 2, (K,)) else ROUTE_REG
+    return tile, ra, rw
+
+
 def ln_linear(a, w, bias=None, *, ln=None, a2=None, act="none", res=None,
               gamma=None, out_dtype=_BF16, out=None, col_group=None,
               col_stride=None, seed=None, drop=None, path=None,
@@ -450,6 +542,9 @@ def ln_linear(a, w, bias=None, *, ln=None, a2=None, act="none", res=None,
     dsite, dthr, dscale = _site(drop)
     psite, pthr, pscale = _site(path)
     _need_seed(seed, dsite or psite, rows_per_sample, M)
+    tile, ra, rw = linear_plan(
+        M, N, K, ln is None and a2 is None and a.dtype == _BF16, a.data_ptr(),
+        a.stride(0), w.data_ptr(), sm_count(a.device))
     p = _LinearParams(
         a=a.data_ptr(), a2=_ptr(a2), ln_g=_ptr(ln[0]) if ln else None,
         ln_b=_ptr(ln[1]) if ln else None, w=w.data_ptr(), bias=_ptr(bias),
@@ -463,7 +558,8 @@ def ln_linear(a, w, bias=None, *, ln=None, a2=None, act="none", res=None,
         ogrp=col_group, ogstride=col_stride, seed=_ptr(seed), aux=_ptr(aux),
         ldaux=aux.stride(0) if aux is not None else 0, rps=rows_per_sample,
         drop_site=dsite, drop_thr=dthr, drop_scale=dscale, path_site=psite,
-        path_thr=pthr, path_scale=pscale, aux_pre=int(aux_pre))
+        path_thr=pthr, path_scale=pscale, aux_pre=int(aux_pre), tile=tile,
+        route_a=ra, route_w=rw)
     _check(lib().spe_linear(ctypes.byref(p), _stream()), "spe_linear")
     ln_linear.launches += 1
     return out
@@ -926,6 +1022,9 @@ def gemm(a, b, c, *, M, N, K, a_str, b_str, c_str, nb=(1, 1), alpha=1.0,
         _need(t, (_BF16, _F32), n)
     nb1, nb2 = nb
     depth = K if split_k is None else split_k
+    if split_k is not None and (nb1 - 1) * K >= split_k:
+        raise ValueError(f"{nb1} chunks of {K} leave the last of a "
+                         f"{split_k}-deep split empty")
     _span(a, a_str, (nb1, nb2, M, K if split_k is None else 1))
     if split_k is not None:
         _span(a, a_str[2:], (M, depth))
@@ -947,6 +1046,10 @@ def gemm(a, b, c, *, M, N, K, a_str, b_str, c_str, nb=(1, 1), alpha=1.0,
     _need_seed(seed, dsite, rows_per_sample, M)
     if dsite and nb1 * nb2 != 1:
         raise ValueError("the dropout epilogue takes an unbatched product")
+    a_f32, b_f32 = a.dtype == _F32, b.dtype == _F32
+    tile, ra, rb = gemm_plan(M, N, K, nb, a.data_ptr(), a_f32, a_str,
+                             b.data_ptr(), b_f32, b_str, split_k is not None,
+                             sm_count(a.device))
     p = _GemmParams(
         a=a.data_ptr(), b=b.data_ptr(), c=c.data_ptr(), act_aux=_ptr(act_aux),
         seed=_ptr(seed), a_s1=a_str[0], a_s2=a_str[1], a_sm=a_str[2],
@@ -954,11 +1057,12 @@ def gemm(a, b, c, *, M, N, K, a_str, b_str, c_str, nb=(1, 1), alpha=1.0,
         b_sn=b_str[3], c_s1=c_str[0], c_s2=c_str[1], c_sm=c_str[2],
         c_sn=c_str[3], ld_aux=act_aux.stride(0) if act_aux is not None else 0,
         rps=rows_per_sample, kmax=depth, M=M, N=N, K=K, nb1=nb1, nb2=nb2,
-        a_f32=int(a.dtype == _F32), b_f32=int(b.dtype == _F32),
+        a_f32=int(a_f32), b_f32=int(b_f32),
         c_f32=int(c.dtype == _F32), split=int(split_k is not None),
         alpha=float(alpha), drop_site=dsite, drop_thr=dthr, drop_scale=dscale,
         act_grad=1 if gelu_aux is not None else 2, cgrp=grp,
-        cgstride=col_stride, accumulate=int(accumulate))
+        cgstride=col_stride, accumulate=int(accumulate), tile=tile,
+        route_a=ra, route_b=rb)
     _check(lib().spe_gemm(ctypes.byref(p), _stream()), "spe_gemm")
     gemm.launches += 1
     return c
@@ -1050,6 +1154,13 @@ def reduce_sum_reference(parts, round_bf16=False):
 ROW_CHUNK = 512   # rows per partial of a weight gradient
 
 
+def grad_weight_chunk(M):
+    """The rows of each of grad_weight's partials: about ROW_CHUNK, a
+    multiple of 64 (gemm_kernel's k tile, so that the split takes the TMA
+    route)."""
+    return -(-M // -(-M // ROW_CHUNK) // 64) * 64
+
+
 def matmul_dx(dy, w, *, seed=None, drop=None, rows_per_sample=1,
               gelu_aux=None, relu_aux=None, out=None):
     """dY (M, N) f32/bf16 rows @ W (N, K) bf16 (torch Linear layout) ->
@@ -1077,15 +1188,15 @@ def matmul_dx(dy, w, *, seed=None, drop=None, rows_per_sample=1,
 def grad_weight(dy, x, round_bf16=True):
     """dW = dY^T X for dY (M, N) and X (M, K) rows (f32 or bf16, rounded to
     bf16 at the load) -> (N, K) f32, the torch Linear layout: row chunks
-    of ROW_CHUNK in one batched launch, then reduce_sum."""
+    of grad_weight_chunk(M) rows in one batched launch, then reduce_sum."""
     _need(dy, (_BF16, _F32), "dy", 2)
     _need(x, (_BF16, _F32), "x", 2)
     M, N = dy.shape
     K = x.shape[1]
     if x.shape[0] != M:
         raise ValueError("dy and x must have the same rows")
-    Z = -(-M // ROW_CHUNK)
-    chunk = -(-M // Z)
+    chunk = grad_weight_chunk(M)
+    Z = -(-M // chunk)
     parts = torch.empty((Z, N, K), device=dy.device, dtype=_F32)
     ly, lx = dy.stride(0), x.stride(0)
     gemm(dy, x, parts, M=N, N=K, K=chunk, a_str=(chunk * ly, 0, 1, ly),
